@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (open_flamingo_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py          # from the repository root, one card
+
+Phases, each printing one JSON line:
+  1. build    compile every kernel under open_flamingo_tpu_torch/csrc with
+              nvcc (sm_90a), all sources at once;
+  2. kernels  each kernel of the serving path (K4 flash_attention, K5
+              masked_xattn, K7 decode_attention and _update) against its
+              plain PyTorch version on the same card tensors, in fp32 and
+              bf16, at OF-3B's shapes (B = 8) and edge cases; times the
+              kernel, the plain version and, where one exists, the
+              library call (scaled_dot_product_attention);
+  3. generate full-width OF-3B (ViT-L/14 + MPT-1B, 24 xattn blocks) with
+              random weights from a seed: greedy flamingo_generate of 32
+              tokens for 8 prompts of 32 tokens, one image each, two rows
+              left-padded. In fp32 the kernel path must match the plain
+              (einsum) path on the card: identical tokens, and on one
+              fixed token stream the logits of prefill and of every decode
+              step within tolerance. Then bf16, timed, with every kernel's
+              launch counter reset just before and checked just after.
+Then the `kernels` summary line, the card's name and power limit, and last
+{"ok": true, "device": {...}}. Any failed check raises and exits non-zero
+before the last line. Needs no network; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+from open_flamingo_tpu_torch.configs import flamingo_config
+from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate
+from open_flamingo_tpu_torch.models.decoders.common import KVCache, alibi_slopes
+from open_flamingo_tpu_torch.models.flamingo import count_media, init_random
+from open_flamingo_tpu_torch.ops import build
+from open_flamingo_tpu_torch.ops.attention import plain_path
+from open_flamingo_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_update, reference_decode_attention)
+from open_flamingo_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+from open_flamingo_tpu_torch.ops.masked_xattn import masked_xattn, reference_masked_xattn
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense; fp32 outside tensor cores
+# fp32: kernel and plain sum in different orders (~1e-6 apart at these
+# widths). bf16: both round an fp32 result to bf16, one ulp apart at most
+# (2^-7 relative), plus the summation order.
+TOL = {torch.float32: dict(atol=5e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+LOGITS_TOL = 2e-3   # fp32 logits through 24 decoder + 24 xattn layers, every step
+B, T_PROMPT, NEW_TOKENS, SEED = 8, 32, 32, 0
+
+
+def log(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, reps: int = 20, rounds: int = 10) -> float:
+    """Device time of one call: `reps` calls captured in a CUDA graph and
+    replayed `rounds` times between CUDA events, so the host's launch cost
+    is left out."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * rounds)
+
+
+def call_ms(fn, iters: int = 50) -> float:
+    """Time of one eager call, host launch cost included."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------- phase 1
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    reports = build.build(build.sources())
+    regs = [ln.strip() for text in reports.values() for ln in text.splitlines() if "registers" in ln]
+    log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+         "sources": build.sources(), "ptxas": regs})
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def left_padded_mask(b, t, pads, device):
+    """(b, t) bool validity with row r left-padded by pads[r] tokens."""
+    m = torch.ones(b, t, dtype=torch.bool, device=device)
+    for r, n in enumerate(pads):
+        m[r, :n] = False
+    return m
+
+
+def compare(name, case, dtype, got, want, zero_rows=None):
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), **TOL[dtype])
+    exact0 = True if zero_rows is None else bool((got[zero_rows] == 0).all().item())
+    log({"phase": "kernels", "kernel": name, "case": case, "dtype": str(dtype).split(".")[-1],
+         "max_abs_err": err, "tol": TOL[dtype], "all_masked_rows_exact_zero": exact0})
+    require(ok, f"{name}/{case}/{dtype}: max abs err {err}")
+    require(exact0, f"{name}/{case}/{dtype}: all-masked rows not exactly zero")
+    return err
+
+
+def kernel_cases(dtype, gen, dev):
+    """Yields (name, case, kernel_fn, plain_fn, zero_rows, cost, library_fn)."""
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    slopes16 = torch.from_numpy(alibi_slopes(16)).to(dev)
+
+    # K4: self-attention prefill into the cache (H=16, Dh=128)
+    for case, b, tq, s, q_off, pads in [
+        ("prefill_S64", B, T_PROMPT, 64, 0, [4, 7]),
+        ("q_offset16", B, T_PROMPT, 64, 16, [4, 7]),
+        ("ragged_S257", 2, 257, 257, 0, [0, 257]),     # row 1: every key masked
+    ]:
+        h, d = 16, 128
+        q, k, v = rn(b * h, tq, d), rn(b * h, s, d), rn(b * h, s, d)
+        valid = left_padded_mask(b, s, pads, dev)
+        valid[:, q_off + tq:] = False                   # unwritten cache slots
+        pad = valid.repeat_interleave(h, 0)
+        sl = slopes16.repeat(b)[:, None]
+        qpos = q_off + torch.arange(tq, device=dev)[:, None]
+        allowed = pad[:, None, :] & (torch.arange(s, device=dev)[None, :] <= qpos)[None]
+        zero_rows = ~allowed.any(-1)
+        fn = lambda q=q, k=k, v=v, pad=pad, sl=sl, q_off=q_off: flash_attention(q, k, v, pad, sl, q_off, True, d**-0.5)
+        plain = lambda q=q, k=k, v=v, pad=pad, sl=sl, q_off=q_off: reference_attention(q, k, v, pad, sl, q_off, True, d**-0.5)
+        # K/V rows that the causal and pad masks let some query reach
+        keys = allowed.any(1).sum().item()
+        cost = ((2 * b * h * tq * d + 2 * keys * d) * es + b * h * s + 4 * b * h, 4 * d * allowed.sum().item())
+        bias = torch.where(allowed, sl[:, :, None] * (torch.arange(s, device=dev) - (s - 1)).float(), float("-inf"))
+        q4, k4, v4 = (x.view(b, h, -1, d) for x in (q, k, v))
+        bias4 = bias.view(b, h, tq, s).to(dtype)
+        lib = lambda q4=q4, k4=k4, v4=v4, bias4=bias4: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias4, scale=d**-0.5)
+        yield "flash_attention", case, fn, plain, zero_rows, cost, lib
+
+    # K5: gated xattn prefill (H=8, Dh=64, 64 latents per image)
+    for case, t_img, media_at in [("prefill_T1", 1, [0]), ("prefill_T2", 2, [0, 16])]:
+        h, d, n_lat, tq = 8, 64, 64, T_PROMPT
+        s = t_img * n_lat
+        q, k, v = rn(B * h, tq, d), rn(B * h, s, d), rn(B * h, s, d)
+        loc = torch.zeros(B, tq, dtype=torch.int32, device=dev)
+        for p in media_at:
+            loc[:, p] = 1
+        loc[0], loc[1] = 0, 0                            # left-padded rows: media after the pads
+        for r, n in ((0, 4), (1, 7)):
+            for p in media_at:
+                loc[r, min(tq - 1, p + n)] = 1
+        tt = torch.cumsum(loc, 1).to(torch.int32).repeat_interleave(h, 0)
+        media_time = torch.arange(s, device=dev) // n_lat + 1
+        allowed = tt[:, :, None] == media_time[None, None, :]
+        zero_rows = ~allowed.any(-1)
+        fn = lambda q=q, k=k, v=v, tt=tt: masked_xattn(q, k, v, tt, n_lat, d**-0.5)
+        plain = lambda q=q, k=k, v=v, tt=tt: reference_masked_xattn(q, k, v, tt, n_lat, d**-0.5)
+        keys = allowed.any(1).sum().item()
+        cost = ((2 * B * h * tq * d + 2 * keys * d) * es + 4 * B * h * tq, 4 * d * allowed.sum().item())
+        q4, k4, v4 = (x.view(B, h, -1, d) for x in (q, k, v))
+        m4 = allowed.view(B, h, tq, s)
+        lib = lambda q4=q4, k4=k4, v4=v4, m4=m4: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=d**-0.5)
+        yield "masked_xattn", case, fn, plain, zero_rows, cost, lib
+
+    # K7: xattn decode over the cached media K/V (H=8, Dh=64, S=64)
+    h, d, s = 8, 64, 64
+    q, k, v = rn(B, h, d), rn(B, h, s, d), rn(B, h, s, d)
+    mask = torch.ones(B, s, dtype=torch.bool, device=dev)
+    mask[3] = False                                      # text before any image
+    zero_rows = torch.zeros(B, dtype=torch.bool, device=dev)
+    zero_rows[3] = True
+    fn = lambda: decode_attention(q, k, v, mask, scale=d**-0.5)
+    plain = lambda: reference_decode_attention(q, k, v, mask, d**-0.5)
+    n_valid = mask.sum().item()
+    cost = ((2 * B * h * d + 2 * n_valid * h * d) * es + B * s, 4 * d * h * n_valid)
+    q4, k4, v4, m4 = q[:, :, None], k, v, mask[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=d**-0.5)
+    yield "decode_attention", "xattn_S64", fn, plain, zero_rows, cost, lib
+
+    # K7 update: self-attention decode step writing slot 40 (H=16, Dh=128)
+    h, d, s, slot = 16, 128, 64, 40
+    q, kc, vc, kn, vn = rn(B, h, d), rn(B, h, s, d), rn(B, h, s, d), rn(B, h, d), rn(B, h, d)
+    mask = left_padded_mask(B, s, [4, 7], dev)
+    mask[:, slot + 1:] = False
+    k0, v0 = kc.clone(), vc.clone()
+
+    def plain_update():
+        kp, vp = k0.clone(), v0.clone()
+        kp[:, :, slot], vp[:, :, slot] = kn, vn
+        return reference_decode_attention(q, kp, vp, mask, d**-0.5, slopes16)
+
+    fn = lambda: decode_attention_update(q, kc, vc, kn, vn, mask, slot, scale=d**-0.5, slopes=slopes16)[0]
+    n_valid = mask.sum().item()
+    cost = ((2 * B * h * d + 2 * n_valid * h * d + 4 * B * h * d) * es + B * s, 4 * d * h * n_valid)
+    yield "decode_attention_update", "self_S64_slot40", fn, plain_update, None, cost, None
+    # the slot is written and nothing else moved
+    require(torch.equal(kc[:, :, slot], kn) and torch.equal(vc[:, :, slot], vn), "update: slot not written")
+    others = torch.arange(s, device=dev) != slot
+    require(torch.equal(kc[:, :, others], k0[:, :, others]) and torch.equal(vc[:, :, others], v0[:, :, others]),
+            "update: slots other than the new token's changed")
+
+
+def phase_kernels(dev) -> dict:
+    """Returns, per kernel, its bf16 numbers at the main path's shape."""
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for name, case, fn, plain, zero_rows, cost, lib in kernel_cases(dtype, gen, dev):
+            got = fn()
+            torch.cuda.synchronize()
+            err = compare(name, case, dtype, got, plain(), zero_rows)
+            main_shape = case in ("prefill_S64", "prefill_T1", "xattn_S64", "self_S64_slot40")
+            if dtype != torch.bfloat16 or not main_shape:
+                continue
+            b_ms, b_by = bound(*cost, dtype)
+            row = {"ms": device_ms(fn), "call_ms": call_ms(fn), "plain_ms": device_ms(plain),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None if lib is None else device_ms(lib),
+                   "max_abs_err": err, "case": case}
+            log({"phase": "kernels", "kernel": name, "timing": row})
+            summary[name] = row
+    return summary
+
+
+# ---------------------------------------------------------------- phase 3
+
+
+def make_inputs(cfg, dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    ids = torch.randint(0, 50277, (B, T_PROMPT), generator=gen, device=dev)
+    mask = torch.ones(B, T_PROMPT, dtype=torch.long, device=dev)
+    for r, n in ((0, 4), (1, 7)):                     # two left-padded rows
+        ids[r, :n] = 0
+        mask[r, :n] = 0
+    first = mask.argmax(1)                              # media token first
+    ids[torch.arange(B, device=dev), first] = cfg.media_token_id
+    px = cfg.vision.image_size
+    vision_x = torch.randn(B, 1, 1, px, px, 3, generator=gen, device=dev)
+    return vision_x, ids, mask
+
+
+def step_logits(model, latents, ids, mask, tokens):
+    """(N, B, V) logits on a fixed token stream `tokens` (B, N): at the last
+    prompt position after prefill (K4, K5), then after each decode step
+    that feeds tokens[:, t] back in (K7, both variants)."""
+    cache = KVCache.create(model.cfg.lm, B, T_PROMPT + NEW_TOKENS, model.dtype, model.device)
+    logits, _, cache = model(None, ids, mask, media_latents=latents, cache=cache)
+    out = [logits[:, -1]]
+    n_media = count_media(ids, model.cfg.media_token_id)
+    ones = torch.ones(B, 1, dtype=torch.long, device=ids.device)
+    for t in range(tokens.shape[1] - 1):
+        logits, cache = model.decode_step(latents, tokens[:, t:t + 1], ones, cache, n_media)
+        out.append(logits[:, 0])
+    return torch.stack(out)
+
+
+def phase_generate(dev):
+    counters = kernel_functions()
+    cfg = flamingo_config("OF-3B")
+    vision_x, ids, mask = make_inputs(cfg, dev)
+    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
+
+    # fp32: kernel path against the plain path on the card
+    t0 = time.perf_counter()
+    model = init_random(cfg, SEED, device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    latents = model.embed_vision(vision_x)
+    lat_shape = (B, 1, cfg.num_vis_latents, cfg.vision.hidden_size)
+    require(latents.shape == lat_shape and torch.isfinite(latents).all().item(), "latents")
+    tok_k = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+    with plain_path():
+        tok_p = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+    same = torch.equal(tok_k, tok_p)
+    # every step's logits, both paths fed the kernel path's tokens
+    lk = step_logits(model, latents, ids, mask, tok_k)
+    with plain_path():
+        lp = step_logits(model, latents, ids, mask, tok_k)
+    require(torch.isfinite(lk).all().item(), "fp32 kernel-path logits not finite")
+    step_err = (lk - lp).abs().amax(dim=(1, 2)).tolist()
+    log({"phase": "generate", "dtype": "float32", "init_s": init_s, "logits_max_abs_err": max(step_err),
+         "first_step_err": step_err[0], "first_decode_step_err": step_err[1], "last_step_err": step_err[-1],
+         "tol": LOGITS_TOL, "logit_std": lp.std().item(), "tokens_equal": same,
+         "distinct_tokens_per_row": [len(set(r)) for r in tok_k.tolist()],
+         "first_mismatch_step": None if same else int((tok_k != tok_p).any(0).nonzero()[0].item())})
+    require(max(step_err) <= LOGITS_TOL, f"fp32 logits differ by {max(step_err)} (per step: {step_err})")
+    require(same, "fp32 greedy tokens differ between the kernel and plain paths")
+    del model, latents
+    torch.cuda.empty_cache()
+
+    # bf16: the serving dtype, timed
+    model = init_random(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    warm = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tokens = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    # where the call's time goes: vision encode and prefill timed alone,
+    # the rest is the 31 decode steps
+    t0 = time.perf_counter()
+    lat16 = model.embed_vision(vision_x)
+    torch.cuda.synchronize()
+    vision_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cache = KVCache.create(cfg.lm, B, T_PROMPT + NEW_TOKENS, model.dtype, dev)
+    lk16 = model(None, ids, mask, media_latents=lat16, cache=cache)[0][:, -1]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    log({"phase": "generate", "dtype": "bfloat16", "seconds": dt, "tokens_per_s": B * NEW_TOKENS / dt,
+         "vision_s": vision_s, "prefill_s": prefill_s, "decode_s": dt - vision_s - prefill_s,
+         "batch": B, "prompt": T_PROMPT, "new_tokens": NEW_TOKENS, "launches": launches,
+         "distinct_tokens_per_row": [len(set(r)) for r in tokens.tolist()],
+         "tokens_row0": tokens[0].tolist()})
+    require(tokens.shape == (B, NEW_TOKENS), "bf16 token shape")
+    require(bool(((tokens >= 0) & (tokens < cfg.lm.vocab_size)).all().item()), "bf16 token ids out of range")
+    require(torch.equal(tokens, warm), "bf16 generate is not deterministic")
+    require(torch.isfinite(lk16).all().item(), "bf16 logits not finite")
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the main path")
+    return launches
+
+
+def kernel_functions() -> dict:
+    return {"flash_attention": flash_attention, "masked_xattn": masked_xattn,
+            "decode_attention": decode_attention, "decode_attention_update": decode_attention_update}
+
+
+SOURCES = {
+    "flash_attention": ("open_flamingo_tpu_torch/csrc/prefill_attention.cu", "open_flamingo_tpu/ops/flash_attention.py:40"),
+    "masked_xattn": ("open_flamingo_tpu_torch/csrc/prefill_attention.cu", "open_flamingo_tpu/ops/masked_xattn.py:38"),
+    "decode_attention": ("open_flamingo_tpu_torch/csrc/decode_attention.cu", "open_flamingo_tpu/ops/decode_attention.py:45"),
+    "decode_attention_update": ("open_flamingo_tpu_torch/csrc/decode_attention.cu", "open_flamingo_tpu/ops/decode_attention.py:45"),
+}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+    phase_build()
+    timing = phase_kernels(dev)
+    launches = phase_generate(dev)
+    kernels = []
+    for name, (src, replaces) in SOURCES.items():
+        t = timing[name]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

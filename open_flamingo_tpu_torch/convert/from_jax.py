@@ -1,0 +1,53 @@
+"""Weight bridge: the JAX package's flax `params` tree, as numpy arrays,
+to this package's `state_dict`.
+
+Give it `jax.tree.map(np.asarray, params)` for a whole `Flamingo` or for
+any of its sub-modules; it never imports JAX. Naming rules:
+  * `blocks_3` / `xattn_3` / `layers_3_attn` -> `blocks.3` / `xattn.3` /
+    `layers.3.attn` (ModuleList / ModuleDict entries);
+  * Dense `kernel` (in, out) -> Linear `weight` (out, in), transposed;
+  * LayerNorm `scale` and Embed `embedding` -> `weight`;
+  * everything else (`bias`, gates, latents, CLIP embeddings) keeps its
+    name. The ViT patch embedding stays a Dense over (p, p, C) features.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_INDEXED = re.compile(r"^(blocks|xattn|layers)_(\d+)(?:_(\w+))?$")
+_LEAF = {"scale": "weight", "embedding": "weight"}
+
+
+def _module_name(name: str) -> str:
+    m = _INDEXED.match(name)
+    if not m:
+        return name
+    return ".".join(p for p in m.groups() if p is not None)
+
+
+def state_dict_from_jax(params: Mapping, dtype=None) -> Dict[str, torch.Tensor]:
+    """Flatten a numpy flax params tree (with or without the top-level
+    "params" key) into a torch state_dict, optionally cast to `dtype`."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for name, val in tree.items():
+            if isinstance(val, Mapping):
+                walk(val, prefix + [_module_name(name)])
+                continue
+            arr = np.asarray(val)
+            if name == "kernel":
+                arr = arr.T
+            key = ".".join(prefix + [_LEAF.get(name, "weight" if name == "kernel" else name)])
+            t = torch.tensor(arr)  # a copy: numpy views of JAX arrays are read-only
+            out[key] = t if dtype is None else t.to(dtype)
+
+    walk(params, [])
+    return out

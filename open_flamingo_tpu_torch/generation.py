@@ -1,0 +1,107 @@
+"""Greedy generation over the explicit KVCache, the JAX package's
+`greedy_or_sample` and `flamingo_generate` with `num_beams == 1`.
+
+Vision is encoded once, the prompt is prefilled into a cache whose length
+is rounded up to 16, and every decode step attends to the media K/V
+projected at prefill. Beam search, sampling and cross-batch vision
+pipelining (`next_pixels`) are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .device import resolve_device
+from .models.decoders.common import KVCache
+from .models.flamingo import Flamingo, count_media
+
+NEG_INF = -1.0e7
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    max_new_tokens: int
+    min_new_tokens: int = 0
+    num_beams: int = 1
+    do_sample: bool = False
+    eos_token_id: Optional[int] = None
+    pad_token_id: int = 0
+
+
+def _process_logits(logits: torch.Tensor, step: int, cfg: GenerationConfig) -> torch.Tensor:
+    """min_new_tokens: forbid EOS before the minimum length."""
+    if cfg.eos_token_id is not None and step < cfg.min_new_tokens:
+        logits = logits.clone()
+        logits[:, cfg.eos_token_id] = NEG_INF
+    return logits
+
+
+def greedy(step_fn, first_logits: torch.Tensor, cache: KVCache, cfg: GenerationConfig) -> torch.Tensor:
+    """Greedy decode loop. first_logits: (B, V) at the last prompt position;
+    step_fn(tokens (B, 1), mask (B, 1), cache) -> (logits (B, 1, V), cache).
+    Returns (B, max_new_tokens), pad-filled after EOS."""
+    b = first_logits.shape[0]
+    logits = first_logits
+    finished = torch.zeros(b, dtype=torch.bool, device=logits.device)
+    ones = torch.ones(b, 1, dtype=torch.long, device=logits.device)
+    tokens = []
+    for step in range(cfg.max_new_tokens):
+        tok = torch.argmax(_process_logits(logits, step, cfg), dim=-1)
+        if cfg.eos_token_id is not None:
+            tok = torch.where(finished, cfg.pad_token_id, tok)
+            finished = finished | (tok == cfg.eos_token_id)
+        tokens.append(tok)
+        if step + 1 < cfg.max_new_tokens:  # the last token needs no forward
+            step_logits, cache = step_fn(tok[:, None], ones, cache)
+            logits = step_logits[:, 0]
+    return torch.stack(tokens, dim=1)
+
+
+@torch.no_grad()
+def flamingo_generate(
+    model: Flamingo,
+    vision_x: Optional[torch.Tensor],
+    lang_x: torch.Tensor,
+    attention_mask: torch.Tensor,
+    cfg: GenerationConfig,
+    *,
+    media_latents: Optional[torch.Tensor] = None,
+    next_pixels: Optional[torch.Tensor] = None,
+    device="cuda",
+) -> torch.Tensor:
+    """Encode vision once (or take `media_latents`, (B, T_img, n_lat, D)),
+    prefill, decode greedily with the cached media. Inputs move to
+    `device`, where the model must live. Returns generated ids
+    (B, max_new_tokens), prompt excluded."""
+    if cfg.num_beams != 1:
+        raise NotImplementedError("beam search is not ported yet (ROADMAP.md)")
+    if cfg.do_sample:
+        raise NotImplementedError("sampling is not ported yet (ROADMAP.md)")
+    if next_pixels is not None:
+        raise NotImplementedError("cross-batch vision pipelining (next_pixels) is not ported yet (ROADMAP.md)")
+    dev = resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"model lives on {model.device}, generate asked for {dev}")
+    lang_x = lang_x.to(dev)
+    attention_mask = attention_mask.to(dev)
+    b, t = lang_x.shape
+    # round the cache up to 16 slots, as the JAX package does; extra slots
+    # stay masked in pad_mask
+    cache_len = -(-(t + cfg.max_new_tokens) // 16) * 16
+
+    if media_latents is not None:
+        latents = media_latents.to(device=dev, dtype=model.dtype)
+    else:
+        latents = model.embed_vision(vision_x.to(device=dev, dtype=model.dtype))
+    n_media = count_media(lang_x, model.cfg.media_token_id)
+
+    cache = KVCache.create(model.cfg.lm, b, cache_len, model.dtype, dev)
+    logits, _, cache = model(None, lang_x, attention_mask, media_latents=latents, cache=cache)
+
+    def step_fn(tok, mask, cache):
+        return model.decode_step(latents, tok, mask, cache, n_media)
+
+    return greedy(step_fn, logits[:, -1], cache, cfg)

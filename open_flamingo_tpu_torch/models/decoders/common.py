@@ -1,0 +1,161 @@
+"""Decoder infrastructure: KV cache, attention context, ALiBi.
+
+The cache keeps the JAX package's contract so token streams line up:
+head-major (B, H, S, Dh) K/V, one shared slot index, a per-row pad mask.
+Unlike the JAX package's pytrees, the cache tensors are updated IN PLACE:
+prefill writes its K/V into the cache slices, and the decode kernel
+writes the new token's K/V into its slot inside the attention launch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class LayerKV:
+    k: torch.Tensor  # (B, H_kv, S, Dh)
+    v: torch.Tensor
+
+
+@dataclasses.dataclass
+class KVCache:
+    """`index` is the number of slots already written (a Python int: the
+    host knows it, so no device sync); `pad_mask` (B, S) bool marks written
+    non-pad slots. `media` holds each xattn layer's projected media K/V,
+    captured at prefill and reused by every decode step."""
+
+    layers: Tuple[LayerKV, ...]
+    index: int
+    pad_mask: torch.Tensor
+    media: Optional[Tuple[LayerKV, ...]] = None
+
+    @property
+    def max_length(self) -> int:
+        return self.layers[0].k.shape[2]
+
+    @staticmethod
+    def create(cfg, batch: int, max_length: int, dtype, device) -> "KVCache":
+        shape = (batch, cfg.kv_heads, max_length, cfg.head_dim)
+        return KVCache(
+            layers=tuple(
+                LayerKV(
+                    k=torch.zeros(shape, dtype=dtype, device=device),
+                    v=torch.zeros(shape, dtype=dtype, device=device),
+                )
+                for _ in range(cfg.num_layers)
+            ),
+            index=0,
+            pad_mask=torch.zeros(batch, max_length, dtype=torch.bool, device=device),
+        )
+
+
+@dataclasses.dataclass
+class AttnInputs:
+    """Per-forward attention context shared by every layer.
+
+    mask:         (B, 1, Tq, Tk) bool, True = attend (einsum path).
+    position_ids: (B, Tq) absolute positions.
+    kv_slot:      slot where this call's K/V are written (0 without cache).
+    kv_len:       length of the key axis for this call.
+    pad_mask:     (B, Tk) validity of each key slot.
+    cached:       K/V come from a KVCache (head-major layout).
+    """
+
+    mask: torch.Tensor
+    position_ids: torch.Tensor
+    kv_slot: int
+    kv_len: int
+    pad_mask: Optional[torch.Tensor] = None
+    cached: bool = False
+
+
+def position_ids_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
+    """Left-padding-safe absolute positions: cumsum(mask) - 1, clipped at 0."""
+    pos = torch.cumsum(attention_mask.long(), dim=-1) - 1
+    return torch.clamp(pos, min=0)
+
+
+def make_attn_inputs(
+    attention_mask: torch.Tensor,
+    *,
+    cache: Optional[KVCache] = None,
+) -> Tuple[AttnInputs, Optional[KVCache]]:
+    """Attention context for a forward call. attention_mask: (B, Tq) 1/0
+    over the current tokens; with a cache they go to slots
+    [index, index + Tq) and the returned cache carries the new pad mask."""
+    b, tq = attention_mask.shape
+    dev = attention_mask.device
+    am = attention_mask.bool()
+    if cache is None:
+        causal = torch.ones(tq, tq, dtype=torch.bool, device=dev).tril()
+        return (
+            AttnInputs(
+                mask=causal[None, None] & am[:, None, None, :],
+                position_ids=position_ids_from_mask(attention_mask),
+                kv_slot=0,
+                kv_len=tq,
+                pad_mask=am,
+            ),
+            None,
+        )
+
+    s_max, idx = cache.max_length, cache.index
+    if idx + tq > s_max:
+        raise ValueError(f"cache holds {s_max} slots; writing {tq} at {idx} overflows it")
+    new_pad_mask = cache.pad_mask.clone()
+    new_pad_mask[:, idx:idx + tq] = am
+    prev_valid = cache.pad_mask.long().sum(-1, keepdim=True)
+    q_pos = torch.clamp(prev_valid + torch.cumsum(attention_mask.long(), -1) - 1, min=0)
+    # key slot j is visible to query i iff j <= idx + i
+    q_slot = idx + torch.arange(tq, device=dev)[:, None]
+    causal = torch.arange(s_max, device=dev)[None, :] <= q_slot
+    return (
+        AttnInputs(
+            mask=causal[None, None] & new_pad_mask[:, None, None, :],
+            position_ids=q_pos,
+            kv_slot=idx,
+            kv_len=s_max,
+            pad_mask=new_pad_mask,
+            cached=True,
+        ),
+        dataclasses.replace(cache, pad_mask=new_pad_mask),
+    )
+
+
+def update_layer_kv(
+    layer_kv: Optional[LayerKV], k: torch.Tensor, v: torch.Tensor, attn: AttnInputs
+):
+    """Write new K/V (B, T, H, D) at the cache slot, in place; return the
+    full key/value tensors. Without a cache they pass through unchanged;
+    with one the full tensors are the head-major (B, H, S, D) cache."""
+    if layer_kv is None:
+        return k, v, None
+    t = k.shape[1]
+    sl = slice(attn.kv_slot, attn.kv_slot + t)
+    layer_kv.k[:, :, sl] = k.transpose(1, 2).to(layer_kv.k.dtype)
+    layer_kv.v[:, :, sl] = v.transpose(1, 2).to(layer_kv.v.dtype)
+    return layer_kv.k, layer_kv.v, layer_kv
+
+
+def alibi_slopes(num_heads: int, bias_max: float = 8.0) -> np.ndarray:
+    """MPT ALiBi slopes (HF build_mpt_alibi_tensor semantics), float32."""
+    p = 2 ** math.ceil(math.log2(num_heads))
+    base = np.arange(1, p + 1, dtype=np.float32) * (bias_max / p)
+    slopes = 1.0 / np.power(2.0, base)
+    if p != num_heads:
+        slopes = np.concatenate([slopes[1::2], slopes[::2]])[:num_heads]
+    return slopes.astype(np.float32)
+
+
+def alibi_bias(slopes: torch.Tensor, kv_len: int) -> torch.Tensor:
+    """(1, H, 1, kv_len) additive bias slope_h * (j - (kv_len - 1)) from
+    (H,) fp32 slopes: the key-position-only form, equal to HF MPT's up to
+    softmax translation."""
+    dist = torch.arange(1 - kv_len, 1, dtype=torch.float32, device=slopes.device)
+    return (slopes[:, None, None] * dist[None, None, :])[None]

@@ -1,0 +1,53 @@
+"""MPT decoder block (ALiBi, no biases), the OF-3B / OF-9B LM family.
+
+Fused Wqkv with the [q|k|v] column layout, optional clip_qkv clamp,
+softmax scale 1/sqrt(head_dim), key-position-only ALiBi, LayerNorms
+without bias, 4x GELU MLP without biases.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...configs import DecoderConfig
+from ...ops.attention import cached_self_attention
+from ..layers import LayerNorm, gelu_exact, merge_heads
+from .common import alibi_slopes
+
+
+class MPTBlock(nn.Module):
+    def __init__(self, cfg: DecoderConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d = cfg.hidden_size
+        self.cfg = cfg
+        ln_bias = not cfg.ln_no_bias
+        self.norm_1 = LayerNorm(d, cfg.layer_norm_eps, bias=ln_bias, **kw)
+        self.Wqkv = nn.Linear(d, 3 * d, bias=False, **kw)
+        self.out_proj = nn.Linear(d, d, bias=False, **kw)
+        self.norm_2 = LayerNorm(d, cfg.layer_norm_eps, bias=ln_bias, **kw)
+        self.up_proj = nn.Linear(d, cfg.intermediate_size, bias=False, **kw)
+        self.down_proj = nn.Linear(cfg.intermediate_size, d, bias=False, **kw)
+        # fp32 on the module's device; not a parameter, not in state_dict
+        self.register_buffer(
+            "alibi_slopes",
+            torch.from_numpy(alibi_slopes(cfg.num_heads, cfg.alibi_bias_max)).to(device),
+            persistent=False,
+        )
+
+    def forward(self, x, attn, layer_kv):
+        cfg = self.cfg
+        b, t, _ = x.shape
+        qkv = self.Wqkv(self.norm_1(x))
+        if cfg.clip_qkv:
+            qkv = qkv.clamp(-cfg.clip_qkv, cfg.clip_qkv)
+        q, k, v = (z.reshape(b, t, cfg.num_heads, cfg.head_dim) for z in qkv.chunk(3, dim=-1))
+        out, new_kv = cached_self_attention(
+            q, k, v, attn, layer_kv,
+            scale=cfg.head_dim**-0.5,
+            alibi_slopes=self.alibi_slopes,
+        )
+        x = x + self.out_proj(merge_heads(out))
+        h = self.down_proj(gelu_exact(self.up_proj(self.norm_2(x))))
+        return x + h, new_kv

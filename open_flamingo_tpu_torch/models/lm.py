@@ -1,0 +1,97 @@
+"""Decoder LM with gated cross-attention before every `cross_attn_every_n`-th
+layer (the JAX package's `FlamingoLM`, unrolled layer layout).
+
+Layer i applies its xattn block (if any) before the decoder block. The
+final LayerNorm and the tied LM head follow. Vision latents and text time
+are explicit arguments; decode state is an explicit KVCache.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..configs import DecoderConfig
+from .decoders.common import KVCache, LayerKV, make_attn_inputs
+from .decoders.mpt import MPTBlock
+from .layers import LayerNorm
+from .xattn import GatedCrossAttentionBlock, build_media_masks, use_xattn_kernel
+
+BLOCK_REGISTRY = {"mpt": MPTBlock}
+
+
+class FlamingoLM(nn.Module):
+    def __init__(
+        self, cfg: DecoderConfig, vis_dim: Optional[int] = None,
+        cross_attn_every_n: Optional[int] = None,
+        only_attend_immediate_media: bool = True, *, device=None, dtype=None,
+    ):
+        super().__init__()
+        if cfg.family not in BLOCK_REGISTRY:
+            raise NotImplementedError(
+                f"decoder family {cfg.family!r} is not ported yet (ROADMAP.md)"
+            )
+        if not cfg.tie_word_embeddings:
+            raise NotImplementedError("untied LM heads are not ported yet (ROADMAP.md)")
+        kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.immediate = only_attend_immediate_media
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.blocks = nn.ModuleList(BLOCK_REGISTRY[cfg.family](cfg, **kw) for _ in range(cfg.num_layers))
+        n = cross_attn_every_n
+        self.xattn = nn.ModuleDict({
+            str(i): GatedCrossAttentionBlock(
+                cfg.hidden_size, vis_dim, only_attend_immediate_media=only_attend_immediate_media, **kw
+            )
+            for i in range(cfg.num_layers)
+            if n is not None and (i + 1) % n == 0
+        })
+        self.norm_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, bias=not cfg.ln_no_bias, **kw)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        *,
+        media: Optional[torch.Tensor] = None,
+        text_time: Optional[torch.Tensor] = None,
+        cache: Optional[KVCache] = None,
+    ):
+        """input_ids (B, T); attention_mask (B, T) 1/0; media (B, T_img,
+        n_lat, vis_dim) perceiver latents; text_time (B, T). Returns
+        (logits (B, T, V) fp32, cache or None). A cache without media K/V
+        gets the ones this call projects (prefill); decode reuses them."""
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        attn, cache = make_attn_inputs(attention_mask, cache=cache)
+        x = self.wte(input_ids)
+
+        media_mask = zero_rows = None
+        if media is not None and not use_xattn_kernel(x, self.immediate):
+            media_mask, zero_rows = build_media_masks(text_time, media.shape[1], media.shape[2], self.immediate)
+        media_cache = cache.media if cache is not None else None
+
+        new_layers, new_media = [], []
+        for i, block in enumerate(self.blocks):
+            if str(i) in self.xattn and media is not None:
+                mkv = None
+                if media_cache is not None:
+                    m = media_cache[len(new_media)]
+                    mkv = (m.k, m.v)
+                x, (mk, mv) = self.xattn[str(i)](x, media, text_time, mkv, media_mask, zero_rows)
+                new_media.append(LayerKV(k=mk, v=mv))
+            x, kv = block(x, attn, cache.layers[i] if cache is not None else None)
+            new_layers.append(kv)
+
+        logits = torch.nn.functional.linear(self.norm_f(x), self.wte.weight).float()
+        if cache is not None:
+            cache = dataclasses.replace(
+                cache,
+                layers=tuple(new_layers),
+                index=cache.index + input_ids.shape[1],
+                media=media_cache if media_cache is not None else (tuple(new_media) or None),
+            )
+        return logits, cache

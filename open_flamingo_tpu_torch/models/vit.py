@@ -1,0 +1,76 @@
+"""CLIP Vision Transformer, the frozen vision tower.
+
+NHWC pixels at the public function, as in the JAX package. The patch
+embedding is a reshape to (p, p, C) features followed by one Linear, not a
+convolution, so the weights keep the JAX feature order and no cuDNN
+convolution (TF32 by default on the card) is involved.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs import VisionConfig
+from .layers import LayerNorm, attend, gelu_exact, merge_heads, quick_gelu, split_heads
+
+_ACTS = {"quick_gelu": quick_gelu, "gelu": gelu_exact}
+
+
+class ViTBlock(nn.Module):
+    def __init__(self, cfg: VisionConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d = cfg.hidden_size
+        self.cfg = cfg
+        self.layer_norm1 = LayerNorm(d, cfg.layer_norm_eps, **kw)
+        self.q_proj = nn.Linear(d, d, **kw)
+        self.k_proj = nn.Linear(d, d, **kw)
+        self.v_proj = nn.Linear(d, d, **kw)
+        self.out_proj = nn.Linear(d, d, **kw)
+        self.layer_norm2 = LayerNorm(d, cfg.layer_norm_eps, **kw)
+        self.fc1 = nn.Linear(d, cfg.intermediate_size, **kw)
+        self.fc2 = nn.Linear(cfg.intermediate_size, d, **kw)
+        self.act = _ACTS[cfg.hidden_act]
+
+    def forward(self, x):
+        nh, dh = self.cfg.num_heads, self.cfg.head_dim
+        h = self.layer_norm1(x)
+        q = split_heads(self.q_proj(h), nh) * (dh**-0.5)
+        out = attend(q, split_heads(self.k_proj(h), nh), split_heads(self.v_proj(h), nh))
+        x = x + self.out_proj(merge_heads(out))
+        h = self.fc2(self.act(self.fc1(self.layer_norm2(x))))
+        return x + h
+
+
+class VisionTransformer(nn.Module):
+    """pixel_values (B, H, W, C) NHWC -> patch tokens (B, num_patches, D)."""
+
+    def __init__(self, cfg: VisionConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d, p = cfg.hidden_size, cfg.patch_size
+        self.cfg = cfg
+        self.patch_embed = nn.Linear(p * p * cfg.num_channels, d, bias=False, **kw)
+        self.class_embedding = nn.Parameter(torch.zeros(d, **kw))
+        self.position_embedding = nn.Parameter(torch.zeros(cfg.num_patches + 1, d, **kw))
+        self.pre_layernorm = LayerNorm(d, cfg.layer_norm_eps, **kw)
+        self.blocks = nn.ModuleList(ViTBlock(cfg, **kw) for _ in range(cfg.num_layers))
+        self.post_layernorm = LayerNorm(d, cfg.layer_norm_eps, **kw)
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        b, _, _, c = pixel_values.shape
+        p, g = cfg.patch_size, cfg.grid
+        x = pixel_values.to(self.patch_embed.weight.dtype)
+        # patchify: (B, g, p, g, p, C) -> (B, g*g, p*p*C), features (ph, pw, c)
+        x = x.reshape(b, g, p, g, p, c).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * c)
+        x = self.patch_embed(x)
+        cls = self.class_embedding.expand(b, 1, -1)
+        x = torch.cat([cls, x], dim=1) + self.position_embedding[None]
+        x = self.pre_layernorm(x)
+        for block in self.blocks:
+            x = block(x)
+        if cfg.post_ln_tokens:
+            x = self.post_layernorm(x)
+        return x[:, 1:]  # Flamingo consumes the patch tokens only

@@ -1,0 +1,125 @@
+"""Gated cross-attention: text queries attend to media latents.
+
+Media-time rule (the reference's helpers.py): media_time[j] = j + 1 for
+the j-th image; text_time[i] = cumsum(media_locations)[i] in a full
+forward, or the number of cached media in decode. Attend iff text_time ==
+media_time ("immediate", the released models) or text_time >= media_time;
+in immediate mode text with text_time 0 gets a zero attention output.
+
+The media K/V are projected once at prefill and returned to the caller
+(the JAX package's `sow("media_kv")`); decode steps pass them back in.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.attention import use_kernels
+from .layers import FeedForward, LayerNorm, attend_cached, merge_heads, split_heads
+
+
+def media_time_from_locations(media_locations: torch.Tensor) -> torch.Tensor:
+    """text_time for a full forward: (B, T) bool -> (B, T) cumulative count."""
+    return torch.cumsum(media_locations.long(), dim=-1)
+
+
+def use_xattn_kernel(x: torch.Tensor, immediate: bool) -> bool:
+    """Whether prefill cross-attention on text `x` (B, T, D) runs the K5
+    kernel."""
+    return immediate and x.shape[1] >= 8 and use_kernels(x)
+
+
+def _media_time(t_img: int, n_lat: int, device) -> torch.Tensor:
+    return torch.arange(t_img * n_lat, device=device) // n_lat + 1
+
+
+def build_media_masks(text_time, t_img: int, n_lat: int, immediate: bool):
+    """Einsum-path media mask (B, 1, T_txt, T_img*n_lat) and, in immediate
+    mode, the zero_rows flags (B, 1, T_txt, 1). Layer-independent: built
+    once per forward."""
+    tt = text_time[:, None, :, None]
+    mt = _media_time(t_img, n_lat, text_time.device)[None, None, None, :]
+    if immediate:
+        return tt == mt, (text_time == 0)[:, None, :, None]
+    return tt >= mt, None
+
+
+class MaskedCrossAttention(nn.Module):
+    def __init__(self, dim, dim_visual, dim_head=64, heads=8, only_attend_immediate_media=True, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        inner = dim_head * heads
+        self.heads, self.dim_head = heads, dim_head
+        self.immediate = only_attend_immediate_media
+        self.norm = LayerNorm(dim, **kw)
+        self.to_q = nn.Linear(dim, inner, bias=False, **kw)
+        self.to_kv = nn.Linear(dim_visual, 2 * inner, bias=False, **kw)
+        self.to_out = nn.Linear(inner, dim, bias=False, **kw)
+
+    def project_media(self, media: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T_img, n_lat, D_vis) -> head-major (k, v), each (B, H, S_m, Dh)."""
+        b, t_img, n_lat, dv = media.shape
+        k, v = self.to_kv(media.reshape(b, t_img * n_lat, dv)).chunk(2, dim=-1)
+        return (
+            split_heads(k, self.heads).transpose(1, 2).contiguous(),
+            split_heads(v, self.heads).transpose(1, 2).contiguous(),
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,                 # (B, T_txt, D)
+        media: torch.Tensor,             # (B, T_img, n_lat, D_vis)
+        text_time: torch.Tensor,         # (B, T_txt)
+        media_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        media_mask: Optional[torch.Tensor] = None,
+        zero_rows: Optional[torch.Tensor] = None,
+    ):
+        """Returns (out (B, T_txt, D), media_kv)."""
+        b, t_img, n_lat, _ = media.shape
+        if media_kv is None:
+            media_kv = self.project_media(media)
+        k, v = media_kv
+        q = split_heads(self.to_q(self.norm(x)), self.heads)
+        h, d, s, tq = self.heads, self.dim_head, t_img * n_lat, q.shape[1]
+        scale = self.dim_head**-0.5
+        if use_xattn_kernel(x, self.immediate):
+            from ..ops.masked_xattn import masked_xattn
+
+            qf = q.transpose(1, 2).reshape(b * h, tq, d)
+            tt = text_time.to(torch.int32).repeat_interleave(h, dim=0)
+            out = masked_xattn(qf, k.reshape(b * h, s, d), v.reshape(b * h, s, d), tt, n_lat, scale)
+            out = out.reshape(b, h, tq, d).transpose(1, 2)
+        elif tq == 1 and self.immediate and use_kernels(x):
+            # one decode token: one mask row per sequence; text with no
+            # preceding image is an all-masked row -> exact zeros
+            from ..ops.decode_attention import decode_attention
+
+            mask2d = text_time[:, :1] == _media_time(t_img, n_lat, x.device)[None, :]
+            out = decode_attention(q[:, 0].contiguous(), k, v, mask2d, scale=scale)[:, None]
+        else:
+            if media_mask is None:
+                media_mask, zero_rows = build_media_masks(text_time, t_img, n_lat, self.immediate)
+            out = attend_cached(q * scale, k, v, mask=media_mask, zero_rows=zero_rows)
+        return self.to_out(merge_heads(out)), media_kv
+
+
+class GatedCrossAttentionBlock(nn.Module):
+    """x = xattn(x) * tanh(attn_gate) + x; x = ff(x) * tanh(ff_gate) + x."""
+
+    def __init__(self, dim, dim_visual, dim_head=64, heads=8, ff_mult=4, only_attend_immediate_media=True, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.attn_gate = nn.Parameter(torch.zeros(1, **kw))
+        self.ff_gate = nn.Parameter(torch.zeros(1, **kw))
+        self.attn = MaskedCrossAttention(dim, dim_visual, dim_head, heads, only_attend_immediate_media, **kw)
+        self.ff = FeedForward(dim, ff_mult, **kw)
+
+    def forward(self, x, media, text_time, media_kv=None, media_mask=None, zero_rows=None):
+        """Returns (x, media_kv)."""
+        out, media_kv = self.attn(x, media, text_time, media_kv, media_mask, zero_rows)
+        x = out * torch.tanh(self.attn_gate) + x
+        x = self.ff(x) * torch.tanh(self.ff_gate) + x
+        return x, media_kv

@@ -1,0 +1,118 @@
+"""K7: single-token decode attention over the head-major KV cache.
+
+Replaces `open_flamingo_tpu/ops/decode_attention.py` `decode_attention`
+and `decode_attention_update` (`_decode_kernel` via `_call`). The CUDA
+kernel is `csrc/decode_attention.cu` `decode_attention_fwd`: one block per
+(b, h); four warps stream the cache rows with a running softmax each and
+merge at the end. Bound by the cache bytes on the card (4 FLOPs per
+element read); see the source's note.
+
+`decode_attention_update` writes `k_new`/`v_new` into the cache tensors
+IN PLACE at `slot` and attends with the new token in the same launch (the
+counterpart of the TPU kernel's input/output aliasing); it returns the
+same cache tensors it was given.
+
+The wrappers launch the kernel for CUDA tensors and run the plain version
+`reference_decode_attention` (after an in-place slot write, for the update)
+for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .flash_attention import _DTYPES, check_qkv
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = build.library("decode_attention")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.decode_attention_fwd.restype = i
+        _lib = lib
+    return _lib
+
+
+def reference_decode_attention(q, k, v, mask, scale: float = 1.0, slopes=None):
+    """Plain version. q (B, H, D); k/v (B, H, S, D); mask (B, S), nonzero
+    = attend; slopes (H,) fp32 or None. All-masked rows give exact zeros."""
+    s = k.shape[2]
+    logits = torch.einsum("bhd,bhkd->bhk", q.float() * scale, k.float())
+    if slopes is not None:
+        k_pos = torch.arange(s, device=q.device, dtype=torch.float32) - (s - 1)
+        logits = logits + slopes.float()[None, :, None] * k_pos
+    m = (mask != 0)[:, None, :]
+    logits = logits.masked_fill(~m, float("-inf"))
+    mx = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isinf(mx), 0.0, mx)).masked_fill(~m, 0.0)
+    denom = p.sum(-1, keepdim=True)
+    denom = torch.where(denom == 0.0, 1.0, denom)
+    return torch.einsum("bhk,bhkd->bhd", p / denom, v.float()).to(q.dtype)
+
+
+def _launch(q, k, v, mask, scale, slopes, k_new, v_new, slot, name):
+    b, h, s, d = k.shape
+    if q.shape != (b, h, d) or v.shape != k.shape or mask.shape != (b, s):
+        raise ValueError(f"{name}: expected q (B, H, D), k/v (B, H, S, D), mask (B, S)")
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    check_qkv(q, k, v, name)
+    if mask.device != q.device or (slopes is not None and slopes.device != q.device):
+        raise ValueError(f"{name}: mask/slopes on another device")
+    m = (mask != 0).to(torch.uint8).contiguous()
+    sl = None
+    if slopes is not None:
+        sl = slopes.to(torch.float32).contiguous()
+        if sl.shape != (h,):
+            raise ValueError(f"{name}: slopes must be (H,)")
+    kn = vn = None
+    if k_new is not None:
+        if k_new.shape != (b, h, d) or v_new.shape != (b, h, d):
+            raise ValueError(f"{name}: k_new/v_new must be (B, H, D)")
+        if k_new.dtype != k.dtype or v_new.dtype != k.dtype or k_new.device != q.device or v_new.device != q.device:
+            raise TypeError(f"{name}: k_new/v_new must match the cache's dtype and device")
+        if not 0 <= slot < s:
+            raise ValueError(f"{name}: slot {slot} outside the cache of {s}")
+        kn, vn = k_new.contiguous(), v_new.contiguous()
+    out = torch.empty_like(q)
+    status = _kernel().decode_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+        None if sl is None else sl.data_ptr(),
+        None if kn is None else kn.data_ptr(), None if vn is None else vn.data_ptr(),
+        out.data_ptr(), b, h, s, d, int(slot), float(scale), _DTYPES[q.dtype],
+        build.current_stream(q.device),
+    )
+    build.check(status, "decode_attention_fwd")
+    return out
+
+
+def decode_attention(q, k, v, mask, *, scale: float = 1.0, slopes=None):
+    """Attention only (static K/V, e.g. cached media). Returns (B, H, D)."""
+    if q.device.type == "cpu":
+        return reference_decode_attention(q, k, v, mask, scale, slopes)
+    out = _launch(q, k, v, mask, scale, slopes, None, None, 0, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention_update(q, k_cache, v_cache, k_new, v_new, mask, slot: int, *, scale: float = 1.0, slopes=None):
+    """Write-then-attend decode step; `mask` must mark `slot` valid.
+    Mutates k_cache/v_cache in place and returns (out, k_cache, v_cache)."""
+    if q.device.type == "cpu":
+        k_cache[:, :, slot] = k_new
+        v_cache[:, :, slot] = v_new
+        return reference_decode_attention(q, k_cache, v_cache, mask, scale, slopes), k_cache, v_cache
+    out = _launch(q, k_cache, v_cache, mask, scale, slopes, k_new, v_new, slot, "decode_attention_update")
+    decode_attention_update.launches += 1
+    return out, k_cache, v_cache
+
+
+decode_attention.launches = 0
+decode_attention_update.launches = 0

@@ -1,0 +1,104 @@
+"""Package rules of the PyTorch port: it imports with JAX blocked, no file
+of it (or chip_smoke.py) imports the JAX package, entry points default to
+the card and raise without one, and the kernel wrappers never fall back
+to the CPU for a non-CPU tensor."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "open_flamingo_tpu_torch"
+
+
+def port_modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PKG.rglob("*.py")
+    )
+
+
+def test_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'flax', 'open_flamingo_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_package_imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "flax", "open_flamingo_tpu"), f"{path}: imports {n}"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from open_flamingo_tpu_torch.configs import flamingo_config
+    from open_flamingo_tpu_torch.models.flamingo import Flamingo, init_random
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_random(flamingo_config("OF-3B"), seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Flamingo(flamingo_config("OF-3B"))
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is not on the CPU goes to the kernel or raises; the
+    meta device stands in for one here."""
+    from open_flamingo_tpu_torch.ops.decode_attention import decode_attention
+    from open_flamingo_tpu_torch.ops.flash_attention import flash_attention
+    from open_flamingo_tpu_torch.ops.masked_xattn import masked_xattn
+
+    m = torch.device("meta")
+    q, k = torch.empty(2, 8, 16, device=m), torch.empty(2, 8, 16, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(q, k, k, torch.empty(2, 8, device=m), torch.empty(2, 1, device=m), 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        masked_xattn(q, k, k, torch.empty(2, 8, dtype=torch.int32, device=m), 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_attention(torch.empty(1, 2, 16, device=m), torch.empty(1, 2, 8, 16, device=m),
+                         torch.empty(1, 2, 8, 16, device=m), torch.empty(1, 8, device=m))
+
+
+def test_kernel_routing_follows_the_tensor_device():
+    """CUDA tensors take the kernels (the meta device stands in for a
+    non-CUDA accelerator and does not); `plain_path()` turns them off and
+    restores the routing on exit, also after an error."""
+    from open_flamingo_tpu_torch.ops import attention
+
+    cpu = torch.empty(1)
+    assert not attention.use_kernels(cpu)
+    assert not attention.use_kernels(torch.empty(1, device="meta"))
+    with pytest.raises(KeyError):
+        with attention.plain_path():
+            assert attention._PLAIN
+            raise KeyError
+    assert not attention._PLAIN
+
+
+def test_build_names_every_source():
+    from open_flamingo_tpu_torch.ops import build
+
+    assert build.sources() == ["decode_attention", "prefill_attention"]
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
