@@ -2,14 +2,17 @@
 """Where one greedy generate call of the PyTorch port spends its time on
 the card.
 
-    python3 chip_profile.py        # from the repository root, one card
+    python3 chip_profile.py            # the fused decode route (K1-K3)
+    python3 chip_profile.py unfused    # the unfused route (K7, DISABLE_FUSED)
 
 Builds OF-3B at full width with random weights (bf16), runs the same
 inputs as chip_smoke.py (8 prompts of 32 tokens, one image each, 32 new
 tokens), warms up once, then traces one call with torch.profiler. Prints
 one JSON line: wall seconds, the device's busy time (sum of the device
-events' times; one stream, so they do not overlap) and idle share, and the
-kernels with the most device time. Needs one CUDA card; imports nothing of JAX.
+events' times; one stream, so they do not overlap) and idle share, the
+device time of each hand-written kernel, and the kernels with the most
+device time. Run from the repository root with one CUDA card; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,7 +36,13 @@ def main() -> int:
     from open_flamingo_tpu_torch.configs import flamingo_config
     from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate
     from open_flamingo_tpu_torch.models.flamingo import init_random
+    from open_flamingo_tpu_torch.ops import dense_stream
 
+    route = sys.argv[1] if len(sys.argv) > 1 else "fused"
+    if route not in ("fused", "unfused"):
+        print(f"chip_profile: unknown route {route!r}", file=sys.stderr)
+        return 2
+    dense_stream.DISABLE_FUSED = route == "unfused"
     dev = torch.device("cuda", 0)
     cfg = flamingo_config("OF-3B")
     vision_x, ids, mask = make_inputs(cfg, dev)
@@ -66,13 +75,14 @@ def main() -> int:
     if busy <= 0:
         raise RuntimeError("the trace holds no device events")
     rows.sort(key=lambda r: -r[1])
-    ported = {}
-    for name in kernel_functions():
-        kern = {"flash_attention": "attention_fwd_kernel", "masked_xattn": "attention_fwd_kernel",
-                "decode_attention": "decode_kernel", "decode_attention_update": "decode_kernel"}[name]
-        ported[kern] = sum(r[1] for r in rows if kern in r[0])
+    # device symbols of the hand-written kernels: the row GEMV serves K1, K2
+    # and K3's projections; K3's softmax is attend_kernel
+    ported = {kern: sum(r[1] for r in rows if kern in r[0])
+              for kern in ("gemv_kernel", "attend_kernel", "attention_fwd_kernel", "decode_kernel")}
+    launches = {name: fn.launches for name, fn in kernel_functions().items()}
     print(json.dumps({
-        "profile": "generate_bf16", "batch": B, "new_tokens": NEW_TOKENS,
+        "profile": "generate_bf16", "route": route, "batch": B, "new_tokens": NEW_TOKENS,
+        "wrapper_launches_since_start": launches,
         "wall_s_untraced": wall_untraced, "wall_s_traced": wall, "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / wall, "device_idle_share_untraced": 1.0 - busy / wall_untraced,
         "aten_op_rows_device_s": op_rows_s,

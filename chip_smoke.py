@@ -3,23 +3,30 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
   1. build    compile every kernel under open_flamingo_tpu_torch/csrc with
-              nvcc (sm_90a), all sources at once;
-  2. kernels  each kernel of the serving path (K4 flash_attention, K5
-              masked_xattn, K7 decode_attention and _update) against its
-              plain PyTorch version on the same card tensors, in fp32 and
-              bf16, at OF-3B's shapes (B = 8) and edge cases; times the
-              kernel, the plain version and, where one exists, the
-              library call (scaled_dot_product_attention);
+              nvcc (sm_90a), one process per source, all at once;
+  2. kernels  each kernel of the generate path against its plain PyTorch
+              version on the same card tensors, in fp32 and bf16, at
+              OF-3B's shapes (B = 8) and edge cases: K1 fused_dense (final
+              LN + tied vocab head, ragged vocabulary tail), K2 fused_mlp
+              (MPT MLP, xattn FF with ff_gate), K3 attn_block_decode (self
+              with the in-place slot write at slots 40 and 63, gated xattn
+              with a row before any image), K4 flash_attention, K5
+              masked_xattn, K7 decode_attention and _update. Times the
+              kernel (CUDA-graph replay), one eager call, the plain
+              version, and the library call named beside it;
   3. generate full-width OF-3B (ViT-L/14 + MPT-1B, 24 xattn blocks) with
               random weights from a seed: greedy flamingo_generate of 32
               tokens for 8 prompts of 32 tokens, one image each, two rows
-              left-padded. In fp32 the kernel path must match the plain
-              (einsum) path on the card: identical tokens, and on one
-              fixed token stream the logits of prefill and of every decode
-              step within tolerance. Then bf16, timed, with every kernel's
-              launch counter reset just before and checked just after.
+              left-padded. fp32: (a) the fused decode route (K1-K3) with
+              its kernels against the same route under `plain_path()`,
+              (b) against the unfused route (`DISABLE_FUSED`,
+              K7): identical tokens, and on one token stream the logits of
+              prefill and of every decode step within tolerance. bf16,
+              timed: (c) the fused route, (d) the unfused route, each with
+              every kernel's launch counter reset just before and checked
+              just after against the counts the route must give.
 Then the `kernels` summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero
 before the last line. Needs no network; imports nothing of JAX.
@@ -27,6 +34,7 @@ before the last line. Needs no network; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -39,10 +47,13 @@ from open_flamingo_tpu_torch.configs import flamingo_config
 from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate
 from open_flamingo_tpu_torch.models.decoders.common import KVCache, alibi_slopes
 from open_flamingo_tpu_torch.models.flamingo import count_media, init_random
-from open_flamingo_tpu_torch.ops import build
+from open_flamingo_tpu_torch.models.layers import layer_norm
+from open_flamingo_tpu_torch.ops import build, dense_stream
 from open_flamingo_tpu_torch.ops.attention import plain_path
 from open_flamingo_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_update, reference_decode_attention)
+from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode, reference_attn_block
+from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp, reference_dense, reference_mlp
 from open_flamingo_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from open_flamingo_tpu_torch.ops.masked_xattn import masked_xattn, reference_masked_xattn
 
@@ -54,6 +65,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense; fp32 outs
 TOL = {torch.float32: dict(atol=5e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 LOGITS_TOL = 2e-3   # fp32 logits through 24 decoder + 24 xattn layers, every step
 B, T_PROMPT, NEW_TOKENS, SEED = 8, 32, 32, 0
+# the main-path shape of each kernel, timed and reported; other cases are edge cases
+MAIN_CASES = {"fused_dense": "head_V50434", "fused_mlp": "mpt_mlp", "attn_block_decode": "self_S64_slot40",
+              "flash_attention": "prefill_S64", "masked_xattn": "prefill_T1", "decode_attention": "xattn_S64",
+              "decode_attention_update": "self_S64_slot40"}
+TIMED_CASES = set(MAIN_CASES.values()) | {"xattn_ff", "xattn_S64_gate"}
 
 
 def log(obj) -> None:
@@ -135,10 +151,12 @@ def left_padded_mask(b, t, pads, device):
     return m
 
 
-def compare(name, case, dtype, got, want, zero_rows=None):
+def compare(name, case, dtype, got, want, exact=None):
+    """`exact(got)`: the case's rows that must come out exactly (rows with
+    no valid key: zeros, or x itself after K3's residual)."""
     err = (got.float() - want.float()).abs().max().item()
     ok = torch.allclose(got.float(), want.float(), **TOL[dtype])
-    exact0 = True if zero_rows is None else bool((got[zero_rows] == 0).all().item())
+    exact0 = True if exact is None else bool(exact(got))
     log({"phase": "kernels", "kernel": name, "case": case, "dtype": str(dtype).split(".")[-1],
          "max_abs_err": err, "tol": TOL[dtype], "all_masked_rows_exact_zero": exact0})
     require(ok, f"{name}/{case}/{dtype}: max abs err {err}")
@@ -146,13 +164,89 @@ def compare(name, case, dtype, got, want, zero_rows=None):
     return err
 
 
+def zeros_at(rows):
+    return lambda got: (got[rows] == 0).all().item()
+
+
 def kernel_cases(dtype, gen, dev):
-    """Yields (name, case, kernel_fn, plain_fn, zero_rows, cost, library_fn)."""
-    def rn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+    """Yields (name, case, kernel_fn, plain_fn, exact, cost, library_fn,
+    what the library call times)."""
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
 
     es = torch.tensor([], dtype=dtype).element_size()
     slopes16 = torch.from_numpy(alibi_slopes(16)).to(dev)
+    d, k2, v = 2048, 8192, 50434                        # MPT-1B width, MLP hidden, OF-3B vocabulary
+
+    # K1: final LayerNorm (no bias) fused into the tied head; the (V, D)
+    # table read in place, V = 24 * 2048 + 1282
+    x, w, ln = rn(B, d), rn(v, d, scale=d**-0.5), 1 + rn(d, scale=0.1)
+    hn = layer_norm(x, ln, None)
+    cost = ((v * d + B * d + d + B * v) * es, 2 * B * v * d)
+    yield ("fused_dense", "head_V50434", lambda: fused_dense(x, w, ln_scale=ln),
+           lambda: reference_dense(x, w, ln_scale=ln), None, cost, lambda: F.linear(hn, w),
+           "F.linear(LN(x), W): the product alone")
+
+    # K2: MPT MLP (LN without bias, residual) and xattn FF (LN bias, ff_gate)
+    w1, w2 = rn(k2, d, scale=d**-0.5), rn(d, k2, scale=k2**-0.5)
+    ln_b, gate = rn(d, scale=0.1), torch.tensor([0.5], device=dev, dtype=dtype)
+    cost = ((2 * d * k2 + 2 * B * d + d) * es, 4 * B * d * k2)
+    lib = lambda: F.linear(F.linear(hn, w1), w2)
+    yield ("fused_mlp", "mpt_mlp", lambda: fused_mlp(x, w1, w2, ln_scale=ln, residual=x),
+           lambda: reference_mlp(x, w1, w2, ln_scale=ln, residual=x), None, cost, lib,
+           "F.linear twice: the two products alone")
+    cost = ((2 * d * k2 + 2 * B * d + 2 * d + 1) * es, 4 * B * d * k2)
+    yield ("fused_mlp", "xattn_ff", lambda: fused_mlp(x, w1, w2, ln_scale=ln, ln_bias=ln_b, residual=x, gate=gate),
+           lambda: reference_mlp(x, w1, w2, ln_scale=ln, ln_bias=ln_b, residual=x, gate=gate), None, cost, lib,
+           "F.linear twice: the two products alone")
+
+    # K3 self: LN, Wqkv (3D, D), slot write in place, ALiBi, Wout, residual
+    # (H = 16, Dh = 128, a 64-slot cache); slot 63 with clip_qkv as an edge
+    h, dh, s = 16, 128, 64
+    wqkv, wout = rn(3 * d, d, scale=d**-0.5), rn(d, d, scale=d**-0.5)
+    for case, slot, clip in (("self_S64_slot40", 40, None), ("self_S64_slot63", 63, 1.0)):
+        k0, v0 = rn(B, h, s, dh), rn(B, h, s, dh)
+        kc, vc = k0.clone(), v0.clone()
+        mask = left_padded_mask(B, s, [4, 7], dev)
+        mask[:, slot + 1:] = False
+        kw = dict(heads=h, head_dim=dh, scale=dh**-0.5, fused_qkv=True, clip=clip, slopes=slopes16,
+                  slot=torch.tensor([slot], dtype=torch.int32, device=dev))
+        fn = lambda kc=kc, vc=vc, mask=mask, kw=kw: attn_block_decode(x, ln, None, wqkv, wout, kc, vc, mask, **kw)[0]
+        plain = lambda k0=k0, v0=v0, mask=mask, kw=kw: reference_attn_block(
+            x, ln, None, wqkv, wout, k0.clone(), v0.clone(), mask, **kw)[0]
+        n_valid = mask.sum().item()
+        cost = ((4 * d * d + 2 * B * d + d + 2 * (n_valid + B) * h * dh) * es + B * s + 4,
+                8 * B * d * d + 4 * h * dh * n_valid)
+        a_in = rn(B, d)
+        lib = lambda: (F.linear(hn, wqkv), F.linear(a_in, wout))
+        yield ("attn_block_decode", case, fn, plain, None, cost, lib, "F.linear for Wqkv and Wout: the products alone")
+        # the cache's slot row was written (rounded) and nothing else moved
+        kp, vp = k0.clone(), v0.clone()
+        reference_attn_block(x, ln, None, wqkv, wout, kp, vp, mask, **kw)
+        require(torch.allclose(kc.float(), kp.float(), **TOL[dtype]) and torch.allclose(vc.float(), vp.float(), **TOL[dtype]),
+                f"attn_block_decode/{case}: slot row differs from the plain version's")
+        others = torch.arange(s, device=dev) != slot
+        require(torch.equal(kc[:, :, others], k0[:, :, others]) and torch.equal(vc[:, :, others], v0[:, :, others]),
+                f"attn_block_decode/{case}: slots other than the new token's changed")
+
+    # K3 xattn: q only over the cached media K/V (H = 8, Dh = 64, 64
+    # latents), attn gate; row 3 has no preceding image: attention exactly
+    # 0, so y == x there
+    h, dh, s = 8, 64, 64
+    wq, wo = rn(h * dh, d, scale=d**-0.5), rn(d, h * dh, scale=(h * dh) ** -0.5)
+    km, vm = rn(B, h, s, dh), rn(B, h, s, dh)
+    mask = torch.ones(B, s, dtype=torch.bool, device=dev)
+    mask[3] = False
+    kw = dict(heads=h, head_dim=dh, scale=dh**-0.5, gate=gate)
+    n_valid = mask.sum().item()
+    cost = ((2 * h * dh * d + 2 * B * d + 2 * d + 1 + 2 * n_valid * h * dh) * es + B * s,
+            4 * B * d * h * dh + 4 * h * dh * n_valid)
+    a_in = rn(B, h * dh)
+    yield ("attn_block_decode", "xattn_S64_gate",
+           lambda: attn_block_decode(x, ln, ln_b, wq, wo, km, vm, mask, **kw),
+           lambda: reference_attn_block(x, ln, ln_b, wq, wo, km, vm, mask, **kw),
+           lambda got: torch.equal(got[3], x[3]), cost,
+           lambda: (F.linear(hn, wq), F.linear(a_in, wo)), "F.linear for Wq and Wout: the products alone")
 
     # K4: self-attention prefill into the cache (H=16, Dh=128)
     for case, b, tq, s, q_off, pads in [
@@ -178,7 +272,7 @@ def kernel_cases(dtype, gen, dev):
         q4, k4, v4 = (x.view(b, h, -1, d) for x in (q, k, v))
         bias4 = bias.view(b, h, tq, s).to(dtype)
         lib = lambda q4=q4, k4=k4, v4=v4, bias4=bias4: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias4, scale=d**-0.5)
-        yield "flash_attention", case, fn, plain, zero_rows, cost, lib
+        yield "flash_attention", case, fn, plain, zeros_at(zero_rows), cost, lib, "scaled_dot_product_attention"
 
     # K5: gated xattn prefill (H=8, Dh=64, 64 latents per image)
     for case, t_img, media_at in [("prefill_T1", 1, [0]), ("prefill_T2", 2, [0, 16])]:
@@ -203,7 +297,7 @@ def kernel_cases(dtype, gen, dev):
         q4, k4, v4 = (x.view(B, h, -1, d) for x in (q, k, v))
         m4 = allowed.view(B, h, tq, s)
         lib = lambda q4=q4, k4=k4, v4=v4, m4=m4: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=d**-0.5)
-        yield "masked_xattn", case, fn, plain, zero_rows, cost, lib
+        yield "masked_xattn", case, fn, plain, zeros_at(zero_rows), cost, lib, "scaled_dot_product_attention"
 
     # K7: xattn decode over the cached media K/V (H=8, Dh=64, S=64)
     h, d, s = 8, 64, 64
@@ -218,7 +312,7 @@ def kernel_cases(dtype, gen, dev):
     cost = ((2 * B * h * d + 2 * n_valid * h * d) * es + B * s, 4 * d * h * n_valid)
     q4, k4, v4, m4 = q[:, :, None], k, v, mask[:, None, None, :]
     lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=d**-0.5)
-    yield "decode_attention", "xattn_S64", fn, plain, zero_rows, cost, lib
+    yield "decode_attention", "xattn_S64", fn, plain, zeros_at(zero_rows), cost, lib, "scaled_dot_product_attention"
 
     # K7 update: self-attention decode step writing slot 40 (H=16, Dh=128)
     h, d, s, slot = 16, 128, 64, 40
@@ -235,7 +329,7 @@ def kernel_cases(dtype, gen, dev):
     fn = lambda: decode_attention_update(q, kc, vc, kn, vn, mask, slot, scale=d**-0.5, slopes=slopes16)[0]
     n_valid = mask.sum().item()
     cost = ((2 * B * h * d + 2 * n_valid * h * d + 4 * B * h * d) * es + B * s, 4 * d * h * n_valid)
-    yield "decode_attention_update", "self_S64_slot40", fn, plain_update, None, cost, None
+    yield "decode_attention_update", "self_S64_slot40", fn, plain_update, None, cost, None, None
     # the slot is written and nothing else moved
     require(torch.equal(kc[:, :, slot], kn) and torch.equal(vc[:, :, slot], vn), "update: slot not written")
     others = torch.arange(s, device=dev) != slot
@@ -244,23 +338,27 @@ def kernel_cases(dtype, gen, dev):
 
 
 def phase_kernels(dev) -> dict:
-    """Returns, per kernel, its bf16 numbers at the main path's shape."""
+    """Returns, per kernel, its bf16 numbers at each timed shape."""
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        for name, case, fn, plain, zero_rows, cost, lib in kernel_cases(dtype, gen, dev):
+        for name, case, fn, plain, exact, cost, lib, lib_is in kernel_cases(dtype, gen, dev):
             got = fn()
             torch.cuda.synchronize()
-            err = compare(name, case, dtype, got, plain(), zero_rows)
-            main_shape = case in ("prefill_S64", "prefill_T1", "xattn_S64", "self_S64_slot40")
-            if dtype != torch.bfloat16 or not main_shape:
+            want = plain()
+            err = compare(name, case, dtype, got, want, exact)
+            if case == "head_V50434":                   # the ragged last 1282 columns
+                tail = (got[:, 49152:].float() - want[:, 49152:].float()).abs().max().item()
+                log({"phase": "kernels", "kernel": name, "case": case, "tail_cols": 1282, "tail_max_abs_err": tail})
+                require(torch.allclose(got[:, 49152:].float(), want[:, 49152:].float(), **TOL[dtype]), "head tail")
+            if dtype != torch.bfloat16 or case not in TIMED_CASES:
                 continue
             b_ms, b_by = bound(*cost, dtype)
             row = {"ms": device_ms(fn), "call_ms": call_ms(fn), "plain_ms": device_ms(plain),
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None if lib is None else device_ms(lib),
-                   "max_abs_err": err, "case": case}
+                   "library_is": lib_is, "max_abs_err": err, "case": case}
             log({"phase": "kernels", "kernel": name, "timing": row})
-            summary[name] = row
+            summary.setdefault(name, {})[case] = row
     return summary
 
 
@@ -284,7 +382,8 @@ def make_inputs(cfg, dev):
 def step_logits(model, latents, ids, mask, tokens):
     """(N, B, V) logits on a fixed token stream `tokens` (B, N): at the last
     prompt position after prefill (K4, K5), then after each decode step
-    that feeds tokens[:, t] back in (K7, both variants)."""
+    that feeds tokens[:, t] back in (K1-K3 on the fused route, K7 on the
+    unfused one)."""
     cache = KVCache.create(model.cfg.lm, B, T_PROMPT + NEW_TOKENS, model.dtype, model.device)
     logits, _, cache = model(None, ids, mask, media_latents=latents, cache=cache)
     out = [logits[:, -1]]
@@ -296,42 +395,32 @@ def step_logits(model, latents, ids, mask, tokens):
     return torch.stack(out)
 
 
-def phase_generate(dev):
-    counters = kernel_functions()
-    cfg = flamingo_config("OF-3B")
-    vision_x, ids, mask = make_inputs(cfg, dev)
-    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
+@contextlib.contextmanager
+def unfused_route():
+    """The unfused decode route: K7 decode attention with the eager
+    projections, LayerNorms and MLP around it (`DISABLE_FUSED`)."""
+    prev, dense_stream.DISABLE_FUSED = dense_stream.DISABLE_FUSED, True
+    try:
+        yield
+    finally:
+        dense_stream.DISABLE_FUSED = prev
 
-    # fp32: kernel path against the plain path on the card
-    t0 = time.perf_counter()
-    model = init_random(cfg, SEED, device=dev, dtype=torch.float32)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    latents = model.embed_vision(vision_x)
-    lat_shape = (B, 1, cfg.num_vis_latents, cfg.vision.hidden_size)
-    require(latents.shape == lat_shape and torch.isfinite(latents).all().item(), "latents")
-    tok_k = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
-    with plain_path():
-        tok_p = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
-    same = torch.equal(tok_k, tok_p)
-    # every step's logits, both paths fed the kernel path's tokens
-    lk = step_logits(model, latents, ids, mask, tok_k)
-    with plain_path():
-        lp = step_logits(model, latents, ids, mask, tok_k)
-    require(torch.isfinite(lk).all().item(), "fp32 kernel-path logits not finite")
-    step_err = (lk - lp).abs().amax(dim=(1, 2)).tolist()
-    log({"phase": "generate", "dtype": "float32", "init_s": init_s, "logits_max_abs_err": max(step_err),
-         "first_step_err": step_err[0], "first_decode_step_err": step_err[1], "last_step_err": step_err[-1],
-         "tol": LOGITS_TOL, "logit_std": lp.std().item(), "tokens_equal": same,
-         "distinct_tokens_per_row": [len(set(r)) for r in tok_k.tolist()],
-         "first_mismatch_step": None if same else int((tok_k != tok_p).any(0).nonzero()[0].item())})
-    require(max(step_err) <= LOGITS_TOL, f"fp32 logits differ by {max(step_err)} (per step: {step_err})")
-    require(same, "fp32 greedy tokens differ between the kernel and plain paths")
-    del model, latents
-    torch.cuda.empty_cache()
 
-    # bf16: the serving dtype, timed
-    model = init_random(cfg, SEED, device=dev, dtype=torch.bfloat16)
+def fp32_agree(what, tok_a, tok_b, la, lb, init_s=None):
+    step_err = (la - lb).abs().amax(dim=(1, 2)).tolist()
+    same = torch.equal(tok_a, tok_b)
+    log({"phase": "generate", "dtype": "float32", "compare": what, "init_s": init_s,
+         "logits_max_abs_err": max(step_err), "first_step_err": step_err[0], "first_decode_step_err": step_err[1],
+         "last_step_err": step_err[-1], "tol": LOGITS_TOL, "logit_std": lb.std().item(), "tokens_equal": same,
+         "distinct_tokens_per_row": [len(set(r)) for r in tok_a.tolist()],
+         "first_mismatch_step": None if same else int((tok_a != tok_b).any(0).nonzero()[0].item())})
+    require(max(step_err) <= LOGITS_TOL, f"fp32 {what}: logits differ by {max(step_err)} (per step: {step_err})")
+    require(same, f"fp32 {what}: greedy tokens differ")
+
+
+def timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, route):
+    """One bf16 generate call with every launch counter reset just before
+    and read just after; then vision encode and prefill timed alone."""
     warm = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -341,37 +430,101 @@ def phase_generate(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    # where the call's time goes: vision encode and prefill timed alone,
-    # the rest is the 31 decode steps
     t0 = time.perf_counter()
     lat16 = model.embed_vision(vision_x)
     torch.cuda.synchronize()
     vision_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cache = KVCache.create(cfg.lm, B, T_PROMPT + NEW_TOKENS, model.dtype, dev)
+    cache = KVCache.create(model.cfg.lm, B, T_PROMPT + NEW_TOKENS, model.dtype, dev)
     lk16 = model(None, ids, mask, media_latents=lat16, cache=cache)[0][:, -1]
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    log({"phase": "generate", "dtype": "bfloat16", "seconds": dt, "tokens_per_s": B * NEW_TOKENS / dt,
-         "vision_s": vision_s, "prefill_s": prefill_s, "decode_s": dt - vision_s - prefill_s,
+    log({"phase": "generate", "dtype": "bfloat16", "route": route, "seconds": dt,
+         "tokens_per_s": B * NEW_TOKENS / dt, "vision_s": vision_s, "prefill_s": prefill_s,
+         "decode_s": dt - vision_s - prefill_s, "decode_step_ms": (dt - vision_s - prefill_s) / (NEW_TOKENS - 1) * 1e3,
          "batch": B, "prompt": T_PROMPT, "new_tokens": NEW_TOKENS, "launches": launches,
-         "distinct_tokens_per_row": [len(set(r)) for r in tokens.tolist()],
-         "tokens_row0": tokens[0].tolist()})
+         "distinct_tokens_per_row": [len(set(r)) for r in tokens.tolist()], "tokens_row0": tokens[0].tolist()})
     require(tokens.shape == (B, NEW_TOKENS), "bf16 token shape")
-    require(bool(((tokens >= 0) & (tokens < cfg.lm.vocab_size)).all().item()), "bf16 token ids out of range")
-    require(torch.equal(tokens, warm), "bf16 generate is not deterministic")
+    require(bool(((tokens >= 0) & (tokens < model.cfg.lm.vocab_size)).all().item()), "bf16 token ids out of range")
+    require(torch.equal(tokens, warm), f"bf16 generate ({route}) is not deterministic")
     require(torch.isfinite(lk16).all().item(), "bf16 logits not finite")
-    for name, n in launches.items():
-        require(n > 0, f"{name} was not launched on the main path")
     return launches
 
 
+def sync_free_step(model, vision_x, ids, mask, dev) -> None:
+    """One fused decode step under torch's sync debug mode "error": the step
+    issues no host sync, so it can later be captured in a CUDA graph."""
+    lat = model.embed_vision(vision_x)
+    cache = KVCache.create(model.cfg.lm, B, T_PROMPT + NEW_TOKENS, model.dtype, dev)
+    logits, _, cache = model(None, ids, mask, media_latents=lat, cache=cache)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    n_media = count_media(ids, model.cfg.media_token_id)
+    ones = torch.ones(B, 1, dtype=torch.long, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(lat, tok, ones, cache, n_media)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log({"phase": "generate", "dtype": "bfloat16", "route": "fused", "decode_step_host_syncs": 0})
+
+
+def phase_generate(dev):
+    counters = kernel_functions()
+    cfg = flamingo_config("OF-3B")
+    vision_x, ids, mask = make_inputs(cfg, dev)
+    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
+
+    # fp32: (a) fused route, kernels vs plain versions; (b) fused vs unfused route
+    t0 = time.perf_counter()
+    model = init_random(cfg, SEED, device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    latents = model.embed_vision(vision_x)
+    lat_shape = (B, 1, cfg.num_vis_latents, cfg.vision.hidden_size)
+    require(latents.shape == lat_shape and torch.isfinite(latents).all().item(), "latents")
+    tok_k = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+    lk = step_logits(model, latents, ids, mask, tok_k)   # every step's logits on the kernels' token stream
+    require(torch.isfinite(lk).all().item(), "fp32 fused-route logits not finite")
+    with plain_path():
+        tok_p = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+        lp = step_logits(model, latents, ids, mask, tok_k)
+    fp32_agree("fused kernels vs plain_path", tok_k, tok_p, lk, lp, init_s)
+    with unfused_route():
+        tok_u = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+        lu = step_logits(model, latents, ids, mask, tok_k)
+    fp32_agree("fused route vs unfused route (K7)", tok_k, tok_u, lk, lu)
+    del model, latents
+    torch.cuda.empty_cache()
+
+    # bf16, the serving dtype, timed: (c) fused route, (d) unfused route
+    model = init_random(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    steps, layers = NEW_TOKENS - 1, cfg.lm.num_layers
+    fused = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, "fused")
+    want = {"fused_dense": steps, "fused_mlp": 2 * layers * steps, "attn_block_decode": 2 * layers * steps,
+            "flash_attention": layers, "masked_xattn": layers, "decode_attention": 0, "decode_attention_update": 0}
+    require(fused == want, f"fused route launches {fused}, expected {want}")
+    sync_free_step(model, vision_x, ids, mask, dev)
+    with unfused_route():
+        unfused = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, "unfused")
+    want = {"fused_dense": 0, "fused_mlp": 0, "attn_block_decode": 0, "flash_attention": layers,
+            "masked_xattn": layers, "decode_attention": layers * steps, "decode_attention_update": layers * steps}
+    require(unfused == want, f"unfused route launches {unfused}, expected {want}")
+    # each kernel's count from the route it is on
+    return {name: fused[name] or unfused[name] for name in counters}
+
+
 def kernel_functions() -> dict:
-    return {"flash_attention": flash_attention, "masked_xattn": masked_xattn,
+    return {"fused_dense": fused_dense, "fused_mlp": fused_mlp, "attn_block_decode": attn_block_decode,
+            "flash_attention": flash_attention, "masked_xattn": masked_xattn,
             "decode_attention": decode_attention, "decode_attention_update": decode_attention_update}
 
 
 SOURCES = {
+    "fused_dense": ("open_flamingo_tpu_torch/csrc/dense_stream.cu", "open_flamingo_tpu/ops/dense_stream.py:196"),
+    "fused_mlp": ("open_flamingo_tpu_torch/csrc/dense_stream.cu", "open_flamingo_tpu/ops/dense_stream.py:537"),
+    "attn_block_decode": ("open_flamingo_tpu_torch/csrc/decode_layer.cu", "open_flamingo_tpu/ops/decode_layer.py:426"),
     "flash_attention": ("open_flamingo_tpu_torch/csrc/prefill_attention.cu", "open_flamingo_tpu/ops/flash_attention.py:40"),
     "masked_xattn": ("open_flamingo_tpu_torch/csrc/prefill_attention.cu", "open_flamingo_tpu/ops/masked_xattn.py:38"),
     "decode_attention": ("open_flamingo_tpu_torch/csrc/decode_attention.cu", "open_flamingo_tpu/ops/decode_attention.py:45"),
@@ -393,11 +546,12 @@ def main() -> int:
     launches = phase_generate(dev)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        t = timing[name]
+        t = timing[name][MAIN_CASES[name]]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
+                        "library_ms": t["library_ms"], "library_is": t["library_is"], "case": t["case"],
+                        "other_cases": [r for c, r in timing[name].items() if c != t["case"]]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,13 @@ any of its sub-modules; it never imports JAX. Naming rules:
   * LayerNorm `scale` and Embed `embedding` -> `weight`;
   * everything else (`bias`, gates, latents, CLIP embeddings) keeps its
     name. The ViT patch embedding stays a Dense over (p, p, C) features.
+
+The JAX package's scanned LM layout (`scan_layers=True`, made by
+`models/lm.py` `to_scanned_layout`) is read too: `groups/block_k` and
+`groups/xattn` carry a leading group axis, and group g's entries are
+unstacked into `blocks.{g*n + k}` and `xattn.{g*n + n - 1}` (n = the number
+of `block_k` entries, the cross-attention interval). The port keeps one
+per-layer layout: a PyTorch loop over layers has no compile step to save.
 """
 
 from __future__ import annotations
@@ -30,11 +37,44 @@ def _module_name(name: str) -> str:
     return ".".join(p for p in m.groups() if p is not None)
 
 
+def _unstack_groups(tree: Mapping) -> dict:
+    """Replace a scanned `groups` entry by per-layer `blocks_i` / `xattn_i`
+    entries, recursively."""
+    out = {}
+    for name, val in tree.items():
+        if not isinstance(val, Mapping):
+            out[name] = val
+        elif name == "groups":
+            n = sum(1 for key in val if key.startswith("block_"))
+
+            def layer(sub, g):
+                return {k: layer(v, g) if isinstance(v, Mapping) else np.asarray(v)[g] for k, v in sub.items()}
+
+            groups = len(np.asarray(next(_leaves(val["block_0"]))))
+            for g in range(groups):
+                for k in range(n):
+                    out[f"blocks_{g * n + k}"] = layer(val[f"block_{k}"], g)
+                if "xattn" in val:
+                    out[f"xattn_{g * n + n - 1}"] = layer(val["xattn"], g)
+        else:
+            out[name] = _unstack_groups(val)
+    return out
+
+
+def _leaves(tree: Mapping):
+    for val in tree.values():
+        if isinstance(val, Mapping):
+            yield from _leaves(val)
+        else:
+            yield val
+
+
 def state_dict_from_jax(params: Mapping, dtype=None) -> Dict[str, torch.Tensor]:
     """Flatten a numpy flax params tree (with or without the top-level
     "params" key) into a torch state_dict, optionally cast to `dtype`."""
     if "params" in params:
         params = params["params"]
+    params = _unstack_groups(params)
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, prefix):

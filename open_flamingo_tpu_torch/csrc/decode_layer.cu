@@ -1,0 +1,226 @@
+// K3 attn_block_decode for Hopper (sm_90a): the whole attention half of a
+// decode layer for one new token per sequence.
+//
+//   replaces open_flamingo_tpu/ops/decode_layer.py `attn_block_decode`
+//   (kernel `_attn_block_kernel`), in both forms the decode path uses:
+//   * fused QKV (MPT self-attention): LN -> x @ Wqkv^T (+clip) -> write the
+//     new K/V into the cache at `slot`, IN PLACE -> masked softmax with
+//     ALiBi over the cache -> out-projection -> + x;
+//   * q only (gated cross-attention): LN -> x @ Wq^T -> masked softmax over
+//     the media K/V cached at prefill -> out-projection -> * tanh(gate) + x.
+//
+// The TPU kernel walks head groups as a sequential grid and accumulates
+// the out-projection in VMEM. CUDA blocks run in no order and the
+// out-projection sums over every head, so the body runs as three launches
+// on one stream, each with the whole card:
+//   1. proj = clip(LN(x) @ Wq^T) in fp32 (B, 3*H*Dh or H*Dh) -- the row
+//      GEMV of rows_gemv.cuh; q/k/v stay UNROUNDED, as in the TPU kernel;
+//   2. one block per (b, h): writes the new K/V row at `slot` rounded to the
+//      cache dtype, attends with the unrounded fp32 K/V at that slot (the
+//      TPU kernel's `jnp.where(at_slot, kn, k)`), writes the head's output
+//      rounded to x's dtype (the TPU kernel's cast before the out-proj);
+//   3. out = x + tanh(gate) * (attn @ Wout^T) -- the row GEMV again.
+// `slot` is a device int32, the counterpart of the TPU kernel's
+// scalar-prefetch operand: the host never reads it, so the call can be
+// captured in a CUDA graph as it is.
+//
+// Masking: a (B, S) validity mask (pad, causality and the media-time rule
+// folded in by the caller), ALiBi slope_h * (j - (S_max - 1)). A row with no
+// valid key gives exact zeros (0-denominator guard), as the TPU kernel's.
+//
+// Bound: the weight bytes (Wqkv + Wout, 33.6 MB at MPT-1B bf16) plus the
+// valid cache rows, over 3.35 TB/s. Launches 1 and 3 stream the weights at
+// the row GEMV's rate (tensor cores in bf16); launch 2 is key-parallel (see
+// attend_kernel), so its latency is two rounds of loads, not a chain per key.
+
+#include "rows_gemv.cuh"
+
+namespace {
+
+constexpr int kAttnThreads = 128;
+constexpr int kAttnWarps = kAttnThreads / 32;
+constexpr int kMaxD = 128;
+constexpr int kBatch = 8;     // global loads a thread issues before it uses them
+constexpr int kMaxS = 8192;  // the scores of one (b, h), 32 KB, fit the default shared memory
+
+using rows::from_f32;
+using rows::to_f32;
+
+__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = is_max ? fmaxf(v, u) : v + u;
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();  // red is free (an earlier reduction has been read)
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < kAttnWarps; ++w) v = is_max ? fmaxf(v, red[w]) : v + red[w];
+  return v;
+}
+
+// proj (B, P) fp32: q at [0, H*Dh), k at [H*Dh, 2*H*Dh), v after; k/v
+// caches (B, H, S, Dh); attn (B, H*Dh). slot == nullptr: no new K/V (the
+// q-only form). k/v are not __restrict__ const: this launch writes them.
+// Key-parallel: thread j scores key j (its K row read with batched 16-byte
+// loads, valid or not), the block reduces max and sum, then groups of d / 8
+// threads sum p_j * V[j] over their share of the keys. A few rounds of
+// independent loads, where a serial online softmax chains three dependent
+// loads per key. Dynamic shared memory: S floats of scores.
+template <typename T>
+__global__ void __launch_bounds__(kAttnThreads) attend_kernel(
+    const float* __restrict__ proj, int p, T* k, T* v, const uint8_t* __restrict__ mask,
+    const float* __restrict__ slopes, const int* __restrict__ slot_ptr, T* __restrict__ attn, int h,
+    int s, int d, float scale) {
+  extern __shared__ float sc[];
+  __shared__ float q_s[kMaxD], kn_s[kMaxD], vn_s[kMaxD];
+  __shared__ float red[kAttnWarps], part[kAttnThreads * rows::kVec];
+
+  const int bh = blockIdx.x;
+  const int b = bh / h, head = bh % h;
+  const int inner = h * d;
+  const int tid = threadIdx.x;
+  const float* prow = proj + (size_t)b * p + (size_t)head * d;
+  T* kb = k + (size_t)bh * s * d;
+  T* vb = v + (size_t)bh * s * d;
+  const uint8_t* mrow = mask + (size_t)b * s;
+
+  int slot = -1;
+  if (slot_ptr != nullptr) {
+    slot = *slot_ptr;
+    if (slot < 0 || slot >= s) slot = -1;  // the caller checks the range on the host
+  }
+  for (int c = tid; c < d; c += kAttnThreads) {
+    q_s[c] = prow[c] * scale;
+    if (slot >= 0) {
+      const float kn = prow[inner + c], vn = prow[2 * inner + c];
+      kn_s[c] = kn;
+      vn_s[c] = vn;
+      kb[(size_t)slot * d + c] = from_f32<T>(kn);
+      vb[(size_t)slot * d + c] = from_f32<T>(vn);
+    }
+  }
+  __syncthreads();
+
+  // scores; the new token attends to its unrounded fp32 K/V
+  const float slope = slopes != nullptr ? slopes[head] : 0.f;
+  float mx = -INFINITY;
+  for (int j = tid; j < s; j += kAttnThreads) {
+    // every row is read, so the loads do not wait for the mask; a masked
+    // row's score (from a row never written) is selected away
+    const T* kr = kb + (size_t)j * d;
+    float dot = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kBatch * rows::kVec) {  // kBatch loads in flight
+      float kv[kBatch][rows::kVec];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (c0 + u * rows::kVec < d) rows::load8<false>(kr + c0 + u * rows::kVec, kv[u]);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (c0 + u * rows::kVec < d)
+#pragma unroll
+          for (int e = 0; e < rows::kVec; ++e) dot = fmaf(q_s[c0 + u * rows::kVec + e], kv[u][e], dot);
+    }
+    if (j == slot) {
+      dot = 0.f;
+      for (int c = 0; c < d; ++c) dot = fmaf(q_s[c], kn_s[c], dot);
+    }
+    const float sj = mrow[j] != 0 ? dot + slope * (float)(j - (s - 1)) : -INFINITY;
+    sc[j] = sj;
+    mx = fmaxf(mx, sj);
+  }
+  mx = block_reduce(mx, red, true);
+
+  float l = 0.f;
+  for (int j = tid; j < s; j += kAttnThreads) {
+    const float pj = sc[j] == -INFINITY ? 0.f : expf(sc[j] - mx);  // all masked: every pj = 0
+    sc[j] = pj;
+    l += pj;
+  }
+  l = block_reduce(l, red, false);  // its barriers also publish sc
+
+  // output: thread (grp, oct) sums p_j * V[j][8 oct .. 8 oct + 7] over keys
+  // grp, grp + G, ...: 16-byte loads, a row read by d / 8 neighbouring
+  // threads, kBatch rows in flight. The loads are unconditional; a masked
+  // key's row (never written, may hold anything) is selected away.
+  const int octs = d / rows::kVec, groups = kAttnThreads / octs;
+  const int c8 = (tid % octs) * rows::kVec, grp = tid / octs;
+  float o[rows::kVec];
+#pragma unroll
+  for (int e = 0; e < rows::kVec; ++e) o[e] = 0.f;
+  if (grp < groups) {
+    for (int j0 = grp; j0 < s; j0 += kBatch * groups) {
+      float vv[kBatch][rows::kVec];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (j0 + u * groups < s) rows::load8<false>(vb + (size_t)(j0 + u * groups) * d + c8, vv[u]);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = j0 + u * groups;
+        if (j < s) {
+          const float pj = sc[j];
+#pragma unroll
+          for (int e = 0; e < rows::kVec; ++e)
+            o[e] = fmaf(pj, pj == 0.f ? 0.f : (j == slot ? vn_s[c8 + e] : vv[u][e]), o[e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < rows::kVec; ++e) part[grp * d + c8 + e] = o[e];
+  }
+  __syncthreads();
+  if (tid < d) {
+    float tot = 0.f;
+    for (int gg = 0; gg < groups; ++gg) tot += part[gg * d + tid];
+    attn[(size_t)b * inner + (size_t)head * d + tid] = from_f32<T>(l > 0.f ? tot / l : 0.f);  // 0-denominator guard
+  }
+}
+
+template <typename T>
+int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, const void* wout,
+          void* k, void* v, const void* mask, const void* slopes, const void* gate,
+          const void* slot, void* proj, void* attn, void* out, int b, int dm, int h, int d, int s,
+          int fused_qkv, int has_clip, float clip, float scale, float eps, cudaStream_t st) {
+  const int inner = h * d;
+  const int p = fused_qkv ? 3 * inner : inner;
+  rows::Epilogue<T> ep1{nullptr, has_clip, clip, 0, nullptr, nullptr};
+  cudaError_t e = rows::launch_gemv<T, float>((const T*)x, (const T*)ln_s, (const T*)ln_b, eps,
+                                              (const T*)wq, ep1, (float*)proj, b, p, dm, st);
+  if (e != cudaSuccess) return (int)e;
+  attend_kernel<T><<<b * h, kAttnThreads, s * sizeof(float), st>>>(
+      (const float*)proj, p, (T*)k, (T*)v, (const uint8_t*)mask, (const float*)slopes,
+      fused_qkv ? (const int*)slot : nullptr, (T*)attn, h, s, d, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rows::Epilogue<T> ep3{nullptr, 0, 0.f, 0, (const T*)gate, (const T*)x};
+  return (int)rows::launch_gemv<T, T>((const T*)attn, nullptr, nullptr, 0.f, (const T*)wout, ep3,
+                                      (T*)out, b, dm, inner, st);
+}
+
+}  // namespace
+
+// x (B, D); ln_s/ln_b (D,); wq (3*H*Dh or H*Dh, D); wout (D, H*Dh); k/v
+// (B, H, S <= 8192, Dh <= 128, a multiple of 8); mask (B, S) uint8; slopes
+// (H,) fp32 or NULL; gate (1,) or
+// NULL; slot (1,) int32 on the device (fused_qkv only); scratch proj
+// (B, 3*H*Dh or H*Dh) fp32 and attn (B, H*Dh); out (B, D). Tensors in x's
+// dtype unless stated; dtype 0 = fp32, 1 = bf16.
+extern "C" int attn_block_decode_fwd(const void* x, const void* ln_s, const void* ln_b,
+                                     const void* wq, const void* wout, void* k, void* v,
+                                     const void* mask, const void* slopes, const void* gate,
+                                     const void* slot, void* proj, void* attn, void* out, int b,
+                                     int dm, int h, int d, int s, int fused_qkv, int has_clip,
+                                     float clip, float scale, float eps, int dtype, void* stream) {
+  if (d < 1 || d > kMaxD || d % rows::kVec != 0 || b < 1 || h < 1 || s < 1 || s > kMaxS)
+    return (int)cudaErrorInvalidValue;
+  if (fused_qkv && slot == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return block<float>(x, ln_s, ln_b, wq, wout, k, v, mask, slopes, gate, slot, proj, attn, out, b, dm, h, d,
+                        s, fused_qkv, has_clip, clip, scale, eps, st);
+  if (dtype == 1)
+    return block<__nv_bfloat16>(x, ln_s, ln_b, wq, wout, k, v, mask, slopes, gate, slot, proj, attn, out, b,
+                                dm, h, d, s, fused_qkv, has_clip, clip, scale, eps, st);
+  return (int)cudaErrorInvalidValue;
+}

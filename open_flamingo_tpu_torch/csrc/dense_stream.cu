@@ -1,0 +1,83 @@
+// K1 fused_dense and K2 fused_mlp for Hopper (sm_90a): the weight-streaming
+// halves of a single-token decode step.
+//
+//   replaces open_flamingo_tpu/ops/dense_stream.py `fused_dense` (kernel
+//   `_dense_kernel`) and `fused_mlp` (kernel `_mlp_kernel`).
+//
+// K1: out = epilogue(LN?(x) @ W^T), one launch of the row GEMV in
+// rows_gemv.cuh. On the decode path it is the final LayerNorm fused into
+// the tied-embedding vocab head: W is the (V, D) embedding table read in
+// place, and each column is one of its rows, so the ragged vocabulary
+// (50434 = 24 * 2048 + 1282) needs no masking: a warp only ever owns a
+// whole column below V.
+//
+// K2: out = residual + tanh(gate) * (act(LN?(x) @ W1^T + b1) @ W2^T + b2),
+// W1 (K2, K) and W2 (N, K2) in torch's layout. The TPU kernel walks the
+// hidden axis as a sequential grid with an fp32 VMEM accumulator. CUDA
+// blocks run in no order, so here the hidden axis is split between the two
+// products instead: launch 1 writes the (B, K2) hidden activation, rounded
+// to x's dtype exactly where the TPU kernel casts it (128 KB at B = 8 bf16,
+// which stays in L2), launch 2 reduces over it per output column. Both are
+// deterministic (no atomics), and a hidden size that is not a multiple of
+// any block (e.g. 352) needs no masking: each column's dot runs to K2.
+//
+// Bound: the weight bytes over 3.35 TB/s (rows_gemv.cuh's note); the hidden
+// round trip adds 2 * B * K2 * 2 bytes, under 0.5% of K2's weight bytes.
+
+#include "rows_gemv.cuh"
+
+namespace {
+
+template <typename T>
+int dense(const void* x, const void* w, const void* bias, const void* ln_s, const void* ln_b,
+          const void* residual, const void* gate, void* out, int b, int n, int k, int has_clip,
+          float clip, int act, float eps, cudaStream_t st) {
+  rows::Epilogue<T> ep{(const T*)bias, has_clip, clip, act, (const T*)gate, (const T*)residual};
+  return (int)rows::launch_gemv<T, T>((const T*)x, (const T*)ln_s, (const T*)ln_b, eps, (const T*)w,
+                                      ep, (T*)out, b, n, k, st);
+}
+
+template <typename T>
+int mlp(const void* x, const void* w1, const void* w2, const void* b1, const void* b2,
+        const void* ln_s, const void* ln_b, const void* residual, const void* gate, void* hidden,
+        void* out, int b, int k, int k2, int n, int act, float eps, cudaStream_t st) {
+  rows::Epilogue<T> up{(const T*)b1, 0, 0.f, act, nullptr, nullptr};
+  cudaError_t e = rows::launch_gemv<T, T>((const T*)x, (const T*)ln_s, (const T*)ln_b, eps,
+                                          (const T*)w1, up, (T*)hidden, b, k2, k, st);
+  if (e != cudaSuccess) return (int)e;
+  rows::Epilogue<T> down{(const T*)b2, 0, 0.f, 0, (const T*)gate, (const T*)residual};
+  return (int)rows::launch_gemv<T, T>((const T*)hidden, nullptr, nullptr, 0.f, (const T*)w2, down,
+                                      (T*)out, b, n, k2, st);
+}
+
+}  // namespace
+
+// x (B, K); w (N, K); bias (N,), ln_s/ln_b (K,), residual (B, N), gate (1,)
+// or NULL, all in x's dtype; out (B, N). act 0 = none, 1 = exact GELU.
+// dtype 0 = fp32, 1 = bf16.
+extern "C" int fused_dense_fwd(const void* x, const void* w, const void* bias, const void* ln_s,
+                               const void* ln_b, const void* residual, const void* gate, void* out,
+                               int b, int n, int k, int has_clip, float clip, int act, float eps,
+                               int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return dense<float>(x, w, bias, ln_s, ln_b, residual, gate, out, b, n, k, has_clip, clip, act, eps, st);
+  if (dtype == 1)
+    return dense<__nv_bfloat16>(x, w, bias, ln_s, ln_b, residual, gate, out, b, n, k, has_clip, clip, act, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x (B, K); w1 (K2, K); w2 (N, K2); b1 (K2,), b2 (N,), ln_s/ln_b (K,),
+// residual (B, N), gate (1,) or NULL; hidden (B, K2) scratch; out (B, N).
+extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* w2, const void* b1,
+                             const void* b2, const void* ln_s, const void* ln_b,
+                             const void* residual, const void* gate, void* hidden, void* out,
+                             int b, int k, int k2, int n, int act, float eps, int dtype,
+                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return mlp<float>(x, w1, w2, b1, b2, ln_s, ln_b, residual, gate, hidden, out, b, k, k2, n, act, eps, st);
+  if (dtype == 1)
+    return mlp<__nv_bfloat16>(x, w1, w2, b1, b2, ln_s, ln_b, residual, gate, hidden, out, b, k, k2, n, act,
+                              eps, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,425 @@
+// Row-batched matrix-vector products for single-token decode on Hopper
+// (sm_90a), shared by K1/K2 (dense_stream.cu) and K3 (decode_layer.cu).
+//
+//   out[r, n] = epilogue( sum_k h[r, k] * W[n, k] )     r < B (a few rows)
+//
+// W is torch's nn.Linear layout (N, K), row-major, read in place: column n
+// of the product is one contiguous row of W. h is either x itself or the
+// LayerNorm of x (flax fast variance max(0, E[x^2] - E[x]^2) in fp32),
+// ROUNDED TO x's DTYPE, as the TPU kernels cast the normalised rows before
+// the product. Products accumulate in fp32; the epilogue runs in fp32 in the
+// TPU kernels' order: +bias -> clip -> act -> *tanh(gate) -> +residual.
+//
+// Design and bound. At decode batch sizes (B <= 64) every weight element is
+// used B times, 2B FLOPs per weight read: far below the ~295 FLOP/byte where
+// the H100 stops being memory-bound, so the weight bytes over 3.35 TB/s are
+// the floor. Every block stages 8 rows of h in shared memory (normalised
+// once per block); more rows go in passes that read W again. Blocks loop
+// over column tiles with a grid stride, the grid capped at 4 blocks per SM,
+// so the normalisation is not repeated per tile. Two inner loops:
+//
+// * bf16 with K a multiple of 32 (every product of the decode path): tensor
+//   cores, `mma.sync` m16n8k16 with fp32 accumulation. A warp owns 16
+//   columns of W (the MMA's M) against the 8 rows of h (its N). Each lane
+//   loads 16 contiguous bytes of two W rows per 32-wide K chunk straight
+//   into registers (no shared-memory round trip): the K order inside a
+//   chunk is permuted the same way for W and h, so the A fragments are the
+//   loaded bytes as they are, and h is staged in that fragment order, one
+//   conflict-free 16-byte load per lane per chunk. When N has few 16-column
+//   tiles (N = 2048 against K = 8192), the warps of a block split K and add
+//   their partial tiles through shared memory, so the card has >= 32 warps
+//   per SM streaming W.
+// * fp32, K not a multiple of 32, or K too long to stage 8 rows: CUDA cores. Each warp takes one column
+//   at a time, its lanes read the row 32 bytes a lane, keep one fp32 sum per
+//   row and end with a shuffle reduction. This is the exact-fp32 path that
+//   the card's fp32 checks run.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace rows {
+// Internal linkage: each kernel library that includes this header keeps its
+// own copies, and its own static state. (A static local of a template with
+// external linkage is one process-wide symbol, shared by every library that
+// defines it, so one library's cached shared-memory limit would skip the
+// other library's cudaFuncSetAttribute.)
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRows = 8;          // rows per pass, one fp32 sum each per lane
+constexpr int kVec = 8;              // elements a lane reads per step
+constexpr int kBlocksPerSm = 4;      // 4 x 512 threads fill an SM
+constexpr int kMmaK = 32;            // K chunk: two m16n8k16 steps
+constexpr int kWarpsPerSmWanted = 32;  // split K until the grid has this many warps per SM
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// 8 consecutive elements (16-byte aligned) to fp32. `ldg`: read-only path,
+// for weights that no launch in flight writes.
+template <bool ldg>
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  float4 a = ldg ? __ldg(q) : q[0];
+  float4 b = ldg ? __ldg(q + 1) : q[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+template <bool ldg>
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  uint4 u = ldg ? __ldg(q) : q[0];
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+template <typename T>
+struct Epilogue {
+  const T* bias;      // (N,) or null
+  int has_clip;
+  float clip;         // y = clamp(y, -clip, clip)
+  int act;            // 0: none, 1: exact (erf) GELU
+  const T* gate;      // (1,) or null: y *= tanh(gate)
+  const T* residual;  // (B, N) or null: y += residual
+};
+
+template <typename T>
+__device__ __forceinline__ float epilogue(float y, const Epilogue<T>& ep, int r, int col, int n) {
+  if (ep.bias != nullptr) y += to_f32(ep.bias[col]);
+  if (ep.has_clip) y = fminf(fmaxf(y, -ep.clip), ep.clip);
+  // CUDA's erff (max 2 ulp); the TPU kernel uses A&S 7.1.26 (|err| <= 1.5e-7)
+  if (ep.act == 1) y = 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
+  if (ep.gate != nullptr) y *= tanhf(to_f32(ep.gate[0]));
+  if (ep.residual != nullptr) y += to_f32(ep.residual[(size_t)r * n + col]);
+  return y;
+}
+
+// One warp stages row `xr` (k elements) into `dst`: a copy, or the
+// LayerNorm rounded to T.
+template <typename T>
+__device__ void stage_row(const T* __restrict__ xr, const T* __restrict__ ln_s,
+                          const T* __restrict__ ln_b, float eps, T* dst, int k, int lane) {
+  if (ln_s == nullptr) {  // a copy: T -> fp32 -> T is exact
+    for (int c = lane * kVec; c < k; c += 32 * kVec) {
+      float v[kVec];
+      load8<false>(xr + c, v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) dst[c + e] = from_f32<T>(v[e]);
+    }
+    return;
+  }
+  float s = 0.f, ss = 0.f;
+  for (int c = lane * kVec; c < k; c += 32 * kVec) {
+    float v[kVec];
+    load8<false>(xr + c, v);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      s += v[e];
+      ss = fmaf(v[e], v[e], ss);
+    }
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mean = s / (float)k;
+  const float var = fmaxf(0.f, ss / (float)k - mean * mean);
+  const float inv = rsqrtf(var + eps);
+  for (int c = lane * kVec; c < k; c += 32 * kVec) {
+    float v[kVec];
+    load8<false>(xr + c, v);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      float y = (v[e] - mean) * inv * to_f32(ln_s[c + e]);
+      if (ln_b != nullptr) y += to_f32(ln_b[c + e]);
+      dst[c + e] = from_f32<T>(y);
+    }
+  }
+}
+
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(kThreads) gemv_kernel(
+    const T* __restrict__ x, const T* __restrict__ ln_s, const T* __restrict__ ln_b, float eps,
+    const T* __restrict__ w, Epilogue<T> ep, OutT* __restrict__ out, int b, int n, int k,
+    int rows_per_pass) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* hs = reinterpret_cast<T*>(smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  for (int r0 = 0; r0 < b; r0 += rows_per_pass) {
+    const int rb = min(rows_per_pass, b - r0);
+    if (r0 > 0) __syncthreads();  // the last pass is done reading hs
+    for (int r = warp; r < rb; r += kWarps)
+      stage_row(x + (size_t)(r0 + r) * k, ln_s, ln_b, eps, hs + (size_t)r * k, k, lane);
+    __syncthreads();
+
+    for (int col = blockIdx.x * kWarps + warp; col < n; col += gridDim.x * kWarps) {
+      float acc[kMaxRows];
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
+      const T* wrow = w + (size_t)col * k;
+#pragma unroll 2
+      for (int c = lane * kVec; c < k; c += 32 * kVec) {
+        float wv[kVec];
+        load8<true>(wrow + c, wv);
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) {
+          if (r < rb) {
+            float hv[kVec];
+            load8<false>(hs + (size_t)r * k + c, hv);
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) acc[r] = fmaf(hv[e], wv[e], acc[r]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        if (r < rb) {  // uniform across the warp
+          const float sum = warp_sum(acc[r]);
+          if (lane == r)
+            out[(size_t)(r0 + r) * n + col] = from_f32<OutT>(epilogue(sum, ep, r0 + r, col, n));
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// One warp stages row r of h (zeros when !live) into `hf` in fragment
+// order: the 16 bytes of h[r][32c + 8t .. 32c + 8t + 7] go to slot
+// c * 32 + 4r + t, the B fragment of lane 4r + t for K chunk c.
+__device__ void stage_fragments(const __nv_bfloat16* __restrict__ xr, bool live,
+                                const __nv_bfloat16* __restrict__ ln_s,
+                                const __nv_bfloat16* __restrict__ ln_b, float eps, uint4* hf, int r,
+                                int k, int lane) {
+  float mean = 0.f, inv = 1.f;
+  if (live && ln_s != nullptr) {
+    float s = 0.f, ss = 0.f;
+    for (int c = lane * kVec; c < k; c += 32 * kVec) {
+      float v[kVec];
+      load8<false>(xr + c, v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        s += v[e];
+        ss = fmaf(v[e], v[e], ss);
+      }
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    mean = s / (float)k;
+    inv = rsqrtf(fmaxf(0.f, ss / (float)k - mean * mean) + eps);
+  }
+  for (int idx = lane; idx < k / kVec; idx += 32) {
+    uint4 frag = make_uint4(0u, 0u, 0u, 0u);
+    if (live) {
+      if (ln_s == nullptr) {
+        frag = *reinterpret_cast<const uint4*>(xr + idx * kVec);
+      } else {
+        float v[kVec];
+        load8<false>(xr + idx * kVec, v);
+        uint32_t* u = reinterpret_cast<uint32_t*>(&frag);
+#pragma unroll
+        for (int e = 0; e < kVec; e += 2) {
+          const int c = idx * kVec + e;
+          float y0 = (v[e] - mean) * inv * to_f32(ln_s[c]);
+          float y1 = (v[e + 1] - mean) * inv * to_f32(ln_s[c + 1]);
+          if (ln_b != nullptr) {
+            y0 += to_f32(ln_b[c]);
+            y1 += to_f32(ln_b[c + 1]);
+          }
+          __nv_bfloat162 pair = __floats2bfloat162_rn(y0, y1);
+          u[e / 2] = *reinterpret_cast<uint32_t*>(&pair);
+        }
+      }
+    }
+    hf[(idx >> 2) * 32 + r * 4 + (idx & 3)] = frag;
+  }
+}
+
+// Tensor-core row GEMV for bf16, K a multiple of 32. Warp w of a block
+// works on column tile (group * tpb + w / ks) over K-chunk slice (w % ks) of
+// ks; shared memory holds h in fragment order (8 * K bf16), then the split-K
+// partials (kWarps * 32 * 4 floats).
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
+    const __nv_bfloat16* __restrict__ ln_b, float eps, const __nv_bfloat16* __restrict__ w,
+    Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out, int b, int n, int k, int ks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* hf = reinterpret_cast<uint4*>(smem);
+  float4* part = reinterpret_cast<float4*>(smem + (size_t)kMaxRows * k * sizeof(__nv_bfloat16));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int chunks = k / kMmaK, tpb = kWarps / ks, slice = warp % ks;
+  const int c_begin = slice * chunks / ks, c_end = (slice + 1) * chunks / ks;
+  const int tiles = (n + 15) / 16, groups = (tiles + tpb - 1) / tpb;
+
+  for (int r0 = 0; r0 < b; r0 += kMaxRows) {
+    const int rb = min(kMaxRows, b - r0);
+    if (r0 > 0) __syncthreads();  // the last pass is done reading hf
+    for (int r = warp; r < kMaxRows; r += kWarps)
+      stage_fragments(x + (size_t)(r0 + min(r, rb - 1)) * k, r < rb, ln_s, ln_b, eps, hf, r, k, lane);
+    __syncthreads();
+
+    for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {  // uniform across the block
+      const int tile = grp * tpb + warp / ks;
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      if (tile < tiles) {
+        // rows past N read row N - 1 (valid memory); their outputs are dropped
+        const int ra = min(tile * 16 + g, n - 1), rb8 = min(tile * 16 + g + 8, n - 1);
+        const uint4* pa = reinterpret_cast<const uint4*>(w + (size_t)ra * k) + t;
+        const uint4* pb = reinterpret_cast<const uint4*>(w + (size_t)rb8 * k) + t;
+#pragma unroll 4
+        for (int ch = c_begin; ch < c_end; ++ch) {
+          const uint4 a0 = __ldg(pa + ch * 4), a1 = __ldg(pb + ch * 4);
+          const uint4 bf = hf[ch * 32 + lane];
+          mma_bf16(c, a0.x, a1.x, a0.y, a1.y, bf.x, bf.y);  // K = 32ch + 8t + 0..3
+          mma_bf16(c, a0.z, a1.z, a0.w, a1.w, bf.z, bf.w);  // K = 32ch + 8t + 4..7
+        }
+      }
+      if (ks > 1) {
+        part[warp * 32 + lane] = make_float4(c[0], c[1], c[2], c[3]);
+        __syncthreads();
+        if (slice == 0) {
+          for (int j = 1; j < ks; ++j) {
+            const float4 q = part[(warp + j) * 32 + lane];
+            c[0] += q.x;
+            c[1] += q.y;
+            c[2] += q.z;
+            c[3] += q.w;
+          }
+        }
+      }
+      if (slice == 0 && tile < tiles) {
+        // c0, c1: column tile*16 + g, rows 2t and 2t + 1; c2, c3: column + 8
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = tile * 16 + g + (i >> 1) * 8, r = 2 * t + (i & 1);
+          if (col < n && r < rb)
+            out[(size_t)(r0 + r) * n + col] = from_f32<OutT>(epilogue(c[i], ep, r0 + r, col, n));
+        }
+      }
+      if (ks > 1) __syncthreads();  // the partials are read before the next tile writes them
+    }
+  }
+}
+
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+inline int smem_optin() {
+  static int bytes = 0;
+  if (bytes == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return bytes;
+}
+
+// Raise `kern`'s dynamic shared-memory limit to `smem` once; `set` caches
+// the limit already granted to that kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, size_t smem, size_t& set) {
+  if (smem <= set) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) set = smem;
+  return e;
+}
+
+inline int grid_for(long long blocks) {
+  const long long cap = (long long)sm_count() * kBlocksPerSm;
+  return (int)(blocks < cap ? blocks : cap);
+}
+
+// The tensor-core kernel's shared memory: h in fragment order, then the
+// split-K partials.
+inline size_t mma_smem(int k) {
+  return (size_t)kMaxRows * k * sizeof(__nv_bfloat16) + kThreads * 4 * sizeof(float);
+}
+
+template <typename OutT>
+cudaError_t launch_gemv_mma(const __nv_bfloat16* x, const __nv_bfloat16* ln_s,
+                            const __nv_bfloat16* ln_b, float eps, const __nv_bfloat16* w,
+                            Epilogue<__nv_bfloat16> ep, OutT* out, int b, int n, int k,
+                            cudaStream_t st) {
+  const size_t smem = mma_smem(k);
+  const int tiles = (n + 15) / 16, chunks = k / kMmaK;
+  int ks = 1;  // split K while the card has too few warps and each keeps >= 2 chunks
+  while (ks < kWarps && 2 * ks * 2 <= chunks && (long long)tiles * ks < (long long)sm_count() * kWarpsPerSmWanted)
+    ks *= 2;
+  const int tpb = kWarps / ks;
+  auto kern = gemv_mma_kernel<OutT>;
+  static size_t smem_set = 48 * 1024;
+  cudaError_t e = allow_smem(kern, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  kern<<<grid_for((tiles + tpb - 1) / tpb), kThreads, smem, st>>>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, ks);
+  return cudaGetLastError();
+}
+
+// out (B, N) = epilogue(h @ W^T); h = LN(x) when ln_s is given, else x.
+// k must be a multiple of kVec and every row 16-byte aligned (the wrapper
+// checks). Returns the launch's error code.
+template <typename T, typename OutT>
+cudaError_t launch_gemv(const T* x, const T* ln_s, const T* ln_b, float eps, const T* w,
+                        Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
+  if (k < kVec || k % kVec != 0 || b < 1 || n < 1) return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // K > ~13,800 does not fit 8 staged rows: the CUDA-core path stages fewer
+    if (k % kMmaK == 0 && mma_smem(k) <= (size_t)smem_optin())
+      return launch_gemv_mma<OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, st);
+  }
+  const size_t row_bytes = (size_t)k * sizeof(T);
+  int rows = (int)((size_t)smem_optin() / row_bytes);
+  rows = rows < kMaxRows ? rows : kMaxRows;
+  rows = rows < b ? rows : b;
+  if (rows < 1) return cudaErrorInvalidValue;
+  const size_t smem = rows * row_bytes;
+  auto kern = gemv_kernel<T, OutT>;
+  static size_t smem_set = 48 * 1024;  // the default limit, per instantiation
+  cudaError_t e = allow_smem(kern, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  kern<<<grid_for(((long long)n + kWarps - 1) / kWarps), kThreads, smem, st>>>(x, ln_s, ln_b, eps, w, ep, out, b,
+                                                                            n, k, rows);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace rows

@@ -26,12 +26,16 @@ class LayerKV:
 @dataclasses.dataclass
 class KVCache:
     """`index` is the number of slots already written (a Python int: the
-    host knows it, so no device sync); `pad_mask` (B, S) bool marks written
-    non-pad slots. `media` holds each xattn layer's projected media K/V,
-    captured at prefill and reused by every decode step."""
+    host knows it, so no device sync); `slot` holds the same number as a
+    (1,) int32 tensor on the cache's device, which the fused decode kernel
+    K3 reads where the host's int would be baked into a captured launch;
+    `pad_mask` (B, S) bool marks written non-pad slots. `media` holds each
+    xattn layer's projected media K/V, captured at prefill and reused by
+    every decode step."""
 
     layers: Tuple[LayerKV, ...]
     index: int
+    slot: torch.Tensor
     pad_mask: torch.Tensor
     media: Optional[Tuple[LayerKV, ...]] = None
 
@@ -51,6 +55,7 @@ class KVCache:
                 for _ in range(cfg.num_layers)
             ),
             index=0,
+            slot=torch.zeros(1, dtype=torch.int32, device=device),
             pad_mask=torch.zeros(batch, max_length, dtype=torch.bool, device=device),
         )
 
@@ -65,6 +70,7 @@ class AttnInputs:
     kv_len:       length of the key axis for this call.
     pad_mask:     (B, Tk) validity of each key slot.
     cached:       K/V come from a KVCache (head-major layout).
+    slot:         kv_slot as the cache's (1,) int32 device tensor (K3).
     """
 
     mask: torch.Tensor
@@ -73,6 +79,7 @@ class AttnInputs:
     kv_len: int
     pad_mask: Optional[torch.Tensor] = None
     cached: bool = False
+    slot: Optional[torch.Tensor] = None
 
 
 def position_ids_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -123,6 +130,7 @@ def make_attn_inputs(
             kv_len=s_max,
             pad_mask=new_pad_mask,
             cached=True,
+            slot=cache.slot,
         ),
         dataclasses.replace(cache, pad_mask=new_pad_mask),
     )

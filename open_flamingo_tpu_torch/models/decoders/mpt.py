@@ -3,6 +3,12 @@
 Fused Wqkv with the [q|k|v] column layout, optional clip_qkv clamp,
 softmax scale 1/sqrt(head_dim), key-position-only ALiBi, LayerNorms
 without bias, 4x GELU MLP without biases.
+
+One decode token against a cache on the card takes the fused route, the
+JAX package's two-launch form: K3 `attn_block_decode` (LN, Wqkv, in-place
+K/V slot write, ALiBi softmax, out-projection, residual) then K2
+`fused_mlp` (LN, up, GELU, down, residual), reading the nn.Linear weights
+in place.
 """
 
 from __future__ import annotations
@@ -11,9 +17,11 @@ import torch
 from torch import nn
 
 from ...configs import DecoderConfig
-from ...ops.attention import cached_self_attention
+from ...ops.attention import cached_self_attention, use_kernels
+from ...ops.decode_layer import attn_block_decode, reference_attn_block
+from ...ops.dense_stream import fused_mlp, reference_mlp, use_fused_decode
 from ..layers import LayerNorm, gelu_exact, merge_heads
-from .common import alibi_slopes
+from .common import LayerKV, alibi_slopes
 
 
 class MPTBlock(nn.Module):
@@ -39,6 +47,8 @@ class MPTBlock(nn.Module):
     def forward(self, x, attn, layer_kv):
         cfg = self.cfg
         b, t, _ = x.shape
+        if layer_kv is not None and use_fused_decode(x, t, attn.cached):
+            return self._fused_decode(x, attn, layer_kv)
         qkv = self.Wqkv(self.norm_1(x))
         if cfg.clip_qkv:
             qkv = qkv.clamp(-cfg.clip_qkv, cfg.clip_qkv)
@@ -51,3 +61,19 @@ class MPTBlock(nn.Module):
         x = x + self.out_proj(merge_heads(out))
         h = self.down_proj(gelu_exact(self.up_proj(self.norm_2(x))))
         return x + h, new_kv
+
+    def _fused_decode(self, x, attn, layer_kv):
+        cfg, hd = self.cfg, self.cfg.head_dim
+        kern = use_kernels(x)
+        attn_half = attn_block_decode if kern else reference_attn_block
+        mlp_half = fused_mlp if kern else reference_mlp
+        x2, kc, vc = attn_half(
+            x[:, 0], self.norm_1.weight, self.norm_1.bias, self.Wqkv.weight, self.out_proj.weight,
+            layer_kv.k, layer_kv.v, attn.pad_mask, heads=cfg.num_heads, head_dim=hd, scale=hd**-0.5,
+            fused_qkv=True, slot=attn.slot, slopes=self.alibi_slopes, clip=cfg.clip_qkv, eps=cfg.layer_norm_eps,
+        )
+        y = mlp_half(
+            x2, self.up_proj.weight, self.down_proj.weight, ln_scale=self.norm_2.weight, ln_bias=self.norm_2.bias,
+            eps=cfg.layer_norm_eps, act="gelu", residual=x2,
+        )
+        return y[:, None], LayerKV(k=kc, v=vc)

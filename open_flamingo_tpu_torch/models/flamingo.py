@@ -2,9 +2,11 @@
 PerceiverResampler and gated cross-attention.
 
 Vision latents and media locations are explicit values, decode state is
-an explicit KVCache. Attention on CUDA tensors runs the hand-written
-kernels (`ops/attention.py`); `ops.attention.plain_path()` runs the einsum
-path on the same device, the plain reference the kernels are held against.
+an explicit KVCache. On CUDA tensors prefill attention runs the
+hand-written kernels (`ops/attention.py`) and each single-token decode step
+the fused route K1-K3 (`ops/dense_stream.py`, `ops/decode_layer.py`);
+`ops.attention.plain_path()` runs their plain versions on the same device,
+the reference the kernels are held against.
 """
 
 from __future__ import annotations

@@ -2,8 +2,11 @@
 layer (the JAX package's `FlamingoLM`, unrolled layer layout).
 
 Layer i applies its xattn block (if any) before the decoder block. The
-final LayerNorm and the tied LM head follow. Vision latents and text time
-are explicit arguments; decode state is an explicit KVCache.
+final LayerNorm and the tied LM head follow; on the fused decode route they
+are one K1 `fused_dense` launch that reads the (V, D) embedding table in
+place as the transposed weight. Prefill keeps `F.linear`, as the JAX
+package does. Vision latents and text time are explicit arguments; decode
+state is an explicit KVCache.
 """
 
 from __future__ import annotations
@@ -15,10 +18,12 @@ import torch
 from torch import nn
 
 from ..configs import DecoderConfig
+from ..ops.attention import use_kernels
+from ..ops.dense_stream import fused_dense, reference_dense, use_fused_decode
 from .decoders.common import KVCache, LayerKV, make_attn_inputs
 from .decoders.mpt import MPTBlock
 from .layers import LayerNorm
-from .xattn import GatedCrossAttentionBlock, build_media_masks, use_xattn_kernel
+from .xattn import GatedCrossAttentionBlock, build_media_masks, decode_media_mask, use_xattn_kernel
 
 BLOCK_REGISTRY = {"mpt": MPTBlock}
 
@@ -68,11 +73,15 @@ class FlamingoLM(nn.Module):
             attention_mask = torch.ones_like(input_ids)
         attn, cache = make_attn_inputs(attention_mask, cache=cache)
         x = self.wte(input_ids)
+        fused = use_fused_decode(x, input_ids.shape[1], cache is not None)
+        media_cache = cache.media if cache is not None else None
 
         media_mask = zero_rows = None
-        if media is not None and not use_xattn_kernel(x, self.immediate):
-            media_mask, zero_rows = build_media_masks(text_time, media.shape[1], media.shape[2], self.immediate)
-        media_cache = cache.media if cache is not None else None
+        if media is not None:
+            if fused and self.immediate and media_cache is not None:
+                media_mask = decode_media_mask(text_time, media.shape[1], media.shape[2])
+            elif not use_xattn_kernel(x, self.immediate):
+                media_mask, zero_rows = build_media_masks(text_time, media.shape[1], media.shape[2], self.immediate)
 
         new_layers, new_media = [], []
         for i, block in enumerate(self.blocks):
@@ -86,12 +95,20 @@ class FlamingoLM(nn.Module):
             x, kv = block(x, attn, cache.layers[i] if cache is not None else None)
             new_layers.append(kv)
 
-        logits = torch.nn.functional.linear(self.norm_f(x), self.wte.weight).float()
+        if fused:
+            head = fused_dense if use_kernels(x) else reference_dense
+            logits = head(
+                x[:, 0], self.wte.weight, ln_scale=self.norm_f.weight, ln_bias=self.norm_f.bias,
+                eps=self.cfg.layer_norm_eps,
+            )[:, None].float()
+        else:
+            logits = torch.nn.functional.linear(self.norm_f(x), self.wte.weight).float()
         if cache is not None:
             cache = dataclasses.replace(
                 cache,
                 layers=tuple(new_layers),
                 index=cache.index + input_ids.shape[1],
+                slot=cache.slot + input_ids.shape[1],
                 media=media_cache if media_cache is not None else (tuple(new_media) or None),
             )
         return logits, cache

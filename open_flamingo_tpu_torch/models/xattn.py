@@ -8,6 +8,10 @@ in immediate mode text with text_time 0 gets a zero attention output.
 
 The media K/V are projected once at prefill and returned to the caller
 (the JAX package's `sow("media_kv")`); decode steps pass them back in.
+One decode token on the card takes the fused route in immediate mode: K3
+`attn_block_decode` in its q-only form (LN, q projection, masked softmax
+over the cached media K/V, out-projection, *tanh(attn_gate) + x), then K2
+`fused_mlp` (*tanh(ff_gate) + x).
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import torch
 from torch import nn
 
 from ..ops.attention import use_kernels
+from ..ops.decode_layer import attn_block_decode, reference_attn_block
+from ..ops.dense_stream import fused_mlp, reference_mlp, use_fused_decode
 from .layers import FeedForward, LayerNorm, attend_cached, merge_heads, split_heads
 
 
@@ -34,6 +40,14 @@ def use_xattn_kernel(x: torch.Tensor, immediate: bool) -> bool:
 
 def _media_time(t_img: int, n_lat: int, device) -> torch.Tensor:
     return torch.arange(t_img * n_lat, device=device) // n_lat + 1
+
+
+def decode_media_mask(text_time, t_img: int, n_lat: int) -> torch.Tensor:
+    """(B, T_img*n_lat) immediate-mode mask of one decode token per
+    sequence (text_time is constant within a step). Text with no preceding
+    image has no valid latent: the decode kernels give it exact zeros.
+    Layer-independent: built once per step."""
+    return text_time[:, :1] == _media_time(t_img, n_lat, text_time.device)[None, :]
 
 
 def build_media_masks(text_time, t_img: int, n_lat: int, immediate: bool):
@@ -97,13 +111,23 @@ class MaskedCrossAttention(nn.Module):
             # preceding image is an all-masked row -> exact zeros
             from ..ops.decode_attention import decode_attention
 
-            mask2d = text_time[:, :1] == _media_time(t_img, n_lat, x.device)[None, :]
+            mask2d = decode_media_mask(text_time, t_img, n_lat)
             out = decode_attention(q[:, 0].contiguous(), k, v, mask2d, scale=scale)[:, None]
         else:
             if media_mask is None:
                 media_mask, zero_rows = build_media_masks(text_time, t_img, n_lat, self.immediate)
             out = attend_cached(q * scale, k, v, mask=media_mask, zero_rows=zero_rows)
         return self.to_out(merge_heads(out)), media_kv
+
+    def fused_decode(self, x, media_kv, mask2d, gate):
+        """x (B, D) + tanh(gate) * attention of x over the cached media K/V
+        (B, H, S_m, Dh) under mask2d (B, S_m): K3 in its q-only form."""
+        k, v = media_kv
+        attn_half = attn_block_decode if use_kernels(x) else reference_attn_block
+        return attn_half(
+            x, self.norm.weight, self.norm.bias, self.to_q.weight, self.to_out.weight, k, v, mask2d,
+            heads=self.heads, head_dim=self.dim_head, scale=self.dim_head**-0.5, gate=gate, eps=self.norm.eps,
+        )
 
 
 class GatedCrossAttentionBlock(nn.Module):
@@ -118,7 +142,19 @@ class GatedCrossAttentionBlock(nn.Module):
         self.ff = FeedForward(dim, ff_mult, **kw)
 
     def forward(self, x, media, text_time, media_kv=None, media_mask=None, zero_rows=None):
-        """Returns (x, media_kv)."""
+        """Returns (x, media_kv). On the fused decode route `media_mask` is
+        decode_media_mask's (B, S_m) row, built here when not given."""
+        if media_kv is not None and self.attn.immediate and use_fused_decode(x, x.shape[1], True):
+            if media_mask is None:
+                media_mask = decode_media_mask(text_time, media.shape[1], media.shape[2])
+            x2 = self.attn.fused_decode(x[:, 0], media_kv, media_mask, self.attn_gate)
+            mlp_half = fused_mlp if use_kernels(x) else reference_mlp
+            ff = self.ff
+            y = mlp_half(
+                x2, ff.fc1.weight, ff.fc2.weight, ln_scale=ff.norm.weight, ln_bias=ff.norm.bias, eps=ff.norm.eps,
+                act="gelu", residual=x2, gate=self.ff_gate,
+            )
+            return y[:, None], media_kv
         out, media_kv = self.attn(x, media, text_time, media_kv, media_mask, zero_rows)
         x = out * torch.tanh(self.attn_gate) + x
         x = self.ff(x) * torch.tanh(self.ff_gate) + x

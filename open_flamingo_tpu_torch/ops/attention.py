@@ -29,15 +29,18 @@ _PLAIN = False
 
 
 def use_kernels(x: torch.Tensor) -> bool:
-    """Whether attention on `x` runs the CUDA kernels: yes for a CUDA
-    tensor, unless inside `plain_path()`."""
+    """Whether work on `x` runs the CUDA kernels: yes for a CUDA tensor,
+    unless inside `plain_path()`. The fused decode route (K1-K3, chosen by
+    `ops.dense_stream.use_fused_decode`) asks it to pick each kernel or its
+    plain version."""
     return x.is_cuda and not _PLAIN
 
 
 @contextlib.contextmanager
 def plain_path() -> Iterator[None]:
-    """Route CUDA tensors through the einsum path as well: the plain
-    reference that the kernel path is held against on the card."""
+    """Run the plain reference on CUDA tensors too, the one the kernels are
+    held against on the card: attention takes the einsum path, and the
+    fused decode route stays fused but calls each kernel's plain version."""
     global _PLAIN
     prev, _PLAIN = _PLAIN, True
     try:

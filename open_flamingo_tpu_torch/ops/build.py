@@ -1,8 +1,9 @@
 """Builds the CUDA sources under `csrc/` at first use and loads them.
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled by `nvcc`
-for `sm_90a` into `_build/<name>-<hash>.so` (the hash covers the source
-and the flags, so an edit rebuilds) and loaded with `ctypes`. Nothing is
+for `sm_90a` into `_build/<name>-<hash>.so` (the hash covers the source,
+the shared `csrc/*.cuh` headers and the flags, so an edit rebuilds) and
+loaded with `ctypes`. Nothing is
 built when a module is imported: the CPU path never needs `nvcc`.
 """
 
@@ -38,7 +39,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # every header is hashed with every source: an edit to a shared
+    # header rebuilds the sources that include it
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

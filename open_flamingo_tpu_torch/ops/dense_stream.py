@@ -1,0 +1,202 @@
+"""K1 fused_dense and K2 fused_mlp, the weight-streaming halves of the
+single-token decode step, and the switch that routes a step through K1-K3.
+
+Replaces `open_flamingo_tpu/ops/dense_stream.py` `fused_dense` (kernel
+`_dense_kernel`) and `fused_mlp` (`_mlp_kernel`). The CUDA kernels are in
+`csrc/dense_stream.cu`, over the row GEMV of `csrc/rows_gemv.cuh`: one
+launch for K1, two for K2, whose (B, K2) hidden activation goes through a
+scratch in x's dtype where the TPU kernel casts it. Both are bound by the
+weight bytes on the card; see the sources' notes.
+
+Weights are in torch's nn.Linear layout (out, in) and are read in place.
+K1's `w` is (N, K): the JAX kernel's `w_transposed=True` form, which is
+how the decode path calls it (the tied (V, D) embedding as the vocab head).
+K2's `w1` is (K2, K) and `w2` is (N, K2). The semantics are the TPU
+kernels': LayerNorm with the flax fast variance in fp32; the normalised rows
+and K2's hidden activation rounded to x's dtype before each product; fp32
+accumulation; the epilogue +bias -> clip -> act -> *tanh(gate) -> +residual;
+the result in x's dtype.
+
+Route: `use_fused_decode` sends one query against a cache on a CUDA tensor
+through K1-K3, where the JAX package asks for a TPU backend. The JAX
+package's test hooks keep their meaning: `DISABLE_FUSED` keeps the unfused
+route (K7 decode attention); `FORCE_FUSED` takes the fused route on CPU
+tensors too, where each wrapper runs its plain version. On a CUDA tensor
+the caller picks the kernel or its plain version with
+`ops.attention.use_kernels` (`plain_path()`); the wrappers launch the
+kernel for a CUDA tensor, run the plain version for a CPU one, and raise
+for any other device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models.layers import gelu_exact, layer_norm
+from . import build
+from .flash_attention import _DTYPES
+
+FORCE_FUSED = False
+DISABLE_FUSED = False
+
+_ACTS = {None: 0, "gelu": 1}
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = build.library("dense_stream")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fused_dense_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, f, i, p]
+        lib.fused_dense_fwd.restype = i
+        lib.fused_mlp_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, p]
+        lib.fused_mlp_fwd.restype = i
+        _lib = lib
+    return _lib
+
+
+def use_fused_decode(x: torch.Tensor, tq: int, cached: bool) -> bool:
+    """Whether a forward on `x` with `tq` queries takes the fused decode
+    route: one query against a cache, on a CUDA tensor (any tensor under
+    FORCE_FUSED), unless DISABLE_FUSED."""
+    if DISABLE_FUSED or tq != 1 or not cached:
+        return False
+    return FORCE_FUSED or x.is_cuda
+
+
+def refuse(fn: str, what: str, **operands) -> None:
+    """Raise for an operand of a TPU kernel that the port does not take yet."""
+    for name, val in operands.items():
+        if val is not None:
+            raise NotImplementedError(f"{fn}: `{name}` ({what}) is not ported yet (ROADMAP.md)")
+
+
+def _check_act(fn: str, act, norm: str = "layer") -> None:
+    if norm != "layer":
+        raise NotImplementedError(f"{fn}: norm={norm!r} (RMSNorm, item 7) is not ported yet (ROADMAP.md)")
+    if act not in _ACTS:
+        raise NotImplementedError(f"{fn}: act={act!r} (other decoder families, item 7) is not ported yet (ROADMAP.md)")
+
+
+def ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def check_operands(fn: str, x: torch.Tensor, k: int, **tensors) -> None:
+    """Kernel preconditions: x float32 or bfloat16 with rows of k elements,
+    k a multiple of 8 (16-byte vector loads), and every other tensor
+    operand on x's device, in x's dtype, contiguous and 16-byte aligned."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{fn}: dtype {x.dtype}; the kernels take float32 or bfloat16")
+    if k % 8:
+        raise ValueError(f"{fn}: reduction length {k} is not a multiple of 8")
+    for name, t in dict(x=x, **tensors).items():
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(f"{fn}: {name} on {t.device}, x on {x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, x is {x.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
+
+
+def reference_dense(x, w, *, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, act=None, clip=None,
+                    residual=None, gate=None):
+    """Plain version of fused_dense, at the kernel's rounding points."""
+    h = x if ln_scale is None else layer_norm(x, ln_scale, ln_bias, eps)
+    y = h.float() @ w.float().t()
+    if bias is not None:
+        y = y + bias.float()
+    if clip is not None:
+        y = y.clamp(-clip, clip)
+    if act == "gelu":
+        y = gelu_exact(y)
+    if gate is not None:
+        y = y * torch.tanh(gate.float())
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(x.dtype)
+
+
+def reference_mlp(x, w1, w2, *, b1=None, b2=None, ln_scale=None, ln_bias=None, eps=1e-5, act="gelu",
+                  residual=None, gate=None):
+    """Plain version of fused_mlp: the hidden activation in x's dtype."""
+    u = reference_dense(x, w1, bias=b1, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, act=act)
+    return reference_dense(u, w2, bias=b2, residual=residual, gate=gate)
+
+
+def fused_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, norm="layer",
+                act=None, clip=None, residual=None, gate=None):
+    """epilogue(LN?(x) @ w.T): x (B, K); w (N, K); bias (N,); ln_scale and
+    ln_bias (K,); residual (B, N); gate (1,), applied as *tanh(gate).
+    Returns (B, N) in x's dtype."""
+    refuse("fused_dense", "int8/int4 weights, item 9", w_scale=w_scale)
+    _check_act("fused_dense", act, norm)
+    b, k = x.shape
+    n = w.shape[0]
+    if w.shape != (n, k) or (residual is not None and residual.shape != (b, n)):
+        raise ValueError(f"fused_dense: expected x (B, K), w (N, K), residual (B, N); got {tuple(x.shape)}, {tuple(w.shape)}")
+    if ln_bias is not None and ln_scale is None:
+        raise ValueError("fused_dense: ln_bias needs ln_scale")
+    if x.device.type == "cpu":
+        return reference_dense(x, w, bias=bias, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, act=act, clip=clip,
+                               residual=residual, gate=gate)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dense: unsupported device {x.device}")
+    check_operands("fused_dense", x, k, w=w, bias=bias, ln_scale=ln_scale, ln_bias=ln_bias, residual=residual,
+                   gate=gate)
+    out = torch.empty(b, n, dtype=x.dtype, device=x.device)
+    status = _kernel().fused_dense_fwd(
+        ptr(x), ptr(w), ptr(bias), ptr(ln_scale), ptr(ln_bias), ptr(residual), ptr(gate), ptr(out),
+        b, n, k, int(clip is not None), float(clip or 0.0), _ACTS[act], float(eps), _DTYPES[x.dtype],
+        build.current_stream(x.device),
+    )
+    build.check(status, "fused_dense_fwd")
+    fused_dense.launches += 1
+    return out
+
+
+def fused_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_scale=None, b1=None, b2=None,
+              ln_scale=None, ln_bias=None, eps=1e-5, norm="layer", act="gelu", residual=None, gate=None,
+              side_x=None, side_w=None):
+    """residual + tanh(gate) * (act(LN?(x) @ w1.T + b1) @ w2.T + b2):
+    x (B, K); w1 (K2, K); w2 (N, K2). Returns (B, N) in x's dtype."""
+    refuse("fused_mlp", "int8/int4 weights, item 9", w1_scale=w1_scale, w2_scale=w2_scale,
+           w1_gate_scale=w1_gate_scale)
+    refuse("fused_mlp", "SwiGLU, item 7", w1_gate=w1_gate)
+    refuse("fused_mlp", "K2b side tiles, item 14", side_x=side_x, side_w=side_w)
+    _check_act("fused_mlp", act, norm)
+    b, k = x.shape
+    k2, n = w1.shape[0], w2.shape[0]
+    if w1.shape != (k2, k) or w2.shape != (n, k2) or (residual is not None and residual.shape != (b, n)):
+        raise ValueError(f"fused_mlp: expected x (B, K), w1 (K2, K), w2 (N, K2), residual (B, N); got "
+                         f"{tuple(x.shape)}, {tuple(w1.shape)}, {tuple(w2.shape)}")
+    if ln_bias is not None and ln_scale is None:
+        raise ValueError("fused_mlp: ln_bias needs ln_scale")
+    if x.device.type == "cpu":
+        return reference_mlp(x, w1, w2, b1=b1, b2=b2, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, act=act,
+                             residual=residual, gate=gate)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp: unsupported device {x.device}")
+    check_operands("fused_mlp", x, k, w1=w1, w2=w2, b1=b1, b2=b2, ln_scale=ln_scale, ln_bias=ln_bias,
+                   residual=residual, gate=gate)
+    if k2 % 8:
+        raise ValueError(f"fused_mlp: hidden size {k2} is not a multiple of 8")
+    hidden = torch.empty(b, k2, dtype=x.dtype, device=x.device)
+    out = torch.empty(b, n, dtype=x.dtype, device=x.device)
+    status = _kernel().fused_mlp_fwd(
+        ptr(x), ptr(w1), ptr(w2), ptr(b1), ptr(b2), ptr(ln_scale), ptr(ln_bias), ptr(residual), ptr(gate),
+        ptr(hidden), ptr(out), b, k, k2, n, _ACTS[act], float(eps), _DTYPES[x.dtype],
+        build.current_stream(x.device),
+    )
+    build.check(status, "fused_mlp_fwd")
+    fused_mlp.launches += 1
+    return out
+
+
+fused_dense.launches = 0
+fused_mlp.launches = 0

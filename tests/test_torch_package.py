@@ -81,6 +81,45 @@ def test_wrappers_refuse_other_devices():
                          torch.empty(1, 2, 8, 16, device=m), torch.empty(1, 8, device=m))
 
 
+def test_fused_decode_wrappers_refuse_other_devices():
+    """K1-K3 as well: the meta device stands in for a non-CPU, non-CUDA one."""
+    from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode
+    from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
+
+    m = torch.device("meta")
+    x, w = torch.empty(2, 16, device=m), torch.empty(24, 16, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_dense(x, w)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_mlp(x, w, torch.empty(16, 24, device=m))
+    kv = torch.empty(2, 2, 8, 8, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        attn_block_decode(x, torch.empty(16, device=m), None, w[:16], w[:16].t(), kv, kv,
+                          torch.empty(2, 8, dtype=torch.bool, device=m), heads=2, head_dim=8, scale=0.3)
+
+
+@pytest.mark.parametrize("call", ["w_scale", "norm", "act", "w1_gate", "side_x", "k_scale"])
+def test_unported_operands_raise(call):
+    """Operands the bf16/fp32 decode path never passes name ROADMAP."""
+    from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode
+    from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
+
+    x, w = torch.zeros(2, 16), torch.zeros(24, 16)
+    kv = torch.zeros(2, 2, 8, 8)
+    calls = {
+        "w_scale": lambda: fused_dense(x, w, w_scale=torch.ones(24)),
+        "norm": lambda: fused_dense(x, w, ln_scale=torch.ones(16), norm="rms"),
+        "act": lambda: fused_dense(x, w, act="silu"),
+        "w1_gate": lambda: fused_mlp(x, w, w.t(), w1_gate=w),
+        "side_x": lambda: fused_mlp(x, w, w.t(), side_x=x),
+        "k_scale": lambda: attn_block_decode(x, torch.ones(16), None, w[:16], w[:16].t(), kv, kv,
+                                             torch.ones(2, 8, dtype=torch.bool), heads=2, head_dim=8,
+                                             scale=0.3, k_scale=torch.ones(2, 2, 8)),
+    }
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        calls[call]()
+
+
 def test_kernel_routing_follows_the_tensor_device():
     """CUDA tensors take the kernels (the meta device stands in for a
     non-CUDA accelerator and does not); `plain_path()` turns them off and
@@ -100,5 +139,5 @@ def test_kernel_routing_follows_the_tensor_device():
 def test_build_names_every_source():
     from open_flamingo_tpu_torch.ops import build
 
-    assert build.sources() == ["decode_attention", "prefill_attention"]
+    assert build.sources() == ["decode_attention", "decode_layer", "dense_stream", "prefill_attention"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
