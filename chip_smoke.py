@@ -15,7 +15,16 @@ Phases, each printing JSON lines:
               with a row before any image), K4 flash_attention, K5
               masked_xattn, K7 decode_attention and _update. Times the
               kernel (CUDA-graph replay), one eager call, the plain
-              version, and the library call named beside it;
+              version, and the library call named beside it. Then the
+              training path's backward kernels K4b flash_attention_backward
+              and K5b masked_xattn_backward at the OF-3B train step's shapes
+              (LAION 8x32, MMC4 4x256 with 6 images) and edge cases (left
+              padding with q_offset, ragged S = 257 with an all-masked
+              sequence, xattn rows before any image): the forward's lse,
+              dq/dk/dv against the plain versions in fp32 and bf16, exact
+              zeros where the mask says. Times the backward (dq + dkv, delta
+              fused into dq; CUDA-graph replay), the plain version, and the
+              backward of scaled_dot_product_attention with the same mask;
   3. generate full-width OF-3B (ViT-L/14 + MPT-1B, 24 xattn blocks) with
               random weights from a seed: greedy flamingo_generate of 32
               tokens for 8 prompts of 32 tokens, one image each, two rows
@@ -27,6 +36,16 @@ Phases, each printing JSON lines:
               timed: (c) the fused route, (d) the unfused route, each with
               every kernel's launch counter reset just before and checked
               just after against the counts the route must give.
+  4. train    the full-width OF-3B training step (`make_train_step`) on
+              random weights, LAION 8x32 with one image and MMC4 4x256 with
+              six (uint8 pixels, <|endofchunk|> then <image> mid-row, right
+              padding). fp32: one step's loss and every trainable gradient,
+              kernels against the same step under `plain_path()`. bf16: one
+              warm-up step, then three timed steps, each with every launch
+              counter reset just before and checked just after (K4 and K5
+              forwards 48, K4b and K5b 48, K1-K3 and K7 0), finite losses,
+              and the embedding rows other than <image>/<|endofchunk|>
+              unchanged.
 Then the `kernels` summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero
 before the last line. Needs no network; imports nothing of JAX.
@@ -36,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -54,8 +74,14 @@ from open_flamingo_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_update, reference_decode_attention)
 from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode, reference_attn_block
 from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp, reference_dense, reference_mlp
-from open_flamingo_tpu_torch.ops.flash_attention import flash_attention, reference_attention
-from open_flamingo_tpu_torch.ops.masked_xattn import masked_xattn, reference_masked_xattn
+from open_flamingo_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_backward, flash_attention_forward, reference_attention,
+    reference_attention_backward)
+from open_flamingo_tpu_torch.ops.masked_xattn import (
+    masked_xattn, masked_xattn_backward, masked_xattn_forward, reference_masked_xattn,
+    reference_masked_xattn_backward)
+from open_flamingo_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer, split_params
+from open_flamingo_tpu_torch.train.train_loop import TrainLoopConfig, TrainState, batch_losses, make_train_step
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense; fp32 outside tensor cores
@@ -63,13 +89,24 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense; fp32 outs
 # widths). bf16: both round an fp32 result to bf16, one ulp apart at most
 # (2^-7 relative), plus the summation order.
 TOL = {torch.float32: dict(atol=5e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+# the backward's sums run over whole query and key axes (up to 257 terms of
+# magnitude ~1-10 in fp32): rtol as well; bf16 as TOL
+BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)   # fp32 in both versions, from the same inputs
 LOGITS_TOL = 2e-3   # fp32 logits through 24 decoder + 24 xattn layers, every step
 B, T_PROMPT, NEW_TOKENS, SEED = 8, 32, 32, 0
 # the main-path shape of each kernel, timed and reported; other cases are edge cases
 MAIN_CASES = {"fused_dense": "head_V50434", "fused_mlp": "mpt_mlp", "attn_block_decode": "self_S64_slot40",
               "flash_attention": "prefill_S64", "masked_xattn": "prefill_T1", "decode_attention": "xattn_S64",
-              "decode_attention_update": "self_S64_slot40"}
+              "decode_attention_update": "self_S64_slot40", "flash_attention_backward": "mmc4_T256",
+              "masked_xattn_backward": "mmc4_T256"}
 TIMED_CASES = set(MAIN_CASES.values()) | {"xattn_ff", "xattn_S64_gate"}
+BWD_TIMED = {"laion_T32", "mmc4_T256"}
+# the OF-3B train step at the JAX package's bench shape (bench.py:494)
+B_L, T_L, B_M, T_M, N_IMG, TRAIN_PAD = 8, 32, 4, 256, 6, 1
+TRAIN_STEPS = 3
+LOSS_TOL = 1e-4     # fp32 train-step loss, kernels vs plain_path (a mean of ~1,100 log-softmaxes)
+GRAD_RTOL = 1e-3    # fp32 gradients: per tensor, max |kernels - plain| / max |plain|, through 48 blocks
 
 
 def log(obj) -> None:
@@ -89,15 +126,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, reps: int = 20, rounds: int = 10) -> float:
-    """Device time of one call: `reps` calls captured in a CUDA graph and
-    replayed `rounds` times between CUDA events, so the host's launch cost
-    is left out."""
+def device_ms(fn, reps: int = 20, rounds: int = 10, stream=None) -> float:
+    """Device time of one call: `reps` calls captured in a CUDA graph (on
+    `stream`, or the graph's own side stream) and replayed `rounds` times
+    between CUDA events, so the host's launch cost is left out."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, stream=stream):
         for _ in range(reps):
             fn()
     g.replay()
@@ -151,14 +188,15 @@ def left_padded_mask(b, t, pads, device):
     return m
 
 
-def compare(name, case, dtype, got, want, exact=None):
+def compare(name, case, dtype, got, want, exact=None, tol=None):
     """`exact(got)`: the case's rows that must come out exactly (rows with
     no valid key: zeros, or x itself after K3's residual)."""
+    tol = tol or TOL[dtype]
     err = (got.float() - want.float()).abs().max().item()
-    ok = torch.allclose(got.float(), want.float(), **TOL[dtype])
+    ok = torch.allclose(got.float(), want.float(), **tol)
     exact0 = True if exact is None else bool(exact(got))
     log({"phase": "kernels", "kernel": name, "case": case, "dtype": str(dtype).split(".")[-1],
-         "max_abs_err": err, "tol": TOL[dtype], "all_masked_rows_exact_zero": exact0})
+         "max_abs_err": err, "tol": tol, "all_masked_rows_exact_zero": exact0})
     require(ok, f"{name}/{case}/{dtype}: max abs err {err}")
     require(exact0, f"{name}/{case}/{dtype}: all-masked rows not exactly zero")
     return err
@@ -362,6 +400,150 @@ def phase_kernels(dev) -> dict:
     return summary
 
 
+def sdpa_backward(q, k, v, dout, b, h, attn_mask, scale):
+    """The library's backward on the same inputs: torch.autograd.grad of one
+    scaled_dot_product_attention output (forward run once, outside the
+    timing) for dq, dk, dv. Returns (fn, stream): autograd runs a backward
+    op on its forward's stream, so the forward runs on `stream` and the
+    timing graph is captured there."""
+    q4, k4, v4 = (x.detach().view(b, h, -1, x.shape[-1]).clone().requires_grad_(True) for x in (q, k, v))
+    do4 = dout.view(b, h, -1, dout.shape[-1])
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask, scale=scale)
+    torch.cuda.current_stream().wait_stream(stream)
+    return lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), stream
+
+
+def attention_costs(allowed, tq, s, d, es, mask_bytes):
+    """(bytes, FLOPs) of the forward with lse and of the backward for the
+    allowed (BH, Tq, S) pairs: the forward reads q and the K/V rows some
+    query reaches and writes out and lse, 4 Dh FLOPs per pair; the backward
+    reads q, k, v, out, dout and lse and writes dq, dk, dv, 10 Dh FLOPs per
+    pair (five products)."""
+    bh, pairs = allowed.shape[0], allowed.sum().item()
+    keys = allowed.any(1).sum().item()
+    fwd = ((2 * bh * tq * d + 2 * keys * d) * es + 4 * bh * tq + mask_bytes, 4 * d * pairs)
+    bwd = ((4 * bh * tq * d + 4 * bh * s * d) * es + 4 * bh * tq + mask_bytes, 10 * d * pairs)
+    return fwd, bwd
+
+
+def backward_cases(dtype, gen, dev):
+    """Yields (name, case, fwd, plain_fwd, bwd, plain_bwd, allowed, costs,
+    library): fwd() -> (out, lse); bwd(out, lse) -> (dq, dk, dv); allowed
+    the (BH, Tq, S) pairs the mask lets through; library() the SDPA backward
+    (timed cases only, else None)."""
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    slopes16 = torch.from_numpy(alibi_slopes(16)).to(dev)
+
+    # K4b: MPT self-attention, H = 16, Dh = 128, ALiBi
+    h, d = 16, 128
+    for case, b, tq, s, q_off, left, right in [
+        ("laion_T32", B_L, T_L, T_L, 0, [], [(1, 5), (6, 9)]),
+        ("mmc4_T256", B_M, T_M, T_M, 0, [], [(2, 20), (3, 37)]),
+        ("left_pad_q_offset16", B, T_PROMPT, 64, 16, [4, 7], []),
+        ("ragged_S257", 2, 257, 257, 0, [0, 257], []),     # row 1: every key masked
+    ]:
+        q, k, v, do = rn(b * h, tq, d), rn(b * h, s, d), rn(b * h, s, d), rn(b * h, tq, d)
+        valid = left_padded_mask(b, s, left, dev)
+        for r, n in right:
+            valid[r, s - n:] = False
+        valid[:, q_off + tq:] = False                    # unwritten cache slots
+        pad = valid.repeat_interleave(h, 0)
+        sl = slopes16.repeat(b)[:, None]
+        qpos = q_off + torch.arange(tq, device=dev)[:, None]
+        allowed = pad[:, None, :] & (torch.arange(s, device=dev)[None, :] <= qpos)[None]
+        args = (pad, sl, q_off)
+        lib = None
+        if case in BWD_TIMED:
+            bias = torch.where(allowed, sl[:, :, None] * (torch.arange(s, device=dev) - (s - 1)).float(), float("-inf"))
+            lib = sdpa_backward(q, k, v, do, b, h, bias.view(b, h, tq, s).to(dtype), d**-0.5)
+        yield ("flash_attention_backward", case,
+               lambda q=q, k=k, v=v, args=args: flash_attention_forward(q, k, v, *args, True, d**-0.5, with_lse=True),
+               lambda q=q, k=k, v=v, args=args: reference_attention(q, k, v, *args, True, d**-0.5, with_lse=True),
+               lambda o, lse, q=q, k=k, v=v, do=do, args=args: flash_attention_backward(
+                   q, k, v, *args, o, lse, do, True, d**-0.5),
+               lambda o, lse, q=q, k=k, v=v, do=do, args=args: reference_attention_backward(
+                   q, k, v, *args, o, lse, do, True, d**-0.5),
+               allowed, attention_costs(allowed, tq, s, d, es, b * h * s + 4 * b * h), lib)
+
+    # K5b: gated xattn, H = 8, Dh = 64, 64 latents per image; LAION row 3
+    # and every MMC4 row start with text before any image
+    h, d, n_lat = 8, 64, 64
+    for case, b, tq, media_at in [
+        ("laion_T32", B_L, T_L, [0]),
+        ("mmc4_T256", B_M, T_M, [3 + 42 * j for j in range(N_IMG)]),
+    ]:
+        s = len(media_at) * n_lat
+        q, k, v, do = rn(b * h, tq, d), rn(b * h, s, d), rn(b * h, s, d), rn(b * h, tq, d)
+        loc = torch.zeros(b, tq, dtype=torch.int32, device=dev)
+        loc[:, media_at] = 1
+        if case == "laion_T32":
+            loc[3, 0], loc[3, 5] = 0, 1
+        tt = torch.cumsum(loc, 1).to(torch.int32).repeat_interleave(h, 0)
+        allowed = tt[:, :, None] == (torch.arange(s, device=dev) // n_lat + 1)[None, None, :]
+        lib = sdpa_backward(q, k, v, do, b, h, allowed.view(b, h, tq, s), d**-0.5) if case in BWD_TIMED else None
+        yield ("masked_xattn_backward", case,
+               lambda q=q, k=k, v=v, tt=tt: masked_xattn_forward(q, k, v, tt, n_lat, d**-0.5, with_lse=True),
+               lambda q=q, k=k, v=v, tt=tt: reference_masked_xattn(q, k, v, tt, n_lat, d**-0.5, with_lse=True),
+               lambda o, lse, q=q, k=k, v=v, tt=tt, do=do: masked_xattn_backward(q, k, v, tt, n_lat, o, lse, do, d**-0.5),
+               lambda o, lse, q=q, k=k, v=v, tt=tt, do=do: reference_masked_xattn_backward(
+                   q, k, v, tt, n_lat, o, lse, do, d**-0.5),
+               allowed, attention_costs(allowed, tq, s, d, es, 4 * b * h * tq), lib)
+
+
+def phase_backward(dev, summary: dict) -> None:
+    """K4b and K5b against their plain versions (and the forward's lse), in
+    fp32 and bf16; bf16 timings of the backward, and of the forward with
+    lse at the train shapes, go into `summary`."""
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        for name, case, fwd, plain_fwd, bwd, plain_bwd, allowed, costs, lib in backward_cases(dtype, gen, dev):
+            fwd_name = name.removesuffix("_backward")
+            zero_q, zero_k = ~allowed.any(-1), ~allowed.any(1)
+            out, lse = fwd()
+            torch.cuda.synchronize()
+            out_p, lse_p = plain_fwd()
+            compare(fwd_name, f"train_{case}", dtype, out, out_p, zeros_at(zero_q))
+            lse_err = (lse - lse_p).abs().max().item()
+            log({"phase": "kernels", "kernel": fwd_name, "case": f"train_{case}", "lse_max_abs_err": lse_err,
+                 "tol": LSE_TOL})
+            require(torch.allclose(lse, lse_p, **LSE_TOL), f"{fwd_name}/{case}: lse err {lse_err}")
+            require(bool((lse[zero_q] == 0).all()), f"{fwd_name}/{case}: lse of rows without keys not 0")
+            # the same out and lse into both backward versions
+            got = bwd(out_p, lse_p)
+            torch.cuda.synchronize()
+            want = plain_bwd(out_p, lse_p)
+            errs = [compare(name, f"{case}_{part}", dtype, g, w, tol=BWD_TOL[dtype])
+                    for part, g, w in zip(("dq", "dk", "dv"), got, want)]
+            exact = (bool((got[0][zero_q] == 0).all()) and bool((got[1][zero_k] == 0).all())
+                     and bool((got[2][zero_k] == 0).all()))
+            log({"phase": "kernels", "kernel": name, "case": case, "dtype": str(dtype).split(".")[-1],
+                 "rows_without_keys": int(zero_q.sum()), "keys_no_query_sees": int(zero_k.sum()),
+                 "exact_zeros": exact})
+            require(exact, f"{name}/{case}: dq of rows without keys or dk/dv of unseen keys not exactly 0")
+            if dtype != torch.bfloat16 or case not in BWD_TIMED:
+                continue
+            b_ms, b_by = bound(*costs[1], dtype)
+            row = {"ms": device_ms(lambda: bwd(out_p, lse_p)), "call_ms": call_ms(lambda: bwd(out_p, lse_p)),
+                   "plain_ms": device_ms(lambda: plain_bwd(out_p, lse_p)), "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": device_ms(lib[0], stream=lib[1]), "max_abs_err": max(errs), "case": case,
+                   "library_is": "torch.autograd.grad of scaled_dot_product_attention's output (same mask and "
+                                 "ALiBi bias), its forward outside the timing"}
+            log({"phase": "kernels", "kernel": name, "timing": row})
+            summary.setdefault(name, {})[case] = row
+            f_ms, f_by = bound(*costs[0], dtype)
+            row = {"ms": device_ms(fwd), "call_ms": call_ms(fwd), "plain_ms": device_ms(plain_fwd), "bound_ms": f_ms,
+                   "bound_by": f_by, "library_ms": None, "library_is": None,
+                   "max_abs_err": (out.float() - out_p.float()).abs().max().item(), "case": f"train_{case}_lse"}
+            log({"phase": "kernels", "kernel": fwd_name, "timing": row})
+            summary.setdefault(fwd_name, {})[f"train_{case}_lse"] = row
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -470,6 +652,7 @@ def sync_free_step(model, vision_x, ids, mask, dev) -> None:
     log({"phase": "generate", "dtype": "bfloat16", "route": "fused", "decode_step_host_syncs": 0})
 
 
+@torch.no_grad()   # generation: the forward is differentiable, nothing here needs a graph
 def phase_generate(dev):
     counters = kernel_functions()
     cfg = flamingo_config("OF-3B")
@@ -503,22 +686,129 @@ def phase_generate(dev):
     steps, layers = NEW_TOKENS - 1, cfg.lm.num_layers
     fused = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, "fused")
     want = {"fused_dense": steps, "fused_mlp": 2 * layers * steps, "attn_block_decode": 2 * layers * steps,
-            "flash_attention": layers, "masked_xattn": layers, "decode_attention": 0, "decode_attention_update": 0}
+            "flash_attention": layers, "masked_xattn": layers, "decode_attention": 0, "decode_attention_update": 0,
+            "flash_attention_backward": 0, "masked_xattn_backward": 0}
     require(fused == want, f"fused route launches {fused}, expected {want}")
     sync_free_step(model, vision_x, ids, mask, dev)
     with unfused_route():
         unfused = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, "unfused")
     want = {"fused_dense": 0, "fused_mlp": 0, "attn_block_decode": 0, "flash_attention": layers,
-            "masked_xattn": layers, "decode_attention": layers * steps, "decode_attention_update": layers * steps}
+            "masked_xattn": layers, "decode_attention": layers * steps, "decode_attention_update": layers * steps,
+            "flash_attention_backward": 0, "masked_xattn_backward": 0}
     require(unfused == want, f"unfused route launches {unfused}, expected {want}")
-    # each kernel's count from the route it is on
-    return {name: fused[name] or unfused[name] for name in counters}
+    return {"generate_fused": fused, "generate_unfused": unfused}
+
+
+# ---------------------------------------------------------------- phase 4
+
+
+def train_batches(cfg, dev):
+    """The bench shape (bench.py:494) with uint8 pixels: LAION 8x32, one
+    image, <|endofchunk|> mid-row; MMC4 4x256, six images, text before the
+    first, each later one after an <|endofchunk|>. Rows 1 and 6 of LAION
+    and 2 and 3 of MMC4 end in padding."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    px = cfg.vision.image_size
+
+    def batch(b, t, media_at, pads):
+        ids = torch.randint(10, 50000, (b, t), generator=gen, device=dev)
+        ids[:, media_at] = cfg.media_token_id
+        ids[:, [p - 1 for p in media_at[1:]] or [t // 2]] = cfg.eoc_token_id
+        mask = torch.ones(b, t, dtype=torch.long, device=dev)
+        for r, n in pads:
+            ids[r, t - n:] = TRAIN_PAD
+            mask[r, t - n:] = 0
+        vision = torch.randint(0, 256, (b, len(media_at), 1, px, px, 3), generator=gen, device=dev)
+        return {"vision_x": vision.to(torch.uint8), "input_ids": ids, "attention_mask": mask}
+
+    return (batch(B_L, T_L, [0], [(1, 5), (6, 9)]),
+            batch(B_M, T_M, [3 + 42 * j for j in range(N_IMG)], [(2, 20), (3, 37)]))
+
+
+def phase_train(dev, counters) -> dict:
+    cfg = flamingo_config("OF-3B")
+    loop_cfg = TrainLoopConfig(pad_token_id=TRAIN_PAD)
+    bl, bm = train_batches(cfg, dev)
+
+    # (a) fp32: one step's loss and trainable gradients, kernels vs plain_path()
+    t0 = time.perf_counter()
+    model = init_random(cfg, SEED, device=dev, dtype=torch.float32)
+    trainable, _ = split_params(model)
+
+    def loss_and_grads():
+        for p in trainable.values():
+            p.grad = None
+        loss_l, loss_m = batch_losses(model, bl, bm, loop_cfg)
+        total = loop_cfg.loss_multiplier_laion * loss_l + loop_cfg.loss_multiplier_mmc4 * loss_m
+        total.backward()
+        return total.item(), {n: p.grad for n, p in trainable.items()}
+
+    loss_k, grads_k = loss_and_grads()
+    with plain_path():
+        loss_p, grads_p = loss_and_grads()
+    rel = {n: ((grads_k[n] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item() for n, g in grads_p.items()}
+    worst = max(rel, key=rel.get)
+    log({"phase": "train", "dtype": "float32", "compare": "kernels vs plain_path", "loss_kernels": loss_k,
+         "loss_plain": loss_p, "loss_abs_err": abs(loss_k - loss_p), "loss_tol": LOSS_TOL,
+         "trainable_tensors": len(rel), "worst_tensor": worst, "worst_rel_err": rel[worst],
+         "worst_max_abs_grad": grads_p[worst].abs().max().item(), "grad_rtol": GRAD_RTOL,
+         "median_rel_err": sorted(rel.values())[len(rel) // 2], "seconds": time.perf_counter() - t0})
+    require(all(torch.isfinite(g).all().item() for g in grads_k.values()), "fp32 kernel gradients not finite")
+    require(abs(loss_k - loss_p) <= LOSS_TOL, f"fp32 train loss {loss_k} vs plain {loss_p}")
+    require(rel[worst] <= GRAD_RTOL, f"fp32 gradient {worst}: relative error {rel[worst]}")
+    del model, trainable, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # (b) bf16, the dtype the JAX package's bench trains in, timed
+    t0 = time.perf_counter()
+    model = init_random(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    trainable, _ = split_params(model)
+    tx = make_optimizer(OptimizerConfig(warmup_steps=0), media_token_id=cfg.media_token_id,
+                        eoc_token_id=cfg.eoc_token_id)
+    step = make_train_step(model, tx, loop_cfg)
+    state = TrainState.create(trainable, tx)
+    wte0 = model.lm.wte.weight.detach().clone()
+    state, metrics = step(state, bl, bm)                 # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    layers = cfg.lm.num_layers
+    want = {name: 0 for name in counters}
+    want.update(flash_attention=2 * layers, flash_attention_backward=2 * layers, masked_xattn=2 * layers,
+                masked_xattn_backward=2 * layers)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = step(state, bl, bm)
+        losses.append({k: v.item() for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        require(launches == want, f"train step launches {launches}, expected {want}")
+    moved = (model.lm.wte.weight.detach() != wte0).any(-1)
+    special = [cfg.media_token_id, cfg.eoc_token_id]
+    others_moved = int(moved.sum()) - int(moved[special].sum())
+    step_s = sorted(times)[len(times) // 2]
+    tokens, images = B_L * T_L + B_M * T_M, B_L + B_M * N_IMG
+    log({"phase": "train", "dtype": "bfloat16", "steps": TRAIN_STEPS, "step_s": times, "median_step_s": step_s,
+         "tokens_per_step": tokens, "images_per_step": images, "tokens_per_s": tokens / step_s,
+         "images_per_s": images / step_s, "warmup_s": warm_s, "metrics": losses, "launches_per_step": launches,
+         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "special_rows_moved": int(moved[special].sum()),
+         "other_wte_rows_moved": others_moved, "state_step": state.step})
+    require(all(math.isfinite(v) for m in losses for v in m.values()), "bf16 train metrics not finite")
+    require(others_moved == 0 and bool(moved[special].all()), "wte rows other than <image>/<|endofchunk|> moved")
+    del model, state, trainable
+    torch.cuda.empty_cache()
+    return launches
 
 
 def kernel_functions() -> dict:
     return {"fused_dense": fused_dense, "fused_mlp": fused_mlp, "attn_block_decode": attn_block_decode,
             "flash_attention": flash_attention, "masked_xattn": masked_xattn,
-            "decode_attention": decode_attention, "decode_attention_update": decode_attention_update}
+            "decode_attention": decode_attention, "decode_attention_update": decode_attention_update,
+            "flash_attention_backward": flash_attention_backward, "masked_xattn_backward": masked_xattn_backward}
 
 
 SOURCES = {
@@ -529,6 +819,9 @@ SOURCES = {
     "masked_xattn": ("open_flamingo_tpu_torch/csrc/prefill_attention.cu", "open_flamingo_tpu/ops/masked_xattn.py:38"),
     "decode_attention": ("open_flamingo_tpu_torch/csrc/decode_attention.cu", "open_flamingo_tpu/ops/decode_attention.py:45"),
     "decode_attention_update": ("open_flamingo_tpu_torch/csrc/decode_attention.cu", "open_flamingo_tpu/ops/decode_attention.py:45"),
+    # dq kernels; the dkv kernels are flash_attention.py:270 and masked_xattn.py:196
+    "flash_attention_backward": ("open_flamingo_tpu_torch/csrc/attention_backward.cu", "open_flamingo_tpu/ops/flash_attention.py:199"),
+    "masked_xattn_backward": ("open_flamingo_tpu_torch/csrc/attention_backward.cu", "open_flamingo_tpu/ops/masked_xattn.py:148"),
 }
 
 
@@ -541,14 +834,30 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log({"phase": "card", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+    seconds = {}
+    t0 = time.perf_counter()
     phase_build()
+    seconds["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     timing = phase_kernels(dev)
-    launches = phase_generate(dev)
+    phase_backward(dev, timing)
+    seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = phase_generate(dev)
+    seconds["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counters = kernel_functions()
+    paths["train_step"] = phase_train(dev, counters)
+    seconds["train"] = time.perf_counter() - t0
+    log({"phase": "seconds", **seconds})
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         t = timing[name][MAIN_CASES[name]]
+        # each kernel's count from the newest path that runs it, every path beside it
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        launches = next(n for n in reversed(list(by_path.values())) if n) if any(by_path.values()) else 0
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                        "launches": launches, "launches_by_path": by_path, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"], "library_is": t["library_is"], "case": t["case"],
                         "other_cases": [r for c, r in timing[name].items() if c != t["case"]]})

@@ -87,6 +87,10 @@ class FlamingoConfig:
     perceiver_heads: int = 8
     perceiver_dim_head: int = 64
     only_attend_immediate_media: bool = True
+    # training: the ViT runs without gradient; each decoder and xattn block
+    # recomputes its forward in the backward (torch.utils.checkpoint)
+    freeze_vision: bool = True
+    gradient_checkpointing: bool = False
 
 
 VIT_L_14 = VisionConfig(

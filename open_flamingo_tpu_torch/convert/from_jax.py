@@ -21,7 +21,7 @@ per-layer layout: a PyTorch loop over layers has no compile step to save.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -91,3 +91,16 @@ def state_dict_from_jax(params: Mapping, dtype=None) -> Dict[str, torch.Tensor]:
 
     walk(params, [])
     return out
+
+
+def state_dict_from_flat(flat: Mapping[Tuple[str, ...], Any], dtype=None) -> Dict[str, torch.Tensor]:
+    """`state_dict_from_jax` for a flat dict keyed by path tuples, the form of
+    the JAX package's `split_params` partitions and of gradients taken over
+    them: the port's names for the same tensors."""
+    tree: dict = {}
+    for path, val in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = val
+    return state_dict_from_jax(tree, dtype)

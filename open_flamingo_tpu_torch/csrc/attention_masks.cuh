@@ -1,0 +1,57 @@
+// Mask policies and element helpers shared by the prefill attention
+// kernels (forward, prefill_attention.cu) and their backward
+// (attention_backward.cu). Everything here has internal linkage: each .cu
+// is its own shared library, loaded into one process.
+//
+//   CausalPadAlibi  K4/K4b: causal against q_offset + i, key pad mask,
+//                   ALiBi slope * (j - (S - 1)) computed from the index.
+//   MediaTime       K5/K5b: the immediate-media mask
+//                   text_time[i] == j / n_latents + 1.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+struct CausalPadAlibi {
+  const uint8_t* pad;    // (BH, S), nonzero = valid key
+  const float* slopes;   // (BH,), 0 disables ALiBi
+  int q_offset;
+  int causal;
+
+  // keys [0, key_end) are all that query rows up to q_last can see
+  __device__ int key_end(int q_last, int s) const {
+    return causal ? min(s, q_offset + q_last + 1) : s;
+  }
+  // no query row before query_begin sees key k0 or a later one
+  __device__ int query_begin(int k0) const { return causal ? max(0, k0 - q_offset) : 0; }
+  __device__ bool allowed(int bh, int qi, int kj, int s) const {
+    return pad[(size_t)bh * s + kj] != 0 && (!causal || kj <= q_offset + qi);
+  }
+  __device__ float bias(int bh, int kj, int s) const {
+    return slopes[bh] * (float)(kj - (s - 1));
+  }
+};
+
+struct MediaTime {
+  const int32_t* text_time;  // (BH, Tq)
+  int n_latents;
+  int tq;
+
+  __device__ int key_end(int, int s) const { return s; }
+  __device__ int query_begin(int) const { return 0; }
+  __device__ bool allowed(int bh, int qi, int kj, int) const {
+    return text_time[(size_t)bh * tq + qi] == kj / n_latents + 1;
+  }
+  __device__ float bias(int, int, int) const { return 0.f; }
+};
+
+}  // namespace

@@ -12,7 +12,10 @@
 // Both share one streaming-softmax skeleton with two mask policies. A row
 // with no valid key produces exact zeros (the TPU kernels' denominator
 // guard), which the immediate-media rule of the gated cross-attention
-// relies on.
+// relies on. Given a non-null `lse`, each also writes the per-row
+// logsumexp (BH, Tq) fp32 (`with_lse=True` in the TPU kernels), which the
+// backward kernels K4b/K5b (attention_backward.cu) re-exponentiate against.
+// The mask policies live in attention_masks.cuh, shared with the backward.
 //
 // Design. One block of 128 threads per (bh, tile of 16 query rows). The
 // TPU kernels carry the running max / sum / accumulator across the
@@ -27,10 +30,9 @@
 // its fp32 FMA loops and launch latency. This first version uses plain
 // FMA, not tensor cores: wgmma/TMA tiles are a later optimisation.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_masks.cuh"
 
 namespace {
 
@@ -41,11 +43,6 @@ constexpr int kBK = 32;        // keys per tile (one per lane in the softmax)
 constexpr int kMaxD = 128;
 constexpr int kAcc = kBQ * kMaxD / kThreads;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -55,43 +52,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// K4: causal against q_offset + i, key pad mask, ALiBi.
-struct CausalPadAlibi {
-  const uint8_t* pad;    // (BH, S), nonzero = valid key
-  const float* slopes;   // (BH,), 0 disables ALiBi
-  int q_offset;
-  int causal;
-
-  __device__ int key_end(int q0, int tq, int s) const {
-    if (!causal) return s;
-    int last_q = min(q0 + kBQ, tq) - 1;
-    return min(s, q_offset + last_q + 1);
-  }
-  __device__ bool allowed(int bh, int qi, int kj, int s) const {
-    return pad[(size_t)bh * s + kj] != 0 && (!causal || kj <= q_offset + qi);
-  }
-  __device__ float bias(int bh, int kj, int s) const {
-    return slopes[bh] * (float)(kj - (s - 1));
-  }
-};
-
-// K5: immediate-media mask computed from the key index.
-struct MediaTime {
-  const int32_t* text_time;  // (BH, Tq)
-  int n_latents;
-  int tq;
-
-  __device__ int key_end(int, int, int s) const { return s; }
-  __device__ bool allowed(int bh, int qi, int kj, int) const {
-    return text_time[(size_t)bh * tq + qi] == kj / n_latents + 1;
-  }
-  __device__ float bias(int, int, int) const { return 0.f; }
-};
-
 template <typename T, typename Mask>
 __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int tq, int s, int d, float scale, Mask mask) {
+    T* __restrict__ out, float* __restrict__ lse, int tq, int s, int d, float scale, Mask mask) {
   __shared__ float q_s[kBQ][kMaxD + 1];
   __shared__ float k_s[kBK][kMaxD + 1];
   __shared__ float v_s[kBK][kMaxD];
@@ -118,7 +82,7 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
 #pragma unroll
   for (int r = 0; r < kAcc; ++r) acc[r] = 0.f;
 
-  const int kend = mask.key_end(q0, tq, s);
+  const int kend = mask.key_end(min(q0 + kBQ, tq) - 1, s);
   for (int k0 = 0; k0 < kend; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
     for (int idx = tid; idx < kBK * d; idx += kThreads) {
@@ -188,10 +152,17 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
       }
     }
   }
+  // the logsumexp the backward re-exponentiates against: m + log l of the
+  // same running max and sum; rows with no valid key get 0 (their P is
+  // masked to 0 there)
+  if (lse != nullptr && tid < kBQ && q0 + tid < tq) {
+    float l = l_s[tid];
+    lse[(size_t)bh * tq + q0 + tid] = l > 0.f ? m_s[tid] + logf(l) : 0.f;
+  }
 }
 
 template <typename Mask>
-int launch(const void* q, const void* k, const void* v, void* out, int bh, int tq,
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
            int s, int d, float scale, int dtype, void* stream, Mask mask) {
   if (d < 1 || d > kMaxD || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   if (bh == 0 || tq == 0) return (int)cudaGetLastError();
@@ -199,11 +170,12 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int t
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     attention_fwd_kernel<float, Mask><<<grid, kThreads, 0, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out, tq, s, d, scale, mask);
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, tq, s, d, scale,
+        mask);
   } else {
     attention_fwd_kernel<__nv_bfloat16, Mask><<<grid, kThreads, 0, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (__nv_bfloat16*)out, tq, s, d, scale, mask);
+        (__nv_bfloat16*)out, (float*)lse, tq, s, d, scale, mask);
   }
   return (int)cudaGetLastError();
 }
@@ -211,20 +183,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int t
 }  // namespace
 
 // q (BH, Tq, D); k/v (BH, S, D); pad (BH, S) uint8; slopes (BH,) fp32;
-// out (BH, Tq, D). dtype 0 = fp32, 1 = bf16.
+// out (BH, Tq, D); lse (BH, Tq) fp32 or null. dtype 0 = fp32, 1 = bf16.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   const void* pad, const void* slopes, void* out,
+                                   const void* pad, const void* slopes, void* out, void* lse,
                                    int bh, int tq, int s, int d, int q_offset, int causal,
                                    float scale, int dtype, void* stream) {
   CausalPadAlibi mask{(const uint8_t*)pad, (const float*)slopes, q_offset, causal};
-  return launch(q, k, v, out, bh, tq, s, d, scale, dtype, stream, mask);
+  return launch(q, k, v, out, lse, bh, tq, s, d, scale, dtype, stream, mask);
 }
 
-// q (BH, Tq, D); k/v (BH, T_img * n_latents, D); text_time (BH, Tq) int32.
+// q (BH, Tq, D); k/v (BH, T_img * n_latents, D); text_time (BH, Tq) int32;
+// lse (BH, Tq) fp32 or null.
 extern "C" int masked_xattn_fwd(const void* q, const void* k, const void* v,
-                                const void* text_time, void* out, int bh, int tq, int s,
-                                int d, int n_latents, float scale, int dtype, void* stream) {
+                                const void* text_time, void* out, void* lse, int bh, int tq,
+                                int s, int d, int n_latents, float scale, int dtype,
+                                void* stream) {
   if (n_latents < 1) return (int)cudaErrorInvalidValue;
   MediaTime mask{(const int32_t*)text_time, n_latents, tq};
-  return launch(q, k, v, out, bh, tq, s, d, scale, dtype, stream, mask);
+  return launch(q, k, v, out, lse, bh, tq, s, d, scale, dtype, stream, mask);
 }

@@ -2,15 +2,22 @@
 PerceiverResampler and gated cross-attention.
 
 Vision latents and media locations are explicit values, decode state is
-an explicit KVCache. On CUDA tensors prefill attention runs the
-hand-written kernels (`ops/attention.py`) and each single-token decode step
-the fused route K1-K3 (`ops/dense_stream.py`, `ops/decode_layer.py`);
-`ops.attention.plain_path()` runs their plain versions on the same device,
-the reference the kernels are held against.
+an explicit KVCache. On CUDA tensors prefill and training attention run the
+hand-written kernels (`ops/attention.py`; K4/K5 and, under autograd, their
+backward K4b/K5b) and each single-token decode step the fused route K1-K3
+(`ops/dense_stream.py`, `ops/decode_layer.py`); `ops.attention.plain_path()`
+runs their plain versions on the same device, the reference the kernels are
+held against.
+
+Training: the perceiver, every gated xattn block and the token embedding
+require grad (`train.optimizer.is_trainable`), the ViT and the LM blocks do
+not; with `freeze_vision` the ViT runs under no_grad. `forward` is
+differentiable; `decode_step` and `flamingo_generate` run under no_grad.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -18,6 +25,7 @@ from torch import nn
 
 from ..configs import FlamingoConfig
 from ..device import resolve_device
+from ..train.optimizer import is_trainable
 from .decoders.common import KVCache
 from .lm import FlamingoLM
 from .perceiver import PerceiverResampler
@@ -37,9 +45,10 @@ class Flamingo(nn.Module):
         )
         self.lm = FlamingoLM(
             cfg.lm, cfg.vision.hidden_size, cfg.cross_attn_every_n,
-            cfg.only_attend_immediate_media, **kw,
+            cfg.only_attend_immediate_media, gradient_checkpointing=cfg.gradient_checkpointing, **kw,
         )
-        self.requires_grad_(False)  # inference only: training is not ported yet
+        for name, p in self.named_parameters():
+            p.requires_grad_(is_trainable(name))
 
     @property
     def device(self) -> torch.device:
@@ -49,15 +58,20 @@ class Flamingo(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.lm.wte.weight.dtype
 
-    @torch.no_grad()
     def embed_vision(self, vision_x: torch.Tensor) -> torch.Tensor:
-        """(B, T_img, F, H, W, C) NHWC pixels -> (B, T_img, n_latents, D)."""
+        """(B, T_img, F, H, W, C) NHWC pixels -> (B, T_img, n_latents, D):
+        the ViT over every frame (without gradient when freeze_vision), then
+        the perceiver."""
         b, t, f, h, w, c = vision_x.shape
-        x = self.vision_encoder(vision_x.reshape(b * t * f, h, w, c))
+        with torch.no_grad() if self.cfg.freeze_vision else contextlib.nullcontext():
+            x = self.vision_encoder(vision_x.reshape(b * t * f, h, w, c))
         v, d = x.shape[-2:]
-        return self.perceiver(x.reshape(b, t, f, v, d))
+        return self.resample_vision(x.reshape(b, t, f, v, d))
 
-    @torch.no_grad()
+    def resample_vision(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T_img, F, v, D) ViT patch tokens -> perceiver latents."""
+        return self.perceiver(x)
+
     def forward(
         self,
         vision_x: Optional[torch.Tensor],

@@ -6,7 +6,10 @@ final LayerNorm and the tied LM head follow; on the fused decode route they
 are one K1 `fused_dense` launch that reads the (V, D) embedding table in
 place as the transposed weight. Prefill keeps `F.linear`, as the JAX
 package does. Vision latents and text time are explicit arguments; decode
-state is an explicit KVCache.
+state is an explicit KVCache. With `gradient_checkpointing` (the JAX
+package's `nn.remat`), each decoder and xattn block of a cache-free forward
+under autograd keeps only its inputs and recomputes its forward in the
+backward (`torch.utils.checkpoint`, non-reentrant).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import DecoderConfig
 from ..ops.attention import use_kernels
@@ -32,7 +36,8 @@ class FlamingoLM(nn.Module):
     def __init__(
         self, cfg: DecoderConfig, vis_dim: Optional[int] = None,
         cross_attn_every_n: Optional[int] = None,
-        only_attend_immediate_media: bool = True, *, device=None, dtype=None,
+        only_attend_immediate_media: bool = True, gradient_checkpointing: bool = False, *, device=None,
+        dtype=None,
     ):
         super().__init__()
         if cfg.family not in BLOCK_REGISTRY:
@@ -44,6 +49,7 @@ class FlamingoLM(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.immediate = only_attend_immediate_media
+        self.gradient_checkpointing = gradient_checkpointing
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.blocks = nn.ModuleList(BLOCK_REGISTRY[cfg.family](cfg, **kw) for _ in range(cfg.num_layers))
         n = cross_attn_every_n
@@ -83,6 +89,11 @@ class FlamingoLM(nn.Module):
             elif not use_xattn_kernel(x, self.immediate):
                 media_mask, zero_rows = build_media_masks(text_time, media.shape[1], media.shape[2], self.immediate)
 
+        remat = self.gradient_checkpointing and cache is None and torch.is_grad_enabled()
+
+        def run(module, *args):
+            return checkpoint(module, *args, use_reentrant=False) if remat else module(*args)
+
         new_layers, new_media = [], []
         for i, block in enumerate(self.blocks):
             if str(i) in self.xattn and media is not None:
@@ -90,9 +101,9 @@ class FlamingoLM(nn.Module):
                 if media_cache is not None:
                     m = media_cache[len(new_media)]
                     mkv = (m.k, m.v)
-                x, (mk, mv) = self.xattn[str(i)](x, media, text_time, mkv, media_mask, zero_rows)
+                x, (mk, mv) = run(self.xattn[str(i)], x, media, text_time, mkv, media_mask, zero_rows)
                 new_media.append(LayerKV(k=mk, v=mv))
-            x, kv = block(x, attn, cache.layers[i] if cache is not None else None)
+            x, kv = run(block, x, attn, cache.layers[i] if cache is not None else None)
             new_layers.append(kv)
 
         if fused:

@@ -8,6 +8,9 @@ in immediate mode text with text_time 0 gets a zero attention output.
 
 The media K/V are projected once at prefill and returned to the caller
 (the JAX package's `sow("media_kv")`); decode steps pass them back in.
+A multi-token immediate-mode forward on the card runs K5 `masked_xattn`
+(under autograd with its backward K5b); the einsum path zeroes the rows
+with text_time 0 after the softmax, so they get zero gradient too.
 One decode token on the card takes the fused route in immediate mode: K3
 `attn_block_decode` in its q-only form (LN, q projection, masked softmax
 over the cached media K/V, out-projection, *tanh(attn_gate) + x), then K2
@@ -102,7 +105,7 @@ class MaskedCrossAttention(nn.Module):
         if use_xattn_kernel(x, self.immediate):
             from ..ops.masked_xattn import masked_xattn
 
-            qf = q.transpose(1, 2).reshape(b * h, tq, d)
+            qf = q.transpose(1, 2).reshape(b * h, tq, d).contiguous()
             tt = text_time.to(torch.int32).repeat_interleave(h, dim=0)
             out = masked_xattn(qf, k.reshape(b * h, s, d), v.reshape(b * h, s, d), tt, n_lat, scale)
             out = out.reshape(b, h, tq, d).transpose(1, 2)

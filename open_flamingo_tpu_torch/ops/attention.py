@@ -3,7 +3,8 @@
 Three regimes, selected by query length, cache state and the tensors'
 device (`use_kernels`; the JAX package tests for a TPU backend at the same
 places):
-  * multi-token (>= 8 queries, pad mask given) -> K4 flash kernel;
+  * multi-token (>= 8 queries, pad mask given) -> K4 flash kernel (prefill,
+    and the cache-free training forward, whose backward is K4b);
   * one query against a cache -> K7 decode kernel (writing the new K/V
     into the cache inside the launch);
   * otherwise -> the einsum path, whose fully-masked rows are uniform
@@ -98,12 +99,15 @@ def self_attention(
     if _use_flash(q, attn):
         from .flash_attention import flash_attention
 
-        qf = q.transpose(1, 2).reshape(b * h, tq, d)
+        # (B*H, T, D) contiguous operands: a copy of the transposed q/k/v
+        # views (where reshape cannot merge B and H as a view it copies
+        # already, and .contiguous() is then a no-op)
+        qf = q.transpose(1, 2).reshape(b * h, tq, d).contiguous()
         if attn.cached:
             kf, vf = k.reshape(b * h, s, d), v.reshape(b * h, s, d)  # head-major: a view
         else:
-            kf = k.transpose(1, 2).reshape(b * h, s, d)
-            vf = v.transpose(1, 2).reshape(b * h, s, d)
+            kf = k.transpose(1, 2).reshape(b * h, s, d).contiguous()
+            vf = v.transpose(1, 2).reshape(b * h, s, d).contiguous()
         pad = attn.pad_mask.repeat_interleave(h, dim=0)
         if alibi_slopes is None:
             slopes = torch.zeros(b * h, 1, dtype=torch.float32, device=q.device)

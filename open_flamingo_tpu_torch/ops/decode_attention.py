@@ -14,7 +14,8 @@ same cache tensors it was given.
 
 The wrappers launch the kernel for CUDA tensors and run the plain version
 `reference_decode_attention` (after an in-place slot write, for the update)
-for CPU tensors.
+for CPU tensors. Forward-only: both raise when autograd would need a
+gradient through them (`dense_stream.refuse_autograd`).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import ctypes
 import torch
 
 from . import build
+from .dense_stream import refuse_autograd
 from .flash_attention import _DTYPES, check_qkv
 
 _lib = None
@@ -43,6 +45,7 @@ def _kernel():
 def reference_decode_attention(q, k, v, mask, scale: float = 1.0, slopes=None):
     """Plain version. q (B, H, D); k/v (B, H, S, D); mask (B, S), nonzero
     = attend; slopes (H,) fp32 or None. All-masked rows give exact zeros."""
+    refuse_autograd("decode_attention", q, k, v, slopes)
     s = k.shape[2]
     logits = torch.einsum("bhd,bhkd->bhk", q.float() * scale, k.float())
     if slopes is not None:
@@ -95,6 +98,7 @@ def _launch(q, k, v, mask, scale, slopes, k_new, v_new, slot, name):
 
 def decode_attention(q, k, v, mask, *, scale: float = 1.0, slopes=None):
     """Attention only (static K/V, e.g. cached media). Returns (B, H, D)."""
+    refuse_autograd("decode_attention", q, k, v, slopes)
     if q.device.type == "cpu":
         return reference_decode_attention(q, k, v, mask, scale, slopes)
     out = _launch(q, k, v, mask, scale, slopes, None, None, 0, "decode_attention")
@@ -105,6 +109,7 @@ def decode_attention(q, k, v, mask, *, scale: float = 1.0, slopes=None):
 def decode_attention_update(q, k_cache, v_cache, k_new, v_new, mask, slot: int, *, scale: float = 1.0, slopes=None):
     """Write-then-attend decode step; `mask` must mark `slot` valid.
     Mutates k_cache/v_cache in place and returns (out, k_cache, v_cache)."""
+    refuse_autograd("decode_attention_update", q, k_cache, v_cache, k_new, v_new, slopes)
     if q.device.type == "cpu":
         k_cache[:, :, slot] = k_new
         v_cache[:, :, slot] = v_new

@@ -37,7 +37,7 @@ import torch
 from ..models.layers import layer_norm
 from . import build
 from .decode_attention import reference_decode_attention
-from .dense_stream import check_operands, ptr, refuse
+from .dense_stream import check_operands, ptr, refuse, refuse_autograd
 from .flash_attention import _DTYPES
 
 _lib = None
@@ -57,6 +57,7 @@ def _kernel():
 def reference_attn_block(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *, heads, head_dim, scale,
                          fused_qkv=False, slot=None, slopes=None, clip=None, gate=None, eps=1e-5):
     """Plain version of attn_block_decode, at the kernel's rounding points."""
+    refuse_autograd("attn_block_decode", x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, slopes, gate)
     b = x.shape[0]
     inner = heads * head_dim
     proj = layer_norm(x, ln_scale, ln_bias, eps).float() @ wq.float().t()
@@ -90,6 +91,7 @@ def attn_block_decode(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *,
     refuse("attn_block_decode", "int8/int4 weights, item 9", wq_scale=wq_scale, wout_scale=wout_scale)
     refuse("attn_block_decode", "int8 KV cache, item 9", k_scale=k_scale, v_scale=v_scale)
     refuse("attn_block_decode", "K2b side tiles, item 14", side_x=side_x, side_w=side_w)
+    refuse_autograd("attn_block_decode", x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, slopes, gate)
     b, dm = x.shape
     inner = heads * head_dim
     p = 3 * inner if fused_qkv else inner

@@ -74,6 +74,13 @@ def refuse(fn: str, what: str, **operands) -> None:
             raise NotImplementedError(f"{fn}: `{name}` ({what}) is not ported yet (ROADMAP.md)")
 
 
+def refuse_autograd(fn: str, *tensors) -> None:
+    """Raise when grad mode is on and an operand requires grad: the decode
+    kernels have no backward, and their outputs carry no grad_fn."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{fn}: a decode kernel has no backward; call it under torch.no_grad()")
+
+
 def _check_act(fn: str, act, norm: str = "layer") -> None:
     if norm != "layer":
         raise NotImplementedError(f"{fn}: norm={norm!r} (RMSNorm, item 7) is not ported yet (ROADMAP.md)")
@@ -107,6 +114,7 @@ def check_operands(fn: str, x: torch.Tensor, k: int, **tensors) -> None:
 def reference_dense(x, w, *, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, act=None, clip=None,
                     residual=None, gate=None):
     """Plain version of fused_dense, at the kernel's rounding points."""
+    refuse_autograd("fused_dense", x, w, bias, ln_scale, ln_bias, residual, gate)
     h = x if ln_scale is None else layer_norm(x, ln_scale, ln_bias, eps)
     y = h.float() @ w.float().t()
     if bias is not None:
@@ -135,6 +143,7 @@ def fused_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, e
     ln_bias (K,); residual (B, N); gate (1,), applied as *tanh(gate).
     Returns (B, N) in x's dtype."""
     refuse("fused_dense", "int8/int4 weights, item 9", w_scale=w_scale)
+    refuse_autograd("fused_dense", x, w, bias, ln_scale, ln_bias, residual, gate)
     _check_act("fused_dense", act, norm)
     b, k = x.shape
     n = w.shape[0]
@@ -169,6 +178,7 @@ def fused_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_
            w1_gate_scale=w1_gate_scale)
     refuse("fused_mlp", "SwiGLU, item 7", w1_gate=w1_gate)
     refuse("fused_mlp", "K2b side tiles, item 14", side_x=side_x, side_w=side_w)
+    refuse_autograd("fused_mlp", x, w1, w2, b1, b2, ln_scale, ln_bias, residual, gate)
     _check_act("fused_mlp", act, norm)
     b, k = x.shape
     k2, n = w1.shape[0], w2.shape[0]

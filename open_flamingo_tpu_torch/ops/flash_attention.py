@@ -1,17 +1,28 @@
-"""K4: causal streaming-softmax attention forward (prefill).
+"""K4: causal streaming-softmax attention (prefill and training), and K4b,
+its backward.
 
-Replaces `open_flamingo_tpu/ops/flash_attention.py` `flash_attention`
-(forward `_attention_kernel` via `_flash_forward`). The CUDA kernel is
-`csrc/prefill_attention.cu` `flash_attention_fwd`: one block per (bh,
-16-query tile) walking 32-key tiles in shared memory with an online
-softmax; causal against `q_offset + i`, key pad mask, in-kernel ALiBi,
-exact zeros for rows with no valid key. At the serving path's shapes it is
-bound by bytes on the card (see the source's note); this first version
-uses fp32 FMA, not tensor cores.
+Replaces `open_flamingo_tpu/ops/flash_attention.py` `flash_attention`:
+the forward `_attention_kernel` via `_flash_forward` (with `with_lse`) and
+the backward `_flash_dq_kernel` / `_flash_dkv_kernel` via
+`_flash_backward`. The CUDA kernels are `csrc/prefill_attention.cu`
+`flash_attention_fwd` (one block per (bh, 16-query tile) walking 32-key
+tiles in shared memory with an online softmax; causal against
+`q_offset + i`, key pad mask, in-kernel ALiBi, exact zeros for rows with no
+valid key, and the per-row logsumexp when asked) and
+`csrc/attention_backward.cu` `flash_attention_bwd_dq` / `_dkv`
+(FlashAttention-2's split: dq over key tiles, dk/dv over query tiles, P
+recomputed from the logsumexp; delta = rowsum(dO * O) fused into the dq
+launch). At the path's shapes they are bound by bytes on the card (see the
+sources' notes); these first versions use fp32 FMA, not tensor cores.
 
-`flash_attention` launches the kernel for CUDA tensors and runs the plain
-PyTorch version `reference_attention` for CPU tensors. The backward (K4b)
-is not ported yet.
+`flash_attention` is the entry point. When autograd needs its result
+(grad mode on and q, k or v requiring grad) it goes through
+`FlashAttentionFn`, which saves the logsumexp and runs the backward;
+gradients flow to q, k and v only (pad mask, slopes and q_offset are not
+differentiated, as in the JAX package's custom_vjp). CUDA tensors launch
+the kernels; CPU tensors run the plain PyTorch versions
+`reference_attention` and `reference_attention_backward` (explicit
+FlashAttention-2 formulas, not autograd), also inside the Function.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+_bwd_lib = None
 
 
 def _kernel():
@@ -31,16 +43,30 @@ def _kernel():
     if _lib is None:
         lib = build.library("prefill_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.flash_attention_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.flash_attention_fwd.restype = i
         _lib = lib
     return _lib
 
 
-def reference_attention(q, k, v, pad_mask, slopes, q_offset, causal=True, scale=1.0):
-    """Plain version, same semantics as the kernel. Shapes as flash_attention."""
-    bh, tq, d = q.shape
-    s = k.shape[1]
+def _bwd_kernel():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = build.library("attention_backward")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_bwd_dq.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, p]
+        lib.flash_attention_bwd_dkv.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, p]
+        lib.masked_xattn_bwd_dq.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, i, p]
+        lib.masked_xattn_bwd_dkv.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, i, p]
+        for fn in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "masked_xattn_bwd_dq", "masked_xattn_bwd_dkv"):
+            getattr(lib, fn).restype = i
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def _scores(q, k, pad_mask, slopes, q_offset, causal, scale):
+    """fp32 logits (BH, Tq, S) with ALiBi, and the boolean mask."""
+    tq, s = q.shape[1], k.shape[1]
     logits = torch.einsum("bqd,bkd->bqk", q.float() * scale, k.float())
     k_pos = torch.arange(s, device=q.device)[None, None, :]
     logits = logits + slopes.float()[:, :, None] * (k_pos - (s - 1)).float()
@@ -48,13 +74,50 @@ def reference_attention(q, k, v, pad_mask, slopes, q_offset, causal=True, scale=
     if causal:
         q_pos = q_offset + torch.arange(tq, device=q.device)[None, :, None]
         mask = mask & (k_pos <= q_pos)
+    return logits, mask
+
+
+def masked_softmax_v(logits, mask, v, dtype, with_lse):
+    """Softmax of `logits` under `mask` times v, with exact zeros for rows
+    with no valid key; with_lse also returns the per-row logsumexp (0 for
+    those rows)."""
     logits = logits.masked_fill(~mask, float("-inf"))
-    m = logits.amax(-1, keepdim=True)
-    p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m)).masked_fill(~mask, 0.0)
+    m = logits.amax(-1, keepdim=True).detach()
+    m = torch.where(torch.isinf(m), 0.0, m)
+    p = torch.exp(logits - m).masked_fill(~mask, 0.0)
     denom = p.sum(-1, keepdim=True)
-    denom = torch.where(denom == 0.0, 1.0, denom)
-    out = torch.einsum("bqk,bkd->bqd", p / denom, v.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bqk,bkd->bqd", p / torch.where(denom == 0.0, 1.0, denom), v.float()).to(dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(denom > 0.0, m + torch.log(denom), 0.0)[..., 0]
+    return out, lse
+
+
+def masked_softmax_v_backward(q, k, v, logits, mask, out, lse, dout, scale):
+    """FlashAttention-2's backward from the forward's logsumexp, in torch ops:
+    P = exp(s - lse) under the mask, dS = P * (dO V^T - rowsum(dO * O)),
+    dq = scale dS K, dk = scale dS^T q, dv = P^T dO."""
+    p = torch.exp(logits - lse.float()[..., None]).masked_fill(~mask, 0.0)
+    do = dout.float()
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bqd,bkd->bqk", do, v.float()) - delta)
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.float()) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
+    dv = torch.einsum("bqk,bqd->bkd", p, do)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def reference_attention(q, k, v, pad_mask, slopes, q_offset, causal=True, scale=1.0, with_lse=False):
+    """Plain version, same semantics as the kernel. Shapes as flash_attention;
+    with_lse also returns the logsumexp (BH, Tq) fp32."""
+    logits, mask = _scores(q, k, pad_mask, slopes, q_offset, causal, scale)
+    return masked_softmax_v(logits, mask, v, q.dtype, with_lse)
+
+
+def reference_attention_backward(q, k, v, pad_mask, slopes, q_offset, out, lse, dout, causal=True, scale=1.0):
+    """Plain version of K4b: (dq, dk, dv) from the forward's out and lse."""
+    logits, mask = _scores(q, k, pad_mask, slopes, q_offset, causal, scale)
+    return masked_softmax_v_backward(q, k, v, logits, mask, out, lse, dout, scale)
 
 
 def check_qkv(q, k, v, name):
@@ -68,34 +131,114 @@ def check_qkv(q, k, v, name):
         raise ValueError(f"{name}: head dim {q.shape[-1]} > 128")
 
 
-def flash_attention(q, k, v, pad_mask, slopes, q_offset: int, causal: bool = True, scale: float = 1.0):
-    """q: (BH, Tq, D); k/v: (BH, S, D); pad_mask: (BH, S) bool or int,
-    nonzero = valid; slopes: (BH, 1) fp32 (0 disables ALiBi); q_offset:
-    position of the first query in the key axis. Returns (BH, Tq, D)."""
+def _check_shapes(q, k, v, pad_mask, slopes):
     bh, tq, d = q.shape
     s = k.shape[1]
     if k.shape != (bh, s, d) or v.shape != k.shape:
         raise ValueError(f"flash_attention: bad k/v shapes {tuple(k.shape)}, {tuple(v.shape)}")
     if pad_mask.shape != (bh, s) or slopes.shape != (bh, 1):
         raise ValueError("flash_attention: pad_mask must be (BH, S) and slopes (BH, 1)")
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v, pad_mask, slopes, q_offset, causal, scale)
+
+
+def _cuda_operands(q, k, v, pad_mask, slopes, name):
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    check_qkv(q, k, v, "flash_attention")
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    check_qkv(q, k, v, name)
     if pad_mask.device != q.device or slopes.device != q.device:
-        raise ValueError("flash_attention: pad_mask/slopes on another device")
-    pad = (pad_mask != 0).to(torch.uint8).contiguous()
-    slopes = slopes.to(torch.float32).contiguous()
+        raise ValueError(f"{name}: pad_mask/slopes on another device")
+    return (pad_mask != 0).to(torch.uint8).contiguous(), slopes.to(torch.float32).contiguous()
+
+
+def flash_attention_forward(q, k, v, pad_mask, slopes, q_offset, causal, scale, with_lse):
+    """The forward on q's device: the kernel for CUDA, the plain version for
+    the CPU."""
+    if q.device.type == "cpu":
+        return reference_attention(q, k, v, pad_mask, slopes, q_offset, causal, scale, with_lse)
+    pad, slopes = _cuda_operands(q, k, v, pad_mask, slopes, "flash_attention")
+    bh, tq, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device) if with_lse else None
     status = _kernel().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), slopes.data_ptr(),
-        out.data_ptr(), bh, tq, s, d, int(q_offset), int(causal), float(scale),
-        _DTYPES[q.dtype], build.current_stream(q.device),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), slopes.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), bh, tq, k.shape[1], d, int(q_offset), int(causal),
+        float(scale), _DTYPES[q.dtype], build.current_stream(q.device),
     )
     build.check(status, "flash_attention_fwd")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_backward(q, k, v, pad_mask, slopes, q_offset, out, lse, dout, causal=True, scale=1.0):
+    """K4b: (dq, dk, dv) from the forward's out and lse (BH, Tq) fp32, for
+    dout (BH, Tq, D). One call is two launches, dq (which also writes
+    delta) then dkv."""
+    if q.device.type == "cpu":
+        return reference_attention_backward(q, k, v, pad_mask, slopes, q_offset, out, lse, dout, causal, scale)
+    pad, slopes = _cuda_operands(q, k, v, pad_mask, slopes, "flash_attention_backward")
+    check_grad_operands(q, out, lse, dout, "flash_attention_backward")
+    bh, tq, d = q.shape
+    s = k.shape[1]
+    delta = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib, stream = _bwd_kernel(), build.current_stream(q.device)
+    common = (bh, tq, s, d, int(q_offset), int(causal), float(scale), _DTYPES[q.dtype], stream)
+    build.check(lib.flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), slopes.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common), "flash_attention_bwd_dq")
+    build.check(lib.flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), slopes.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common), "flash_attention_bwd_dkv")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+def check_grad_operands(q, out, lse, dout, name):
+    """The backward's extra operands: out and dout like q, lse (BH, Tq) fp32,
+    all contiguous on q's device."""
+    bh, tq = q.shape[:2]
+    for t_name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {t_name} must be contiguous and match q's shape, dtype and device")
+    if lse.shape != (bh, tq) or lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"{name}: lse must be a contiguous (BH, Tq) float32 tensor on q's device")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """flash_attention under autograd: the forward keeps its logsumexp, the
+    backward is K4b (the plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad_mask, slopes, q_offset, causal, scale):
+        out, lse = flash_attention_forward(q, k, v, pad_mask, slopes, q_offset, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, pad_mask, slopes, out, lse)
+        ctx.attrs = (q_offset, causal, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, pad_mask, slopes, out, lse = ctx.saved_tensors
+        q_offset, causal, scale = ctx.attrs
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, pad_mask, slopes, q_offset, out, lse, dout.contiguous(), causal, scale)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def flash_attention(q, k, v, pad_mask, slopes, q_offset: int, causal: bool = True, scale: float = 1.0):
+    """q: (BH, Tq, D); k/v: (BH, S, D); pad_mask: (BH, S) bool or int,
+    nonzero = valid; slopes: (BH, 1) fp32 (0 disables ALiBi); q_offset:
+    position of the first query in the key axis. Returns (BH, Tq, D),
+    differentiable in q, k and v."""
+    _check_shapes(q, k, v, pad_mask, slopes)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, pad_mask, slopes, q_offset, causal, scale)
+    return flash_attention_forward(q, k, v, pad_mask, slopes, q_offset, causal, scale, with_lse=False)
 
 
 flash_attention.launches = 0
+flash_attention_backward.launches = 0

@@ -1,16 +1,21 @@
-"""K5: media-masked cross-attention forward (prefill).
+"""K5: media-masked cross-attention (prefill and training), and K5b, its
+backward.
 
-Replaces `open_flamingo_tpu/ops/masked_xattn.py` `masked_xattn` (forward
-`_xattn_kernel` via `_xattn_forward`). The CUDA kernel is
-`csrc/prefill_attention.cu` `masked_xattn_fwd`, K4's skeleton with the
-immediate-media mask `text_time[i] == j // n_latents + 1` computed from the
-key index; rows with text_time 0 (text before the first image) come out as
-exact zeros. At the serving path's shapes it is bound by bytes on the card;
-this first version uses fp32 FMA, not tensor cores.
+Replaces `open_flamingo_tpu/ops/masked_xattn.py` `masked_xattn`: the
+forward `_xattn_kernel` via `_xattn_forward` (with `with_lse`) and the
+backward `_xattn_dq_kernel` / `_xattn_dkv_kernel` via `_xattn_backward`.
+The CUDA kernels are `csrc/prefill_attention.cu` `masked_xattn_fwd` (K4's
+skeleton with the immediate-media mask `text_time[i] == j // n_latents + 1`
+computed from the key index; rows with text_time 0, text before the first
+image, come out as exact zeros) and `csrc/attention_backward.cu`
+`masked_xattn_bwd_dq` / `_dkv` (K4b's kernels under the media mask; those
+rows get exactly zero dq). At the path's shapes they are bound by bytes on
+the card; these first versions use fp32 FMA, not tensor cores.
 
-`masked_xattn` launches the kernel for CUDA tensors and runs the plain
-version `reference_masked_xattn` for CPU tensors. The backward (K5b) is
-not ported yet.
+`masked_xattn` goes through `MaskedXattnFn` when autograd needs its
+result; gradients flow to q, k and v (text_time is not differentiated). CUDA
+tensors launch the kernels; CPU tensors run the plain versions
+`reference_masked_xattn` and `reference_masked_xattn_backward`.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import ctypes
 import torch
 
 from . import build
-from .flash_attention import _DTYPES, check_qkv
+from .flash_attention import (
+    _DTYPES, _bwd_kernel, check_grad_operands, check_qkv, masked_softmax_v, masked_softmax_v_backward, needs_grad)
 
 _lib = None
 
@@ -30,51 +36,115 @@ def _kernel():
     if _lib is None:
         lib = build.library("prefill_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.masked_xattn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.masked_xattn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
         lib.masked_xattn_fwd.restype = i
         _lib = lib
     return _lib
 
 
-def reference_masked_xattn(q, k, v, text_time, n_latents: int, scale: float = 1.0):
-    """Plain version: immediate-mode semantics with exact zeros for rows
-    that see no media."""
+def _scores(q, k, text_time, n_latents, scale):
     s = k.shape[1]
     logits = torch.einsum("bqd,bkd->bqk", q.float() * scale, k.float())
     media_time = torch.arange(s, device=q.device) // n_latents + 1
-    mask = text_time[:, :, None] == media_time[None, None, :]
-    logits = logits.masked_fill(~mask, float("-inf"))
-    m = logits.amax(-1, keepdim=True)
-    p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m)).masked_fill(~mask, 0.0)
-    denom = p.sum(-1, keepdim=True)
-    denom = torch.where(denom == 0.0, 1.0, denom)
-    return torch.einsum("bqk,bkd->bqd", p / denom, v.float()).to(q.dtype)
+    return logits, text_time[:, :, None] == media_time[None, None, :]
+
+
+def reference_masked_xattn(q, k, v, text_time, n_latents: int, scale: float = 1.0, with_lse: bool = False):
+    """Plain version: immediate-mode semantics with exact zeros for rows
+    that see no media; with_lse also returns the logsumexp (BH, Tq) fp32."""
+    logits, mask = _scores(q, k, text_time, n_latents, scale)
+    return masked_softmax_v(logits, mask, v, q.dtype, with_lse)
+
+
+def reference_masked_xattn_backward(q, k, v, text_time, n_latents: int, out, lse, dout, scale: float = 1.0):
+    """Plain version of K5b: (dq, dk, dv) from the forward's out and lse."""
+    logits, mask = _scores(q, k, text_time, n_latents, scale)
+    return masked_softmax_v_backward(q, k, v, logits, mask, out, lse, dout, scale)
+
+
+def _cuda_text_time(q, k, v, text_time, name):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    check_qkv(q, k, v, name)
+    if text_time.device != q.device:
+        raise ValueError(f"{name}: text_time on another device")
+    return text_time.to(torch.int32).contiguous()
+
+
+def masked_xattn_forward(q, k, v, text_time, n_latents, scale, with_lse):
+    if q.device.type == "cpu":
+        return reference_masked_xattn(q, k, v, text_time, n_latents, scale, with_lse)
+    tt = _cuda_text_time(q, k, v, text_time, "masked_xattn")
+    bh, tq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device) if with_lse else None
+    status = _kernel().masked_xattn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), bh, tq, k.shape[1], d, int(n_latents), float(scale),
+        _DTYPES[q.dtype], build.current_stream(q.device),
+    )
+    build.check(status, "masked_xattn_fwd")
+    masked_xattn.launches += 1
+    return (out, lse) if with_lse else out
+
+
+def masked_xattn_backward(q, k, v, text_time, n_latents: int, out, lse, dout, scale: float = 1.0):
+    """K5b: (dq, dk, dv) from the forward's out and lse (BH, Tq) fp32, for
+    dout (BH, Tq, D). One call is two launches, dq (which also writes
+    delta) then dkv."""
+    if q.device.type == "cpu":
+        return reference_masked_xattn_backward(q, k, v, text_time, n_latents, out, lse, dout, scale)
+    tt = _cuda_text_time(q, k, v, text_time, "masked_xattn_backward")
+    if n_latents < 1:
+        raise ValueError("masked_xattn_backward: n_latents must be positive")
+    check_grad_operands(q, out, lse, dout, "masked_xattn_backward")
+    bh, tq, d = q.shape
+    delta = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _bwd_kernel()
+    common = (bh, tq, k.shape[1], d, int(n_latents), float(scale), _DTYPES[q.dtype], build.current_stream(q.device))
+    build.check(lib.masked_xattn_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common), "masked_xattn_bwd_dq")
+    build.check(lib.masked_xattn_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common), "masked_xattn_bwd_dkv")
+    masked_xattn_backward.launches += 1
+    return dq, dk, dv
+
+
+class MaskedXattnFn(torch.autograd.Function):
+    """masked_xattn under autograd: the forward keeps its logsumexp, the
+    backward is K5b (the plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, text_time, n_latents, scale):
+        out, lse = masked_xattn_forward(q, k, v, text_time, n_latents, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, text_time, out, lse)
+        ctx.attrs = (n_latents, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, text_time, out, lse = ctx.saved_tensors
+        n_latents, scale = ctx.attrs
+        dq, dk, dv = masked_xattn_backward(q, k, v, text_time, n_latents, out, lse, dout.contiguous(), scale)
+        return dq, dk, dv, None, None, None
 
 
 def masked_xattn(q, k, v, text_time, n_latents: int, scale: float = 1.0):
     """q: (BH, Tq, D); k/v: (BH, T_img * n_latents, D); text_time: (BH, Tq)
-    int. Returns (BH, Tq, D)."""
+    int. Returns (BH, Tq, D), differentiable in q, k and v."""
     bh, tq, d = q.shape
     s = k.shape[1]
     if k.shape != (bh, s, d) or v.shape != k.shape or text_time.shape != (bh, tq):
         raise ValueError("masked_xattn: expected k/v (BH, S, D) and text_time (BH, Tq)")
-    if q.device.type == "cpu":
-        return reference_masked_xattn(q, k, v, text_time, n_latents, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"masked_xattn: unsupported device {q.device}")
-    check_qkv(q, k, v, "masked_xattn")
-    if text_time.device != q.device:
-        raise ValueError("masked_xattn: text_time on another device")
-    tt = text_time.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    status = _kernel().masked_xattn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(), out.data_ptr(),
-        bh, tq, s, d, int(n_latents), float(scale), _DTYPES[q.dtype],
-        build.current_stream(q.device),
-    )
-    build.check(status, "masked_xattn_fwd")
-    masked_xattn.launches += 1
-    return out
+    if needs_grad(q, k, v):
+        return MaskedXattnFn.apply(q, k, v, text_time, n_latents, scale)
+    return masked_xattn_forward(q, k, v, text_time, n_latents, scale, with_lse=False)
 
 
 masked_xattn.launches = 0
+masked_xattn_backward.launches = 0

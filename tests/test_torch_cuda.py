@@ -7,10 +7,11 @@ nor the JAX package, so it also runs where JAX is absent:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 fp32 inputs: the kernels and the plain versions sum in different orders,
-~1e-6 apart at these sizes; atol 5e-5 as in chip_smoke.py. bf16 inputs (K1-K3,
-whose bf16 products run on tensor cores when K is a multiple of 32): both
-round an fp32 result to bf16, one ulp apart at most, plus the summation
-order; atol = rtol = 1e-2 as in chip_smoke.py.
+~1e-6 apart at these sizes; atol 5e-5 as in chip_smoke.py (the backward
+K4b/K5b: atol = rtol = 1e-4, its sums run over whole query and key tiles).
+bf16 inputs (K1-K3, whose bf16 products run on tensor cores when K is a
+multiple of 32; K4b/K5b): both round an fp32 result to bf16, one ulp apart
+at most, plus the summation order; atol = rtol = 1e-2 as in chip_smoke.py.
 """
 
 import pytest
@@ -19,8 +20,10 @@ import torch
 from open_flamingo_tpu_torch.ops.decode_attention import decode_attention, decode_attention_update
 from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode
 from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
-from open_flamingo_tpu_torch.ops.flash_attention import flash_attention
-from open_flamingo_tpu_torch.ops.masked_xattn import masked_xattn
+from open_flamingo_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_backward, flash_attention_forward, reference_attention)
+from open_flamingo_tpu_torch.ops.masked_xattn import (
+    masked_xattn, masked_xattn_backward, masked_xattn_forward, reference_masked_xattn)
 
 pytestmark = pytest.mark.gpu
 ATOL = 5e-5
@@ -140,3 +143,79 @@ def test_attn_block_decode_gated_xattn(gen, d, dtype):
     got = attn_block_decode(x, ln, ln_b, wq, wout, k, v, mask, gate=gate, **kw)
     close(got, want)
     assert torch.equal(got[1], x[1])
+
+
+def close_grad(got, want):
+    tol = dict(atol=1e-4, rtol=1e-4) if got.dtype == torch.float32 else dict(atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tq,s,q_offset", [(24, 37, 0), (32, 64, 16), (70, 70, 0)])
+def test_flash_attention_lse_and_backward(gen, tq, s, q_offset, dtype):
+    """K4 with lse, then K4b from the plain forward's out and lse, against
+    the plain versions; left padding, an all-masked sequence, ragged S."""
+    bh, d = 4, 128
+    q, k, v, do = (rn(gen, *shape).to(dtype) for shape in ((bh, tq, d), (bh, s, d), (bh, s, d), (bh, tq, d)))
+    pad = torch.ones(bh, s, dtype=torch.bool, device="cuda")
+    pad[:, q_offset + tq:] = False
+    pad[0, :3] = False
+    pad[1] = False
+    slopes = rn(gen, bh, 1).abs()
+    args = (pad, slopes, q_offset, True, d**-0.5)
+    cpu = lambda *ts: [t.cpu() for t in ts]
+    out, lse = flash_attention_forward(q, k, v, *args, with_lse=True)
+    want_out, want_lse = reference_attention(*cpu(q, k, v, pad, slopes), *args[2:], with_lse=True)
+    close(out, want_out)
+    torch.testing.assert_close(lse.cpu(), want_lse, atol=1e-4, rtol=1e-5)
+    assert (lse[1] == 0).all()
+    got = flash_attention_backward(q, k, v, *args[:3], want_out.cuda(), want_lse.cuda(), do, *args[3:])
+    want = flash_attention_backward(*cpu(q, k, v, pad, slopes), q_offset, want_out, want_lse, do.cpu(), *args[3:])
+    for g, w in zip(got, want):
+        close_grad(g, w)
+    assert (got[0][1] == 0).all() and (got[1][1] == 0).all() and (got[2][1] == 0).all()
+    assert (got[1][0, :3] == 0).all() and (got[2][0, :3] == 0).all()
+    if q_offset == 0:
+        assert (got[0][0, :3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tq,t_img", [(32, 1), (40, 6)])
+def test_masked_xattn_lse_and_backward(gen, tq, t_img, dtype):
+    """K5 with lse and K5b; rows 0..1 come before any image."""
+    bh, d, n_lat = 4, 64, 64
+    s = t_img * n_lat
+    q, k, v, do = (rn(gen, *shape).to(dtype) for shape in ((bh, tq, d), (bh, s, d), (bh, s, d), (bh, tq, d)))
+    loc = torch.zeros(bh, tq, dtype=torch.int32, device="cuda")
+    loc[:, 2 + torch.arange(t_img, device="cuda") * 6] = 1
+    tt = torch.cumsum(loc, 1).to(torch.int32)
+    out, lse = masked_xattn_forward(q, k, v, tt, n_lat, d**-0.5, with_lse=True)
+    want_out, want_lse = reference_masked_xattn(q.cpu(), k.cpu(), v.cpu(), tt.cpu(), n_lat, d**-0.5, with_lse=True)
+    close(out, want_out)
+    torch.testing.assert_close(lse.cpu(), want_lse, atol=1e-4, rtol=1e-5)
+    got = masked_xattn_backward(q, k, v, tt, n_lat, want_out.cuda(), want_lse.cuda(), do, d**-0.5)
+    want = masked_xattn_backward(q.cpu(), k.cpu(), v.cpu(), tt.cpu(), n_lat, want_out, want_lse, do.cpu(), d**-0.5)
+    for g, w in zip(got, want):
+        close_grad(g, w)
+    assert (got[0][:, :2] == 0).all() and (lse[:, :2] == 0).all()
+
+
+def test_attention_functions_backward_through_autograd(gen):
+    """flash_attention and masked_xattn under autograd on the card take the
+    kernels both ways (launch counters) and agree with the plain versions'
+    autograd on the CPU."""
+    bh, tq, d = 4, 32, 64
+    q, k, v, do = rn(gen, bh, tq, d), rn(gen, bh, tq, d), rn(gen, bh, tq, d), rn(gen, bh, tq, d)
+    pad, slopes = torch.ones(bh, tq, dtype=torch.bool, device="cuda"), rn(gen, bh, 1).abs()
+    tt = torch.ones(bh, tq, dtype=torch.int32, device="cuda")
+    for fn, extra, bwd in ((flash_attention, (pad, slopes, 0, True, 0.125), flash_attention_backward),
+                           (masked_xattn, (tt, 16, 0.125), masked_xattn_backward)):
+        grads = []
+        for dev in ("cuda", "cpu"):
+            leaves = [t.detach().to(dev).requires_grad_(True) for t in (q, k, v)]
+            n = bwd.launches
+            (fn(*leaves, *(a.to(dev) if torch.is_tensor(a) else a for a in extra)) * do.to(dev)).sum().backward()
+            assert bwd.launches == n + (dev == "cuda")
+            grads.append([leaf.grad for leaf in leaves])
+        for g, w in zip(*grads):
+            close_grad(g, w)

@@ -118,7 +118,8 @@ def test_mpt_block_decode_step_matches_jax(rng, fused):
     tcache.pad_mask[:, :t] = True
     tcache = dataclasses.replace(tcache, index=t, slot=torch.tensor([t], dtype=torch.int32))
     tattn, tcache = make_attn_inputs(torch.ones(b, 1, dtype=torch.long), cache=tcache)
-    got, got_kv = tm(torch.from_numpy(xt), tattn, tcache.layers[0])
+    with torch.no_grad():        # the decode kernels are forward-only (refuse_autograd)
+        got, got_kv = tm(torch.from_numpy(xt), tattn, tcache.layers[0])
     assert fused == {"K1": 0, "K2": 1, "K3": 1}
     close(got, want, BLOCK_ATOL)
     close(got_kv.k, want_kv.k, BLOCK_ATOL)
@@ -139,7 +140,8 @@ def test_gated_xattn_decode_step_matches_jax(rng, fused):
 
     tm = load(GatedCrossAttentionBlock(d, dv, dim_head=dh, heads=heads, device="cpu"), params)
     media_kv = (torch.from_numpy(np.array(mk)), torch.from_numpy(np.array(mv)))
-    got, _ = tm(torch.from_numpy(x), torch.from_numpy(media), torch.from_numpy(text_time), media_kv)
+    with torch.no_grad():        # the decode kernels are forward-only (refuse_autograd)
+        got, _ = tm(torch.from_numpy(x), torch.from_numpy(media), torch.from_numpy(text_time), media_kv)
     assert fused == {"K1": 0, "K2": 1, "K3": 1}
     close(got, want, BLOCK_ATOL)
 

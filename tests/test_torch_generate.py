@@ -85,7 +85,8 @@ def test_full_forward_logits_match_jax(models, pad_cols):
     jmodel, params, tmodel, vision_x, ids = models
     ids, mask = left_pad(ids, pad_cols)
     want, jlat, _ = jmodel.apply(params, vision_x, ids, mask)
-    got, tlat, _ = tmodel(torch.from_numpy(vision_x), torch.from_numpy(ids), torch.from_numpy(mask))
+    with torch.no_grad():        # the forward is differentiable: no graph for a comparison
+        got, tlat, _ = tmodel(torch.from_numpy(vision_x), torch.from_numpy(ids), torch.from_numpy(mask))
     np.testing.assert_allclose(tlat.numpy(), np.asarray(jlat), atol=ATOL, rtol=RTOL)
     valid = mask.astype(bool)
     np.testing.assert_allclose(got.numpy()[valid], np.asarray(want)[valid], atol=ATOL, rtol=RTOL)

@@ -64,11 +64,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_wrappers_refuse_other_devices():
-    """A tensor that is not on the CPU goes to the kernel or raises; the
-    meta device stands in for one here."""
+    """A tensor that is not on the CPU goes to the kernel or raises, forward
+    and backward; the meta device stands in for one here."""
     from open_flamingo_tpu_torch.ops.decode_attention import decode_attention
-    from open_flamingo_tpu_torch.ops.flash_attention import flash_attention
-    from open_flamingo_tpu_torch.ops.masked_xattn import masked_xattn
+    from open_flamingo_tpu_torch.ops.flash_attention import flash_attention, flash_attention_backward
+    from open_flamingo_tpu_torch.ops.masked_xattn import masked_xattn, masked_xattn_backward
 
     m = torch.device("meta")
     q, k = torch.empty(2, 8, 16, device=m), torch.empty(2, 8, 16, device=m)
@@ -79,6 +79,11 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         decode_attention(torch.empty(1, 2, 16, device=m), torch.empty(1, 2, 8, 16, device=m),
                          torch.empty(1, 2, 8, 16, device=m), torch.empty(1, 8, device=m))
+    lse = torch.empty(2, 8, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_backward(q, k, k, torch.empty(2, 8, device=m), torch.empty(2, 1, device=m), 0, q, lse, q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        masked_xattn_backward(q, k, k, torch.empty(2, 8, dtype=torch.int32, device=m), 4, q, lse, q)
 
 
 def test_fused_decode_wrappers_refuse_other_devices():
@@ -139,5 +144,6 @@ def test_kernel_routing_follows_the_tensor_device():
 def test_build_names_every_source():
     from open_flamingo_tpu_torch.ops import build
 
-    assert build.sources() == ["decode_attention", "decode_layer", "dense_stream", "prefill_attention"]
+    assert build.sources() == ["attention_backward", "decode_attention", "decode_layer", "dense_stream",
+                               "prefill_attention"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
