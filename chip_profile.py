@@ -5,11 +5,13 @@ port spends its time on the card.
     python3 chip_profile.py            # generate, the fused decode route (K1-K3)
     python3 chip_profile.py unfused    # generate, the unfused route (K7, DISABLE_FUSED)
     python3 chip_profile.py train      # one bf16 train step (K4/K5 and K4b/K5b)
+    python3 chip_profile.py of4b       # OF-4B generate, the fused route (K1, K6, K2; K3)
 
-Builds OF-3B at full width with random weights (bf16), runs the same
-inputs as chip_smoke.py (generate: 8 prompts of 32 tokens, one image each,
-32 new tokens; train: LAION 8x32 and MMC4 4x256 with six images), warms up
-once, times one untraced call, then traces one call with torch.profiler.
+Builds OF-3B (OF-4B for `of4b`) at full width with random weights
+(bf16), runs the same inputs as chip_smoke.py (generate: 8 prompts of 32
+tokens, one image each, 32 new tokens; train: LAION 8x32 and MMC4 4x256
+with six images), warms up once, times one untraced call, then traces one
+call with torch.profiler.
 Prints one JSON line: wall seconds, the device's busy time (sum of the
 device events' times; one stream, so they do not overlap) and idle share,
 the device time of each hand-written kernel, and the kernels with the most
@@ -43,12 +45,12 @@ def main() -> int:
     from open_flamingo_tpu_torch.train.train_loop import TrainLoopConfig, TrainState, make_train_step
 
     mode = sys.argv[1] if len(sys.argv) > 1 else "fused"
-    if mode not in ("fused", "unfused", "train"):
+    if mode not in ("fused", "unfused", "train", "of4b"):
         print(f"chip_profile: unknown mode {mode!r}", file=sys.stderr)
         return 2
     dense_stream.DISABLE_FUSED = mode == "unfused"
     dev = torch.device("cuda", 0)
-    cfg = flamingo_config("OF-3B")
+    cfg = flamingo_config("OF-4B" if mode == "of4b" else "OF-3B")
     model = init_random(cfg, SEED, device=dev, dtype=torch.bfloat16)
     if mode == "train":
         trainable, _ = split_params(model)
@@ -97,11 +99,12 @@ def main() -> int:
         raise RuntimeError("the trace holds no device events")
     rows.sort(key=lambda r: -r[1])
     # device symbols of the hand-written kernels: the row GEMV (gemv_kernel
-    # on CUDA cores, gemv_mma_kernel on tensor cores) serves K1, K2 and K3's
-    # projections; K3's softmax is attend_kernel; K4 and K5 share
-    # attention_fwd_kernel, K4b and K5b the two backward kernels
+    # on CUDA cores, gemv_mma_kernel on tensor cores) serves K1, K2 and the
+    # projections of K3 and K6; K3's softmax is attend_kernel, K6's
+    # attend_out_kernel; K4 and K5 share attention_fwd_kernel, K4b and K5b
+    # the two backward kernels
     ported = {kern: sum(r[1] for r in rows if kern in r[0])
-              for kern in ("gemv", "attend_kernel", "attention_fwd_kernel", "decode_kernel",
+              for kern in ("gemv", "attend_kernel", "attend_out_kernel", "attention_fwd_kernel", "decode_kernel",
                            "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")}
     launches = {name: fn.launches for name, fn in kernel_functions().items()}
     # device time by kind of kernel, first match wins
@@ -113,7 +116,8 @@ def main() -> int:
         kind = next((kind for kind, keys in kinds if any(key in name for key in keys)), "other")
         by_kind[kind] += t
     print(json.dumps({
-        "profile": "train_step_bf16" if mode == "train" else "generate_bf16", "mode": mode, **shape,
+        "profile": "train_step_bf16" if mode == "train" else "generate_bf16", "mode": mode, "model": cfg.lm.family,
+        **shape,
         "wrapper_launches_since_start": launches,
         "wall_s_untraced": wall_untraced, "wall_s_traced": wall, "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / wall, "device_idle_share_untraced": 1.0 - busy / wall_untraced,

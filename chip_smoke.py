@@ -24,18 +24,30 @@ Phases, each printing JSON lines:
               dq/dk/dv against the plain versions in fp32 and bf16, exact
               zeros where the mask says. Times the backward (dq + dkv, delta
               fused into dq; CUDA-graph replay), the plain version, and the
-              backward of scaled_dot_product_attention with the same mask;
-  3. generate full-width OF-3B (ViT-L/14 + MPT-1B, 24 xattn blocks) with
-              random weights from a seed: greedy flamingo_generate of 32
+              backward (and forward) of scaled_dot_product_attention with
+              the same mask. OF-4B's shapes (RedPajama-INCITE-3B: D = 2560,
+              32 heads of Dh = 80, biases, no ALiBi, untied head): K6
+              attend_out_decode (slot write, attend, out-projection, bias)
+              at its path shape and edge cases (slot 0 and 63, the whole
+              epilogue, GQA, q only with ALiBi and a row with no valid key),
+              K1 QKV + bias and the untied head, K2 with b1/b2 and the
+              xattn FF, K3 q only, K4 and K7 at Dh = 80 without ALiBi;
+  3. generate full-width OF-3B (ViT-L/14 + MPT-1B, 24 xattn blocks), then
+              full-width OF-4B (ViT-L/14 + RedPajama-INCITE-3B, 16 xattn
+              blocks, its decoder biases drawn at random), each with random
+              weights from a seed: greedy flamingo_generate of 32
               tokens for 8 prompts of 32 tokens, one image each, two rows
-              left-padded. fp32: (a) the fused decode route (K1-K3) with
+              left-padded. fp32: (a) the fused decode route (OF-3B K1-K3;
+              OF-4B K1, K6, K2 per layer, K3 + K2 per xattn block) with
               its kernels against the same route under `plain_path()`,
               (b) against the unfused route (`DISABLE_FUSED`,
               K7): identical tokens, and on one token stream the logits of
               prefill and of every decode step within tolerance. bf16,
               timed: (c) the fused route, (d) the unfused route, each with
               every kernel's launch counter reset just before and checked
-              just after against the counts the route must give.
+              just after against the counts the route must give
+              (`route_launches`), and one fused decode step under the sync
+              debug mode "error". Each model is freed before the next.
   4. train    the full-width OF-3B training step (`make_train_step`) on
               random weights, LAION 8x32 with one image and MMC4 4x256 with
               six (uint8 pixels, <|endofchunk|> then <image> mid-row, right
@@ -54,6 +66,7 @@ before the last line. Needs no network; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import subprocess
@@ -72,7 +85,8 @@ from open_flamingo_tpu_torch.ops import build, dense_stream
 from open_flamingo_tpu_torch.ops.attention import plain_path
 from open_flamingo_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_update, reference_decode_attention)
-from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode, reference_attn_block
+from open_flamingo_tpu_torch.ops.decode_layer import (
+    attend_out_decode, attn_block_decode, reference_attend_out, reference_attn_block)
 from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp, reference_dense, reference_mlp
 from open_flamingo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward, reference_attention,
@@ -93,14 +107,24 @@ TOL = {torch.float32: dict(atol=5e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2,
 # magnitude ~1-10 in fp32): rtol as well; bf16 as TOL
 BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)   # fp32 in both versions, from the same inputs
+# K6: fp32 within 1e-5 (one fp32 sum over H*Dh = 2560 products of ~1e-3
+# apart in order only); bf16 within one ulp of the plain result: both round
+# an fp32 value that agrees to ~1e-6 (the floor 2^-6 sizes the ulp of
+# results near 0, where a head output rounded the other way moves the sum by
+# ~2e-5)
+CASE_TOL = {"attend_out_decode": {torch.float32: dict(atol=1e-5, rtol=0.0), torch.bfloat16: "ulp"}}
+BF16_ULP_FLOOR = 2.0**-6
 LOGITS_TOL = 2e-3   # fp32 logits through 24 decoder + 24 xattn layers, every step
 B, T_PROMPT, NEW_TOKENS, SEED = 8, 32, 32, 0
 # the main-path shape of each kernel, timed and reported; other cases are edge cases
 MAIN_CASES = {"fused_dense": "head_V50434", "fused_mlp": "mpt_mlp", "attn_block_decode": "self_S64_slot40",
               "flash_attention": "prefill_S64", "masked_xattn": "prefill_T1", "decode_attention": "xattn_S64",
               "decode_attention_update": "self_S64_slot40", "flash_attention_backward": "mmc4_T256",
-              "masked_xattn_backward": "mmc4_T256"}
-TIMED_CASES = set(MAIN_CASES.values()) | {"xattn_ff", "xattn_S64_gate"}
+              "masked_xattn_backward": "mmc4_T256", "attend_out_decode": "neox_S64_slot40"}
+# OF-4B's shapes of the kernels its path shares with OF-3B's
+NEOX_TIMED = {"neox_qkv_bias", "neox_head_untied_V50434", "neox_mlp_bias", "neox_xattn_S64_gate",
+              "prefill_Dh80_noalibi", "neox_self_Dh80", "neox_self_S64_slot40"}
+TIMED_CASES = set(MAIN_CASES.values()) | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED
 BWD_TIMED = {"laion_T32", "mmc4_T256"}
 # the OF-3B train step at the JAX package's bench shape (bench.py:494)
 B_L, T_L, B_M, T_M, N_IMG, TRAIN_PAD = 8, 32, 4, 256, 6, 1
@@ -192,8 +216,13 @@ def compare(name, case, dtype, got, want, exact=None, tol=None):
     """`exact(got)`: the case's rows that must come out exactly (rows with
     no valid key: zeros, or x itself after K3's residual)."""
     tol = tol or TOL[dtype]
-    err = (got.float() - want.float()).abs().max().item()
-    ok = torch.allclose(got.float(), want.float(), **tol)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if tol == "ulp":        # one bf16 ulp (8 significant bits) of the plain result
+        mag = want.float().abs().clamp(min=BF16_ULP_FLOOR)
+        ok = bool((diff <= torch.exp2(torch.floor(torch.log2(mag)) - 7)).all())
+    else:
+        ok = torch.allclose(got.float(), want.float(), **tol)
     exact0 = True if exact is None else bool(exact(got))
     log({"phase": "kernels", "kernel": name, "case": case, "dtype": str(dtype).split(".")[-1],
          "max_abs_err": err, "tol": tol, "all_masked_rows_exact_zero": exact0})
@@ -375,17 +404,170 @@ def kernel_cases(dtype, gen, dev):
             "update: slots other than the new token's changed")
 
 
+def neox_kernel_cases(dtype, gen, dev):
+    """OF-4B's path (RedPajama-INCITE-3B: D = 2560, 32 heads of Dh = 80,
+    biases, no ALiBi, untied head; xattn every second layer): K6
+    attend_out_decode at its shapes and edge cases, and the shapes no
+    OF-3B case gives K1-K4 and K7. Yields as kernel_cases."""
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    d, k2, v, h, dh, s = 2560, 10240, 50434, 32, 80, 64
+    x, ln, ln_b = rn(B, d), 1 + rn(d, scale=0.1), rn(d, scale=0.1)
+    hn = layer_norm(x, ln, ln_b)
+
+    # K1: LN (with bias) + query_key_value + bias, N = 7680; the untied head
+    wqkv, bqkv = rn(3 * d, d, scale=d**-0.5), rn(3 * d, scale=0.1)
+    cost = ((3 * d * d + B * d + 2 * d + 3 * d + B * 3 * d) * es, 2 * B * 3 * d * d)
+    yield ("fused_dense", "neox_qkv_bias", lambda: fused_dense(x, wqkv, bias=bqkv, ln_scale=ln, ln_bias=ln_b),
+           lambda: reference_dense(x, wqkv, bias=bqkv, ln_scale=ln, ln_bias=ln_b), None, cost,
+           lambda: F.linear(hn, wqkv, bqkv), "F.linear(LN(x), W, b): the product and bias alone")
+    whead = rn(v, d, scale=d**-0.5)
+    cost = ((v * d + B * d + 2 * d + B * v) * es, 2 * B * v * d)
+    yield ("fused_dense", "neox_head_untied_V50434", lambda: fused_dense(x, whead, ln_scale=ln, ln_bias=ln_b),
+           lambda: reference_dense(x, whead, ln_scale=ln, ln_bias=ln_b), None, cost, lambda: F.linear(hn, whead),
+           "F.linear(LN(x), W): the product alone")
+
+    # K2: the GPT-NeoX MLP with b1, b2 (sequential residual), and the xattn
+    # FF at D = 2560 (LN bias, ff_gate, no biases)
+    w1, w2, b1, b2 = rn(k2, d, scale=d**-0.5), rn(d, k2, scale=k2**-0.5), rn(k2, scale=0.1), rn(d, scale=0.1)
+    cost = ((2 * d * k2 + 2 * B * d + 3 * d + k2) * es, 4 * B * d * k2)
+    yield ("fused_mlp", "neox_mlp_bias",
+           lambda: fused_mlp(x, w1, w2, b1=b1, b2=b2, ln_scale=ln, ln_bias=ln_b, residual=x),
+           lambda: reference_mlp(x, w1, w2, b1=b1, b2=b2, ln_scale=ln, ln_bias=ln_b, residual=x), None, cost,
+           lambda: F.linear(F.linear(hn, w1, b1), w2, b2), "F.linear twice with biases: the products alone")
+    gate = torch.tensor([0.5], device=dev, dtype=dtype)
+    cost = ((2 * d * k2 + 2 * B * d + 2 * d + 1) * es, 4 * B * d * k2)
+    yield ("fused_mlp", "neox_xattn_ff", lambda: fused_mlp(x, w1, w2, ln_scale=ln, ln_bias=ln_b, residual=x, gate=gate),
+           lambda: reference_mlp(x, w1, w2, ln_scale=ln, ln_bias=ln_b, residual=x, gate=gate), None, cost,
+           lambda: F.linear(F.linear(hn, w1), w2), "F.linear twice: the two products alone")
+
+    # K3 q only: gated xattn at D = 2560 (H = 8, Dh = 64, 64 latents), row 3
+    # before any image: y == x there
+    hx, dx = 8, 64
+    wq, wo = rn(hx * dx, d, scale=d**-0.5), rn(d, hx * dx, scale=(hx * dx) ** -0.5)
+    km, vm = rn(B, hx, s, dx), rn(B, hx, s, dx)
+    mask = torch.ones(B, s, dtype=torch.bool, device=dev)
+    mask[3] = False
+    kw = dict(heads=hx, head_dim=dx, scale=dx**-0.5, gate=gate)
+    n_valid = mask.sum().item()
+    cost = ((2 * hx * dx * d + 2 * B * d + 2 * d + 1 + 2 * n_valid * hx * dx) * es + B * s,
+            4 * B * d * hx * dx + 4 * hx * dx * n_valid)
+    a_x = rn(B, hx * dx)
+    yield ("attn_block_decode", "neox_xattn_S64_gate",
+           lambda: attn_block_decode(x, ln, ln_b, wq, wo, km, vm, mask, **kw),
+           lambda: reference_attn_block(x, ln, ln_b, wq, wo, km, vm, mask, **kw),
+           lambda got: torch.equal(got[3], x[3]), cost,
+           lambda: (F.linear(hn, wq), F.linear(a_x, wo)), "F.linear for Wq and Wout: the products alone")
+
+    # K6: the self-attention tail of every layer (slot 40 after a 32-token
+    # prompt with rows 0 and 1 left-padded; dense bias), then edge cases:
+    # the slot at S - 1 with the whole epilogue, the slot at 0 alone, GQA
+    # with two query heads per kv head, the q-only form with ALiBi and a row
+    # with no valid key (exact zeros)
+    wout, bout, res = rn(d, h * dh, scale=(h * dh) ** -0.5), rn(d, scale=0.1), rn(B, d)
+    slopes32 = torch.from_numpy(alibi_slopes(h)).to(dev)
+    a_in = rn(B, h * dh)
+    for case, slot, n_rep, extra, masked_row in (
+        ("neox_S64_slot40", 40, 1, dict(bias=bout), None),
+        ("neox_S64_slot63_gate_residual", 63, 1, dict(bias=bout, gate=gate, residual=res), None),
+        ("neox_S64_slot0", 0, 1, dict(bias=bout), None),
+        ("neox_gqa2_S64_slot40", 40, 2, dict(bias=bout), None),
+        ("neox_q_only_alibi_masked_row", None, 1, dict(slopes=slopes32), 3),
+    ):
+        h_kv = h // n_rep
+        q, k0, v0 = rn(B, h, dh), rn(B, h_kv, s, dh), rn(B, h_kv, s, dh)
+        kc, vc = k0.clone(), v0.clone()
+        mask = left_padded_mask(B, s, [4, 7], dev)
+        if slot is not None:
+            mask[:, slot + 1:] = False
+            if slot == 0:
+                mask[:, 0] = True
+            kn, vn = rn(B, h_kv, dh), rn(B, h_kv, dh)
+            upd = dict(k_new=kn, v_new=vn, slot=torch.tensor([slot], dtype=torch.int32, device=dev))
+        else:
+            upd = {}
+        if masked_row is not None:
+            mask[masked_row] = False
+        kw = dict(scale=dh**-0.5, **upd, **extra)
+        first = (lambda y: y[0]) if slot is not None else (lambda y: y)
+        fn = lambda q=q, kc=kc, vc=vc, mask=mask, kw=kw, first=first: first(
+            attend_out_decode(q, kc, vc, mask, wout, **kw))
+        plain = lambda q=q, k0=k0, v0=v0, mask=mask, kw=kw, first=first: first(
+            reference_attend_out(q, k0.clone(), v0.clone(), mask, wout, **kw))
+        # Wout, the valid cache rows, q, the new K/V and out, bias/gate/
+        # residual/slopes, mask and slot
+        n_valid = mask.sum().item()
+        elems = d * h * dh + 2 * n_valid * h_kv * dh + B * h * dh + B * d + 2 * B * h_kv * dh * (slot is not None)
+        cost = (elems * es + sum(t.numel() * t.element_size() for t in extra.values()) + B * s
+                + 4 * (slot is not None), 2 * B * d * h * dh + 4 * h * dh * n_valid)
+        yield ("attend_out_decode", case, fn, plain, None if masked_row is None else zeros_at([masked_row]), cost,
+               lambda: F.linear(a_in, wout, bout), "F.linear(a, Wout, b): the out-projection alone")
+        if slot is not None:
+            # the slot row holds the new K/V exactly and nothing else moved
+            others = torch.arange(s, device=dev) != slot
+            require(torch.equal(kc[:, :, slot], kn) and torch.equal(vc[:, :, slot], vn),
+                    f"attend_out_decode/{case}: slot row not the new K/V")
+            require(torch.equal(kc[:, :, others], k0[:, :, others]) and torch.equal(vc[:, :, others], v0[:, :, others]),
+                    f"attend_out_decode/{case}: slots other than the new token's changed")
+
+    # K4: prefill at Dh = 80 without ALiBi (zero slopes, as ops/attention.py
+    # passes them), H = 32
+    tq, hb = T_PROMPT, B * h
+    q, k, v = rn(hb, tq, dh), rn(hb, s, dh), rn(hb, s, dh)
+    valid = left_padded_mask(B, s, [4, 7], dev)
+    valid[:, tq:] = False
+    pad = valid.repeat_interleave(h, 0)
+    sl = torch.zeros(hb, 1, dtype=torch.float32, device=dev)
+    allowed = pad[:, None, :] & (torch.arange(s, device=dev)[None, :] <= torch.arange(tq, device=dev)[:, None])[None]
+    keys = allowed.any(1).sum().item()
+    cost = ((2 * hb * tq * dh + 2 * keys * dh) * es + hb * s + 4 * hb, 4 * dh * allowed.sum().item())
+    q4, k4, v4, m4 = q.view(B, h, tq, dh), k.view(B, h, s, dh), v.view(B, h, s, dh), allowed.view(B, h, tq, s)
+    yield ("flash_attention", "prefill_Dh80_noalibi", lambda: flash_attention(q, k, v, pad, sl, 0, True, dh**-0.5),
+           lambda: reference_attention(q, k, v, pad, sl, 0, True, dh**-0.5), zeros_at(~allowed.any(-1)), cost,
+           lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=dh**-0.5),
+           "scaled_dot_product_attention")
+
+    # K7 at Dh = 80 without ALiBi: attention over the cache, and the update
+    # writing slot 40 (the unfused route's self-attention)
+    slot = 40
+    q, kc, vc, kn, vn = rn(B, h, dh), rn(B, h, s, dh), rn(B, h, s, dh), rn(B, h, dh), rn(B, h, dh)
+    mask = left_padded_mask(B, s, [4, 7], dev)
+    mask[:, slot + 1:] = False
+    n_valid = mask.sum().item()
+    cost = ((2 * B * h * dh + 2 * n_valid * h * dh) * es + B * s, 4 * dh * h * n_valid)
+    q4, k4, v4, m4 = q[:, :, None], kc, vc, mask[:, None, None, :]
+    yield ("decode_attention", "neox_self_Dh80", lambda: decode_attention(q, kc, vc, mask, scale=dh**-0.5),
+           lambda: reference_decode_attention(q, kc, vc, mask, dh**-0.5), None, cost,
+           lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=dh**-0.5),
+           "scaled_dot_product_attention")
+    k0, v0 = kc.clone(), vc.clone()
+
+    def plain_update():
+        kp, vp = k0.clone(), v0.clone()
+        kp[:, :, slot], vp[:, :, slot] = kn, vn
+        return reference_decode_attention(q, kp, vp, mask, dh**-0.5)
+
+    cost = ((2 * B * h * dh + 2 * n_valid * h * dh + 4 * B * h * dh) * es + B * s, 4 * dh * h * n_valid)
+    yield ("decode_attention_update", "neox_self_S64_slot40",
+           lambda: decode_attention_update(q, kc, vc, kn, vn, mask, slot, scale=dh**-0.5)[0], plain_update, None,
+           cost, None, None)
+    require(torch.equal(kc[:, :, slot], kn) and torch.equal(vc[:, :, slot], vn), "update Dh 80: slot not written")
+
+
 def phase_kernels(dev) -> dict:
     """Returns, per kernel, its bf16 numbers at each timed shape."""
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        for name, case, fn, plain, exact, cost, lib, lib_is in kernel_cases(dtype, gen, dev):
+        cases = itertools.chain(kernel_cases(dtype, gen, dev), neox_kernel_cases(dtype, gen, dev))
+        for name, case, fn, plain, exact, cost, lib, lib_is in cases:
             got = fn()
             torch.cuda.synchronize()
             want = plain()
-            err = compare(name, case, dtype, got, want, exact)
-            if case == "head_V50434":                   # the ragged last 1282 columns
+            err = compare(name, case, dtype, got, want, exact, CASE_TOL.get(name, {}).get(dtype))
+            if case.endswith("V50434"):                 # the ragged last 1282 columns
                 tail = (got[:, 49152:].float() - want[:, 49152:].float()).abs().max().item()
                 log({"phase": "kernels", "kernel": name, "case": case, "tail_cols": 1282, "tail_max_abs_err": tail})
                 require(torch.allclose(got[:, 49152:].float(), want[:, 49152:].float(), **TOL[dtype]), "head tail")
@@ -416,6 +598,12 @@ def sdpa_backward(q, k, v, dout, b, h, attn_mask, scale):
     return lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), stream
 
 
+def sdpa_forward(q, k, v, b, h, attn_mask, scale):
+    """The library's forward on the same inputs and mask (no lse output)."""
+    q4, k4, v4 = (x.view(b, h, -1, x.shape[-1]) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask, scale=scale)
+
+
 def attention_costs(allowed, tq, s, d, es, mask_bytes):
     """(bytes, FLOPs) of the forward with lse and of the backward for the
     allowed (BH, Tq, S) pairs: the forward reads q and the K/V rows some
@@ -432,8 +620,8 @@ def attention_costs(allowed, tq, s, d, es, mask_bytes):
 def backward_cases(dtype, gen, dev):
     """Yields (name, case, fwd, plain_fwd, bwd, plain_bwd, allowed, costs,
     library): fwd() -> (out, lse); bwd(out, lse) -> (dq, dk, dv); allowed
-    the (BH, Tq, S) pairs the mask lets through; library() the SDPA backward
-    (timed cases only, else None)."""
+    the (BH, Tq, S) pairs the mask lets through; library (timed cases only,
+    else None) the SDPA backward, its stream and the SDPA forward."""
     def rn(*shape):
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
@@ -461,7 +649,8 @@ def backward_cases(dtype, gen, dev):
         lib = None
         if case in BWD_TIMED:
             bias = torch.where(allowed, sl[:, :, None] * (torch.arange(s, device=dev) - (s - 1)).float(), float("-inf"))
-            lib = sdpa_backward(q, k, v, do, b, h, bias.view(b, h, tq, s).to(dtype), d**-0.5)
+            bias4 = bias.view(b, h, tq, s).to(dtype)
+            lib = (*sdpa_backward(q, k, v, do, b, h, bias4, d**-0.5), sdpa_forward(q, k, v, b, h, bias4, d**-0.5))
         yield ("flash_attention_backward", case,
                lambda q=q, k=k, v=v, args=args: flash_attention_forward(q, k, v, *args, True, d**-0.5, with_lse=True),
                lambda q=q, k=k, v=v, args=args: reference_attention(q, k, v, *args, True, d**-0.5, with_lse=True),
@@ -486,7 +675,10 @@ def backward_cases(dtype, gen, dev):
             loc[3, 0], loc[3, 5] = 0, 1
         tt = torch.cumsum(loc, 1).to(torch.int32).repeat_interleave(h, 0)
         allowed = tt[:, :, None] == (torch.arange(s, device=dev) // n_lat + 1)[None, None, :]
-        lib = sdpa_backward(q, k, v, do, b, h, allowed.view(b, h, tq, s), d**-0.5) if case in BWD_TIMED else None
+        lib = None
+        if case in BWD_TIMED:
+            m4 = allowed.view(b, h, tq, s)
+            lib = (*sdpa_backward(q, k, v, do, b, h, m4, d**-0.5), sdpa_forward(q, k, v, b, h, m4, d**-0.5))
         yield ("masked_xattn_backward", case,
                lambda q=q, k=k, v=v, tt=tt: masked_xattn_forward(q, k, v, tt, n_lat, d**-0.5, with_lse=True),
                lambda q=q, k=k, v=v, tt=tt: reference_masked_xattn(q, k, v, tt, n_lat, d**-0.5, with_lse=True),
@@ -538,7 +730,8 @@ def phase_backward(dev, summary: dict) -> None:
             summary.setdefault(name, {})[case] = row
             f_ms, f_by = bound(*costs[0], dtype)
             row = {"ms": device_ms(fwd), "call_ms": call_ms(fwd), "plain_ms": device_ms(plain_fwd), "bound_ms": f_ms,
-                   "bound_by": f_by, "library_ms": None, "library_is": None,
+                   "bound_by": f_by, "library_ms": device_ms(lib[2]),
+                   "library_is": "scaled_dot_product_attention (same mask and ALiBi bias), without lse",
                    "max_abs_err": (out.float() - out_p.float()).abs().max().item(), "case": f"train_{case}_lse"}
             log({"phase": "kernels", "kernel": fwd_name, "timing": row})
             summary.setdefault(fwd_name, {})[f"train_{case}_lse"] = row
@@ -649,19 +842,57 @@ def sync_free_step(model, vision_x, ids, mask, dev) -> None:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log({"phase": "generate", "dtype": "bfloat16", "route": "fused", "decode_step_host_syncs": 0})
+    log({"phase": "generate", "dtype": "bfloat16", "route": "fused", "decode_step_host_syncs": 0,
+         "model": type(model.lm.blocks[0]).__name__})
+
+
+def route_launches(cfg, counters, fused: bool) -> dict:
+    """The launches one generate call must give: prefill K4 per decoder
+    layer and K5 per xattn block; per decode step, on the fused route, MPT
+    K3 + K2 per layer, GPT-NeoX K1 + K6 + K2 per layer, K3 + K2 per xattn
+    block and K1 for the head; on the unfused route K7 with the update per
+    layer and without it per xattn block."""
+    steps, layers = NEW_TOKENS - 1, cfg.lm.num_layers
+    xattn = layers // cfg.cross_attn_every_n
+    neox = cfg.lm.family == "gptneox"
+    want = {name: 0 for name in counters}
+    want.update(flash_attention=layers, masked_xattn=xattn)
+    if fused:
+        want.update(fused_dense=steps * (1 + layers * neox), fused_mlp=steps * (layers + xattn),
+                    attn_block_decode=steps * (xattn + layers * (not neox)), attend_out_decode=steps * layers * neox)
+    else:
+        want.update(decode_attention=steps * xattn, decode_attention_update=steps * layers)
+    return want
+
+
+@torch.no_grad()
+def random_lm_biases(model, seed) -> None:
+    """Draw every bias of the LM's decoder blocks from N(0, 0.02^2) (a
+    torch.Generator on the card, from `seed`, drawn in fp32): init_random
+    leaves them 0, and GPT-NeoX's bias epilogues (K1, K6, K2) should do work
+    in the checks."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    for name, p in model.lm.blocks.named_parameters():
+        if name.endswith(".bias"):
+            p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * 0.02)
 
 
 @torch.no_grad()   # generation: the forward is differentiable, nothing here needs a graph
-def phase_generate(dev):
+def phase_generate(dev, name="OF-3B"):
     counters = kernel_functions()
-    cfg = flamingo_config("OF-3B")
+    cfg = flamingo_config(name)
     vision_x, ids, mask = make_inputs(cfg, dev)
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
 
+    def build(dtype):
+        model = init_random(cfg, SEED, device=dev, dtype=dtype)
+        if cfg.lm.attention_bias:
+            random_lm_biases(model, SEED + 4)
+        return model
+
     # fp32: (a) fused route, kernels vs plain versions; (b) fused vs unfused route
     t0 = time.perf_counter()
-    model = init_random(cfg, SEED, device=dev, dtype=torch.float32)
+    model = build(torch.float32)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     latents = model.embed_vision(vision_x)
@@ -673,30 +904,27 @@ def phase_generate(dev):
     with plain_path():
         tok_p = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
         lp = step_logits(model, latents, ids, mask, tok_k)
-    fp32_agree("fused kernels vs plain_path", tok_k, tok_p, lk, lp, init_s)
+    fp32_agree(f"{name} fused kernels vs plain_path", tok_k, tok_p, lk, lp, init_s)
     with unfused_route():
         tok_u = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
         lu = step_logits(model, latents, ids, mask, tok_k)
-    fp32_agree("fused route vs unfused route (K7)", tok_k, tok_u, lk, lu)
+    fp32_agree(f"{name} fused route vs unfused route (K7)", tok_k, tok_u, lk, lu)
     del model, latents
     torch.cuda.empty_cache()
 
     # bf16, the serving dtype, timed: (c) fused route, (d) unfused route
-    model = init_random(cfg, SEED, device=dev, dtype=torch.bfloat16)
-    steps, layers = NEW_TOKENS - 1, cfg.lm.num_layers
-    fused = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, "fused")
-    want = {"fused_dense": steps, "fused_mlp": 2 * layers * steps, "attn_block_decode": 2 * layers * steps,
-            "flash_attention": layers, "masked_xattn": layers, "decode_attention": 0, "decode_attention_update": 0,
-            "flash_attention_backward": 0, "masked_xattn_backward": 0}
-    require(fused == want, f"fused route launches {fused}, expected {want}")
+    model = build(torch.bfloat16)
+    fused = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, f"{name} fused")
+    want = route_launches(cfg, counters, fused=True)
+    require(fused == want, f"{name} fused route launches {fused}, expected {want}")
     sync_free_step(model, vision_x, ids, mask, dev)
     with unfused_route():
-        unfused = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, "unfused")
-    want = {"fused_dense": 0, "fused_mlp": 0, "attn_block_decode": 0, "flash_attention": layers,
-            "masked_xattn": layers, "decode_attention": layers * steps, "decode_attention_update": layers * steps,
-            "flash_attention_backward": 0, "masked_xattn_backward": 0}
-    require(unfused == want, f"unfused route launches {unfused}, expected {want}")
-    return {"generate_fused": fused, "generate_unfused": unfused}
+        unfused = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, f"{name} unfused")
+    want = route_launches(cfg, counters, fused=False)
+    require(unfused == want, f"{name} unfused route launches {unfused}, expected {want}")
+    del model
+    torch.cuda.empty_cache()
+    return fused, unfused
 
 
 # ---------------------------------------------------------------- phase 4
@@ -808,7 +1036,8 @@ def kernel_functions() -> dict:
     return {"fused_dense": fused_dense, "fused_mlp": fused_mlp, "attn_block_decode": attn_block_decode,
             "flash_attention": flash_attention, "masked_xattn": masked_xattn,
             "decode_attention": decode_attention, "decode_attention_update": decode_attention_update,
-            "flash_attention_backward": flash_attention_backward, "masked_xattn_backward": masked_xattn_backward}
+            "flash_attention_backward": flash_attention_backward, "masked_xattn_backward": masked_xattn_backward,
+            "attend_out_decode": attend_out_decode}
 
 
 SOURCES = {
@@ -822,6 +1051,7 @@ SOURCES = {
     # dq kernels; the dkv kernels are flash_attention.py:270 and masked_xattn.py:196
     "flash_attention_backward": ("open_flamingo_tpu_torch/csrc/attention_backward.cu", "open_flamingo_tpu/ops/flash_attention.py:199"),
     "masked_xattn_backward": ("open_flamingo_tpu_torch/csrc/attention_backward.cu", "open_flamingo_tpu/ops/masked_xattn.py:148"),
+    "attend_out_decode": ("open_flamingo_tpu_torch/csrc/decode_layer.cu", "open_flamingo_tpu/ops/decode_layer.py:65"),
 }
 
 
@@ -843,8 +1073,11 @@ def main() -> int:
     phase_backward(dev, timing)
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    paths = phase_generate(dev)
+    paths = dict(zip(("generate_fused", "generate_unfused"), phase_generate(dev, "OF-3B")))
     seconds["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths.update(zip(("of4b_generate_fused", "of4b_generate_unfused"), phase_generate(dev, "OF-4B")))
+    seconds["generate_of4b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     counters = kernel_functions()
     paths["train_step"] = phase_train(dev, counters)

@@ -4,7 +4,8 @@ before every layer), OF-4B (RedPajama-INCITE-3B, every 2), OF-9B
 
 The port's own copies of the JAX package's `VisionConfig`,
 `DecoderConfig` and `FlamingoConfig`, with the same fields and defaults
-where the port uses them. Only the MPT family runs in this package so far.
+where the port uses them. The MPT (OF-3B, OF-9B) and GPT-NeoX (OF-4B)
+families run in this package.
 """
 
 from __future__ import annotations

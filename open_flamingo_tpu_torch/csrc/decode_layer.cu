@@ -32,6 +32,19 @@
 // valid cache rows, over 3.35 TB/s. Launches 1 and 3 stream the weights at
 // the row GEMV's rate (tensor cores in bf16); launch 2 is key-parallel (see
 // attend_kernel), so its latency is two rounds of loads, not a chain per key.
+//
+// K6 attend_out_decode, the same tail for families whose q/k/v come from
+// elsewhere (GPT-NeoX: K1, then RoPE), is launches 2 and 3:
+//
+//   replaces open_flamingo_tpu/ops/decode_layer.py `attend_out_decode`
+//   (kernel `_attend_out_kernel`): write the new K/V at `slot` IN PLACE ->
+//   masked softmax (GQA, optional ALiBi) -> per-head out-projection summed
+//   over heads -> + bias -> * tanh(gate) -> + residual.
+//
+// The TPU kernel's head grid carries the out-projection sum in VMEM across
+// heads; here the head outputs go through a (B, H*Dh) scratch and one row
+// GEMV sums over all heads in fp32, its epilogue in the TPU kernel's order.
+// Bound: Wout (13.1 MB at RedPajama-3B bf16) plus the valid cache rows.
 
 #include "rows_gemv.cuh"
 
@@ -60,19 +73,37 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
   return v;
 }
 
-// proj (B, P) fp32: q at [0, H*Dh), k at [H*Dh, 2*H*Dh), v after; k/v
-// caches (B, H, S, Dh); attn (B, H*Dh). slot == nullptr: no new K/V (the
-// q-only form). k/v are not __restrict__ const: this launch writes them.
+// Where a block finds its query and the new token's K/V row:
+//  * K3: the fp32 projection `proj` (B, p), q at [0, H*Dh), the new K at
+//    [H*Dh, 2*H*Dh), V after; q is scaled here and nothing is rounded
+//    before the attend (the TPU kernel attends to the unrounded K/V);
+//  * K6: q (B, H, Dh) unscaled, k_new/v_new (B, H_kv, Dh), all in T; q is
+//    scaled and rounded to T here (the TPU kernel's pre-scaled q operand),
+//    the new K/V are the values the cache keeps, and the step attends to
+//    them.
+template <typename T>
+struct NewToken {
+  const float* proj;
+  int p;
+  const T* q;
+  const T* kn;
+  const T* vn;
+};
+
+// k/v caches (B, H_kv, S, Dh), query head `head` reading kv head
+// head / (H / H_kv); attn (B, H*Dh). slot == nullptr: no new K/V (the
+// q-only form). k/v are not __restrict__ const: this launch writes them
+// (with H_kv < H, every query head of a group writes the same values).
 // Key-parallel: thread j scores key j (its K row read with batched 16-byte
 // loads, valid or not), the block reduces max and sum, then groups of d / 8
 // threads sum p_j * V[j] over their share of the keys. A few rounds of
 // independent loads, where a serial online softmax chains three dependent
 // loads per key. Dynamic shared memory: S floats of scores.
 template <typename T>
-__global__ void __launch_bounds__(kAttnThreads) attend_kernel(
-    const float* __restrict__ proj, int p, T* k, T* v, const uint8_t* __restrict__ mask,
+__device__ __forceinline__ void attend_body(
+    const NewToken<T>& src, T* k, T* v, const uint8_t* __restrict__ mask,
     const float* __restrict__ slopes, const int* __restrict__ slot_ptr, T* __restrict__ attn, int h,
-    int s, int d, float scale) {
+    int h_kv, int s, int d, float scale) {
   extern __shared__ float sc[];
   __shared__ float q_s[kMaxD], kn_s[kMaxD], vn_s[kMaxD];
   __shared__ float red[kAttnWarps], part[kAttnThreads * rows::kVec];
@@ -81,9 +112,9 @@ __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
   const int b = bh / h, head = bh % h;
   const int inner = h * d;
   const int tid = threadIdx.x;
-  const float* prow = proj + (size_t)b * p + (size_t)head * d;
-  T* kb = k + (size_t)bh * s * d;
-  T* vb = v + (size_t)bh * s * d;
+  const size_t kv_row = (size_t)b * h_kv + head / (h / h_kv);
+  T* kb = k + kv_row * s * d;
+  T* vb = v + kv_row * s * d;
   const uint8_t* mrow = mask + (size_t)b * s;
 
   int slot = -1;
@@ -92,18 +123,28 @@ __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
     if (slot < 0 || slot >= s) slot = -1;  // the caller checks the range on the host
   }
   for (int c = tid; c < d; c += kAttnThreads) {
-    q_s[c] = prow[c] * scale;
+    if (src.proj != nullptr) {
+      const float* prow = src.proj + (size_t)b * src.p + (size_t)head * d;
+      q_s[c] = prow[c] * scale;
+      if (slot >= 0) {
+        kn_s[c] = prow[inner + c];
+        vn_s[c] = prow[2 * inner + c];
+      }
+    } else {
+      q_s[c] = to_f32(from_f32<T>(to_f32(src.q[(size_t)bh * d + c]) * scale));
+      if (slot >= 0) {
+        kn_s[c] = to_f32(src.kn[kv_row * d + c]);
+        vn_s[c] = to_f32(src.vn[kv_row * d + c]);
+      }
+    }
     if (slot >= 0) {
-      const float kn = prow[inner + c], vn = prow[2 * inner + c];
-      kn_s[c] = kn;
-      vn_s[c] = vn;
-      kb[(size_t)slot * d + c] = from_f32<T>(kn);
-      vb[(size_t)slot * d + c] = from_f32<T>(vn);
+      kb[(size_t)slot * d + c] = from_f32<T>(kn_s[c]);
+      vb[(size_t)slot * d + c] = from_f32<T>(vn_s[c]);
     }
   }
   __syncthreads();
 
-  // scores; the new token attends to its unrounded fp32 K/V
+  // scores; the new token attends to its K/V as staged above
   const float slope = slopes != nullptr ? slopes[head] : 0.f;
   float mx = -INFINITY;
   for (int j = tid; j < s; j += kAttnThreads) {
@@ -177,6 +218,26 @@ __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
   }
 }
 
+// K3's softmax launch: proj (B, p) fp32, H_kv = H.
+template <typename T>
+__global__ void __launch_bounds__(kAttnThreads) attend_kernel(
+    const float* __restrict__ proj, int p, T* k, T* v, const uint8_t* __restrict__ mask,
+    const float* __restrict__ slopes, const int* __restrict__ slot_ptr, T* __restrict__ attn, int h,
+    int s, int d, float scale) {
+  attend_body<T>(NewToken<T>{proj, p, nullptr, nullptr, nullptr}, k, v, mask, slopes, slot_ptr, attn, h, h, s, d,
+                 scale);
+}
+
+// K6's attend launch: q, k_new, v_new in T; its own symbol, so a profile
+// tells it from K3's.
+template <typename T>
+__global__ void __launch_bounds__(kAttnThreads) attend_out_kernel(
+    const T* __restrict__ q, const T* __restrict__ kn, const T* __restrict__ vn, T* k, T* v,
+    const uint8_t* __restrict__ mask, const float* __restrict__ slopes, const int* __restrict__ slot_ptr,
+    T* __restrict__ attn, int h, int h_kv, int s, int d, float scale) {
+  attend_body<T>(NewToken<T>{nullptr, 0, q, kn, vn}, k, v, mask, slopes, slot_ptr, attn, h, h_kv, s, d, scale);
+}
+
 template <typename T>
 int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, const void* wout,
           void* k, void* v, const void* mask, const void* slopes, const void* gate,
@@ -196,6 +257,22 @@ int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, con
   rows::Epilogue<T> ep3{nullptr, 0, 0.f, 0, (const T*)gate, (const T*)x};
   return (int)rows::launch_gemv<T, T>((const T*)attn, nullptr, nullptr, 0.f, (const T*)wout, ep3,
                                       (T*)out, b, dm, inner, st);
+}
+
+// K6: attend, then out = residual + tanh(gate) * (attn @ Wout^T + bias).
+template <typename T>
+int attend_out(const void* q, void* k, void* v, const void* kn, const void* vn, const void* slot,
+               const void* mask, const void* slopes, const void* wout, const void* bias, const void* gate,
+               const void* residual, void* attn, void* out, int b, int h, int h_kv, int s, int d, int dm,
+               float scale, cudaStream_t st) {
+  attend_out_kernel<T><<<b * h, kAttnThreads, s * sizeof(float), st>>>(
+      (const T*)q, (const T*)kn, (const T*)vn, (T*)k, (T*)v, (const uint8_t*)mask, (const float*)slopes,
+      (const int*)slot, (T*)attn, h, h_kv, s, d, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rows::Epilogue<T> ep{(const T*)bias, 0, 0.f, 0, (const T*)gate, (const T*)residual};
+  return (int)rows::launch_gemv<T, T>((const T*)attn, nullptr, nullptr, 0.f, (const T*)wout, ep, (T*)out, b, dm,
+                                      h * d, st);
 }
 
 }  // namespace
@@ -222,5 +299,30 @@ extern "C" int attn_block_decode_fwd(const void* x, const void* ln_s, const void
   if (dtype == 1)
     return block<__nv_bfloat16>(x, ln_s, ln_b, wq, wout, k, v, mask, slopes, gate, slot, proj, attn, out, b,
                                 dm, h, d, s, fused_qkv, has_clip, clip, scale, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6 attend_out_decode. q (B, H, Dh); k/v caches (B, H_kv, S <= 8192,
+// Dh <= 128, a multiple of 8), H_kv dividing H; kn/vn (B, H_kv, Dh) and slot
+// (1,) int32 on the device, or all three NULL (no write); mask (B, S)
+// uint8; slopes (H,) fp32 or NULL; wout (D, H*Dh); bias (D,), gate (1,),
+// residual (B, D), each or NULL; scratch attn (B, H*Dh); out (B, D).
+// Tensors in q's dtype unless stated; dtype 0 = fp32, 1 = bf16.
+extern "C" int attend_out_decode_fwd(const void* q, void* k, void* v, const void* kn, const void* vn,
+                                     const void* slot, const void* mask, const void* slopes, const void* wout,
+                                     const void* bias, const void* gate, const void* residual, void* attn,
+                                     void* out, int b, int h, int h_kv, int s, int d, int dm, float scale,
+                                     int dtype, void* stream) {
+  if (d < 1 || d > kMaxD || d % rows::kVec != 0 || b < 1 || h < 1 || h_kv < 1 || h % h_kv != 0 || s < 1 ||
+      s > kMaxS || dm < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((kn == nullptr) != (vn == nullptr) || (kn == nullptr) != (slot == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return attend_out<float>(q, k, v, kn, vn, slot, mask, slopes, wout, bias, gate, residual, attn, out, b, h, h_kv,
+                             s, d, dm, scale, st);
+  if (dtype == 1)
+    return attend_out<__nv_bfloat16>(q, k, v, kn, vn, slot, mask, slopes, wout, bias, gate, residual, attn, out, b,
+                                     h, h_kv, s, d, dm, scale, st);
   return (int)cudaErrorInvalidValue;
 }

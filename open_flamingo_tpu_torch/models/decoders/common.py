@@ -1,4 +1,4 @@
-"""Decoder infrastructure: KV cache, attention context, ALiBi.
+"""Decoder infrastructure: KV cache, attention context, ALiBi, rotary.
 
 The cache keeps the JAX package's contract so token streams line up:
 head-major (B, H, S, Dh) K/V, one shared slot index, a per-row pad mask.
@@ -167,3 +167,37 @@ def alibi_bias(slopes: torch.Tensor, kv_len: int) -> torch.Tensor:
     softmax translation."""
     dist = torch.arange(1 - kv_len, 1, dtype=torch.float32, device=slopes.device)
     return (slopes[:, None, None] * dist[None, None, :])[None]
+
+
+# --- rotary embeddings (HF layout) ------------------------------------------
+
+
+def rope_cos_sin(position_ids: torch.Tensor, rotary_dim: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables (B, T, rotary_dim) fp32 from position_ids (B, T), HF
+    layout: emb = concat(freqs, freqs)."""
+    exponent = torch.arange(0, rotary_dim, 2, dtype=torch.float32, device=position_ids.device) / rotary_dim
+    inv_freq = 1.0 / theta**exponent
+    freqs = position_ids[..., None].float() * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos(), emb.sin()
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """Rotate the first rotary_dim channels of q/k (B, T, H, Dh) by cos/sin
+    (B, T, rotary_dim); the rest pass through (HF apply_rotary_pos_emb).
+    cos/sin are cast to q's dtype before the products, as the JAX package
+    does, so bf16 streams round at the same places."""
+    rd = cos.shape[-1]
+    cos = cos[:, :, None, :].to(q.dtype)
+    sin = sin[:, :, None, :].to(q.dtype)
+
+    def rot(x):
+        x_rot = x[..., :rd] * cos + _rotate_half(x[..., :rd]) * sin
+        return torch.cat([x_rot, x[..., rd:]], dim=-1) if x.shape[-1] > rd else x_rot
+
+    return rot(q), rot(k)

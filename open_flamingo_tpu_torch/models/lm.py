@@ -2,11 +2,12 @@
 layer (the JAX package's `FlamingoLM`, unrolled layer layout).
 
 Layer i applies its xattn block (if any) before the decoder block. The
-final LayerNorm and the tied LM head follow; on the fused decode route they
-are one K1 `fused_dense` launch that reads the (V, D) embedding table in
-place as the transposed weight. Prefill keeps `F.linear`, as the JAX
-package does. Vision latents and text time are explicit arguments; decode
-state is an explicit KVCache. With `gradient_checkpointing` (the JAX
+final LayerNorm and the LM head follow: tied (the (V, D) embedding table)
+or an untied `lm_head` (V, D), with a bias when `lm_head_bias`. On the
+fused decode route they are one K1 `fused_dense` launch that reads the
+(V, D) weight in place as the transposed weight. Prefill keeps `F.linear`,
+as the JAX package does. Vision latents and text time are explicit
+arguments; decode state is an explicit KVCache. With `gradient_checkpointing` (the JAX
 package's `nn.remat`), each decoder and xattn block of a cache-free forward
 under autograd keeps only its inputs and recomputes its forward in the
 backward (`torch.utils.checkpoint`, non-reentrant).
@@ -25,11 +26,12 @@ from ..configs import DecoderConfig
 from ..ops.attention import use_kernels
 from ..ops.dense_stream import fused_dense, reference_dense, use_fused_decode
 from .decoders.common import KVCache, LayerKV, make_attn_inputs
+from .decoders.gptneox import GPTNeoXBlock
 from .decoders.mpt import MPTBlock
 from .layers import LayerNorm
 from .xattn import GatedCrossAttentionBlock, build_media_masks, decode_media_mask, use_xattn_kernel
 
-BLOCK_REGISTRY = {"mpt": MPTBlock}
+BLOCK_REGISTRY = {"mpt": MPTBlock, "gptneox": GPTNeoXBlock}
 
 
 class FlamingoLM(nn.Module):
@@ -44,8 +46,6 @@ class FlamingoLM(nn.Module):
             raise NotImplementedError(
                 f"decoder family {cfg.family!r} is not ported yet (ROADMAP.md)"
             )
-        if not cfg.tie_word_embeddings:
-            raise NotImplementedError("untied LM heads are not ported yet (ROADMAP.md)")
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.immediate = only_attend_immediate_media
@@ -61,6 +61,9 @@ class FlamingoLM(nn.Module):
             if n is not None and (i + 1) % n == 0
         })
         self.norm_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, bias=not cfg.ln_no_bias, **kw)
+        self.lm_head = None
+        if not cfg.tie_word_embeddings:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=cfg.lm_head_bias, **kw)
 
     def forward(
         self,
@@ -106,14 +109,18 @@ class FlamingoLM(nn.Module):
             x, kv = run(block, x, attn, cache.layers[i] if cache is not None else None)
             new_layers.append(kv)
 
+        if self.lm_head is None:
+            w_head, b_head = self.wte.weight, None
+        else:
+            w_head, b_head = self.lm_head.weight, self.lm_head.bias
         if fused:
             head = fused_dense if use_kernels(x) else reference_dense
             logits = head(
-                x[:, 0], self.wte.weight, ln_scale=self.norm_f.weight, ln_bias=self.norm_f.bias,
+                x[:, 0], w_head, bias=b_head, ln_scale=self.norm_f.weight, ln_bias=self.norm_f.bias,
                 eps=self.cfg.layer_norm_eps,
             )[:, None].float()
         else:
-            logits = torch.nn.functional.linear(self.norm_f(x), self.wte.weight).float()
+            logits = torch.nn.functional.linear(self.norm_f(x), w_head, b_head).float()
         if cache is not None:
             cache = dataclasses.replace(
                 cache,

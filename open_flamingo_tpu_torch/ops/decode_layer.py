@@ -1,13 +1,13 @@
-"""K3 attn_block_decode: the whole attention half of a decode layer for one
-new token per sequence.
+"""K3 attn_block_decode, the whole attention half of a decode layer for one
+new token per sequence, and K6 attend_out_decode, its tail alone.
 
 Replaces `open_flamingo_tpu/ops/decode_layer.py` `attn_block_decode`
-(kernel `_attn_block_kernel`). The CUDA kernel is `csrc/decode_layer.cu`:
-the q[/k/v] projection and the out-projection run as the row GEMV of
-`csrc/rows_gemv.cuh`, the masked softmax as one block per (b, h) between
-them; bound by the weight and cache bytes on the card (see the source).
+(kernel `_attn_block_kernel`) and `attend_out_decode` (`_attend_out_kernel`).
+The CUDA kernels are in `csrc/decode_layer.cu`: the projections run as the
+row GEMV of `csrc/rows_gemv.cuh`, the masked softmax as one block per
+(b, h); bound by the weight and cache bytes on the card (see the source).
 
-Two forms, as on the decode path:
+K3, two forms, as on the decode path:
   * `fused_qkv=True` (MPT self-attention): `wq` is the fused (3*H*Dh, D)
     Wqkv, [q|k|v] row blocks, read in place. The new token's K/V are
     written into the cache at `slot` IN PLACE (the TPU kernel aliases its
@@ -23,9 +23,18 @@ before the out-projection. `slot` is a (1,) int32 tensor on the device, the
 counterpart of the TPU kernel's scalar-prefetch operand: no host read, so
 the step can be captured in a CUDA graph.
 
-`attn_block_decode` launches the kernel for CUDA tensors and runs the plain
-version `reference_attn_block` (written from the kernel body: the JAX
-package has none) for CPU tensors.
+K6 is the tail that decoder families with their own q/k/v call (GPT-NeoX:
+projection by K1, then RoPE): the in-place slot write of the new K/V, the
+masked attend (GQA, optional ALiBi), the per-head out-projection summed
+over heads, then bias, gate and residual. Its rounding points are the TPU
+kernel's, not K3's: q is scaled and rounded to its dtype first, the new
+K/V arrive in the cache dtype and this step attends to those rounded
+values, the head outputs are rounded to the weight dtype before the fp32
+out-projection.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version (`reference_attn_block`, `reference_attend_out`, written from the
+kernel bodies) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -50,6 +59,8 @@ def _kernel():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.attn_block_decode_fwd.argtypes = [p] * 14 + [i] * 7 + [f, f, f, i, p]
         lib.attn_block_decode_fwd.restype = i
+        lib.attend_out_decode_fwd.argtypes = [p] * 14 + [i] * 6 + [f, i, p]
+        lib.attend_out_decode_fwd.restype = i
         _lib = lib
     return _lib
 
@@ -137,3 +148,93 @@ def attn_block_decode(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *,
 
 
 attn_block_decode.launches = 0
+
+
+def reference_attend_out(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_new=None, slot=None, slopes=None,
+                         bias=None, gate=None, residual=None):
+    """Plain version of attend_out_decode, at the kernel's rounding points."""
+    refuse_autograd("attend_out_decode", q, k_cache, v_cache, wout, k_new, v_new, slopes, bias, gate, residual)
+    b, h, dh = q.shape
+    n_rep = h // k_cache.shape[1]
+    if k_new is not None:
+        idx = slot.long()
+        k_cache.index_copy_(2, idx, k_new[:, :, None].to(k_cache.dtype))
+        v_cache.index_copy_(2, idx, v_new[:, :, None].to(v_cache.dtype))
+    k, v = (c.repeat_interleave(n_rep, dim=1) for c in (k_cache, v_cache))
+    qs = (q.float() * scale).to(q.dtype)
+    a = reference_decode_attention(qs, k, v, mask, 1.0, slopes)
+    y = a.reshape(b, h * dh).to(wout.dtype).float() @ wout.float().t()
+    if bias is not None:
+        y = y + bias.float()
+    if gate is not None:
+        y = y * torch.tanh(gate.float())
+    if residual is not None:
+        y = y + residual.float()
+    y = y.to(q.dtype)
+    return (y, k_cache, v_cache) if k_new is not None else y
+
+
+def attend_out_decode(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_new=None, slot=None, slopes=None,
+                      wout_scale=None, bias=None, gate=None, residual=None, layer_idx=None, k_scale=None,
+                      v_scale=None):
+    """K6, the attention tail of a decode layer: with k_new/v_new, write them
+    into the caches at `slot` IN PLACE; attend q over the caches under
+    `mask`; out-project per head and sum; then +bias, *tanh(gate),
+    +residual. q (B, H, Dh), unscaled; k_cache/v_cache (B, H_kv, S, Dh),
+    query head h reading kv head h // (H / H_kv); k_new/v_new (B, H_kv, Dh);
+    slot (1,) int32 on the caches' device; mask (B, S), nonzero = attend;
+    wout (D, H*Dh), the nn.Linear weight; slopes (H,) fp32; bias (D,);
+    gate (1,); residual (B, D). Returns y (B, D) in q's dtype, or
+    (y, k_cache, v_cache) with k_new."""
+    refuse("attend_out_decode", "int8/int4 weights, item 9", wout_scale=wout_scale)
+    refuse("attend_out_decode", "int8 KV cache, item 9", k_scale=k_scale, v_scale=v_scale)
+    refuse("attend_out_decode", "the stacked-layer layout, item 9", layer_idx=layer_idx)
+    refuse_autograd("attend_out_decode", q, k_cache, v_cache, wout, k_new, v_new, slopes, bias, gate, residual)
+    b, h, dh = q.shape
+    h_kv, s = k_cache.shape[1], k_cache.shape[2]
+    dm = wout.shape[0]
+    update = k_new is not None
+    if (h % h_kv or k_cache.shape != (b, h_kv, s, dh) or v_cache.shape != k_cache.shape
+            or wout.shape != (dm, h * dh) or mask.shape != (b, s)
+            or (residual is not None and residual.shape != (b, dm))):
+        raise ValueError(
+            f"attend_out_decode: expected q (B, H, Dh), caches (B, H_kv, S, Dh) with H_kv | H, mask (B, S), "
+            f"wout (D, H*Dh), residual (B, D); got {tuple(q.shape)}, {tuple(k_cache.shape)}, "
+            f"{tuple(mask.shape)}, {tuple(wout.shape)}")
+    if (v_new is not None) != update or (update and (k_new.shape != (b, h_kv, dh) or v_new.shape != k_new.shape)):
+        raise ValueError("attend_out_decode: k_new and v_new go together, each (B, H_kv, Dh)")
+    if update and (slot is None or slot.shape != (1,) or slot.dtype != torch.int32):
+        raise ValueError("attend_out_decode: k_new needs slot, a (1,) int32 tensor")
+    if slopes is not None and slopes.shape != (h,):
+        raise ValueError("attend_out_decode: slopes must be (H,)")
+    if q.device.type == "cpu":
+        return reference_attend_out(q, k_cache, v_cache, mask, wout, scale=scale, k_new=k_new, v_new=v_new,
+                                    slot=slot, slopes=slopes, bias=bias, gate=gate, residual=residual)
+    if q.device.type != "cuda":
+        raise ValueError(f"attend_out_decode: unsupported device {q.device}")
+    q = q.contiguous()
+    if update:
+        k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    check_operands("attend_out_decode", q, h * dh, k_cache=k_cache, v_cache=v_cache, wout=wout, k_new=k_new,
+                   v_new=v_new, bias=bias, gate=gate, residual=residual)
+    if dh % 8 or dh > 128 or s > 8192:
+        raise ValueError(f"attend_out_decode: Dh = {dh} must be a multiple of 8 and <= 128, "
+                         f"and the cache at most 8192 slots (got {s})")
+    for name, t in (("mask", mask), ("slot", slot), ("slopes", slopes)):
+        if t is not None and (t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"attend_out_decode: {name} must be contiguous on {q.device}")
+    m = mask if mask.dtype in (torch.bool, torch.uint8) else (mask != 0).to(torch.uint8)
+    sl = None if slopes is None else slopes.to(torch.float32)
+    attn = torch.empty(b, h * dh, dtype=q.dtype, device=q.device)
+    out = torch.empty(b, dm, dtype=q.dtype, device=q.device)
+    status = _kernel().attend_out_decode_fwd(
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_new), ptr(v_new), ptr(slot) if update else None, ptr(m),
+        ptr(sl), ptr(wout), ptr(bias), ptr(gate), ptr(residual), ptr(attn), ptr(out),
+        b, h, h_kv, s, dh, dm, float(scale), _DTYPES[q.dtype], build.current_stream(q.device),
+    )
+    build.check(status, "attend_out_decode_fwd")
+    attend_out_decode.launches += 1
+    return (out, k_cache, v_cache) if update else out
+
+
+attend_out_decode.launches = 0

@@ -9,8 +9,8 @@ nor the JAX package, so it also runs where JAX is absent:
 fp32 inputs: the kernels and the plain versions sum in different orders,
 ~1e-6 apart at these sizes; atol 5e-5 as in chip_smoke.py (the backward
 K4b/K5b: atol = rtol = 1e-4, its sums run over whole query and key tiles).
-bf16 inputs (K1-K3, whose bf16 products run on tensor cores when K is a
-multiple of 32; K4b/K5b): both round an fp32 result to bf16, one ulp apart
+bf16 inputs (K1-K3 and K6, whose bf16 products run on tensor cores when K
+is a multiple of 32; K4b/K5b): both round an fp32 result to bf16, one ulp apart
 at most, plus the summation order; atol = rtol = 1e-2 as in chip_smoke.py.
 """
 
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from open_flamingo_tpu_torch.ops.decode_attention import decode_attention, decode_attention_update
-from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode
+from open_flamingo_tpu_torch.ops.decode_layer import attend_out_decode, attn_block_decode
 from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
 from open_flamingo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward, reference_attention)
@@ -143,6 +143,35 @@ def test_attn_block_decode_gated_xattn(gen, d, dtype):
     got = attn_block_decode(x, ln, ln_b, wq, wout, k, v, mask, gate=gate, **kw)
     close(got, want)
     assert torch.equal(got[1], x[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+# GPT-NeoX's head dim 80; GQA; the slot at S - 1; S > 128 threads: keys in rounds
+@pytest.mark.parametrize("n_rep,slot,s", [(1, 40, 64), (2, 63, 64), (1, 300, 301)])
+def test_attend_out_decode(gen, n_rep, slot, s, dtype):
+    """K6 with the slot write and its whole epilogue, then the q-only form;
+    row 1 has no valid key."""
+    b, h, d, dm = 3, 4, 80, 160
+    h_kv = h // n_rep
+    q, kn, vn = (rn(gen, *shape).to(dtype) for shape in ((b, h, d), (b, h_kv, d), (b, h_kv, d)))
+    kc, vc = rn(gen, b, h_kv, s, d).to(dtype), rn(gen, b, h_kv, s, d).to(dtype)
+    wout, bias, res = (rn(gen, dm, h * d) * 0.1).to(dtype), (rn(gen, dm) * 0.1).to(dtype), rn(gen, b, dm).to(dtype)
+    gate = torch.tensor([0.5], device="cuda", dtype=dtype)
+    mask = torch.zeros(b, s, dtype=torch.bool, device="cuda")
+    mask[:, : slot + 1] = True
+    mask[0, :3] = False
+    mask[1] = False
+    slot_t = torch.tensor([slot], dtype=torch.int32, device="cuda")
+    kw = dict(scale=d**-0.5, bias=bias, gate=gate, residual=res)
+    cpu = {key: val.cpu() if torch.is_tensor(val) else val for key, val in kw.items()}
+    want, kw_, vw_ = attend_out_decode(q.cpu(), kc.cpu(), vc.cpu(), mask.cpu(), wout.cpu(), k_new=kn.cpu(),
+                                       v_new=vn.cpu(), slot=slot_t.cpu(), **cpu)
+    got, _, _ = attend_out_decode(q, kc, vc, mask, wout, k_new=kn, v_new=vn, slot=slot_t, **kw)
+    close(got, want)
+    assert torch.equal(kc.cpu(), kw_) and torch.equal(vc.cpu(), vw_)
+    got = attend_out_decode(q, kc, vc, mask, wout, scale=d**-0.5)
+    close(got, attend_out_decode(q.cpu(), kw_, vw_, mask.cpu(), wout.cpu(), scale=d**-0.5))
+    assert (got[1] == 0).all()
 
 
 def close_grad(got, want):

@@ -87,8 +87,9 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_fused_decode_wrappers_refuse_other_devices():
-    """K1-K3 as well: the meta device stands in for a non-CPU, non-CUDA one."""
-    from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode
+    """K1-K3 and K6 as well: the meta device stands in for a non-CPU,
+    non-CUDA one."""
+    from open_flamingo_tpu_torch.ops.decode_layer import attend_out_decode, attn_block_decode
     from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
 
     m = torch.device("meta")
@@ -101,12 +102,16 @@ def test_fused_decode_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         attn_block_decode(x, torch.empty(16, device=m), None, w[:16], w[:16].t(), kv, kv,
                           torch.empty(2, 8, dtype=torch.bool, device=m), heads=2, head_dim=8, scale=0.3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        attend_out_decode(torch.empty(2, 2, 8, device=m), kv, kv, torch.empty(2, 8, dtype=torch.bool, device=m),
+                          w[:16], scale=0.3)
 
 
-@pytest.mark.parametrize("call", ["w_scale", "norm", "act", "w1_gate", "side_x", "k_scale"])
+@pytest.mark.parametrize("call", ["w_scale", "norm", "act", "w1_gate", "side_x", "k_scale", "wout_scale",
+                                  "k6_v_scale", "layer_idx"])
 def test_unported_operands_raise(call):
     """Operands the bf16/fp32 decode path never passes name ROADMAP."""
-    from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode
+    from open_flamingo_tpu_torch.ops.decode_layer import attend_out_decode, attn_block_decode
     from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
 
     x, w = torch.zeros(2, 16), torch.zeros(24, 16)
@@ -120,6 +125,12 @@ def test_unported_operands_raise(call):
         "k_scale": lambda: attn_block_decode(x, torch.ones(16), None, w[:16], w[:16].t(), kv, kv,
                                              torch.ones(2, 8, dtype=torch.bool), heads=2, head_dim=8,
                                              scale=0.3, k_scale=torch.ones(2, 2, 8)),
+        "wout_scale": lambda: attend_out_decode(torch.zeros(2, 2, 8), kv, kv, torch.ones(2, 8), w[:16], scale=0.3,
+                                                wout_scale=torch.ones(16)),
+        "k6_v_scale": lambda: attend_out_decode(torch.zeros(2, 2, 8), kv, kv, torch.ones(2, 8), w[:16], scale=0.3,
+                                                v_scale=torch.ones(2, 2, 8)),
+        "layer_idx": lambda: attend_out_decode(torch.zeros(2, 2, 8), kv, kv, torch.ones(2, 8), w[:16], scale=0.3,
+                                               layer_idx=torch.zeros(1, dtype=torch.int32)),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         calls[call]()
