@@ -6,6 +6,8 @@ port spends its time on the card.
     python3 chip_profile.py unfused    # generate, the unfused route (K7, DISABLE_FUSED)
     python3 chip_profile.py train      # one bf16 train step (K4/K5 and K4b/K5b)
     python3 chip_profile.py of4b       # OF-4B generate, the fused route (K1, K6, K2; K3)
+    python3 chip_profile.py int8       # OF-3B generate, fused, int8 weights and the int8 K/V + media caches
+    python3 chip_profile.py int4       # OF-3B generate, fused, int4 weights (the head int8)
 
 Builds OF-3B (OF-4B for `of4b`) at full width with random weights
 (bf16), runs the same inputs as chip_smoke.py (generate: 8 prompts of 32
@@ -22,7 +24,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import json
-import subprocess
+import re
 import sys
 import time
 
@@ -41,17 +43,20 @@ def main() -> int:
     from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate
     from open_flamingo_tpu_torch.models.flamingo import init_random
     from open_flamingo_tpu_torch.ops import dense_stream
+    from open_flamingo_tpu_torch.quantize import quantize_decode_weights
     from open_flamingo_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer, split_params
     from open_flamingo_tpu_torch.train.train_loop import TrainLoopConfig, TrainState, make_train_step
 
     mode = sys.argv[1] if len(sys.argv) > 1 else "fused"
-    if mode not in ("fused", "unfused", "train", "of4b"):
+    if mode not in ("fused", "unfused", "train", "of4b", "int8", "int4"):
         print(f"chip_profile: unknown mode {mode!r}", file=sys.stderr)
         return 2
     dense_stream.DISABLE_FUSED = mode == "unfused"
     dev = torch.device("cuda", 0)
     cfg = flamingo_config("OF-4B" if mode == "of4b" else "OF-3B")
     model = init_random(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    if mode in ("int8", "int4"):
+        quantize_decode_weights(model, 8 if mode == "int8" else 4)
     if mode == "train":
         trainable, _ = split_params(model)
         tx = make_optimizer(OptimizerConfig(warmup_steps=0), media_token_id=cfg.media_token_id,
@@ -66,8 +71,8 @@ def main() -> int:
             state[0], _ = step(state[0], bl, bm)
     else:
         vision_x, ids, mask = make_inputs(cfg, dev)
-        gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
-        shape = {"batch": B, "new_tokens": NEW_TOKENS}
+        gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0, int8_kv=mode == "int8")
+        shape = {"batch": B, "new_tokens": NEW_TOKENS, "int8_kv": gcfg.int8_kv}
 
         def run():
             flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
@@ -102,10 +107,18 @@ def main() -> int:
     # on CUDA cores, gemv_mma_kernel on tensor cores) serves K1, K2 and the
     # projections of K3 and K6; K3's softmax is attend_kernel, K6's
     # attend_out_kernel; K4 and K5 share attention_fwd_kernel, K4b and K5b
-    # the two backward kernels
+    # the two backward kernels. The quantized variants are template cases of
+    # the same symbols: the row GEMV over int8 weights names `signed char`
+    # among its template arguments, over packed int4 `Int4` (split out below)
     ported = {kern: sum(r[1] for r in rows if kern in r[0])
               for kern in ("gemv", "attend_kernel", "attend_out_kernel", "attention_fwd_kernel", "decode_kernel",
                            "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")}
+    gemv_by_weight = {"float": 0.0, "int8": 0.0, "int4": 0.0}
+    for name, t, _ in rows:
+        m = re.search(r"gemv\w*<(.*?)>\(", name)     # the template arguments
+        if m:
+            args = m.group(1)
+            gemv_by_weight["int4" if "Int4" in args else "int8" if "signed char" in args else "float"] += t
     launches = {name: fn.launches for name, fn in kernel_functions().items()}
     # device time by kind of kernel, first match wins
     kinds = (("ported", ported), ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "splitK")),
@@ -122,7 +135,8 @@ def main() -> int:
         "wall_s_untraced": wall_untraced, "wall_s_traced": wall, "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / wall, "device_idle_share_untraced": 1.0 - busy / wall_untraced,
         "aten_op_rows_device_s": op_rows_s,
-        "ported_kernel_device_s": ported, "device_s_by_kind": by_kind, "device_events": sum(r[2] for r in rows),
+        "ported_kernel_device_s": ported, "gemv_device_s_by_weight": gemv_by_weight, "device_s_by_kind": by_kind,
+        "device_events": sum(r[2] for r in rows),
         "top": [{"name": k[:80], "device_s": s, "count": n} for k, s, n in rows[:12]],
     }), flush=True)
     print(card_line(), flush=True)

@@ -48,6 +48,20 @@ Phases, each printing JSON lines:
               just after against the counts the route must give
               (`route_launches`), and one fused decode step under the sync
               debug mode "error". Each model is freed before the next.
+     quantized  (the variants were checked in phase 2: `quant_kernel_cases`,
+              int8 / packed int4 weights with per-channel scales and the
+              int8 caches, the slot's written int8 row within one step of
+              the plain version's at a rounding boundary in at most 0.1% of
+              its entries.) OF-3B with int8, int4 and int8 + int8 K/V and
+              media caches, OF-4B with int8 + int8 caches (and int4, timed:
+              the path that runs K1 and K6 with int4). fp32 on
+              dequantize_roundtrip weights: the side-car against no side-car
+              and kernels against plain_path(), identical tokens and logits
+              within tolerance (over the int8 cache step by step from shared
+              states: paired_step_logits). bf16 timed with exact launch
+              counts per variant, the drift against the unquantized call
+              (OF-3B gated: int8 mean KL < 1e-3, int4 < 0.1), one int8-cache
+              step under the sync debug mode "error".
   4. train    the full-width OF-3B training step (`make_train_step`) on
               random weights, LAION 8x32 with one image and MMC4 4x256 with
               six (uint8 pixels, <|endofchunk|> then <image> mid-row, right
@@ -66,6 +80,7 @@ before the last line. Needs no network; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -77,8 +92,8 @@ import torch
 import torch.nn.functional as F
 
 from open_flamingo_tpu_torch.configs import flamingo_config
-from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate
-from open_flamingo_tpu_torch.models.decoders.common import KVCache, alibi_slopes
+from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate, prefill
+from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes, quantize_kv
 from open_flamingo_tpu_torch.models.flamingo import count_media, init_random
 from open_flamingo_tpu_torch.models.layers import layer_norm
 from open_flamingo_tpu_torch.ops import build, dense_stream
@@ -94,6 +109,8 @@ from open_flamingo_tpu_torch.ops.flash_attention import (
 from open_flamingo_tpu_torch.ops.masked_xattn import (
     masked_xattn, masked_xattn_backward, masked_xattn_forward, reference_masked_xattn,
     reference_masked_xattn_backward)
+from open_flamingo_tpu_torch.quantize import (
+    dequantize_roundtrip, drop_decode_weights, pack_int4, quantize_decode_weights, quantize_weight)
 from open_flamingo_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer, split_params
 from open_flamingo_tpu_torch.train.train_loop import TrainLoopConfig, TrainState, batch_losses, make_train_step
 
@@ -124,7 +141,13 @@ MAIN_CASES = {"fused_dense": "head_V50434", "fused_mlp": "mpt_mlp", "attn_block_
 # OF-4B's shapes of the kernels its path shares with OF-3B's
 NEOX_TIMED = {"neox_qkv_bias", "neox_head_untied_V50434", "neox_mlp_bias", "neox_xattn_S64_gate",
               "prefill_Dh80_noalibi", "neox_self_Dh80", "neox_self_S64_slot40"}
-TIMED_CASES = set(MAIN_CASES.values()) | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED
+# the quantized variants' path shapes (quant_kernel_cases)
+QUANT_TIMED = {"head_V50434_int8", "neox_head_untied_V50434_int8", "neox_qkv_bias_int8", "neox_qkv_bias_int4",
+               "mpt_mlp_int8", "mpt_mlp_int4", "xattn_ff_int8", "xattn_ff_int4", "neox_mlp_bias_int8",
+               "self_S64_slot40_int8", "self_S64_slot40_int4", "self_S64_slot40_int8_kv8", "self_S64_slot40_int4_kv8",
+               "xattn_S64_gate_int8_kv8", "xattn_S64_gate_int4_kv8", "neox_xattn_S64_gate_int8_kv8",
+               "neox_S64_slot40_int8_kv8", "neox_S64_slot40_int4", "neox_S64_slot40_int8", "neox_S64_slot40_int4_kv8"}
+TIMED_CASES = set(MAIN_CASES.values()) | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED | QUANT_TIMED
 BWD_TIMED = {"laion_T32", "mmc4_T256"}
 # the OF-3B train step at the JAX package's bench shape (bench.py:494)
 B_L, T_L, B_M, T_M, N_IMG, TRAIN_PAD = 8, 32, 4, 256, 6, 1
@@ -229,6 +252,15 @@ def compare(name, case, dtype, got, want, exact=None, tol=None):
     require(ok, f"{name}/{case}/{dtype}: max abs err {err}")
     require(exact0, f"{name}/{case}/{dtype}: all-masked rows not exactly zero")
     return err
+
+
+def case_variant(case: str) -> str:
+    """The kernel variant a kernels-phase case runs, as the wrappers' launch
+    counters name it (`dense_stream.variant`)."""
+    for suffix, key in (("_int8_kv8", "int8+kv8"), ("_int4_kv8", "int4+kv8"), ("_int8", "int8"), ("_int4", "int4")):
+        if case.endswith(suffix):
+            return key
+    return "float"
 
 
 def zeros_at(rows):
@@ -556,18 +588,230 @@ def neox_kernel_cases(dtype, gen, dev):
     require(torch.equal(kc[:, :, slot], kn) and torch.equal(vc[:, :, slot], vn), "update Dh 80: slot not written")
 
 
+def qweight(w, bits):
+    """(stored weight, scale, their bytes): int8 (N, K), or int4 packed (N, K/2)."""
+    q, sc = quantize_weight(w, bits)
+    q = q if bits == 8 else pack_int4(q)
+    return q, sc, q.numel() + 4 * sc.numel()
+
+
+def int8_slot_check(kernel, case, dtype, caches, plain_caches, originals, slot):
+    """An int8 cache written at `slot` (K, V and their scales) against the
+    plain version's: the slot's int8 entries equal but for one step at a
+    rounding boundary (at most 0.1% of them), its scales within rtol (1e-5
+    fp32; 1e-3 bf16, where the two versions' bf16 LayerNorm rows may round
+    one element apart), every other slot unchanged."""
+    s = caches[0].shape[2]
+    others = torch.arange(s, device=caches[0].device) != slot
+    diffs, scale_err = [], 0.0
+    for got, want, orig in zip(caches, plain_caches, originals):
+        if got.dtype == torch.int8:
+            diffs.append((got[:, :, slot].int() - want[:, :, slot].int()).abs())
+        else:
+            scale_err = max(scale_err, ((got[:, :, slot] - want[:, :, slot]).abs() / want[:, :, slot]).max().item())
+        require(torch.equal(got[:, :, others], orig[:, :, others]), f"{kernel}/{case}: slots other than the new token's changed")
+    diff = torch.cat([d.flatten() for d in diffs])
+    n_diff = int((diff > 0).sum())
+    log({"phase": "kernels", "kernel": kernel, "case": case, "dtype": str(dtype).split(".")[-1],
+         "int8_slot_entries_differing": n_diff, "of": diff.numel(), "max_step": int(diff.max()),
+         "slot_scale_max_rel_err": scale_err})
+    require(int(diff.max()) <= 1 and n_diff <= 1e-3 * diff.numel(), f"{kernel}/{case}: int8 slot row differs")
+    require(scale_err <= (1e-5 if dtype == torch.float32 else 1e-3), f"{kernel}/{case}: slot scales differ")
+
+
+def quant_kernel_cases(dtype, gen, dev):
+    """The quantized variants (int8 / packed int4 weights with per-channel
+    scales, the int8 K/V and media caches) at the shapes of the quantized
+    generate paths, and edge cases. Yields as kernel_cases. No PyTorch call
+    streams per-channel int weights with these epilogues: the library column
+    times F.linear over the bf16 weight, the bare product at two or four
+    times the bytes."""
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
+
+    def qkv8(*shape):      # an int8 cache and its (B, H, S) fp32 scales
+        q, sc = quantize_kv(torch.randn(*shape, generator=gen, device=dev))
+        return q, sc
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    sfx = {8: "_int8", 4: "_int4"}
+    slopes16 = torch.from_numpy(alibi_slopes(16)).to(dev)
+    gate = torch.tensor([0.5], device=dev, dtype=dtype)
+
+    # K1: the OF-3B tied head (int8 in every mode), OF-4B's untied head (int8)
+    # and QKV + bias (int8 and int4)
+    for case, d, v, ln_bias, bias, bits_list in (("head_V50434", 2048, 50434, False, False, (8,)),
+                                                ("neox_head_untied_V50434", 2560, 50434, True, False, (8,)),
+                                                ("neox_qkv_bias", 2560, 7680, True, True, (8, 4))):
+        x, ln = rn(B, d), 1 + rn(d, scale=0.1)
+        ln_b = rn(d, scale=0.1) if ln_bias else None
+        b_ = rn(v, scale=0.1) if bias else None
+        w = rn(v, d, scale=d**-0.5)
+        hn = layer_norm(x, ln, ln_b)
+        for bits in bits_list:
+            q, sc, wbytes = qweight(w, bits)
+            kw = dict(w_scale=sc, bias=b_, ln_scale=ln, ln_bias=ln_b)
+            cost = (wbytes + (B * d + d * (1 + ln_bias) + v * bias + B * v) * es, 2 * B * v * d)
+            yield ("fused_dense", case + sfx[bits], lambda x=x, q=q, kw=kw: fused_dense(x, q, **kw),
+                   lambda x=x, q=q, kw=kw: reference_dense(x, q, **kw), None, cost,
+                   lambda hn=hn, w=w, b_=b_: F.linear(hn, w, b_), "F.linear(LN(x), W) over the bf16 weight")
+
+    # K2: OF-3B's MLP and xattn FF (int8, int4), OF-4B's MLP with biases (int8)
+    for case, d, k2, xattn, biases, bits_list in (("mpt_mlp", 2048, 8192, False, False, (8, 4)),
+                                                 ("xattn_ff", 2048, 8192, True, False, (8, 4)),
+                                                 ("neox_mlp_bias", 2560, 10240, False, True, (8,))):
+        x, ln = rn(B, d), 1 + rn(d, scale=0.1)
+        ln_b = rn(d, scale=0.1) if (xattn or biases) else None
+        w1, w2 = rn(k2, d, scale=d**-0.5), rn(d, k2, scale=k2**-0.5)
+        b1, b2 = (rn(k2, scale=0.1), rn(d, scale=0.1)) if biases else (None, None)
+        hn = layer_norm(x, ln, ln_b)
+        for bits in bits_list:
+            (q1, s1, by1), (q2, s2, by2) = qweight(w1, bits), qweight(w2, bits)
+            kw = dict(w1_scale=s1, w2_scale=s2, b1=b1, b2=b2, ln_scale=ln, ln_bias=ln_b, residual=x,
+                      gate=gate if xattn else None)
+            cost = (by1 + by2 + (2 * B * d + d * (1 + (ln_b is not None)) + (k2 + d) * biases + xattn) * es,
+                    4 * B * d * k2)
+            yield ("fused_mlp", case + sfx[bits], lambda x=x, q1=q1, q2=q2, kw=kw: fused_mlp(x, q1, q2, **kw),
+                   lambda x=x, q1=q1, q2=q2, kw=kw: reference_mlp(x, q1, q2, **kw), None, cost,
+                   lambda hn=hn, w1=w1, w2=w2, b1=b1, b2=b2: F.linear(F.linear(hn, w1, b1), w2, b2),
+                   "F.linear twice over the bf16 weights")
+
+    # K3 self (OF-3B: H 16, Dh 128, S 64, ALiBi): int8/int4 weights, with and
+    # without the int8 cache, the slot at 40, 0 and 63 (clip_qkv there)
+    d, h, dh, s = 2048, 16, 128, 64
+    x, ln = rn(B, d), 1 + rn(d, scale=0.1)
+    hn, a_in = layer_norm(x, ln, None), rn(B, d)
+    wqkv, wout = rn(3 * d, d, scale=d**-0.5), rn(d, d, scale=d**-0.5)
+    for bits in (8, 4):
+        (qq, sq, byq), (qo, so, byo) = qweight(wqkv, bits), qweight(wout, bits)
+        for kv8 in (False, True):
+            for slot, clip in ((40, None), (0, None), (63, 1.0)):
+                case = f"self_S64_slot{slot}" + sfx[bits] + ("_kv8" if kv8 else "")
+                if kv8:
+                    (k0, ks0), (v0, vs0) = qkv8(B, h, s, dh), qkv8(B, h, s, dh)
+                else:
+                    k0, v0, ks0, vs0 = rn(B, h, s, dh), rn(B, h, s, dh), None, None
+                caches = [c.clone() if c is not None else None for c in (k0, v0, ks0, vs0)]
+                mask = left_padded_mask(B, s, [4, 7], dev)
+                mask[:, slot + 1:] = False
+                if slot == 0:
+                    mask[:, 0] = True
+                kw = dict(heads=h, head_dim=dh, scale=dh**-0.5, fused_qkv=True, clip=clip, slopes=slopes16,
+                          slot=torch.tensor([slot], dtype=torch.int32, device=dev), wq_scale=sq, wout_scale=so)
+                fn = lambda c=caches, mask=mask, kw=kw, qq=qq, qo=qo: attn_block_decode(
+                    x, ln, None, qq, qo, c[0], c[1], mask, k_scale=c[2], v_scale=c[3], **kw)[0]
+
+                def plain(o=(k0, v0, ks0, vs0), mask=mask, kw=kw, qq=qq, qo=qo):
+                    c = [t.clone() if t is not None else None for t in o]
+                    return reference_attn_block(x, ln, None, qq, qo, c[0], c[1], mask, k_scale=c[2], v_scale=c[3],
+                                                **kw)[0]
+                n_valid = mask.sum().item()
+                ces = 1 if kv8 else es
+                cost = (byq + byo + (2 * B * d + d) * es + 2 * (n_valid + B) * h * dh * ces
+                        + 8 * (n_valid + B) * h * kv8 + B * s + 4, 8 * B * d * d + 4 * h * dh * n_valid)
+                yield ("attn_block_decode", case, fn, plain, None, cost,
+                       lambda: (F.linear(hn, wqkv), F.linear(a_in, wout)),
+                       "F.linear for Wqkv and Wout over the bf16 weights")
+                if kv8:    # the slot row written by fn's first call against the plain version's
+                    pc = [t.clone() for t in (k0, v0, ks0, vs0)]
+                    reference_attn_block(x, ln, None, qq, qo, pc[0], pc[1], mask, k_scale=pc[2], v_scale=pc[3], **kw)
+                    int8_slot_check("attn_block_decode", case, dtype, caches, pc, (k0, v0, ks0, vs0), slot)
+
+    # K3 q only over an int8 media cache (H 8, Dh 64, 64 latents), attn gate:
+    # OF-3B (D 2048, int8 and int4 weights) and OF-4B (D 2560, int8); row 3
+    # has no valid key, so y == x there
+    hx, dx = 8, 64
+    for case, d, bits in (("xattn_S64_gate", 2048, 8), ("xattn_S64_gate", 2048, 4), ("neox_xattn_S64_gate", 2560, 8)):
+        x, ln, ln_b = rn(B, d), 1 + rn(d, scale=0.1), rn(d, scale=0.1)
+        wq, wo = rn(hx * dx, d, scale=d**-0.5), rn(d, hx * dx, scale=(hx * dx) ** -0.5)
+        (qq, sq, byq), (qo, so, byo) = qweight(wq, bits), qweight(wo, bits)
+        (km, ks), (vm, vs) = qkv8(B, hx, s, dx), qkv8(B, hx, s, dx)
+        mask = torch.ones(B, s, dtype=torch.bool, device=dev)
+        mask[3] = False
+        kw = dict(heads=hx, head_dim=dx, scale=dx**-0.5, gate=gate, wq_scale=sq, wout_scale=so, k_scale=ks,
+                  v_scale=vs)
+        n_valid = mask.sum().item()
+        cost = (byq + byo + (2 * B * d + 2 * d + 1) * es + 2 * n_valid * hx * (dx + 4) + B * s,
+                4 * B * d * hx * dx + 4 * hx * dx * n_valid)
+        hn, a_x = layer_norm(x, ln, ln_b), rn(B, hx * dx)
+        yield ("attn_block_decode", case + sfx[bits] + "_kv8",
+               lambda x=x, ln=ln, ln_b=ln_b, qq=qq, qo=qo, km=km, vm=vm, mask=mask, kw=kw: attn_block_decode(
+                   x, ln, ln_b, qq, qo, km, vm, mask, **kw),
+               lambda x=x, ln=ln, ln_b=ln_b, qq=qq, qo=qo, km=km, vm=vm, mask=mask, kw=kw: reference_attn_block(
+                   x, ln, ln_b, qq, qo, km, vm, mask, **kw),
+               lambda got, x=x: torch.equal(got[3], x[3]), cost,
+               lambda hn=hn, a_x=a_x, wq=wq, wo=wo: (F.linear(hn, wq), F.linear(a_x, wo)),
+               "F.linear for Wq and Wout over the bf16 weights")
+
+    # K6 (OF-4B: H 32, Dh 80, S 64, dense bias): int8 / int4 Wout, the int8
+    # cache, GQA, the slot at 0 and 63, the q-only form with a key-less row
+    d, h, dh = 2560, 32, 80
+    wout, bout, res = rn(d, h * dh, scale=(h * dh) ** -0.5), rn(d, scale=0.1), rn(B, d)
+    slopes32 = torch.from_numpy(alibi_slopes(h)).to(dev)
+    a_in = rn(B, h * dh)
+    for case, bits, kv8, slot, n_rep, extra, masked_row in (
+        ("neox_S64_slot40", 8, True, 40, 1, dict(bias=bout), None),
+        ("neox_S64_slot40", 4, False, 40, 1, dict(bias=bout), None),
+        ("neox_S64_slot40", 8, False, 40, 1, dict(bias=bout), None),
+        ("neox_S64_slot40", 4, True, 40, 1, dict(bias=bout), None),
+        ("neox_S64_slot63_gate_residual", 8, True, 63, 1, dict(bias=bout, gate=gate, residual=res), None),
+        ("neox_S64_slot0", 8, True, 0, 1, dict(bias=bout), None),
+        ("neox_gqa2_S64_slot40", 8, True, 40, 2, dict(bias=bout), None),
+        ("neox_q_only_alibi_masked_row", 8, True, None, 1, dict(slopes=slopes32), 3),
+    ):
+        h_kv = h // n_rep
+        qo, so, byo = qweight(wout, bits)
+        q = rn(B, h, dh)
+        if kv8:
+            (k0, ks0), (v0, vs0) = qkv8(B, h_kv, s, dh), qkv8(B, h_kv, s, dh)
+        else:
+            k0, v0, ks0, vs0 = rn(B, h_kv, s, dh), rn(B, h_kv, s, dh), None, None
+        caches = [c.clone() if c is not None else None for c in (k0, v0, ks0, vs0)]
+        mask = left_padded_mask(B, s, [4, 7], dev)
+        upd = {}
+        if slot is not None:
+            mask[:, slot + 1:] = False
+            mask[:, slot] = True
+            upd = dict(k_new=rn(B, h_kv, dh), v_new=rn(B, h_kv, dh),
+                       slot=torch.tensor([slot], dtype=torch.int32, device=dev))
+        if masked_row is not None:
+            mask[masked_row] = False
+        kw = dict(scale=dh**-0.5, wout_scale=so, **upd, **extra)
+        first = (lambda y: y[0]) if slot is not None else (lambda y: y)
+        fn = lambda q=q, c=caches, mask=mask, kw=kw, qo=qo, first=first: first(
+            attend_out_decode(q, c[0], c[1], mask, qo, k_scale=c[2], v_scale=c[3], **kw))
+
+        def plain(q=q, o=(k0, v0, ks0, vs0), mask=mask, kw=kw, qo=qo, first=first):
+            c = [t.clone() if t is not None else None for t in o]
+            return first(reference_attend_out(q, c[0], c[1], mask, qo, k_scale=c[2], v_scale=c[3], **kw))
+        n_valid = mask.sum().item()
+        ces = 1 if kv8 else es
+        upd_n = B * h_kv * (slot is not None)
+        cost = (byo + (B * h * dh + B * d + 2 * upd_n * dh) * es + 2 * (n_valid * h_kv) * (dh * ces + 4 * kv8)
+                + sum(t.numel() * t.element_size() for t in extra.values()) + B * s + 4 * (slot is not None),
+                2 * B * d * h * dh + 4 * h * dh * n_valid)
+        yield ("attend_out_decode", case + sfx[bits] + ("_kv8" if kv8 else ""), fn, plain,
+               None if masked_row is None else zeros_at([masked_row]), cost,
+               lambda: F.linear(a_in, wout, bout), "F.linear(a, Wout, b) over the bf16 weight")
+        if kv8 and slot is not None:
+            pc = [t.clone() for t in (k0, v0, ks0, vs0)]
+            reference_attend_out(q, pc[0], pc[1], mask, qo, k_scale=pc[2], v_scale=pc[3], **kw)
+            int8_slot_check("attend_out_decode", case, dtype, caches, pc, (k0, v0, ks0, vs0), slot)
+
+
 def phase_kernels(dev) -> dict:
     """Returns, per kernel, its bf16 numbers at each timed shape."""
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        cases = itertools.chain(kernel_cases(dtype, gen, dev), neox_kernel_cases(dtype, gen, dev))
+        cases = itertools.chain(kernel_cases(dtype, gen, dev), neox_kernel_cases(dtype, gen, dev),
+                                quant_kernel_cases(dtype, gen, dev))
         for name, case, fn, plain, exact, cost, lib, lib_is in cases:
             got = fn()
             torch.cuda.synchronize()
             want = plain()
             err = compare(name, case, dtype, got, want, exact, CASE_TOL.get(name, {}).get(dtype))
-            if case.endswith("V50434"):                 # the ragged last 1282 columns
+            if "V50434" in case:                        # the ragged last 1282 columns
                 tail = (got[:, 49152:].float() - want[:, 49152:].float()).abs().max().item()
                 log({"phase": "kernels", "kernel": name, "case": case, "tail_cols": 1282, "tail_max_abs_err": tail})
                 require(torch.allclose(got[:, 49152:].float(), want[:, 49152:].float(), **TOL[dtype]), "head tail")
@@ -576,7 +820,7 @@ def phase_kernels(dev) -> dict:
             b_ms, b_by = bound(*cost, dtype)
             row = {"ms": device_ms(fn), "call_ms": call_ms(fn), "plain_ms": device_ms(plain),
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None if lib is None else device_ms(lib),
-                   "library_is": lib_is, "max_abs_err": err, "case": case}
+                   "library_is": lib_is, "max_abs_err": err, "case": case, "variant": case_variant(case)}
             log({"phase": "kernels", "kernel": name, "timing": row})
             summary.setdefault(name, {})[case] = row
     return summary
@@ -754,13 +998,13 @@ def make_inputs(cfg, dev):
     return vision_x, ids, mask
 
 
-def step_logits(model, latents, ids, mask, tokens):
+def step_logits(model, latents, ids, mask, tokens, int8_kv=False):
     """(N, B, V) logits on a fixed token stream `tokens` (B, N): at the last
     prompt position after prefill (K4, K5), then after each decode step
     that feeds tokens[:, t] back in (K1-K3 on the fused route, K7 on the
-    unfused one)."""
-    cache = KVCache.create(model.cfg.lm, B, T_PROMPT + NEW_TOKENS, model.dtype, model.device)
-    logits, _, cache = model(None, ids, mask, media_latents=latents, cache=cache)
+    unfused one), over an int8 cache with `int8_kv`."""
+    logits, cache = prefill(model, latents, ids, mask, T_PROMPT + NEW_TOKENS, int8_kv)
+    require((cache.layers[0].k.dtype == torch.int8) == int8_kv, "the cache's dtype")
     out = [logits[:, -1]]
     n_media = count_media(ids, model.cfg.media_token_id)
     ones = torch.ones(B, 1, dtype=torch.long, device=ids.device)
@@ -793,45 +1037,54 @@ def fp32_agree(what, tok_a, tok_b, la, lb, init_s=None):
     require(same, f"fp32 {what}: greedy tokens differ")
 
 
-def timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, route):
-    """One bf16 generate call with every launch counter reset just before
-    and read just after; then vision encode and prefill timed alone."""
-    warm = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
-    torch.cuda.synchronize()
+def reset_counters(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants.clear()
+
+
+def timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, route):
+    """One bf16 generate call with every launch counter (and the decode
+    kernels' per-variant counts) reset just before and read just after;
+    then vision encode and prefill timed alone. Returns (launches,
+    variants)."""
+    warm = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+    torch.cuda.synchronize()
+    reset_counters(counters)
     t0 = time.perf_counter()
     tokens = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    variants = {name: dict(fn.variants) for name, fn in counters.items() if hasattr(fn, "variants")}
     t0 = time.perf_counter()
     lat16 = model.embed_vision(vision_x)
     torch.cuda.synchronize()
     vision_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cache = KVCache.create(model.cfg.lm, B, T_PROMPT + NEW_TOKENS, model.dtype, dev)
-    lk16 = model(None, ids, mask, media_latents=lat16, cache=cache)[0][:, -1]
+    lk16 = prefill(model, lat16, ids, mask, T_PROMPT + NEW_TOKENS, gcfg.int8_kv)[0][:, -1]
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     log({"phase": "generate", "dtype": "bfloat16", "route": route, "seconds": dt,
          "tokens_per_s": B * NEW_TOKENS / dt, "vision_s": vision_s, "prefill_s": prefill_s,
          "decode_s": dt - vision_s - prefill_s, "decode_step_ms": (dt - vision_s - prefill_s) / (NEW_TOKENS - 1) * 1e3,
-         "batch": B, "prompt": T_PROMPT, "new_tokens": NEW_TOKENS, "launches": launches,
+         "ttft_s": vision_s + prefill_s, "batch": B, "prompt": T_PROMPT, "new_tokens": NEW_TOKENS,
+         "launches": launches, "variants": variants,
          "distinct_tokens_per_row": [len(set(r)) for r in tokens.tolist()], "tokens_row0": tokens[0].tolist()})
     require(tokens.shape == (B, NEW_TOKENS), "bf16 token shape")
     require(bool(((tokens >= 0) & (tokens < model.cfg.lm.vocab_size)).all().item()), "bf16 token ids out of range")
     require(torch.equal(tokens, warm), f"bf16 generate ({route}) is not deterministic")
     require(torch.isfinite(lk16).all().item(), "bf16 logits not finite")
-    return launches
+    return launches, variants
 
 
-def sync_free_step(model, vision_x, ids, mask, dev) -> None:
+def sync_free_step(model, vision_x, ids, mask, dev, int8_kv=False) -> None:
     """One fused decode step under torch's sync debug mode "error": the step
-    issues no host sync, so it can later be captured in a CUDA graph."""
+    issues no host sync, so it can later be captured in a CUDA graph. With
+    int8_kv the kernels quantize the new token into an int8 cache."""
     lat = model.embed_vision(vision_x)
-    cache = KVCache.create(model.cfg.lm, B, T_PROMPT + NEW_TOKENS, model.dtype, dev)
-    logits, _, cache = model(None, ids, mask, media_latents=lat, cache=cache)
+    logits, cache = prefill(model, lat, ids, mask, T_PROMPT + NEW_TOKENS, int8_kv)
     tok = logits[:, -1].argmax(-1, keepdim=True)
     n_media = count_media(ids, model.cfg.media_token_id)
     ones = torch.ones(B, 1, dtype=torch.long, device=dev)
@@ -843,7 +1096,8 @@ def sync_free_step(model, vision_x, ids, mask, dev) -> None:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     log({"phase": "generate", "dtype": "bfloat16", "route": "fused", "decode_step_host_syncs": 0,
-         "model": type(model.lm.blocks[0]).__name__})
+         "model": type(model.lm.blocks[0]).__name__, "int8_kv": int8_kv,
+         "cache_dtype": str(cache.layers[0].k.dtype).split(".")[-1]})
 
 
 def route_launches(cfg, counters, fused: bool) -> dict:
@@ -877,6 +1131,14 @@ def random_lm_biases(model, seed) -> None:
             p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * 0.02)
 
 
+def build_model(cfg, dev, dtype):
+    """Random weights from SEED (GPT-NeoX's decoder biases drawn too)."""
+    model = init_random(cfg, SEED, device=dev, dtype=dtype)
+    if cfg.lm.attention_bias:
+        random_lm_biases(model, SEED + 4)
+    return model
+
+
 @torch.no_grad()   # generation: the forward is differentiable, nothing here needs a graph
 def phase_generate(dev, name="OF-3B"):
     counters = kernel_functions()
@@ -885,10 +1147,7 @@ def phase_generate(dev, name="OF-3B"):
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
 
     def build(dtype):
-        model = init_random(cfg, SEED, device=dev, dtype=dtype)
-        if cfg.lm.attention_bias:
-            random_lm_biases(model, SEED + 4)
-        return model
+        return build_model(cfg, dev, dtype)
 
     # fp32: (a) fused route, kernels vs plain versions; (b) fused vs unfused route
     t0 = time.perf_counter()
@@ -914,17 +1173,161 @@ def phase_generate(dev, name="OF-3B"):
 
     # bf16, the serving dtype, timed: (c) fused route, (d) unfused route
     model = build(torch.bfloat16)
-    fused = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, f"{name} fused")
+    fused, _ = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, f"{name} fused")
     want = route_launches(cfg, counters, fused=True)
     require(fused == want, f"{name} fused route launches {fused}, expected {want}")
     sync_free_step(model, vision_x, ids, mask, dev)
     with unfused_route():
-        unfused = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, f"{name} unfused")
+        unfused, _ = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, f"{name} unfused")
     want = route_launches(cfg, counters, fused=False)
     require(unfused == want, f"{name} unfused route launches {unfused}, expected {want}")
     del model
     torch.cuda.empty_cache()
     return fused, unfused
+
+
+def quant_variants(cfg, bits: int, kv8: bool) -> dict:
+    """The per-variant launches of one quantized generate call on the fused
+    route (the counts of `route_launches`, split by variant): the head K1
+    int8 in every mode, every other projection int8 or int4, K3 and K6 over
+    the int8 caches with kv8."""
+    steps, layers = NEW_TOKENS - 1, cfg.lm.num_layers
+    xattn = layers // cfg.cross_attn_every_n
+    neox = cfg.lm.family == "gptneox"
+    w = "int8" if bits == 8 else "int4"
+    kv = w + ("+kv8" if kv8 else "")
+    dense = {"int8": steps}
+    if neox:
+        dense[w] = dense.get(w, 0) + steps * layers
+    return {"fused_dense": dense, "fused_mlp": {w: steps * (layers + xattn)},
+            "attn_block_decode": {kv: steps * (xattn + layers * (not neox))},
+            "attend_out_decode": {kv: steps * layers} if neox else {}}
+
+
+def paired_step_logits(model, latents, ids, mask, tokens, int8_kv):
+    """(kernels, plain) logits (N, B, V) on the token stream `tokens`, every
+    decode step run by both from one state: one prefill (kernels), then per
+    step the plain_path() step on a copy of the cache and the kernel step on
+    the cache itself, which carries on. (Over an int8 cache two free-running
+    calls part at rounding boundaries: fp32 sums taken in another order put
+    a few entries one quantization step apart, and every later layer reads
+    them, so the kernels are held to their plain versions step by step.)"""
+    logits, cache = prefill(model, latents, ids, mask, T_PROMPT + NEW_TOKENS, int8_kv)
+    lk, lp = [logits[:, -1]], [logits[:, -1]]
+    n_media = count_media(ids, model.cfg.media_token_id)
+    ones = torch.ones(B, 1, dtype=torch.long, device=ids.device)
+    for t in range(tokens.shape[1] - 1):
+        copy = dataclasses.replace(cache, layers=tuple(
+            dataclasses.replace(l, **{f: getattr(l, f).clone() for f in ("k", "v", "k_s", "v_s")
+                                      if getattr(l, f) is not None}) for l in cache.layers))
+        with plain_path():
+            lp.append(model.decode_step(latents, tokens[:, t:t + 1], ones, copy, n_media)[0][:, 0])
+        logits, cache = model.decode_step(latents, tokens[:, t:t + 1], ones, cache, n_media)
+        lk.append(logits[:, 0])
+    return torch.stack(lk), torch.stack(lp)
+
+
+def prefill_cache_flips(model, latents, ids, mask) -> dict:
+    """Prefill into an int8 cache on the kernels and under plain_path(): per
+    decoder layer, the int8 K/V entries one step (or more) apart."""
+    _, ck = prefill(model, latents, ids, mask, T_PROMPT + NEW_TOKENS, True)
+    with plain_path():
+        _, cp = prefill(model, latents, ids, mask, T_PROMPT + NEW_TOKENS, True)
+    diffs = [torch.cat([(a.k.int() - b.k.int()).abs().flatten(), (a.v.int() - b.v.int()).abs().flatten()])
+             for a, b in zip(ck.layers, cp.layers)]
+    return {"entries_per_layer": diffs[0].numel(), "differing_per_layer": [int((d > 0).sum()) for d in diffs],
+            "max_step": int(max(d.max() for d in diffs))}
+
+
+def drift(l_ref, l_q) -> dict:
+    """Mean KL(ref || quantized) of the step logits (N, B, V) and their
+    top-1 agreement, the JAX package's quantization gates."""
+    lp_r, lp_q = torch.log_softmax(l_ref.float(), -1), torch.log_softmax(l_q.float(), -1)
+    kl = (lp_r.exp() * (lp_r - lp_q)).sum(-1).mean().item()
+    return {"mean_kl": kl, "top1_agreement": (l_ref.argmax(-1) == l_q.argmax(-1)).float().mean().item()}
+
+
+@torch.no_grad()
+def phase_quantized(dev, name="OF-3B") -> dict:
+    """Quantized decode on the fused route. OF-3B: int8 and int4 weights and
+    int8 weights with the int8 caches; OF-4B: int8 weights with the int8
+    caches (and int4 weights, timed, the only path that runs K1 and K6 with
+    int4). fp32 on dequantize_roundtrip weights: the side-car against no
+    side-car and kernels against plain_path(), identical tokens and logits
+    within LOGITS_TOL. bf16 timed with exact launch counts per variant, the
+    drift against the unquantized call on its token stream (OF-3B gated: int8
+    mean KL < 1e-3, int4 < 0.1), one sync-free int8-cache step. Returns
+    {path: per-variant launches}."""
+    counters = kernel_functions()
+    cfg = flamingo_config(name)
+    vision_x, ids, mask = make_inputs(cfg, dev)
+    neox = cfg.lm.family == "gptneox"
+    tag = name.replace("-", "").lower()
+
+    def gcfg(int8_kv):
+        return GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0, int8_kv=int8_kv)
+
+    def run(model, latents, int8_kv, stream=None):
+        tokens = flamingo_generate(model, vision_x, ids, mask, gcfg(int8_kv), device=dev)
+        return tokens, step_logits(model, latents, ids, mask, tokens if stream is None else stream, int8_kv)
+
+    # fp32, on weights that the quantization grid holds exactly
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev, torch.float32)
+    latents = model.embed_vision(vision_x)
+    for bits in ((8,) if neox else (8, 4)):
+        dequantize_roundtrip(drop_decode_weights(model), bits)
+        if not neox:
+            tok_a, la = run(model, latents, False)
+            quantize_decode_weights(model, bits)
+            tok_b, lb = run(model, latents, False, tok_a)
+            fp32_agree(f"{name} int{bits} side-car vs none, kernels", tok_b, tok_a, lb, la)
+            with plain_path():
+                tok_c, lc = run(model, latents, False, tok_a)
+            fp32_agree(f"{name} int{bits} side-car, kernels vs plain_path", tok_b, tok_c, lb, lc)
+        if bits == 8:
+            quantize_decode_weights(model, bits)
+            tok_d, ld = run(model, latents, True)
+            with plain_path():
+                tok_e, le = run(model, latents, True, tok_d)
+            log({"phase": "quantized", "model": name, "dtype": "float32", "compare": "int8 cache, free-running",
+                 "logits_max_abs_err": (ld - le).abs().max().item(),
+                 "prefill_logits_max_abs_err": (ld[0] - le[0]).abs().max().item(),
+                 "prefill_cache_flips": prefill_cache_flips(model, latents, ids, mask)})
+            lk, lp = paired_step_logits(model, latents, ids, mask, tok_d, True)
+            fp32_agree(f"{name} int8 + int8 cache, kernels vs plain_path step by step", tok_d, tok_e, lk, lp,
+                       time.perf_counter() - t0)
+    del model, latents
+    torch.cuda.empty_cache()
+
+    # bf16, timed; drift against the unquantized call
+    model = build_model(cfg, dev, torch.bfloat16)
+    latents = model.embed_vision(vision_x)
+    tok_ref = flamingo_generate(model, vision_x, ids, mask, gcfg(False), device=dev)
+    l_ref = step_logits(model, latents, ids, mask, tok_ref)
+    paths, bits_now = {}, None
+    for bits, kv8 in (((8, True), (4, False)) if neox else ((8, False), (8, True), (4, False))):
+        if bits != bits_now:
+            quantize_decode_weights(drop_decode_weights(model), bits)
+            bits_now = bits
+        mode = f"int{bits}" + ("_kv8" if kv8 else "")
+        launches, variants = timed_generate(model, vision_x, ids, mask, gcfg(kv8), dev, counters, f"{name} {mode}")
+        want = route_launches(cfg, counters, fused=True)
+        require(launches == want, f"{name} {mode} launches {launches}, expected {want}")
+        want_v = quant_variants(cfg, bits, kv8)
+        require(variants == want_v, f"{name} {mode} variant launches {variants}, expected {want_v}")
+        d = drift(l_ref, step_logits(model, latents, ids, mask, tok_ref, kv8))
+        gate = None if (neox or kv8) else (1e-3 if bits == 8 else 0.1)
+        log({"phase": "quantized", "model": name, "dtype": "bfloat16", "mode": mode, "drift_vs_bf16": d,
+             "kl_gate": gate, "side_car_mb": sum(b.numel() * b.element_size() for n, b in model.named_buffers()
+                                                 if n.endswith(("weight_q", "weight_s"))) / 2**20})
+        require(gate is None or d["mean_kl"] < gate, f"{name} {mode}: mean KL {d['mean_kl']} above {gate}")
+        if kv8:
+            sync_free_step(model, vision_x, ids, mask, dev, int8_kv=True)
+        paths[f"{tag}_{mode}"] = variants
+    del model, latents
+    torch.cuda.empty_cache()
+    return paths
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1055,6 +1458,21 @@ SOURCES = {
 }
 
 
+# the quantized variants: kernels-line name -> (kernel, main case, the path
+# that runs it, its launch-counter key)
+VARIANTS = {
+    "fused_dense[int8]": ("fused_dense", "head_V50434_int8", "of3b_int8", "int8"),
+    "fused_dense[int4]": ("fused_dense", "neox_qkv_bias_int4", "of4b_int4", "int4"),
+    "fused_mlp[int8]": ("fused_mlp", "mpt_mlp_int8", "of3b_int8", "int8"),
+    "fused_mlp[int4]": ("fused_mlp", "mpt_mlp_int4", "of3b_int4", "int4"),
+    "attn_block_decode[int8]": ("attn_block_decode", "self_S64_slot40_int8", "of3b_int8", "int8"),
+    "attn_block_decode[int4]": ("attn_block_decode", "self_S64_slot40_int4", "of3b_int4", "int4"),
+    "attn_block_decode[int8+kv8]": ("attn_block_decode", "self_S64_slot40_int8_kv8", "of3b_int8_kv8", "int8+kv8"),
+    "attend_out_decode[int8+kv8]": ("attend_out_decode", "neox_S64_slot40_int8_kv8", "of4b_int8_kv8", "int8+kv8"),
+    "attend_out_decode[int4]": ("attend_out_decode", "neox_S64_slot40_int4", "of4b_int4", "int4"),
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1079,21 +1497,36 @@ def main() -> int:
     paths.update(zip(("of4b_generate_fused", "of4b_generate_unfused"), phase_generate(dev, "OF-4B")))
     seconds["generate_of4b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    qpaths = phase_quantized(dev, "OF-3B")
+    seconds["quantized"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qpaths.update(phase_quantized(dev, "OF-4B"))
+    seconds["quantized_of4b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     counters = kernel_functions()
     paths["train_step"] = phase_train(dev, counters)
     seconds["train"] = time.perf_counter() - t0
     log({"phase": "seconds", **seconds})
     kernels = []
-    for name, (src, replaces) in SOURCES.items():
-        t = timing[name][MAIN_CASES[name]]
+
+    def entry(name, kernel, variant, launches, by_path, main_case):
+        t = timing[kernel][main_case]
+        src, replaces = SOURCES[kernel]
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": launches,
+                "launches_by_path": by_path, "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "library_is": t["library_is"], "case": t["case"], "variant": variant,
+                "other_cases": [r for c, r in timing[kernel].items() if c != main_case and r.get("variant", "float") == variant]}
+
+    for name in SOURCES:
         # each kernel's count from the newest path that runs it, every path beside it
         by_path = {path: counts[name] for path, counts in paths.items()}
         launches = next(n for n in reversed(list(by_path.values())) if n) if any(by_path.values()) else 0
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches, "launches_by_path": by_path, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"], "library_is": t["library_is"], "case": t["case"],
-                        "other_cases": [r for c, r in timing[name].items() if c != t["case"]]})
+        kernels.append(entry(name, name, "float", launches, by_path, MAIN_CASES[name]))
+    for name, (kernel, main_case, path, key) in VARIANTS.items():
+        by_path = {p: v.get(kernel, {}).get(key, 0) for p, v in qpaths.items()}
+        require(by_path[path] > 0, f"{name}: no launch on {path}")
+        kernels.append(entry(name, kernel, key, by_path[path], by_path, main_case))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,10 @@ The JAX package's scanned LM layout (`scan_layers=True`, made by
 unstacked into `blocks.{g*n + k}` and `xattn.{g*n + n - 1}` (n = the number
 of `block_k` entries, the cross-attention interval). The port keeps one
 per-layer layout: a PyTorch loop over layers has no compile step to save.
+
+`decode_weights_from_jax` reads the JAX package's `qparams` side-car
+(`quantize_decode_params`, both layouts) into the quantized copies that
+`quantize.attach_decode_weights` puts on the port's modules.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from ..quantize import pack_int4
 
 _INDEXED = re.compile(r"^(blocks|xattn|layers)_(\d+)(?:_(\w+))?$")
 _LEAF = {"scale": "weight", "embedding": "weight"}
@@ -104,3 +110,31 @@ def state_dict_from_flat(flat: Mapping[Tuple[str, ...], Any], dtype=None) -> Dic
             node = node.setdefault(key, {})
         node[path[-1]] = val
     return state_dict_from_jax(tree, dtype)
+
+
+def decode_weights_from_jax(variables: Mapping) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """The JAX package's `qparams` collection (as numpy; the variables dict
+    that holds it, or the collection itself), unrolled or scanned, as
+    {port module name: (weight_q, weight_s)}, names from the Flamingo model
+    down (`lm.blocks.0.Wqkv`). `kernel_q` (K, N) int8 becomes (N, K);
+    `kernel_q4` (int4-grid values stored as int8) becomes the port's packed
+    (N, K/2) uint8; `embedding_q` (V, D) stays as it is; the scales
+    (`kernel_s`, `embedding_s`) are (N,) fp32 either way."""
+    tree = _unstack_groups(variables.get("qparams", variables))
+    out: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def walk(node, prefix):
+        if "kernel_s" in node or "embedding_s" in node:
+            if "embedding_q" in node:
+                q, s = torch.tensor(np.asarray(node["embedding_q"])), node["embedding_s"]
+            else:
+                q4 = "kernel_q4" in node
+                q = torch.tensor(np.asarray(node["kernel_q4" if q4 else "kernel_q"]).T)
+                q, s = (pack_int4(q) if q4 else q), node["kernel_s"]
+            out[".".join(prefix)] = (q, torch.tensor(np.asarray(s, dtype=np.float32)))
+            return
+        for name, val in node.items():
+            walk(val, prefix + [_module_name(name)])
+
+    walk(tree, [])
+    return out

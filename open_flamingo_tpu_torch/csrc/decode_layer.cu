@@ -45,6 +45,20 @@
 // heads; here the head outputs go through a (B, H*Dh) scratch and one row
 // GEMV sums over all heads in fp32, its epilogue in the TPU kernel's order.
 // Bound: Wout (13.1 MB at RedPajama-3B bf16) plus the valid cache rows.
+//
+// Quantized decode, both kernels (the TPU kernels' int8 / int4 weights and
+// int8 KV cache). The projections stream int8 or packed int4 weights
+// through the row GEMV (rows_gemv.cuh), each per-out-channel scale first in
+// its epilogue: K3's q/k/v before clip_qkv, the out-projections before the
+// gate, bias and residual. The int8 cache holds int8 K/V rows with one fp32
+// scale per (b, h, s) row: the block that owns (b, h) quantizes the new
+// token's K and V over Dh itself (amax by a block reduction, scale
+// amax / 127 or 1, round half to even of a true division), writes the int8
+// row and its scale in place, and attends to the quantized value, as later
+// steps read it back. Logits dequantize after the dot product (* k_s[j]),
+// softmax weights before the sum over values (* v_s[j]). The cache bytes
+// halve; the bound falls with the weight bytes (half for int8, a quarter
+// for int4) and the cache's.
 
 #include "rows_gemv.cuh"
 
@@ -73,6 +87,22 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
   return v;
 }
 
+// 8 consecutive cache elements (T, or int8) to fp32. Plain loads: this
+// launch writes the cache.
+template <typename C>
+__device__ __forceinline__ void load8c(const C* p, float* v) {
+  if constexpr (std::is_same<C, int8_t>::value) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = rows::small_int_to_f32(rows::sbyte(u.x, e));
+      v[4 + e] = rows::small_int_to_f32(rows::sbyte(u.y, e));
+    }
+  } else {
+    rows::load8<false>(p, v);
+  }
+}
+
 // Where a block finds its query and the new token's K/V row:
 //  * K3: the fp32 projection `proj` (B, p), q at [0, H*Dh), the new K at
 //    [H*Dh, 2*H*Dh), V after; q is scaled here and nothing is rounded
@@ -90,20 +120,22 @@ struct NewToken {
   const T* vn;
 };
 
-// k/v caches (B, H_kv, S, Dh), query head `head` reading kv head
-// head / (H / H_kv); attn (B, H*Dh). slot == nullptr: no new K/V (the
-// q-only form). k/v are not __restrict__ const: this launch writes them
-// (with H_kv < H, every query head of a group writes the same values).
-// Key-parallel: thread j scores key j (its K row read with batched 16-byte
-// loads, valid or not), the block reduces max and sum, then groups of d / 8
-// threads sum p_j * V[j] over their share of the keys. A few rounds of
-// independent loads, where a serial online softmax chains three dependent
-// loads per key. Dynamic shared memory: S floats of scores.
-template <typename T>
+// k/v caches (B, H_kv, S, Dh) of C (T, or int8 with row scales ks/vs
+// (B, H_kv, S) fp32), query head `head` reading kv head head / (H / H_kv);
+// attn (B, H*Dh). slot == nullptr: no new K/V (the q-only form). k/v/ks/vs
+// are not __restrict__ const: this launch writes them (with H_kv < H, every
+// query head of a group writes the same values). Key-parallel: thread j
+// scores key j (its K row read with batched 16-byte loads, valid or not),
+// the block reduces max and sum, then groups of d / 8 threads sum p_j * V[j]
+// over their share of the keys. A few rounds of independent loads, where a
+// serial online softmax chains three dependent loads per key. Dynamic
+// shared memory: S floats of scores.
+template <typename T, typename C>
 __device__ __forceinline__ void attend_body(
-    const NewToken<T>& src, T* k, T* v, const uint8_t* __restrict__ mask,
+    const NewToken<T>& src, C* k, C* v, float* ks, float* vs, const uint8_t* __restrict__ mask,
     const float* __restrict__ slopes, const int* __restrict__ slot_ptr, T* __restrict__ attn, int h,
     int h_kv, int s, int d, float scale) {
+  constexpr bool kInt8 = std::is_same<C, int8_t>::value;
   extern __shared__ float sc[];
   __shared__ float q_s[kMaxD], kn_s[kMaxD], vn_s[kMaxD];
   __shared__ float red[kAttnWarps], part[kAttnThreads * rows::kVec];
@@ -113,8 +145,8 @@ __device__ __forceinline__ void attend_body(
   const int inner = h * d;
   const int tid = threadIdx.x;
   const size_t kv_row = (size_t)b * h_kv + head / (h / h_kv);
-  T* kb = k + kv_row * s * d;
-  T* vb = v + kv_row * s * d;
+  C* kb = k + kv_row * s * d;
+  C* vb = v + kv_row * s * d;
   const uint8_t* mrow = mask + (size_t)b * s;
 
   int slot = -1;
@@ -137,9 +169,37 @@ __device__ __forceinline__ void attend_body(
         vn_s[c] = to_f32(src.vn[kv_row * d + c]);
       }
     }
-    if (slot >= 0) {
-      kb[(size_t)slot * d + c] = from_f32<T>(kn_s[c]);
-      vb[(size_t)slot * d + c] = from_f32<T>(vn_s[c]);
+    if constexpr (!kInt8) {
+      if (slot >= 0) {
+        kb[(size_t)slot * d + c] = from_f32<T>(kn_s[c]);
+        vb[(size_t)slot * d + c] = from_f32<T>(vn_s[c]);
+      }
+    }
+  }
+  // int8 cache: quantize the new token's rows (the slot's scales sk, sv);
+  // kn_s/vn_s then hold the quantized values this step attends to
+  float sk = 1.f, sv = 1.f;
+  if constexpr (kInt8) {
+    if (slot >= 0) {  // uniform across the block
+      float ka = 0.f, va = 0.f;
+      for (int c = tid; c < d; c += kAttnThreads) {
+        ka = fmaxf(ka, fabsf(kn_s[c]));
+        va = fmaxf(va, fabsf(vn_s[c]));
+      }
+      ka = block_reduce(ka, red, true);
+      va = block_reduce(va, red, true);
+      sk = ka == 0.f ? 1.f : ka / 127.f;
+      sv = va == 0.f ? 1.f : va / 127.f;
+      for (int c = tid; c < d; c += kAttnThreads) {
+        kn_s[c] = fminf(fmaxf(rintf(kn_s[c] / sk), -127.f), 127.f);
+        vn_s[c] = fminf(fmaxf(rintf(vn_s[c] / sv), -127.f), 127.f);
+        kb[(size_t)slot * d + c] = (int8_t)kn_s[c];
+        vb[(size_t)slot * d + c] = (int8_t)vn_s[c];
+      }
+      if (tid == 0) {
+        ks[kv_row * s + slot] = sk;
+        vs[kv_row * s + slot] = sv;
+      }
     }
   }
   __syncthreads();
@@ -150,13 +210,13 @@ __device__ __forceinline__ void attend_body(
   for (int j = tid; j < s; j += kAttnThreads) {
     // every row is read, so the loads do not wait for the mask; a masked
     // row's score (from a row never written) is selected away
-    const T* kr = kb + (size_t)j * d;
+    const C* kr = kb + (size_t)j * d;
     float dot = 0.f;
     for (int c0 = 0; c0 < d; c0 += kBatch * rows::kVec) {  // kBatch loads in flight
       float kv[kBatch][rows::kVec];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u)
-        if (c0 + u * rows::kVec < d) rows::load8<false>(kr + c0 + u * rows::kVec, kv[u]);
+        if (c0 + u * rows::kVec < d) load8c(kr + c0 + u * rows::kVec, kv[u]);
 #pragma unroll
       for (int u = 0; u < kBatch; ++u)
         if (c0 + u * rows::kVec < d)
@@ -167,6 +227,7 @@ __device__ __forceinline__ void attend_body(
       dot = 0.f;
       for (int c = 0; c < d; ++c) dot = fmaf(q_s[c], kn_s[c], dot);
     }
+    if constexpr (kInt8) dot *= j == slot ? sk : ks[kv_row * s + j];  // dequantized logit
     const float sj = mrow[j] != 0 ? dot + slope * (float)(j - (s - 1)) : -INFINITY;
     sc[j] = sj;
     mx = fmaxf(mx, sj);
@@ -175,16 +236,18 @@ __device__ __forceinline__ void attend_body(
 
   float l = 0.f;
   for (int j = tid; j < s; j += kAttnThreads) {
-    const float pj = sc[j] == -INFINITY ? 0.f : expf(sc[j] - mx);  // all masked: every pj = 0
-    sc[j] = pj;
+    float pj = sc[j] == -INFINITY ? 0.f : expf(sc[j] - mx);  // all masked: every pj = 0
     l += pj;
+    if constexpr (kInt8) pj *= j == slot ? sv : vs[kv_row * s + j];  // dequantized softmax weight
+    sc[j] = pj;
   }
   l = block_reduce(l, red, false);  // its barriers also publish sc
 
   // output: thread (grp, oct) sums p_j * V[j][8 oct .. 8 oct + 7] over keys
-  // grp, grp + G, ...: 16-byte loads, a row read by d / 8 neighbouring
-  // threads, kBatch rows in flight. The loads are unconditional; a masked
-  // key's row (never written, may hold anything) is selected away.
+  // grp, grp + G, ...: 16-byte loads (8-byte for int8), a row read by d / 8
+  // neighbouring threads, kBatch rows in flight. The loads are
+  // unconditional; a masked key's row (never written, may hold anything) is
+  // selected away.
   const int octs = d / rows::kVec, groups = kAttnThreads / octs;
   const int c8 = (tid % octs) * rows::kVec, grp = tid / octs;
   float o[rows::kVec];
@@ -195,7 +258,7 @@ __device__ __forceinline__ void attend_body(
       float vv[kBatch][rows::kVec];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u)
-        if (j0 + u * groups < s) rows::load8<false>(vb + (size_t)(j0 + u * groups) * d + c8, vv[u]);
+        if (j0 + u * groups < s) load8c(vb + (size_t)(j0 + u * groups) * d + c8, vv[u]);
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int j = j0 + u * groups;
@@ -219,110 +282,130 @@ __device__ __forceinline__ void attend_body(
 }
 
 // K3's softmax launch: proj (B, p) fp32, H_kv = H.
-template <typename T>
+template <typename T, typename C>
 __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
-    const float* __restrict__ proj, int p, T* k, T* v, const uint8_t* __restrict__ mask,
-    const float* __restrict__ slopes, const int* __restrict__ slot_ptr, T* __restrict__ attn, int h,
-    int s, int d, float scale) {
-  attend_body<T>(NewToken<T>{proj, p, nullptr, nullptr, nullptr}, k, v, mask, slopes, slot_ptr, attn, h, h, s, d,
-                 scale);
+    const float* __restrict__ proj, int p, C* k, C* v, float* ks, float* vs, const uint8_t* __restrict__ mask,
+    const float* __restrict__ slopes, const int* __restrict__ slot_ptr, T* __restrict__ attn, int h, int s, int d,
+    float scale) {
+  attend_body<T, C>(NewToken<T>{proj, p, nullptr, nullptr, nullptr}, k, v, ks, vs, mask, slopes, slot_ptr, attn, h,
+                    h, s, d, scale);
 }
 
 // K6's attend launch: q, k_new, v_new in T; its own symbol, so a profile
 // tells it from K3's.
-template <typename T>
+template <typename T, typename C>
 __global__ void __launch_bounds__(kAttnThreads) attend_out_kernel(
-    const T* __restrict__ q, const T* __restrict__ kn, const T* __restrict__ vn, T* k, T* v,
+    const T* __restrict__ q, const T* __restrict__ kn, const T* __restrict__ vn, C* k, C* v, float* ks, float* vs,
     const uint8_t* __restrict__ mask, const float* __restrict__ slopes, const int* __restrict__ slot_ptr,
     T* __restrict__ attn, int h, int h_kv, int s, int d, float scale) {
-  attend_body<T>(NewToken<T>{nullptr, 0, q, kn, vn}, k, v, mask, slopes, slot_ptr, attn, h, h_kv, s, d, scale);
+  attend_body<T, C>(NewToken<T>{nullptr, 0, q, kn, vn}, k, v, ks, vs, mask, slopes, slot_ptr, attn, h, h_kv, s, d,
+                    scale);
 }
 
 template <typename T>
-int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, const void* wout,
-          void* k, void* v, const void* mask, const void* slopes, const void* gate,
-          const void* slot, void* proj, void* attn, void* out, int b, int dm, int h, int d, int s,
-          int fused_qkv, int has_clip, float clip, float scale, float eps, cudaStream_t st) {
+int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, const void* wq_scale, const void* wout,
+          const void* wout_scale, void* k, void* v, void* k_s, void* v_s, const void* mask, const void* slopes,
+          const void* gate, const void* slot, void* proj, void* attn, void* out, int b, int dm, int h, int d, int s,
+          int fused_qkv, int has_clip, int wq_type, int wout_type, float clip, float scale, float eps,
+          cudaStream_t st) {
   const int inner = h * d;
   const int p = fused_qkv ? 3 * inner : inner;
-  rows::Epilogue<T> ep1{nullptr, has_clip, clip, 0, nullptr, nullptr};
-  cudaError_t e = rows::launch_gemv<T, float>((const T*)x, (const T*)ln_s, (const T*)ln_b, eps,
-                                              (const T*)wq, ep1, (float*)proj, b, p, dm, st);
+  rows::Epilogue<T> ep1{(const float*)wq_scale, nullptr, has_clip, clip, 0, nullptr, nullptr};
+  cudaError_t e = rows::launch_gemv_w<T, float>(wq_type, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps, wq, ep1,
+                                                (float*)proj, b, p, dm, st);
   if (e != cudaSuccess) return (int)e;
-  attend_kernel<T><<<b * h, kAttnThreads, s * sizeof(float), st>>>(
-      (const float*)proj, p, (T*)k, (T*)v, (const uint8_t*)mask, (const float*)slopes,
-      fused_qkv ? (const int*)slot : nullptr, (T*)attn, h, s, d, scale);
+  const int* sl = fused_qkv ? (const int*)slot : nullptr;
+  if (k_s != nullptr)
+    attend_kernel<T, int8_t><<<b * h, kAttnThreads, s * sizeof(float), st>>>(
+        (const float*)proj, p, (int8_t*)k, (int8_t*)v, (float*)k_s, (float*)v_s, (const uint8_t*)mask,
+        (const float*)slopes, sl, (T*)attn, h, s, d, scale);
+  else
+    attend_kernel<T, T><<<b * h, kAttnThreads, s * sizeof(float), st>>>(
+        (const float*)proj, p, (T*)k, (T*)v, nullptr, nullptr, (const uint8_t*)mask, (const float*)slopes, sl,
+        (T*)attn, h, s, d, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  rows::Epilogue<T> ep3{nullptr, 0, 0.f, 0, (const T*)gate, (const T*)x};
-  return (int)rows::launch_gemv<T, T>((const T*)attn, nullptr, nullptr, 0.f, (const T*)wout, ep3,
-                                      (T*)out, b, dm, inner, st);
+  rows::Epilogue<T> ep3{(const float*)wout_scale, nullptr, 0, 0.f, 0, (const T*)gate, (const T*)x};
+  return (int)rows::launch_gemv_w<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, wout, ep3, (T*)out, b, dm,
+                                        inner, st);
 }
 
-// K6: attend, then out = residual + tanh(gate) * (attn @ Wout^T + bias).
+// K6: attend, then out = residual + tanh(gate) * (attn @ Wout^T * wout_scale + bias).
 template <typename T>
-int attend_out(const void* q, void* k, void* v, const void* kn, const void* vn, const void* slot,
-               const void* mask, const void* slopes, const void* wout, const void* bias, const void* gate,
-               const void* residual, void* attn, void* out, int b, int h, int h_kv, int s, int d, int dm,
-               float scale, cudaStream_t st) {
-  attend_out_kernel<T><<<b * h, kAttnThreads, s * sizeof(float), st>>>(
-      (const T*)q, (const T*)kn, (const T*)vn, (T*)k, (T*)v, (const uint8_t*)mask, (const float*)slopes,
-      (const int*)slot, (T*)attn, h, h_kv, s, d, scale);
+int attend_out(const void* q, void* k, void* v, void* k_s, void* v_s, const void* kn, const void* vn,
+               const void* slot, const void* mask, const void* slopes, const void* wout, const void* wout_scale,
+               const void* bias, const void* gate, const void* residual, void* attn, void* out, int b, int h,
+               int h_kv, int s, int d, int dm, int wout_type, float scale, cudaStream_t st) {
+  if (k_s != nullptr)
+    attend_out_kernel<T, int8_t><<<b * h, kAttnThreads, s * sizeof(float), st>>>(
+        (const T*)q, (const T*)kn, (const T*)vn, (int8_t*)k, (int8_t*)v, (float*)k_s, (float*)v_s,
+        (const uint8_t*)mask, (const float*)slopes, (const int*)slot, (T*)attn, h, h_kv, s, d, scale);
+  else
+    attend_out_kernel<T, T><<<b * h, kAttnThreads, s * sizeof(float), st>>>(
+        (const T*)q, (const T*)kn, (const T*)vn, (T*)k, (T*)v, nullptr, nullptr, (const uint8_t*)mask,
+        (const float*)slopes, (const int*)slot, (T*)attn, h, h_kv, s, d, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  rows::Epilogue<T> ep{(const T*)bias, 0, 0.f, 0, (const T*)gate, (const T*)residual};
-  return (int)rows::launch_gemv<T, T>((const T*)attn, nullptr, nullptr, 0.f, (const T*)wout, ep, (T*)out, b, dm,
-                                      h * d, st);
+  rows::Epilogue<T> ep{(const float*)wout_scale, (const T*)bias, 0, 0.f, 0, (const T*)gate, (const T*)residual};
+  return (int)rows::launch_gemv_w<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, wout, ep, (T*)out, b, dm,
+                                        h * d, st);
 }
 
 }  // namespace
 
-// x (B, D); ln_s/ln_b (D,); wq (3*H*Dh or H*Dh, D); wout (D, H*Dh); k/v
-// (B, H, S <= 8192, Dh <= 128, a multiple of 8); mask (B, S) uint8; slopes
-// (H,) fp32 or NULL; gate (1,) or
-// NULL; slot (1,) int32 on the device (fused_qkv only); scratch proj
+// x (B, D); ln_s/ln_b (D,); wq (3*H*Dh or H*Dh, D) and wout (D, H*Dh), each
+// in x's dtype, int8 or packed int4 as wq_type/wout_type say (0, 1, 2),
+// with wq_scale/wout_scale (rows,) fp32 or NULL; k/v (B, H, S <= 8192,
+// Dh <= 128, a multiple of 8) in x's dtype, or int8 with k_s/v_s (B, H, S)
+// fp32 (else NULL); mask (B, S) uint8; slopes (H,) fp32 or NULL; gate (1,)
+// or NULL; slot (1,) int32 on the device (fused_qkv only); scratch proj
 // (B, 3*H*Dh or H*Dh) fp32 and attn (B, H*Dh); out (B, D). Tensors in x's
 // dtype unless stated; dtype 0 = fp32, 1 = bf16.
-extern "C" int attn_block_decode_fwd(const void* x, const void* ln_s, const void* ln_b,
-                                     const void* wq, const void* wout, void* k, void* v,
-                                     const void* mask, const void* slopes, const void* gate,
-                                     const void* slot, void* proj, void* attn, void* out, int b,
-                                     int dm, int h, int d, int s, int fused_qkv, int has_clip,
-                                     float clip, float scale, float eps, int dtype, void* stream) {
+extern "C" int attn_block_decode_fwd(const void* x, const void* ln_s, const void* ln_b, const void* wq,
+                                     const void* wq_scale, const void* wout, const void* wout_scale, void* k,
+                                     void* v, void* k_s, void* v_s, const void* mask, const void* slopes,
+                                     const void* gate, const void* slot, void* proj, void* attn, void* out, int b,
+                                     int dm, int h, int d, int s, int fused_qkv, int has_clip, int wq_type,
+                                     int wout_type, float clip, float scale, float eps, int dtype, void* stream) {
   if (d < 1 || d > kMaxD || d % rows::kVec != 0 || b < 1 || h < 1 || s < 1 || s > kMaxS)
     return (int)cudaErrorInvalidValue;
-  if (fused_qkv && slot == nullptr) return (int)cudaErrorInvalidValue;
+  if ((fused_qkv && slot == nullptr) || (k_s == nullptr) != (v_s == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return block<float>(x, ln_s, ln_b, wq, wout, k, v, mask, slopes, gate, slot, proj, attn, out, b, dm, h, d,
-                        s, fused_qkv, has_clip, clip, scale, eps, st);
+    return block<float>(x, ln_s, ln_b, wq, wq_scale, wout, wout_scale, k, v, k_s, v_s, mask, slopes, gate, slot,
+                        proj, attn, out, b, dm, h, d, s, fused_qkv, has_clip, wq_type, wout_type, clip, scale, eps,
+                        st);
   if (dtype == 1)
-    return block<__nv_bfloat16>(x, ln_s, ln_b, wq, wout, k, v, mask, slopes, gate, slot, proj, attn, out, b,
-                                dm, h, d, s, fused_qkv, has_clip, clip, scale, eps, st);
+    return block<__nv_bfloat16>(x, ln_s, ln_b, wq, wq_scale, wout, wout_scale, k, v, k_s, v_s, mask, slopes, gate,
+                                slot, proj, attn, out, b, dm, h, d, s, fused_qkv, has_clip, wq_type, wout_type, clip,
+                                scale, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // K6 attend_out_decode. q (B, H, Dh); k/v caches (B, H_kv, S <= 8192,
-// Dh <= 128, a multiple of 8), H_kv dividing H; kn/vn (B, H_kv, Dh) and slot
-// (1,) int32 on the device, or all three NULL (no write); mask (B, S)
-// uint8; slopes (H,) fp32 or NULL; wout (D, H*Dh); bias (D,), gate (1,),
-// residual (B, D), each or NULL; scratch attn (B, H*Dh); out (B, D).
-// Tensors in q's dtype unless stated; dtype 0 = fp32, 1 = bf16.
-extern "C" int attend_out_decode_fwd(const void* q, void* k, void* v, const void* kn, const void* vn,
-                                     const void* slot, const void* mask, const void* slopes, const void* wout,
-                                     const void* bias, const void* gate, const void* residual, void* attn,
-                                     void* out, int b, int h, int h_kv, int s, int d, int dm, float scale,
-                                     int dtype, void* stream) {
+// Dh <= 128, a multiple of 8) in q's dtype, or int8 with k_s/v_s
+// (B, H_kv, S) fp32 (else NULL), H_kv dividing H; kn/vn (B, H_kv, Dh) and
+// slot (1,) int32 on the device, or all three NULL (no write); mask (B, S)
+// uint8; slopes (H,) fp32 or NULL; wout (D, H*Dh) in q's dtype, int8 or
+// packed int4 as wout_type says, wout_scale (D,) fp32 or NULL; bias (D,),
+// gate (1,), residual (B, D), each or NULL; scratch attn (B, H*Dh); out
+// (B, D). Tensors in q's dtype unless stated; dtype 0 = fp32, 1 = bf16.
+extern "C" int attend_out_decode_fwd(const void* q, void* k, void* v, void* k_s, void* v_s, const void* kn,
+                                     const void* vn, const void* slot, const void* mask, const void* slopes,
+                                     const void* wout, const void* wout_scale, const void* bias, const void* gate,
+                                     const void* residual, void* attn, void* out, int b, int h, int h_kv, int s, int d,
+                                     int dm, int wout_type, float scale, int dtype, void* stream) {
   if (d < 1 || d > kMaxD || d % rows::kVec != 0 || b < 1 || h < 1 || h_kv < 1 || h % h_kv != 0 || s < 1 ||
       s > kMaxS || dm < 1)
     return (int)cudaErrorInvalidValue;
-  if ((kn == nullptr) != (vn == nullptr) || (kn == nullptr) != (slot == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((kn == nullptr) != (vn == nullptr) || (kn == nullptr) != (slot == nullptr) || (k_s == nullptr) != (v_s == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return attend_out<float>(q, k, v, kn, vn, slot, mask, slopes, wout, bias, gate, residual, attn, out, b, h, h_kv,
-                             s, d, dm, scale, st);
+    return attend_out<float>(q, k, v, k_s, v_s, kn, vn, slot, mask, slopes, wout, wout_scale, bias, gate, residual,
+                             attn, out, b, h, h_kv, s, d, dm, wout_type, scale, st);
   if (dtype == 1)
-    return attend_out<__nv_bfloat16>(q, k, v, kn, vn, slot, mask, slopes, wout, bias, gate, residual, attn, out, b,
-                                     h, h_kv, s, d, dm, scale, st);
+    return attend_out<__nv_bfloat16>(q, k, v, k_s, v_s, kn, vn, slot, mask, slopes, wout, wout_scale, bias, gate,
+                                     residual, attn, out, b, h, h_kv, s, d, dm, wout_type, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,62 +22,76 @@
 // any block (e.g. 352) needs no masking: each column's dot runs to K2.
 //
 // Bound: the weight bytes over 3.35 TB/s (rows_gemv.cuh's note); the hidden
-// round trip adds 2 * B * K2 * 2 bytes, under 0.5% of K2's weight bytes.
+// round trip adds 2 * B * K2 * 2 bytes, under 0.5% of K2's bf16 weight bytes.
+//
+// Quantized weights (the TPU kernels' int8 / int4 weight streaming): either
+// weight may be int8 or packed int4 with its per-out-channel fp32 scale,
+// applied first in its epilogue (K1: before bias/clip/act/gate/residual;
+// K2: w1_scale before b1 and the activation, w2_scale before b2). The bound
+// falls with the bytes: half for int8, a quarter for int4.
 
 #include "rows_gemv.cuh"
 
 namespace {
 
 template <typename T>
-int dense(const void* x, const void* w, const void* bias, const void* ln_s, const void* ln_b,
-          const void* residual, const void* gate, void* out, int b, int n, int k, int has_clip,
-          float clip, int act, float eps, cudaStream_t st) {
-  rows::Epilogue<T> ep{(const T*)bias, has_clip, clip, act, (const T*)gate, (const T*)residual};
-  return (int)rows::launch_gemv<T, T>((const T*)x, (const T*)ln_s, (const T*)ln_b, eps, (const T*)w,
-                                      ep, (T*)out, b, n, k, st);
+int dense(const void* x, const void* w, const void* w_scale, const void* bias, const void* ln_s, const void* ln_b,
+          const void* residual, const void* gate, void* out, int b, int n, int k, int has_clip, float clip, int act,
+          float eps, int wtype, cudaStream_t st) {
+  rows::Epilogue<T> ep{(const float*)w_scale, (const T*)bias, has_clip, clip, act, (const T*)gate,
+                       (const T*)residual};
+  return (int)rows::launch_gemv_w<T, T>(wtype, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps, w, ep, (T*)out, b,
+                                        n, k, st);
 }
 
 template <typename T>
-int mlp(const void* x, const void* w1, const void* w2, const void* b1, const void* b2,
-        const void* ln_s, const void* ln_b, const void* residual, const void* gate, void* hidden,
-        void* out, int b, int k, int k2, int n, int act, float eps, cudaStream_t st) {
-  rows::Epilogue<T> up{(const T*)b1, 0, 0.f, act, nullptr, nullptr};
-  cudaError_t e = rows::launch_gemv<T, T>((const T*)x, (const T*)ln_s, (const T*)ln_b, eps,
-                                          (const T*)w1, up, (T*)hidden, b, k2, k, st);
+int mlp(const void* x, const void* w1, const void* w2, const void* w1_scale, const void* w2_scale, const void* b1,
+        const void* b2, const void* ln_s, const void* ln_b, const void* residual, const void* gate, void* hidden,
+        void* out, int b, int k, int k2, int n, int act, float eps, int w1type, int w2type, cudaStream_t st) {
+  rows::Epilogue<T> up{(const float*)w1_scale, (const T*)b1, 0, 0.f, act, nullptr, nullptr};
+  cudaError_t e = rows::launch_gemv_w<T, T>(w1type, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps, w1, up,
+                                            (T*)hidden, b, k2, k, st);
   if (e != cudaSuccess) return (int)e;
-  rows::Epilogue<T> down{(const T*)b2, 0, 0.f, 0, (const T*)gate, (const T*)residual};
-  return (int)rows::launch_gemv<T, T>((const T*)hidden, nullptr, nullptr, 0.f, (const T*)w2, down,
-                                      (T*)out, b, n, k2, st);
+  rows::Epilogue<T> down{(const float*)w2_scale, (const T*)b2, 0, 0.f, 0, (const T*)gate, (const T*)residual};
+  return (int)rows::launch_gemv_w<T, T>(w2type, (const T*)hidden, nullptr, nullptr, 0.f, w2, down, (T*)out, b, n,
+                                        k2, st);
 }
 
 }  // namespace
 
-// x (B, K); w (N, K); bias (N,), ln_s/ln_b (K,), residual (B, N), gate (1,)
-// or NULL, all in x's dtype; out (B, N). act 0 = none, 1 = exact GELU.
-// dtype 0 = fp32, 1 = bf16.
-extern "C" int fused_dense_fwd(const void* x, const void* w, const void* bias, const void* ln_s,
-                               const void* ln_b, const void* residual, const void* gate, void* out,
-                               int b, int n, int k, int has_clip, float clip, int act, float eps,
-                               int dtype, void* stream) {
+// x (B, K); w (N, K) in x's dtype or int8, or (N, K/2) packed int4, as
+// wtype says (0, 1, 2); w_scale (N,) fp32 or NULL; bias (N,), ln_s/ln_b
+// (K,), residual (B, N), gate (1,) or NULL, all in x's dtype; out (B, N).
+// act 0 = none, 1 = exact GELU. dtype 0 = fp32, 1 = bf16.
+extern "C" int fused_dense_fwd(const void* x, const void* w, const void* w_scale, const void* bias, const void* ln_s,
+                               const void* ln_b, const void* residual, const void* gate, void* out, int b, int n,
+                               int k, int has_clip, float clip, int act, float eps, int dtype, int wtype,
+                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return dense<float>(x, w, bias, ln_s, ln_b, residual, gate, out, b, n, k, has_clip, clip, act, eps, st);
+  if (dtype == 0)
+    return dense<float>(x, w, w_scale, bias, ln_s, ln_b, residual, gate, out, b, n, k, has_clip, clip, act, eps,
+                        wtype, st);
   if (dtype == 1)
-    return dense<__nv_bfloat16>(x, w, bias, ln_s, ln_b, residual, gate, out, b, n, k, has_clip, clip, act, eps, st);
+    return dense<__nv_bfloat16>(x, w, w_scale, bias, ln_s, ln_b, residual, gate, out, b, n, k, has_clip, clip, act,
+                                eps, wtype, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// x (B, K); w1 (K2, K); w2 (N, K2); b1 (K2,), b2 (N,), ln_s/ln_b (K,),
-// residual (B, N), gate (1,) or NULL; hidden (B, K2) scratch; out (B, N).
-extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* w2, const void* b1,
-                             const void* b2, const void* ln_s, const void* ln_b,
-                             const void* residual, const void* gate, void* hidden, void* out,
-                             int b, int k, int k2, int n, int act, float eps, int dtype,
+// x (B, K); w1 (K2, K); w2 (N, K2), each stored as its wtype says, with
+// w1_scale (K2,) / w2_scale (N,) fp32 or NULL; b1 (K2,), b2 (N,), ln_s/ln_b
+// (K,), residual (B, N), gate (1,) or NULL; hidden (B, K2) scratch; out
+// (B, N).
+extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* w2, const void* w1_scale,
+                             const void* w2_scale, const void* b1, const void* b2, const void* ln_s,
+                             const void* ln_b, const void* residual, const void* gate, void* hidden, void* out,
+                             int b, int k, int k2, int n, int act, float eps, int dtype, int w1type, int w2type,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return mlp<float>(x, w1, w2, b1, b2, ln_s, ln_b, residual, gate, hidden, out, b, k, k2, n, act, eps, st);
+    return mlp<float>(x, w1, w2, w1_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate, hidden, out, b, k, k2, n,
+                      act, eps, w1type, w2type, st);
   if (dtype == 1)
-    return mlp<__nv_bfloat16>(x, w1, w2, b1, b2, ln_s, ln_b, residual, gate, hidden, out, b, k, k2, n, act,
-                              eps, st);
+    return mlp<__nv_bfloat16>(x, w1, w2, w1_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate, hidden, out, b, k,
+                              k2, n, act, eps, w1type, w2type, st);
   return (int)cudaErrorInvalidValue;
 }

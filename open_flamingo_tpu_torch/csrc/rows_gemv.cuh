@@ -33,6 +33,17 @@
 //   at a time, its lanes read the row 32 bytes a lane, keep one fp32 sum per
 //   row and end with a shuffle reduction. This is the exact-fp32 path that
 //   the card's fp32 checks run.
+//
+// Quantized weights (the JAX kernels' int8 / int4 weight streaming). W is
+// stored as T itself, as int8, or as packed int4 (`Int4`: two values per
+// byte, element 2j in the low nibble of byte j, two's complement): a lane
+// loads 8 bytes of int8 (4 of int4) per 8 elements instead of 16 of bf16,
+// half or a quarter of the bytes that bound the kernel. The values convert
+// to the same registers the T path loads -- the bf16 A fragments in the
+// same permuted K order, or fp32 -- exactly (|q| <= 127 has at most 8
+// significant bits) and without a conversion instruction (2^23 + 128 + q
+// read as a float). The per-out-channel fp32 scale multiplies the fp32 sum
+// first in the epilogue, as in the TPU kernels.
 
 #pragma once
 
@@ -97,18 +108,85 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
   }
 }
 
-template <typename T>
-struct Epilogue {
-  const T* bias;      // (N,) or null
-  int has_clip;
-  float clip;         // y = clamp(y, -clip, clip)
-  int act;            // 0: none, 1: exact (erf) GELU
-  const T* gate;      // (1,) or null: y *= tanh(gate)
-  const T* residual;  // (B, N) or null: y += residual
-};
+struct Int4 {};  // the weight storage tag of packed int4
+
+// bytes of one stored weight row of k elements
+template <typename W>
+__host__ __device__ __forceinline__ size_t w_row_bytes(int k) {
+  if constexpr (std::is_same<W, Int4>::value) return (size_t)k / 2;
+  else return (size_t)k * sizeof(W);
+}
+
+// an int in [-128, 127] as a float, exactly: 2^23 + 128 + x read as a float
+__device__ __forceinline__ float small_int_to_f32(int x) { return __int_as_float(0x4B000080 + x) - 8388736.f; }
+__device__ __forceinline__ int sbyte(uint32_t w, int i) { return (int)(int8_t)(w >> (8 * i)); }
+__device__ __forceinline__ int snibble(uint32_t w, int i) { return (int)((int32_t)(w << (28 - 4 * i)) >> 28); }
+
+// two small ints as bf16x2 (lo in the low half): their floats' low 16 bits
+// are zero, so the high halves are the bf16 values
+__device__ __forceinline__ uint32_t bf16x2_exact(int lo, int hi) {
+  return __byte_perm(__float_as_uint(small_int_to_f32(lo)), __float_as_uint(small_int_to_f32(hi)), 0x7632);
+}
+
+// 8 consecutive weights from element c of a stored row, to fp32
+template <typename W>
+__device__ __forceinline__ void load8w(const unsigned char* row, int c, float* v) {
+  if constexpr (std::is_same<W, int8_t>::value) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + c));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = small_int_to_f32(sbyte(u.x, e));
+      v[4 + e] = small_int_to_f32(sbyte(u.y, e));
+    }
+  } else if constexpr (std::is_same<W, Int4>::value) {
+    const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(row + c / 2));
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = small_int_to_f32(snibble(u, e));
+  } else {
+    load8<true>(reinterpret_cast<const W*>(row) + c, v);
+  }
+}
+
+// A lane's fragment pointer into a stored row: its 8-weight group t of the
+// first 32-wide K chunk (chunk ch is 4 ch further on). The bf16 case is the
+// uint4 pointer the bf16 path always used, so its loads do not change.
+template <typename W>
+__device__ __forceinline__ auto frag_ptr(const unsigned char* row, int t) {
+  if constexpr (std::is_same<W, int8_t>::value) return reinterpret_cast<const uint2*>(row) + t;
+  else if constexpr (std::is_same<W, Int4>::value) return reinterpret_cast<const unsigned int*>(row) + t;
+  else return reinterpret_cast<const uint4*>(row) + t;
+}
+
+// the 8 weights at a fragment pointer as 8 bf16, the A fragment registers
+__device__ __forceinline__ uint4 load_frag(const uint4* p) { return __ldg(p); }
+__device__ __forceinline__ uint4 load_frag(const uint2* p) {
+  const uint2 u = __ldg(p);
+  return make_uint4(bf16x2_exact(sbyte(u.x, 0), sbyte(u.x, 1)), bf16x2_exact(sbyte(u.x, 2), sbyte(u.x, 3)),
+                    bf16x2_exact(sbyte(u.y, 0), sbyte(u.y, 1)), bf16x2_exact(sbyte(u.y, 2), sbyte(u.y, 3)));
+}
+__device__ __forceinline__ uint4 load_frag(const unsigned int* p) {
+  const uint32_t u = __ldg(p);
+  return make_uint4(bf16x2_exact(snibble(u, 0), snibble(u, 1)), bf16x2_exact(snibble(u, 2), snibble(u, 3)),
+                    bf16x2_exact(snibble(u, 4), snibble(u, 5)), bf16x2_exact(snibble(u, 6), snibble(u, 7)));
+}
 
 template <typename T>
+struct Epilogue {
+  const float* scale;  // (N,) fp32: an int weight's per-channel scale, y *= scale first
+  const T* bias;       // (N,) or null
+  int has_clip;
+  float clip;          // y = clamp(y, -clip, clip)
+  int act;             // 0: none, 1: exact (erf) GELU
+  const T* gate;       // (1,) or null: y *= tanh(gate)
+  const T* residual;   // (B, N) or null: y += residual
+};
+
+// kScaled: an int weight's instantiation, the only one that reads the scale
+// (compiled into the bf16 kernel, the branch alone cost it registers and 16%
+// of its HBM rate)
+template <bool kScaled, typename T>
 __device__ __forceinline__ float epilogue(float y, const Epilogue<T>& ep, int r, int col, int n) {
+  if constexpr (kScaled) y *= ep.scale[col];
   if (ep.bias != nullptr) y += to_f32(ep.bias[col]);
   if (ep.has_clip) y = fminf(fmaxf(y, -ep.clip), ep.clip);
   // CUDA's erff (max 2 ulp); the TPU kernel uses A&S 7.1.26 (|err| <= 1.5e-7)
@@ -159,10 +237,10 @@ __device__ void stage_row(const T* __restrict__ xr, const T* __restrict__ ln_s,
   }
 }
 
-template <typename T, typename OutT>
+template <typename T, typename W, typename OutT>
 __global__ void __launch_bounds__(kThreads) gemv_kernel(
     const T* __restrict__ x, const T* __restrict__ ln_s, const T* __restrict__ ln_b, float eps,
-    const T* __restrict__ w, Epilogue<T> ep, OutT* __restrict__ out, int b, int n, int k,
+    const unsigned char* __restrict__ w, Epilogue<T> ep, OutT* __restrict__ out, int b, int n, int k,
     int rows_per_pass) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* hs = reinterpret_cast<T*>(smem);
@@ -179,11 +257,11 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
       float acc[kMaxRows];
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
-      const T* wrow = w + (size_t)col * k;
+      const unsigned char* wrow = w + (size_t)col * w_row_bytes<W>(k);
 #pragma unroll 2
       for (int c = lane * kVec; c < k; c += 32 * kVec) {
         float wv[kVec];
-        load8<true>(wrow + c, wv);
+        load8w<W>(wrow, c, wv);
 #pragma unroll
         for (int r = 0; r < kMaxRows; ++r) {
           if (r < rb) {
@@ -199,7 +277,8 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
         if (r < rb) {  // uniform across the warp
           const float sum = warp_sum(acc[r]);
           if (lane == r)
-            out[(size_t)(r0 + r) * n + col] = from_f32<OutT>(epilogue(sum, ep, r0 + r, col, n));
+            out[(size_t)(r0 + r) * n + col] =
+                from_f32<OutT>(epilogue<!std::is_same<W, T>::value>(sum, ep, r0 + r, col, n));
         }
       }
     }
@@ -270,10 +349,10 @@ __device__ void stage_fragments(const __nv_bfloat16* __restrict__ xr, bool live,
 // works on column tile (group * tpb + w / ks) over K-chunk slice (w % ks) of
 // ks; shared memory holds h in fragment order (8 * K bf16), then the split-K
 // partials (kWarps * 32 * 4 floats).
-template <typename OutT>
+template <typename W, typename OutT>
 __global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
-    const __nv_bfloat16* __restrict__ ln_b, float eps, const __nv_bfloat16* __restrict__ w,
+    const __nv_bfloat16* __restrict__ ln_b, float eps, const unsigned char* __restrict__ w,
     Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out, int b, int n, int k, int ks) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* hf = reinterpret_cast<uint4*>(smem);
@@ -297,11 +376,11 @@ __global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
       if (tile < tiles) {
         // rows past N read row N - 1 (valid memory); their outputs are dropped
         const int ra = min(tile * 16 + g, n - 1), rb8 = min(tile * 16 + g + 8, n - 1);
-        const uint4* pa = reinterpret_cast<const uint4*>(w + (size_t)ra * k) + t;
-        const uint4* pb = reinterpret_cast<const uint4*>(w + (size_t)rb8 * k) + t;
+        const auto pa = frag_ptr<W>(w + (size_t)ra * w_row_bytes<W>(k), t);
+        const auto pb = frag_ptr<W>(w + (size_t)rb8 * w_row_bytes<W>(k), t);
 #pragma unroll 4
         for (int ch = c_begin; ch < c_end; ++ch) {
-          const uint4 a0 = __ldg(pa + ch * 4), a1 = __ldg(pb + ch * 4);
+          const uint4 a0 = load_frag(pa + ch * 4), a1 = load_frag(pb + ch * 4);
           const uint4 bf = hf[ch * 32 + lane];
           mma_bf16(c, a0.x, a1.x, a0.y, a1.y, bf.x, bf.y);  // K = 32ch + 8t + 0..3
           mma_bf16(c, a0.z, a1.z, a0.w, a1.w, bf.z, bf.w);  // K = 32ch + 8t + 4..7
@@ -326,7 +405,8 @@ __global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
         for (int i = 0; i < 4; ++i) {
           const int col = tile * 16 + g + (i >> 1) * 8, r = 2 * t + (i & 1);
           if (col < n && r < rb)
-            out[(size_t)(r0 + r) * n + col] = from_f32<OutT>(epilogue(c[i], ep, r0 + r, col, n));
+            out[(size_t)(r0 + r) * n + col] =
+                from_f32<OutT>(epilogue<!std::is_same<W, __nv_bfloat16>::value>(c[i], ep, r0 + r, col, n));
         }
       }
       if (ks > 1) __syncthreads();  // the partials are read before the next tile writes them
@@ -375,9 +455,9 @@ inline size_t mma_smem(int k) {
   return (size_t)kMaxRows * k * sizeof(__nv_bfloat16) + kThreads * 4 * sizeof(float);
 }
 
-template <typename OutT>
+template <typename W, typename OutT>
 cudaError_t launch_gemv_mma(const __nv_bfloat16* x, const __nv_bfloat16* ln_s,
-                            const __nv_bfloat16* ln_b, float eps, const __nv_bfloat16* w,
+                            const __nv_bfloat16* ln_b, float eps, const void* w,
                             Epilogue<__nv_bfloat16> ep, OutT* out, int b, int n, int k,
                             cudaStream_t st) {
   const size_t smem = mma_smem(k);
@@ -386,25 +466,27 @@ cudaError_t launch_gemv_mma(const __nv_bfloat16* x, const __nv_bfloat16* ln_s,
   while (ks < kWarps && 2 * ks * 2 <= chunks && (long long)tiles * ks < (long long)sm_count() * kWarpsPerSmWanted)
     ks *= 2;
   const int tpb = kWarps / ks;
-  auto kern = gemv_mma_kernel<OutT>;
+  auto kern = gemv_mma_kernel<W, OutT>;
   static size_t smem_set = 48 * 1024;
   cudaError_t e = allow_smem(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
-  kern<<<grid_for((tiles + tpb - 1) / tpb), kThreads, smem, st>>>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, ks);
+  kern<<<grid_for((tiles + tpb - 1) / tpb), kThreads, smem, st>>>(
+      x, ln_s, ln_b, eps, static_cast<const unsigned char*>(w), ep, out, b, n, k, ks);
   return cudaGetLastError();
 }
 
-// out (B, N) = epilogue(h @ W^T); h = LN(x) when ln_s is given, else x.
-// k must be a multiple of kVec and every row 16-byte aligned (the wrapper
-// checks). Returns the launch's error code.
-template <typename T, typename OutT>
-cudaError_t launch_gemv(const T* x, const T* ln_s, const T* ln_b, float eps, const T* w,
+// out (B, N) = epilogue(h @ W^T); h = LN(x) when ln_s is given, else x; W
+// (N, K) stored as W (T, int8_t or Int4). k must be a multiple of kVec and
+// every row 16-byte aligned (the wrapper checks). Returns the launch's
+// error code.
+template <typename T, typename W, typename OutT>
+cudaError_t launch_gemv(const T* x, const T* ln_s, const T* ln_b, float eps, const void* w,
                         Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
   if (k < kVec || k % kVec != 0 || b < 1 || n < 1) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     // K > ~13,800 does not fit 8 staged rows: the CUDA-core path stages fewer
     if (k % kMmaK == 0 && mma_smem(k) <= (size_t)smem_optin())
-      return launch_gemv_mma<OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, st);
+      return launch_gemv_mma<W, OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, st);
   }
   const size_t row_bytes = (size_t)k * sizeof(T);
   int rows = (int)((size_t)smem_optin() / row_bytes);
@@ -412,13 +494,26 @@ cudaError_t launch_gemv(const T* x, const T* ln_s, const T* ln_b, float eps, con
   rows = rows < b ? rows : b;
   if (rows < 1) return cudaErrorInvalidValue;
   const size_t smem = rows * row_bytes;
-  auto kern = gemv_kernel<T, OutT>;
+  auto kern = gemv_kernel<T, W, OutT>;
   static size_t smem_set = 48 * 1024;  // the default limit, per instantiation
   cudaError_t e = allow_smem(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
-  kern<<<grid_for(((long long)n + kWarps - 1) / kWarps), kThreads, smem, st>>>(x, ln_s, ln_b, eps, w, ep, out, b,
-                                                                            n, k, rows);
+  kern<<<grid_for(((long long)n + kWarps - 1) / kWarps), kThreads, smem, st>>>(
+      x, ln_s, ln_b, eps, static_cast<const unsigned char*>(w), ep, out, b, n, k, rows);
   return cudaGetLastError();
+}
+
+// launch_gemv on the weight type code the wrappers pass: 0 W in T, 1 int8,
+// 2 packed int4
+template <typename T, typename OutT>
+cudaError_t launch_gemv_w(int wtype, const T* x, const T* ln_s, const T* ln_b, float eps, const void* w,
+                          Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
+  switch (wtype) {
+    case 0: return launch_gemv<T, T, OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, st);
+    case 1: return launch_gemv<T, int8_t, OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, st);
+    case 2: return launch_gemv<T, Int4, OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -3,7 +3,10 @@
 
 Vision is encoded once, the prompt is prefilled into a cache whose length
 is rounded up to 16, and every decode step attends to the media K/V
-projected at prefill. Beam search, sampling and cross-batch vision
+projected at prefill. Quantized decode is opt-in, as in the JAX package:
+`quantize.quantize_decode_weights(model, bits)` makes the decode kernels
+stream int8 / int4 weights, and `GenerationConfig.int8_kv` holds the K/V
+and media caches as int8. Beam search, sampling and cross-batch vision
 pipelining (`next_pixels`) are not ported yet (ROADMAP.md).
 """
 
@@ -15,8 +18,9 @@ from typing import Optional
 import torch
 
 from .device import resolve_device
-from .models.decoders.common import KVCache
+from .models.decoders.common import KVCache, quantize_layer_kv
 from .models.flamingo import Flamingo, count_media
+from .ops.dense_stream import fused_route
 
 NEG_INF = -1.0e7
 
@@ -29,6 +33,12 @@ class GenerationConfig:
     do_sample: bool = False
     eos_token_id: Optional[int] = None
     pad_token_id: int = 0
+    # int8 K/V and media caches (per-row scales): half the cache bytes of a
+    # decode step. Engaged only where the decode step takes the fused route
+    # (`dense_stream.fused_route`), whose kernels dequantize in place; with
+    # DISABLE_FUSED the cache stays in the model's dtype, as in the JAX
+    # package, which engages it only for its fused decode engine.
+    int8_kv: bool = False
 
 
 def _process_logits(logits: torch.Tensor, step: int, cfg: GenerationConfig) -> torch.Tensor:
@@ -58,6 +68,19 @@ def greedy(step_fn, first_logits: torch.Tensor, cache: KVCache, cfg: GenerationC
             step_logits, cache = step_fn(tok[:, None], ones, cache)
             logits = step_logits[:, 0]
     return torch.stack(tokens, dim=1)
+
+
+@torch.no_grad()
+def prefill(model: Flamingo, latents: torch.Tensor, lang_x: torch.Tensor, attention_mask: torch.Tensor,
+            cache_len: int, int8_kv: bool = False):
+    """Prefill the prompt into a new cache of `cache_len` slots (int8 with
+    `int8_kv`: the prompt's K/V quantized into it, and each xattn layer's
+    media K/V quantized once after). Returns (logits (B, T, V), cache)."""
+    cache = KVCache.create(model.cfg.lm, lang_x.shape[0], cache_len, model.dtype, lang_x.device, int8=int8_kv)
+    logits, _, cache = model(None, lang_x, attention_mask, media_latents=latents, cache=cache)
+    if int8_kv and cache.media is not None:
+        cache = dataclasses.replace(cache, media=tuple(quantize_layer_kv(m) for m in cache.media))
+    return logits, cache
 
 
 @torch.no_grad()
@@ -98,8 +121,7 @@ def flamingo_generate(
         latents = model.embed_vision(vision_x.to(device=dev, dtype=model.dtype))
     n_media = count_media(lang_x, model.cfg.media_token_id)
 
-    cache = KVCache.create(model.cfg.lm, b, cache_len, model.dtype, dev)
-    logits, _, cache = model(None, lang_x, attention_mask, media_latents=latents, cache=cache)
+    logits, cache = prefill(model, latents, lang_x, attention_mask, cache_len, cfg.int8_kv and fused_route(dev))
 
     def step_fn(tok, mask, cache):
         return model.decode_step(latents, tok, mask, cache, n_media)

@@ -5,6 +5,11 @@ head-major (B, H, S, Dh) K/V, one shared slot index, a per-row pad mask.
 Unlike the JAX package's pytrees, the cache tensors are updated IN PLACE:
 prefill writes its K/V into the cache slices, and the decode kernel
 writes the new token's K/V into its slot inside the attention launch.
+
+The int8 cache (`KVCache.create(..., int8=True)`, JAX `LayerKV` with
+`k_s`/`v_s`) holds int8 K/V with one fp32 scale per (b, h, s) row. The JAX
+package keeps its scales head-leading (H_kv, B, S) for a TPU block rule; the
+port keeps them (B, H_kv, S), the cache's own leading layout.
 """
 
 from __future__ import annotations
@@ -19,8 +24,14 @@ import torch
 
 @dataclasses.dataclass
 class LayerKV:
-    k: torch.Tensor  # (B, H_kv, S, Dh)
+    k: torch.Tensor  # (B, H_kv, S, Dh); int8 when quantized
     v: torch.Tensor
+    k_s: Optional[torch.Tensor] = None  # (B, H_kv, S) fp32 row scales of an int8 cache
+    v_s: Optional[torch.Tensor] = None
+
+    @property
+    def int8(self) -> bool:
+        return self.k_s is not None
 
 
 @dataclasses.dataclass
@@ -44,16 +55,22 @@ class KVCache:
         return self.layers[0].k.shape[2]
 
     @staticmethod
-    def create(cfg, batch: int, max_length: int, dtype, device) -> "KVCache":
+    def create(cfg, batch: int, max_length: int, dtype, device, int8: bool = False) -> "KVCache":
+        """int8: int8 K/V with (B, H_kv, S) fp32 scales, empty slots at
+        scale 1 (they stay masked)."""
         shape = (batch, cfg.kv_heads, max_length, cfg.head_dim)
+
+        def layer():
+            if not int8:
+                return LayerKV(k=torch.zeros(shape, dtype=dtype, device=device),
+                               v=torch.zeros(shape, dtype=dtype, device=device))
+            return LayerKV(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                           v=torch.zeros(shape, dtype=torch.int8, device=device),
+                           k_s=torch.ones(shape[:-1], dtype=torch.float32, device=device),
+                           v_s=torch.ones(shape[:-1], dtype=torch.float32, device=device))
+
         return KVCache(
-            layers=tuple(
-                LayerKV(
-                    k=torch.zeros(shape, dtype=dtype, device=device),
-                    v=torch.zeros(shape, dtype=dtype, device=device),
-                )
-                for _ in range(cfg.num_layers)
-            ),
+            layers=tuple(layer() for _ in range(cfg.num_layers)),
             index=0,
             slot=torch.zeros(1, dtype=torch.int32, device=device),
             pad_mask=torch.zeros(batch, max_length, dtype=torch.bool, device=device),
@@ -136,16 +153,49 @@ def make_attn_inputs(
     )
 
 
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 over the last (Dh) axis, JAX `quantize_kv`:
+    scale = amax / 127 (1 where amax is 0), q = clip(round(x / scale)), both
+    true divisions (127 as a tensor: see `quantize.quantize_weight`), as the
+    decode kernels quantize a new token. Returns (q int8, scale fp32 with
+    Dh removed)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax == 0.0, torch.ones_like(amax), amax / torch.full_like(amax, 127.0))
+    return torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8), scale
+
+
+def quantize_layer_kv(layer: LayerKV) -> LayerKV:
+    """A model-dtype LayerKV as an int8 one (JAX generate's media K/V)."""
+    (kq, ks), (vq, vs) = quantize_kv(layer.k), quantize_kv(layer.v)
+    return LayerKV(kq, vq, ks, vs)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """An int8 cache (..., S, Dh) with its (..., S) scales, in `dtype`."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def update_layer_kv(
     layer_kv: Optional[LayerKV], k: torch.Tensor, v: torch.Tensor, attn: AttnInputs
 ):
     """Write new K/V (B, T, H, D) at the cache slot, in place; return the
     full key/value tensors. Without a cache they pass through unchanged;
-    with one the full tensors are the head-major (B, H, S, D) cache."""
+    with one the full tensors are the head-major (B, H, S, D) cache. An int8
+    cache quantizes the new rows into its slots and returns the whole cache
+    DEQUANTIZED in k's dtype, so this call attends to exactly what later
+    decode steps read back (JAX `update_layer_kv`)."""
     if layer_kv is None:
         return k, v, None
     t = k.shape[1]
     sl = slice(attn.kv_slot, attn.kv_slot + t)
+    if layer_kv.int8:
+        for new, cache, scales in ((k, layer_kv.k, layer_kv.k_s), (v, layer_kv.v, layer_kv.v_s)):
+            q, s = quantize_kv(new.transpose(1, 2))
+            cache[:, :, sl] = q
+            scales[:, :, sl] = s
+        return (dequantize_kv(layer_kv.k, layer_kv.k_s, k.dtype), dequantize_kv(layer_kv.v, layer_kv.v_s, v.dtype),
+                layer_kv)
     layer_kv.k[:, :, sl] = k.transpose(1, 2).to(layer_kv.k.dtype)
     layer_kv.v[:, :, sl] = v.transpose(1, 2).to(layer_kv.v.dtype)
     return layer_kv.k, layer_kv.v, layer_kv

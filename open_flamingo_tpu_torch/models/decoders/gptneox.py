@@ -13,7 +13,9 @@ One decode token against a cache on the card takes the fused route, the
 JAX package's three-launch form: K1 `fused_dense` (LN, QKV, bias), RoPE in
 plain torch, K6 `attend_out_decode` (in-place K/V slot write, attend,
 out-projection, bias), then K2 `fused_mlp` (LN, up + b1, GELU, down + b2,
-residual x + attn_out), reading the nn.Linear weights in place.
+residual x + attn_out), reading the nn.Linear weights in place, or their
+int8 / int4 copies (`quantize.stream_weight`), and an int8 cache with its
+scales.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ...configs import DecoderConfig
 from ...ops.attention import cached_self_attention, use_kernels
 from ...ops.decode_layer import attend_out_decode, reference_attend_out
 from ...ops.dense_stream import fused_dense, fused_mlp, reference_dense, reference_mlp, use_fused_decode
+from ...quantize import stream_weight
 from ..layers import LayerNorm, gelu_exact, merge_heads
 from .common import LayerKV, apply_rope, rope_cos_sin
 
@@ -70,17 +73,20 @@ class GPTNeoXBlock(nn.Module):
         mlp = fused_mlp if kern else reference_mlp
         x2 = x[:, 0]
         ln1, ln2 = self.input_layernorm, self.post_attention_layernorm
-        qkv = dense(x2, self.query_key_value.weight, bias=self.query_key_value.bias, ln_scale=ln1.weight,
+        (w_qkv, s_qkv), (w_out, s_out) = stream_weight(self.query_key_value), stream_weight(self.dense)
+        (w_up, s_up), (w_down, s_down) = stream_weight(self.dense_h_to_4h), stream_weight(self.dense_4h_to_h)
+        qkv = dense(x2, w_qkv, w_scale=s_qkv, bias=self.query_key_value.bias, ln_scale=ln1.weight,
                     ln_bias=ln1.bias, eps=ln1.eps)
         q, k, v = self._qkv(qkv[:, None], attn)
         attn_out, kc, vc = tail(
-            q[:, 0], layer_kv.k, layer_kv.v, attn.pad_mask, self.dense.weight, scale=cfg.head_dim**-0.5,
-            k_new=k[:, 0], v_new=v[:, 0], slot=attn.slot, bias=self.dense.bias,
+            q[:, 0], layer_kv.k, layer_kv.v, attn.pad_mask, w_out, scale=cfg.head_dim**-0.5,
+            k_new=k[:, 0], v_new=v[:, 0], slot=attn.slot, wout_scale=s_out, bias=self.dense.bias,
+            k_scale=layer_kv.k_s, v_scale=layer_kv.v_s,
         )
         h = x2 + attn_out
         y = mlp(
-            x2 if cfg.use_parallel_residual else h, self.dense_h_to_4h.weight, self.dense_4h_to_h.weight,
+            x2 if cfg.use_parallel_residual else h, w_up, w_down, w1_scale=s_up, w2_scale=s_down,
             b1=self.dense_h_to_4h.bias, b2=self.dense_4h_to_h.bias, ln_scale=ln2.weight, ln_bias=ln2.bias,
             eps=ln2.eps, act="gelu", residual=h,
         )
-        return y[:, None], LayerKV(k=kc, v=vc)
+        return y[:, None], LayerKV(kc, vc, layer_kv.k_s, layer_kv.v_s)

@@ -8,7 +8,8 @@ One decode token against a cache on the card takes the fused route, the
 JAX package's two-launch form: K3 `attn_block_decode` (LN, Wqkv, in-place
 K/V slot write, ALiBi softmax, out-projection, residual) then K2
 `fused_mlp` (LN, up, GELU, down, residual), reading the nn.Linear weights
-in place.
+in place, or their int8 / int4 copies when `quantize.quantize_decode_weights`
+attached them (`stream_weight`), and an int8 cache with its scales.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ...configs import DecoderConfig
 from ...ops.attention import cached_self_attention, use_kernels
 from ...ops.decode_layer import attn_block_decode, reference_attn_block
 from ...ops.dense_stream import fused_mlp, reference_mlp, use_fused_decode
+from ...quantize import stream_weight
 from ..layers import LayerNorm, gelu_exact, merge_heads
 from .common import LayerKV, alibi_slopes
 
@@ -67,13 +69,16 @@ class MPTBlock(nn.Module):
         kern = use_kernels(x)
         attn_half = attn_block_decode if kern else reference_attn_block
         mlp_half = fused_mlp if kern else reference_mlp
+        (w_qkv, s_qkv), (w_out, s_out) = stream_weight(self.Wqkv), stream_weight(self.out_proj)
+        (w_up, s_up), (w_down, s_down) = stream_weight(self.up_proj), stream_weight(self.down_proj)
         x2, kc, vc = attn_half(
-            x[:, 0], self.norm_1.weight, self.norm_1.bias, self.Wqkv.weight, self.out_proj.weight,
-            layer_kv.k, layer_kv.v, attn.pad_mask, heads=cfg.num_heads, head_dim=hd, scale=hd**-0.5,
-            fused_qkv=True, slot=attn.slot, slopes=self.alibi_slopes, clip=cfg.clip_qkv, eps=cfg.layer_norm_eps,
+            x[:, 0], self.norm_1.weight, self.norm_1.bias, w_qkv, w_out, layer_kv.k, layer_kv.v, attn.pad_mask,
+            heads=cfg.num_heads, head_dim=hd, scale=hd**-0.5, fused_qkv=True, slot=attn.slot,
+            slopes=self.alibi_slopes, clip=cfg.clip_qkv, wq_scale=s_qkv, wout_scale=s_out, k_scale=layer_kv.k_s,
+            v_scale=layer_kv.v_s, eps=cfg.layer_norm_eps,
         )
         y = mlp_half(
-            x2, self.up_proj.weight, self.down_proj.weight, ln_scale=self.norm_2.weight, ln_bias=self.norm_2.bias,
+            x2, w_up, w_down, w1_scale=s_up, w2_scale=s_down, ln_scale=self.norm_2.weight, ln_bias=self.norm_2.bias,
             eps=cfg.layer_norm_eps, act="gelu", residual=x2,
         )
-        return y[:, None], LayerKV(k=kc, v=vc)
+        return y[:, None], LayerKV(kc, vc, layer_kv.k_s, layer_kv.v_s)

@@ -5,8 +5,9 @@ Layer i applies its xattn block (if any) before the decoder block. The
 final LayerNorm and the LM head follow: tied (the (V, D) embedding table)
 or an untied `lm_head` (V, D), with a bias when `lm_head_bias`. On the
 fused decode route they are one K1 `fused_dense` launch that reads the
-(V, D) weight in place as the transposed weight. Prefill keeps `F.linear`,
-as the JAX package does. Vision latents and text time are explicit
+(V, D) weight in place as the transposed weight, or its int8 copy with its
+per-row scale when `quantize.quantize_decode_weights` attached one. Prefill
+keeps `F.linear` over the model-dtype weight, as the JAX package does. Vision latents and text time are explicit
 arguments; decode state is an explicit KVCache. With `gradient_checkpointing` (the JAX
 package's `nn.remat`), each decoder and xattn block of a cache-free forward
 under autograd keeps only its inputs and recomputes its forward in the
@@ -25,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs import DecoderConfig
 from ..ops.attention import use_kernels
 from ..ops.dense_stream import fused_dense, reference_dense, use_fused_decode
+from ..quantize import stream_weight
 from .decoders.common import KVCache, LayerKV, make_attn_inputs
 from .decoders.gptneox import GPTNeoXBlock
 from .decoders.mpt import MPTBlock
@@ -103,21 +105,20 @@ class FlamingoLM(nn.Module):
                 mkv = None
                 if media_cache is not None:
                     m = media_cache[len(new_media)]
-                    mkv = (m.k, m.v)
-                x, (mk, mv) = run(self.xattn[str(i)], x, media, text_time, mkv, media_mask, zero_rows)
-                new_media.append(LayerKV(k=mk, v=mv))
+                    mkv = (m.k, m.v) if not m.int8 else (m.k, m.v, m.k_s, m.v_s)
+                x, mkv = run(self.xattn[str(i)], x, media, text_time, mkv, media_mask, zero_rows)
+                new_media.append(LayerKV(*mkv))
             x, kv = run(block, x, attn, cache.layers[i] if cache is not None else None)
             new_layers.append(kv)
 
-        if self.lm_head is None:
-            w_head, b_head = self.wte.weight, None
-        else:
-            w_head, b_head = self.lm_head.weight, self.lm_head.bias
+        head_mod = self.wte if self.lm_head is None else self.lm_head
+        w_head, b_head = head_mod.weight, getattr(head_mod, "bias", None)
         if fused:
             head = fused_dense if use_kernels(x) else reference_dense
+            w_stream, s_head = stream_weight(head_mod)
             logits = head(
-                x[:, 0], w_head, bias=b_head, ln_scale=self.norm_f.weight, ln_bias=self.norm_f.bias,
-                eps=self.cfg.layer_norm_eps,
+                x[:, 0], w_stream, w_scale=s_head, bias=b_head, ln_scale=self.norm_f.weight,
+                ln_bias=self.norm_f.bias, eps=self.cfg.layer_norm_eps,
             )[:, None].float()
         else:
             logits = torch.nn.functional.linear(self.norm_f(x), w_head, b_head).float()

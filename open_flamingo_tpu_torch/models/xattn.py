@@ -14,7 +14,11 @@ with text_time 0 after the softmax, so they get zero gradient too.
 One decode token on the card takes the fused route in immediate mode: K3
 `attn_block_decode` in its q-only form (LN, q projection, masked softmax
 over the cached media K/V, out-projection, *tanh(attn_gate) + x), then K2
-`fused_mlp` (*tanh(ff_gate) + x).
+`fused_mlp` (*tanh(ff_gate) + x), streaming to_q/to_out and fc1/fc2 or their
+int8 / int4 copies (`quantize.stream_weight`). The media K/V are a pair
+(k, v), or with an int8 media cache (k, v, k_s, v_s): int8 rows with their
+(B, H, S_m) fp32 scales, which the fused route reads as they are and every
+other route dequantizes.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from torch import nn
 from ..ops.attention import use_kernels
 from ..ops.decode_layer import attn_block_decode, reference_attn_block
 from ..ops.dense_stream import fused_mlp, reference_mlp, use_fused_decode
+from ..quantize import stream_weight
+from .decoders.common import dequantize_kv
 from .layers import FeedForward, LayerNorm, attend_cached, merge_heads, split_heads
 
 
@@ -98,7 +104,9 @@ class MaskedCrossAttention(nn.Module):
         b, t_img, n_lat, _ = media.shape
         if media_kv is None:
             media_kv = self.project_media(media)
-        k, v = media_kv
+        k, v = media_kv[:2]
+        if len(media_kv) == 4:              # an int8 media cache off the fused route
+            k, v = dequantize_kv(k, media_kv[2], x.dtype), dequantize_kv(v, media_kv[3], x.dtype)
         q = split_heads(self.to_q(self.norm(x)), self.heads)
         h, d, s, tq = self.heads, self.dim_head, t_img * n_lat, q.shape[1]
         scale = self.dim_head**-0.5
@@ -125,11 +133,13 @@ class MaskedCrossAttention(nn.Module):
     def fused_decode(self, x, media_kv, mask2d, gate):
         """x (B, D) + tanh(gate) * attention of x over the cached media K/V
         (B, H, S_m, Dh) under mask2d (B, S_m): K3 in its q-only form."""
-        k, v = media_kv
+        k, v, k_s, v_s = (*media_kv, None, None)[:4]
+        (w_q, s_q), (w_out, s_out) = stream_weight(self.to_q), stream_weight(self.to_out)
         attn_half = attn_block_decode if use_kernels(x) else reference_attn_block
         return attn_half(
-            x, self.norm.weight, self.norm.bias, self.to_q.weight, self.to_out.weight, k, v, mask2d,
-            heads=self.heads, head_dim=self.dim_head, scale=self.dim_head**-0.5, gate=gate, eps=self.norm.eps,
+            x, self.norm.weight, self.norm.bias, w_q, w_out, k, v, mask2d, heads=self.heads, head_dim=self.dim_head,
+            scale=self.dim_head**-0.5, gate=gate, wq_scale=s_q, wout_scale=s_out, k_scale=k_s, v_scale=v_s,
+            eps=self.norm.eps,
         )
 
 
@@ -153,9 +163,10 @@ class GatedCrossAttentionBlock(nn.Module):
             x2 = self.attn.fused_decode(x[:, 0], media_kv, media_mask, self.attn_gate)
             mlp_half = fused_mlp if use_kernels(x) else reference_mlp
             ff = self.ff
+            (w1, s1), (w2, s2) = stream_weight(ff.fc1), stream_weight(ff.fc2)
             y = mlp_half(
-                x2, ff.fc1.weight, ff.fc2.weight, ln_scale=ff.norm.weight, ln_bias=ff.norm.bias, eps=ff.norm.eps,
-                act="gelu", residual=x2, gate=self.ff_gate,
+                x2, w1, w2, w1_scale=s1, w2_scale=s2, ln_scale=ff.norm.weight, ln_bias=ff.norm.bias,
+                eps=ff.norm.eps, act="gelu", residual=x2, gate=self.ff_gate,
             )
             return y[:, None], media_kv
         out, media_kv = self.attn(x, media, text_time, media_kv, media_mask, zero_rows)

@@ -67,8 +67,10 @@ def cached_self_attention(
     """Cache update + attention. For one decode token on the kernel path
     the cache write happens inside the K7 launch. Returns (out
     (B, T, H, Dh), LayerKV or None); the cache tensors are updated in
-    place."""
-    if layer_kv is not None and q.shape[1] == 1 and attn.pad_mask is not None and use_kernels(q):
+    place. An int8 cache (which generate makes only for the fused route)
+    takes the einsum path over its dequantized rows, as in the JAX package."""
+    if (layer_kv is not None and not layer_kv.int8 and q.shape[1] == 1 and attn.pad_mask is not None
+            and use_kernels(q)):
         from .decode_attention import decode_attention_update
 
         out, kc, vc = decode_attention_update(

@@ -42,12 +42,17 @@ def _kernel():
     return _lib
 
 
-def reference_decode_attention(q, k, v, mask, scale: float = 1.0, slopes=None):
+def reference_decode_attention(q, k, v, mask, scale: float = 1.0, slopes=None, k_scale=None, v_scale=None):
     """Plain version. q (B, H, D); k/v (B, H, S, D); mask (B, S), nonzero
-    = attend; slopes (H,) fp32 or None. All-masked rows give exact zeros."""
+    = attend; slopes (H,) fp32 or None. All-masked rows give exact zeros.
+    k_scale/v_scale (B, H, S): the row scales of an int8 cache, applied as
+    the fused decode kernels do: to the logits after the dot product, and to
+    the softmax weights before the sum over values."""
     refuse_autograd("decode_attention", q, k, v, slopes)
     s = k.shape[2]
     logits = torch.einsum("bhd,bhkd->bhk", q.float() * scale, k.float())
+    if k_scale is not None:
+        logits = logits * k_scale
     if slopes is not None:
         k_pos = torch.arange(s, device=q.device, dtype=torch.float32) - (s - 1)
         logits = logits + slopes.float()[None, :, None] * k_pos
@@ -57,7 +62,10 @@ def reference_decode_attention(q, k, v, mask, scale: float = 1.0, slopes=None):
     p = torch.exp(logits - torch.where(torch.isinf(mx), 0.0, mx)).masked_fill(~m, 0.0)
     denom = p.sum(-1, keepdim=True)
     denom = torch.where(denom == 0.0, 1.0, denom)
-    return torch.einsum("bhk,bhkd->bhd", p / denom, v.float()).to(q.dtype)
+    p = p / denom
+    if v_scale is not None:
+        p = p * v_scale
+    return torch.einsum("bhk,bhkd->bhd", p, v.float()).to(q.dtype)
 
 
 def _launch(q, k, v, mask, scale, slopes, k_new, v_new, slot, name):

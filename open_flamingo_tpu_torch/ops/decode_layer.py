@@ -32,6 +32,19 @@ K/V arrive in the cache dtype and this step attends to those rounded
 values, the head outputs are rounded to the weight dtype before the fp32
 out-projection.
 
+Quantized decode (both kernels): `wq`/`wout` may be int8 or packed int4
+(`torch.uint8`, last dim halved) with per-out-channel fp32 scales
+`wq_scale`/`wout_scale`; K3's projection is scaled before `clip`, each
+out-projection's scale multiplies its fp32 sum before the gate, bias and
+residual. K6's head outputs round to q's dtype when its weight is an int
+type (the TPU kernel's `mm_dtype`). The caches may be int8 with fp32 row
+scales `k_scale`/`v_scale` (B, H_kv, S): the kernel quantizes the new
+token per (b, h) row over Dh (amax / 127, round half to even, true
+division), writes the int8 row and its scale in place, and attends to the
+quantized value, the one later steps read back; logits dequantize after the
+dot product, softmax weights before the sum over values. The q-only form
+reads an int8 media cache and writes nothing.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (`reference_attn_block`, `reference_attend_out`, written from the
 kernel bodies) for CPU tensors.
@@ -43,10 +56,13 @@ import ctypes
 
 import torch
 
+from ..models.decoders.common import quantize_kv
 from ..models.layers import layer_norm
+from ..quantize import weight_values
 from . import build
 from .decode_attention import reference_decode_attention
-from .dense_stream import check_operands, ptr, refuse, refuse_autograd
+from .dense_stream import (_WTYPES, check_operands, check_weight, count_launch, ptr, refuse, refuse_autograd,
+                           variant, wtype)
 from .flash_attention import _DTYPES
 
 _lib = None
@@ -57,21 +73,49 @@ def _kernel():
     if _lib is None:
         lib = build.library("decode_layer")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn_block_decode_fwd.argtypes = [p] * 14 + [i] * 7 + [f, f, f, i, p]
+        lib.attn_block_decode_fwd.argtypes = [p] * 18 + [i] * 9 + [f, f, f, i, p]
         lib.attn_block_decode_fwd.restype = i
-        lib.attend_out_decode_fwd.argtypes = [p] * 14 + [i] * 6 + [f, i, p]
+        lib.attend_out_decode_fwd.argtypes = [p] * 17 + [i] * 7 + [f, i, p]
         lib.attend_out_decode_fwd.restype = i
         _lib = lib
     return _lib
 
 
+def check_cache(fn: str, k_cache, v_cache, k_scale, v_scale) -> bool:
+    """An int8 cache comes with both (B, H_kv, S) scales, and scales with an
+    int8 cache (ValueError). Returns whether the cache is int8."""
+    if k_cache.dtype == torch.uint8 or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"{fn}: caches {k_cache.dtype}/{v_cache.dtype}; expected one dtype, int8 or x's")
+    int8 = k_cache.dtype == torch.int8
+    if (k_scale is None) != (v_scale is None) or int8 != (k_scale is not None):
+        raise ValueError(f"{fn}: an int8 cache needs both k_scale and v_scale, and scales need an int8 cache")
+    if int8 and (k_scale.shape != k_cache.shape[:3] or v_scale.shape != k_scale.shape):
+        raise ValueError(f"{fn}: k_scale/v_scale must be (B, H_kv, S) = {tuple(k_cache.shape[:3])}")
+    return int8
+
+
+def _write_slot(new, cache, scales, idx) -> None:
+    """Write a new token's (B, H_kv, 1, Dh) K or V at slot `idx` in place:
+    quantized with its scale into an int8 cache, else rounded to the
+    cache's dtype."""
+    if scales is None:
+        cache.index_copy_(2, idx, new.to(cache.dtype))
+    else:
+        q, s = quantize_kv(new)
+        cache.index_copy_(2, idx, q)
+        scales.index_copy_(2, idx, s)
+
+
 def reference_attn_block(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *, heads, head_dim, scale,
-                         fused_qkv=False, slot=None, slopes=None, clip=None, gate=None, eps=1e-5):
+                         fused_qkv=False, slot=None, slopes=None, clip=None, gate=None, wq_scale=None,
+                         wout_scale=None, k_scale=None, v_scale=None, eps=1e-5):
     """Plain version of attn_block_decode, at the kernel's rounding points."""
     refuse_autograd("attn_block_decode", x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, slopes, gate)
     b = x.shape[0]
     inner = heads * head_dim
-    proj = layer_norm(x, ln_scale, ln_bias, eps).float() @ wq.float().t()
+    proj = layer_norm(x, ln_scale, ln_bias, eps).float() @ weight_values(wq).float().t()
+    if wq_scale is not None:
+        proj = proj * wq_scale
     if clip is not None:
         proj = proj.clamp(-clip, clip)
     q = proj[:, :inner].reshape(b, heads, head_dim)
@@ -80,12 +124,15 @@ def reference_attn_block(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask,
         idx = slot.long()
         kn = proj[:, inner:2 * inner].reshape(b, heads, 1, head_dim)
         vn = proj[:, 2 * inner:].reshape(b, heads, 1, head_dim)
-        k_cache.index_copy_(2, idx, kn.to(k_cache.dtype))
-        v_cache.index_copy_(2, idx, vn.to(v_cache.dtype))
-        k = k_cache.float().index_copy(2, idx, kn)
-        v = v_cache.float().index_copy(2, idx, vn)
-    a = reference_decode_attention(q, k, v, mask, scale, slopes)
-    y = a.reshape(b, inner).to(x.dtype).float() @ wout.float().t()
+        _write_slot(kn, k_cache, k_scale, idx)
+        _write_slot(vn, v_cache, v_scale, idx)
+        if k_scale is None:   # this step attends to the unrounded K/V
+            k = k_cache.float().index_copy(2, idx, kn)
+            v = v_cache.float().index_copy(2, idx, vn)
+    a = reference_decode_attention(q, k, v, mask, scale, slopes, k_scale, v_scale)
+    y = a.reshape(b, inner).to(x.dtype).float() @ weight_values(wout).float().t()
+    if wout_scale is not None:
+        y = y * wout_scale
     if gate is not None:
         y = y * torch.tanh(gate.float())
     y = (y + x.float()).to(x.dtype)
@@ -96,23 +143,27 @@ def attn_block_decode(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *,
                       fused_qkv=False, slot=None, slopes=None, clip=None, gate=None, wq_scale=None,
                       wout_scale=None, k_scale=None, v_scale=None, eps=1e-5, side_x=None, side_w=None):
     """x (B, D); ln_scale/ln_bias (D,); wq (3*H*Dh or H*Dh, D); wout
-    (D, H*Dh); k_cache/v_cache (B, H, S, Dh); mask (B, S), nonzero =
-    attend; slot (1,) int32 (fused_qkv); slopes (H,) fp32; gate (1,).
-    Returns y (B, D), or (y, k_cache, v_cache) with fused_qkv."""
-    refuse("attn_block_decode", "int8/int4 weights, item 9", wq_scale=wq_scale, wout_scale=wout_scale)
-    refuse("attn_block_decode", "int8 KV cache, item 9", k_scale=k_scale, v_scale=v_scale)
+    (D, H*Dh), each in x's dtype, int8 or packed int4, with wq_scale /
+    wout_scale (rows,) fp32 for an int weight; k_cache/v_cache
+    (B, H, S, Dh) in x's dtype, or int8 with k_scale/v_scale (B, H, S) fp32
+    (updated in place with the caches); mask (B, S), nonzero = attend; slot
+    (1,) int32 (fused_qkv); slopes (H,) fp32; gate (1,). Returns y (B, D),
+    or (y, k_cache, v_cache) with fused_qkv."""
     refuse("attn_block_decode", "K2b side tiles, item 14", side_x=side_x, side_w=side_w)
     refuse_autograd("attn_block_decode", x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, slopes, gate)
     b, dm = x.shape
     inner = heads * head_dim
     p = 3 * inner if fused_qkv else inner
     s = k_cache.shape[2]
-    if (wq.shape != (p, dm) or wout.shape != (dm, inner) or k_cache.shape != (b, heads, s, head_dim)
-            or v_cache.shape != k_cache.shape or mask.shape != (b, s)):
+    nq = check_weight("attn_block_decode", "wq", wq, wq_scale, dm)
+    no = check_weight("attn_block_decode", "wout", wout, wout_scale, inner)
+    if (nq != p or no != dm or k_cache.shape != (b, heads, s, head_dim) or v_cache.shape != k_cache.shape
+            or mask.shape != (b, s)):
         raise ValueError(
             f"attn_block_decode: expected x (B, D), wq ({p}, D), wout (D, {inner}), caches (B, H, S, Dh), "
             f"mask (B, S); got {tuple(x.shape)}, {tuple(wq.shape)}, {tuple(wout.shape)}, "
             f"{tuple(k_cache.shape)}, {tuple(mask.shape)}")
+    int8 = check_cache("attn_block_decode", k_cache, v_cache, k_scale, v_scale)
     if fused_qkv and (slot is None or slot.shape != (1,) or slot.dtype != torch.int32):
         raise ValueError("attn_block_decode: fused_qkv needs slot, a (1,) int32 tensor")
     if slopes is not None and slopes.shape != (heads,):
@@ -120,11 +171,13 @@ def attn_block_decode(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *,
     if x.device.type == "cpu":
         return reference_attn_block(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, heads=heads,
                                     head_dim=head_dim, scale=scale, fused_qkv=fused_qkv, slot=slot,
-                                    slopes=slopes, clip=clip, gate=gate, eps=eps)
+                                    slopes=slopes, clip=clip, gate=gate, wq_scale=wq_scale, wout_scale=wout_scale,
+                                    k_scale=k_scale, v_scale=v_scale, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"attn_block_decode: unsupported device {x.device}")
-    check_operands("attn_block_decode", x, dm, ln_scale=ln_scale, ln_bias=ln_bias, wq=wq, wout=wout,
-                   k_cache=k_cache, v_cache=v_cache, gate=gate)
+    check_operands("attn_block_decode", x, dm, quantized=("wq", "wout", "k_cache", "v_cache"), ln_scale=ln_scale,
+                   ln_bias=ln_bias, wq=wq, wout=wout, wq_scale=wq_scale, wout_scale=wout_scale, k_cache=k_cache,
+                   v_cache=v_cache, k_scale=k_scale, v_scale=v_scale, gate=gate)
     if head_dim % 8 or head_dim > 128 or s > 8192:
         raise ValueError(f"attn_block_decode: Dh = {head_dim} must be a multiple of 8 and <= 128, "
                          f"and the cache at most 8192 slots (got {s})")
@@ -137,33 +190,39 @@ def attn_block_decode(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *,
     attn = torch.empty(b, inner, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     status = _kernel().attn_block_decode_fwd(
-        ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(wq), ptr(wout), ptr(k_cache), ptr(v_cache), ptr(m), ptr(sl),
-        ptr(gate), ptr(slot) if fused_qkv else None, ptr(proj), ptr(attn), ptr(out),
-        b, dm, heads, head_dim, s, int(fused_qkv), int(clip is not None),
+        ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(wq), ptr(wq_scale), ptr(wout), ptr(wout_scale), ptr(k_cache),
+        ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(m), ptr(sl), ptr(gate), ptr(slot) if fused_qkv else None,
+        ptr(proj), ptr(attn), ptr(out),
+        b, dm, heads, head_dim, s, int(fused_qkv), int(clip is not None), wtype(wq), wtype(wout),
         float(clip or 0.0), float(scale), float(eps), _DTYPES[x.dtype], build.current_stream(x.device),
     )
     build.check(status, "attn_block_decode_fwd")
-    attn_block_decode.launches += 1
+    count_launch(attn_block_decode, variant(wq, int8))
     return (out, k_cache, v_cache) if fused_qkv else out
 
 
 attn_block_decode.launches = 0
+attn_block_decode.variants = {}
 
 
 def reference_attend_out(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_new=None, slot=None, slopes=None,
-                         bias=None, gate=None, residual=None):
+                         wout_scale=None, bias=None, gate=None, residual=None, k_scale=None, v_scale=None):
     """Plain version of attend_out_decode, at the kernel's rounding points."""
     refuse_autograd("attend_out_decode", q, k_cache, v_cache, wout, k_new, v_new, slopes, bias, gate, residual)
     b, h, dh = q.shape
     n_rep = h // k_cache.shape[1]
     if k_new is not None:
         idx = slot.long()
-        k_cache.index_copy_(2, idx, k_new[:, :, None].to(k_cache.dtype))
-        v_cache.index_copy_(2, idx, v_new[:, :, None].to(v_cache.dtype))
+        _write_slot(k_new[:, :, None], k_cache, k_scale, idx)
+        _write_slot(v_new[:, :, None], v_cache, v_scale, idx)
     k, v = (c.repeat_interleave(n_rep, dim=1) for c in (k_cache, v_cache))
+    ks, vs = (None if c is None else c.repeat_interleave(n_rep, dim=1) for c in (k_scale, v_scale))
     qs = (q.float() * scale).to(q.dtype)
-    a = reference_decode_attention(qs, k, v, mask, 1.0, slopes)
-    y = a.reshape(b, h * dh).to(wout.dtype).float() @ wout.float().t()
+    a = reference_decode_attention(qs, k, v, mask, 1.0, slopes, ks, vs)
+    mm_dtype = q.dtype if wout.dtype in _WTYPES else wout.dtype
+    y = a.reshape(b, h * dh).to(mm_dtype).float() @ weight_values(wout).float().t()
+    if wout_scale is not None:
+        y = y * wout_scale
     if bias is not None:
         y = y + bias.float()
     if gate is not None:
@@ -179,28 +238,28 @@ def attend_out_decode(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_n
                       v_scale=None):
     """K6, the attention tail of a decode layer: with k_new/v_new, write them
     into the caches at `slot` IN PLACE; attend q over the caches under
-    `mask`; out-project per head and sum; then +bias, *tanh(gate),
-    +residual. q (B, H, Dh), unscaled; k_cache/v_cache (B, H_kv, S, Dh),
-    query head h reading kv head h // (H / H_kv); k_new/v_new (B, H_kv, Dh);
-    slot (1,) int32 on the caches' device; mask (B, S), nonzero = attend;
-    wout (D, H*Dh), the nn.Linear weight; slopes (H,) fp32; bias (D,);
-    gate (1,); residual (B, D). Returns y (B, D) in q's dtype, or
-    (y, k_cache, v_cache) with k_new."""
-    refuse("attend_out_decode", "int8/int4 weights, item 9", wout_scale=wout_scale)
-    refuse("attend_out_decode", "int8 KV cache, item 9", k_scale=k_scale, v_scale=v_scale)
+    `mask`; out-project per head and sum; then *wout_scale, +bias,
+    *tanh(gate), +residual. q (B, H, Dh), unscaled; k_cache/v_cache
+    (B, H_kv, S, Dh) in q's dtype, or int8 with k_scale/v_scale (B, H_kv, S)
+    fp32 (updated in place), query head h reading kv head h // (H / H_kv);
+    k_new/v_new (B, H_kv, Dh) in q's dtype; slot (1,) int32 on the caches'
+    device; mask (B, S), nonzero = attend; wout (D, H*Dh), the nn.Linear
+    weight, in q's dtype, int8 or packed int4 with wout_scale (D,) fp32;
+    slopes (H,) fp32; bias (D,); gate (1,); residual (B, D). Returns y
+    (B, D) in q's dtype, or (y, k_cache, v_cache) with k_new."""
     refuse("attend_out_decode", "the stacked-layer layout, item 9", layer_idx=layer_idx)
     refuse_autograd("attend_out_decode", q, k_cache, v_cache, wout, k_new, v_new, slopes, bias, gate, residual)
     b, h, dh = q.shape
     h_kv, s = k_cache.shape[1], k_cache.shape[2]
-    dm = wout.shape[0]
+    dm = check_weight("attend_out_decode", "wout", wout, wout_scale, h * dh)
     update = k_new is not None
-    if (h % h_kv or k_cache.shape != (b, h_kv, s, dh) or v_cache.shape != k_cache.shape
-            or wout.shape != (dm, h * dh) or mask.shape != (b, s)
+    if (h % h_kv or k_cache.shape != (b, h_kv, s, dh) or v_cache.shape != k_cache.shape or mask.shape != (b, s)
             or (residual is not None and residual.shape != (b, dm))):
         raise ValueError(
             f"attend_out_decode: expected q (B, H, Dh), caches (B, H_kv, S, Dh) with H_kv | H, mask (B, S), "
             f"wout (D, H*Dh), residual (B, D); got {tuple(q.shape)}, {tuple(k_cache.shape)}, "
             f"{tuple(mask.shape)}, {tuple(wout.shape)}")
+    int8 = check_cache("attend_out_decode", k_cache, v_cache, k_scale, v_scale)
     if (v_new is not None) != update or (update and (k_new.shape != (b, h_kv, dh) or v_new.shape != k_new.shape)):
         raise ValueError("attend_out_decode: k_new and v_new go together, each (B, H_kv, Dh)")
     if update and (slot is None or slot.shape != (1,) or slot.dtype != torch.int32):
@@ -209,13 +268,15 @@ def attend_out_decode(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_n
         raise ValueError("attend_out_decode: slopes must be (H,)")
     if q.device.type == "cpu":
         return reference_attend_out(q, k_cache, v_cache, mask, wout, scale=scale, k_new=k_new, v_new=v_new,
-                                    slot=slot, slopes=slopes, bias=bias, gate=gate, residual=residual)
+                                    slot=slot, slopes=slopes, wout_scale=wout_scale, bias=bias, gate=gate,
+                                    residual=residual, k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"attend_out_decode: unsupported device {q.device}")
     q = q.contiguous()
     if update:
         k_new, v_new = k_new.contiguous(), v_new.contiguous()
-    check_operands("attend_out_decode", q, h * dh, k_cache=k_cache, v_cache=v_cache, wout=wout, k_new=k_new,
+    check_operands("attend_out_decode", q, h * dh, quantized=("wout", "k_cache", "v_cache"), k_cache=k_cache,
+                   v_cache=v_cache, k_scale=k_scale, v_scale=v_scale, wout=wout, wout_scale=wout_scale, k_new=k_new,
                    v_new=v_new, bias=bias, gate=gate, residual=residual)
     if dh % 8 or dh > 128 or s > 8192:
         raise ValueError(f"attend_out_decode: Dh = {dh} must be a multiple of 8 and <= 128, "
@@ -228,13 +289,15 @@ def attend_out_decode(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_n
     attn = torch.empty(b, h * dh, dtype=q.dtype, device=q.device)
     out = torch.empty(b, dm, dtype=q.dtype, device=q.device)
     status = _kernel().attend_out_decode_fwd(
-        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_new), ptr(v_new), ptr(slot) if update else None, ptr(m),
-        ptr(sl), ptr(wout), ptr(bias), ptr(gate), ptr(residual), ptr(attn), ptr(out),
-        b, h, h_kv, s, dh, dm, float(scale), _DTYPES[q.dtype], build.current_stream(q.device),
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(k_new), ptr(v_new),
+        ptr(slot) if update else None, ptr(m), ptr(sl), ptr(wout), ptr(wout_scale), ptr(bias), ptr(gate),
+        ptr(residual), ptr(attn), ptr(out),
+        b, h, h_kv, s, dh, dm, wtype(wout), float(scale), _DTYPES[q.dtype], build.current_stream(q.device),
     )
     build.check(status, "attend_out_decode_fwd")
-    attend_out_decode.launches += 1
+    count_launch(attend_out_decode, variant(wout, int8))
     return (out, k_cache, v_cache) if update else out
 
 
 attend_out_decode.launches = 0
+attend_out_decode.variants = {}

@@ -14,8 +14,14 @@ how the decode path calls it (the tied (V, D) embedding as the vocab head).
 K2's `w1` is (K2, K) and `w2` is (N, K2). The semantics are the TPU
 kernels': LayerNorm with the flax fast variance in fp32; the normalised rows
 and K2's hidden activation rounded to x's dtype before each product; fp32
-accumulation; the epilogue +bias -> clip -> act -> *tanh(gate) -> +residual;
-the result in x's dtype.
+accumulation; the epilogue *w_scale -> +bias -> clip -> act -> *tanh(gate)
+-> +residual; the result in x's dtype.
+
+A weight is in x's dtype, int8, or packed int4 (`torch.uint8`, (N, K/2),
+`quantize.pack_int4`); an int weight comes with its per-out-channel fp32
+scale (N,). Its values convert to x's dtype exactly (|q| <= 127) before the
+product, and the scale multiplies the fp32 result first in the epilogue
+(K2: `w1_scale` before b1 and the activation, `w2_scale` before b2).
 
 Route: `use_fused_decode` sends one query against a cache on a CUDA tensor
 through K1-K3, where the JAX package asks for a TPU backend. The JAX
@@ -35,6 +41,7 @@ import ctypes
 import torch
 
 from ..models.layers import gelu_exact, layer_norm
+from ..quantize import weight_values
 from . import build
 from .flash_attention import _DTYPES
 
@@ -42,6 +49,10 @@ FORCE_FUSED = False
 DISABLE_FUSED = False
 
 _ACTS = {None: 0, "gelu": 1}
+_WTYPES = {torch.int8: 1, torch.uint8: 2}   # 0: the weight in x's dtype
+_WKINDS = {torch.int8: "int8", torch.uint8: "int4"}
+# the fp32 operands: per-out-channel weight scales and int8-cache row scales
+_SCALES = frozenset({"w_scale", "w1_scale", "w2_scale", "wq_scale", "wout_scale", "k_scale", "v_scale"})
 _lib = None
 
 
@@ -50,21 +61,24 @@ def _kernel():
     if _lib is None:
         lib = build.library("dense_stream")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_dense_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, f, i, p]
+        lib.fused_dense_fwd.argtypes = [p] * 9 + [i, i, i, i, f, i, f, i, i, p]
         lib.fused_dense_fwd.restype = i
-        lib.fused_mlp_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, p]
+        lib.fused_mlp_fwd.argtypes = [p] * 13 + [i, i, i, i, i, f, i, i, i, p]
         lib.fused_mlp_fwd.restype = i
         _lib = lib
     return _lib
 
 
+def fused_route(device) -> bool:
+    """Whether single-token decode on `device` takes the fused route: on a
+    CUDA device (any device under FORCE_FUSED), unless DISABLE_FUSED."""
+    return not DISABLE_FUSED and (FORCE_FUSED or torch.device(device).type == "cuda")
+
+
 def use_fused_decode(x: torch.Tensor, tq: int, cached: bool) -> bool:
     """Whether a forward on `x` with `tq` queries takes the fused decode
-    route: one query against a cache, on a CUDA tensor (any tensor under
-    FORCE_FUSED), unless DISABLE_FUSED."""
-    if DISABLE_FUSED or tq != 1 or not cached:
-        return False
-    return FORCE_FUSED or x.is_cuda
+    route: one query against a cache, where `fused_route` says so."""
+    return tq == 1 and cached and fused_route(x.device)
 
 
 def refuse(fn: str, what: str, **operands) -> None:
@@ -92,10 +106,46 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def check_operands(fn: str, x: torch.Tensor, k: int, **tensors) -> None:
+def wtype(w: torch.Tensor) -> int:
+    """The kernels' weight type code: 0 x's dtype, 1 int8, 2 packed int4."""
+    return _WTYPES.get(w.dtype, 0)
+
+
+def variant(w: torch.Tensor, int8_cache: bool = False) -> str:
+    """The launch-counter key of a kernel variant: the weight's kind
+    ("float", "int8", "int4"), "+kv8" with an int8 cache."""
+    return _WKINDS.get(w.dtype, "float") + ("+kv8" if int8_cache else "")
+
+
+def count_launch(fn, key: str) -> None:
+    """One launch of `fn`'s kernel: its count, and the count of its variant."""
+    fn.launches += 1
+    fn.variants[key] = fn.variants.get(key, 0) + 1
+
+
+def check_weight(fn: str, name: str, w: torch.Tensor, scale, k: int) -> int:
+    """Shape rules of a streamed (N, K) weight: in x's dtype, int8 (N, K) or
+    packed int4 (N, K/2) uint8 with K even; an int weight comes with its
+    (N,) scale and a weight in x's dtype with none. Raises ValueError;
+    returns N."""
+    if (w.dtype in _WTYPES) != (scale is not None):
+        raise ValueError(f"{fn}: {name} is {w.dtype}; a per-channel scale goes with an int weight, and only there")
+    if w.dtype == torch.uint8 and k % 2:
+        raise ValueError(f"{fn}: int4 {name} needs an even reduction length, got {k}")
+    n = w.shape[0]
+    if w.dim() != 2 or w.shape[1] != (k // 2 if w.dtype == torch.uint8 else k):
+        raise ValueError(f"{fn}: {name} {tuple(w.shape)} {w.dtype} does not match the reduction length {k}")
+    if scale is not None and scale.shape != (n,):
+        raise ValueError(f"{fn}: {name}'s scale must be ({n},), got {tuple(scale.shape)}")
+    return n
+
+
+def check_operands(fn: str, x: torch.Tensor, k: int, quantized=(), **tensors) -> None:
     """Kernel preconditions: x float32 or bfloat16 with rows of k elements,
     k a multiple of 8 (16-byte vector loads), and every other tensor
-    operand on x's device, in x's dtype, contiguous and 16-byte aligned."""
+    operand on x's device, contiguous and 16-byte aligned, in x's dtype;
+    except the names in `quantized`, which may also be int8 or uint8, and
+    the weight and cache scales (`_SCALES`), which are float32."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{fn}: dtype {x.dtype}; the kernels take float32 or bfloat16")
     if k % 8:
@@ -105,18 +155,24 @@ def check_operands(fn: str, x: torch.Tensor, k: int, **tensors) -> None:
             continue
         if t.device != x.device:
             raise ValueError(f"{fn}: {name} on {t.device}, x on {x.device}")
-        if t.dtype != x.dtype:
-            raise TypeError(f"{fn}: {name} is {t.dtype}, x is {x.dtype}")
+        if name in _SCALES:
+            allowed = (torch.float32,)
+        else:
+            allowed = (x.dtype, *_WTYPES) if name in quantized else (x.dtype,)
+        if t.dtype not in allowed:
+            raise TypeError(f"{fn}: {name} is {t.dtype}; expected one of {allowed}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
 
 
-def reference_dense(x, w, *, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, act=None, clip=None,
+def reference_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, act=None, clip=None,
                     residual=None, gate=None):
     """Plain version of fused_dense, at the kernel's rounding points."""
     refuse_autograd("fused_dense", x, w, bias, ln_scale, ln_bias, residual, gate)
     h = x if ln_scale is None else layer_norm(x, ln_scale, ln_bias, eps)
-    y = h.float() @ w.float().t()
+    y = h.float() @ weight_values(w).float().t()
+    if w_scale is not None:
+        y = y * w_scale.float()
     if bias is not None:
         y = y + bias.float()
     if clip is not None:
@@ -130,83 +186,85 @@ def reference_dense(x, w, *, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, a
     return y.to(x.dtype)
 
 
-def reference_mlp(x, w1, w2, *, b1=None, b2=None, ln_scale=None, ln_bias=None, eps=1e-5, act="gelu",
-                  residual=None, gate=None):
+def reference_mlp(x, w1, w2, *, w1_scale=None, w2_scale=None, b1=None, b2=None, ln_scale=None, ln_bias=None,
+                  eps=1e-5, act="gelu", residual=None, gate=None):
     """Plain version of fused_mlp: the hidden activation in x's dtype."""
-    u = reference_dense(x, w1, bias=b1, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, act=act)
-    return reference_dense(u, w2, bias=b2, residual=residual, gate=gate)
+    u = reference_dense(x, w1, w_scale=w1_scale, bias=b1, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, act=act)
+    return reference_dense(u, w2, w_scale=w2_scale, bias=b2, residual=residual, gate=gate)
 
 
 def fused_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, norm="layer",
                 act=None, clip=None, residual=None, gate=None):
-    """epilogue(LN?(x) @ w.T): x (B, K); w (N, K); bias (N,); ln_scale and
+    """epilogue(LN?(x) @ w.T): x (B, K); w (N, K) in x's dtype or int8, or
+    (N, K/2) packed int4, an int weight with w_scale (N,) fp32; bias (N,); ln_scale and
     ln_bias (K,); residual (B, N); gate (1,), applied as *tanh(gate).
     Returns (B, N) in x's dtype."""
-    refuse("fused_dense", "int8/int4 weights, item 9", w_scale=w_scale)
     refuse_autograd("fused_dense", x, w, bias, ln_scale, ln_bias, residual, gate)
     _check_act("fused_dense", act, norm)
     b, k = x.shape
-    n = w.shape[0]
-    if w.shape != (n, k) or (residual is not None and residual.shape != (b, n)):
-        raise ValueError(f"fused_dense: expected x (B, K), w (N, K), residual (B, N); got {tuple(x.shape)}, {tuple(w.shape)}")
+    n = check_weight("fused_dense", "w", w, w_scale, k)
+    if residual is not None and residual.shape != (b, n):
+        raise ValueError(f"fused_dense: expected residual (B, N) = ({b}, {n}); got {tuple(residual.shape)}")
     if ln_bias is not None and ln_scale is None:
         raise ValueError("fused_dense: ln_bias needs ln_scale")
     if x.device.type == "cpu":
-        return reference_dense(x, w, bias=bias, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, act=act, clip=clip,
-                               residual=residual, gate=gate)
+        return reference_dense(x, w, w_scale=w_scale, bias=bias, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps,
+                               act=act, clip=clip, residual=residual, gate=gate)
     if x.device.type != "cuda":
         raise ValueError(f"fused_dense: unsupported device {x.device}")
-    check_operands("fused_dense", x, k, w=w, bias=bias, ln_scale=ln_scale, ln_bias=ln_bias, residual=residual,
-                   gate=gate)
+    check_operands("fused_dense", x, k, quantized=("w",), w=w, w_scale=w_scale, bias=bias, ln_scale=ln_scale,
+                   ln_bias=ln_bias, residual=residual, gate=gate)
     out = torch.empty(b, n, dtype=x.dtype, device=x.device)
     status = _kernel().fused_dense_fwd(
-        ptr(x), ptr(w), ptr(bias), ptr(ln_scale), ptr(ln_bias), ptr(residual), ptr(gate), ptr(out),
-        b, n, k, int(clip is not None), float(clip or 0.0), _ACTS[act], float(eps), _DTYPES[x.dtype],
+        ptr(x), ptr(w), ptr(w_scale), ptr(bias), ptr(ln_scale), ptr(ln_bias), ptr(residual), ptr(gate), ptr(out),
+        b, n, k, int(clip is not None), float(clip or 0.0), _ACTS[act], float(eps), _DTYPES[x.dtype], wtype(w),
         build.current_stream(x.device),
     )
     build.check(status, "fused_dense_fwd")
-    fused_dense.launches += 1
+    count_launch(fused_dense, variant(w))
     return out
 
 
 def fused_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_scale=None, b1=None, b2=None,
               ln_scale=None, ln_bias=None, eps=1e-5, norm="layer", act="gelu", residual=None, gate=None,
               side_x=None, side_w=None):
-    """residual + tanh(gate) * (act(LN?(x) @ w1.T + b1) @ w2.T + b2):
-    x (B, K); w1 (K2, K); w2 (N, K2). Returns (B, N) in x's dtype."""
-    refuse("fused_mlp", "int8/int4 weights, item 9", w1_scale=w1_scale, w2_scale=w2_scale,
-           w1_gate_scale=w1_gate_scale)
-    refuse("fused_mlp", "SwiGLU, item 7", w1_gate=w1_gate)
+    """residual + tanh(gate) * (act(LN?(x) @ w1.T * w1_scale + b1) @ w2.T *
+    w2_scale + b2): x (B, K); w1 (K2, K); w2 (N, K2), each in x's dtype,
+    int8 or packed int4 (last dim halved) with its fp32 scale (K2,) / (N,).
+    Returns (B, N) in x's dtype."""
+    refuse("fused_mlp", "SwiGLU, item 7", w1_gate=w1_gate, w1_gate_scale=w1_gate_scale)
     refuse("fused_mlp", "K2b side tiles, item 14", side_x=side_x, side_w=side_w)
     refuse_autograd("fused_mlp", x, w1, w2, b1, b2, ln_scale, ln_bias, residual, gate)
     _check_act("fused_mlp", act, norm)
     b, k = x.shape
-    k2, n = w1.shape[0], w2.shape[0]
-    if w1.shape != (k2, k) or w2.shape != (n, k2) or (residual is not None and residual.shape != (b, n)):
-        raise ValueError(f"fused_mlp: expected x (B, K), w1 (K2, K), w2 (N, K2), residual (B, N); got "
-                         f"{tuple(x.shape)}, {tuple(w1.shape)}, {tuple(w2.shape)}")
+    k2 = check_weight("fused_mlp", "w1", w1, w1_scale, k)
+    n = check_weight("fused_mlp", "w2", w2, w2_scale, k2)
+    if residual is not None and residual.shape != (b, n):
+        raise ValueError(f"fused_mlp: expected residual (B, N) = ({b}, {n}); got {tuple(residual.shape)}")
     if ln_bias is not None and ln_scale is None:
         raise ValueError("fused_mlp: ln_bias needs ln_scale")
     if x.device.type == "cpu":
-        return reference_mlp(x, w1, w2, b1=b1, b2=b2, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, act=act,
-                             residual=residual, gate=gate)
+        return reference_mlp(x, w1, w2, w1_scale=w1_scale, w2_scale=w2_scale, b1=b1, b2=b2, ln_scale=ln_scale,
+                             ln_bias=ln_bias, eps=eps, act=act, residual=residual, gate=gate)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp: unsupported device {x.device}")
-    check_operands("fused_mlp", x, k, w1=w1, w2=w2, b1=b1, b2=b2, ln_scale=ln_scale, ln_bias=ln_bias,
-                   residual=residual, gate=gate)
+    check_operands("fused_mlp", x, k, quantized=("w1", "w2"), w1=w1, w2=w2, w1_scale=w1_scale, w2_scale=w2_scale,
+                   b1=b1, b2=b2, ln_scale=ln_scale, ln_bias=ln_bias, residual=residual, gate=gate)
     if k2 % 8:
         raise ValueError(f"fused_mlp: hidden size {k2} is not a multiple of 8")
     hidden = torch.empty(b, k2, dtype=x.dtype, device=x.device)
     out = torch.empty(b, n, dtype=x.dtype, device=x.device)
     status = _kernel().fused_mlp_fwd(
-        ptr(x), ptr(w1), ptr(w2), ptr(b1), ptr(b2), ptr(ln_scale), ptr(ln_bias), ptr(residual), ptr(gate),
-        ptr(hidden), ptr(out), b, k, k2, n, _ACTS[act], float(eps), _DTYPES[x.dtype],
-        build.current_stream(x.device),
+        ptr(x), ptr(w1), ptr(w2), ptr(w1_scale), ptr(w2_scale), ptr(b1), ptr(b2), ptr(ln_scale), ptr(ln_bias),
+        ptr(residual), ptr(gate), ptr(hidden), ptr(out), b, k, k2, n, _ACTS[act], float(eps), _DTYPES[x.dtype],
+        wtype(w1), wtype(w2), build.current_stream(x.device),
     )
     build.check(status, "fused_mlp_fwd")
-    fused_mlp.launches += 1
+    count_launch(fused_mlp, variant(w1))
     return out
 
 
 fused_dense.launches = 0
 fused_mlp.launches = 0
+fused_dense.variants = {}
+fused_mlp.variants = {}

@@ -12,11 +12,17 @@ K4b/K5b: atol = rtol = 1e-4, its sums run over whole query and key tiles).
 bf16 inputs (K1-K3 and K6, whose bf16 products run on tensor cores when K
 is a multiple of 32; K4b/K5b): both round an fp32 result to bf16, one ulp apart
 at most, plus the summation order; atol = rtol = 1e-2 as in chip_smoke.py.
+Quantized decode (int8 / packed int4 weights, the int8 cache): the same
+tolerances, 2e-4 in fp32 where an int8 cache is read (a quantized entry at
+a rounding boundary may land one step apart when the new token's K/V come
+from a projection summed in another order: at most one step, in at most
+0.1% of the entries).
 """
 
 import pytest
 import torch
 
+from open_flamingo_tpu_torch.models.decoders.common import quantize_kv
 from open_flamingo_tpu_torch.ops.decode_attention import decode_attention, decode_attention_update
 from open_flamingo_tpu_torch.ops.decode_layer import attend_out_decode, attn_block_decode
 from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
@@ -24,6 +30,7 @@ from open_flamingo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward, reference_attention)
 from open_flamingo_tpu_torch.ops.masked_xattn import (
     masked_xattn, masked_xattn_backward, masked_xattn_forward, reference_masked_xattn)
+from open_flamingo_tpu_torch.quantize import pack_int4, quantize_weight
 
 pytestmark = pytest.mark.gpu
 ATOL = 5e-5
@@ -172,6 +179,135 @@ def test_attend_out_decode(gen, n_rep, slot, s, dtype):
     got = attend_out_decode(q, kc, vc, mask, wout, scale=d**-0.5)
     close(got, attend_out_decode(q.cpu(), kw_, vw_, mask.cpu(), wout.cpu(), scale=d**-0.5))
     assert (got[1] == 0).all()
+
+
+def quantized(w, bits):
+    """A float weight's stored form for `bits` (int8, or packed int4) and its scale."""
+    q, s = quantize_weight(w.float(), bits)
+    return (q if bits == 8 else pack_int4(q)), s
+
+
+def int8_cache(gen, *shape):
+    """(int8 cache, its (B, H, S) fp32 scales) from random rows."""
+    return quantize_kv(rn(gen, *shape))
+
+
+def cache_close(got, want):
+    """int8 caches: equal but for entries one step apart at a rounding
+    boundary, at most 0.1% of them."""
+    diff = (got.cpu().int() - want.int()).abs()
+    assert diff.max() <= 1 and (diff > 0).float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [256, 264])      # bf16: tensor cores, and K % 32 != 0 on CUDA cores
+def test_fused_dense_quantized(gen, k, bits, dtype):
+    b, n = 5, 1003
+    x, ln, ln_b = (t.to(dtype) for t in (rn(gen, b, k), rn(gen, k), rn(gen, k) * 0.1))
+    w, s = quantized(rn(gen, n, k) * 0.05, bits)
+    bias, res = (rn(gen, n) * 0.1).to(dtype), rn(gen, b, n).to(dtype)
+    gate = torch.tensor([0.7], device="cuda", dtype=dtype)
+    kw = dict(w_scale=s, ln_scale=ln, ln_bias=ln_b, bias=bias, clip=0.5, act="gelu", gate=gate, residual=res)
+    want = fused_dense(x.cpu(), w.cpu(), **{key: val.cpu() if torch.is_tensor(val) else val for key, val in kw.items()})
+    n0 = fused_dense.variants.get("int8" if bits == 8 else "int4", 0)
+    close(fused_dense(x, w, **kw), want)
+    assert fused_dense.variants["int8" if bits == 8 else "int4"] == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("b,k2", [(8, 512), (11, 352)])
+def test_fused_mlp_quantized(gen, b, k2, bits, dtype):
+    k, n = 128, 136
+    x = rn(gen, b, k).to(dtype)
+    (w1, s1), (w2, s2) = quantized(rn(gen, k2, k) * 0.05, bits), quantized(rn(gen, n, k2) * 0.05, bits)
+    ln, ln_b, res = (t.to(dtype) for t in (rn(gen, k), rn(gen, k) * 0.1, rn(gen, b, n)))
+    b1, b2 = (rn(gen, k2) * 0.1).to(dtype), (rn(gen, n) * 0.1).to(dtype)
+    gate = torch.tensor([-0.3], device="cuda", dtype=dtype)
+    kw = dict(w1_scale=s1, w2_scale=s2, b1=b1, b2=b2, ln_scale=ln, ln_bias=ln_b, residual=res, gate=gate)
+    want = fused_mlp(x.cpu(), w1.cpu(), w2.cpu(), **{key: val.cpu() for key, val in kw.items()})
+    close(fused_mlp(x, w1, w2, **kw), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("slot,s", [(0, 38), (37, 38), (300, 301)])
+def test_attn_block_decode_int8_cache(gen, slot, s, bits, dtype):
+    """K3 fused QKV over an int8 cache with int weights: the output, the
+    written int8 rows and their scales; row 1 left-padded."""
+    b, h, d, dm = 3, 4, 64, 128
+    x, ln = rn(gen, b, dm).to(dtype), rn(gen, dm).to(dtype)
+    (wqkv, sq), (wout, so) = quantized(rn(gen, 3 * h * d, dm) * 0.1, bits), quantized(rn(gen, dm, h * d) * 0.1, bits)
+    (kc, ks), (vc, vs) = int8_cache(gen, b, h, s, d), int8_cache(gen, b, h, s, d)
+    mask = torch.zeros(b, s, dtype=torch.bool, device="cuda")
+    mask[:, : slot + 1] = True
+    mask[1, :3] = False
+    slot_t = torch.tensor([slot], dtype=torch.int32, device="cuda")
+    slopes = rn(gen, h).abs()
+    kw = dict(heads=h, head_dim=d, scale=d**-0.5, fused_qkv=True, clip=0.6, wq_scale=sq, wout_scale=so)
+    cpu = {key: val.cpu() if torch.is_tensor(val) else val for key, val in kw.items()}
+    kc_p, vc_p, ks_p, vs_p = (t.cpu() for t in (kc, vc, ks, vs))
+    want, _, _ = attn_block_decode(x.cpu(), ln.cpu(), None, wqkv.cpu(), wout.cpu(), kc_p, vc_p, mask.cpu(),
+                                   slot=slot_t.cpu(), slopes=slopes.cpu(), k_scale=ks_p, v_scale=vs_p, **cpu)
+    got, _, _ = attn_block_decode(x, ln, None, wqkv, wout, kc, vc, mask, slot=slot_t, slopes=slopes, k_scale=ks,
+                                  v_scale=vs, **kw)
+    tol = dict(atol=2e-4, rtol=0) if dtype == torch.float32 else dict(atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    cache_close(kc, kc_p)
+    cache_close(vc, vc_p)
+    torch.testing.assert_close(ks.cpu(), ks_p, atol=0, rtol=1e-6 if dtype == torch.float32 else 1e-2)
+    torch.testing.assert_close(vs.cpu(), vs_p, atol=0, rtol=1e-6 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attn_block_decode_int8_media(gen, dtype):
+    """K3 q-only over an int8 media cache with int8 weights; row 1 has no
+    valid key (y == x); the cache is read only."""
+    b, h, d, s, dm = 3, 8, 64, 32, 128
+    x, ln, ln_b = (t.to(dtype) for t in (rn(gen, b, dm), rn(gen, dm), rn(gen, dm) * 0.1))
+    (wq, sq), (wout, so) = quantized(rn(gen, h * d, dm) * 0.1, 8), quantized(rn(gen, dm, h * d) * 0.1, 8)
+    (k, ks), (v, vs) = int8_cache(gen, b, h, s, d), int8_cache(gen, b, h, s, d)
+    mask = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    mask[1] = False
+    gate = torch.tensor([0.5], device="cuda", dtype=dtype)
+    kw = dict(heads=h, head_dim=d, scale=d**-0.5, gate=gate, wq_scale=sq, wout_scale=so, k_scale=ks, v_scale=vs)
+    cpu = {key: val.cpu() if torch.is_tensor(val) else val for key, val in kw.items()}
+    k0 = k.clone()
+    want = attn_block_decode(x.cpu(), ln.cpu(), ln_b.cpu(), wq.cpu(), wout.cpu(), k.cpu(), v.cpu(), mask.cpu(), **cpu)
+    got = attn_block_decode(x, ln, ln_b, wq, wout, k, v, mask, **kw)
+    close(got, want)
+    assert torch.equal(got[1], x[1]) and torch.equal(k, k0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n_rep,slot,s", [(1, 0, 64), (2, 63, 64), (1, 300, 301)])
+def test_attend_out_decode_int8_cache(gen, n_rep, slot, s, bits, dtype):
+    """K6 over an int8 cache with an int Wout and its whole epilogue: GQA,
+    the slot at 0 and S - 1, keys in rounds; row 1 has no valid key. The new
+    K/V arrive as the same values on both sides, so the written int8 rows
+    and scales are exactly equal."""
+    b, h, d, dm = 3, 4, 80, 160
+    h_kv = h // n_rep
+    q, kn, vn = (rn(gen, *shape).to(dtype) for shape in ((b, h, d), (b, h_kv, d), (b, h_kv, d)))
+    (kc, ks), (vc, vs) = int8_cache(gen, b, h_kv, s, d), int8_cache(gen, b, h_kv, s, d)
+    wout, so = quantized(rn(gen, dm, h * d) * 0.1, bits)
+    bias, res = (rn(gen, dm) * 0.1).to(dtype), rn(gen, b, dm).to(dtype)
+    gate = torch.tensor([0.5], device="cuda", dtype=dtype)
+    mask = torch.zeros(b, s, dtype=torch.bool, device="cuda")
+    mask[:, : slot + 1] = True
+    mask[1] = False
+    slot_t = torch.tensor([slot], dtype=torch.int32, device="cuda")
+    kw = dict(scale=d**-0.5, wout_scale=so, bias=bias, gate=gate, residual=res, k_new=kn, v_new=vn, slot=slot_t)
+    cpu = {key: val.cpu() if torch.is_tensor(val) else val for key, val in kw.items()}
+    kc_p, vc_p, ks_p, vs_p = (t.cpu() for t in (kc, vc, ks, vs))
+    want, _, _ = attend_out_decode(q.cpu(), kc_p, vc_p, mask.cpu(), wout.cpu(), k_scale=ks_p, v_scale=vs_p, **cpu)
+    got, _, _ = attend_out_decode(q, kc, vc, mask, wout, k_scale=ks, v_scale=vs, **kw)
+    tol = dict(atol=2e-4, rtol=0) if dtype == torch.float32 else dict(atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    for g, w in ((kc, kc_p), (vc, vc_p), (ks, ks_p), (vs, vs_p)):
+        assert torch.equal(g.cpu(), w)
 
 
 def close_grad(got, want):
