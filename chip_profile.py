@@ -8,16 +8,19 @@ port spends its time on the card.
     python3 chip_profile.py of4b       # OF-4B generate, the fused route (K1, K6, K2; K3)
     python3 chip_profile.py int8       # OF-3B generate, fused, int8 weights and the int8 K/V + media caches
     python3 chip_profile.py int4       # OF-3B generate, fused, int4 weights (the head int8)
+    python3 chip_profile.py llama      # LLaMA-7B generate, the fused route (3 K1, K6, K2 SwiGLU; K3)
+    python3 chip_profile.py opt        # OPT-1.3B generate, the fused route (3 K1, K6, K2 relu; K3)
 
-Builds OF-3B (OF-4B for `of4b`) at full width with random weights
+Builds OF-3B (OF-4B for `of4b`; chip_smoke.py's LLaMA-7B and OPT-1.3B
+configurations for `llama` and `opt`) at full width with random weights
 (bf16), runs the same inputs as chip_smoke.py (generate: 8 prompts of 32
 tokens, one image each, 32 new tokens; train: LAION 8x32 and MMC4 4x256
 with six images), warms up once, times one untraced call, then traces one
 call with torch.profiler.
 Prints one JSON line: wall seconds, the device's busy time (sum of the
 device events' times; one stream, so they do not overlap) and idle share,
-the device time of each hand-written kernel, and the kernels with the most
-device time. Run from the repository root with one CUDA card; imports
+the device time of each hand-written kernel, the row GEMV's share of the
+busy time, and the kernels with the most device time. Run from the repository root with one CUDA card; imports
 nothing of JAX.
 """
 
@@ -38,23 +41,23 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import B, NEW_TOKENS, SEED, TRAIN_PAD, card_line, kernel_functions, make_inputs, train_batches
-    from open_flamingo_tpu_torch.configs import flamingo_config
+    from chip_smoke import (B, NEW_TOKENS, TRAIN_PAD, build_model, card_line, kernel_functions, make_inputs,
+                            model_config, train_batches)
     from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate
-    from open_flamingo_tpu_torch.models.flamingo import init_random
     from open_flamingo_tpu_torch.ops import dense_stream
     from open_flamingo_tpu_torch.quantize import quantize_decode_weights
     from open_flamingo_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer, split_params
     from open_flamingo_tpu_torch.train.train_loop import TrainLoopConfig, TrainState, make_train_step
 
     mode = sys.argv[1] if len(sys.argv) > 1 else "fused"
-    if mode not in ("fused", "unfused", "train", "of4b", "int8", "int4"):
+    models = {"of4b": "OF-4B", "llama": "LLaMA-7B", "opt": "OPT-1.3B"}
+    if mode not in ("fused", "unfused", "train", "int8", "int4", *models):
         print(f"chip_profile: unknown mode {mode!r}", file=sys.stderr)
         return 2
     dense_stream.DISABLE_FUSED = mode == "unfused"
     dev = torch.device("cuda", 0)
-    cfg = flamingo_config("OF-4B" if mode == "of4b" else "OF-3B")
-    model = init_random(cfg, SEED, device=dev, dtype=torch.bfloat16)
+    cfg = model_config(models.get(mode, "OF-3B"))
+    model = build_model(cfg, dev, torch.bfloat16)
     if mode in ("int8", "int4"):
         quantize_decode_weights(model, 8 if mode == "int8" else 4)
     if mode == "train":
@@ -135,7 +138,8 @@ def main() -> int:
         "wall_s_untraced": wall_untraced, "wall_s_traced": wall, "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / wall, "device_idle_share_untraced": 1.0 - busy / wall_untraced,
         "aten_op_rows_device_s": op_rows_s,
-        "ported_kernel_device_s": ported, "gemv_device_s_by_weight": gemv_by_weight, "device_s_by_kind": by_kind,
+        "ported_kernel_device_s": ported, "gemv_share_of_busy": ported["gemv"] / busy,
+        "gemv_device_s_by_weight": gemv_by_weight, "device_s_by_kind": by_kind,
         "device_events": sum(r[2] for r in rows),
         "top": [{"name": k[:80], "device_s": s, "count": n} for k, s, n in rows[:12]],
     }), flush=True)

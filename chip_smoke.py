@@ -31,14 +31,27 @@ Phases, each printing JSON lines:
               at its path shape and edge cases (slot 0 and 63, the whole
               epilogue, GQA, q only with ALiBi and a row with no valid key),
               K1 QKV + bias and the untied head, K2 with b1/b2 and the
-              xattn FF, K3 q only, K4 and K7 at Dh = 80 without ALiBi;
+              xattn FF, K3 q only, K4 and K7 at Dh = 80 without ALiBi.
+              LLaMA-7B's and OPT-1.3B's shapes (llama_opt_kernel_cases): K1
+              with the RMSNorm prologue (q in bf16, int8, int4; the untied
+              head over 32,003 rows) and OPT's LN + bias q; K2's SwiGLU
+              form in bf16, int8 and int4 and at a ragged hidden size,
+              OPT's relu MLP, the gelu_new and quick_gelu epilogues; K6 at
+              LLaMA-7B's shape and grouped-query (Llama-3-8B: 32 heads over
+              8 KV heads, Dh 128) over the bf16 and the int8 cache at slots
+              0 and 63;
   3. generate full-width OF-3B (ViT-L/14 + MPT-1B, 24 xattn blocks), then
               full-width OF-4B (ViT-L/14 + RedPajama-INCITE-3B, 16 xattn
-              blocks, its decoder biases drawn at random), each with random
+              blocks, its decoder biases drawn at random), LLaMA-7B
+              (ViT-L/14 + LLaMA-7B, OpenFlamingo-9B's first release: 8 xattn
+              blocks, RMSNorm, SwiGLU, untied head) and OPT-1.3B (24 xattn
+              blocks, learned positions, relu, tied head, biases drawn at
+              random; `SLICE_CONFIGS`), each with random
               weights from a seed: greedy flamingo_generate of 32
               tokens for 8 prompts of 32 tokens, one image each, two rows
               left-padded. fp32: (a) the fused decode route (OF-3B K1-K3;
-              OF-4B K1, K6, K2 per layer, K3 + K2 per xattn block) with
+              OF-4B K1, K6, K2 per layer; LLaMA-7B and OPT-1.3B three K1,
+              K6, K2 per layer; K3 + K2 per xattn block) with
               its kernels against the same route under `plain_path()`,
               (b) against the unfused route (`DISABLE_FUSED`,
               K7): identical tokens, and on one token stream the logits of
@@ -54,14 +67,15 @@ Phases, each printing JSON lines:
               the plain version's at a rounding boundary in at most 0.1% of
               its entries.) OF-3B with int8, int4 and int8 + int8 K/V and
               media caches, OF-4B with int8 + int8 caches (and int4, timed:
-              the path that runs K1 and K6 with int4). fp32 on
+              the path that runs K1 and K6 with int4), LLaMA-7B as OF-3B
+              (the path that runs K2's SwiGLU with int weights). fp32 on
               dequantize_roundtrip weights: the side-car against no side-car
               and kernels against plain_path(), identical tokens and logits
               within tolerance (over the int8 cache step by step from shared
               states: paired_step_logits). bf16 timed with exact launch
               counts per variant, the drift against the unquantized call
-              (OF-3B gated: int8 mean KL < 1e-3, int4 < 0.1), one int8-cache
-              step under the sync debug mode "error".
+              (OF-3B and LLaMA-7B gated: int8 mean KL < 1e-3, int4 < 0.1),
+              one int8-cache step under the sync debug mode "error".
   4. train    the full-width OF-3B training step (`make_train_step`) on
               random weights, LAION 8x32 with one image and MMC4 4x256 with
               six (uint8 pixels, <|endofchunk|> then <image> mid-row, right
@@ -84,6 +98,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -91,7 +106,7 @@ import time
 import torch
 import torch.nn.functional as F
 
-from open_flamingo_tpu_torch.configs import flamingo_config
+from open_flamingo_tpu_torch.configs import VIT_L_14, DecoderConfig, FlamingoConfig, flamingo_config
 from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate, prefill
 from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes, quantize_kv
 from open_flamingo_tpu_torch.models.flamingo import count_media, init_random
@@ -102,7 +117,7 @@ from open_flamingo_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_update, reference_decode_attention)
 from open_flamingo_tpu_torch.ops.decode_layer import (
     attend_out_decode, attn_block_decode, reference_attend_out, reference_attn_block)
-from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp, reference_dense, reference_mlp
+from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp, normalize, reference_dense, reference_mlp
 from open_flamingo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward, reference_attention,
     reference_attention_backward)
@@ -147,13 +162,45 @@ QUANT_TIMED = {"head_V50434_int8", "neox_head_untied_V50434_int8", "neox_qkv_bia
                "self_S64_slot40_int8", "self_S64_slot40_int4", "self_S64_slot40_int8_kv8", "self_S64_slot40_int4_kv8",
                "xattn_S64_gate_int8_kv8", "xattn_S64_gate_int4_kv8", "neox_xattn_S64_gate_int8_kv8",
                "neox_S64_slot40_int8_kv8", "neox_S64_slot40_int4", "neox_S64_slot40_int8", "neox_S64_slot40_int4_kv8"}
-TIMED_CASES = set(MAIN_CASES.values()) | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED | QUANT_TIMED
+# LLaMA-7B's and OPT-1.3B's shapes and the variants this slice added (llama_opt_kernel_cases)
+LLAMA_OPT_TIMED = {"llama_q_rms", "llama_q_rms_int8", "llama_q_rms_int4", "llama_head_rms_V32003",
+                   "llama_head_rms_V32003_int8", "opt_q_ln_bias", "llama_swiglu", "llama_swiglu_int8",
+                   "llama_swiglu_int4", "swiglu_ragged_K2_11000", "opt_mlp_relu_bias", "mlp_gelu_new", "mlp_quick_gelu",
+                   "llama_S64_slot40", "llama3_gqa4_S64_slot0", "llama3_gqa4_S64_slot63", "llama3_gqa4_S64_slot0_kv8",
+                   "llama3_gqa4_S64_slot63_kv8"}
+TIMED_CASES = set(MAIN_CASES.values()) | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED | QUANT_TIMED | LLAMA_OPT_TIMED
 BWD_TIMED = {"laion_T32", "mmc4_T256"}
 # the OF-3B train step at the JAX package's bench shape (bench.py:494)
 B_L, T_L, B_M, T_M, N_IMG, TRAIN_PAD = 8, 32, 4, 256, 6, 1
 TRAIN_STEPS = 3
 LOSS_TOL = 1e-4     # fp32 train-step loss, kernels vs plain_path (a mean of ~1,100 log-softmaxes)
 GRAD_RTOL = 1e-3    # fp32 gradients: per tensor, max |kernels - plain| / max |plain|, through 48 blocks
+
+
+# LLaMA-7B, the LM of OpenFlamingo-9B's first release (ViT-L/14, xattn before
+# every 4th layer), and OPT-1.3B (facebook/opt-1.3b, xattn every layer, the
+# ratio OF-3B uses for its 1B LM), at their published widths: the fields the
+# JAX package's convert/hf_lm.py sets from each model's config. The
+# vocabulary holds the added <|endofchunk|> and <image> (and LLaMA's <PAD>).
+LLAMA_7B = DecoderConfig(
+    family="llama", vocab_size=32003, hidden_size=4096, num_layers=32, num_heads=32, intermediate_size=11008,
+    max_position_embeddings=2048, layer_norm_eps=1e-6, rope_theta=10000.0, attention_bias=False,
+    tie_word_embeddings=False, hidden_act="silu",
+)
+OPT_1_3B = DecoderConfig(
+    family="opt", vocab_size=50272, hidden_size=2048, num_layers=24, num_heads=32, intermediate_size=8192,
+    max_position_embeddings=2048, layer_norm_eps=1e-5, attention_bias=True, tie_word_embeddings=True,
+)
+SLICE_CONFIGS = {"LLaMA-7B": (LLAMA_7B, 32001, 32000, 4), "OPT-1.3B": (OPT_1_3B, 50266, 50265, 1)}
+
+
+def model_config(name: str) -> FlamingoConfig:
+    """A released configuration (configs.flamingo_config) or one of
+    SLICE_CONFIGS: (decoder, <image> id, <|endofchunk|> id, xattn interval)."""
+    if name not in SLICE_CONFIGS:
+        return flamingo_config(name)
+    lm, media, eoc, every = SLICE_CONFIGS[name]
+    return FlamingoConfig(vision=VIT_L_14, lm=lm, media_token_id=media, eoc_token_id=eoc, cross_attn_every_n=every)
 
 
 def log(obj) -> None:
@@ -254,13 +301,129 @@ def compare(name, case, dtype, got, want, exact=None, tol=None):
     return err
 
 
-def case_variant(case: str) -> str:
-    """The kernel variant a kernels-phase case runs, as the wrappers' launch
-    counters name it (`dense_stream.variant`)."""
-    for suffix, key in (("_int8_kv8", "int8+kv8"), ("_int4_kv8", "int4+kv8"), ("_int8", "int8"), ("_int4", "int4")):
-        if case.endswith(suffix):
-            return key
-    return "float"
+def llama_opt_kernel_cases(dtype, gen, dev):
+    """LLaMA-7B's and OPT-1.3B's shapes (B = 8): K1 with the RMSNorm prologue
+    (q at D 4096 in x's dtype, int8 and int4; the untied head over 32,003
+    rows, and its int8 copy) and OPT's LayerNorm + bias q (D 2048); K2's
+    SwiGLU at LLaMA-7B's shape (x's dtype, int8, int4) and at a ragged hidden
+    size (11,000: a half 16-column tile, and K % 32 != 0 in launch 2), OPT's
+    relu MLP with b1/b2, the gelu_new and quick_gelu epilogues; K6 at
+    LLaMA-7B's self-attention shape, and grouped-query at Llama-3-8B's (32
+    heads over 8 KV heads, Dh 128) over the model-dtype and the int8 cache at
+    slots 0 and 63. Yields as kernel_cases."""
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    sfx = {None: "", 8: "_int8", 4: "_int4"}
+
+    def stored(w, bits):    # (weight as the kernel streams it, scale, its bytes)
+        return (w, None, w.numel() * es) if bits is None else qweight(w, bits)
+
+    # K1: RMSNorm + q (and the untied head) at LLaMA-7B, eps 1e-6; LN + bias q at OPT-1.3B
+    d, v = 4096, 32003
+    x, ln = rn(B, d), 1 + rn(d, scale=0.1)
+    hr = normalize(x, ln, None, 1e-6, "rms")
+    for case, n, bits_list in (("llama_q_rms", d, (None, 8, 4)), ("llama_head_rms_V32003", v, (None, 8))):
+        w = rn(n, d, scale=d**-0.5)
+        for bits in bits_list:
+            q, sc, wbytes = stored(w, bits)
+            kw = dict(w_scale=sc, ln_scale=ln, eps=1e-6, norm="rms")
+            cost = (wbytes + (B * d + d + B * n) * es, 2 * B * n * d)
+            yield ("fused_dense", case + sfx[bits], lambda q=q, kw=kw: fused_dense(x, q, **kw),
+                   lambda q=q, kw=kw: reference_dense(x, q, **kw), None, cost, lambda w=w: F.linear(hr, w),
+                   "F.linear(RMSNorm(x), W) over the weight in x's dtype: the product alone")
+    d2 = 2048
+    x2, ln2, ln2_b = rn(B, d2), 1 + rn(d2, scale=0.1), rn(d2, scale=0.1)
+    hn2 = layer_norm(x2, ln2, ln2_b)
+    wq, bq = rn(d2, d2, scale=d2**-0.5), rn(d2, scale=0.1)
+    cost = ((d2 * d2 + B * d2 + 3 * d2 + B * d2) * es, 2 * B * d2 * d2)
+    yield ("fused_dense", "opt_q_ln_bias", lambda: fused_dense(x2, wq, bias=bq, ln_scale=ln2, ln_bias=ln2_b),
+           lambda: reference_dense(x2, wq, bias=bq, ln_scale=ln2, ln_bias=ln2_b), None, cost,
+           lambda: F.linear(hn2, wq, bq), "F.linear(LN(x), W, b): the product and bias alone")
+
+    # K2 SwiGLU at LLaMA-7B: gate_proj, up_proj (11008, 4096) and down_proj
+    # (4096, 11008) with the residual; a ragged hidden size in x's dtype
+    for case, k2, bits_list in (("llama_swiglu", 11008, (None, 8, 4)), ("swiglu_ragged_K2_11000", 11000, (None,))):
+        wg, wu, wd = rn(k2, d, scale=d**-0.5), rn(k2, d, scale=d**-0.5), rn(d, k2, scale=k2**-0.5)
+        lib = lambda wg=wg, wu=wu, wd=wd: F.linear(F.silu(F.linear(hr, wg)) * F.linear(hr, wu), wd)
+        for bits in bits_list:
+            (qg, sg, byg), (qu, su, byu), (qd, sd, byd) = stored(wg, bits), stored(wu, bits), stored(wd, bits)
+            kw = dict(w1_gate=qu, w1_scale=sg, w1_gate_scale=su, w2_scale=sd, ln_scale=ln, eps=1e-6, norm="rms",
+                      act="silu", residual=x)
+            cost = (byg + byu + byd + (2 * B * d + d) * es, 6 * B * d * k2)
+            yield ("fused_mlp", case + sfx[bits], lambda qg=qg, qd=qd, kw=kw: fused_mlp(x, qg, qd, **kw),
+                   lambda qg=qg, qd=qd, kw=kw: reference_mlp(x, qg, qd, **kw), None, cost, lib,
+                   "F.linear x3 with silu and the product between, over the weights in x's dtype")
+
+    # K2 at OPT-1.3B: LN + bias, fc1 + b1, relu, fc2 + b2, residual; the
+    # gelu_new and quick_gelu epilogues at the same shape without biases
+    k2 = 8192
+    w1, w2, b1, b2 = rn(k2, d2, scale=d2**-0.5), rn(d2, k2, scale=k2**-0.5), rn(k2, scale=0.1), rn(d2, scale=0.1)
+    for case, act, biases in (("opt_mlp_relu_bias", "relu", True), ("mlp_gelu_new", "gelu_new", False),
+                              ("mlp_quick_gelu", "quick_gelu", False)):
+        kw = dict(ln_scale=ln2, ln_bias=ln2_b, act=act, residual=x2, b1=b1 if biases else None,
+                  b2=b2 if biases else None)
+        cost = ((2 * d2 * k2 + 2 * B * d2 + 2 * d2 + (k2 + d2) * biases) * es, 4 * B * d2 * k2)
+        yield ("fused_mlp", case, lambda kw=kw: fused_mlp(x2, w1, w2, **kw),
+               lambda kw=kw: reference_mlp(x2, w1, w2, **kw), None, cost, lambda kw=kw: F.linear(F.linear(hn2, w1, kw["b1"]), w2, kw["b2"]),
+               "F.linear twice: the two products (and biases) alone")
+
+    # K6: LLaMA-7B's self-attention tail (MHA, no bias, residual), then
+    # grouped-query at Llama-3-8B's shape, model-dtype and int8 cache
+    h, dh, s = 32, 128, 64
+    wout, res = rn(d, h * dh, scale=(h * dh) ** -0.5), rn(B, d)
+    a_in = rn(B, h * dh)
+    for case, slot, n_rep, kv8 in (("llama_S64_slot40", 40, 1, False), ("llama3_gqa4_S64_slot0", 0, 4, False),
+                                   ("llama3_gqa4_S64_slot63", 63, 4, False), ("llama3_gqa4_S64_slot0_kv8", 0, 4, True),
+                                   ("llama3_gqa4_S64_slot63_kv8", 63, 4, True)):
+        h_kv = h // n_rep
+        q = rn(B, h, dh)
+        if kv8:
+            (k0, ks0), (v0, vs0) = (quantize_kv(torch.randn(B, h_kv, s, dh, generator=gen, device=dev))
+                                    for _ in range(2))
+        else:
+            k0, v0, ks0, vs0 = rn(B, h_kv, s, dh), rn(B, h_kv, s, dh), None, None
+        caches = [c.clone() if c is not None else None for c in (k0, v0, ks0, vs0)]
+        mask = left_padded_mask(B, s, [4, 7], dev)
+        mask[:, slot + 1:] = False
+        mask[:, slot] = True
+        kw = dict(scale=dh**-0.5, k_new=rn(B, h_kv, dh), v_new=rn(B, h_kv, dh), residual=res,
+                  slot=torch.tensor([slot], dtype=torch.int32, device=dev))
+        fn = lambda q=q, c=caches, mask=mask, kw=kw: attend_out_decode(
+            q, c[0], c[1], mask, wout, k_scale=c[2], v_scale=c[3], **kw)[0]
+
+        def plain(q=q, o=(k0, v0, ks0, vs0), mask=mask, kw=kw):
+            c = [t.clone() if t is not None else None for t in o]
+            return reference_attend_out(q, c[0], c[1], mask, wout, k_scale=c[2], v_scale=c[3], **kw)[0]
+        n_valid = mask.sum().item()
+        ces = 1 if kv8 else es
+        cost = ((d * h * dh + B * h * dh + 2 * B * d + 2 * B * h_kv * dh) * es
+                + 2 * n_valid * h_kv * (dh * ces + 4 * kv8) + B * s + 4, 2 * B * d * h * dh + 4 * h * dh * n_valid)
+        yield ("attend_out_decode", case, fn, plain, None, cost, lambda: F.linear(a_in, wout),
+               "F.linear(a, Wout): the out-projection alone")
+        if kv8:
+            pc = [t.clone() for t in (k0, v0, ks0, vs0)]
+            reference_attend_out(q, pc[0], pc[1], mask, wout, k_scale=pc[2], v_scale=pc[3], **kw)
+            int8_slot_check("attend_out_decode", case, dtype, caches, pc, (k0, v0, ks0, vs0), slot)
+        else:
+            # the slot row holds the new K/V exactly and nothing else moved
+            others = torch.arange(s, device=dev) != slot
+            require(torch.equal(caches[0][:, :, slot], kw["k_new"]) and torch.equal(caches[1][:, :, slot], kw["v_new"]),
+                    f"attend_out_decode/{case}: slot row not the new K/V")
+            require(torch.equal(caches[0][:, :, others], k0[:, :, others])
+                    and torch.equal(caches[1][:, :, others], v0[:, :, others]),
+                    f"attend_out_decode/{case}: slots other than the new token's changed")
+
+
+def launched_variant(fn, call):
+    """Run `call` and return the variant of `fn`'s kernel that it launched,
+    as the wrapper's per-variant counter names it (`dense_stream.variant`;
+    "float" for a kernel that keeps no variants)."""
+    before = dict(getattr(fn, "variants", {}))
+    out = call()
+    grew = [key for key, n in getattr(fn, "variants", {}).items() if n != before.get(key, 0)]
+    return out, grew[0] if grew else "float"
 
 
 def zeros_at(rows):
@@ -802,25 +965,29 @@ def quant_kernel_cases(dtype, gen, dev):
 def phase_kernels(dev) -> dict:
     """Returns, per kernel, its bf16 numbers at each timed shape."""
     summary = {}
+    functions = kernel_functions()
     for dtype in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device=dev).manual_seed(SEED)
         cases = itertools.chain(kernel_cases(dtype, gen, dev), neox_kernel_cases(dtype, gen, dev),
-                                quant_kernel_cases(dtype, gen, dev))
+                                quant_kernel_cases(dtype, gen, dev), llama_opt_kernel_cases(dtype, gen, dev))
         for name, case, fn, plain, exact, cost, lib, lib_is in cases:
-            got = fn()
+            got, launched = launched_variant(functions[name], fn)
             torch.cuda.synchronize()
             want = plain()
             err = compare(name, case, dtype, got, want, exact, CASE_TOL.get(name, {}).get(dtype))
-            if "V50434" in case:                        # the ragged last 1282 columns
-                tail = (got[:, 49152:].float() - want[:, 49152:].float()).abs().max().item()
-                log({"phase": "kernels", "kernel": name, "case": case, "tail_cols": 1282, "tail_max_abs_err": tail})
-                require(torch.allclose(got[:, 49152:].float(), want[:, 49152:].float(), **TOL[dtype]), "head tail")
+            vocab = re.search(r"_V(\d+)", case)
+            if vocab:                                   # the ragged last columns, past the 2048-wide blocks
+                c0 = int(vocab.group(1)) // 2048 * 2048
+                tail = (got[:, c0:].float() - want[:, c0:].float()).abs().max().item()
+                log({"phase": "kernels", "kernel": name, "case": case, "tail_cols": got.shape[1] - c0,
+                     "tail_max_abs_err": tail})
+                require(torch.allclose(got[:, c0:].float(), want[:, c0:].float(), **TOL[dtype]), "head tail")
             if dtype != torch.bfloat16 or case not in TIMED_CASES:
                 continue
             b_ms, b_by = bound(*cost, dtype)
             row = {"ms": device_ms(fn), "call_ms": call_ms(fn), "plain_ms": device_ms(plain),
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None if lib is None else device_ms(lib),
-                   "library_is": lib_is, "max_abs_err": err, "case": case, "variant": case_variant(case)}
+                   "library_is": lib_is, "max_abs_err": err, "case": case, "variant": launched}
             log({"phase": "kernels", "kernel": name, "timing": row})
             summary.setdefault(name, {})[case] = row
     return summary
@@ -986,7 +1153,8 @@ def phase_backward(dev, summary: dict) -> None:
 
 def make_inputs(cfg, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    ids = torch.randint(0, 50277, (B, T_PROMPT), generator=gen, device=dev)
+    # token ids below the added special tokens (LLaMA's 32,000, OPT's 50,265)
+    ids = torch.randint(0, min(50277, cfg.media_token_id, cfg.eoc_token_id), (B, T_PROMPT), generator=gen, device=dev)
     mask = torch.ones(B, T_PROMPT, dtype=torch.long, device=dev)
     for r, n in ((0, 4), (1, 7)):                     # two left-padded rows
         ids[r, :n] = 0
@@ -1100,20 +1268,29 @@ def sync_free_step(model, vision_x, ids, mask, dev, int8_kv=False) -> None:
          "cache_dtype": str(cache.layers[0].k.dtype).split(".")[-1]})
 
 
+# K1 launches per decoder layer and decode step on the fused route: MPT's
+# K3 projects its own q/k/v, GPT-NeoX's fused QKV is one K1, llama's and
+# OPT's q, k and v are three
+K1_PER_LAYER = {"mpt": 0, "gptneox": 1, "llama": 3, "opt": 3}
+
+
 def route_launches(cfg, counters, fused: bool) -> dict:
     """The launches one generate call must give: prefill K4 per decoder
     layer and K5 per xattn block; per decode step, on the fused route, MPT
-    K3 + K2 per layer, GPT-NeoX K1 + K6 + K2 per layer, K3 + K2 per xattn
-    block and K1 for the head; on the unfused route K7 with the update per
-    layer and without it per xattn block."""
+    K3 + K2 per layer, GPT-NeoX K1 + K6 + K2, llama and OPT 3 K1 + K6 + K2,
+    K3 + K2 per xattn block and K1 for the head; on the unfused route K7
+    with the update per layer (without it over a grouped-query cache,
+    repeated) and without it per xattn block."""
     steps, layers = NEW_TOKENS - 1, cfg.lm.num_layers
     xattn = layers // cfg.cross_attn_every_n
-    neox = cfg.lm.family == "gptneox"
+    mpt = cfg.lm.family == "mpt"
     want = {name: 0 for name in counters}
     want.update(flash_attention=layers, masked_xattn=xattn)
     if fused:
-        want.update(fused_dense=steps * (1 + layers * neox), fused_mlp=steps * (layers + xattn),
-                    attn_block_decode=steps * (xattn + layers * (not neox)), attend_out_decode=steps * layers * neox)
+        want.update(fused_dense=steps * (1 + layers * K1_PER_LAYER[cfg.lm.family]), fused_mlp=steps * (layers + xattn),
+                    attn_block_decode=steps * (xattn + layers * mpt), attend_out_decode=steps * layers * (not mpt))
+    elif cfg.lm.kv_heads < cfg.lm.num_heads:
+        want.update(decode_attention=steps * (xattn + layers))
     else:
         want.update(decode_attention=steps * xattn, decode_attention_update=steps * layers)
     return want
@@ -1142,7 +1319,7 @@ def build_model(cfg, dev, dtype):
 @torch.no_grad()   # generation: the forward is differentiable, nothing here needs a graph
 def phase_generate(dev, name="OF-3B"):
     counters = kernel_functions()
-    cfg = flamingo_config(name)
+    cfg = model_config(name)
     vision_x, ids, mask = make_inputs(cfg, dev)
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
 
@@ -1173,7 +1350,7 @@ def phase_generate(dev, name="OF-3B"):
 
     # bf16, the serving dtype, timed: (c) fused route, (d) unfused route
     model = build(torch.bfloat16)
-    fused, _ = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, f"{name} fused")
+    fused, variants = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, f"{name} fused")
     want = route_launches(cfg, counters, fused=True)
     require(fused == want, f"{name} fused route launches {fused}, expected {want}")
     sync_free_step(model, vision_x, ids, mask, dev)
@@ -1183,25 +1360,30 @@ def phase_generate(dev, name="OF-3B"):
     require(unfused == want, f"{name} unfused route launches {unfused}, expected {want}")
     del model
     torch.cuda.empty_cache()
-    return fused, unfused
+    return fused, unfused, variants
 
 
 def quant_variants(cfg, bits: int, kv8: bool) -> dict:
     """The per-variant launches of one quantized generate call on the fused
     route (the counts of `route_launches`, split by variant): the head K1
     int8 in every mode, every other projection int8 or int4, K3 and K6 over
-    the int8 caches with kv8."""
+    the int8 caches with kv8; llama's K1 with the RMSNorm ("+rms") and its
+    K2 in the SwiGLU form ("+rms+swiglu+silu"), the xattn FF as it is."""
     steps, layers = NEW_TOKENS - 1, cfg.lm.num_layers
     xattn = layers // cfg.cross_attn_every_n
-    neox = cfg.lm.family == "gptneox"
+    family = cfg.lm.family
+    rms = "+rms" if family == "llama" else ""
     w = "int8" if bits == 8 else "int4"
     kv = w + ("+kv8" if kv8 else "")
-    dense = {"int8": steps}
-    if neox:
-        dense[w] = dense.get(w, 0) + steps * layers
-    return {"fused_dense": dense, "fused_mlp": {w: steps * (layers + xattn)},
-            "attn_block_decode": {kv: steps * (xattn + layers * (not neox))},
-            "attend_out_decode": {kv: steps * layers} if neox else {}}
+    dense = {"int8" + rms: steps}
+    if K1_PER_LAYER[family]:
+        dense[w + rms] = dense.get(w + rms, 0) + steps * layers * K1_PER_LAYER[family]
+    decoder_mlp = w + {"llama": "+rms+swiglu+silu", "opt": "+relu"}.get(family, "")
+    mlp = {w: steps * xattn}
+    mlp[decoder_mlp] = mlp.get(decoder_mlp, 0) + steps * layers
+    return {"fused_dense": dense, "fused_mlp": mlp,
+            "attn_block_decode": {kv: steps * (xattn + layers * (family == "mpt"))},
+            "attend_out_decode": {kv: steps * layers} if family != "mpt" else {}}
 
 
 def paired_step_logits(model, latents, ids, mask, tokens, int8_kv):
@@ -1259,7 +1441,7 @@ def phase_quantized(dev, name="OF-3B") -> dict:
     mean KL < 1e-3, int4 < 0.1), one sync-free int8-cache step. Returns
     {path: per-variant launches}."""
     counters = kernel_functions()
-    cfg = flamingo_config(name)
+    cfg = model_config(name)
     vision_x, ids, mask = make_inputs(cfg, dev)
     neox = cfg.lm.family == "gptneox"
     tag = name.replace("-", "").lower()
@@ -1470,6 +1652,14 @@ VARIANTS = {
     "attn_block_decode[int8+kv8]": ("attn_block_decode", "self_S64_slot40_int8_kv8", "of3b_int8_kv8", "int8+kv8"),
     "attend_out_decode[int8+kv8]": ("attend_out_decode", "neox_S64_slot40_int8_kv8", "of4b_int8_kv8", "int8+kv8"),
     "attend_out_decode[int4]": ("attend_out_decode", "neox_S64_slot40_int4", "of4b_int4", "int4"),
+    "fused_dense[float+rms]": ("fused_dense", "llama_q_rms", "llama7b_generate_fused", "float+rms"),
+    "fused_dense[int8+rms]": ("fused_dense", "llama_q_rms_int8", "llama7b_int8", "int8+rms"),
+    "fused_dense[int4+rms]": ("fused_dense", "llama_q_rms_int4", "llama7b_int4", "int4+rms"),
+    "fused_mlp[float+rms+swiglu+silu]": ("fused_mlp", "llama_swiglu", "llama7b_generate_fused",
+                                         "float+rms+swiglu+silu"),
+    "fused_mlp[int8+rms+swiglu+silu]": ("fused_mlp", "llama_swiglu_int8", "llama7b_int8", "int8+rms+swiglu+silu"),
+    "fused_mlp[int4+rms+swiglu+silu]": ("fused_mlp", "llama_swiglu_int4", "llama7b_int4", "int4+rms+swiglu+silu"),
+    "fused_mlp[float+relu]": ("fused_mlp", "opt_mlp_relu_bias", "opt13b_generate_fused", "float+relu"),
 }
 
 
@@ -1490,18 +1680,17 @@ def main() -> int:
     timing = phase_kernels(dev)
     phase_backward(dev, timing)
     seconds["kernels"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    paths = dict(zip(("generate_fused", "generate_unfused"), phase_generate(dev, "OF-3B")))
-    seconds["generate"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    paths.update(zip(("of4b_generate_fused", "of4b_generate_unfused"), phase_generate(dev, "OF-4B")))
-    seconds["generate_of4b"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    qpaths = phase_quantized(dev, "OF-3B")
-    seconds["quantized"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    qpaths.update(phase_quantized(dev, "OF-4B"))
-    seconds["quantized_of4b"] = time.perf_counter() - t0
+    # per path: every kernel's launches, and the decode kernels' per-variant launches
+    paths, vpaths = {}, {}
+    for name, tag in (("OF-3B", "generate"), ("OF-4B", "of4b_generate"), ("LLaMA-7B", "llama7b_generate"),
+                      ("OPT-1.3B", "opt13b_generate")):
+        t0 = time.perf_counter()
+        paths[f"{tag}_fused"], paths[f"{tag}_unfused"], vpaths[f"{tag}_fused"] = phase_generate(dev, name)
+        seconds[tag] = time.perf_counter() - t0
+    for name, tag in (("OF-3B", "quantized"), ("OF-4B", "quantized_of4b"), ("LLaMA-7B", "quantized_llama7b")):
+        t0 = time.perf_counter()
+        vpaths.update(phase_quantized(dev, name))
+        seconds[tag] = time.perf_counter() - t0
     t0 = time.perf_counter()
     counters = kernel_functions()
     paths["train_step"] = phase_train(dev, counters)
@@ -1524,7 +1713,7 @@ def main() -> int:
         launches = next(n for n in reversed(list(by_path.values())) if n) if any(by_path.values()) else 0
         kernels.append(entry(name, name, "float", launches, by_path, MAIN_CASES[name]))
     for name, (kernel, main_case, path, key) in VARIANTS.items():
-        by_path = {p: v.get(kernel, {}).get(key, 0) for p, v in qpaths.items()}
+        by_path = {p: v.get(kernel, {}).get(key, 0) for p, v in vpaths.items()}
         require(by_path[path] > 0, f"{name}: no launch on {path}")
         kernels.append(entry(name, kernel, key, by_path[path], by_path, main_case))
     print(json.dumps({"kernels": kernels}), flush=True)

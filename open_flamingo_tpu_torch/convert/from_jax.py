@@ -20,6 +20,9 @@ per-layer layout: a PyTorch loop over layers has no compile step to save.
 `decode_weights_from_jax` reads the JAX package's `qparams` side-car
 (`quantize_decode_params`, both layouts) into the quantized copies that
 `quantize.attach_decode_weights` puts on the port's modules.
+`kv_cache_from_jax` reads a JAX `KVCache` (either layout, model-dtype or
+int8) into the port's `KVCache`, so that both packages can take a decode
+step from one state.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from ..models.decoders.common import KVCache, LayerKV
 from ..quantize import pack_int4
 
 _INDEXED = re.compile(r"^(blocks|xattn|layers)_(\d+)(?:_(\w+))?$")
@@ -138,3 +142,29 @@ def decode_weights_from_jax(variables: Mapping) -> Dict[str, Tuple[torch.Tensor,
 
     walk(tree, [])
     return out
+
+
+def kv_cache_from_jax(cache) -> KVCache:
+    """A JAX `KVCache` with numpy leaves (`jax.tree.map(np.asarray, cache)`)
+    as the port's. The scanned layout's stacked entries, `layers[k]` (G, B,
+    H_kv, S, Dh) and one media entry with a leading G, unstack as the
+    weights do: layer g*n + k, xattn block g. int8 scales go from the JAX
+    package's head-leading (..., H, B, S) to the port's (B, H, S)."""
+
+    def layer(kv, g=None):
+        pick = (lambda a: a) if g is None else (lambda a: a[g])
+        k_s = None if kv.k_s is None else torch.tensor(np.swapaxes(pick(np.asarray(kv.k_s)), -3, -2).copy())
+        v_s = None if kv.v_s is None else torch.tensor(np.swapaxes(pick(np.asarray(kv.v_s)), -3, -2).copy())
+        return LayerKV(torch.tensor(pick(np.asarray(kv.k))), torch.tensor(pick(np.asarray(kv.v))), k_s, v_s)
+
+    scanned = np.asarray(cache.layers[0].k).ndim == 5
+    if scanned:
+        groups = np.asarray(cache.layers[0].k).shape[0]
+        layers = tuple(layer(cache.layers[k], g) for g in range(groups) for k in range(len(cache.layers)))
+        media = None if cache.media is None else tuple(layer(cache.media[0], g) for g in range(groups))
+    else:
+        layers = tuple(layer(kv) for kv in cache.layers)
+        media = None if cache.media is None else tuple(layer(kv) for kv in cache.media)
+    index = int(np.asarray(cache.index))
+    return KVCache(layers=layers, index=index, slot=torch.tensor([index], dtype=torch.int32),
+                   pad_mask=torch.tensor(np.asarray(cache.pad_mask, dtype=bool)), media=media)

@@ -29,6 +29,20 @@
 // applied first in its epilogue (K1: before bias/clip/act/gate/residual;
 // K2: w1_scale before b1 and the activation, w2_scale before b2). The bound
 // falls with the bytes: half for int8, a quarter for int4.
+//
+// Norms and activations (the TPU kernels' `_norm_f32` and `_act_f32`): the
+// prologue is a LayerNorm or an RMSNorm (llama: x * rsqrt(E[x^2] + eps) *
+// scale, no bias), the activation none, exact GELU, gelu_new, relu,
+// quick_gelu or silu, in the fp32 epilogue after bias and clip.
+//
+// SwiGLU (K2 with `w1_gate`, llama's gate_proj / up_proj):
+// u = act(h @ W1^T * s1 + b1) * (h @ W1g^T * s1g), rounded to x's dtype as
+// the hidden activation, then W2 as above. It stays two launches: launch 1
+// is the gated row GEMV, which streams the same column's row of W1 and of
+// W1g against one staged h into two fp32 sums and multiplies them in its
+// epilogue, so u keeps its one rounding and no fp32 scratch is written. W1
+// and W1g share one stored type. Bound: the three weights' bytes (270.5 MB
+// per LLaMA-7B layer in bf16, 0.0807 ms at 3.35 TB/s).
 
 #include "rows_gemv.cuh"
 
@@ -37,22 +51,24 @@ namespace {
 template <typename T>
 int dense(const void* x, const void* w, const void* w_scale, const void* bias, const void* ln_s, const void* ln_b,
           const void* residual, const void* gate, void* out, int b, int n, int k, int has_clip, float clip, int act,
-          float eps, int wtype, cudaStream_t st) {
+          float eps, int norm, int wtype, cudaStream_t st) {
   rows::Epilogue<T> ep{(const float*)w_scale, (const T*)bias, has_clip, clip, act, (const T*)gate,
-                       (const T*)residual};
-  return (int)rows::launch_gemv_w<T, T>(wtype, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps, w, ep, (T*)out, b,
-                                        n, k, st);
+                       (const T*)residual, nullptr};
+  return (int)rows::launch_gemv_norm<T, T>(wtype, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps, norm, w, nullptr,
+                                           ep, (T*)out, b, n, k, st);
 }
 
 template <typename T>
-int mlp(const void* x, const void* w1, const void* w2, const void* w1_scale, const void* w2_scale, const void* b1,
-        const void* b2, const void* ln_s, const void* ln_b, const void* residual, const void* gate, void* hidden,
-        void* out, int b, int k, int k2, int n, int act, float eps, int w1type, int w2type, cudaStream_t st) {
-  rows::Epilogue<T> up{(const float*)w1_scale, (const T*)b1, 0, 0.f, act, nullptr, nullptr};
-  cudaError_t e = rows::launch_gemv_w<T, T>(w1type, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps, w1, up,
-                                            (T*)hidden, b, k2, k, st);
+int mlp(const void* x, const void* w1, const void* w1g, const void* w2, const void* w1_scale, const void* w1g_scale,
+        const void* w2_scale, const void* b1, const void* b2, const void* ln_s, const void* ln_b, const void* residual,
+        const void* gate, void* hidden, void* out, int b, int k, int k2, int n, int act, float eps, int norm,
+        int w1type, int w2type, cudaStream_t st) {
+  rows::Epilogue<T> up{(const float*)w1_scale, (const T*)b1, 0, 0.f, act, nullptr, nullptr, (const float*)w1g_scale};
+  cudaError_t e = rows::launch_gemv_norm<T, T>(w1type, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps, norm, w1,
+                                               w1g, up, (T*)hidden, b, k2, k, st);
   if (e != cudaSuccess) return (int)e;
-  rows::Epilogue<T> down{(const float*)w2_scale, (const T*)b2, 0, 0.f, 0, (const T*)gate, (const T*)residual};
+  rows::Epilogue<T> down{(const float*)w2_scale, (const T*)b2, 0, 0.f, rows::kNone, (const T*)gate,
+                         (const T*)residual, nullptr};
   return (int)rows::launch_gemv_w<T, T>(w2type, (const T*)hidden, nullptr, nullptr, 0.f, w2, down, (T*)out, b, n,
                                         k2, st);
 }
@@ -62,36 +78,39 @@ int mlp(const void* x, const void* w1, const void* w2, const void* w1_scale, con
 // x (B, K); w (N, K) in x's dtype or int8, or (N, K/2) packed int4, as
 // wtype says (0, 1, 2); w_scale (N,) fp32 or NULL; bias (N,), ln_s/ln_b
 // (K,), residual (B, N), gate (1,) or NULL, all in x's dtype; out (B, N).
-// act 0 = none, 1 = exact GELU. dtype 0 = fp32, 1 = bf16.
+// act: rows::Act (0 none, 1 exact GELU, 2 gelu_new, 3 relu, 4 quick_gelu,
+// 5 silu); norm: rows::Norm (0 LayerNorm, 1 RMSNorm). dtype 0 = fp32,
+// 1 = bf16.
 extern "C" int fused_dense_fwd(const void* x, const void* w, const void* w_scale, const void* bias, const void* ln_s,
                                const void* ln_b, const void* residual, const void* gate, void* out, int b, int n,
-                               int k, int has_clip, float clip, int act, float eps, int dtype, int wtype,
+                               int k, int has_clip, float clip, int act, float eps, int norm, int dtype, int wtype,
                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return dense<float>(x, w, w_scale, bias, ln_s, ln_b, residual, gate, out, b, n, k, has_clip, clip, act, eps,
-                        wtype, st);
+                        norm, wtype, st);
   if (dtype == 1)
     return dense<__nv_bfloat16>(x, w, w_scale, bias, ln_s, ln_b, residual, gate, out, b, n, k, has_clip, clip, act,
-                                eps, wtype, st);
+                                eps, norm, wtype, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// x (B, K); w1 (K2, K); w2 (N, K2), each stored as its wtype says, with
-// w1_scale (K2,) / w2_scale (N,) fp32 or NULL; b1 (K2,), b2 (N,), ln_s/ln_b
-// (K,), residual (B, N), gate (1,) or NULL; hidden (B, K2) scratch; out
-// (B, N).
-extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* w2, const void* w1_scale,
-                             const void* w2_scale, const void* b1, const void* b2, const void* ln_s,
-                             const void* ln_b, const void* residual, const void* gate, void* hidden, void* out,
-                             int b, int k, int k2, int n, int act, float eps, int dtype, int w1type, int w2type,
-                             void* stream) {
+// x (B, K); w1 (K2, K), w1g (K2, K) or NULL (SwiGLU), both stored as w1type
+// says; w2 (N, K2) as w2type says; w1_scale / w1g_scale (K2,), w2_scale
+// (N,) fp32 or NULL; b1 (K2,), b2 (N,), ln_s/ln_b (K,), residual (B, N),
+// gate (1,) or NULL; hidden (B, K2) scratch; out (B, N). act and norm as
+// fused_dense_fwd's.
+extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* w1g, const void* w2, const void* w1_scale,
+                             const void* w1g_scale, const void* w2_scale, const void* b1, const void* b2,
+                             const void* ln_s, const void* ln_b, const void* residual, const void* gate, void* hidden,
+                             void* out, int b, int k, int k2, int n, int act, float eps, int norm, int dtype,
+                             int w1type, int w2type, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return mlp<float>(x, w1, w2, w1_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate, hidden, out, b, k, k2, n,
-                      act, eps, w1type, w2type, st);
+    return mlp<float>(x, w1, w1g, w2, w1_scale, w1g_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate, hidden, out,
+                      b, k, k2, n, act, eps, norm, w1type, w2type, st);
   if (dtype == 1)
-    return mlp<__nv_bfloat16>(x, w1, w2, w1_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate, hidden, out, b, k,
-                              k2, n, act, eps, w1type, w2type, st);
+    return mlp<__nv_bfloat16>(x, w1, w1g, w2, w1_scale, w1g_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate,
+                              hidden, out, b, k, k2, n, act, eps, norm, w1type, w2type, st);
   return (int)cudaErrorInvalidValue;
 }

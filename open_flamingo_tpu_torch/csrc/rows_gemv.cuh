@@ -4,11 +4,21 @@
 //   out[r, n] = epilogue( sum_k h[r, k] * W[n, k] )     r < B (a few rows)
 //
 // W is torch's nn.Linear layout (N, K), row-major, read in place: column n
-// of the product is one contiguous row of W. h is either x itself or the
-// LayerNorm of x (flax fast variance max(0, E[x^2] - E[x]^2) in fp32),
-// ROUNDED TO x's DTYPE, as the TPU kernels cast the normalised rows before
-// the product. Products accumulate in fp32; the epilogue runs in fp32 in the
-// TPU kernels' order: +bias -> clip -> act -> *tanh(gate) -> +residual.
+// of the product is one contiguous row of W. h is either x itself, the
+// LayerNorm of x (flax fast variance max(0, E[x^2] - E[x]^2) in fp32) or its
+// RMSNorm (x * rsqrt(E[x^2] + eps), no mean, no bias; the TPU kernels'
+// `_norm_f32(kind="rms")`), times the norm's scale, ROUNDED TO x's DTYPE, as
+// the TPU kernels cast the normalised rows before the product. Products
+// accumulate in fp32; the epilogue runs in fp32 in the TPU kernels' order:
+// +bias -> clip -> act -> *gated product -> *tanh(gate) -> +residual. The
+// activations are `_act_f32`'s: exact GELU, gelu_new (tanh form), relu,
+// quick_gelu (y * sigmoid(1.702 y)) and silu.
+//
+// Gated form (K2's SwiGLU, `w1_gate`): a second weight Wg of W's shape and
+// storage streams in the same pass, the same column's row of W and of Wg
+// against the same staged h, into two fp32 sums; the epilogue multiplies
+// act(y) by the second sum (times Wg's scale for an int weight). A template
+// parameter: the plain kernels are compiled without it.
 //
 // Design and bound. At decode batch sizes (B <= 64) every weight element is
 // used B times, 2B FLOPs per weight read: far below the ~295 FLOP/byte where
@@ -170,37 +180,71 @@ __device__ __forceinline__ uint4 load_frag(const unsigned int* p) {
                     bf16x2_exact(snibble(u, 4), snibble(u, 5)), bf16x2_exact(snibble(u, 6), snibble(u, 7)));
 }
 
+enum Act { kNone = 0, kGelu = 1, kGeluNew = 2, kRelu = 3, kQuickGelu = 4, kSilu = 5 };
+enum Norm { kLayerNorm = 0, kRmsNorm = 1 };
+
 template <typename T>
 struct Epilogue {
   const float* scale;  // (N,) fp32: an int weight's per-channel scale, y *= scale first
   const T* bias;       // (N,) or null
   int has_clip;
   float clip;          // y = clamp(y, -clip, clip)
-  int act;             // 0: none, 1: exact (erf) GELU
+  int act;             // an Act
   const T* gate;       // (1,) or null: y *= tanh(gate)
   const T* residual;   // (B, N) or null: y += residual
+  const float* gscale; // gated form with an int Wg: its (N,) scale, or null
 };
+
+__device__ __forceinline__ float activation(float y, int act) {
+  switch (act) {
+    // CUDA's erff (max 2 ulp); the TPU kernel uses A&S 7.1.26 (|err| <= 1.5e-7)
+    case kGelu: return 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
+    case kGeluNew: return 0.5f * y * (1.f + tanhf(0.79788456080286536f * (y + 0.044715f * y * y * y)));
+    case kRelu: return fmaxf(y, 0.f);
+    case kQuickGelu: return y / (1.f + expf(-1.702f * y));
+    case kSilu: return y / (1.f + expf(-y));
+    default: return y;
+  }
+}
+
+// The activation of a kernel instance: kActRuntime, any Act as ep.act says
+// (the CUDA-core kernel); kActBase, none or exact GELU as ep.act says (the
+// tensor-core kernel's first instance, which keeps the epilogue it had
+// before the other activations came); or one Act compiled in (one
+// tensor-core instance each). In the tensor-core kernel a switch over every
+// activation, or no activation code at all, changed the compiler's schedule
+// of the whole kernel and cost the bf16 instances 5-18% of their time
+// (chip_smoke.py's kernels phase, parent and change in one run).
+constexpr int kActRuntime = -1;
+constexpr int kActBase = -2;
 
 // kScaled: an int weight's instantiation, the only one that reads the scale
 // (compiled into the bf16 kernel, the branch alone cost it registers and 16%
-// of its HBM rate)
-template <bool kScaled, typename T>
-__device__ __forceinline__ float epilogue(float y, const Epilogue<T>& ep, int r, int col, int n) {
+// of its HBM rate). yg: the gated form's second sum (kGated only).
+template <bool kScaled, bool kGated, int kAct, typename T>
+__device__ __forceinline__ float epilogue(float y, float yg, const Epilogue<T>& ep, int r, int col, int n) {
   if constexpr (kScaled) y *= ep.scale[col];
   if (ep.bias != nullptr) y += to_f32(ep.bias[col]);
   if (ep.has_clip) y = fminf(fmaxf(y, -ep.clip), ep.clip);
-  // CUDA's erff (max 2 ulp); the TPU kernel uses A&S 7.1.26 (|err| <= 1.5e-7)
-  if (ep.act == 1) y = 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
+  if constexpr (kAct == kActRuntime) {
+    if (ep.act != kNone) y = activation(y, ep.act);
+  } else if constexpr (kAct == kActBase) {
+    if (ep.act == kGelu) y = activation(y, kGelu);
+  } else {
+    y = activation(y, kAct);
+  }
+  if constexpr (kGated) y *= kScaled ? yg * ep.gscale[col] : yg;
   if (ep.gate != nullptr) y *= tanhf(to_f32(ep.gate[0]));
   if (ep.residual != nullptr) y += to_f32(ep.residual[(size_t)r * n + col]);
   return y;
 }
 
 // One warp stages row `xr` (k elements) into `dst`: a copy, or the
-// LayerNorm rounded to T.
+// LayerNorm or RMSNorm (`norm`) rounded to T. RMSNorm takes no mean: x - 0
+// is x, so its rows are x * inv * scale in the TPU kernel's order.
 template <typename T>
 __device__ void stage_row(const T* __restrict__ xr, const T* __restrict__ ln_s,
-                          const T* __restrict__ ln_b, float eps, T* dst, int k, int lane) {
+                          const T* __restrict__ ln_b, float eps, int norm, T* dst, int k, int lane) {
   if (ln_s == nullptr) {  // a copy: T -> fp32 -> T is exact
     for (int c = lane * kVec; c < k; c += 32 * kVec) {
       float v[kVec];
@@ -222,8 +266,9 @@ __device__ void stage_row(const T* __restrict__ xr, const T* __restrict__ ln_s,
   }
   s = warp_sum(s);
   ss = warp_sum(ss);
-  const float mean = s / (float)k;
-  const float var = fmaxf(0.f, ss / (float)k - mean * mean);
+  const bool rms = norm == kRmsNorm;
+  const float mean = rms ? 0.f : s / (float)k;
+  const float var = rms ? ss / (float)k : fmaxf(0.f, ss / (float)k - mean * mean);
   const float inv = rsqrtf(var + eps);
   for (int c = lane * kVec; c < k; c += 32 * kVec) {
     float v[kVec];
@@ -237,11 +282,11 @@ __device__ void stage_row(const T* __restrict__ xr, const T* __restrict__ ln_s,
   }
 }
 
-template <typename T, typename W, typename OutT>
+template <typename T, typename W, typename OutT, bool kGated>
 __global__ void __launch_bounds__(kThreads) gemv_kernel(
-    const T* __restrict__ x, const T* __restrict__ ln_s, const T* __restrict__ ln_b, float eps,
-    const unsigned char* __restrict__ w, Epilogue<T> ep, OutT* __restrict__ out, int b, int n, int k,
-    int rows_per_pass) {
+    const T* __restrict__ x, const T* __restrict__ ln_s, const T* __restrict__ ln_b, float eps, int norm,
+    const unsigned char* __restrict__ w, const unsigned char* __restrict__ wg, Epilogue<T> ep,
+    OutT* __restrict__ out, int b, int n, int k, int rows_per_pass) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* hs = reinterpret_cast<T*>(smem);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -250,25 +295,30 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
     const int rb = min(rows_per_pass, b - r0);
     if (r0 > 0) __syncthreads();  // the last pass is done reading hs
     for (int r = warp; r < rb; r += kWarps)
-      stage_row(x + (size_t)(r0 + r) * k, ln_s, ln_b, eps, hs + (size_t)r * k, k, lane);
+      stage_row(x + (size_t)(r0 + r) * k, ln_s, ln_b, eps, norm, hs + (size_t)r * k, k, lane);
     __syncthreads();
 
     for (int col = blockIdx.x * kWarps + warp; col < n; col += gridDim.x * kWarps) {
-      float acc[kMaxRows];
+      float acc[kMaxRows], accg[kMaxRows];
 #pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
+      for (int r = 0; r < kMaxRows; ++r) acc[r] = accg[r] = 0.f;
       const unsigned char* wrow = w + (size_t)col * w_row_bytes<W>(k);
+      const unsigned char* grow = (kGated ? wg : w) + (size_t)col * w_row_bytes<W>(k);
 #pragma unroll 2
       for (int c = lane * kVec; c < k; c += 32 * kVec) {
-        float wv[kVec];
+        float wv[kVec], gv[kVec];
         load8w<W>(wrow, c, wv);
+        if constexpr (kGated) load8w<W>(grow, c, gv);
 #pragma unroll
         for (int r = 0; r < kMaxRows; ++r) {
           if (r < rb) {
             float hv[kVec];
             load8<false>(hs + (size_t)r * k + c, hv);
 #pragma unroll
-            for (int e = 0; e < kVec; ++e) acc[r] = fmaf(hv[e], wv[e], acc[r]);
+            for (int e = 0; e < kVec; ++e) {
+              acc[r] = fmaf(hv[e], wv[e], acc[r]);
+              if constexpr (kGated) accg[r] = fmaf(hv[e], gv[e], accg[r]);
+            }
           }
         }
       }
@@ -276,9 +326,11 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
       for (int r = 0; r < kMaxRows; ++r) {
         if (r < rb) {  // uniform across the warp
           const float sum = warp_sum(acc[r]);
+          const float sumg = kGated ? warp_sum(accg[r]) : 0.f;
           if (lane == r)
             out[(size_t)(r0 + r) * n + col] =
-                from_f32<OutT>(epilogue<!std::is_same<W, T>::value>(sum, ep, r0 + r, col, n));
+                from_f32<OutT>(epilogue<!std::is_same<W, T>::value, kGated, kActRuntime>(sum, sumg, ep, r0 + r,
+                                                                                         col, n));
         }
       }
     }
@@ -299,8 +351,8 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uin
 // c * 32 + 4r + t, the B fragment of lane 4r + t for K chunk c.
 __device__ void stage_fragments(const __nv_bfloat16* __restrict__ xr, bool live,
                                 const __nv_bfloat16* __restrict__ ln_s,
-                                const __nv_bfloat16* __restrict__ ln_b, float eps, uint4* hf, int r,
-                                int k, int lane) {
+                                const __nv_bfloat16* __restrict__ ln_b, float eps, int norm, uint4* hf,
+                                int r, int k, int lane) {
   float mean = 0.f, inv = 1.f;
   if (live && ln_s != nullptr) {
     float s = 0.f, ss = 0.f;
@@ -315,8 +367,12 @@ __device__ void stage_fragments(const __nv_bfloat16* __restrict__ xr, bool live,
     }
     s = warp_sum(s);
     ss = warp_sum(ss);
-    mean = s / (float)k;
-    inv = rsqrtf(fmaxf(0.f, ss / (float)k - mean * mean) + eps);
+    if (norm == kRmsNorm) {
+      inv = rsqrtf(ss / (float)k + eps);
+    } else {
+      mean = s / (float)k;
+      inv = rsqrtf(fmaxf(0.f, ss / (float)k - mean * mean) + eps);
+    }
   }
   for (int idx = lane; idx < k / kVec; idx += 32) {
     uint4 frag = make_uint4(0u, 0u, 0u, 0u);
@@ -348,12 +404,14 @@ __device__ void stage_fragments(const __nv_bfloat16* __restrict__ xr, bool live,
 // Tensor-core row GEMV for bf16, K a multiple of 32. Warp w of a block
 // works on column tile (group * tpb + w / ks) over K-chunk slice (w % ks) of
 // ks; shared memory holds h in fragment order (8 * K bf16), then the split-K
-// partials (kWarps * 32 * 4 floats).
-template <typename W, typename OutT>
+// partials (kWarps * 32 * 4 floats, twice that in the gated form: W's sums,
+// then Wg's).
+template <typename W, typename OutT, bool kGated, int kAct>
 __global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
-    const __nv_bfloat16* __restrict__ ln_b, float eps, const unsigned char* __restrict__ w,
-    Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out, int b, int n, int k, int ks) {
+    const __nv_bfloat16* __restrict__ ln_b, float eps, int norm, const unsigned char* __restrict__ w,
+    const unsigned char* __restrict__ wg, Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out, int b, int n,
+    int k, int ks) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* hf = reinterpret_cast<uint4*>(smem);
   float4* part = reinterpret_cast<float4*>(smem + (size_t)kMaxRows * k * sizeof(__nv_bfloat16));
@@ -367,27 +425,36 @@ __global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
     const int rb = min(kMaxRows, b - r0);
     if (r0 > 0) __syncthreads();  // the last pass is done reading hf
     for (int r = warp; r < kMaxRows; r += kWarps)
-      stage_fragments(x + (size_t)(r0 + min(r, rb - 1)) * k, r < rb, ln_s, ln_b, eps, hf, r, k, lane);
+      stage_fragments(x + (size_t)(r0 + min(r, rb - 1)) * k, r < rb, ln_s, ln_b, eps, norm, hf, r, k, lane);
     __syncthreads();
 
     for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {  // uniform across the block
       const int tile = grp * tpb + warp / ks;
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      float c[4] = {0.f, 0.f, 0.f, 0.f}, cg[4] = {0.f, 0.f, 0.f, 0.f};
       if (tile < tiles) {
         // rows past N read row N - 1 (valid memory); their outputs are dropped
         const int ra = min(tile * 16 + g, n - 1), rb8 = min(tile * 16 + g + 8, n - 1);
         const auto pa = frag_ptr<W>(w + (size_t)ra * w_row_bytes<W>(k), t);
         const auto pb = frag_ptr<W>(w + (size_t)rb8 * w_row_bytes<W>(k), t);
+        const unsigned char* wgb = kGated ? wg : w;
+        const auto ga = frag_ptr<W>(wgb + (size_t)ra * w_row_bytes<W>(k), t);
+        const auto gb = frag_ptr<W>(wgb + (size_t)rb8 * w_row_bytes<W>(k), t);
 #pragma unroll 4
         for (int ch = c_begin; ch < c_end; ++ch) {
           const uint4 a0 = load_frag(pa + ch * 4), a1 = load_frag(pb + ch * 4);
           const uint4 bf = hf[ch * 32 + lane];
           mma_bf16(c, a0.x, a1.x, a0.y, a1.y, bf.x, bf.y);  // K = 32ch + 8t + 0..3
           mma_bf16(c, a0.z, a1.z, a0.w, a1.w, bf.z, bf.w);  // K = 32ch + 8t + 4..7
+          if constexpr (kGated) {
+            const uint4 g0 = load_frag(ga + ch * 4), g1 = load_frag(gb + ch * 4);
+            mma_bf16(cg, g0.x, g1.x, g0.y, g1.y, bf.x, bf.y);
+            mma_bf16(cg, g0.z, g1.z, g0.w, g1.w, bf.z, bf.w);
+          }
         }
       }
       if (ks > 1) {
         part[warp * 32 + lane] = make_float4(c[0], c[1], c[2], c[3]);
+        if constexpr (kGated) part[kThreads + warp * 32 + lane] = make_float4(cg[0], cg[1], cg[2], cg[3]);
         __syncthreads();
         if (slice == 0) {
           for (int j = 1; j < ks; ++j) {
@@ -396,6 +463,13 @@ __global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
             c[1] += q.y;
             c[2] += q.z;
             c[3] += q.w;
+            if constexpr (kGated) {
+              const float4 u = part[kThreads + (warp + j) * 32 + lane];
+              cg[0] += u.x;
+              cg[1] += u.y;
+              cg[2] += u.z;
+              cg[3] += u.w;
+            }
           }
         }
       }
@@ -406,7 +480,8 @@ __global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
           const int col = tile * 16 + g + (i >> 1) * 8, r = 2 * t + (i & 1);
           if (col < n && r < rb)
             out[(size_t)(r0 + r) * n + col] =
-                from_f32<OutT>(epilogue<!std::is_same<W, __nv_bfloat16>::value>(c[i], ep, r0 + r, col, n));
+                from_f32<OutT>(epilogue<!std::is_same<W, __nv_bfloat16>::value, kGated, kAct>(c[i], cg[i], ep,
+                                                                                                r0 + r, col, n));
         }
       }
       if (ks > 1) __syncthreads();  // the partials are read before the next tile writes them
@@ -435,7 +510,10 @@ inline int smem_optin() {
 }
 
 // Raise `kern`'s dynamic shared-memory limit to `smem` once; `set` caches
-// the limit already granted to that kernel.
+// the limit already granted to that kernel. Keep one cache per kernel: the
+// launch function that holds it is the kernel's only launcher (two caches of
+// one kernel's limit once let one caller lower it under the other's feet,
+// CUDA error 1 at the other's next launch).
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kern, size_t smem, size_t& set) {
   if (smem <= set) return cudaSuccess;
@@ -450,68 +528,121 @@ inline int grid_for(long long blocks) {
 }
 
 // The tensor-core kernel's shared memory: h in fragment order, then the
-// split-K partials.
-inline size_t mma_smem(int k) {
-  return (size_t)kMaxRows * k * sizeof(__nv_bfloat16) + kThreads * 4 * sizeof(float);
+// split-K partials (two sets in the gated form).
+inline size_t mma_smem(int k, bool gated) {
+  return (size_t)kMaxRows * k * sizeof(__nv_bfloat16) + (gated ? 2 : 1) * kThreads * 4 * sizeof(float);
 }
 
-template <typename W, typename OutT>
+template <typename W, typename OutT, bool kGated, int kAct>
 cudaError_t launch_gemv_mma(const __nv_bfloat16* x, const __nv_bfloat16* ln_s,
-                            const __nv_bfloat16* ln_b, float eps, const void* w,
+                            const __nv_bfloat16* ln_b, float eps, int norm, const void* w, const void* wg,
                             Epilogue<__nv_bfloat16> ep, OutT* out, int b, int n, int k,
                             cudaStream_t st) {
-  const size_t smem = mma_smem(k);
+  const size_t smem = mma_smem(k, kGated);
   const int tiles = (n + 15) / 16, chunks = k / kMmaK;
   int ks = 1;  // split K while the card has too few warps and each keeps >= 2 chunks
   while (ks < kWarps && 2 * ks * 2 <= chunks && (long long)tiles * ks < (long long)sm_count() * kWarpsPerSmWanted)
     ks *= 2;
   const int tpb = kWarps / ks;
-  auto kern = gemv_mma_kernel<W, OutT>;
+  auto kern = gemv_mma_kernel<W, OutT, kGated, kAct>;
   static size_t smem_set = 48 * 1024;
   cudaError_t e = allow_smem(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
   kern<<<grid_for((tiles + tpb - 1) / tpb), kThreads, smem, st>>>(
-      x, ln_s, ln_b, eps, static_cast<const unsigned char*>(w), ep, out, b, n, k, ks);
+      x, ln_s, ln_b, eps, norm, static_cast<const unsigned char*>(w), static_cast<const unsigned char*>(wg), ep,
+      out, b, n, k, ks);
   return cudaGetLastError();
 }
 
-// out (B, N) = epilogue(h @ W^T); h = LN(x) when ln_s is given, else x; W
-// (N, K) stored as W (T, int8_t or Int4). k must be a multiple of kVec and
-// every row 16-byte aligned (the wrapper checks). Returns the launch's
-// error code.
-template <typename T, typename W, typename OutT>
-cudaError_t launch_gemv(const T* x, const T* ln_s, const T* ln_b, float eps, const void* w,
-                        Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
-  if (k < kVec || k % kVec != 0 || b < 1 || n < 1) return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // K > ~13,800 does not fit 8 staged rows: the CUDA-core path stages fewer
-    if (k % kMmaK == 0 && mma_smem(k) <= (size_t)smem_optin())
-      return launch_gemv_mma<W, OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, st);
-  }
+// The CUDA-core kernel's launch (fp32, K not a multiple of 32, or K too long
+// to stage 8 rows for the tensor cores): as many rows per pass as fit.
+template <typename T, typename W, typename OutT, bool kGated>
+cudaError_t launch_gemv_core(const T* x, const T* ln_s, const T* ln_b, float eps, int norm, const void* w,
+                             const void* wg, Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
   const size_t row_bytes = (size_t)k * sizeof(T);
   int rows = (int)((size_t)smem_optin() / row_bytes);
   rows = rows < kMaxRows ? rows : kMaxRows;
   rows = rows < b ? rows : b;
   if (rows < 1) return cudaErrorInvalidValue;
   const size_t smem = rows * row_bytes;
-  auto kern = gemv_kernel<T, W, OutT>;
-  static size_t smem_set = 48 * 1024;  // the default limit, per instantiation
+  auto kern = gemv_kernel<T, W, OutT, kGated>;
+  static size_t smem_set = 48 * 1024;  // the default limit
   cudaError_t e = allow_smem(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
   kern<<<grid_for(((long long)n + kWarps - 1) / kWarps), kThreads, smem, st>>>(
-      x, ln_s, ln_b, eps, static_cast<const unsigned char*>(w), ep, out, b, n, k, rows);
+      x, ln_s, ln_b, eps, norm, static_cast<const unsigned char*>(w), static_cast<const unsigned char*>(wg), ep,
+      out, b, n, k, rows);
   return cudaGetLastError();
 }
 
-// launch_gemv on the weight type code the wrappers pass: 0 W in T, 1 int8,
-// 2 packed int4
+// out (B, N) = epilogue(h @ W^T); h = norm(x) when ln_s is given (`norm` a
+// Norm), else x; W (N, K) stored as W (T, int8_t or Int4); with kGated, Wg
+// of the same shape and storage. k must be a multiple of kVec and every row
+// 16-byte aligned (the wrapper checks). kActs: ep.act may be any Act (else
+// none or GELU, and only the tensor-core kernel's kActBase instance is
+// compiled). Returns the launch's error code.
+template <typename T, typename W, typename OutT, bool kGated, bool kActs>
+cudaError_t launch_gemv(const T* x, const T* ln_s, const T* ln_b, float eps, int norm, const void* w,
+                        const void* wg, Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
+  if (k < kVec || k % kVec != 0 || b < 1 || n < 1 || (kGated && wg == nullptr)) return cudaErrorInvalidValue;
+  if (ep.act < kNone || ep.act > kSilu || (!kActs && ep.act > kGelu)) return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // K > ~13,800 does not fit 8 staged rows: the CUDA-core path stages fewer
+    if (k % kMmaK == 0 && mma_smem(k, kGated) <= (size_t)smem_optin()) {
+      auto mma = [&](auto act) {
+        return launch_gemv_mma<W, OutT, kGated, decltype(act)::value>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n,
+                                                                      k, st);
+      };
+      if constexpr (kActs) {
+        switch (ep.act) {
+          case kGeluNew: return mma(std::integral_constant<int, kGeluNew>{});
+          case kRelu: return mma(std::integral_constant<int, kRelu>{});
+          case kQuickGelu: return mma(std::integral_constant<int, kQuickGelu>{});
+          case kSilu: return mma(std::integral_constant<int, kSilu>{});
+          default: break;
+        }
+      }
+      return mma(std::integral_constant<int, kActBase>{});
+    }
+  }
+  return launch_gemv_core<T, W, OutT, kGated>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
+}
+
+// launch_gemv on the weight type code the wrappers pass (0 W in T, 1 int8,
+// 2 packed int4), the norm kind and any activation; gated with wg, which is
+// stored as w is (K1, K2's first launch)
+template <typename T, typename OutT>
+cudaError_t launch_gemv_norm(int wtype, const T* x, const T* ln_s, const T* ln_b, float eps, int norm,
+                             const void* w, const void* wg, Epilogue<T> ep, OutT* out, int b, int n, int k,
+                             cudaStream_t st) {
+  if (norm != kLayerNorm && norm != kRmsNorm) return cudaErrorInvalidValue;
+  const bool gated = wg != nullptr;
+  switch (wtype * 2 + gated) {
+    case 0: return launch_gemv<T, T, OutT, false, true>(x, ln_s, ln_b, eps, norm, w, nullptr, ep, out, b, n, k, st);
+    case 1: return launch_gemv<T, T, OutT, true, true>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
+    case 2:
+      return launch_gemv<T, int8_t, OutT, false, true>(x, ln_s, ln_b, eps, norm, w, nullptr, ep, out, b, n, k, st);
+    case 3: return launch_gemv<T, int8_t, OutT, true, true>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
+    case 4:
+      return launch_gemv<T, Int4, OutT, false, true>(x, ln_s, ln_b, eps, norm, w, nullptr, ep, out, b, n, k, st);
+    case 5: return launch_gemv<T, Int4, OutT, true, true>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// A LayerNorm prologue (or none), no gate weight, no activation or exact
+// GELU: K2's second launch, K3's and K6's projections
 template <typename T, typename OutT>
 cudaError_t launch_gemv_w(int wtype, const T* x, const T* ln_s, const T* ln_b, float eps, const void* w,
                           Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
   switch (wtype) {
-    case 0: return launch_gemv<T, T, OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, st);
-    case 1: return launch_gemv<T, int8_t, OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, st);
-    case 2: return launch_gemv<T, Int4, OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, st);
+    case 0:
+      return launch_gemv<T, T, OutT, false, false>(x, ln_s, ln_b, eps, kLayerNorm, w, nullptr, ep, out, b, n, k, st);
+    case 1:
+      return launch_gemv<T, int8_t, OutT, false, false>(x, ln_s, ln_b, eps, kLayerNorm, w, nullptr, ep, out, b, n, k,
+                                                        st);
+    case 2:
+      return launch_gemv<T, Int4, OutT, false, false>(x, ln_s, ln_b, eps, kLayerNorm, w, nullptr, ep, out, b, n, k, st);
     default: return cudaErrorInvalidValue;
   }
 }

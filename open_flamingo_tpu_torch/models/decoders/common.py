@@ -201,6 +201,14 @@ def update_layer_kv(
     return layer_kv.k, layer_kv.v, layer_kv
 
 
+def repeat_kv(x: torch.Tensor, n_rep: int, head_axis: int = 2) -> torch.Tensor:
+    """Grouped-query expansion along the head axis (head_axis 2 for the
+    blocks' (B, T, H_kv, Dh), 1 for the cache's (B, H_kv, S, Dh)): each KV
+    head repeated n_rep times in place, so query head h reads KV head
+    h // n_rep (JAX `repeat_kv`)."""
+    return x if n_rep == 1 else x.repeat_interleave(n_rep, dim=head_axis)
+
+
 def alibi_slopes(num_heads: int, bias_max: float = 8.0) -> np.ndarray:
     """MPT ALiBi slopes (HF build_mpt_alibi_tensor semantics), float32."""
     p = 2 ** math.ceil(math.log2(num_heads))

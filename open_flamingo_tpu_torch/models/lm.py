@@ -2,12 +2,15 @@
 layer (the JAX package's `FlamingoLM`, unrolled layer layout).
 
 Layer i applies its xattn block (if any) before the decoder block. The
-final LayerNorm and the LM head follow: tied (the (V, D) embedding table)
-or an untied `lm_head` (V, D), with a bias when `lm_head_bias`. On the
-fused decode route they are one K1 `fused_dense` launch that reads the
-(V, D) weight in place as the transposed weight, or its int8 copy with its
-per-row scale when `quantize.quantize_decode_weights` attached one. Prefill
-keeps `F.linear` over the model-dtype weight, as the JAX package does. Vision latents and text time are explicit
+final norm (an RMSNorm for llama, a LayerNorm otherwise) and the LM head
+follow: tied (the (V, D) embedding table) or an untied `lm_head` (V, D),
+with a bias when `lm_head_bias`. On the fused decode route they are one K1
+`fused_dense` launch that reads the (V, D) weight in place as the
+transposed weight, or its int8 copy with its per-row scale when
+`quantize.quantize_decode_weights` attached one. Prefill keeps `F.linear`
+over the model-dtype weight, as the JAX package does. OPT adds learned
+positions (`wpe`, max_position_embeddings + 2 rows) at the mask-aware
+position ids + 2. Vision latents and text time are explicit
 arguments; decode state is an explicit KVCache. With `gradient_checkpointing` (the JAX
 package's `nn.remat`), each decoder and xattn block of a cache-free forward
 under autograd keeps only its inputs and recomputes its forward in the
@@ -29,11 +32,13 @@ from ..ops.dense_stream import fused_dense, reference_dense, use_fused_decode
 from ..quantize import stream_weight
 from .decoders.common import KVCache, LayerKV, make_attn_inputs
 from .decoders.gptneox import GPTNeoXBlock
+from .decoders.llama import LlamaBlock, RMSNorm
 from .decoders.mpt import MPTBlock
+from .decoders.opt import OPTBlock
 from .layers import LayerNorm
 from .xattn import GatedCrossAttentionBlock, build_media_masks, decode_media_mask, use_xattn_kernel
 
-BLOCK_REGISTRY = {"mpt": MPTBlock, "gptneox": GPTNeoXBlock}
+BLOCK_REGISTRY = {"mpt": MPTBlock, "gptneox": GPTNeoXBlock, "llama": LlamaBlock, "opt": OPTBlock}
 
 
 class FlamingoLM(nn.Module):
@@ -53,6 +58,7 @@ class FlamingoLM(nn.Module):
         self.immediate = only_attend_immediate_media
         self.gradient_checkpointing = gradient_checkpointing
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.wpe = nn.Embedding(cfg.max_position_embeddings + 2, cfg.hidden_size, **kw) if cfg.family == "opt" else None
         self.blocks = nn.ModuleList(BLOCK_REGISTRY[cfg.family](cfg, **kw) for _ in range(cfg.num_layers))
         n = cross_attn_every_n
         self.xattn = nn.ModuleDict({
@@ -62,7 +68,10 @@ class FlamingoLM(nn.Module):
             for i in range(cfg.num_layers)
             if n is not None and (i + 1) % n == 0
         })
-        self.norm_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, bias=not cfg.ln_no_bias, **kw)
+        if cfg.family == "llama":
+            self.norm_f = RMSNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
+        else:
+            self.norm_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, bias=not cfg.ln_no_bias, **kw)
         self.lm_head = None
         if not cfg.tie_word_embeddings:
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=cfg.lm_head_bias, **kw)
@@ -84,6 +93,8 @@ class FlamingoLM(nn.Module):
             attention_mask = torch.ones_like(input_ids)
         attn, cache = make_attn_inputs(attention_mask, cache=cache)
         x = self.wte(input_ids)
+        if self.wpe is not None:
+            x = x + self.wpe(attn.position_ids + 2)
         fused = use_fused_decode(x, input_ids.shape[1], cache is not None)
         media_cache = cache.media if cache is not None else None
 
@@ -118,7 +129,8 @@ class FlamingoLM(nn.Module):
             w_stream, s_head = stream_weight(head_mod)
             logits = head(
                 x[:, 0], w_stream, w_scale=s_head, bias=b_head, ln_scale=self.norm_f.weight,
-                ln_bias=self.norm_f.bias, eps=self.cfg.layer_norm_eps,
+                ln_bias=getattr(self.norm_f, "bias", None), eps=self.cfg.layer_norm_eps,
+                norm="rms" if isinstance(self.norm_f, RMSNorm) else "layer",
             )[:, None].float()
         else:
             logits = torch.nn.functional.linear(self.norm_f(x), w_head, b_head).float()

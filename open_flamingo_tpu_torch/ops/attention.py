@@ -22,7 +22,7 @@ from typing import Iterator, Optional
 
 import torch
 
-from ..models.decoders.common import LayerKV, alibi_bias, update_layer_kv
+from ..models.decoders.common import LayerKV, alibi_bias, repeat_kv, update_layer_kv
 from ..models.layers import attend, attend_cached
 
 
@@ -63,14 +63,17 @@ def cached_self_attention(
     *,
     scale: float,
     alibi_slopes: Optional[torch.Tensor] = None,  # (H,) fp32 on q's device
+    n_rep: int = 1,       # grouped-query attention: H = n_rep * H_kv
 ):
     """Cache update + attention. For one decode token on the kernel path
-    the cache write happens inside the K7 launch. Returns (out
-    (B, T, H, Dh), LayerKV or None); the cache tensors are updated in
-    place. An int8 cache (which generate makes only for the fused route)
-    takes the einsum path over its dequantized rows, as in the JAX package."""
-    if (layer_kv is not None and not layer_kv.int8 and q.shape[1] == 1 and attn.pad_mask is not None
-            and use_kernels(q)):
+    the cache write happens inside the K7 launch (MHA only, as in the JAX
+    package). Returns (out (B, T, H, Dh), LayerKV or None); the cache
+    tensors are updated in place. An int8 cache (which generate makes only
+    for the fused route) takes the einsum path over its dequantized rows, as
+    in the JAX package. With n_rep > 1 k/v are (..., H_kv, Dh): the written
+    K/V are repeated head by head (`repeat_kv`) before the attention."""
+    if (layer_kv is not None and not layer_kv.int8 and n_rep == 1 and q.shape[1] == 1
+            and attn.pad_mask is not None and use_kernels(q)):
         from .decode_attention import decode_attention_update
 
         out, kc, vc = decode_attention_update(
@@ -81,6 +84,8 @@ def cached_self_attention(
         return out[:, None], LayerKV(k=kc, v=vc)
 
     k_full, v_full, new_kv = update_layer_kv(layer_kv, k, v, attn)
+    head_axis = 1 if attn.cached else 2
+    k_full, v_full = repeat_kv(k_full, n_rep, head_axis), repeat_kv(v_full, n_rep, head_axis)
     out = self_attention(q, k_full, v_full, attn, scale=scale, alibi_slopes=alibi_slopes)
     return out, new_kv
 

@@ -247,7 +247,9 @@ def attend_out_decode(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_n
     weight, in q's dtype, int8 or packed int4 with wout_scale (D,) fp32;
     slopes (H,) fp32; bias (D,); gate (1,); residual (B, D). Returns y
     (B, D) in q's dtype, or (y, k_cache, v_cache) with k_new."""
-    refuse("attend_out_decode", "the stacked-layer layout, item 9", layer_idx=layer_idx)
+    if layer_idx is not None:
+        raise ValueError("attend_out_decode: the port keeps one per-layer layout and takes no layer_idx (the JAX "
+                         "package's stacked-weight index); pass the layer's own caches and weight")
     refuse_autograd("attend_out_decode", q, k_cache, v_cache, wout, k_new, v_new, slopes, bias, gate, residual)
     b, h, dh = q.shape
     h_kv, s = k_cache.shape[1], k_cache.shape[2]

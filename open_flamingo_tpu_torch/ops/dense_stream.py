@@ -11,11 +11,17 @@ weight bytes on the card; see the sources' notes.
 Weights are in torch's nn.Linear layout (out, in) and are read in place.
 K1's `w` is (N, K): the JAX kernel's `w_transposed=True` form, which is
 how the decode path calls it (the tied (V, D) embedding as the vocab head).
-K2's `w1` is (K2, K) and `w2` is (N, K2). The semantics are the TPU
-kernels': LayerNorm with the flax fast variance in fp32; the normalised rows
-and K2's hidden activation rounded to x's dtype before each product; fp32
-accumulation; the epilogue *w_scale -> +bias -> clip -> act -> *tanh(gate)
--> +residual; the result in x's dtype.
+K2's `w1` (and SwiGLU's `w1_gate`) is (K2, K) and `w2` is (N, K2). The
+semantics are the TPU kernels': `norm="layer"`, LayerNorm with the flax
+fast variance, or `norm="rms"`, RMSNorm (x * rsqrt(mean(x^2) + eps) *
+scale, no bias), in fp32; the normalised rows and K2's hidden activation
+rounded to x's dtype before each product; fp32 accumulation; the epilogue
+*w_scale -> +bias -> clip -> act -> *tanh(gate) -> +residual; the result in
+x's dtype. `act` is one of `_ACTS`: exact GELU, gelu_new (tanh form), relu,
+quick_gelu (CLIP) and silu. With `w1_gate` (llama's SwiGLU, `w1` its
+gate_proj and `w1_gate` its up_proj) K2's hidden activation is
+act(h @ w1.T * w1_scale + b1) * (h @ w1_gate.T * w1_gate_scale), computed in
+K2's first launch from both weights streamed in one pass, then rounded.
 
 A weight is in x's dtype, int8, or packed int4 (`torch.uint8`, (N, K/2),
 `quantize.pack_int4`); an int weight comes with its per-out-channel fp32
@@ -39,8 +45,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
-from ..models.layers import gelu_exact, layer_norm
+from ..models.layers import gelu_exact, layer_norm, quick_gelu
 from ..quantize import weight_values
 from . import build
 from .flash_attention import _DTYPES
@@ -48,11 +55,13 @@ from .flash_attention import _DTYPES
 FORCE_FUSED = False
 DISABLE_FUSED = False
 
-_ACTS = {None: 0, "gelu": 1}
+_ACTS = {None: 0, "gelu": 1, "gelu_new": 2, "relu": 3, "quick_gelu": 4, "silu": 5}   # csrc rows::Act
+_NORMS = {"layer": 0, "rms": 1}                                                     # csrc rows::Norm
 _WTYPES = {torch.int8: 1, torch.uint8: 2}   # 0: the weight in x's dtype
 _WKINDS = {torch.int8: "int8", torch.uint8: "int4"}
 # the fp32 operands: per-out-channel weight scales and int8-cache row scales
-_SCALES = frozenset({"w_scale", "w1_scale", "w2_scale", "wq_scale", "wout_scale", "k_scale", "v_scale"})
+_SCALES = frozenset({"w_scale", "w1_scale", "w2_scale", "w1_gate_scale", "wq_scale", "wout_scale", "k_scale",
+                     "v_scale"})
 _lib = None
 
 
@@ -61,9 +70,9 @@ def _kernel():
     if _lib is None:
         lib = build.library("dense_stream")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_dense_fwd.argtypes = [p] * 9 + [i, i, i, i, f, i, f, i, i, p]
+        lib.fused_dense_fwd.argtypes = [p] * 9 + [i, i, i, i, f, i, f, i, i, i, p]
         lib.fused_dense_fwd.restype = i
-        lib.fused_mlp_fwd.argtypes = [p] * 13 + [i, i, i, i, i, f, i, i, i, p]
+        lib.fused_mlp_fwd.argtypes = [p] * 15 + [i, i, i, i, i, f, i, i, i, i, p]
         lib.fused_mlp_fwd.restype = i
         _lib = lib
     return _lib
@@ -95,11 +104,43 @@ def refuse_autograd(fn: str, *tensors) -> None:
         raise RuntimeError(f"{fn}: a decode kernel has no backward; call it under torch.no_grad()")
 
 
-def _check_act(fn: str, act, norm: str = "layer") -> None:
-    if norm != "layer":
-        raise NotImplementedError(f"{fn}: norm={norm!r} (RMSNorm, item 7) is not ported yet (ROADMAP.md)")
+def check_prologue(fn: str, act, norm, ln_scale, ln_bias) -> None:
+    """An activation of `_ACTS`, a norm of `_NORMS`, ln_bias only with
+    ln_scale and only for a LayerNorm (ValueError)."""
     if act not in _ACTS:
-        raise NotImplementedError(f"{fn}: act={act!r} (other decoder families, item 7) is not ported yet (ROADMAP.md)")
+        raise ValueError(f"{fn}: unknown activation {act!r}; expected one of {list(_ACTS)}")
+    if norm not in _NORMS:
+        raise ValueError(f"{fn}: unknown norm {norm!r}; expected one of {list(_NORMS)}")
+    if ln_bias is not None and ln_scale is None:
+        raise ValueError(f"{fn}: ln_bias needs ln_scale")
+    if ln_bias is not None and norm == "rms":
+        raise ValueError(f"{fn}: an RMSNorm takes no ln_bias")
+
+
+def activation(y: torch.Tensor, act) -> torch.Tensor:
+    """The TPU kernels' `_act_f32` on an fp32 tensor."""
+    if act == "gelu":
+        return gelu_exact(y)
+    if act == "gelu_new":
+        return F.gelu(y, approximate="tanh")
+    if act == "relu":
+        return torch.relu(y)
+    if act == "quick_gelu":
+        return quick_gelu(y)
+    if act == "silu":
+        return F.silu(y)
+    return y
+
+
+def normalize(x, ln_scale, ln_bias, eps, norm):
+    """The kernels' prologue: x, its LayerNorm or its RMSNorm in fp32 times
+    the scale, rounded to x's dtype."""
+    if ln_scale is None:
+        return x
+    if norm == "layer":
+        return layer_norm(x, ln_scale, ln_bias, eps)
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) * ln_scale.float()).to(x.dtype)
 
 
 def ptr(t):
@@ -111,10 +152,17 @@ def wtype(w: torch.Tensor) -> int:
     return _WTYPES.get(w.dtype, 0)
 
 
-def variant(w: torch.Tensor, int8_cache: bool = False) -> str:
+def variant(w: torch.Tensor, int8_cache: bool = False, tags=()) -> str:
     """The launch-counter key of a kernel variant: the weight's kind
-    ("float", "int8", "int4"), "+kv8" with an int8 cache."""
-    return _WKINDS.get(w.dtype, "float") + ("+kv8" if int8_cache else "")
+    ("float", "int8", "int4"), "+kv8" with an int8 cache, then "+tag" for
+    each tag that is not None (K1/K2: "rms", "swiglu", an activation other
+    than exact GELU)."""
+    return _WKINDS.get(w.dtype, "float") + ("+kv8" if int8_cache else "") + "".join(f"+{t}" for t in tags if t)
+
+
+def form_tags(norm, act, gated: bool = False) -> tuple:
+    """K1/K2's tags for `variant`: the RMSNorm, SwiGLU, a new activation."""
+    return ("rms" if norm == "rms" else None, "swiglu" if gated else None, None if act in (None, "gelu") else act)
 
 
 def count_launch(fn, key: str) -> None:
@@ -165,20 +213,26 @@ def check_operands(fn: str, x: torch.Tensor, k: int, quantized=(), **tensors) ->
             raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
 
 
-def reference_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, act=None, clip=None,
-                    residual=None, gate=None):
-    """Plain version of fused_dense, at the kernel's rounding points."""
-    refuse_autograd("fused_dense", x, w, bias, ln_scale, ln_bias, residual, gate)
-    h = x if ln_scale is None else layer_norm(x, ln_scale, ln_bias, eps)
+def _product(h, w, scale):
     y = h.float() @ weight_values(w).float().t()
-    if w_scale is not None:
-        y = y * w_scale.float()
+    return y if scale is None else y * scale.float()
+
+
+def reference_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, norm="layer", act=None,
+                    clip=None, residual=None, gate=None, w_gate=None, w_gate_scale=None):
+    """Plain version of fused_dense, at the kernel's rounding points; with
+    w_gate, the gated form of K2's first launch: the activation times
+    h @ w_gate.T * w_gate_scale."""
+    refuse_autograd("fused_dense", x, w, bias, ln_scale, ln_bias, residual, gate, w_gate)
+    h = normalize(x, ln_scale, ln_bias, eps, norm)
+    y = _product(h, w, w_scale)
     if bias is not None:
         y = y + bias.float()
     if clip is not None:
         y = y.clamp(-clip, clip)
-    if act == "gelu":
-        y = gelu_exact(y)
+    y = activation(y, act)
+    if w_gate is not None:
+        y = y * _product(h, w_gate, w_gate_scale)
     if gate is not None:
         y = y * torch.tanh(gate.float())
     if residual is not None:
@@ -186,30 +240,30 @@ def reference_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=Non
     return y.to(x.dtype)
 
 
-def reference_mlp(x, w1, w2, *, w1_scale=None, w2_scale=None, b1=None, b2=None, ln_scale=None, ln_bias=None,
-                  eps=1e-5, act="gelu", residual=None, gate=None):
+def reference_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_scale=None, b1=None, b2=None,
+                  ln_scale=None, ln_bias=None, eps=1e-5, norm="layer", act="gelu", residual=None, gate=None):
     """Plain version of fused_mlp: the hidden activation in x's dtype."""
-    u = reference_dense(x, w1, w_scale=w1_scale, bias=b1, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, act=act)
+    u = reference_dense(x, w1, w_scale=w1_scale, bias=b1, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, norm=norm,
+                        act=act, w_gate=w1_gate, w_gate_scale=w1_gate_scale)
     return reference_dense(u, w2, w_scale=w2_scale, bias=b2, residual=residual, gate=gate)
 
 
 def fused_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, norm="layer",
                 act=None, clip=None, residual=None, gate=None):
-    """epilogue(LN?(x) @ w.T): x (B, K); w (N, K) in x's dtype or int8, or
-    (N, K/2) packed int4, an int weight with w_scale (N,) fp32; bias (N,); ln_scale and
-    ln_bias (K,); residual (B, N); gate (1,), applied as *tanh(gate).
-    Returns (B, N) in x's dtype."""
+    """epilogue(norm?(x) @ w.T): x (B, K); w (N, K) in x's dtype or int8, or
+    (N, K/2) packed int4, an int weight with w_scale (N,) fp32; bias (N,);
+    ln_scale and ln_bias (K,), the LayerNorm's (norm="layer") or the
+    RMSNorm's scale alone (norm="rms"); residual (B, N); gate (1,), applied
+    as *tanh(gate). Returns (B, N) in x's dtype."""
     refuse_autograd("fused_dense", x, w, bias, ln_scale, ln_bias, residual, gate)
-    _check_act("fused_dense", act, norm)
+    check_prologue("fused_dense", act, norm, ln_scale, ln_bias)
     b, k = x.shape
     n = check_weight("fused_dense", "w", w, w_scale, k)
     if residual is not None and residual.shape != (b, n):
         raise ValueError(f"fused_dense: expected residual (B, N) = ({b}, {n}); got {tuple(residual.shape)}")
-    if ln_bias is not None and ln_scale is None:
-        raise ValueError("fused_dense: ln_bias needs ln_scale")
     if x.device.type == "cpu":
         return reference_dense(x, w, w_scale=w_scale, bias=bias, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps,
-                               act=act, clip=clip, residual=residual, gate=gate)
+                               norm=norm, act=act, clip=clip, residual=residual, gate=gate)
     if x.device.type != "cuda":
         raise ValueError(f"fused_dense: unsupported device {x.device}")
     check_operands("fused_dense", x, k, quantized=("w",), w=w, w_scale=w_scale, bias=bias, ln_scale=ln_scale,
@@ -217,50 +271,57 @@ def fused_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, e
     out = torch.empty(b, n, dtype=x.dtype, device=x.device)
     status = _kernel().fused_dense_fwd(
         ptr(x), ptr(w), ptr(w_scale), ptr(bias), ptr(ln_scale), ptr(ln_bias), ptr(residual), ptr(gate), ptr(out),
-        b, n, k, int(clip is not None), float(clip or 0.0), _ACTS[act], float(eps), _DTYPES[x.dtype], wtype(w),
-        build.current_stream(x.device),
+        b, n, k, int(clip is not None), float(clip or 0.0), _ACTS[act], float(eps), _NORMS[norm], _DTYPES[x.dtype],
+        wtype(w), build.current_stream(x.device),
     )
     build.check(status, "fused_dense_fwd")
-    count_launch(fused_dense, variant(w))
+    count_launch(fused_dense, variant(w, tags=form_tags(norm, act)))
     return out
 
 
 def fused_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_scale=None, b1=None, b2=None,
               ln_scale=None, ln_bias=None, eps=1e-5, norm="layer", act="gelu", residual=None, gate=None,
               side_x=None, side_w=None):
-    """residual + tanh(gate) * (act(LN?(x) @ w1.T * w1_scale + b1) @ w2.T *
-    w2_scale + b2): x (B, K); w1 (K2, K); w2 (N, K2), each in x's dtype,
-    int8 or packed int4 (last dim halved) with its fp32 scale (K2,) / (N,).
-    Returns (B, N) in x's dtype."""
-    refuse("fused_mlp", "SwiGLU, item 7", w1_gate=w1_gate, w1_gate_scale=w1_gate_scale)
+    """residual + tanh(gate) * (u @ w2.T * w2_scale + b2), u = act(norm?(x)
+    @ w1.T * w1_scale + b1), times norm?(x) @ w1_gate.T * w1_gate_scale with
+    w1_gate (SwiGLU): x (B, K); w1, w1_gate (K2, K); w2 (N, K2), each in x's
+    dtype, int8 or packed int4 (last dim halved) with its fp32 scale (K2,) /
+    (N,), w1 and w1_gate in one stored type. Returns (B, N) in x's dtype."""
     refuse("fused_mlp", "K2b side tiles, item 14", side_x=side_x, side_w=side_w)
-    refuse_autograd("fused_mlp", x, w1, w2, b1, b2, ln_scale, ln_bias, residual, gate)
-    _check_act("fused_mlp", act, norm)
+    refuse_autograd("fused_mlp", x, w1, w2, w1_gate, b1, b2, ln_scale, ln_bias, residual, gate)
+    check_prologue("fused_mlp", act, norm, ln_scale, ln_bias)
     b, k = x.shape
     k2 = check_weight("fused_mlp", "w1", w1, w1_scale, k)
     n = check_weight("fused_mlp", "w2", w2, w2_scale, k2)
+    if w1_gate is None and w1_gate_scale is not None:
+        raise ValueError("fused_mlp: w1_gate_scale needs w1_gate")
+    if w1_gate is not None:
+        if w1_gate.dtype != w1.dtype:
+            raise ValueError(f"fused_mlp: w1 is {w1.dtype} and w1_gate {w1_gate.dtype}; they share one stored type")
+        if check_weight("fused_mlp", "w1_gate", w1_gate, w1_gate_scale, k) != k2:
+            raise ValueError(f"fused_mlp: w1_gate {tuple(w1_gate.shape)} does not match w1 {tuple(w1.shape)}")
     if residual is not None and residual.shape != (b, n):
         raise ValueError(f"fused_mlp: expected residual (B, N) = ({b}, {n}); got {tuple(residual.shape)}")
-    if ln_bias is not None and ln_scale is None:
-        raise ValueError("fused_mlp: ln_bias needs ln_scale")
     if x.device.type == "cpu":
-        return reference_mlp(x, w1, w2, w1_scale=w1_scale, w2_scale=w2_scale, b1=b1, b2=b2, ln_scale=ln_scale,
-                             ln_bias=ln_bias, eps=eps, act=act, residual=residual, gate=gate)
+        return reference_mlp(x, w1, w2, w1_gate=w1_gate, w1_scale=w1_scale, w2_scale=w2_scale,
+                             w1_gate_scale=w1_gate_scale, b1=b1, b2=b2, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps,
+                             norm=norm, act=act, residual=residual, gate=gate)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp: unsupported device {x.device}")
-    check_operands("fused_mlp", x, k, quantized=("w1", "w2"), w1=w1, w2=w2, w1_scale=w1_scale, w2_scale=w2_scale,
-                   b1=b1, b2=b2, ln_scale=ln_scale, ln_bias=ln_bias, residual=residual, gate=gate)
+    check_operands("fused_mlp", x, k, quantized=("w1", "w1_gate", "w2"), w1=w1, w1_gate=w1_gate, w2=w2,
+                   w1_scale=w1_scale, w1_gate_scale=w1_gate_scale, w2_scale=w2_scale, b1=b1, b2=b2,
+                   ln_scale=ln_scale, ln_bias=ln_bias, residual=residual, gate=gate)
     if k2 % 8:
         raise ValueError(f"fused_mlp: hidden size {k2} is not a multiple of 8")
     hidden = torch.empty(b, k2, dtype=x.dtype, device=x.device)
     out = torch.empty(b, n, dtype=x.dtype, device=x.device)
     status = _kernel().fused_mlp_fwd(
-        ptr(x), ptr(w1), ptr(w2), ptr(w1_scale), ptr(w2_scale), ptr(b1), ptr(b2), ptr(ln_scale), ptr(ln_bias),
-        ptr(residual), ptr(gate), ptr(hidden), ptr(out), b, k, k2, n, _ACTS[act], float(eps), _DTYPES[x.dtype],
-        wtype(w1), wtype(w2), build.current_stream(x.device),
+        ptr(x), ptr(w1), ptr(w1_gate), ptr(w2), ptr(w1_scale), ptr(w1_gate_scale), ptr(w2_scale), ptr(b1), ptr(b2),
+        ptr(ln_scale), ptr(ln_bias), ptr(residual), ptr(gate), ptr(hidden), ptr(out), b, k, k2, n, _ACTS[act],
+        float(eps), _NORMS[norm], _DTYPES[x.dtype], wtype(w1), wtype(w2), build.current_stream(x.device),
     )
     build.check(status, "fused_mlp_fwd")
-    count_launch(fused_mlp, variant(w1))
+    count_launch(fused_mlp, variant(w1, tags=form_tags(norm, act, w1_gate is not None)))
     return out
 
 

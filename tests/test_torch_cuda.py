@@ -12,7 +12,9 @@ K4b/K5b: atol = rtol = 1e-4, its sums run over whole query and key tiles).
 bf16 inputs (K1-K3 and K6, whose bf16 products run on tensor cores when K
 is a multiple of 32; K4b/K5b): both round an fp32 result to bf16, one ulp apart
 at most, plus the summation order; atol = rtol = 1e-2 as in chip_smoke.py.
-Quantized decode (int8 / packed int4 weights, the int8 cache): the same
+The RMSNorm prologue, the activations and K2's SwiGLU form (llama, OPT)
+take the same tolerances. Quantized decode (int8 / packed int4 weights, the
+int8 cache): the same
 tolerances, 2e-4 in fp32 where an int8 cache is read (a quantized entry at
 a rounding boundary may land one step apart when the new token's K/V come
 from a projection summed in another order: at most one step, in at most
@@ -154,7 +156,7 @@ def test_attn_block_decode_gated_xattn(gen, d, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 # GPT-NeoX's head dim 80; GQA; the slot at S - 1; S > 128 threads: keys in rounds
-@pytest.mark.parametrize("n_rep,slot,s", [(1, 40, 64), (2, 63, 64), (1, 300, 301)])
+@pytest.mark.parametrize("n_rep,slot,s", [(1, 40, 64), (2, 63, 64), (4, 40, 64), (1, 300, 301)])
 def test_attend_out_decode(gen, n_rep, slot, s, dtype):
     """K6 with the slot write and its whole epilogue, then the q-only form;
     row 1 has no valid key."""
@@ -282,7 +284,7 @@ def test_attn_block_decode_int8_media(gen, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("n_rep,slot,s", [(1, 0, 64), (2, 63, 64), (1, 300, 301)])
+@pytest.mark.parametrize("n_rep,slot,s", [(1, 0, 64), (2, 63, 64), (4, 40, 64), (1, 300, 301)])
 def test_attend_out_decode_int8_cache(gen, n_rep, slot, s, bits, dtype):
     """K6 over an int8 cache with an int Wout and its whole epilogue: GQA,
     the slot at 0 and S - 1, keys in rounds; row 1 has no valid key. The new
@@ -384,3 +386,70 @@ def test_attention_functions_backward_through_autograd(gen):
             grads.append([leaf.grad for leaf in leaves])
         for g, w in zip(*grads):
             close_grad(g, w)
+
+
+def on_cpu(kw):
+    return {key: val.cpu() if torch.is_tensor(val) else val for key, val in kw.items()}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", [None, "gelu_new", "relu", "quick_gelu", "silu"])
+@pytest.mark.parametrize("k", [256, 264])      # bf16: tensor cores, and K % 32 != 0 on CUDA cores
+def test_fused_dense_rms_and_acts(gen, k, act, dtype):
+    """K1 with the RMSNorm prologue and each activation, bias, clip, gate and
+    residual; a ragged vocabulary."""
+    b, n = 5, 1003
+    x, w, ln = (t.to(dtype) for t in (rn(gen, b, k), rn(gen, n, k) * 0.05, rn(gen, k)))
+    bias, res = (rn(gen, n) * 0.1).to(dtype), rn(gen, b, n).to(dtype)
+    gate = torch.tensor([0.7], device="cuda", dtype=dtype)
+    kw = dict(ln_scale=ln, norm="rms", eps=1e-6, bias=bias, clip=2.0, act=act, gate=gate, residual=res)
+    close(fused_dense(x, w, **kw), fused_dense(x.cpu(), w.cpu(), **on_cpu(kw)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [None, 8, 4])
+# launch 1 on tensor cores (K 128) and CUDA cores (K 264); a hidden size that
+# is no multiple of 32 (344: launch 2 on CUDA cores); 11 rows: two passes
+@pytest.mark.parametrize("b,k,k2", [(8, 128, 512), (11, 264, 344), (8, 128, 11008)])
+def test_fused_mlp_swiglu(gen, b, k, k2, bits, dtype):
+    """K2's gated form (llama): RMSNorm, silu(x @ w1.T) * (x @ w1_gate.T), w2,
+    residual; b1, b2 and the gate with float weights."""
+    n = 136
+    x, ln, res = (t.to(dtype) for t in (rn(gen, b, k), rn(gen, k), rn(gen, b, n)))
+    w1, wg, w2 = rn(gen, k2, k) * 0.05, rn(gen, k2, k) * 0.05, rn(gen, n, k2) * 0.05
+    kw = dict(ln_scale=ln, norm="rms", eps=1e-6, act="silu", residual=res)
+    if bits is None:
+        w1, wg, w2 = (t.to(dtype) for t in (w1, wg, w2))
+        kw.update(b1=(rn(gen, k2) * 0.1).to(dtype), b2=(rn(gen, n) * 0.1).to(dtype),
+                  gate=torch.tensor([-0.3], device="cuda", dtype=dtype))
+    else:
+        (w1, s1), (wg, sg), (w2, s2) = quantized(w1, bits), quantized(wg, bits), quantized(w2, bits)
+        kw.update(w1_scale=s1, w1_gate_scale=sg, w2_scale=s2)
+    want = fused_mlp(x.cpu(), w1.cpu(), w2.cpu(), w1_gate=wg.cpu(), **on_cpu(kw))
+    close(fused_mlp(x, w1, w2, w1_gate=wg, **kw), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", ["relu", "gelu_new", "quick_gelu"])
+def test_fused_mlp_acts(gen, act, dtype):
+    """K2 with LayerNorm + bias, b1/b2 and OPT's relu, and the gelu_new and
+    quick_gelu epilogues."""
+    b, k, k2, n = 8, 128, 512, 136
+    x, w1, w2 = (t.to(dtype) for t in (rn(gen, b, k), rn(gen, k2, k) * 0.05, rn(gen, n, k2) * 0.05))
+    kw = dict(ln_scale=rn(gen, k).to(dtype), ln_bias=(rn(gen, k) * 0.1).to(dtype), b1=(rn(gen, k2) * 0.1).to(dtype),
+              b2=(rn(gen, n) * 0.1).to(dtype), residual=rn(gen, b, n).to(dtype), act=act)
+    close(fused_mlp(x, w1, w2, **kw), fused_mlp(x.cpu(), w1.cpu(), w2.cpu(), **on_cpu(kw)))
+
+
+def test_row_gemv_keeps_its_shared_memory_limit(gen):
+    """One fp32 row-GEMV kernel launched by K2's second launch and by K1 with
+    an activation: a smaller request from one must not lower the limit the
+    other was granted (K 8192, then K 2560, then K 10240)."""
+    x, n = rn(gen, 8, 256), 136
+    for k2 in (8192, None, 10240):
+        if k2 is None:
+            xk, w = rn(gen, 8, 2560), rn(gen, 64, 2560) * 0.02
+            close(fused_dense(xk, w, act="relu"), fused_dense(xk.cpu(), w.cpu(), act="relu"))
+            continue
+        w1, w2 = rn(gen, k2, 256) * 0.05, rn(gen, n, k2) * 0.02
+        close(fused_mlp(x, w1, w2), fused_mlp(x.cpu(), w1.cpu(), w2.cpu()))

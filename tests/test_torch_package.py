@@ -112,10 +112,12 @@ def test_fused_decode_wrappers_refuse_other_devices():
                                   "float_w_scale"])
 def test_unported_operands_raise(call):
     """Operands the decode path never passes name ROADMAP
-    (NotImplementedError); malformed quantized operands raise ValueError: an
-    int weight without its scale, a scale of the wrong shape, an int8 cache
-    without scales (or scales without the other), int4 with an odd K, a
-    scale with a weight in x's dtype."""
+    (NotImplementedError: K2b's side tiles); malformed operands raise
+    ValueError: an int weight without its scale, a scale of the wrong shape,
+    an int8 cache without scales (or scales without the other), int4 with an
+    odd K, a scale with a weight in x's dtype, an RMSNorm with a bias, an
+    unknown activation, w1 and w1_gate in two stored types, and K6's
+    stacked-layer index, which the port's per-layer layout does not take."""
     from open_flamingo_tpu_torch.ops.decode_layer import attend_out_decode, attn_block_decode
     from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
 
@@ -125,33 +127,35 @@ def test_unported_operands_raise(call):
     mask = torch.ones(2, 8, dtype=torch.bool)
     k3 = dict(heads=2, head_dim=8, scale=0.3)
     refused = {
-        "norm": lambda: fused_dense(x, w, ln_scale=torch.ones(16), norm="rms"),
-        "act": lambda: fused_dense(x, w, act="silu"),
-        "w1_gate": lambda: fused_mlp(x, w, w.t(), w1_gate=w),
         "side_x": lambda: fused_mlp(x, w, w.t(), side_x=x),
-        "layer_idx": lambda: attend_out_decode(torch.zeros(2, 2, 8), kv, kv, mask, w[:16], scale=0.3,
-                                               layer_idx=torch.zeros(1, dtype=torch.int32)),
-        "w1_gate_scale": lambda: fused_mlp(x, w8, w8.t().contiguous(), w1_scale=torch.ones(24),
-                                           w2_scale=torch.ones(16), w1_gate_scale=torch.ones(24)),
         "k3_side_x": lambda: attn_block_decode(x, torch.ones(16), None, w[:16], w[:16].t(), kv, kv, mask, **k3,
                                                side_x=x),
     }
     malformed = {
-        "w_scale": lambda: fused_dense(x, w8, w_scale=torch.ones(23)),
-        "k_scale": lambda: attn_block_decode(x, torch.ones(16), None, w[:16], w[:16].t(), kv8, kv8, mask, **k3),
-        "wout_scale": lambda: attend_out_decode(torch.zeros(2, 2, 8), kv, kv, mask, w8[:16], scale=0.3),
-        "k6_v_scale": lambda: attend_out_decode(torch.zeros(2, 2, 8), kv8, kv8, mask, w[:16], scale=0.3,
-                                                v_scale=torch.ones(2, 2, 8)),
-        "int4_odd_k": lambda: fused_dense(torch.zeros(2, 15), torch.zeros(24, 7, dtype=torch.uint8),
-                                          w_scale=torch.ones(24)),
-        "float_w_scale": lambda: fused_dense(x, w, w_scale=torch.ones(24)),
+        "w_scale": (lambda: fused_dense(x, w8, w_scale=torch.ones(23)), "scale"),
+        "norm": (lambda: fused_dense(x, w, ln_scale=torch.ones(16), ln_bias=torch.zeros(16), norm="rms"), "ln_bias"),
+        "act": (lambda: fused_dense(x, w, act="swish"), "activation"),
+        "w1_gate": (lambda: fused_mlp(x, w, w.t(), w1_gate=w8, w1_gate_scale=torch.ones(24)), "stored type"),
+        "k_scale": (lambda: attn_block_decode(x, torch.ones(16), None, w[:16], w[:16].t(), kv8, kv8, mask, **k3),
+                    "scale"),
+        "wout_scale": (lambda: attend_out_decode(torch.zeros(2, 2, 8), kv, kv, mask, w8[:16], scale=0.3), "scale"),
+        "k6_v_scale": (lambda: attend_out_decode(torch.zeros(2, 2, 8), kv8, kv8, mask, w[:16], scale=0.3,
+                                                 v_scale=torch.ones(2, 2, 8)), "scale"),
+        "layer_idx": (lambda: attend_out_decode(torch.zeros(2, 2, 8), kv, kv, mask, w[:16], scale=0.3,
+                                                layer_idx=torch.zeros(1, dtype=torch.int32)), "per-layer layout"),
+        "int4_odd_k": (lambda: fused_dense(torch.zeros(2, 15), torch.zeros(24, 7, dtype=torch.uint8),
+                                           w_scale=torch.ones(24)), "int4"),
+        "w1_gate_scale": (lambda: fused_mlp(x, w8, w8.t().contiguous(), w1_gate=w8, w1_scale=torch.ones(24),
+                                            w2_scale=torch.ones(16)), "scale"),
+        "float_w_scale": (lambda: fused_dense(x, w, w_scale=torch.ones(24)), "scale"),
     }
     if call in refused:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             refused[call]()
     else:
-        with pytest.raises(ValueError, match="scale|int4"):
-            malformed[call]()
+        fn, match = malformed[call]
+        with pytest.raises(ValueError, match=match):
+            fn()
 
 
 def test_kernel_routing_follows_the_tensor_device():
