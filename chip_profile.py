@@ -10,6 +10,7 @@ port spends its time on the card.
     python3 chip_profile.py int4       # OF-3B generate, fused, int4 weights (the head int8)
     python3 chip_profile.py llama      # LLaMA-7B generate, the fused route (3 K1, K6, K2 SwiGLU; K3)
     python3 chip_profile.py opt        # OPT-1.3B generate, the fused route (3 K1, K6, K2 relu; K3)
+    python3 chip_profile.py gemv       # the bf16 row GEMV alone at its CUDA-core shapes (K 16,384, 11,000)
 
 Builds OF-3B (OF-4B for `of4b`; chip_smoke.py's LLaMA-7B and OPT-1.3B
 configurations for `llama` and `opt`) at full width with random weights
@@ -20,8 +21,17 @@ call with torch.profiler.
 Prints one JSON line: wall seconds, the device's busy time (sum of the
 device events' times; one stream, so they do not overlap) and idle share,
 the device time of each hand-written kernel, the row GEMV's share of the
-busy time, and the kernels with the most device time. Run from the repository root with one CUDA card; imports
-nothing of JAX.
+busy time, and the kernels with the most device time.
+
+`gemv` times K1/K2 (bf16, B = 8, CUDA-graph replay) at the shapes that
+take the CUDA-core GEMV on the decode path (LLaMA-7B's xattn FF: D 4096,
+hidden 16,384; its down-projection alone; a ragged K of 11,000) and one
+tensor-core control (OF-3B's MLP). It imports only `fused_dense`,
+`fused_mlp` and chip_smoke.py's timer, so a copy of this file in an
+older checkout times that checkout's kernels: parent and change in one
+call.
+
+Run from the repository root with one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,10 +44,42 @@ import time
 import torch
 
 
+def gemv_times() -> int:
+    from chip_smoke import B, bound, card_line, device_ms
+    from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
+
+    dev, dt = torch.device("cuda", 0), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dt)
+
+    def mlp(d, k2):
+        x, ln, ln_b, gate = rn(B, d), 1 + rn(d, scale=0.1), rn(d, scale=0.1), torch.full((1,), 0.5, device=dev, dtype=dt)
+        w1, w2 = rn(k2, d, scale=d**-0.5), rn(d, k2, scale=k2**-0.5)
+        return (lambda: fused_mlp(x, w1, w2, ln_scale=ln, ln_bias=ln_b, residual=x, gate=gate),
+                2 * (2 * d * k2 + 2 * B * d + 2 * d + 1), 4 * B * d * k2)
+
+    def dense(k, n):
+        x, w = rn(B, k), rn(n, k, scale=k**-0.5)
+        return lambda: fused_dense(x, w), 2 * (n * k + B * k + B * n), 2 * B * n * k
+
+    cases = {"llama7b_xattn_ff_D4096_K2_16384": mlp(4096, 16384), "dense_K16384_N4096": dense(16384, 4096),
+             "dense_K11000_N4096": dense(11000, 4096), "of3b_mlp_D2048_K2_8192": mlp(2048, 8192)}
+    for case, (fn, nbytes, flops) in cases.items():
+        b_ms, b_by = bound(nbytes, flops, dt)
+        print(json.dumps({"profile": "gemv_bf16", "case": case, "ms": device_ms(fn), "bound_ms": b_ms,
+                          "bound_by": b_by}), flush=True)
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["gemv"]:
+        return gemv_times()
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

@@ -148,11 +148,16 @@ CASE_TOL = {"attend_out_decode": {torch.float32: dict(atol=1e-5, rtol=0.0), torc
 BF16_ULP_FLOOR = 2.0**-6
 LOGITS_TOL = 2e-3   # fp32 logits through 24 decoder + 24 xattn layers, every step
 B, T_PROMPT, NEW_TOKENS, SEED = 8, 32, 32, 0
-# the main-path shape of each kernel, timed and reported; other cases are edge cases
-MAIN_CASES = {"fused_dense": "head_V50434", "fused_mlp": "mpt_mlp", "attn_block_decode": "self_S64_slot40",
-              "flash_attention": "prefill_S64", "masked_xattn": "prefill_T1", "decode_attention": "xattn_S64",
-              "decode_attention_update": "self_S64_slot40", "flash_attention_backward": "mmc4_T256",
-              "masked_xattn_backward": "mmc4_T256", "attend_out_decode": "neox_S64_slot40"}
+# the main-path shape of each kernel, timed and reported, and the path whose
+# launches its entry reports; other cases are edge cases or other paths' shapes
+MAIN_CASES = {"fused_dense": ("head_V50434", "generate_fused"), "fused_mlp": ("mpt_mlp", "generate_fused"),
+              "attn_block_decode": ("self_S64_slot40", "generate_fused"),
+              "flash_attention": ("prefill_S64", "generate_fused"), "masked_xattn": ("prefill_T1", "generate_fused"),
+              "decode_attention": ("xattn_S64", "generate_unfused"),
+              "decode_attention_update": ("self_S64_slot40", "generate_unfused"),
+              "flash_attention_backward": ("mmc4_T256", "train_step"),
+              "masked_xattn_backward": ("mmc4_T256", "train_step"),
+              "attend_out_decode": ("neox_S64_slot40", "of4b_generate_fused")}
 # OF-4B's shapes of the kernels its path shares with OF-3B's
 NEOX_TIMED = {"neox_qkv_bias", "neox_head_untied_V50434", "neox_mlp_bias", "neox_xattn_S64_gate",
               "prefill_Dh80_noalibi", "neox_self_Dh80", "neox_self_S64_slot40"}
@@ -167,8 +172,10 @@ LLAMA_OPT_TIMED = {"llama_q_rms", "llama_q_rms_int8", "llama_q_rms_int4", "llama
                    "llama_head_rms_V32003_int8", "opt_q_ln_bias", "llama_swiglu", "llama_swiglu_int8",
                    "llama_swiglu_int4", "swiglu_ragged_K2_11000", "opt_mlp_relu_bias", "mlp_gelu_new", "mlp_quick_gelu",
                    "llama_S64_slot40", "llama3_gqa4_S64_slot0", "llama3_gqa4_S64_slot63", "llama3_gqa4_S64_slot0_kv8",
-                   "llama3_gqa4_S64_slot63_kv8"}
-TIMED_CASES = set(MAIN_CASES.values()) | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED | QUANT_TIMED | LLAMA_OPT_TIMED
+                   "llama3_gqa4_S64_slot63_kv8", "llama_xattn_ff_K2_16384", "opt_S64_slot40",
+                   "prefill_opt_Dh64_noalibi", "prefill_llama_Dh128_noalibi", "opt_self_Dh64", "opt_self_S64_slot40",
+                   "llama_self_Dh128", "llama_self_S64_slot40"}
+TIMED_CASES = {case for case, _ in MAIN_CASES.values()} | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED | QUANT_TIMED | LLAMA_OPT_TIMED
 BWD_TIMED = {"laion_T32", "mmc4_T256"}
 # the OF-3B train step at the JAX package's bench shape (bench.py:494)
 B_L, T_L, B_M, T_M, N_IMG, TRAIN_PAD = 8, 32, 4, 256, 6, 1
@@ -307,10 +314,12 @@ def llama_opt_kernel_cases(dtype, gen, dev):
     rows, and its int8 copy) and OPT's LayerNorm + bias q (D 2048); K2's
     SwiGLU at LLaMA-7B's shape (x's dtype, int8, int4) and at a ragged hidden
     size (11,000: a half 16-column tile, and K % 32 != 0 in launch 2), OPT's
-    relu MLP with b1/b2, the gelu_new and quick_gelu epilogues; K6 at
-    LLaMA-7B's self-attention shape, and grouped-query at Llama-3-8B's (32
-    heads over 8 KV heads, Dh 128) over the model-dtype and the int8 cache at
-    slots 0 and 63. Yields as kernel_cases."""
+    relu MLP with b1/b2, the gelu_new and quick_gelu epilogues, LLaMA-7B's
+    xattn FF (hidden 16,384: launch 2 on the CUDA-core GEMV); K6 at
+    LLaMA-7B's self-attention shape, grouped-query at Llama-3-8B's (32 heads
+    over 8 KV heads, Dh 128) over the model-dtype and the int8 cache at slots
+    0 and 63, and at OPT-1.3B's (Dh 64, out_proj bias); K4 prefill and K7 at
+    LLaMA-7B's and OPT-1.3B's self-attention. Yields as kernel_cases."""
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
 
@@ -369,14 +378,34 @@ def llama_opt_kernel_cases(dtype, gen, dev):
                lambda kw=kw: reference_mlp(x2, w1, w2, **kw), None, cost, lambda kw=kw: F.linear(F.linear(hn2, w1, kw["b1"]), w2, kw["b2"]),
                "F.linear twice: the two products (and biases) alone")
 
+    # K2 at LLaMA-7B's xattn FF (D 4096 -> 16,384 -> 4096, LN + bias, GELU,
+    # ff_gate, residual): launch 2's K = 16,384 does not fit 8 staged rows
+    # for the tensor cores, so it runs the CUDA-core GEMV
+    k2 = 16384
+    ln_b = rn(d, scale=0.1)
+    hn = layer_norm(x, ln, ln_b)
+    w1, w2 = rn(k2, d, scale=d**-0.5), rn(d, k2, scale=k2**-0.5)
+    gate = torch.tensor([0.5], device=dev, dtype=dtype)
+    kw = dict(ln_scale=ln, ln_bias=ln_b, residual=x, gate=gate)
+    cost = ((2 * d * k2 + 2 * B * d + 2 * d + 1) * es, 4 * B * d * k2)
+    yield ("fused_mlp", "llama_xattn_ff_K2_16384", lambda: fused_mlp(x, w1, w2, **kw),
+           lambda: reference_mlp(x, w1, w2, **kw), None, cost, lambda: F.linear(F.linear(hn, w1), w2),
+           "F.linear twice: the two products alone")
+
     # K6: LLaMA-7B's self-attention tail (MHA, no bias, residual), then
-    # grouped-query at Llama-3-8B's shape, model-dtype and int8 cache
-    h, dh, s = 32, 128, 64
-    wout, res = rn(d, h * dh, scale=(h * dh) ** -0.5), rn(B, d)
-    a_in = rn(B, h * dh)
-    for case, slot, n_rep, kv8 in (("llama_S64_slot40", 40, 1, False), ("llama3_gqa4_S64_slot0", 0, 4, False),
-                                   ("llama3_gqa4_S64_slot63", 63, 4, False), ("llama3_gqa4_S64_slot0_kv8", 0, 4, True),
-                                   ("llama3_gqa4_S64_slot63_kv8", 63, 4, True)):
+    # grouped-query at Llama-3-8B's shape, model-dtype and int8 cache; then
+    # OPT-1.3B's (D 2048, 32 heads of Dh 64, out_proj bias, residual)
+    s = 64
+    for case, dm, h, dh, slot, n_rep, kv8, biased in (
+        ("llama_S64_slot40", d, 32, 128, 40, 1, False, False), ("llama3_gqa4_S64_slot0", d, 32, 128, 0, 4, False, False),
+        ("llama3_gqa4_S64_slot63", d, 32, 128, 63, 4, False, False),
+        ("llama3_gqa4_S64_slot0_kv8", d, 32, 128, 0, 4, True, False),
+        ("llama3_gqa4_S64_slot63_kv8", d, 32, 128, 63, 4, True, False), ("opt_S64_slot40", d2, 32, 64, 40, 1, False, True),
+    ):
+        if case in ("llama_S64_slot40", "opt_S64_slot40"):     # each model's out-projection
+            wout, res = rn(dm, h * dh, scale=(h * dh) ** -0.5), rn(B, dm)
+            bout = rn(dm, scale=0.1) if biased else None
+            a_in = rn(B, h * dh)
         h_kv = h // n_rep
         q = rn(B, h, dh)
         if kv8:
@@ -388,19 +417,21 @@ def llama_opt_kernel_cases(dtype, gen, dev):
         mask = left_padded_mask(B, s, [4, 7], dev)
         mask[:, slot + 1:] = False
         mask[:, slot] = True
-        kw = dict(scale=dh**-0.5, k_new=rn(B, h_kv, dh), v_new=rn(B, h_kv, dh), residual=res,
+        kw = dict(scale=dh**-0.5, k_new=rn(B, h_kv, dh), v_new=rn(B, h_kv, dh), residual=res, bias=bout,
                   slot=torch.tensor([slot], dtype=torch.int32, device=dev))
-        fn = lambda q=q, c=caches, mask=mask, kw=kw: attend_out_decode(
+        fn = lambda q=q, c=caches, mask=mask, wout=wout, kw=kw: attend_out_decode(
             q, c[0], c[1], mask, wout, k_scale=c[2], v_scale=c[3], **kw)[0]
 
-        def plain(q=q, o=(k0, v0, ks0, vs0), mask=mask, kw=kw):
+        def plain(q=q, o=(k0, v0, ks0, vs0), mask=mask, wout=wout, kw=kw):
             c = [t.clone() if t is not None else None for t in o]
             return reference_attend_out(q, c[0], c[1], mask, wout, k_scale=c[2], v_scale=c[3], **kw)[0]
         n_valid = mask.sum().item()
         ces = 1 if kv8 else es
-        cost = ((d * h * dh + B * h * dh + 2 * B * d + 2 * B * h_kv * dh) * es
-                + 2 * n_valid * h_kv * (dh * ces + 4 * kv8) + B * s + 4, 2 * B * d * h * dh + 4 * h * dh * n_valid)
-        yield ("attend_out_decode", case, fn, plain, None, cost, lambda: F.linear(a_in, wout),
+        cost = ((dm * h * dh + B * h * dh + 2 * B * dm + 2 * B * h_kv * dh + dm * biased) * es
+                + 2 * n_valid * h_kv * (dh * ces + 4 * kv8) + B * s + 4, 2 * B * dm * h * dh + 4 * h * dh * n_valid)
+        yield ("attend_out_decode", case, fn, plain, None, cost,
+               lambda a_in=a_in, wout=wout, bout=bout: F.linear(a_in, wout, bout),
+               "F.linear(a, Wout, b): the out-projection alone" if biased else
                "F.linear(a, Wout): the out-projection alone")
         if kv8:
             pc = [t.clone() for t in (k0, v0, ks0, vs0)]
@@ -414,6 +445,13 @@ def llama_opt_kernel_cases(dtype, gen, dev):
             require(torch.equal(caches[0][:, :, others], k0[:, :, others])
                     and torch.equal(caches[1][:, :, others], v0[:, :, others]),
                     f"attend_out_decode/{case}: slots other than the new token's changed")
+
+    # K4 prefill and K7 (the unfused route) at LLaMA-7B's (32 heads of Dh 128)
+    # and OPT-1.3B's (32 of Dh 64) self-attention, neither with ALiBi
+    yield from self_attention_cases(rn, es, dev, 32, 128, "prefill_llama_Dh128_noalibi", "llama_self_Dh128",
+                                    "llama_self_S64_slot40")
+    yield from self_attention_cases(rn, es, dev, 32, 64, "prefill_opt_Dh64_noalibi", "opt_self_Dh64",
+                                    "opt_self_S64_slot40")
 
 
 def launched_variant(fn, call):
@@ -707,8 +745,16 @@ def neox_kernel_cases(dtype, gen, dev):
             require(torch.equal(kc[:, :, others], k0[:, :, others]) and torch.equal(vc[:, :, others], v0[:, :, others]),
                     f"attend_out_decode/{case}: slots other than the new token's changed")
 
-    # K4: prefill at Dh = 80 without ALiBi (zero slopes, as ops/attention.py
-    # passes them), H = 32
+    yield from self_attention_cases(rn, es, dev, h, dh, "prefill_Dh80_noalibi", "neox_self_Dh80",
+                                    "neox_self_S64_slot40")
+
+
+def self_attention_cases(rn, es, dev, h, dh, prefill_case, self_case, update_case):
+    """A decoder's self-attention without ALiBi (zero slopes, as
+    ops/attention.py passes them) at H heads of Dh, B = 8: K4 prefill of the
+    32-token prompt, and K7 over the 64-slot cache, with and without the
+    update writing slot 40 (the unfused route). Yields as kernel_cases."""
+    s = 64
     tq, hb = T_PROMPT, B * h
     q, k, v = rn(hb, tq, dh), rn(hb, s, dh), rn(hb, s, dh)
     valid = left_padded_mask(B, s, [4, 7], dev)
@@ -719,13 +765,11 @@ def neox_kernel_cases(dtype, gen, dev):
     keys = allowed.any(1).sum().item()
     cost = ((2 * hb * tq * dh + 2 * keys * dh) * es + hb * s + 4 * hb, 4 * dh * allowed.sum().item())
     q4, k4, v4, m4 = q.view(B, h, tq, dh), k.view(B, h, s, dh), v.view(B, h, s, dh), allowed.view(B, h, tq, s)
-    yield ("flash_attention", "prefill_Dh80_noalibi", lambda: flash_attention(q, k, v, pad, sl, 0, True, dh**-0.5),
+    yield ("flash_attention", prefill_case, lambda: flash_attention(q, k, v, pad, sl, 0, True, dh**-0.5),
            lambda: reference_attention(q, k, v, pad, sl, 0, True, dh**-0.5), zeros_at(~allowed.any(-1)), cost,
            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=dh**-0.5),
            "scaled_dot_product_attention")
 
-    # K7 at Dh = 80 without ALiBi: attention over the cache, and the update
-    # writing slot 40 (the unfused route's self-attention)
     slot = 40
     q, kc, vc, kn, vn = rn(B, h, dh), rn(B, h, s, dh), rn(B, h, s, dh), rn(B, h, dh), rn(B, h, dh)
     mask = left_padded_mask(B, s, [4, 7], dev)
@@ -733,7 +777,7 @@ def neox_kernel_cases(dtype, gen, dev):
     n_valid = mask.sum().item()
     cost = ((2 * B * h * dh + 2 * n_valid * h * dh) * es + B * s, 4 * dh * h * n_valid)
     q4, k4, v4, m4 = q[:, :, None], kc, vc, mask[:, None, None, :]
-    yield ("decode_attention", "neox_self_Dh80", lambda: decode_attention(q, kc, vc, mask, scale=dh**-0.5),
+    yield ("decode_attention", self_case, lambda: decode_attention(q, kc, vc, mask, scale=dh**-0.5),
            lambda: reference_decode_attention(q, kc, vc, mask, dh**-0.5), None, cost,
            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=dh**-0.5),
            "scaled_dot_product_attention")
@@ -745,10 +789,10 @@ def neox_kernel_cases(dtype, gen, dev):
         return reference_decode_attention(q, kp, vp, mask, dh**-0.5)
 
     cost = ((2 * B * h * dh + 2 * n_valid * h * dh + 4 * B * h * dh) * es + B * s, 4 * dh * h * n_valid)
-    yield ("decode_attention_update", "neox_self_S64_slot40",
+    yield ("decode_attention_update", update_case,
            lambda: decode_attention_update(q, kc, vc, kn, vn, mask, slot, scale=dh**-0.5)[0], plain_update, None,
            cost, None, None)
-    require(torch.equal(kc[:, :, slot], kn) and torch.equal(vc[:, :, slot], vn), "update Dh 80: slot not written")
+    require(torch.equal(kc[:, :, slot], kn) and torch.equal(vc[:, :, slot], vn), f"{update_case}: slot not written")
 
 
 def qweight(w, bits):
@@ -1698,24 +1742,25 @@ def main() -> int:
     log({"phase": "seconds", **seconds})
     kernels = []
 
-    def entry(name, kernel, variant, launches, by_path, main_case):
+    def entry(name, kernel, variant, path, by_path, main_case):
         t = timing[kernel][main_case]
         src, replaces = SOURCES[kernel]
-        return {"name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": launches,
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": by_path[path],
                 "launches_by_path": by_path, "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                "library_is": t["library_is"], "case": t["case"], "variant": variant,
+                "library_is": t["library_is"], "case": t["case"], "path": path, "variant": variant,
                 "other_cases": [r for c, r in timing[kernel].items() if c != main_case and r.get("variant", "float") == variant]}
 
     for name in SOURCES:
-        # each kernel's count from the newest path that runs it, every path beside it
-        by_path = {path: counts[name] for path, counts in paths.items()}
-        launches = next(n for n in reversed(list(by_path.values())) if n) if any(by_path.values()) else 0
-        kernels.append(entry(name, name, "float", launches, by_path, MAIN_CASES[name]))
+        # each kernel's count from the path of its main case, every path beside it
+        case, path = MAIN_CASES[name]
+        by_path = {p: counts[name] for p, counts in paths.items()}
+        require(by_path[path] > 0, f"{name}: no launch on {path}")
+        kernels.append(entry(name, name, "float", path, by_path, case))
     for name, (kernel, main_case, path, key) in VARIANTS.items():
         by_path = {p: v.get(kernel, {}).get(key, 0) for p, v in vpaths.items()}
         require(by_path[path] > 0, f"{name}: no launch on {path}")
-        kernels.append(entry(name, kernel, key, by_path[path], by_path, main_case))
+        kernels.append(entry(name, kernel, key, path, by_path, main_case))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -311,8 +311,8 @@ int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, con
   const int inner = h * d;
   const int p = fused_qkv ? 3 * inner : inner;
   rows::Epilogue<T> ep1{(const float*)wq_scale, nullptr, has_clip, clip, 0, nullptr, nullptr};
-  cudaError_t e = rows::launch_gemv_w<T, float>(wq_type, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps, wq, ep1,
-                                                (float*)proj, b, p, dm, st);
+  cudaError_t e = rows::launch_gemv_norm<T, float>(wq_type, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps,
+                                                   rows::kLayerNorm, wq, nullptr, ep1, (float*)proj, b, p, dm, st);
   if (e != cudaSuccess) return (int)e;
   const int* sl = fused_qkv ? (const int*)slot : nullptr;
   if (k_s != nullptr)
@@ -326,8 +326,8 @@ int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, con
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   rows::Epilogue<T> ep3{(const float*)wout_scale, nullptr, 0, 0.f, 0, (const T*)gate, (const T*)x};
-  return (int)rows::launch_gemv_w<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, wout, ep3, (T*)out, b, dm,
-                                        inner, st);
+  return (int)rows::launch_gemv_norm<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, rows::kLayerNorm, wout,
+                                           nullptr, ep3, (T*)out, b, dm, inner, st);
 }
 
 // K6: attend, then out = residual + tanh(gate) * (attn @ Wout^T * wout_scale + bias).
@@ -347,8 +347,8 @@ int attend_out(const void* q, void* k, void* v, void* k_s, void* v_s, const void
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   rows::Epilogue<T> ep{(const float*)wout_scale, (const T*)bias, 0, 0.f, 0, (const T*)gate, (const T*)residual};
-  return (int)rows::launch_gemv_w<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, wout, ep, (T*)out, b, dm,
-                                        h * d, st);
+  return (int)rows::launch_gemv_norm<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, rows::kLayerNorm, wout,
+                                           nullptr, ep, (T*)out, b, dm, h * d, st);
 }
 
 }  // namespace

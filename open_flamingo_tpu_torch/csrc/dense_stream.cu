@@ -69,8 +69,8 @@ int mlp(const void* x, const void* w1, const void* w1g, const void* w2, const vo
   if (e != cudaSuccess) return (int)e;
   rows::Epilogue<T> down{(const float*)w2_scale, (const T*)b2, 0, 0.f, rows::kNone, (const T*)gate,
                          (const T*)residual, nullptr};
-  return (int)rows::launch_gemv_w<T, T>(w2type, (const T*)hidden, nullptr, nullptr, 0.f, w2, down, (T*)out, b, n,
-                                        k2, st);
+  return (int)rows::launch_gemv_norm<T, T>(w2type, (const T*)hidden, nullptr, nullptr, 0.f, rows::kLayerNorm, w2,
+                                           nullptr, down, (T*)out, b, n, k2, st);
 }
 
 }  // namespace

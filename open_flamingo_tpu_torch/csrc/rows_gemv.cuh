@@ -207,14 +207,15 @@ __device__ __forceinline__ float activation(float y, int act) {
   }
 }
 
-// The activation of a kernel instance: kActRuntime, any Act as ep.act says
-// (the CUDA-core kernel); kActBase, none or exact GELU as ep.act says (the
-// tensor-core kernel's first instance, which keeps the epilogue it had
-// before the other activations came); or one Act compiled in (one
-// tensor-core instance each). In the tensor-core kernel a switch over every
-// activation, or no activation code at all, changed the compiler's schedule
-// of the whole kernel and cost the bf16 instances 5-18% of their time
-// (chip_smoke.py's kernels phase, parent and change in one run).
+// The activation of a kernel instance: kActBase, none or exact GELU as
+// ep.act says (the first instance of each kernel, which keeps the epilogue
+// it had before the other activations came); kActRuntime, any Act as ep.act
+// says (the CUDA-core kernel's instance for the activations past GELU); or
+// one Act compiled in (one tensor-core instance each). In the tensor-core
+// kernel a switch over every activation, or no activation code at all,
+// changed the compiler's schedule of the whole kernel and cost the bf16
+// instances 5-18% of their time (chip_smoke.py's kernels phase, parent and
+// change in one run).
 constexpr int kActRuntime = -1;
 constexpr int kActBase = -2;
 
@@ -282,7 +283,7 @@ __device__ void stage_row(const T* __restrict__ xr, const T* __restrict__ ln_s,
   }
 }
 
-template <typename T, typename W, typename OutT, bool kGated>
+template <typename T, typename W, typename OutT, bool kGated, int kAct>
 __global__ void __launch_bounds__(kThreads) gemv_kernel(
     const T* __restrict__ x, const T* __restrict__ ln_s, const T* __restrict__ ln_b, float eps, int norm,
     const unsigned char* __restrict__ w, const unsigned char* __restrict__ wg, Epilogue<T> ep,
@@ -329,8 +330,7 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
           const float sumg = kGated ? warp_sum(accg[r]) : 0.f;
           if (lane == r)
             out[(size_t)(r0 + r) * n + col] =
-                from_f32<OutT>(epilogue<!std::is_same<W, T>::value, kGated, kActRuntime>(sum, sumg, ep, r0 + r,
-                                                                                         col, n));
+                from_f32<OutT>(epilogue<!std::is_same<W, T>::value, kGated, kAct>(sum, sumg, ep, r0 + r, col, n));
         }
       }
     }
@@ -556,7 +556,7 @@ cudaError_t launch_gemv_mma(const __nv_bfloat16* x, const __nv_bfloat16* ln_s,
 
 // The CUDA-core kernel's launch (fp32, K not a multiple of 32, or K too long
 // to stage 8 rows for the tensor cores): as many rows per pass as fit.
-template <typename T, typename W, typename OutT, bool kGated>
+template <typename T, typename W, typename OutT, bool kGated, int kAct>
 cudaError_t launch_gemv_core(const T* x, const T* ln_s, const T* ln_b, float eps, int norm, const void* w,
                              const void* wg, Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
   const size_t row_bytes = (size_t)k * sizeof(T);
@@ -565,7 +565,7 @@ cudaError_t launch_gemv_core(const T* x, const T* ln_s, const T* ln_b, float eps
   rows = rows < b ? rows : b;
   if (rows < 1) return cudaErrorInvalidValue;
   const size_t smem = rows * row_bytes;
-  auto kern = gemv_kernel<T, W, OutT, kGated>;
+  auto kern = gemv_kernel<T, W, OutT, kGated, kAct>;
   static size_t smem_set = 48 * 1024;  // the default limit
   cudaError_t e = allow_smem(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
@@ -578,14 +578,12 @@ cudaError_t launch_gemv_core(const T* x, const T* ln_s, const T* ln_b, float eps
 // out (B, N) = epilogue(h @ W^T); h = norm(x) when ln_s is given (`norm` a
 // Norm), else x; W (N, K) stored as W (T, int8_t or Int4); with kGated, Wg
 // of the same shape and storage. k must be a multiple of kVec and every row
-// 16-byte aligned (the wrapper checks). kActs: ep.act may be any Act (else
-// none or GELU, and only the tensor-core kernel's kActBase instance is
-// compiled). Returns the launch's error code.
-template <typename T, typename W, typename OutT, bool kGated, bool kActs>
+// 16-byte aligned (the wrapper checks). Returns the launch's error code.
+template <typename T, typename W, typename OutT, bool kGated>
 cudaError_t launch_gemv(const T* x, const T* ln_s, const T* ln_b, float eps, int norm, const void* w,
                         const void* wg, Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
   if (k < kVec || k % kVec != 0 || b < 1 || n < 1 || (kGated && wg == nullptr)) return cudaErrorInvalidValue;
-  if (ep.act < kNone || ep.act > kSilu || (!kActs && ep.act > kGelu)) return cudaErrorInvalidValue;
+  if (ep.act < kNone || ep.act > kSilu) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     // K > ~13,800 does not fit 8 staged rows: the CUDA-core path stages fewer
     if (k % kMmaK == 0 && mma_smem(k, kGated) <= (size_t)smem_optin()) {
@@ -593,24 +591,23 @@ cudaError_t launch_gemv(const T* x, const T* ln_s, const T* ln_b, float eps, int
         return launch_gemv_mma<W, OutT, kGated, decltype(act)::value>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n,
                                                                       k, st);
       };
-      if constexpr (kActs) {
-        switch (ep.act) {
-          case kGeluNew: return mma(std::integral_constant<int, kGeluNew>{});
-          case kRelu: return mma(std::integral_constant<int, kRelu>{});
-          case kQuickGelu: return mma(std::integral_constant<int, kQuickGelu>{});
-          case kSilu: return mma(std::integral_constant<int, kSilu>{});
-          default: break;
-        }
+      switch (ep.act) {
+        case kGeluNew: return mma(std::integral_constant<int, kGeluNew>{});
+        case kRelu: return mma(std::integral_constant<int, kRelu>{});
+        case kQuickGelu: return mma(std::integral_constant<int, kQuickGelu>{});
+        case kSilu: return mma(std::integral_constant<int, kSilu>{});
+        default: return mma(std::integral_constant<int, kActBase>{});
       }
-      return mma(std::integral_constant<int, kActBase>{});
     }
   }
-  return launch_gemv_core<T, W, OutT, kGated>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
+  if (ep.act <= kGelu)
+    return launch_gemv_core<T, W, OutT, kGated, kActBase>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
+  return launch_gemv_core<T, W, OutT, kGated, kActRuntime>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
 }
 
 // launch_gemv on the weight type code the wrappers pass (0 W in T, 1 int8,
-// 2 packed int4), the norm kind and any activation; gated with wg, which is
-// stored as w is (K1, K2's first launch)
+// 2 packed int4), the norm kind and any activation; gated with wg (K2's
+// SwiGLU), which is stored as w is; every row GEMV of K1, K2, K3 and K6
 template <typename T, typename OutT>
 cudaError_t launch_gemv_norm(int wtype, const T* x, const T* ln_s, const T* ln_b, float eps, int norm,
                              const void* w, const void* wg, Epilogue<T> ep, OutT* out, int b, int n, int k,
@@ -618,31 +615,12 @@ cudaError_t launch_gemv_norm(int wtype, const T* x, const T* ln_s, const T* ln_b
   if (norm != kLayerNorm && norm != kRmsNorm) return cudaErrorInvalidValue;
   const bool gated = wg != nullptr;
   switch (wtype * 2 + gated) {
-    case 0: return launch_gemv<T, T, OutT, false, true>(x, ln_s, ln_b, eps, norm, w, nullptr, ep, out, b, n, k, st);
-    case 1: return launch_gemv<T, T, OutT, true, true>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
-    case 2:
-      return launch_gemv<T, int8_t, OutT, false, true>(x, ln_s, ln_b, eps, norm, w, nullptr, ep, out, b, n, k, st);
-    case 3: return launch_gemv<T, int8_t, OutT, true, true>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
-    case 4:
-      return launch_gemv<T, Int4, OutT, false, true>(x, ln_s, ln_b, eps, norm, w, nullptr, ep, out, b, n, k, st);
-    case 5: return launch_gemv<T, Int4, OutT, true, true>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// A LayerNorm prologue (or none), no gate weight, no activation or exact
-// GELU: K2's second launch, K3's and K6's projections
-template <typename T, typename OutT>
-cudaError_t launch_gemv_w(int wtype, const T* x, const T* ln_s, const T* ln_b, float eps, const void* w,
-                          Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
-  switch (wtype) {
-    case 0:
-      return launch_gemv<T, T, OutT, false, false>(x, ln_s, ln_b, eps, kLayerNorm, w, nullptr, ep, out, b, n, k, st);
-    case 1:
-      return launch_gemv<T, int8_t, OutT, false, false>(x, ln_s, ln_b, eps, kLayerNorm, w, nullptr, ep, out, b, n, k,
-                                                        st);
-    case 2:
-      return launch_gemv<T, Int4, OutT, false, false>(x, ln_s, ln_b, eps, kLayerNorm, w, nullptr, ep, out, b, n, k, st);
+    case 0: return launch_gemv<T, T, OutT, false>(x, ln_s, ln_b, eps, norm, w, nullptr, ep, out, b, n, k, st);
+    case 1: return launch_gemv<T, T, OutT, true>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
+    case 2: return launch_gemv<T, int8_t, OutT, false>(x, ln_s, ln_b, eps, norm, w, nullptr, ep, out, b, n, k, st);
+    case 3: return launch_gemv<T, int8_t, OutT, true>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
+    case 4: return launch_gemv<T, Int4, OutT, false>(x, ln_s, ln_b, eps, norm, w, nullptr, ep, out, b, n, k, st);
+    case 5: return launch_gemv<T, Int4, OutT, true>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
     default: return cudaErrorInvalidValue;
   }
 }
