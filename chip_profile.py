@@ -11,6 +11,7 @@ port spends its time on the card.
     python3 chip_profile.py llama      # LLaMA-7B generate, the fused route (3 K1, K6, K2 SwiGLU; K3)
     python3 chip_profile.py opt        # OPT-1.3B generate, the fused route (3 K1, K6, K2 relu; K3)
     python3 chip_profile.py gemv       # the bf16 row GEMV alone at its CUDA-core shapes (K 16,384, 11,000)
+    python3 chip_profile.py vit        # K9, K10 and the ViT-L/14 forward alone (B 8, 32), kernels and plain
 
 Builds OF-3B (OF-4B for `of4b`; chip_smoke.py's LLaMA-7B and OPT-1.3B
 configurations for `llama` and `opt`) at full width with random weights
@@ -30,6 +31,13 @@ tensor-core control (OF-3B's MLP). It imports only `fused_dense`,
 `fused_mlp` and chip_smoke.py's timer, so a copy of this file in an
 older checkout times that checkout's kernels: parent and change in one
 call.
+
+`vit` times K9 and K10 (bf16, CUDA-graph replay) at chip_smoke.py's
+ViT-L/14 cases (B 8 and 32) and the ViT-L/14 forward with the kernels and
+on the plain route (`DISABLE`), in turns kernels, plain, plain, kernels,
+then traces one forward at B 8 on each route: device time by kind. It
+imports only chip_smoke.py's ViT helpers and timer, so a copy in an older
+checkout times that checkout's kernels.
 
 Run from the repository root with one CUDA card; imports nothing of JAX.
 """
@@ -74,12 +82,73 @@ def gemv_times() -> int:
     return 0
 
 
+def device_time_by_kind(run, kinds) -> dict:
+    """Trace one call of `run`: device seconds by kind of kernel (the first
+    kind whose keys match a kernel's name), the busy total and the event
+    count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e6, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        raise RuntimeError("the trace holds no device events")
+    by_kind = {kind: 0.0 for kind, _ in kinds} | {"other": 0.0}
+    for name, t, _ in rows:
+        by_kind[next((kind for kind, keys in kinds if any(key in name for key in keys)), "other")] += t
+    rows.sort(key=lambda r: -r[1])
+    return {"device_busy_s": sum(r[1] for r in rows), "device_s_by_kind": by_kind,
+            "device_events": sum(r[2] for r in rows),
+            "top": [{"name": k[:80], "device_s": t, "count": n} for k, t, n in rows[:8]]}
+
+
+def vit_times() -> int:
+    import contextlib
+    import os
+
+    from chip_smoke import B, VIT_L_14, bound, card_line, device_ms, vit_kernel_cases, vit_model, vit_plain_route
+
+    dev, dt = torch.device("cuda", 0), torch.bfloat16
+    tree = os.path.basename(os.getcwd())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, case, fn, _, _, cost, _, _ in vit_kernel_cases(dt, gen, dev):
+        if case in ("vitl14_B8", "vitl14_B32"):
+            b_ms, b_by = bound(*cost, dt)
+            print(json.dumps({"profile": "vit_kernel_bf16", "tree": tree, "kernel": name, "case": case,
+                              "ms": device_ms(fn), "bound_ms": b_ms, "bound_by": b_by}), flush=True)
+    vit = vit_model(dev, dt)
+    px = VIT_L_14.image_size
+    kinds = (("K9 vit_attention", ("vit_attn",)), ("K10 layer_norm", ("layer_norm_kernel",)),
+             ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "splitK")), ("softmax", ("softmax",)),
+             ("copy", ("copy", "Memcpy", "Memset")), ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
+    with torch.no_grad():
+        for b in (B, 32):
+            pixels = torch.randn(b, px, px, 3, generator=gen, device=dev)
+            times = {"kernels": [], "plain": []}
+            for route in ("kernels", "plain", "plain", "kernels"):
+                with vit_plain_route() if route == "plain" else contextlib.nullcontext():
+                    times[route].append(device_ms(lambda: vit(pixels), reps=2, rounds=5))
+            row = {"profile": "vit_forward_bf16", "tree": tree, "batch": b, "runs_ms": times}
+            if b == B:
+                for route in ("kernels", "plain"):
+                    with vit_plain_route() if route == "plain" else contextlib.nullcontext():
+                        row[f"trace_{route}"] = device_time_by_kind(lambda: vit(pixels), kinds)
+            print(json.dumps(row), flush=True)
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:] == ["gemv"]:
         return gemv_times()
+    if sys.argv[1:] == ["vit"]:
+        return vit_times()
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

@@ -39,7 +39,17 @@ Phases, each printing JSON lines:
               OPT's relu MLP, the gelu_new and quick_gelu epilogues; K6 at
               LLaMA-7B's shape and grouped-query (Llama-3-8B: 32 heads over
               8 KV heads, Dh 128) over the bf16 and the int8 cache at slots
-              0 and 63;
+              0 and 63. The ViT's kernels (vit_kernel_cases): K9
+              vit_attention at ViT-L/14 B 8 and 32 (BH 128 / 512, S 257,
+              Dh 64, read through the (B, S, H, Dh) views the block passes;
+              SDPA beside it) and at a ragged S 17; K10 layer_norm on
+              (B, 257, 1024) with scale and bias, and without bias
+              (F.layer_norm beside it); both autograd Functions against
+              plain autograd in fp32;
+     vit      ViT-L/14 alone (random weights): fp32 patch tokens with K9/K10
+              against plain_path() (VIT_RTOL) and their launches (24, 48);
+              bf16 device time of one forward at B 8 and 32 with the kernels
+              and under DISABLE (vision_ms_kernels, vision_ms_plain);
   3. generate full-width OF-3B (ViT-L/14 + MPT-1B, 24 xattn blocks), then
               full-width OF-4B (ViT-L/14 + RedPajama-INCITE-3B, 16 xattn
               blocks, its decoder biases drawn at random), LLaMA-7B
@@ -49,7 +59,9 @@ Phases, each printing JSON lines:
               random; `SLICE_CONFIGS`), each with random
               weights from a seed: greedy flamingo_generate of 32
               tokens for 8 prompts of 32 tokens, one image each, two rows
-              left-padded. fp32: (a) the fused decode route (OF-3B K1-K3;
+              left-padded. fp32: each route encodes the images itself (the
+              latents of kernels and plain_path() within VIT_RTOL) and
+              computes its logits from its own latents; (a) the fused decode route (OF-3B K1-K3;
               OF-4B K1, K6, K2 per layer; LLaMA-7B and OPT-1.3B three K1,
               K6, K2 per layer; K3 + K2 per xattn block) with
               its kernels against the same route under `plain_path()`,
@@ -59,8 +71,11 @@ Phases, each printing JSON lines:
               timed: (c) the fused route, (d) the unfused route, each with
               every kernel's launch counter reset just before and checked
               just after against the counts the route must give
-              (`route_launches`), and one fused decode step under the sync
-              debug mode "error". Each model is freed before the next.
+              (`route_launches`: K9 24 and K10 48 per call, the vision
+              encoded once), and one fused decode step under the sync
+              debug mode "error" that launches no ViT kernel; OF-3B's fused
+              route once more with the ViT on its plain route (vision_s,
+              TTFT without K9/K10). Each model is freed before the next.
      quantized  (the variants were checked in phase 2: `quant_kernel_cases`,
               int8 / packed int4 weights with per-channel scales and the
               int8 caches, the slot's written int8 row within one step of
@@ -83,7 +98,8 @@ Phases, each printing JSON lines:
               kernels against the same step under `plain_path()`. bf16: one
               warm-up step, then three timed steps, each with every launch
               counter reset just before and checked just after (K4 and K5
-              forwards 48, K4b and K5b 48, K1-K3 and K7 0), finite losses,
+              forwards 48, K4b and K5b 48, K9 48 and K10 96 for the two ViT
+              forwards, K1-K3 and K7 0), finite losses,
               and the embedding rows other than <image>/<|endofchunk|>
               unchanged.
 Then the `kernels` summary line, the card's name and power limit, and last
@@ -111,7 +127,10 @@ from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_genera
 from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes, quantize_kv
 from open_flamingo_tpu_torch.models.flamingo import count_media, init_random
 from open_flamingo_tpu_torch.models.layers import layer_norm
+from open_flamingo_tpu_torch.models.vit import VisionTransformer
 from open_flamingo_tpu_torch.ops import build, dense_stream
+from open_flamingo_tpu_torch.ops import layer_norm as ln_op
+from open_flamingo_tpu_torch.ops import vit_attention as vit_op
 from open_flamingo_tpu_torch.ops.attention import plain_path
 from open_flamingo_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_update, reference_decode_attention)
@@ -124,6 +143,7 @@ from open_flamingo_tpu_torch.ops.flash_attention import (
 from open_flamingo_tpu_torch.ops.masked_xattn import (
     masked_xattn, masked_xattn_backward, masked_xattn_forward, reference_masked_xattn,
     reference_masked_xattn_backward)
+from open_flamingo_tpu_torch.ops.vit_attention import reference_heads, vit_attention, vit_attention_heads
 from open_flamingo_tpu_torch.quantize import (
     dequantize_roundtrip, drop_decode_weights, pack_int4, quantize_decode_weights, quantize_weight)
 from open_flamingo_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer, split_params
@@ -147,6 +167,12 @@ LSE_TOL = dict(atol=1e-4, rtol=1e-5)   # fp32 in both versions, from the same in
 CASE_TOL = {"attend_out_decode": {torch.float32: dict(atol=1e-5, rtol=0.0), torch.bfloat16: "ulp"}}
 BF16_ULP_FLOOR = 2.0**-6
 LOGITS_TOL = 2e-3   # fp32 logits through 24 decoder + 24 xattn layers, every step
+# fp32 ViT output and latents, kernels (K9, K10) vs plain_path(): max |diff| within
+# 1e-4 of the largest entry. Each block's K9/K10 sum in another order than the
+# plain version (~1e-6 relative), and 24 residual blocks (and the perceiver
+# after them) carry and grow that; 1e-4 leaves ~30x room above it, and a
+# wrong mask, scale or rounding moves entries by 1e-2 or more.
+VIT_RTOL = 1e-4
 B, T_PROMPT, NEW_TOKENS, SEED = 8, 32, 32, 0
 # the main-path shape of each kernel, timed and reported, and the path whose
 # launches its entry reports; other cases are edge cases or other paths' shapes
@@ -157,7 +183,8 @@ MAIN_CASES = {"fused_dense": ("head_V50434", "generate_fused"), "fused_mlp": ("m
               "decode_attention_update": ("self_S64_slot40", "generate_unfused"),
               "flash_attention_backward": ("mmc4_T256", "train_step"),
               "masked_xattn_backward": ("mmc4_T256", "train_step"),
-              "attend_out_decode": ("neox_S64_slot40", "of4b_generate_fused")}
+              "attend_out_decode": ("neox_S64_slot40", "of4b_generate_fused"),
+              "vit_attention": ("vitl14_B8", "generate_fused"), "layer_norm": ("vitl14_B8", "generate_fused")}
 # OF-4B's shapes of the kernels its path shares with OF-3B's
 NEOX_TIMED = {"neox_qkv_bias", "neox_head_untied_V50434", "neox_mlp_bias", "neox_xattn_S64_gate",
               "prefill_Dh80_noalibi", "neox_self_Dh80", "neox_self_S64_slot40"}
@@ -175,7 +202,10 @@ LLAMA_OPT_TIMED = {"llama_q_rms", "llama_q_rms_int8", "llama_q_rms_int4", "llama
                    "llama3_gqa4_S64_slot63_kv8", "llama_xattn_ff_K2_16384", "opt_S64_slot40",
                    "prefill_opt_Dh64_noalibi", "prefill_llama_Dh128_noalibi", "opt_self_Dh64", "opt_self_S64_slot40",
                    "llama_self_Dh128", "llama_self_S64_slot40"}
-TIMED_CASES = {case for case, _ in MAIN_CASES.values()} | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED | QUANT_TIMED | LLAMA_OPT_TIMED
+# the ViT's (vit_kernel_cases)
+VIT_TIMED = {"vitl14_B8", "vitl14_B32", "S17", "vitl14_B8_nobias"}
+TIMED_CASES = ({case for case, _ in MAIN_CASES.values()} | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED | QUANT_TIMED
+               | LLAMA_OPT_TIMED | VIT_TIMED)
 BWD_TIMED = {"laion_T32", "mmc4_T256"}
 # the OF-3B train step at the JAX package's bench shape (bench.py:494)
 B_L, T_L, B_M, T_M, N_IMG, TRAIN_PAD = 8, 32, 4, 256, 6, 1
@@ -1006,14 +1036,86 @@ def quant_kernel_cases(dtype, gen, dev):
             int8_slot_check("attend_out_decode", case, dtype, caches, pc, (k0, v0, ks0, vs0), slot)
 
 
+def vit_kernel_cases(dtype, gen, dev):
+    """The ViT-L/14 blocks' kernels (S 257, 16 heads of Dh 64, D 1024) at
+    B = 8 and 32 images, as the block calls them: K9 vit_attention_heads on
+    (B, S, H, Dh) views of the q/k/v projections' (B, S, D) outputs, K10
+    layer_norm on the (B, S, D) residual stream with scale and bias; edge
+    cases K9 at a ragged S 17 on the (BH, S, Dh) signature and K10 without a
+    bias. Yields as kernel_cases."""
+    def rn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale + shift).to(dtype)
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    s, h, dh = VIT_L_14.num_patches + 1, VIT_L_14.num_heads, VIT_L_14.head_dim
+    d = h * dh
+    for case, b in (("vitl14_B8", B), ("vitl14_B32", 32)):
+        q, k, v = (rn(b, s, d).view(b, s, h, dh) for _ in range(3))
+        q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+        cost = (4 * b * s * d * es, 4 * b * h * s * s * dh)
+        yield ("vit_attention", case, lambda q=q, k=k, v=v: vit_attention_heads(q, k, v, dh**-0.5),
+               lambda q=q, k=k, v=v: reference_heads(q, k, v, dh**-0.5), None, cost,
+               lambda q4=q4, k4=k4, v4=v4: F.scaled_dot_product_attention(q4, k4, v4, scale=dh**-0.5),
+               "scaled_dot_product_attention on (B, H, S, Dh) views of the same q/k/v")
+        x, sc, bi = rn(b, s, d, scale=2.0, shift=1.0), rn(d, scale=0.1, shift=1.0), rn(d, scale=0.1)
+        cost = ((2 * b * s * d + 2 * d) * es, 8 * b * s * d)
+        yield ("layer_norm", case, lambda x=x, sc=sc, bi=bi: ln_op.layer_norm(x, sc, bi),
+               lambda x=x, sc=sc, bi=bi: layer_norm(x, sc, bi), None, cost,
+               lambda x=x, sc=sc, bi=bi: F.layer_norm(x, (d,), sc, bi, 1e-5), "F.layer_norm (two-pass variance)")
+        if b == B:
+            cost = ((2 * b * s * d + d) * es, 7 * b * s * d)
+            yield ("layer_norm", "vitl14_B8_nobias", lambda x=x, sc=sc: ln_op.layer_norm(x, sc, None),
+                   lambda x=x, sc=sc: layer_norm(x, sc, None), None, cost,
+                   lambda x=x, sc=sc: F.layer_norm(x, (d,), sc, None, 1e-5), "F.layer_norm (two-pass variance)")
+    bh, s17 = 8 * h, 17
+    q, k, v = rn(bh, s17, dh), rn(bh, s17, dh), rn(bh, s17, dh)
+    cost = (4 * bh * s17 * dh * es, 4 * bh * s17 * s17 * dh)
+    q4, k4, v4 = (x.view(8, h, s17, dh) for x in (q, k, v))
+    yield ("vit_attention", "S17", lambda: vit_attention(q, k, v, dh**-0.5),
+           lambda: vit_op.reference_vit_attention(q, k, v, dh**-0.5), None, cost,
+           lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=dh**-0.5), "scaled_dot_product_attention")
+
+
+def vit_grad_checks(dev) -> None:
+    """The autograd Functions of K9 and K10 (the kernel forward, the backward
+    through the plain version) against plain autograd, fp32, at a small
+    shape; the kernel forward counted once each."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    b, s, h, dh = 2, 17, 4, 64
+    x, sc, bi, dy = rn(b, s, h * dh), 1 + 0.1 * rn(h * dh), 0.1 * rn(h * dh), rn(b, s, h * dh)
+    q, k, v, do = (rn(b, s, h, dh) for _ in range(4))
+    for name, fn, plain, args, grad_out in (
+            ("vit_attention", lambda *a: vit_attention_heads(*a, dh**-0.5),
+             lambda *a: reference_heads(*a, dh**-0.5), (q, k, v), do),
+            ("layer_norm", ln_op.layer_norm, layer_norm, (x, sc, bi), dy)):
+        grads = []
+        for f in (fn, plain):
+            leaves = [t.detach().clone().requires_grad_(True) for t in args]
+            before = kernel_functions()[name].launches
+            (f(*leaves) * grad_out).sum().backward()
+            require(kernel_functions()[name].launches == before + (f is fn), f"{name}: the Function's forward launch")
+            grads.append([leaf.grad for leaf in leaves])
+        errs = [(g - w).abs().max().item() for g, w in zip(*grads)]
+        log({"phase": "kernels", "kernel": name, "case": "autograd_fp32", "grad_max_abs_err": errs,
+             "tol": BWD_TOL[torch.float32]})
+        require(all(torch.allclose(g, w, **BWD_TOL[torch.float32]) for g, w in zip(*grads)),
+                f"{name}: autograd gradients {errs}")
+
+
 def phase_kernels(dev) -> dict:
     """Returns, per kernel, its bf16 numbers at each timed shape."""
     summary = {}
     functions = kernel_functions()
+    vit_grad_checks(dev)
     for dtype in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device=dev).manual_seed(SEED)
         cases = itertools.chain(kernel_cases(dtype, gen, dev), neox_kernel_cases(dtype, gen, dev),
-                                quant_kernel_cases(dtype, gen, dev), llama_opt_kernel_cases(dtype, gen, dev))
+                                quant_kernel_cases(dtype, gen, dev), llama_opt_kernel_cases(dtype, gen, dev),
+                                vit_kernel_cases(dtype, gen, dev))
         for name, case, fn, plain, exact, cost, lib, lib_is in cases:
             got, launched = launched_variant(functions[name], fn)
             torch.cuda.synchronize()
@@ -1192,6 +1294,78 @@ def phase_backward(dev, summary: dict) -> None:
             summary.setdefault(fwd_name, {})[f"train_{case}_lse"] = row
 
 
+# ---------------------------------------------------------------- the ViT
+
+
+@torch.no_grad()
+def vit_model(dev, dtype) -> VisionTransformer:
+    """ViT-L/14 alone, random weights from SEED + 6 drawn in fp32 and cast:
+    Linear weights N(0, 1/fan_in), CLIP's class and position embeddings
+    N(0, 0.02^2), LayerNorm scales 1 + N(0, 0.1^2), every bias N(0, 0.02^2)
+    (so that K10's scale and bias do work)."""
+    vit = VisionTransformer(VIT_L_14, device=dev, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for name, p in vit.named_parameters():
+        r = torch.randn(p.shape, generator=gen, device=dev)
+        if "embedding" in name:
+            p.copy_(0.02 * r)
+        elif p.ndim == 2:
+            p.copy_(r * p.shape[1] ** -0.5)
+        elif name.endswith("weight"):
+            p.copy_(1 + 0.1 * r)
+        else:
+            p.copy_(0.02 * r)
+    return vit
+
+
+@torch.no_grad()
+def phase_vit(dev) -> dict:
+    """ViT-L/14 forward (the vision encode of generate and of each train
+    batch). fp32 at B = 8: the patch tokens with K9/K10 against plain_path()
+    within VIT_RTOL of their largest entry, K9 24 and K10 48 launches. bf16 at
+    B = 8 and 32: device time of one forward (CUDA-graph replay) with the
+    kernels and on the plain route (`vit_plain_route`), in turns kernels,
+    plain, plain, kernels. Returns {batch: numbers}."""
+    px, layers = VIT_L_14.image_size, VIT_L_14.num_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    vit = vit_model(dev, torch.float32)
+    pixels = torch.randn(B, px, px, 3, generator=gen, device=dev)
+    before = vit_attention.launches, ln_op.layer_norm.launches
+    got = vit(pixels)
+    launches = vit_attention.launches - before[0], ln_op.layer_norm.launches - before[1]
+    require(launches == (layers, 2 * layers), f"ViT forward launches (K9, K10) {launches}")
+    with plain_path():
+        want = vit(pixels)
+    require(got.shape == (B, VIT_L_14.num_patches, VIT_L_14.hidden_size) and torch.isfinite(got).all().item(),
+            "ViT patch tokens")
+    latents_agree("ViT-L/14 B8 patch tokens, kernels vs plain_path", got, want, phase="vit")
+    del vit, got, want
+    torch.cuda.empty_cache()
+
+    vit = vit_model(dev, torch.bfloat16)
+    result = {}
+    for b in (B, 32):
+        pixels = torch.randn(b, px, px, 3, generator=gen, device=dev)
+        forward = lambda: vit(pixels)
+        times = {"kernels": [], "plain": []}
+        for route in ("kernels", "plain", "plain", "kernels"):
+            with vit_plain_route() if route == "plain" else contextlib.nullcontext():
+                times[route].append(device_ms(forward, reps=2, rounds=5))
+        got = vit(pixels)
+        with vit_plain_route():
+            want = vit(pixels)
+        row = {"vision_ms_kernels": sum(times["kernels"]) / 2, "vision_ms_plain": sum(times["plain"]) / 2,
+               "runs_ms": times, "images": b, "tokens": b * (VIT_L_14.num_patches + 1),
+               "bf16_kernels_vs_plain_max_abs_diff": (got.float() - want.float()).abs().max().item(),
+               "bf16_tokens_max_abs": want.float().abs().max().item()}
+        log({"phase": "vit", "dtype": "bfloat16", "batch": b, **row})
+        require(torch.isfinite(got).all().item(), f"bf16 ViT tokens at B {b} not finite")
+        result[b] = row
+    del vit
+    torch.cuda.empty_cache()
+    return result
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -1249,6 +1423,27 @@ def fp32_agree(what, tok_a, tok_b, la, lb, init_s=None):
     require(same, f"fp32 {what}: greedy tokens differ")
 
 
+def latents_agree(what, got, want, phase="generate") -> None:
+    """fp32 latents (or patch tokens) of two routes within VIT_RTOL of the
+    largest entry."""
+    err, top = (got - want).abs().max().item(), want.abs().max().item()
+    log({"phase": phase, "dtype": "float32", "compare": what, "latents_max_abs_err": err,
+         "latents_max_abs": top, "rtol_of_max": VIT_RTOL})
+    require(err <= VIT_RTOL * top, f"fp32 {what}: latents differ by {err} (largest entry {top})")
+
+
+@contextlib.contextmanager
+def vit_plain_route():
+    """The ViT blocks on their einsum attention and plain LayerNorms on the
+    card (both kernels' DISABLE hooks), the rest of the model unchanged."""
+    prev = vit_op.DISABLE, ln_op.DISABLE
+    vit_op.DISABLE = ln_op.DISABLE = True
+    try:
+        yield
+    finally:
+        vit_op.DISABLE, ln_op.DISABLE = prev
+
+
 def reset_counters(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
@@ -1301,12 +1496,14 @@ def sync_free_step(model, vision_x, ids, mask, dev, int8_kv=False) -> None:
     n_media = count_media(ids, model.cfg.media_token_id)
     ones = torch.ones(B, 1, dtype=torch.long, device=dev)
     torch.cuda.synchronize()
+    vit_before = vit_attention.launches, ln_op.layer_norm.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         model.decode_step(lat, tok, ones, cache, n_media)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    require((vit_attention.launches, ln_op.layer_norm.launches) == vit_before, "a ViT kernel launched in a decode step")
     log({"phase": "generate", "dtype": "bfloat16", "route": "fused", "decode_step_host_syncs": 0,
          "model": type(model.lm.blocks[0]).__name__, "int8_kv": int8_kv,
          "cache_dtype": str(cache.layers[0].k.dtype).split(".")[-1]})
@@ -1319,8 +1516,9 @@ K1_PER_LAYER = {"mpt": 0, "gptneox": 1, "llama": 3, "opt": 3}
 
 
 def route_launches(cfg, counters, fused: bool) -> dict:
-    """The launches one generate call must give: prefill K4 per decoder
-    layer and K5 per xattn block; per decode step, on the fused route, MPT
+    """The launches one generate call must give: the vision encoded once, K9
+    per ViT block and K10 twice; prefill K4 per decoder layer and K5 per
+    xattn block; per decode step, on the fused route, MPT
     K3 + K2 per layer, GPT-NeoX K1 + K6 + K2, llama and OPT 3 K1 + K6 + K2,
     K3 + K2 per xattn block and K1 for the head; on the unfused route K7
     with the update per layer (without it over a grouped-query cache,
@@ -1329,7 +1527,8 @@ def route_launches(cfg, counters, fused: bool) -> dict:
     xattn = layers // cfg.cross_attn_every_n
     mpt = cfg.lm.family == "mpt"
     want = {name: 0 for name in counters}
-    want.update(flash_attention=layers, masked_xattn=xattn)
+    want.update(flash_attention=layers, masked_xattn=xattn, vit_attention=cfg.vision.num_layers,
+                layer_norm=2 * cfg.vision.num_layers)
     if fused:
         want.update(fused_dense=steps * (1 + layers * K1_PER_LAYER[cfg.lm.family]), fused_mlp=steps * (layers + xattn),
                     attn_block_decode=steps * (xattn + layers * mpt), attend_out_decode=steps * layers * (not mpt))
@@ -1375,6 +1574,8 @@ def phase_generate(dev, name="OF-3B"):
     model = build(torch.float32)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    # each route encodes the images itself (the ViT's K9/K10 or their plain
+    # versions) and computes its step logits from its own latents
     latents = model.embed_vision(vision_x)
     lat_shape = (B, 1, cfg.num_vis_latents, cfg.vision.hidden_size)
     require(latents.shape == lat_shape and torch.isfinite(latents).all().item(), "latents")
@@ -1382,14 +1583,18 @@ def phase_generate(dev, name="OF-3B"):
     lk = step_logits(model, latents, ids, mask, tok_k)   # every step's logits on the kernels' token stream
     require(torch.isfinite(lk).all().item(), "fp32 fused-route logits not finite")
     with plain_path():
+        latents_p = model.embed_vision(vision_x)
         tok_p = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
-        lp = step_logits(model, latents, ids, mask, tok_k)
+        lp = step_logits(model, latents_p, ids, mask, tok_k)
+    latents_agree(f"{name} kernels vs plain_path", latents, latents_p)
     fp32_agree(f"{name} fused kernels vs plain_path", tok_k, tok_p, lk, lp, init_s)
     with unfused_route():
+        latents_u = model.embed_vision(vision_x)
         tok_u = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
-        lu = step_logits(model, latents, ids, mask, tok_k)
+        lu = step_logits(model, latents_u, ids, mask, tok_k)
+    require(torch.equal(latents_u, latents), f"{name}: the unfused route's latents differ from the fused route's")
     fp32_agree(f"{name} fused route vs unfused route (K7)", tok_k, tok_u, lk, lu)
-    del model, latents
+    del model, latents, latents_p, latents_u
     torch.cuda.empty_cache()
 
     # bf16, the serving dtype, timed: (c) fused route, (d) unfused route
@@ -1398,6 +1603,11 @@ def phase_generate(dev, name="OF-3B"):
     want = route_launches(cfg, counters, fused=True)
     require(fused == want, f"{name} fused route launches {fused}, expected {want}")
     sync_free_step(model, vision_x, ids, mask, dev)
+    if name == "OF-3B":    # the ViT on its plain route: vision_s and TTFT without K9/K10
+        with vit_plain_route():
+            plain_vit, _ = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, f"{name} fused, ViT plain")
+        want = dict(route_launches(cfg, counters, fused=True), vit_attention=0, layer_norm=0)
+        require(plain_vit == want, f"{name} fused route, ViT plain: launches {plain_vit}, expected {want}")
     with unfused_route():
         unfused, _ = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, f"{name} unfused")
     want = route_launches(cfg, counters, fused=False)
@@ -1630,8 +1840,9 @@ def phase_train(dev, counters) -> dict:
     warm_s = time.perf_counter() - t0
     layers = cfg.lm.num_layers
     want = {name: 0 for name in counters}
+    vit = cfg.vision.num_layers      # two ViT forwards per step: the LAION and the MMC4 batch
     want.update(flash_attention=2 * layers, flash_attention_backward=2 * layers, masked_xattn=2 * layers,
-                masked_xattn_backward=2 * layers)
+                masked_xattn_backward=2 * layers, vit_attention=2 * vit, layer_norm=4 * vit)
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     for _ in range(TRAIN_STEPS):
@@ -1666,7 +1877,7 @@ def kernel_functions() -> dict:
             "flash_attention": flash_attention, "masked_xattn": masked_xattn,
             "decode_attention": decode_attention, "decode_attention_update": decode_attention_update,
             "flash_attention_backward": flash_attention_backward, "masked_xattn_backward": masked_xattn_backward,
-            "attend_out_decode": attend_out_decode}
+            "attend_out_decode": attend_out_decode, "vit_attention": vit_attention, "layer_norm": ln_op.layer_norm}
 
 
 SOURCES = {
@@ -1681,6 +1892,8 @@ SOURCES = {
     "flash_attention_backward": ("open_flamingo_tpu_torch/csrc/attention_backward.cu", "open_flamingo_tpu/ops/flash_attention.py:199"),
     "masked_xattn_backward": ("open_flamingo_tpu_torch/csrc/attention_backward.cu", "open_flamingo_tpu/ops/masked_xattn.py:148"),
     "attend_out_decode": ("open_flamingo_tpu_torch/csrc/decode_layer.cu", "open_flamingo_tpu/ops/decode_layer.py:65"),
+    "vit_attention": ("open_flamingo_tpu_torch/csrc/vit_attention.cu", "open_flamingo_tpu/ops/vit_attention.py:57"),
+    "layer_norm": ("open_flamingo_tpu_torch/csrc/layer_norm.cu", "open_flamingo_tpu/ops/layer_norm.py:47"),
 }
 
 
@@ -1724,6 +1937,9 @@ def main() -> int:
     timing = phase_kernels(dev)
     phase_backward(dev, timing)
     seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_vit(dev)
+    seconds["vit"] = time.perf_counter() - t0
     # per path: every kernel's launches, and the decode kernels' per-variant launches
     paths, vpaths = {}, {}
     for name, tag in (("OF-3B", "generate"), ("OF-4B", "of4b_generate"), ("LLaMA-7B", "llama7b_generate"),

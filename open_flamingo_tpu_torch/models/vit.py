@@ -4,6 +4,12 @@ NHWC pixels at the public function, as in the JAX package. The patch
 embedding is a reshape to (p, p, C) features followed by one Linear, not a
 convolution, so the weights keep the JAX feature order and no cuDNN
 convolution (TF32 by default on the card) is involved.
+
+Every block's `layer_norm1`/`layer_norm2` and its attention core take the
+hand-written kernels K10 (`ops.layer_norm`) and K9 (`ops.vit_attention`)
+where the JAX block calls its Pallas kernels: on CUDA tensors by default,
+on CPU tensors under their `FORCE` hooks (the plain versions run there).
+`pre_layernorm` and `post_layernorm` stay plain, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,6 +18,8 @@ import torch
 from torch import nn
 
 from ..configs import VisionConfig
+from ..ops.layer_norm import layer_norm, use_ln_kernel
+from ..ops.vit_attention import use_vit_kernel, vit_attention_heads
 from .layers import LayerNorm, attend, gelu_exact, merge_heads, quick_gelu, split_heads
 
 _ACTS = {"quick_gelu": quick_gelu, "gelu": gelu_exact}
@@ -35,12 +43,21 @@ class ViTBlock(nn.Module):
 
     def forward(self, x):
         nh, dh = self.cfg.num_heads, self.cfg.head_dim
-        h = self.layer_norm1(x)
-        q = split_heads(self.q_proj(h), nh) * (dh**-0.5)
-        out = attend(q, split_heads(self.k_proj(h), nh), split_heads(self.v_proj(h), nh))
+        ln_kernel = use_ln_kernel(x)
+        h = self.norm(self.layer_norm1, x, ln_kernel)
+        # (B, S, H, Dh) views of the projections: K9 reads them through strides
+        q, k, v = (split_heads(proj(h), nh) for proj in (self.q_proj, self.k_proj, self.v_proj))
+        if use_vit_kernel(x):
+            out = vit_attention_heads(q, k, v, dh**-0.5)
+        else:
+            out = attend(q * (dh**-0.5), k, v)
         x = x + self.out_proj(merge_heads(out))
-        h = self.fc2(self.act(self.fc1(self.layer_norm2(x))))
+        h = self.fc2(self.act(self.fc1(self.norm(self.layer_norm2, x, ln_kernel))))
         return x + h
+
+    @staticmethod
+    def norm(ln: LayerNorm, x, kernel: bool):
+        return layer_norm(x, ln.weight, ln.bias, ln.eps) if kernel else ln(x)
 
 
 class VisionTransformer(nn.Module):

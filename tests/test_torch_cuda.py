@@ -13,7 +13,7 @@ bf16 inputs (K1-K3 and K6, whose bf16 products run on tensor cores when K
 is a multiple of 32; K4b/K5b): both round an fp32 result to bf16, one ulp apart
 at most, plus the summation order; atol = rtol = 1e-2 as in chip_smoke.py.
 The RMSNorm prologue, the activations and K2's SwiGLU form (llama, OPT)
-take the same tolerances. Quantized decode (int8 / packed int4 weights, the
+take the same tolerances, and so do the ViT's K9 and K10. Quantized decode (int8 / packed int4 weights, the
 int8 cache): the same
 tolerances, 2e-4 in fp32 where an int8 cache is read (a quantized entry at
 a rounding boundary may land one step apart when the new token's K/V come
@@ -32,6 +32,8 @@ from open_flamingo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward, reference_attention)
 from open_flamingo_tpu_torch.ops.masked_xattn import (
     masked_xattn, masked_xattn_backward, masked_xattn_forward, reference_masked_xattn)
+from open_flamingo_tpu_torch.ops.layer_norm import layer_norm
+from open_flamingo_tpu_torch.ops.vit_attention import vit_attention, vit_attention_heads
 from open_flamingo_tpu_torch.quantize import pack_int4, quantize_weight
 
 pytestmark = pytest.mark.gpu
@@ -453,3 +455,57 @@ def test_row_gemv_keeps_its_shared_memory_limit(gen):
             continue
         w1, w2 = rn(gen, k2, 256) * 0.05, rn(gen, n, k2) * 0.02
         close(fused_mlp(x, w1, w2), fused_mlp(x.cpu(), w1.cpu(), w2.cpu()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+# the JAX test's cases, a ragged S 17 at Dh 64, ViT-L/14 (S 257, Dh 64) at B 2
+@pytest.mark.parametrize("bh,s,d", [(8, 27, 16), (16, 16, 32), (6, 17, 64), (32, 257, 64)])
+def test_vit_attention(gen, bh, s, d, dtype):
+    q, k, v = (rn(gen, bh, s, d).to(dtype) for _ in range(3))
+    n = vit_attention.launches
+    got = vit_attention(q, k, v, d**-0.5)
+    assert vit_attention.launches == n + 1
+    close(got, vit_attention(q.cpu(), k.cpu(), v.cpu(), d**-0.5))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vit_attention_reads_strided_heads(gen, dtype):
+    """The ViT's (B, S, H, Dh) views of (B, S, H*Dh) projections, read
+    through their strides; the result is (B, S, H*Dh) as a view."""
+    b, s, h, d = 2, 257, 16, 64
+    q, k, v = (rn(gen, b, s, h * d).to(dtype).view(b, s, h, d) for _ in range(3))
+    got = vit_attention_heads(q, k, v, d**-0.5)
+    assert got.is_contiguous()
+    close(got, vit_attention_heads(q.cpu(), k.cpu(), v.cpu(), d**-0.5))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,d,with_bias", [(24, 64, True), (37, 32, False), (2056, 1024, True), (5, 4096, False)])
+def test_layer_norm(gen, m, d, with_bias, dtype):
+    x = (rn(gen, m, d) * 2 + 1).to(dtype)
+    x[0] = 1000.078125                      # fast variance below 0 before the clamp
+    scale, bias = (1 + 0.1 * rn(gen, d)).to(dtype), (0.1 * rn(gen, d)).to(dtype) if with_bias else None
+    n = layer_norm.launches
+    got = layer_norm(x, scale, bias, 1e-5)
+    assert layer_norm.launches == n + 1 and torch.isfinite(got).all()
+    close(got, layer_norm(x.cpu(), scale.cpu(), None if bias is None else bias.cpu(), 1e-5))
+
+
+def test_vit_kernels_backward_through_autograd(gen):
+    """K9 and K10 under autograd on the card: the forward launches the
+    kernel, the gradients (through the plain versions) equal the plain
+    versions' autograd on the CPU."""
+    bh, s, d = 4, 17, 64
+    q, k, v, do = (rn(gen, bh, s, d) for _ in range(4))
+    x, scale, bias, dy = rn(gen, 6, 64), 1 + 0.1 * rn(gen, 64), 0.1 * rn(gen, 64), rn(gen, 6, 64)
+    for fn, args, grad_out, counter in ((lambda *a: vit_attention(*a, d**-0.5), (q, k, v), do, vit_attention),
+                                        (lambda *a: layer_norm(*a, 1e-5), (x, scale, bias), dy, layer_norm)):
+        grads = []
+        for dev in ("cuda", "cpu"):
+            leaves = [t.detach().to(dev).requires_grad_(True) for t in args]
+            n = counter.launches
+            (fn(*leaves) * grad_out.to(dev)).sum().backward()
+            assert counter.launches == n + (dev == "cuda")
+            grads.append([leaf.grad for leaf in leaves])
+        for g, w in zip(*grads):
+            close_grad(g, w)

@@ -107,6 +107,25 @@ def test_fused_decode_wrappers_refuse_other_devices():
                           w[:16], scale=0.3)
 
 
+@pytest.mark.parametrize("grad", [False, True])
+def test_vit_kernel_wrappers_refuse_other_devices(grad):
+    """K9 and K10, with and without autograd: the meta device stands in for
+    a non-CPU, non-CUDA one."""
+    from open_flamingo_tpu_torch.ops.layer_norm import layer_norm
+    from open_flamingo_tpu_torch.ops.vit_attention import vit_attention, vit_attention_heads
+
+    m = torch.device("meta")
+    x = torch.empty(4, 16, device=m, requires_grad=grad)
+    with pytest.raises(ValueError, match="unsupported device"):
+        layer_norm(x, torch.empty(16, device=m), None)
+    q = torch.empty(2, 17, 16, device=m, requires_grad=grad)
+    with pytest.raises(ValueError, match="unsupported device"):
+        vit_attention(q, q, q, 0.25)
+    q4 = torch.empty(1, 17, 2, 16, device=m, requires_grad=grad)
+    with pytest.raises(ValueError, match="unsupported device"):
+        vit_attention_heads(q4, q4, q4, 0.25)
+
+
 @pytest.mark.parametrize("call", ["w_scale", "norm", "act", "w1_gate", "side_x", "k_scale", "wout_scale",
                                   "k6_v_scale", "layer_idx", "int4_odd_k", "w1_gate_scale", "k3_side_x",
                                   "float_w_scale"])
@@ -178,5 +197,5 @@ def test_build_names_every_source():
     from open_flamingo_tpu_torch.ops import build
 
     assert build.sources() == ["attention_backward", "decode_attention", "decode_layer", "dense_stream",
-                               "prefill_attention"]
+                               "layer_norm", "prefill_attention", "vit_attention"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
