@@ -12,6 +12,9 @@ port spends its time on the card.
     python3 chip_profile.py opt        # OPT-1.3B generate, the fused route (3 K1, K6, K2 relu; K3)
     python3 chip_profile.py gemv       # the bf16 row GEMV alone at its CUDA-core shapes (K 16,384, 11,000)
     python3 chip_profile.py vit        # K9, K10 and the ViT-L/14 forward alone (B 8, 32), kernels and plain
+    python3 chip_profile.py k2         # plain K2 at OF-3B's carriers (bf16, int8, int4): the parent/change A/B
+    python3 chip_profile.py absorb     # an absorbing decode step against a plain one; the next batch's ViT
+                                       # serial, as side tiles, and on a second CUDA stream
 
 Builds OF-3B (OF-4B for `of4b`; chip_smoke.py's LLaMA-7B and OPT-1.3B
 configurations for `llama` and `opt`) at full width with random weights
@@ -38,6 +41,22 @@ on the plain route (`DISABLE`), in turns kernels, plain, plain, kernels,
 then traces one forward at B 8 on each route: device time by kind. It
 imports only chip_smoke.py's ViT helpers and timer, so a copy in an older
 checkout times that checkout's kernels.
+
+`k2` times K2 without a side tile (bf16, B = 8, CUDA-graph replay) at
+OF-3B's MPT MLP in bf16, int8 and int4 and its xattn FF: the launches
+that carry the absorbed ViT's side tiles, whose own instances must keep
+their speed. It imports only `fused_mlp`, the quantizers and
+chip_smoke.py's timer, so a copy in an older checkout times that
+checkout's kernels (parent, change, change, parent in one call).
+
+`absorb` (bf16 OF-3B, B 8, the next batch's 8 images): device time by
+kind of one decode step carrying ViT layer 0 as side tiles against the
+same step without them (one traced step each, after a warm-up); then the
+next batch's encode three ways, host clock to a synchronize, in turns:
+generate followed by embed_vision (serial), generate(next_pixels=) (side
+tiles), and embed_vision enqueued on a second CUDA stream before generate
+on the default one (a measurement only: the package has no second-stream
+path); then one traced call of each form, device time by kind.
 
 Run from the repository root with one CUDA card; imports nothing of JAX.
 """
@@ -78,6 +97,114 @@ def gemv_times() -> int:
         b_ms, b_by = bound(nbytes, flops, dt)
         print(json.dumps({"profile": "gemv_bf16", "case": case, "ms": device_ms(fn), "bound_ms": b_ms,
                           "bound_by": b_by}), flush=True)
+    print(card_line(), flush=True)
+    return 0
+
+
+def k2_times() -> int:
+    import os
+
+    from chip_smoke import B, card_line, device_ms
+    from open_flamingo_tpu_torch.ops.dense_stream import fused_mlp
+    from open_flamingo_tpu_torch.quantize import pack_int4, quantize_weight
+
+    dev, dt = torch.device("cuda", 0), torch.bfloat16
+    tree = os.path.basename(os.getcwd())
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dt)
+
+    d, k2 = 2048, 8192
+    x, ln, ln_b = rn(B, d), 1 + rn(d, scale=0.1), rn(d, scale=0.1)
+    gate = torch.tensor([0.5], device=dev, dtype=dt)
+    w1, w2 = rn(k2, d, scale=d**-0.5), rn(d, k2, scale=k2**-0.5)
+    cases = {"mpt_mlp": (w1, w2, {}), "xattn_ff": (w1, w2, dict(ln_bias=ln_b, gate=gate))}
+    for bits in (8, 4):
+        (q1, s1), (q2, s2) = quantize_weight(w1, bits), quantize_weight(w2, bits)
+        if bits == 4:
+            q1, q2 = pack_int4(q1), pack_int4(q2)
+        cases[f"mpt_mlp_int{bits}"] = (q1, q2, dict(w1_scale=s1, w2_scale=s2))
+    for case, (a, b, kw) in cases.items():
+        fn = lambda a=a, b=b, kw=kw: fused_mlp(x, a, b, ln_scale=ln, residual=x, **kw)
+        print(json.dumps({"profile": "k2_bf16", "tree": tree, "case": case, "ms": device_ms(fn)}), flush=True)
+    print(card_line(), flush=True)
+    return 0
+
+
+def absorb_times() -> int:
+    from chip_smoke import (B, NEW_TOKENS, T_PROMPT, build_model, card_line, make_inputs, model_config,
+                            next_pixels)
+    from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate, prefill
+    from open_flamingo_tpu_torch.models.absorb_vit import SideHook, make_plan, patch_embed_flat
+    from open_flamingo_tpu_torch.models.flamingo import count_media
+
+    dev = torch.device("cuda", 0)
+    cfg = model_config("OF-3B")
+    model = build_model(cfg, dev, torch.bfloat16)
+    vision_x, ids, mask = make_inputs(cfg, dev)
+    next_px = next_pixels(cfg, dev)
+    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
+    plan = make_plan(cfg, next_px.shape[:3], NEW_TOKENS)
+    kinds = (("K2 + K2b side tiles", ("side_kernel",)), ("K2/K1 row GEMV", ("gemv",)),
+             ("K8 flat_vit_attention", ("vit_attn_bf16<64, true>",)), ("K3 attend", ("attend_kernel",)),
+             ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "splitK")), ("copy", ("copy", "Memcpy", "Memset")),
+             ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
+    with torch.no_grad():
+        lat = model.embed_vision(vision_x)
+        logits, cache = prefill(model, lat, ids, mask, T_PROMPT + NEW_TOKENS)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        n_media = count_media(ids, cfg.media_token_id)
+        ones = torch.ones(B, 1, dtype=torch.long, device=dev)
+        xw = patch_embed_flat(model.vision_encoder, next_px.reshape(plan.bv, *next_px.shape[3:]), plan)
+
+        def step(side):
+            hook = SideHook(model.vision_encoder.blocks[:plan.per_step], xw, plan) if side else None
+            model.decode_step(lat, tok, ones, cache, n_media, side=hook)
+            if hook is not None:
+                hook.result()
+
+        row = {"profile": "absorb_step_bf16", "plan": {"per_step": plan.per_step, "macro": plan.macro,
+                                                       "slots_per_layer": plan.slots_per_layer, "m_pad": plan.m_pad}}
+        for side in (False, True):
+            step(side)
+            torch.cuda.synchronize()
+            row["absorbing" if side else "plain"] = device_time_by_kind(lambda: step(side), kinds)
+        print(json.dumps(row), flush=True)
+
+        def serial():
+            flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+            model.embed_vision(next_px)
+
+        def side_tiles():
+            flamingo_generate(model, vision_x, ids, mask, gcfg, next_pixels=next_px, device=dev)
+
+        stream = torch.cuda.Stream()
+
+        def second_stream():
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                model.embed_vision(next_px)
+            flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+            torch.cuda.current_stream().wait_stream(stream)
+
+        forms = {"serial": serial, "side_tiles": side_tiles, "second_stream": second_stream}
+        times = {name: [] for name in forms}
+        for name in ("serial", "side_tiles", "second_stream"):
+            forms[name]()
+        for name in ("serial", "side_tiles", "second_stream", "second_stream", "side_tiles", "serial"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forms[name]()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+        print(json.dumps({"profile": "absorb_forms_bf16", "batch": B, "next_batch": B, "new_tokens": NEW_TOKENS,
+                          "runs_s": times, "mean_s": {k: sum(v) / len(v) for k, v in times.items()}}), flush=True)
+        # one traced call of each form: device time by kind (on two streams the events may overlap)
+        traced = {name: device_time_by_kind(fn, kinds) for name, fn in forms.items()}
+        print(json.dumps({"profile": "absorb_forms_traced_bf16",
+                          **{name: {k: v for k, v in t.items() if k != "top"} for name, t in traced.items()}}),
+              flush=True)
     print(card_line(), flush=True)
     return 0
 
@@ -149,6 +276,10 @@ def main() -> int:
         return gemv_times()
     if sys.argv[1:] == ["vit"]:
         return vit_times()
+    if sys.argv[1:] == ["k2"]:
+        return k2_times()
+    if sys.argv[1:] == ["absorb"]:
+        return absorb_times()
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

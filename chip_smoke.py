@@ -45,7 +45,14 @@ Phases, each printing JSON lines:
               SDPA beside it) and at a ragged S 17; K10 layer_norm on
               (B, 257, 1024) with scale and bias, and without bias
               (F.layer_norm beside it); both autograd Functions against
-              plain autograd in fp32;
+              plain autograd in fp32. The absorbed ViT's kernels
+              (absorb_kernel_cases): K8 flat_vit_attention on the next
+              batch's flat (B', 264, 1024) workspace, s_real 257, at B' 8
+              and 32 (SDPA with the key mask beside it); K2b, each kind of
+              (2112, 1024) x (1024, 1024) side tile on OF-3B's MPT MLP and
+              xattn FF launches with bf16, int8 and int4 weights, the
+              carrier's own output bit for bit that of the launch without a
+              tile, timed with and without it (the exposed cost);
      vit      ViT-L/14 alone (random weights): fp32 patch tokens with K9/K10
               against plain_path() (VIT_RTOL) and their launches (24, 48);
               bf16 device time of one forward at B 8 and 32 with the kernels
@@ -76,6 +83,17 @@ Phases, each printing JSON lines:
               debug mode "error" that launches no ViT kernel; OF-3B's fused
               route once more with the ViT on its plain route (vision_s,
               TTFT without K9/K10). Each model is freed before the next.
+     absorb   full-width OF-3B generate with the next batch's 8 images
+              (flamingo_generate(next_pixels=)): the next batch's ViT-L/14
+              as 288 K2b side tiles on the first 24 decode forwards' K2
+              launches, K8 between its projections. fp32: tokens identical
+              across the kernels, plain_path() and the call without
+              next_pixels; next_latents within VIT_RTOL of embed_vision and
+              of plain_path()'s; K8 24 and K2b 288 launches. bf16: the
+              absorbed workspace against plain_path()'s (ABSORB_BF16_RTOL),
+              one absorbing step under the sync debug mode "error", B 8 and
+              32 and int4 B 8 timed against generate + a serial
+              embed_vision with exact launch counts per variant.
      quantized  (the variants were checked in phase 2: `quant_kernel_cases`,
               int8 / packed int4 weights with per-channel scales and the
               int8 caches, the slot's written int8 row within one step of
@@ -123,7 +141,8 @@ import torch
 import torch.nn.functional as F
 
 from open_flamingo_tpu_torch.configs import VIT_L_14, DecoderConfig, FlamingoConfig, flamingo_config
-from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate, prefill
+from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate, greedy_absorb, prefill
+from open_flamingo_tpu_torch.models.absorb_vit import SideHook, make_plan, patch_embed_flat
 from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes, quantize_kv
 from open_flamingo_tpu_torch.models.flamingo import count_media, init_random
 from open_flamingo_tpu_torch.models.layers import layer_norm
@@ -136,14 +155,16 @@ from open_flamingo_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_update, reference_decode_attention)
 from open_flamingo_tpu_torch.ops.decode_layer import (
     attend_out_decode, attn_block_decode, reference_attend_out, reference_attn_block)
-from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp, normalize, reference_dense, reference_mlp
+from open_flamingo_tpu_torch.ops.dense_stream import (
+    fused_dense, fused_mlp, normalize, reference_dense, reference_mlp, reference_side_tile)
 from open_flamingo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward, reference_attention,
     reference_attention_backward)
 from open_flamingo_tpu_torch.ops.masked_xattn import (
     masked_xattn, masked_xattn_backward, masked_xattn_forward, reference_masked_xattn,
     reference_masked_xattn_backward)
-from open_flamingo_tpu_torch.ops.vit_attention import reference_heads, vit_attention, vit_attention_heads
+from open_flamingo_tpu_torch.ops.vit_attention import (
+    flat_vit_attention, reference_flat_vit_attention, reference_heads, vit_attention, vit_attention_heads)
 from open_flamingo_tpu_torch.quantize import (
     dequantize_roundtrip, drop_decode_weights, pack_int4, quantize_decode_weights, quantize_weight)
 from open_flamingo_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer, split_params
@@ -167,6 +188,12 @@ LSE_TOL = dict(atol=1e-4, rtol=1e-5)   # fp32 in both versions, from the same in
 CASE_TOL = {"attend_out_decode": {torch.float32: dict(atol=1e-5, rtol=0.0), torch.bfloat16: "ulp"}}
 BF16_ULP_FLOOR = 2.0**-6
 LOGITS_TOL = 2e-3   # fp32 logits through 24 decoder + 24 xattn layers, every step
+# bf16 absorbed workspace (the next batch's ViT output), kernels vs plain_path(): max |diff| within 5e-2
+# of the largest entry. Both round every side tile to bf16 at the same points (each fc2 slice's partial
+# sum too: 4 roundings per layer where the plain ViT has 1); K2b and K8 sum in another order, so entries
+# land one bf16 ulp (2^-8 relative) apart and 24 residual layers carry those flips. A wrong slot, mask,
+# scale or stride moves entries by the order of the largest one.
+ABSORB_BF16_RTOL = 5e-2
 # fp32 ViT output and latents, kernels (K9, K10) vs plain_path(): max |diff| within
 # 1e-4 of the largest entry. Each block's K9/K10 sum in another order than the
 # plain version (~1e-6 relative), and 24 residual blocks (and the perceiver
@@ -184,7 +211,8 @@ MAIN_CASES = {"fused_dense": ("head_V50434", "generate_fused"), "fused_mlp": ("m
               "flash_attention_backward": ("mmc4_T256", "train_step"),
               "masked_xattn_backward": ("mmc4_T256", "train_step"),
               "attend_out_decode": ("neox_S64_slot40", "of4b_generate_fused"),
-              "vit_attention": ("vitl14_B8", "generate_fused"), "layer_norm": ("vitl14_B8", "generate_fused")}
+              "vit_attention": ("vitl14_B8", "generate_fused"), "layer_norm": ("vitl14_B8", "generate_fused"),
+              "flat_vit_attention": ("of3b_next_B8", "absorb_bf16")}
 # OF-4B's shapes of the kernels its path shares with OF-3B's
 NEOX_TIMED = {"neox_qkv_bias", "neox_head_untied_V50434", "neox_mlp_bias", "neox_xattn_S64_gate",
               "prefill_Dh80_noalibi", "neox_self_Dh80", "neox_self_S64_slot40"}
@@ -204,8 +232,11 @@ LLAMA_OPT_TIMED = {"llama_q_rms", "llama_q_rms_int8", "llama_q_rms_int4", "llama
                    "llama_self_Dh128", "llama_self_S64_slot40"}
 # the ViT's (vit_kernel_cases)
 VIT_TIMED = {"vitl14_B8", "vitl14_B32", "S17", "vitl14_B8_nobias"}
+# the absorbed ViT's (absorb_kernel_cases): K8 at the next batch's B' 8 and 32, K2b on OF-3B's carriers
+ABSORB_TIMED = {"of3b_next_B32", "mpt_mlp_side_qkv", "mpt_mlp_side_fc2", "mpt_mlp_int8_side_qkv",
+                "mpt_mlp_int4_side_qkv", "mpt_mlp_int4_side_fc2", "xattn_ff_side_qkv"}
 TIMED_CASES = ({case for case, _ in MAIN_CASES.values()} | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED | QUANT_TIMED
-               | LLAMA_OPT_TIMED | VIT_TIMED)
+               | LLAMA_OPT_TIMED | VIT_TIMED | ABSORB_TIMED)
 BWD_TIMED = {"laion_T32", "mmc4_T256"}
 # the OF-3B train step at the JAX package's bench shape (bench.py:494)
 B_L, T_L, B_M, T_M, N_IMG, TRAIN_PAD = 8, 32, 4, 256, 6, 1
@@ -1076,6 +1107,86 @@ def vit_kernel_cases(dtype, gen, dev):
            lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=dh**-0.5), "scaled_dot_product_attention")
 
 
+def absorb_kernel_cases(dtype, gen, dev):
+    """The absorbed next-batch ViT's kernels at OF-3B's shapes. K8
+    flat_vit_attention on the flat (B', S_pad 264, 1024) workspace with s_real
+    257 at B' 8 and 32 (SDPA with the key mask on (B, H, S_pad, Dh) views
+    beside it). K2b: each slot kind (q/k/v with LayerNorm 1 and bias; the
+    out-projection with bias and the workspace residual; an fc1 slice, a row
+    block of the (4096, 1024) weight; fc2 slices 0 and 1, column blocks of the
+    (1024, 4096) weight read with its row stride, quick_gelu, the residual
+    chain, the bias on slice 0) as a (2112, 1024) x (1024, 1024) tile on
+    OF-3B's MPT MLP and xattn FF carriers, main weights in x's dtype, int8
+    and int4: the side output against reference_side_tile, the carrier's
+    own output bit for bit that of the launch without a side tile. A K2b
+    case's `fn.carrier` is that launch alone (timed beside it: the exposed
+    cost) and `fn.tile_cost` the tile's bytes and operations. Yields as
+    kernel_cases."""
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    v = VIT_L_14
+    s_real, h, dh, d = v.num_patches + 1, v.num_heads, v.head_dim, v.hidden_size
+    s_pad = -(-s_real // 8) * 8
+    for case, b in (("of3b_next_B8", B), ("of3b_next_B32", 32)):
+        q, k, vv = (rn(b, s_pad, d) for _ in range(3))
+        q4, k4, v4 = (t.view(b, s_pad, h, dh).transpose(1, 2) for t in (q, k, vv))
+        keys = (torch.arange(s_pad, device=dev) < s_real)[None, None, None, :]
+        cost = (4 * b * s_pad * d * es, 4 * b * h * s_pad * s_real * dh)
+        yield ("flat_vit_attention", case,
+               lambda q=q, k=k, vv=vv: flat_vit_attention(q, k, vv, dh**-0.5, heads=h, s_real=s_real),
+               lambda q=q, k=k, vv=vv: reference_flat_vit_attention(q, k, vv, dh**-0.5, heads=h, s_real=s_real),
+               None, cost,
+               lambda q4=q4, k4=k4, v4=v4, keys=keys: F.scaled_dot_product_attention(
+                   q4, k4, v4, attn_mask=keys, scale=dh**-0.5),
+               "scaled_dot_product_attention on (B, H, S_pad, Dh) views with the key mask")
+
+    # K2b on the OF-3B carriers (MPT-1B: D 2048, hidden 8192)
+    dm, k2, m, inter = 2048, 8192, B * s_pad, v.intermediate_size
+    x, ln, ln_b = rn(B, dm), 1 + rn(dm, scale=0.1), rn(dm, scale=0.1)
+    gate = torch.tensor([0.5], device=dev, dtype=dtype)
+    w1f, w2f = rn(k2, dm, scale=dm**-0.5), rn(dm, k2, scale=k2**-0.5)
+    xw, att, res = rn(m, d, scale=2.0), rn(m, d), rn(m, d)
+    w_qkv, w_fc1, w_fc2 = rn(d, d, scale=d**-0.5), rn(inter, d, scale=d**-0.5), rn(d, inter, scale=inter**-0.5)
+    s_ln = (1 + rn(d, scale=0.1), rn(d, scale=0.1))
+    bias, h_in = rn(d, scale=0.1), rn(m, d)
+    slots = {
+        "qkv": dict(side_x=xw, side_w=w_qkv, side_ln=s_ln, side_b=bias),
+        "out": dict(side_x=att, side_w=w_qkv, side_b=bias, side_residual=res),
+        "fc1": dict(side_x=xw, side_w=w_fc1[d:2 * d], side_ln=s_ln, side_b=bias),
+        "fc2": dict(side_x=h_in, side_w=w_fc2[:, :d], side_act="quick_gelu", side_b=bias, side_residual=res),
+        "fc2_1": dict(side_x=h_in, side_w=w_fc2[:, d:2 * d], side_act="quick_gelu", side_residual=res),
+    }
+    for wtag, bits in (("", None), ("_int8", 8), ("_int4", 4)):
+        if bits is None:
+            w1, w2, mkw, wbytes = w1f, w2f, {}, 2 * dm * k2 * es
+        else:
+            (w1, s1, n1), (w2, s2, n2) = qweight(w1f, bits), qweight(w2f, bits)
+            mkw, wbytes = dict(w1_scale=s1, w2_scale=s2), n1 + n2
+        for carrier, ckw in (("mpt_mlp", dict(ln_scale=ln, residual=x)),
+                             ("xattn_ff", dict(ln_scale=ln, ln_bias=ln_b, residual=x, gate=gate))):
+            ckw = dict(ckw, **mkw)
+            main = lambda w1=w1, w2=w2, ckw=ckw: fused_mlp(x, w1, w2, **ckw)
+            y0 = main()
+            for slot, skw in slots.items():
+                y, _ = fused_mlp(x, w1, w2, **ckw, **skw)
+                require(torch.equal(y, y0), f"fused_mlp/{carrier}{wtag}_side_{slot}/{dtype}: the side tile moved y")
+                fn = lambda w1=w1, w2=w2, ckw=ckw, skw=skw: fused_mlp(x, w1, w2, **ckw, **skw)[1]
+                fn.carrier = main
+                tile_bytes = (2 * m * d + d * d + 3 * d) * es + (m * d * es if "side_residual" in skw else 0)
+                fn.tile_cost = (tile_bytes, 2 * m * d * d)
+                carrier_bytes = wbytes + (2 * B * dm + 2 * dm) * es
+                cost = (carrier_bytes + tile_bytes, 4 * B * dm * k2 + 2 * m * d * d)
+                sx, sw = skw["side_x"], skw["side_w"]
+                hn = layer_norm(sx, *s_ln) if "side_ln" in skw else sx
+                lib = lambda w1=w1, w2=w2, hn=hn, sw=sw: (F.linear(F.linear(x, w1f), w2f), F.linear(hn, sw))
+                yield ("fused_mlp", f"{carrier}{wtag}_side_{slot}", fn,
+                       lambda skw=skw: reference_side_tile(skw["side_x"], skw["side_w"], **{
+                           key: val for key, val in skw.items() if key not in ("side_x", "side_w")}),
+                       None, cost, lib, "F.linear x3: the carrier's two products (bf16 weights) and the tile's alone")
+
+
 def vit_grad_checks(dev) -> None:
     """The autograd Functions of K9 and K10 (the kernel forward, the backward
     through the plain version) against plain autograd, fp32, at a small
@@ -1115,7 +1226,7 @@ def phase_kernels(dev) -> dict:
         gen = torch.Generator(device=dev).manual_seed(SEED)
         cases = itertools.chain(kernel_cases(dtype, gen, dev), neox_kernel_cases(dtype, gen, dev),
                                 quant_kernel_cases(dtype, gen, dev), llama_opt_kernel_cases(dtype, gen, dev),
-                                vit_kernel_cases(dtype, gen, dev))
+                                vit_kernel_cases(dtype, gen, dev), absorb_kernel_cases(dtype, gen, dev))
         for name, case, fn, plain, exact, cost, lib, lib_is in cases:
             got, launched = launched_variant(functions[name], fn)
             torch.cuda.synchronize()
@@ -1134,6 +1245,10 @@ def phase_kernels(dev) -> dict:
             row = {"ms": device_ms(fn), "call_ms": call_ms(fn), "plain_ms": device_ms(plain),
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None if lib is None else device_ms(lib),
                    "library_is": lib_is, "max_abs_err": err, "case": case, "variant": launched}
+            if hasattr(fn, "carrier"):      # K2b: the carrier launch alone, and the tile's own bound
+                row["carrier_ms"] = device_ms(fn.carrier)
+                row["exposed_ms"] = row["ms"] - row["carrier_ms"]
+                row["tile_bound_ms"], row["tile_bound_by"] = bound(*fn.tile_cost, dtype)
             log({"phase": "kernels", "kernel": name, "timing": row})
             summary.setdefault(name, {})[case] = row
     return summary
@@ -1369,18 +1484,18 @@ def phase_vit(dev) -> dict:
 # ---------------------------------------------------------------- phase 3
 
 
-def make_inputs(cfg, dev):
+def make_inputs(cfg, dev, b=B):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     # token ids below the added special tokens (LLaMA's 32,000, OPT's 50,265)
-    ids = torch.randint(0, min(50277, cfg.media_token_id, cfg.eoc_token_id), (B, T_PROMPT), generator=gen, device=dev)
-    mask = torch.ones(B, T_PROMPT, dtype=torch.long, device=dev)
+    ids = torch.randint(0, min(50277, cfg.media_token_id, cfg.eoc_token_id), (b, T_PROMPT), generator=gen, device=dev)
+    mask = torch.ones(b, T_PROMPT, dtype=torch.long, device=dev)
     for r, n in ((0, 4), (1, 7)):                     # two left-padded rows
         ids[r, :n] = 0
         mask[r, :n] = 0
     first = mask.argmax(1)                              # media token first
-    ids[torch.arange(B, device=dev), first] = cfg.media_token_id
+    ids[torch.arange(b, device=dev), first] = cfg.media_token_id
     px = cfg.vision.image_size
-    vision_x = torch.randn(B, 1, 1, px, px, 3, generator=gen, device=dev)
+    vision_x = torch.randn(b, 1, 1, px, px, 3, generator=gen, device=dev)
     return vision_x, ids, mask
 
 
@@ -1615,6 +1730,175 @@ def phase_generate(dev, name="OF-3B"):
     del model
     torch.cuda.empty_cache()
     return fused, unfused, variants
+
+
+def next_pixels(cfg, dev, b=B):
+    """The next batch's images: (b, 1, 1, H, W, 3), one per row."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    px = cfg.vision.image_size
+    return torch.randn(b, 1, 1, px, px, 3, generator=gen, device=dev)
+
+
+def absorbed_workspace(model, vision_x, ids, mask, next_px, gcfg):
+    """flamingo_generate(next_pixels=)'s absorbed path up to the final flat
+    workspace (m_pad, D) of the next batch's ViT. Returns (tokens, workspace)."""
+    latents = model.embed_vision(vision_x)
+    logits, cache = prefill(model, latents, ids, mask, T_PROMPT + NEW_TOKENS)
+    plan = make_plan(model.cfg, next_px.shape[:3], gcfg.max_new_tokens)
+    n_media = count_media(ids, model.cfg.media_token_id)
+    xw = patch_embed_flat(model.vision_encoder, next_px.reshape(plan.bv, *next_px.shape[3:]), plan)
+    return greedy_absorb(lambda tok, m, c, side=None: model.decode_step(latents, tok, m, c, n_media, side),
+                         logits[:, -1], cache, gcfg, xw, model.vision_encoder.blocks, plan)
+
+
+def side_variants(variants: dict, key: str, tiles: int) -> dict:
+    """`variants` with `tiles` of fused_mlp's `key` launches carrying a side
+    tile (the "+side" variant)."""
+    mlp = dict(variants["fused_mlp"])
+    mlp[key] -= tiles
+    mlp[key + "+side"] = tiles
+    return {**variants, "fused_mlp": {k: n for k, n in mlp.items() if n}}
+
+
+def sync_free_absorb_step(model, vision_x, ids, mask, next_px, plan) -> None:
+    """One absorbing decode step (ViT layer 0 of the next batch) under the
+    sync debug mode "error": K8 and K2b take no host scalar."""
+    lat = model.embed_vision(vision_x)
+    logits, cache = prefill(model, lat, ids, mask, T_PROMPT + NEW_TOKENS)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    n_media = count_media(ids, model.cfg.media_token_id)
+    ones = torch.ones(ids.shape[0], 1, dtype=torch.long, device=ids.device)
+    xw = patch_embed_flat(model.vision_encoder, next_px.reshape(plan.bv, *next_px.shape[3:]), plan)
+    hook = SideHook(model.vision_encoder.blocks[:plan.per_step], xw, plan)
+    torch.cuda.synchronize()
+    k8, side = flat_vit_attention.launches, sum(n for k, n in fused_mlp.variants.items() if k.endswith("+side"))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(lat, tok, ones, cache, n_media, side=hook)
+        hook.result()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    side = sum(n for k, n in fused_mlp.variants.items() if k.endswith("+side")) - side
+    require((flat_vit_attention.launches - k8, side) == (plan.per_step, plan.per_step * plan.slots_per_layer),
+            f"absorbing step launches: K8 {flat_vit_attention.launches - k8}, K2b {side}")
+    log({"phase": "absorb", "dtype": str(model.dtype).split(".")[-1], "absorbing_step_host_syncs": 0,
+         "k8_launches": plan.per_step, "k2b_launches": side})
+
+
+def timed_absorb(model, cfg, b, gcfg, dev, counters, label):
+    """bf16 (or quantized) OF-3B at batch b: generate(next_pixels=) against
+    generate followed by a serial embed_vision of the same next batch, host
+    clock to a synchronize, in turns absorbed, serial, serial, absorbed,
+    after one warm-up of each; every launch counter reset just before one
+    absorbed call and read just after. Returns (launches, variants, plan)."""
+    vision_x, ids, mask = make_inputs(cfg, dev, b)
+    next_px = next_pixels(cfg, dev, b)
+    plan = make_plan(cfg, next_px.shape[:3], gcfg.max_new_tokens)
+
+    def absorbed():
+        return flamingo_generate(model, vision_x, ids, mask, gcfg, next_pixels=next_px, device=dev)
+
+    def serial():
+        return flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev), model.embed_vision(next_px)
+
+    warm_a, warm_s = absorbed(), serial()
+    require(torch.equal(warm_a[0], warm_s[0]), f"{label}: absorbed tokens differ from the call without next_pixels")
+    torch.cuda.synchronize()
+    times = {"absorbed": [], "serial": []}
+    for name, fn in (("absorbed", absorbed), ("serial", serial), ("serial", serial), ("absorbed", absorbed)):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    reset_counters(counters)
+    tokens, latents = absorbed()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    variants = {name: dict(fn.variants) for name, fn in counters.items() if hasattr(fn, "variants")}
+    a_s, s_s = sum(times["absorbed"]) / 2, sum(times["serial"]) / 2
+    log({"phase": "absorb", "dtype": str(model.dtype).split(".")[-1], "label": label, "batch": b,
+         "next_batch": b, "prompt": T_PROMPT, "new_tokens": NEW_TOKENS, "absorbed_s": a_s, "serial_s": s_s,
+         "absorbed_minus_serial_s": a_s - s_s, "runs_s": times, "tokens_per_s_absorbed": b * NEW_TOKENS / a_s,
+         "tokens_per_s_serial": b * NEW_TOKENS / s_s, "plan": dataclasses.asdict(plan), "launches": launches,
+         "variants": variants})
+    require(torch.isfinite(latents.float()).all().item(), f"{label}: next_latents not finite")
+    return launches, variants, plan
+
+
+@torch.no_grad()
+def phase_absorb(dev) -> tuple:
+    """Cross-batch absorbed ViT on full-width OF-3B (B 8 prompts of 32
+    tokens, the next batch's 8 images, 32 new tokens): the next batch's
+    ViT-L/14 rides the first 24 decode forwards as 288 K2b side tiles on K2
+    launches (12 a ViT layer over 6 groups), with K8 as the attention glue.
+    fp32: tokens identical across the absorbed call with the kernels, under
+    plain_path() and the call without next_pixels; next_latents within
+    VIT_RTOL of the largest entry of embed_vision on the same pixels and of
+    the plain_path() absorbed call; K8 24 and K2b 288 launches. bf16: the
+    absorbed workspace against plain_path()'s (ABSORB_BF16_RTOL); timed at B
+    8 and 32 against the serial encode, with exact launch counts (K9 / K10
+    only for the current batch); one absorbing step under the sync debug
+    mode "error"; int4 weights timed at B 8. Returns ({path: launches},
+    {path: variants})."""
+    counters = kernel_functions()
+    cfg = model_config("OF-3B")
+    vision_x, ids, mask = make_inputs(cfg, dev)
+    next_px = next_pixels(cfg, dev)
+    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
+    model = build_model(cfg, dev, torch.float32)
+    plan = make_plan(cfg, next_px.shape[:3], NEW_TOKENS)
+    require(plan is not None and (plan.n_steps, plan.slots_per_layer, plan.macro) == (24, 12, 6),
+            f"OF-3B absorb plan {plan}")
+    tok_plain = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+    reset_counters(counters)
+    tok_k, lat_k = flamingo_generate(model, vision_x, ids, mask, gcfg, next_pixels=next_px, device=dev)
+    side = counters["fused_mlp"].variants.get("float+side", 0)
+    require((flat_vit_attention.launches, side) == (24, 288),
+            f"fp32 absorbed call: K8 {flat_vit_attention.launches}, K2b {side} (expected 24, 288)")
+    serial = model.embed_vision(next_px)
+    with plain_path():
+        tok_p, lat_p = flamingo_generate(model, vision_x, ids, mask, gcfg, next_pixels=next_px, device=dev)
+    log({"phase": "absorb", "dtype": "float32", "tokens_equal_plain_call": torch.equal(tok_k, tok_plain),
+         "tokens_equal_plain_path": torch.equal(tok_k, tok_p), "latents_shape": list(lat_k.shape),
+         "distinct_tokens_per_row": [len(set(r)) for r in tok_k.tolist()]})
+    require(torch.equal(tok_k, tok_plain), "fp32 absorbed tokens differ from the call without next_pixels")
+    require(torch.equal(tok_k, tok_p), "fp32 absorbed tokens differ between the kernels and plain_path()")
+    require(lat_k.shape == serial.shape == (B, 1, cfg.num_vis_latents, cfg.vision.hidden_size), "next_latents shape")
+    latents_agree("OF-3B absorbed next_latents vs embed_vision", lat_k, serial, phase="absorb")
+    latents_agree("OF-3B absorbed next_latents, kernels vs plain_path", lat_k, lat_p, phase="absorb")
+    del model, serial, lat_k, lat_p
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg, dev, torch.bfloat16)
+    tok_k, xw_k = absorbed_workspace(model, vision_x, ids, mask, next_px, gcfg)
+    with plain_path():
+        tok_p, xw_p = absorbed_workspace(model, vision_x, ids, mask, next_px, gcfg)
+    err, top = (xw_k.float() - xw_p.float()).abs().max().item(), xw_p.float().abs().max().item()
+    log({"phase": "absorb", "dtype": "bfloat16", "compare": "absorbed workspace, kernels vs plain_path",
+         "max_abs_err": err, "max_abs": top, "rtol_of_max": ABSORB_BF16_RTOL,
+         "tokens_equal": torch.equal(tok_k, tok_p)})
+    require(torch.isfinite(xw_k.float()).all().item() and err <= ABSORB_BF16_RTOL * top,
+            f"bf16 absorbed workspace: {err} against the largest entry {top}")
+    sync_free_absorb_step(model, vision_x, ids, mask, next_px, plan)
+    paths, vpaths = {}, {}
+    for b in (B, 32):
+        launches, variants, plan_b = timed_absorb(model, cfg, b, gcfg, dev, counters, f"OF-3B bf16 B{b}")
+        want = dict(route_launches(cfg, counters, fused=True), flat_vit_attention=plan_b.n_vit_layers)
+        require(launches == want, f"bf16 absorbed B{b} launches {launches}, expected {want}")
+        tiles = plan_b.slots_per_layer * plan_b.n_vit_layers
+        require(variants["fused_mlp"] == {"float": want["fused_mlp"] - tiles, "float+side": tiles},
+                f"bf16 absorbed B{b} K2 variants {variants['fused_mlp']}")
+        if b == B:
+            paths["absorb_bf16"], vpaths["absorb_bf16"] = launches, variants
+    quantize_decode_weights(model, 4)
+    launches, variants, plan_b = timed_absorb(model, cfg, B, gcfg, dev, counters, "OF-3B int4 B8")
+    want_v = side_variants(quant_variants(cfg, 4, False), "int4", plan_b.slots_per_layer * plan_b.n_vit_layers)
+    require(variants == want_v, f"int4 absorbed variant launches {variants}, expected {want_v}")
+    vpaths["absorb_int4"] = variants
+    del model
+    torch.cuda.empty_cache()
+    return paths, vpaths
 
 
 def quant_variants(cfg, bits: int, kv8: bool) -> dict:
@@ -1877,7 +2161,8 @@ def kernel_functions() -> dict:
             "flash_attention": flash_attention, "masked_xattn": masked_xattn,
             "decode_attention": decode_attention, "decode_attention_update": decode_attention_update,
             "flash_attention_backward": flash_attention_backward, "masked_xattn_backward": masked_xattn_backward,
-            "attend_out_decode": attend_out_decode, "vit_attention": vit_attention, "layer_norm": ln_op.layer_norm}
+            "attend_out_decode": attend_out_decode, "vit_attention": vit_attention, "layer_norm": ln_op.layer_norm,
+            "flat_vit_attention": flat_vit_attention}
 
 
 SOURCES = {
@@ -1894,7 +2179,11 @@ SOURCES = {
     "attend_out_decode": ("open_flamingo_tpu_torch/csrc/decode_layer.cu", "open_flamingo_tpu/ops/decode_layer.py:65"),
     "vit_attention": ("open_flamingo_tpu_torch/csrc/vit_attention.cu", "open_flamingo_tpu/ops/vit_attention.py:57"),
     "layer_norm": ("open_flamingo_tpu_torch/csrc/layer_norm.cu", "open_flamingo_tpu/ops/layer_norm.py:47"),
+    "flat_vit_attention": ("open_flamingo_tpu_torch/csrc/vit_attention.cu",
+                           "open_flamingo_tpu/ops/vit_attention.py:117"),
 }
+# K2b, the side tiles K2 carries: its own source and TPU function
+SIDE_SOURCE = ("open_flamingo_tpu_torch/csrc/side_tile.cuh", "open_flamingo_tpu/ops/dense_stream.py:422")
 
 
 # the quantized variants: kernels-line name -> (kernel, main case, the path
@@ -1917,6 +2206,8 @@ VARIANTS = {
     "fused_mlp[int8+rms+swiglu+silu]": ("fused_mlp", "llama_swiglu_int8", "llama7b_int8", "int8+rms+swiglu+silu"),
     "fused_mlp[int4+rms+swiglu+silu]": ("fused_mlp", "llama_swiglu_int4", "llama7b_int4", "int4+rms+swiglu+silu"),
     "fused_mlp[float+relu]": ("fused_mlp", "opt_mlp_relu_bias", "opt13b_generate_fused", "float+relu"),
+    "fused_mlp[float+side]": ("fused_mlp", "mpt_mlp_side_qkv", "absorb_bf16", "float+side"),
+    "fused_mlp[int4+side]": ("fused_mlp", "mpt_mlp_int4_side_qkv", "absorb_int4", "int4+side"),
 }
 
 
@@ -1947,6 +2238,11 @@ def main() -> int:
         t0 = time.perf_counter()
         paths[f"{tag}_fused"], paths[f"{tag}_unfused"], vpaths[f"{tag}_fused"] = phase_generate(dev, name)
         seconds[tag] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    absorb_paths, absorb_vpaths = phase_absorb(dev)
+    paths.update(absorb_paths)
+    vpaths.update(absorb_vpaths)
+    seconds["absorb"] = time.perf_counter() - t0
     for name, tag in (("OF-3B", "quantized"), ("OF-4B", "quantized_of4b"), ("LLaMA-7B", "quantized_llama7b")):
         t0 = time.perf_counter()
         vpaths.update(phase_quantized(dev, name))
@@ -1977,6 +2273,8 @@ def main() -> int:
         by_path = {p: v.get(kernel, {}).get(key, 0) for p, v in vpaths.items()}
         require(by_path[path] > 0, f"{name}: no launch on {path}")
         kernels.append(entry(name, kernel, key, path, by_path, main_case))
+        if key.endswith("+side"):
+            kernels[-1]["source"], kernels[-1]["replaces"] = SIDE_SOURCE
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,8 +43,15 @@
 // epilogue, so u keeps its one rounding and no fp32 scratch is written. W1
 // and W1g share one stored type. Bound: the three weights' bytes (270.5 MB
 // per LLaMA-7B layer in bf16, 0.0807 ms at 3.35 TB/s).
+//
+// K2b side tiles (`fused_mlp_side_fwd`, the TPU kernel's side_x / side_w):
+// an unrelated GEMM tile of the absorbed next-batch ViT rides the
+// down-projection launch as extra blocks (side_tile.cuh), in every weight
+// type K2 streams. Launch 1 and the down-projection's own output are those
+// of fused_mlp_fwd, bit for bit.
 
 #include "rows_gemv.cuh"
+#include "side_tile.cuh"
 
 namespace {
 
@@ -62,15 +69,24 @@ template <typename T>
 int mlp(const void* x, const void* w1, const void* w1g, const void* w2, const void* w1_scale, const void* w1g_scale,
         const void* w2_scale, const void* b1, const void* b2, const void* ln_s, const void* ln_b, const void* residual,
         const void* gate, void* hidden, void* out, int b, int k, int k2, int n, int act, float eps, int norm,
-        int w1type, int w2type, cudaStream_t st) {
+        int w1type, int w2type, cudaStream_t st, const side::Args<T>* sa = nullptr) {
   rows::Epilogue<T> up{(const float*)w1_scale, (const T*)b1, 0, 0.f, act, nullptr, nullptr, (const float*)w1g_scale};
   cudaError_t e = rows::launch_gemv_norm<T, T>(w1type, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps, norm, w1,
                                                w1g, up, (T*)hidden, b, k2, k, st);
   if (e != cudaSuccess) return (int)e;
   rows::Epilogue<T> down{(const float*)w2_scale, (const T*)b2, 0, 0.f, rows::kNone, (const T*)gate,
                          (const T*)residual, nullptr};
+  if (sa != nullptr)
+    return (int)side::launch_gemv_side<T>(w2type, (const T*)hidden, w2, down, (T*)out, b, n, k2, *sa, st);
   return (int)rows::launch_gemv_norm<T, T>(w2type, (const T*)hidden, nullptr, nullptr, 0.f, rows::kLayerNorm, w2,
                                            nullptr, down, (T*)out, b, n, k2, st);
+}
+
+template <typename T>
+side::Args<T> side_args(const void* x, const void* w, long long ldw, const void* ln_s, const void* ln_b, float eps,
+                        int act, const void* bias, const void* res, long long ldr, void* out, int m, int sn, int sk) {
+  return side::Args<T>{(const T*)x, (const T*)w, ldw, (const T*)ln_s, (const T*)ln_b, eps, act, (const T*)bias,
+                       (const T*)res, ldr, (T*)out, m, sn, sk};
 }
 
 }  // namespace
@@ -112,5 +128,36 @@ extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* w1g, con
   if (dtype == 1)
     return mlp<__nv_bfloat16>(x, w1, w1g, w2, w1_scale, w1g_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate,
                               hidden, out, b, k, k2, n, act, eps, norm, w1type, w2type, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// fused_mlp_fwd with a K2b side tile in its down-projection launch:
+// side_out (M, SN) = act(LN?(side_x)) @ side_w^T + side_b + side_res, side_x
+// (M, SK) contiguous, side_w (SN, SK) with rows side_ldw elements apart,
+// side_ln_s / side_ln_b (SK,), side_b (SN,) or NULL, side_res (M, SN) with
+// rows side_ldr apart or NULL, all in x's dtype; side_act a rows::Act. SK a
+// multiple of 32. The other arguments and `out` as fused_mlp_fwd's.
+extern "C" int fused_mlp_side_fwd(const void* x, const void* w1, const void* w1g, const void* w2, const void* w1_scale,
+                                  const void* w1g_scale, const void* w2_scale, const void* b1, const void* b2,
+                                  const void* ln_s, const void* ln_b, const void* residual, const void* gate,
+                                  void* hidden, void* out, int b, int k, int k2, int n, int act, float eps, int norm,
+                                  int dtype, int w1type, int w2type, const void* side_x, const void* side_w,
+                                  long long side_ldw, const void* side_ln_s, const void* side_ln_b, float side_eps,
+                                  int side_act, const void* side_b, const void* side_res, long long side_ldr,
+                                  void* side_out, int m, int sn, int sk, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    const side::Args<float> sa = side_args<float>(side_x, side_w, side_ldw, side_ln_s, side_ln_b, side_eps, side_act,
+                                                  side_b, side_res, side_ldr, side_out, m, sn, sk);
+    return mlp<float>(x, w1, w1g, w2, w1_scale, w1g_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate, hidden, out,
+                      b, k, k2, n, act, eps, norm, w1type, w2type, st, &sa);
+  }
+  if (dtype == 1) {
+    const side::Args<__nv_bfloat16> sa = side_args<__nv_bfloat16>(side_x, side_w, side_ldw, side_ln_s, side_ln_b,
+                                                                   side_eps, side_act, side_b, side_res, side_ldr,
+                                                                   side_out, m, sn, sk);
+    return mlp<__nv_bfloat16>(x, w1, w1g, w2, w1_scale, w1g_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate,
+                              hidden, out, b, k, k2, n, act, eps, norm, w1type, w2type, st, &sa);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -283,12 +283,13 @@ __device__ void stage_row(const T* __restrict__ xr, const T* __restrict__ ln_s,
   }
 }
 
+// The CUDA-core kernel's body, for block `block` of a grid of `grid` blocks
+// (a kernel that carries other blocks too passes its own count).
 template <typename T, typename W, typename OutT, bool kGated, int kAct>
-__global__ void __launch_bounds__(kThreads) gemv_kernel(
+__device__ __forceinline__ void gemv_body(
     const T* __restrict__ x, const T* __restrict__ ln_s, const T* __restrict__ ln_b, float eps, int norm,
     const unsigned char* __restrict__ w, const unsigned char* __restrict__ wg, Epilogue<T> ep,
-    OutT* __restrict__ out, int b, int n, int k, int rows_per_pass) {
-  extern __shared__ __align__(16) unsigned char smem[];
+    OutT* __restrict__ out, int b, int n, int k, int rows_per_pass, unsigned char* smem, int grid, int block) {
   T* hs = reinterpret_cast<T*>(smem);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -299,7 +300,7 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
       stage_row(x + (size_t)(r0 + r) * k, ln_s, ln_b, eps, norm, hs + (size_t)r * k, k, lane);
     __syncthreads();
 
-    for (int col = blockIdx.x * kWarps + warp; col < n; col += gridDim.x * kWarps) {
+    for (int col = block * kWarps + warp; col < n; col += grid * kWarps) {
       float acc[kMaxRows], accg[kMaxRows];
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) acc[r] = accg[r] = 0.f;
@@ -335,6 +336,16 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(
       }
     }
   }
+}
+
+template <typename T, typename W, typename OutT, bool kGated, int kAct>
+__global__ void __launch_bounds__(kThreads) gemv_kernel(
+    const T* __restrict__ x, const T* __restrict__ ln_s, const T* __restrict__ ln_b, float eps, int norm,
+    const unsigned char* __restrict__ w, const unsigned char* __restrict__ wg, Epilogue<T> ep,
+    OutT* __restrict__ out, int b, int n, int k, int rows_per_pass) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  gemv_body<T, W, OutT, kGated, kAct>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, rows_per_pass, smem,
+                                      gridDim.x, blockIdx.x);
 }
 
 __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
@@ -405,14 +416,13 @@ __device__ void stage_fragments(const __nv_bfloat16* __restrict__ xr, bool live,
 // works on column tile (group * tpb + w / ks) over K-chunk slice (w % ks) of
 // ks; shared memory holds h in fragment order (8 * K bf16), then the split-K
 // partials (kWarps * 32 * 4 floats, twice that in the gated form: W's sums,
-// then Wg's).
+// then Wg's). The body of block `block` of `grid`, as gemv_body.
 template <typename W, typename OutT, bool kGated, int kAct>
-__global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
+__device__ __forceinline__ void gemv_mma_body(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
     const __nv_bfloat16* __restrict__ ln_b, float eps, int norm, const unsigned char* __restrict__ w,
     const unsigned char* __restrict__ wg, Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out, int b, int n,
-    int k, int ks) {
-  extern __shared__ __align__(16) unsigned char smem[];
+    int k, int ks, unsigned char* smem, int grid, int block) {
   uint4* hf = reinterpret_cast<uint4*>(smem);
   float4* part = reinterpret_cast<float4*>(smem + (size_t)kMaxRows * k * sizeof(__nv_bfloat16));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -428,7 +438,7 @@ __global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
       stage_fragments(x + (size_t)(r0 + min(r, rb - 1)) * k, r < rb, ln_s, ln_b, eps, norm, hf, r, k, lane);
     __syncthreads();
 
-    for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {  // uniform across the block
+    for (int grp = block; grp < groups; grp += grid) {  // uniform across the block
       const int tile = grp * tpb + warp / ks;
       float c[4] = {0.f, 0.f, 0.f, 0.f}, cg[4] = {0.f, 0.f, 0.f, 0.f};
       if (tile < tiles) {
@@ -489,6 +499,17 @@ __global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
   }
 }
 
+template <typename W, typename OutT, bool kGated, int kAct>
+__global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
+    const __nv_bfloat16* __restrict__ ln_b, float eps, int norm, const unsigned char* __restrict__ w,
+    const unsigned char* __restrict__ wg, Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out, int b, int n,
+    int k, int ks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  gemv_mma_body<W, OutT, kGated, kAct>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, ks, smem, gridDim.x,
+                                       blockIdx.x);
+}
+
 inline int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -533,25 +554,43 @@ inline size_t mma_smem(int k, bool gated) {
   return (size_t)kMaxRows * k * sizeof(__nv_bfloat16) + (gated ? 2 : 1) * kThreads * 4 * sizeof(float);
 }
 
+// The tensor-core kernel's split of K (ks warps per column tile) and its
+// grid for N columns of K: every launch of it, with or without side blocks,
+// takes the same, so a column's partial sums add in the same order.
+inline void mma_grid(int n, int k, int* ks_out, int* blocks) {
+  const int tiles = (n + 15) / 16, chunks = k / kMmaK;
+  int ks = 1;  // split K while the card has too few warps and each keeps >= 2 chunks
+  while (ks < kWarps && 2 * ks * 2 <= chunks && (long long)tiles * ks < (long long)sm_count() * kWarpsPerSmWanted)
+    ks *= 2;
+  const int tpb = kWarps / ks;
+  *ks_out = ks;
+  *blocks = grid_for((tiles + tpb - 1) / tpb);
+}
+
 template <typename W, typename OutT, bool kGated, int kAct>
 cudaError_t launch_gemv_mma(const __nv_bfloat16* x, const __nv_bfloat16* ln_s,
                             const __nv_bfloat16* ln_b, float eps, int norm, const void* w, const void* wg,
                             Epilogue<__nv_bfloat16> ep, OutT* out, int b, int n, int k,
                             cudaStream_t st) {
   const size_t smem = mma_smem(k, kGated);
-  const int tiles = (n + 15) / 16, chunks = k / kMmaK;
-  int ks = 1;  // split K while the card has too few warps and each keeps >= 2 chunks
-  while (ks < kWarps && 2 * ks * 2 <= chunks && (long long)tiles * ks < (long long)sm_count() * kWarpsPerSmWanted)
-    ks *= 2;
-  const int tpb = kWarps / ks;
+  int ks, blocks;
+  mma_grid(n, k, &ks, &blocks);
   auto kern = gemv_mma_kernel<W, OutT, kGated, kAct>;
   static size_t smem_set = 48 * 1024;
   cudaError_t e = allow_smem(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
-  kern<<<grid_for((tiles + tpb - 1) / tpb), kThreads, smem, st>>>(
+  kern<<<blocks, kThreads, smem, st>>>(
       x, ln_s, ln_b, eps, norm, static_cast<const unsigned char*>(w), static_cast<const unsigned char*>(wg), ep,
       out, b, n, k, ks);
   return cudaGetLastError();
+}
+
+// The CUDA-core kernel's rows staged per pass for K of type T (0: none fit).
+template <typename T>
+int core_rows(int b, int k) {
+  int rows = (int)((size_t)smem_optin() / ((size_t)k * sizeof(T)));
+  rows = rows < kMaxRows ? rows : kMaxRows;
+  return rows < b ? rows : b;
 }
 
 // The CUDA-core kernel's launch (fp32, K not a multiple of 32, or K too long
@@ -559,12 +598,9 @@ cudaError_t launch_gemv_mma(const __nv_bfloat16* x, const __nv_bfloat16* ln_s,
 template <typename T, typename W, typename OutT, bool kGated, int kAct>
 cudaError_t launch_gemv_core(const T* x, const T* ln_s, const T* ln_b, float eps, int norm, const void* w,
                              const void* wg, Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
-  const size_t row_bytes = (size_t)k * sizeof(T);
-  int rows = (int)((size_t)smem_optin() / row_bytes);
-  rows = rows < kMaxRows ? rows : kMaxRows;
-  rows = rows < b ? rows : b;
+  const int rows = core_rows<T>(b, k);
   if (rows < 1) return cudaErrorInvalidValue;
-  const size_t smem = rows * row_bytes;
+  const size_t smem = rows * (size_t)k * sizeof(T);
   auto kern = gemv_kernel<T, W, OutT, kGated, kAct>;
   static size_t smem_set = 48 * 1024;  // the default limit
   cudaError_t e = allow_smem(kern, smem, smem_set);

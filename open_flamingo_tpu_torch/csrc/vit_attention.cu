@@ -54,6 +54,26 @@
 // instance, from L2. The bf16 kernel is held to 170 registers so that two
 // blocks share an SM: with one (its first versions, 194 registers) its
 // warps waited on their own latencies, 1.3-1.6x slower on the card.
+//
+// K8 flat_vit_attention (`flat_vit_attention_fwd`, its own entry point):
+//
+//   replaces open_flamingo_tpu/ops/vit_attention.py `flat_vit_attention`
+//   (kernel `_flat_attn_kernel`), the absorbed ViT's attention glue.
+//
+// The same kernels as instances of their own (kFlat), on the flat
+// (B, S_pad, H*Dh) workspace of the absorbed ViT, read through the same
+// (batch, head, row) strides: every one of the S_pad query rows is computed
+// (pad rows too, as the TPU kernel does: finite values over the real keys),
+// keys at or past s_real are masked, and the math is the TPU kernel's fp32:
+// q and k exact (bf16 products are exact in fp32), scores q.k^T in fp32
+// times `scale` after the product, P = exp(s - max) / sum in fp32, P.V in
+// fp32, one rounding of the output. In bf16 P goes through the tensor cores
+// as a hi/lo pair of bf16 (hi = bf16(P), lo = bf16(P - hi): P within 2^-17
+// of its value, exact products, fp32 sums), two `mma.sync` per fragment
+// where K9 rounds P once. Its scores stay live through P.V, so the bf16
+// instance runs one block per SM (no 170-register cap). Bound at OF-3B's
+// B' 8 (S_pad 264, s_real 257, 16 heads of Dh 64): 17.3 MB of q/k/v/out
+// over 3.35 TB/s, 0.0052 ms, above 2.2 GFLOP over 989 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -146,15 +166,18 @@ size_t smem_bf16(int s_pad) {
 // and 2t + 1. An 8 x 8 tile by `ldmatrix` gives lane l row l / 4, columns
 // 2(l % 4), 2(l % 4) + 1 (K rows: B of q.k^T), and with `.trans` rows
 // 2(l % 4), 2(l % 4) + 1 of column l / 4 (V rows: B of P.V).
-template <int D>
-__global__ void __launch_bounds__(kBf16Warps * 32, 2) vit_attn_bf16(
+// kFlat (K8): s query rows, the first s_keys of them keys; otherwise (K9)
+// s_keys is not read and all s rows are keys.
+template <int D, bool kFlat>
+__global__ void __launch_bounds__(kBf16Warps * 32, kFlat ? 1 : 2) vit_attn_bf16(
     Operand q, Operand k, Operand v, __nv_bfloat16* __restrict__ out, Strides ost, int nh, int s,
-    float scale) {
+    float scale, int s_keys) {
   constexpr int DK = D / 16;   // k-steps of q.k^T
   constexpr int DN = D / 8;    // n-tiles of P.V
   constexpr int KS = k_stride<D>();
   extern __shared__ __align__(16) unsigned char smem[];
-  const int s_pad = (s + 15) & ~15;
+  const int sk = kFlat ? s_keys : s;
+  const int s_pad = (sk + 15) & ~15;
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);   // [s_pad][KS]
   __nv_bfloat16* v_s = k_s + (size_t)s_pad * KS;                   // [s_pad][KS]
 
@@ -167,7 +190,7 @@ __global__ void __launch_bounds__(kBf16Warps * 32, 2) vit_attn_bf16(
   // stage K and V, 16 bytes of a row per copy, zeros past S
   for (int idx = threadIdx.x; idx < s_pad * (D / 8); idx += blockDim.x) {
     const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    const bool real = r < s;
+    const bool real = r < sk;
     cp_async16(k_s + r * KS + c, real ? kp + r * k.st.s + c : kp, real);
     cp_async16(v_s + r * KS + c, real ? vp + r * v.st.s + c : vp, real);
   }
@@ -176,16 +199,23 @@ __global__ void __launch_bounds__(kBf16Warps * 32, 2) vit_attn_bf16(
   const int row0 = (blockIdx.x * (blockDim.x / 32) + warp) * 16;
   const int ra = row0 + g, rb = row0 + g + 8;
 
-  // q A fragments, scaled and rounded, loaded while the copies land; rows
-  // past S are zeros
+  // q A fragments, scaled and rounded (K8: as they are), loaded while the
+  // copies land; rows past S are zeros
   uint32_t qa[DK][4];
 #pragma unroll
   for (int kk = 0; kk < DK; ++kk) {
     const int c = kk * 16 + 2 * t4;
-    qa[kk][0] = ra < s ? scaled_pair(qp + ra * q.st.s + c, scale) : 0u;
-    qa[kk][1] = rb < s ? scaled_pair(qp + rb * q.st.s + c, scale) : 0u;
-    qa[kk][2] = ra < s ? scaled_pair(qp + ra * q.st.s + c + 8, scale) : 0u;
-    qa[kk][3] = rb < s ? scaled_pair(qp + rb * q.st.s + c + 8, scale) : 0u;
+    if constexpr (kFlat) {
+      qa[kk][0] = ra < s ? *reinterpret_cast<const uint32_t*>(qp + ra * q.st.s + c) : 0u;
+      qa[kk][1] = rb < s ? *reinterpret_cast<const uint32_t*>(qp + rb * q.st.s + c) : 0u;
+      qa[kk][2] = ra < s ? *reinterpret_cast<const uint32_t*>(qp + ra * q.st.s + c + 8) : 0u;
+      qa[kk][3] = rb < s ? *reinterpret_cast<const uint32_t*>(qp + rb * q.st.s + c + 8) : 0u;
+    } else {
+      qa[kk][0] = ra < s ? scaled_pair(qp + ra * q.st.s + c, scale) : 0u;
+      qa[kk][1] = rb < s ? scaled_pair(qp + rb * q.st.s + c, scale) : 0u;
+      qa[kk][2] = ra < s ? scaled_pair(qp + ra * q.st.s + c + 8, scale) : 0u;
+      qa[kk][3] = rb < s ? scaled_pair(qp + rb * q.st.s + c + 8, scale) : 0u;
+    }
   }
   cp_async_wait_all();
   __syncthreads();
@@ -214,9 +244,15 @@ __global__ void __launch_bounds__(kBf16Warps * 32, 2) vit_attn_bf16(
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         float* c = sc[t][j];
+        if constexpr (kFlat) {
+          c[0] *= scale;
+          c[1] *= scale;
+          c[2] *= scale;
+          c[3] *= scale;
+        }
         const int col = t * 16 + j * 8 + 2 * t4;
-        if (col >= s) c[0] = c[2] = -INFINITY;
-        if (col + 1 >= s) c[1] = c[3] = -INFINITY;
+        if (col >= sk) c[0] = c[2] = -INFINITY;
+        if (col + 1 >= sk) c[1] = c[3] = -INFINITY;
         mx_a = fmaxf(mx_a, fmaxf(c[0], c[1]));
         mx_b = fmaxf(mx_b, fmaxf(c[2], c[3]));
       }
@@ -246,15 +282,17 @@ __global__ void __launch_bounds__(kBf16Warps * 32, 2) vit_attn_bf16(
 
   // P normalised in fp32, rounded to bf16 into the A fragments of P.V, all
   // before P.V: the fp32 scores die here, so they and the accumulators of
-  // P.V are never live together
-  uint32_t pa[kKeyTiles][4];
+  // P.V are never live together (K8 keeps the scores: see the note above)
+  uint32_t pa[kFlat ? 1 : kKeyTiles][4];
+  if constexpr (!kFlat) {
 #pragma unroll
-  for (int t = 0; t < kKeyTiles; ++t) {
-    if (t < n_tiles) {
-      pa[t][0] = pack_bf16(sc[t][0][0] / sum_a, sc[t][0][1] / sum_a);
-      pa[t][1] = pack_bf16(sc[t][0][2] / sum_b, sc[t][0][3] / sum_b);
-      pa[t][2] = pack_bf16(sc[t][1][0] / sum_a, sc[t][1][1] / sum_a);
-      pa[t][3] = pack_bf16(sc[t][1][2] / sum_b, sc[t][1][3] / sum_b);
+    for (int t = 0; t < kKeyTiles; ++t) {
+      if (t < n_tiles) {
+        pa[t][0] = pack_bf16(sc[t][0][0] / sum_a, sc[t][0][1] / sum_a);
+        pa[t][1] = pack_bf16(sc[t][0][2] / sum_b, sc[t][0][3] / sum_b);
+        pa[t][2] = pack_bf16(sc[t][1][0] / sum_a, sc[t][1][1] / sum_a);
+        pa[t][3] = pack_bf16(sc[t][1][2] / sum_b, sc[t][1][3] / sum_b);
+      }
     }
   }
   float o[DN][4];
@@ -265,12 +303,36 @@ __global__ void __launch_bounds__(kBf16Warps * 32, 2) vit_attn_bf16(
     if (t < n_tiles) {
       // tiles: keys 16t..16t+7 and 16t+8..16t+15 at columns 8n, then at 8n + 8
       const __nv_bfloat16* vaddr = v_s + (t * 16 + (lt & 1) * 8 + lr) * KS + (lt >> 1) * 8;
+      if constexpr (kFlat) {
+        // fragment i: tile j = i / 2 of keys, row a (i even) or b (i odd)
+        uint32_t hi[4], lo[4];
 #pragma unroll
-      for (int n = 0; n < DN; n += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, vaddr + n * 8);
-        mma_bf16(o[n], pa[t], b[0], b[1]);
-        mma_bf16(o[n + 1], pa[t], b[2], b[3]);
+        for (int i = 0; i < 4; ++i) {
+          const float* c = sc[t][i >> 1] + (i & 1) * 2;
+          const float den = (i & 1) ? sum_b : sum_a;
+          const float p0 = c[0] / den, p1 = c[1] / den;
+          const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+          const float2 hf = __bfloat1622float2(h);
+          hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+          lo[i] = pack_bf16(p0 - hf.x, p1 - hf.y);
+        }
+#pragma unroll
+        for (int n = 0; n < DN; n += 2) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, vaddr + n * 8);
+          mma_bf16(o[n], hi, b[0], b[1]);
+          mma_bf16(o[n], lo, b[0], b[1]);
+          mma_bf16(o[n + 1], hi, b[2], b[3]);
+          mma_bf16(o[n + 1], lo, b[2], b[3]);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < DN; n += 2) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, vaddr + n * 8);
+          mma_bf16(o[n], pa[t], b[0], b[1]);
+          mma_bf16(o[n + 1], pa[t], b[2], b[3]);
+        }
       }
     }
   }
@@ -291,14 +353,17 @@ size_t smem_f32(int s, int d, int warps) {
   return ((size_t)s * (d + 1) + (size_t)s * d + (size_t)warps * (kMaxD + kMaxS)) * 4;
 }
 
+// kFlat: as vit_attn_bf16's
+template <bool kFlat>
 __global__ void __launch_bounds__(kMaxWarps * 32) vit_attn_f32(
     Operand q, Operand k, Operand v, float* __restrict__ out, Strides ost, int nh, int s, int d,
-    float scale) {
+    float scale, int s_keys) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x / 32, ks = d + 1;
-  float* k_s = reinterpret_cast<float*>(smem);    // [s][d + 1]
-  float* v_s = k_s + (size_t)s * ks;              // [s][d]
-  float* q_w = v_s + (size_t)s * d;               // [warps][kMaxD]
+  const int sk = kFlat ? s_keys : s;
+  float* k_s = reinterpret_cast<float*>(smem);    // [sk][d + 1]
+  float* v_s = k_s + (size_t)sk * ks;             // [sk][d]
+  float* q_w = v_s + (size_t)sk * d;              // [warps][kMaxD]
   float* p_w = q_w + warps * kMaxD;               // [warps][kMaxS]
 
   const int inst = blockIdx.y, b = inst / nh, h = inst % nh;
@@ -307,7 +372,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) vit_attn_f32(
   const float* vp = (const float*)v.p + b * v.st.b + h * v.st.h;
   float* op = out + b * ost.b + h * ost.h;
 
-  for (int idx = threadIdx.x; idx < s * d; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < sk * d; idx += blockDim.x) {
     const int r = idx / d, c = idx % d;
     k_s[r * ks + c] = kp[r * k.st.s + c];
     v_s[r * d + c] = vp[r * v.st.s + c];
@@ -319,7 +384,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) vit_attn_f32(
   float* ps = p_w + warp * kMaxS;
   const int rows = 16 * warps, r_end = min(s, (blockIdx.x + 1) * rows);
   for (int r = blockIdx.x * rows + warp; r < r_end; r += warps) {
-    for (int c = lane; c < d; c += 32) qs[c] = qp[r * q.st.s + c] * scale;
+    for (int c = lane; c < d; c += 32) qs[c] = kFlat ? qp[r * q.st.s + c] : qp[r * q.st.s + c] * scale;
     __syncwarp();
     float sc[kKeysPerLane];
     float mx = -INFINITY;
@@ -327,10 +392,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32) vit_attn_f32(
     for (int i = 0; i < kKeysPerLane; ++i) {
       const int j = lane + 32 * i;
       float dot = -INFINITY;
-      if (j < s) {
+      if (j < sk) {
         dot = 0.f;
         const float* krow = k_s + j * ks;
         for (int c = 0; c < d; ++c) dot = fmaf(qs[c], krow[c], dot);
+        if (kFlat) dot *= scale;   // K8: the scale on the fp32 score
       }
       sc[i] = dot;
       mx = fmaxf(mx, dot);
@@ -346,12 +412,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32) vit_attn_f32(
 #pragma unroll
     for (int i = 0; i < kKeysPerLane; ++i) {
       const int j = lane + 32 * i;
-      if (j < s) ps[j] = sc[i] / sum;
+      if (j < sk) ps[j] = sc[i] / sum;
     }
     __syncwarp();
     for (int c = lane; c < d; c += 32) {
       float acc = 0.f;
-      for (int j = 0; j < s; ++j) acc = fmaf(ps[j], v_s[j * d + c], acc);
+      for (int j = 0; j < sk; ++j) acc = fmaf(ps[j], v_s[j * d + c], acc);
       op[r * ost.s + c] = acc;
     }
     __syncwarp();
@@ -378,17 +444,48 @@ inline void block_shape(int s, int max_warps, int* blocks, int* warps) {
   *warps = (tiles + *blocks - 1) / *blocks;
 }
 
-template <int D>
+// s query rows; with kFlat the first s_keys of them are the keys
+template <int D, bool kFlat>
 cudaError_t launch_bf16(Operand q, Operand k, Operand v, void* out, Strides ost, int nb, int nh,
-                        int s, float scale, cudaStream_t st) {
+                        int s, float scale, int s_keys, cudaStream_t st) {
   int blocks, warps;
   block_shape(s, kBf16Warps, &blocks, &warps);
   const dim3 grid(blocks, nb * nh);
-  cudaError_t err = allow_smem<vit_attn_bf16<D>>(smem_bf16<D>(kMaxS));
+  cudaError_t err = allow_smem<vit_attn_bf16<D, kFlat>>(smem_bf16<D>(kMaxS));
   if (err != cudaSuccess) return err;
-  vit_attn_bf16<D><<<grid, warps * 32, smem_bf16<D>((s + 15) & ~15), st>>>(q, k, v, (__nv_bfloat16*)out, ost, nh,
-                                                                 s, scale);
+  const int sk = kFlat ? s_keys : s;
+  vit_attn_bf16<D, kFlat><<<grid, warps * 32, smem_bf16<D>((sk + 15) & ~15), st>>>(
+      q, k, v, (__nv_bfloat16*)out, ost, nh, s, scale, s_keys);
   return cudaGetLastError();
+}
+
+template <bool kFlat>
+int launch(const void* q, const void* k, const void* v, void* out, int nb, int nh, int s, int s_keys, int d,
+           long long qsb, long long qsh, long long qss, long long ksb, long long ksh, long long kss, long long vsb,
+           long long vsh, long long vss, long long osb, long long osh, long long oss, float scale, int dtype,
+           void* stream) {
+  if (s < 1 || s > kMaxS || s_keys < 1 || s_keys > s || (d != 16 && d != 32 && d != 64) ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (nb < 1 || nh < 1 || (long long)nb * nh > 65535) return (int)cudaErrorInvalidValue;
+  const Operand qo{q, {qsb, qsh, qss}}, ko{k, {ksb, ksh, kss}}, vo{v, {vsb, vsh, vss}};
+  const Strides ost{osb, osh, oss};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1) {
+    switch (d) {
+      case 16: return (int)launch_bf16<16, kFlat>(qo, ko, vo, out, ost, nb, nh, s, scale, s_keys, st);
+      case 32: return (int)launch_bf16<32, kFlat>(qo, ko, vo, out, ost, nb, nh, s, scale, s_keys, st);
+      default: return (int)launch_bf16<64, kFlat>(qo, ko, vo, out, ost, nb, nh, s, scale, s_keys, st);
+    }
+  }
+  int blocks, warps;
+  block_shape(s, kMaxWarps, &blocks, &warps);
+  const dim3 grid(blocks, nb * nh);
+  cudaError_t err = allow_smem<vit_attn_f32<kFlat>>(smem_f32(kMaxS, kMaxD, kMaxWarps));
+  if (err != cudaSuccess) return (int)err;
+  vit_attn_f32<kFlat><<<grid, warps * 32, smem_f32(kFlat ? s_keys : s, d, warps), st>>>(
+      qo, ko, vo, (float*)out, ost, nh, s, d, scale, s_keys);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -402,25 +499,18 @@ extern "C" int vit_attention_fwd(const void* q, const void* k, const void* v, vo
                                  long long ksb, long long ksh, long long kss, long long vsb,
                                  long long vsh, long long vss, long long osb, long long osh,
                                  long long oss, float scale, int dtype, void* stream) {
-  if (s < 1 || s > kMaxS || (d != 16 && d != 32 && d != 64) || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (nb < 1 || nh < 1 || (long long)nb * nh > 65535) return (int)cudaErrorInvalidValue;
-  const Operand qo{q, {qsb, qsh, qss}}, ko{k, {ksb, ksh, kss}}, vo{v, {vsb, vsh, vss}};
-  const Strides ost{osb, osh, oss};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1) {
-    switch (d) {
-      case 16: return (int)launch_bf16<16>(qo, ko, vo, out, ost, nb, nh, s, scale, st);
-      case 32: return (int)launch_bf16<32>(qo, ko, vo, out, ost, nb, nh, s, scale, st);
-      default: return (int)launch_bf16<64>(qo, ko, vo, out, ost, nb, nh, s, scale, st);
-    }
-  }
-  int blocks, warps;
-  block_shape(s, kMaxWarps, &blocks, &warps);
-  const dim3 grid(blocks, nb * nh);
-  cudaError_t err = allow_smem<vit_attn_f32>(smem_f32(kMaxS, kMaxD, kMaxWarps));
-  if (err != cudaSuccess) return (int)err;
-  vit_attn_f32<<<grid, warps * 32, smem_f32(s, d, warps), st>>>(qo, ko, vo, (float*)out, ost, nh, s, d,
-                                                                scale);
-  return (int)cudaGetLastError();
+  return launch<false>(q, k, v, out, nb, nh, s, s, d, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
+                       scale, dtype, stream);
+}
+
+// K8: as vit_attention_fwd over s_pad query rows (the flat workspace's
+// (B, S_pad, H*Dh) as (batch, head, row) strides), the first s_real of them
+// the keys; the scale multiplies the fp32 scores.
+extern "C" int flat_vit_attention_fwd(const void* q, const void* k, const void* v, void* out, int nb, int nh,
+                                      int s_pad, int s_real, int d, long long qsb, long long qsh, long long qss,
+                                      long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
+                                      long long vss, long long osb, long long osh, long long oss, float scale,
+                                      int dtype, void* stream) {
+  return launch<true>(q, k, v, out, nb, nh, s_pad, s_real, d, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
+                      oss, scale, dtype, stream);
 }

@@ -6,8 +6,12 @@ is rounded up to 16, and every decode step attends to the media K/V
 projected at prefill. Quantized decode is opt-in, as in the JAX package:
 `quantize.quantize_decode_weights(model, bits)` makes the decode kernels
 stream int8 / int4 weights, and `GenerationConfig.int8_kv` holds the K/V
-and media caches as int8. Beam search, sampling and cross-batch vision
-pipelining (`next_pixels`) are not ported yet (ROADMAP.md).
+and media caches as int8. With `next_pixels` the call also encodes the
+NEXT batch's images: on the fused route, where `absorb_vit.make_plan` gives
+a schedule, the ViT rides the first decode forwards as K2b side tiles
+(`greedy_absorb`), else it runs after the decode loop; either way the
+tokens are those of the call without it. Beam search and sampling are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Optional
 import torch
 
 from .device import resolve_device
+from .models.absorb_vit import SideHook, finish_tokens, make_plan, patch_embed_flat
 from .models.decoders.common import KVCache, quantize_layer_kv
 from .models.flamingo import Flamingo, count_media
 from .ops.dense_stream import fused_route
@@ -49,10 +54,12 @@ def _process_logits(logits: torch.Tensor, step: int, cfg: GenerationConfig) -> t
     return logits
 
 
-def greedy(step_fn, first_logits: torch.Tensor, cache: KVCache, cfg: GenerationConfig) -> torch.Tensor:
+def greedy(step_fn, first_logits: torch.Tensor, cache: KVCache, cfg: GenerationConfig, n_forced: int = 0):
     """Greedy decode loop. first_logits: (B, V) at the last prompt position;
     step_fn(tokens (B, 1), mask (B, 1), cache) -> (logits (B, 1, V), cache).
-    Returns (B, max_new_tokens), pad-filled after EOS."""
+    The last token needs no forward; the first `n_forced` forwards run all
+    the same (an absorbing step carries work of its own). Returns
+    (B, max_new_tokens), pad-filled after EOS."""
     b = first_logits.shape[0]
     logits = first_logits
     finished = torch.zeros(b, dtype=torch.bool, device=logits.device)
@@ -64,10 +71,33 @@ def greedy(step_fn, first_logits: torch.Tensor, cache: KVCache, cfg: GenerationC
             tok = torch.where(finished, cfg.pad_token_id, tok)
             finished = finished | (tok == cfg.eos_token_id)
         tokens.append(tok)
-        if step + 1 < cfg.max_new_tokens:  # the last token needs no forward
+        if step + 1 < cfg.max_new_tokens or step < n_forced:
             step_logits, cache = step_fn(tok[:, None], ones, cache)
             logits = step_logits[:, 0]
     return torch.stack(tokens, dim=1)
+
+
+def greedy_absorb(step_fn, first_logits, cache: KVCache, cfg: GenerationConfig, xw: torch.Tensor, vit_blocks,
+                  plan) -> tuple:
+    """`greedy` with the first `plan.n_steps` decode forwards each carrying
+    `plan.per_step` layers of the next batch's ViT (the JAX package's
+    `greedy_absorb`) and threading the flat workspace `xw` (m_pad, D)
+    through them; the last of them runs even when it feeds no token (the
+    JAX scan runs every step's forward). Returns (tokens, final workspace)."""
+    state = {"xw": xw, "step": 0}
+
+    def absorb_step(tok, mask, cache):
+        step = state["step"]
+        state["step"] += 1
+        if step >= plan.n_steps:
+            return step_fn(tok, mask, cache)
+        hook = SideHook(vit_blocks[step * plan.per_step:(step + 1) * plan.per_step], state["xw"], plan)
+        out = step_fn(tok, mask, cache, side=hook)
+        state["xw"] = hook.result()
+        return out
+
+    tokens = greedy(absorb_step, first_logits, cache, cfg, n_forced=plan.n_steps)
+    return tokens, state["xw"]
 
 
 @torch.no_grad()
@@ -94,17 +124,21 @@ def flamingo_generate(
     media_latents: Optional[torch.Tensor] = None,
     next_pixels: Optional[torch.Tensor] = None,
     device="cuda",
-) -> torch.Tensor:
+):
     """Encode vision once (or take `media_latents`, (B, T_img, n_lat, D)),
     prefill, decode greedily with the cached media. Inputs move to
     `device`, where the model must live. Returns generated ids
-    (B, max_new_tokens), prompt excluded."""
+    (B, max_new_tokens), prompt excluded.
+
+    next_pixels: (B', T', F', H, W, C) pixels of the NEXT batch. Returns
+    (tokens, next_latents), next_latents its perceiver latents for the next
+    call's `media_latents`: its ViT forward rides this call's decode loop
+    as side tiles where the geometry carries the schedule, else it runs
+    after the loop (`embed_vision`). The tokens do not change."""
     if cfg.num_beams != 1:
         raise NotImplementedError("beam search is not ported yet (ROADMAP.md)")
     if cfg.do_sample:
         raise NotImplementedError("sampling is not ported yet (ROADMAP.md)")
-    if next_pixels is not None:
-        raise NotImplementedError("cross-batch vision pipelining (next_pixels) is not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model lives on {model.device}, generate asked for {dev}")
@@ -123,7 +157,18 @@ def flamingo_generate(
 
     logits, cache = prefill(model, latents, lang_x, attention_mask, cache_len, cfg.int8_kv and fused_route(dev))
 
-    def step_fn(tok, mask, cache):
-        return model.decode_step(latents, tok, mask, cache, n_media)
+    def step_fn(tok, mask, cache, side=None):
+        return model.decode_step(latents, tok, mask, cache, n_media, side)
 
-    return greedy(step_fn, logits[:, -1], cache, cfg)
+    if next_pixels is None:
+        return greedy(step_fn, logits[:, -1], cache, cfg)
+    next_pixels = next_pixels.to(device=dev, dtype=model.dtype)
+    # the schedule rides the fused route's K2 launches
+    plan = make_plan(model.cfg, next_pixels.shape[:3], cfg.max_new_tokens) if fused_route(dev) else None
+    if plan is None:
+        tokens = greedy(step_fn, logits[:, -1], cache, cfg)
+        return tokens, model.embed_vision(next_pixels)
+    vit = model.vision_encoder
+    xw = patch_embed_flat(vit, next_pixels.reshape(plan.bv, *next_pixels.shape[3:]), plan)
+    tokens, xw = greedy_absorb(step_fn, logits[:, -1], cache, cfg, xw, vit.blocks, plan)
+    return tokens, model.resample_vision(finish_tokens(vit, xw, plan))

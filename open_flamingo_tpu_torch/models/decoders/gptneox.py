@@ -27,6 +27,7 @@ from ...ops.attention import cached_self_attention, use_kernels
 from ...ops.decode_layer import attend_out_decode, reference_attend_out
 from ...ops.dense_stream import fused_dense, fused_mlp, reference_dense, reference_mlp, use_fused_decode
 from ...quantize import stream_weight
+from ..absorb_vit import carry
 from ..layers import LayerNorm, gelu_exact, merge_heads
 from .common import LayerKV, apply_rope, rope_cos_sin
 
@@ -54,10 +55,10 @@ class GPTNeoXBlock(nn.Module):
         q, k = apply_rope(q, k, cos, sin)
         return q, k, v
 
-    def forward(self, x, attn, layer_kv):
+    def forward(self, x, attn, layer_kv, side=None):
         cfg = self.cfg
         if layer_kv is not None and use_fused_decode(x, x.shape[1], attn.cached):
-            return self._fused_decode(x, attn, layer_kv)
+            return self._fused_decode(x, attn, layer_kv, side)
         q, k, v = self._qkv(self.query_key_value(self.input_layernorm(x)), attn)
         out, new_kv = cached_self_attention(q, k, v, attn, layer_kv, scale=cfg.head_dim**-0.5)
         attn_out = self.dense(merge_heads(out))
@@ -65,7 +66,7 @@ class GPTNeoXBlock(nn.Module):
         mlp_out = self.dense_4h_to_h(gelu_exact(self.dense_h_to_4h(self.post_attention_layernorm(mlp_in))))
         return x + attn_out + mlp_out, new_kv
 
-    def _fused_decode(self, x, attn, layer_kv):
+    def _fused_decode(self, x, attn, layer_kv, side):
         cfg = self.cfg
         kern = use_kernels(x)
         dense = fused_dense if kern else reference_dense
@@ -84,8 +85,8 @@ class GPTNeoXBlock(nn.Module):
             k_scale=layer_kv.k_s, v_scale=layer_kv.v_s,
         )
         h = x2 + attn_out
-        y = mlp(
-            x2 if cfg.use_parallel_residual else h, w_up, w_down, w1_scale=s_up, w2_scale=s_down,
+        y = carry(
+            side, mlp, x2 if cfg.use_parallel_residual else h, w_up, w_down, w1_scale=s_up, w2_scale=s_down,
             b1=self.dense_h_to_4h.bias, b2=self.dense_4h_to_h.bias, ln_scale=ln2.weight, ln_bias=ln2.bias,
             eps=ln2.eps, act="gelu", residual=h,
         )

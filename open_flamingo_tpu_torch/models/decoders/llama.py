@@ -28,6 +28,7 @@ from ...ops.attention import cached_self_attention, use_kernels
 from ...ops.decode_layer import attend_out_decode, reference_attend_out
 from ...ops.dense_stream import fused_dense, fused_mlp, reference_dense, reference_mlp, use_fused_decode
 from ...quantize import stream_weight
+from ..absorb_vit import carry
 from ..layers import merge_heads
 from .common import LayerKV, apply_rope, rope_cos_sin
 
@@ -67,10 +68,10 @@ class LlamaBlock(nn.Module):
         cos, sin = rope_cos_sin(attn.position_ids, self.cfg.head_dim, self.cfg.rope_theta)
         return apply_rope(q, k, cos, sin)
 
-    def forward(self, x, attn, layer_kv):
+    def forward(self, x, attn, layer_kv, side=None):
         cfg = self.cfg
         if layer_kv is not None and use_fused_decode(x, x.shape[1], attn.cached):
-            return self._fused_decode(x, attn, layer_kv)
+            return self._fused_decode(x, attn, layer_kv, side)
         b, t, _ = x.shape
         h = self.input_layernorm(x)
         q = self.q_proj(h).reshape(b, t, cfg.num_heads, cfg.head_dim)
@@ -83,7 +84,7 @@ class LlamaBlock(nn.Module):
         h = self.post_attention_layernorm(x)
         return x + self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h)), new_kv
 
-    def _fused_decode(self, x, attn, layer_kv):
+    def _fused_decode(self, x, attn, layer_kv, side):
         cfg = self.cfg
         kern = use_kernels(x)
         dense = fused_dense if kern else reference_dense
@@ -107,8 +108,9 @@ class LlamaBlock(nn.Module):
             residual=x2, k_scale=layer_kv.k_s, v_scale=layer_kv.v_s,
         )
         (w_g, s_g), (w_u, s_u), (w_d, s_d) = (stream_weight(p) for p in (self.gate_proj, self.up_proj, self.down_proj))
-        y = mlp(
-            x2, w_g, w_d, w1_gate=w_u, w1_scale=s_g, w2_scale=s_d, w1_gate_scale=s_u, b1=self.gate_proj.bias,
-            b2=self.down_proj.bias, ln_scale=ln2.weight, eps=ln2.eps, norm="rms", act="silu", residual=x2,
+        y = carry(
+            side, mlp, x2, w_g, w_d, w1_gate=w_u, w1_scale=s_g, w2_scale=s_d, w1_gate_scale=s_u,
+            b1=self.gate_proj.bias, b2=self.down_proj.bias, ln_scale=ln2.weight, eps=ln2.eps, norm="rms", act="silu",
+            residual=x2,
         )
         return y[:, None], LayerKV(kc, vc, layer_kv.k_s, layer_kv.v_s)

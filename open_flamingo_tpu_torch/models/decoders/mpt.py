@@ -22,6 +22,7 @@ from ...ops.attention import cached_self_attention, use_kernels
 from ...ops.decode_layer import attn_block_decode, reference_attn_block
 from ...ops.dense_stream import fused_mlp, reference_mlp, use_fused_decode
 from ...quantize import stream_weight
+from ..absorb_vit import carry
 from ..layers import LayerNorm, gelu_exact, merge_heads
 from .common import LayerKV, alibi_slopes
 
@@ -46,11 +47,13 @@ class MPTBlock(nn.Module):
             persistent=False,
         )
 
-    def forward(self, x, attn, layer_kv):
+    def forward(self, x, attn, layer_kv, side=None):
+        """`side`: an absorbing decode step's `absorb_vit.SideHook`, whose
+        next tile the fused route's K2 launch carries."""
         cfg = self.cfg
         b, t, _ = x.shape
         if layer_kv is not None and use_fused_decode(x, t, attn.cached):
-            return self._fused_decode(x, attn, layer_kv)
+            return self._fused_decode(x, attn, layer_kv, side)
         qkv = self.Wqkv(self.norm_1(x))
         if cfg.clip_qkv:
             qkv = qkv.clamp(-cfg.clip_qkv, cfg.clip_qkv)
@@ -64,7 +67,7 @@ class MPTBlock(nn.Module):
         h = self.down_proj(gelu_exact(self.up_proj(self.norm_2(x))))
         return x + h, new_kv
 
-    def _fused_decode(self, x, attn, layer_kv):
+    def _fused_decode(self, x, attn, layer_kv, side):
         cfg, hd = self.cfg, self.cfg.head_dim
         kern = use_kernels(x)
         attn_half = attn_block_decode if kern else reference_attn_block
@@ -77,8 +80,8 @@ class MPTBlock(nn.Module):
             slopes=self.alibi_slopes, clip=cfg.clip_qkv, wq_scale=s_qkv, wout_scale=s_out, k_scale=layer_kv.k_s,
             v_scale=layer_kv.v_s, eps=cfg.layer_norm_eps,
         )
-        y = mlp_half(
-            x2, w_up, w_down, w1_scale=s_up, w2_scale=s_down, ln_scale=self.norm_2.weight, ln_bias=self.norm_2.bias,
-            eps=cfg.layer_norm_eps, act="gelu", residual=x2,
+        y = carry(
+            side, mlp_half, x2, w_up, w_down, w1_scale=s_up, w2_scale=s_down, ln_scale=self.norm_2.weight,
+            ln_bias=self.norm_2.bias, eps=cfg.layer_norm_eps, act="gelu", residual=x2,
         )
         return y[:, None], LayerKV(kc, vc, layer_kv.k_s, layer_kv.v_s)

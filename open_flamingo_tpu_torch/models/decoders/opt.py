@@ -25,6 +25,7 @@ from ...ops.attention import cached_self_attention, use_kernels
 from ...ops.decode_layer import attend_out_decode, reference_attend_out
 from ...ops.dense_stream import fused_dense, fused_mlp, reference_dense, reference_mlp, use_fused_decode
 from ...quantize import stream_weight
+from ..absorb_vit import carry
 from ..layers import LayerNorm, merge_heads
 from .common import LayerKV
 
@@ -44,10 +45,10 @@ class OPTBlock(nn.Module):
         self.fc1 = nn.Linear(d, cfg.intermediate_size, **kw)
         self.fc2 = nn.Linear(cfg.intermediate_size, d, **kw)
 
-    def forward(self, x, attn, layer_kv):
+    def forward(self, x, attn, layer_kv, side=None):
         cfg = self.cfg
         if layer_kv is not None and use_fused_decode(x, x.shape[1], attn.cached):
-            return self._fused_decode(x, attn, layer_kv)
+            return self._fused_decode(x, attn, layer_kv, side)
         b, t, _ = x.shape
         h = self.self_attn_layer_norm(x)
         q, k, v = (p(h).reshape(b, t, cfg.num_heads, cfg.head_dim) for p in (self.q_proj, self.k_proj, self.v_proj))
@@ -55,7 +56,7 @@ class OPTBlock(nn.Module):
         x = x + self.out_proj(merge_heads(out))
         return x + self.fc2(torch.relu(self.fc1(self.final_layer_norm(x)))), new_kv
 
-    def _fused_decode(self, x, attn, layer_kv):
+    def _fused_decode(self, x, attn, layer_kv, side):
         cfg = self.cfg
         kern = use_kernels(x)
         dense = fused_dense if kern else reference_dense
@@ -77,8 +78,8 @@ class OPTBlock(nn.Module):
             v_scale=layer_kv.v_s,
         )
         (w1, s1), (w2, s2) = stream_weight(self.fc1), stream_weight(self.fc2)
-        y = mlp(
-            x2, w1, w2, w1_scale=s1, w2_scale=s2, b1=self.fc1.bias, b2=self.fc2.bias, ln_scale=ln2.weight,
+        y = carry(
+            side, mlp, x2, w1, w2, w1_scale=s1, w2_scale=s2, b1=self.fc1.bias, b2=self.fc2.bias, ln_scale=ln2.weight,
             ln_bias=ln2.bias, eps=ln2.eps, act="relu", residual=x2,
         )
         return y[:, None], LayerKV(kc, vc, layer_kv.k_s, layer_kv.v_s)

@@ -93,13 +93,16 @@ class Flamingo(nn.Module):
         return logits, media_latents, cache
 
     @torch.no_grad()
-    def decode_step(self, media_latents, lang_x, attention_mask, cache: KVCache, num_media):
+    def decode_step(self, media_latents, lang_x, attention_mask, cache: KVCache, num_media, side=None):
         """Incremental decode: every current token attends to the last
-        cached media. num_media: (B,) count of media tokens in the prefix."""
+        cached media. num_media: (B,) count of media tokens in the prefix.
+        `side`: an `absorb_vit.SideHook` whose ViT layers this step carries
+        (the JAX package's `decode_step_absorb`); its `result()` is then the
+        next batch's workspace."""
         text_time = num_media[:, None].expand(lang_x.shape[0], lang_x.shape[1])
         return self.lm(
             lang_x, attention_mask, media=media_latents, text_time=text_time,
-            cache=cache,
+            cache=cache, side=side,
         )
 
 

@@ -56,6 +56,7 @@ class FlamingoLM(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.immediate = only_attend_immediate_media
+        self.every = cross_attn_every_n or 1
         self.gradient_checkpointing = gradient_checkpointing
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.wpe = nn.Embedding(cfg.max_position_embeddings + 2, cfg.hidden_size, **kw) if cfg.family == "opt" else None
@@ -84,11 +85,16 @@ class FlamingoLM(nn.Module):
         media: Optional[torch.Tensor] = None,
         text_time: Optional[torch.Tensor] = None,
         cache: Optional[KVCache] = None,
+        side=None,
     ):
         """input_ids (B, T); attention_mask (B, T) 1/0; media (B, T_img,
         n_lat, vis_dim) perceiver latents; text_time (B, T). Returns
         (logits (B, T, V) fp32, cache or None). A cache without media K/V
-        gets the ones this call projects (prefill); decode reuses them."""
+        gets the ones this call projects (prefill); decode reuses them.
+        `side` (`absorb_vit.SideHook`, a fused decode step with media only)
+        rides the next batch's ViT on the K2 launches: the hook hears the
+        start of each group of `cross_attn_every_n` layers, and the xattn FF
+        then each block's MLP carry its tiles in program order."""
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         attn, cache = make_attn_inputs(attention_mask, cache=cache)
@@ -97,6 +103,8 @@ class FlamingoLM(nn.Module):
             x = x + self.wpe(attn.position_ids + 2)
         fused = use_fused_decode(x, input_ids.shape[1], cache is not None)
         media_cache = cache.media if cache is not None else None
+        if side is not None and not (fused and media_cache is not None and self.xattn):
+            raise ValueError("FlamingoLM: side tiles ride a fused decode step over cached media")
 
         media_mask = zero_rows = None
         if media is not None:
@@ -112,14 +120,16 @@ class FlamingoLM(nn.Module):
 
         new_layers, new_media = [], []
         for i, block in enumerate(self.blocks):
+            if side is not None and i % self.every == 0:
+                side.group(i // self.every)
             if str(i) in self.xattn and media is not None:
                 mkv = None
                 if media_cache is not None:
                     m = media_cache[len(new_media)]
                     mkv = (m.k, m.v) if not m.int8 else (m.k, m.v, m.k_s, m.v_s)
-                x, mkv = run(self.xattn[str(i)], x, media, text_time, mkv, media_mask, zero_rows)
+                x, mkv = run(self.xattn[str(i)], x, media, text_time, mkv, media_mask, zero_rows, side)
                 new_media.append(LayerKV(*mkv))
-            x, kv = run(block, x, attn, cache.layers[i] if cache is not None else None)
+            x, kv = run(block, x, attn, cache.layers[i] if cache is not None else None, side)
             new_layers.append(kv)
 
         head_mod = self.wte if self.lm_head is None else self.lm_head

@@ -75,7 +75,9 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(ViTBlock(cfg, **kw) for _ in range(cfg.num_layers))
         self.post_layernorm = LayerNorm(d, cfg.layer_norm_eps, **kw)
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def embed(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """The front half: (B, H, W, C) pixels -> (B, num_patches + 1, D)
+        tokens (CLS first) after the positions and the pre-LN."""
         cfg = self.cfg
         b, _, _, c = pixel_values.shape
         p, g = cfg.patch_size, cfg.grid
@@ -85,9 +87,17 @@ class VisionTransformer(nn.Module):
         x = self.patch_embed(x)
         cls = self.class_embedding.expand(b, 1, -1)
         x = torch.cat([cls, x], dim=1) + self.position_embedding[None]
-        x = self.pre_layernorm(x)
-        for block in self.blocks:
-            x = block(x)
-        if cfg.post_ln_tokens:
+        return self.pre_layernorm(x)
+
+    def patch_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """The back half: the blocks' (B, num_patches + 1, D) output -> the
+        (B, num_patches, D) patch tokens, post-LN applied, CLS dropped."""
+        if self.cfg.post_ln_tokens:
             x = self.post_layernorm(x)
         return x[:, 1:]  # Flamingo consumes the patch tokens only
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        x = self.embed(pixel_values)
+        for block in self.blocks:
+            x = block(x)
+        return self.patch_tokens(x)

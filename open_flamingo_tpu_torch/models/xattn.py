@@ -15,7 +15,9 @@ One decode token on the card takes the fused route in immediate mode: K3
 `attn_block_decode` in its q-only form (LN, q projection, masked softmax
 over the cached media K/V, out-projection, *tanh(attn_gate) + x), then K2
 `fused_mlp` (*tanh(ff_gate) + x), streaming to_q/to_out and fc1/fc2 or their
-int8 / int4 copies (`quantize.stream_weight`). The media K/V are a pair
+int8 / int4 copies (`quantize.stream_weight`); in an absorbing decode step
+the K2 launch carries a K2b side tile of the next batch's ViT
+(`absorb_vit.carry`). The media K/V are a pair
 (k, v), or with an int8 media cache (k, v, k_s, v_s): int8 rows with their
 (B, H, S_m) fp32 scales, which the fused route reads as they are and every
 other route dequantizes.
@@ -32,6 +34,7 @@ from ..ops.attention import use_kernels
 from ..ops.decode_layer import attn_block_decode, reference_attn_block
 from ..ops.dense_stream import fused_mlp, reference_mlp, use_fused_decode
 from ..quantize import stream_weight
+from .absorb_vit import carry
 from .decoders.common import dequantize_kv
 from .layers import FeedForward, LayerNorm, attend_cached, merge_heads, split_heads
 
@@ -154,9 +157,11 @@ class GatedCrossAttentionBlock(nn.Module):
         self.attn = MaskedCrossAttention(dim, dim_visual, dim_head, heads, only_attend_immediate_media, **kw)
         self.ff = FeedForward(dim, ff_mult, **kw)
 
-    def forward(self, x, media, text_time, media_kv=None, media_mask=None, zero_rows=None):
+    def forward(self, x, media, text_time, media_kv=None, media_mask=None, zero_rows=None, side=None):
         """Returns (x, media_kv). On the fused decode route `media_mask` is
-        decode_media_mask's (B, S_m) row, built here when not given."""
+        decode_media_mask's (B, S_m) row, built here when not given, and the
+        FF's K2 launch carries the next tile of `side` (an absorbing decode
+        step's `absorb_vit.SideHook`)."""
         if media_kv is not None and self.attn.immediate and use_fused_decode(x, x.shape[1], True):
             if media_mask is None:
                 media_mask = decode_media_mask(text_time, media.shape[1], media.shape[2])
@@ -164,8 +169,8 @@ class GatedCrossAttentionBlock(nn.Module):
             mlp_half = fused_mlp if use_kernels(x) else reference_mlp
             ff = self.ff
             (w1, s1), (w2, s2) = stream_weight(ff.fc1), stream_weight(ff.fc2)
-            y = mlp_half(
-                x2, w1, w2, w1_scale=s1, w2_scale=s2, ln_scale=ff.norm.weight, ln_bias=ff.norm.bias,
+            y = carry(
+                side, mlp_half, x2, w1, w2, w1_scale=s1, w2_scale=s2, ln_scale=ff.norm.weight, ln_bias=ff.norm.bias,
                 eps=ff.norm.eps, act="gelu", residual=x2, gate=self.ff_gate,
             )
             return y[:, None], media_kv

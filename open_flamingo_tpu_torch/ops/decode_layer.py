@@ -149,7 +149,8 @@ def attn_block_decode(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *,
     (updated in place with the caches); mask (B, S), nonzero = attend; slot
     (1,) int32 (fused_qkv); slopes (H,) fp32; gate (1,). Returns y (B, D),
     or (y, k_cache, v_cache) with fused_qkv."""
-    refuse("attn_block_decode", "K2b side tiles, item 14", side_x=side_x, side_w=side_w)
+    refuse("attn_block_decode", "the attention-block carrier of K2b side tiles, item 14b", side_x=side_x,
+           side_w=side_w)
     refuse_autograd("attn_block_decode", x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, slopes, gate)
     b, dm = x.shape
     inner = heads * head_dim

@@ -29,6 +29,20 @@ scale (N,). Its values convert to x's dtype exactly (|q| <= 127) before the
 product, and the scale multiplies the fp32 result first in the epilogue
 (K2: `w1_scale` before b1 and the activation, `w2_scale` before b2).
 
+K2b side tiles (`side_x`, `side_w`, ...; the JAX kernel's
+`side_tile_compute`): an unrelated product rides K2's launch and fused_mlp
+returns (y, side_out), side_out = act(LN?(side_x)) @ side_w.T + side_b +
+side_residual, with the LayerNorm (flax fast variance) and the activation
+in fp32, one rounding to side_x's dtype before the product, fp32
+accumulation and one rounding of the result. side_w is (SN, SK) in torch's
+layout and may be a view with a row stride (a slice of a ViT weight, read
+in place); side_residual may have a row stride too. The tile runs as extra
+blocks of K2's down-projection launch (`csrc/side_tile.cuh`), with main
+weights of every type, and leaves y bit for bit as the launch without it
+gives. `reference_side_tile` is its plain version; `reference_mlp` with
+side operands returns the pair too. The W8A8 side dot (`side_w_scale`)
+waits for the int8 ViT side-car (ROADMAP item 9b).
+
 Route: `use_fused_decode` sends one query against a cache on a CUDA tensor
 through K1-K3, where the JAX package asks for a TPU backend. The JAX
 package's test hooks keep their meaning: `DISABLE_FUSED` keeps the unfused
@@ -74,6 +88,10 @@ def _kernel():
         lib.fused_dense_fwd.restype = i
         lib.fused_mlp_fwd.argtypes = [p] * 15 + [i, i, i, i, i, f, i, i, i, i, p]
         lib.fused_mlp_fwd.restype = i
+        ll = ctypes.c_longlong
+        side = [p, p, ll, p, p, f, i, p, p, ll, p, i, i, i]
+        lib.fused_mlp_side_fwd.argtypes = [p] * 15 + [i, i, i, i, i, f, i, i, i, i] + side + [p]
+        lib.fused_mlp_side_fwd.restype = i
         _lib = lib
     return _lib
 
@@ -240,12 +258,82 @@ def reference_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=Non
     return y.to(x.dtype)
 
 
+def reference_side_tile(side_x, side_w, *, side_ln=None, side_eps=1e-5, side_act=None, side_b=None,
+                        side_residual=None):
+    """Plain version of a K2b side tile: act(LN?(side_x)) in fp32, rounded to
+    side_x's dtype, @ side_w.T in fp32, + side_b, + side_residual, rounded."""
+    h = side_x.float()
+    if side_ln is not None:
+        mean = h.mean(-1, keepdim=True)
+        var = torch.clamp(h.square().mean(-1, keepdim=True) - mean.square(), min=0.0)
+        h = (h - mean) * torch.rsqrt(var + side_eps) * side_ln[0].float()
+        if side_ln[1] is not None:
+            h = h + side_ln[1].float()
+    h = activation(h, side_act).to(side_x.dtype)
+    y = h.float() @ side_w.float().t()
+    if side_b is not None:
+        y = y + side_b.float()
+    if side_residual is not None:
+        y = y + side_residual.float()
+    return y.to(side_x.dtype)
+
+
+def check_side(x, side_x, side_w, side_ln, side_act, side_b, side_residual, side_w_scale) -> None:
+    """Shape rules of K2b's operands (ValueError); the W8A8 side dot is not
+    ported (NotImplementedError)."""
+    refuse("fused_mlp", "the W8A8 side dot, item 9b", side_w_scale=side_w_scale)
+    if side_w is None:
+        raise ValueError("fused_mlp: side_x needs side_w")
+    if side_act not in _ACTS:
+        raise ValueError(f"fused_mlp: unknown side activation {side_act!r}; expected one of {list(_ACTS)}")
+    if side_x.dim() != 2 or side_w.dim() != 2 or side_w.shape[1] != side_x.shape[1]:
+        raise ValueError(f"fused_mlp: side_x {tuple(side_x.shape)} against side_w (SN, SK) {tuple(side_w.shape)}")
+    m, sk = side_x.shape
+    sn = side_w.shape[0]
+    if side_ln is not None and (side_ln[0].shape != (sk,) or (side_ln[1] is not None and side_ln[1].shape != (sk,))):
+        raise ValueError(f"fused_mlp: side_ln must be ({sk},) scale and bias")
+    if side_b is not None and side_b.shape != (sn,):
+        raise ValueError(f"fused_mlp: side_b must be ({sn},), got {tuple(side_b.shape)}")
+    if side_residual is not None and side_residual.shape != (m, sn):
+        raise ValueError(f"fused_mlp: side_residual must be ({m}, {sn}), got {tuple(side_residual.shape)}")
+    for name, t in dict(side_x=side_x, side_w=side_w, side_b=side_b, side_residual=side_residual,
+                        side_ln_scale=None if side_ln is None else side_ln[0],
+                        side_ln_bias=None if side_ln is None else side_ln[1]).items():
+        if t is not None and (t.dtype != x.dtype or t.device != x.device):
+            raise ValueError(f"fused_mlp: {name} is {t.dtype} on {t.device}; x is {x.dtype} on {x.device}")
+
+
+def check_side_kernel(side_x, side_w, side_ln, side_b, side_residual) -> None:
+    """The side tile kernel's preconditions: SK a multiple of 32, side_x and
+    the vectors contiguous, side_w and side_residual with a contiguous last
+    dim and a row stride that is a multiple of 8, everything 16-byte
+    aligned."""
+    if side_x.shape[1] % 32:
+        raise ValueError(f"fused_mlp: the side tile kernel takes SK a multiple of 32, got {side_x.shape[1]}")
+    vectors = [side_x, side_b] + ([] if side_ln is None else list(side_ln))
+    for t in (t for t in vectors if t is not None):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("fused_mlp: side_x, side_ln and side_b must be contiguous and 16-byte aligned")
+    for name, t in (("side_w", side_w), ("side_residual", side_residual)):
+        if t is not None and (t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16):
+            raise ValueError(f"fused_mlp: {name} needs unit column stride, a row stride that is a multiple of 8 "
+                             "and 16-byte aligned data")
+
+
 def reference_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_scale=None, b1=None, b2=None,
-                  ln_scale=None, ln_bias=None, eps=1e-5, norm="layer", act="gelu", residual=None, gate=None):
-    """Plain version of fused_mlp: the hidden activation in x's dtype."""
+                  ln_scale=None, ln_bias=None, eps=1e-5, norm="layer", act="gelu", residual=None, gate=None,
+                  side_x=None, side_w=None, side_w_scale=None, side_ln=None, side_eps=1e-5, side_act=None,
+                  side_b=None, side_residual=None):
+    """Plain version of fused_mlp: the hidden activation in x's dtype; with
+    side_x, (y, reference_side_tile(...))."""
     u = reference_dense(x, w1, w_scale=w1_scale, bias=b1, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, norm=norm,
                         act=act, w_gate=w1_gate, w_gate_scale=w1_gate_scale)
-    return reference_dense(u, w2, w_scale=w2_scale, bias=b2, residual=residual, gate=gate)
+    y = reference_dense(u, w2, w_scale=w2_scale, bias=b2, residual=residual, gate=gate)
+    if side_x is None:
+        return y
+    check_side(x, side_x, side_w, side_ln, side_act, side_b, side_residual, side_w_scale)
+    return y, reference_side_tile(side_x, side_w, side_ln=side_ln, side_eps=side_eps, side_act=side_act,
+                                  side_b=side_b, side_residual=side_residual)
 
 
 def fused_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, norm="layer",
@@ -281,14 +369,21 @@ def fused_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, e
 
 def fused_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_scale=None, b1=None, b2=None,
               ln_scale=None, ln_bias=None, eps=1e-5, norm="layer", act="gelu", residual=None, gate=None,
-              side_x=None, side_w=None):
+              side_x=None, side_w=None, side_w_scale=None, side_ln=None, side_eps=1e-5, side_act=None, side_b=None,
+              side_residual=None):
     """residual + tanh(gate) * (u @ w2.T * w2_scale + b2), u = act(norm?(x)
     @ w1.T * w1_scale + b1), times norm?(x) @ w1_gate.T * w1_gate_scale with
     w1_gate (SwiGLU): x (B, K); w1, w1_gate (K2, K); w2 (N, K2), each in x's
     dtype, int8 or packed int4 (last dim halved) with its fp32 scale (K2,) /
-    (N,), w1 and w1_gate in one stored type. Returns (B, N) in x's dtype."""
-    refuse("fused_mlp", "K2b side tiles, item 14", side_x=side_x, side_w=side_w)
-    refuse_autograd("fused_mlp", x, w1, w2, w1_gate, b1, b2, ln_scale, ln_bias, residual, gate)
+    (N,), w1 and w1_gate in one stored type. Returns (B, N) in x's dtype.
+
+    With side_x (M, SK) and side_w (SN, SK), both in x's dtype: the K2b side
+    tile act(LN?(side_x)) @ side_w.T + side_b + side_residual in the same
+    launch; side_ln (scale, bias or None) (SK,), side_act one of `_ACTS`,
+    side_b (SN,), side_residual (M, SN). Returns (y, side_out (M, SN))."""
+    if side_x is None and any(t is not None for t in (side_w, side_w_scale, side_ln, side_b, side_residual)):
+        raise ValueError("fused_mlp: side operands need side_x")
+    refuse_autograd("fused_mlp", x, w1, w2, w1_gate, b1, b2, ln_scale, ln_bias, residual, gate, side_x, side_w)
     check_prologue("fused_mlp", act, norm, ln_scale, ln_bias)
     b, k = x.shape
     k2 = check_weight("fused_mlp", "w1", w1, w1_scale, k)
@@ -305,7 +400,9 @@ def fused_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_
     if x.device.type == "cpu":
         return reference_mlp(x, w1, w2, w1_gate=w1_gate, w1_scale=w1_scale, w2_scale=w2_scale,
                              w1_gate_scale=w1_gate_scale, b1=b1, b2=b2, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps,
-                             norm=norm, act=act, residual=residual, gate=gate)
+                             norm=norm, act=act, residual=residual, gate=gate, side_x=side_x, side_w=side_w,
+                             side_w_scale=side_w_scale, side_ln=side_ln, side_eps=side_eps, side_act=side_act,
+                             side_b=side_b, side_residual=side_residual)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp: unsupported device {x.device}")
     check_operands("fused_mlp", x, k, quantized=("w1", "w1_gate", "w2"), w1=w1, w1_gate=w1_gate, w2=w2,
@@ -315,14 +412,26 @@ def fused_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_
         raise ValueError(f"fused_mlp: hidden size {k2} is not a multiple of 8")
     hidden = torch.empty(b, k2, dtype=x.dtype, device=x.device)
     out = torch.empty(b, n, dtype=x.dtype, device=x.device)
-    status = _kernel().fused_mlp_fwd(
-        ptr(x), ptr(w1), ptr(w1_gate), ptr(w2), ptr(w1_scale), ptr(w1_gate_scale), ptr(w2_scale), ptr(b1), ptr(b2),
-        ptr(ln_scale), ptr(ln_bias), ptr(residual), ptr(gate), ptr(hidden), ptr(out), b, k, k2, n, _ACTS[act],
-        float(eps), _NORMS[norm], _DTYPES[x.dtype], wtype(w1), wtype(w2), build.current_stream(x.device),
-    )
-    build.check(status, "fused_mlp_fwd")
-    count_launch(fused_mlp, variant(w1, tags=form_tags(norm, act, w1_gate is not None)))
-    return out
+    args = (ptr(x), ptr(w1), ptr(w1_gate), ptr(w2), ptr(w1_scale), ptr(w1_gate_scale), ptr(w2_scale), ptr(b1), ptr(b2),
+            ptr(ln_scale), ptr(ln_bias), ptr(residual), ptr(gate), ptr(hidden), ptr(out), b, k, k2, n, _ACTS[act],
+            float(eps), _NORMS[norm], _DTYPES[x.dtype], wtype(w1), wtype(w2))
+    tags = form_tags(norm, act, w1_gate is not None)
+    if side_x is None:
+        build.check(_kernel().fused_mlp_fwd(*args, build.current_stream(x.device)), "fused_mlp_fwd")
+        count_launch(fused_mlp, variant(w1, tags=tags))
+        return out
+    check_side(x, side_x, side_w, side_ln, side_act, side_b, side_residual, side_w_scale)
+    check_side_kernel(side_x, side_w, side_ln, side_b, side_residual)
+    m, sn = side_x.shape[0], side_w.shape[0]
+    side_out = torch.empty(m, sn, dtype=x.dtype, device=x.device)
+    ln_s, ln_b = side_ln if side_ln is not None else (None, None)
+    status = _kernel().fused_mlp_side_fwd(
+        *args, ptr(side_x), ptr(side_w), side_w.stride(0), ptr(ln_s), ptr(ln_b), float(side_eps), _ACTS[side_act],
+        ptr(side_b), ptr(side_residual), 0 if side_residual is None else side_residual.stride(0), ptr(side_out), m,
+        sn, side_x.shape[1], build.current_stream(x.device))
+    build.check(status, "fused_mlp_side_fwd")
+    count_launch(fused_mlp, variant(w1, tags=tags + ("side",)))
+    return out, side_out
 
 
 fused_dense.launches = 0

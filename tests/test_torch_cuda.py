@@ -13,7 +13,8 @@ bf16 inputs (K1-K3 and K6, whose bf16 products run on tensor cores when K
 is a multiple of 32; K4b/K5b): both round an fp32 result to bf16, one ulp apart
 at most, plus the summation order; atol = rtol = 1e-2 as in chip_smoke.py.
 The RMSNorm prologue, the activations and K2's SwiGLU form (llama, OPT)
-take the same tolerances, and so do the ViT's K9 and K10. Quantized decode (int8 / packed int4 weights, the
+take the same tolerances, and so do the ViT's K9 and K10, the absorbed ViT's
+K8 and K2's side tiles (K2b). Quantized decode (int8 / packed int4 weights, the
 int8 cache): the same
 tolerances, 2e-4 in fp32 where an int8 cache is read (a quantized entry at
 a rounding boundary may land one step apart when the new token's K/V come
@@ -33,7 +34,7 @@ from open_flamingo_tpu_torch.ops.flash_attention import (
 from open_flamingo_tpu_torch.ops.masked_xattn import (
     masked_xattn, masked_xattn_backward, masked_xattn_forward, reference_masked_xattn)
 from open_flamingo_tpu_torch.ops.layer_norm import layer_norm
-from open_flamingo_tpu_torch.ops.vit_attention import vit_attention, vit_attention_heads
+from open_flamingo_tpu_torch.ops.vit_attention import flat_vit_attention, vit_attention, vit_attention_heads
 from open_flamingo_tpu_torch.quantize import pack_int4, quantize_weight
 
 pytestmark = pytest.mark.gpu
@@ -509,3 +510,109 @@ def test_vit_kernels_backward_through_autograd(gen):
             grads.append([leaf.grad for leaf in leaves])
         for g, w in zip(*grads):
             close_grad(g, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+# the whole width (D 32 over 2 heads of Dh 16), paired heads (Dh 64), ViT-L/14 at B' 2
+@pytest.mark.parametrize("b,s_pad,s_real,d,heads", [(3, 8, 5, 32, 2), (2, 24, 17, 256, 4), (2, 264, 257, 1024, 16)])
+def test_flat_vit_attention(gen, b, s_pad, s_real, d, heads, dtype):
+    """K8 on the flat workspace: keys past s_real masked, every query row
+    (pad rows too) computed."""
+    q, k, v = (rn(gen, b, s_pad, d).to(dtype) for _ in range(3))
+    n = flat_vit_attention.launches
+    got = flat_vit_attention(q, k, v, (d // heads) ** -0.5, heads=heads, s_real=s_real)
+    assert flat_vit_attention.launches == n + 1 and torch.isfinite(got).all()
+    close(got, flat_vit_attention(q.cpu(), k.cpu(), v.cpu(), (d // heads) ** -0.5, heads=heads, s_real=s_real))
+
+
+SIDE_SLOTS = {
+    "ln_bias": dict(ln=True, bias=True),                            # q/k/v, fc1
+    "residual": dict(bias=True, residual=True),                     # out-projection parts
+    "act_bias": dict(act="quick_gelu", bias=True, residual=True),   # fc2, slice 0
+    "act": dict(act="quick_gelu", residual=True),                   # fc2, later slices
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [None, 8, 4])
+@pytest.mark.parametrize("slot", list(SIDE_SLOTS))
+# the down-projection on tensor cores (bf16, K2 512) or CUDA cores (fp32; bf16 at K2 344)
+@pytest.mark.parametrize("k2", [512, 344])
+def test_fused_mlp_side_tile(gen, k2, slot, bits, dtype):
+    """K2b: each slot kind in K2's launch with main weights of every type;
+    side_w and side_residual column blocks of wider tensors (row strides),
+    M and SN ragged against the tiles. K2's own output is bit for bit the
+    launch's without a side tile."""
+    b, k, n, m, sk, sn = 8, 128, 136, 130, 96, 160
+    kind = SIDE_SLOTS[slot]
+    x, ln, res = (t.to(dtype) for t in (rn(gen, b, k), rn(gen, k), rn(gen, b, n)))
+    w1, w2 = rn(gen, k2, k) * 0.05, rn(gen, n, k2) * 0.05
+    kw = dict(ln_scale=ln, residual=res)
+    if bits is None:
+        w1, w2 = w1.to(dtype), w2.to(dtype)
+    else:
+        (w1, s1), (w2, s2) = quantized(w1, bits), quantized(w2, bits)
+        kw.update(w1_scale=s1, w2_scale=s2)
+    side = dict(side_x=(rn(gen, m, sk) * 2).to(dtype), side_w=(rn(gen, sn, 2 * sk) * sk**-0.5).to(dtype)[:, sk:],
+                side_act=kind.get("act"), side_eps=1e-5)
+    if kind.get("ln"):
+        side["side_ln"] = ((1 + 0.1 * rn(gen, sk)).to(dtype), (0.1 * rn(gen, sk)).to(dtype))
+    if kind.get("bias"):
+        side["side_b"] = (0.1 * rn(gen, sn)).to(dtype)
+    if kind.get("residual"):
+        side["side_residual"] = rn(gen, m, 2 * sn).to(dtype)[:, sn:]
+    before = dict(fused_mlp.variants)
+    y, so = fused_mlp(x, w1, w2, **kw, **side)
+    grew = [key for key, c in fused_mlp.variants.items() if c != before.get(key, 0)]
+    assert len(grew) == 1 and grew[0].endswith("+side")
+    assert torch.equal(y, fused_mlp(x, w1, w2, **kw))
+    cpu_side = {key: tuple(t.cpu() for t in val) if isinstance(val, tuple) else val
+                for key, val in on_cpu(side).items()}
+    want_y, want_so = fused_mlp(x.cpu(), w1.cpu(), w2.cpu(), **on_cpu(kw), **cpu_side)
+    close(y, want_y)
+    close(so, want_so)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_absorbed_generate(gen, dtype):
+    """flamingo_generate(next_pixels=) on the card, a tiny MPT model: the
+    tokens of the call without it, next_latents those of embed_vision on
+    the same pixels (fp32: 1e-4 of the largest entry; bf16: the absorbed
+    workspace rounds each fc2 slice's partial sum, so against the
+    plain_path() absorbed call), K8 once per ViT layer and one K2b tile per
+    slot."""
+    from open_flamingo_tpu_torch.configs import DecoderConfig, FlamingoConfig, VisionConfig
+    from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate
+    from open_flamingo_tpu_torch.models.absorb_vit import make_plan
+    from open_flamingo_tpu_torch.models.flamingo import init_random
+    from open_flamingo_tpu_torch.ops.attention import plain_path
+
+    cfg = FlamingoConfig(
+        vision=VisionConfig(image_size=32, patch_size=8, hidden_size=64, num_layers=2, num_heads=2,
+                            intermediate_size=128),
+        lm=DecoderConfig(family="mpt", vocab_size=128, hidden_size=64, num_layers=4, num_heads=2,
+                         intermediate_size=256, alibi=True, attention_bias=False, ln_no_bias=True),
+        media_token_id=3, eoc_token_id=4, num_vis_latents=4, perceiver_depth=1, perceiver_heads=2,
+        perceiver_dim_head=16)
+    model = init_random(cfg, 0, device="cuda", dtype=dtype)
+    vision_x, next_pixels = rn(gen, 2, 1, 1, 32, 32, 3), rn(gen, 3, 1, 1, 32, 32, 3)
+    ids = torch.randint(7, 128, (2, 6), generator=gen, device="cuda")
+    ids[:, 0] = 3
+    mask = torch.ones_like(ids)
+    gcfg = GenerationConfig(max_new_tokens=4, pad_token_id=0, eos_token_id=-1)
+    plan = make_plan(cfg, (3, 1, 1), 4)
+    assert plan is not None
+    plain = flamingo_generate(model, vision_x, ids, mask, gcfg)
+    k8, side = flat_vit_attention.launches, sum(c for key, c in fused_mlp.variants.items() if key.endswith("+side"))
+    tokens, latents = flamingo_generate(model, vision_x, ids, mask, gcfg, next_pixels=next_pixels)
+    assert flat_vit_attention.launches - k8 == plan.n_vit_layers
+    assert sum(c for key, c in fused_mlp.variants.items() if key.endswith("+side")) - side == (
+        plan.slots_per_layer * plan.n_vit_layers)
+    assert torch.equal(tokens, plain)
+    if dtype == torch.float32:
+        want = model.embed_vision(next_pixels.to(dtype))
+    else:
+        with plain_path():
+            want = flamingo_generate(model, vision_x, ids, mask, gcfg, next_pixels=next_pixels)[1]
+    err, top = (latents.float() - want.float()).abs().max().item(), want.float().abs().max().item()
+    assert err <= (1e-4 if dtype == torch.float32 else 2e-2) * top, (err, top)

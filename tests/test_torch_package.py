@@ -109,10 +109,10 @@ def test_fused_decode_wrappers_refuse_other_devices():
 
 @pytest.mark.parametrize("grad", [False, True])
 def test_vit_kernel_wrappers_refuse_other_devices(grad):
-    """K9 and K10, with and without autograd: the meta device stands in for
-    a non-CPU, non-CUDA one."""
+    """K9 and K10, with and without autograd, and K8: the meta device stands
+    in for a non-CPU, non-CUDA one."""
     from open_flamingo_tpu_torch.ops.layer_norm import layer_norm
-    from open_flamingo_tpu_torch.ops.vit_attention import vit_attention, vit_attention_heads
+    from open_flamingo_tpu_torch.ops.vit_attention import flat_vit_attention, vit_attention, vit_attention_heads
 
     m = torch.device("meta")
     x = torch.empty(4, 16, device=m, requires_grad=grad)
@@ -124,19 +124,23 @@ def test_vit_kernel_wrappers_refuse_other_devices(grad):
     q4 = torch.empty(1, 17, 2, 16, device=m, requires_grad=grad)
     with pytest.raises(ValueError, match="unsupported device"):
         vit_attention_heads(q4, q4, q4, 0.25)
+    if not grad:     # K8 has no autograd: the absorbed ViT runs in decode
+        with pytest.raises(ValueError, match="unsupported device"):
+            flat_vit_attention(q, q, q, 0.25, heads=2, s_real=13)
 
 
 @pytest.mark.parametrize("call", ["w_scale", "norm", "act", "w1_gate", "side_x", "k_scale", "wout_scale",
                                   "k6_v_scale", "layer_idx", "int4_odd_k", "w1_gate_scale", "k3_side_x",
-                                  "float_w_scale"])
+                                  "float_w_scale", "side_w_scale"])
 def test_unported_operands_raise(call):
-    """Operands the decode path never passes name ROADMAP
-    (NotImplementedError: K2b's side tiles); malformed operands raise
-    ValueError: an int weight without its scale, a scale of the wrong shape,
-    an int8 cache without scales (or scales without the other), int4 with an
-    odd K, a scale with a weight in x's dtype, an RMSNorm with a bias, an
-    unknown activation, w1 and w1_gate in two stored types, and K6's
-    stacked-layer index, which the port's per-layer layout does not take."""
+    """Operands the port does not take yet name ROADMAP
+    (NotImplementedError: K3's side tiles, item 14b, and the W8A8 side dot,
+    item 9b); malformed operands raise ValueError: an int weight without its
+    scale, a scale of the wrong shape, an int8 cache without scales (or
+    scales without the other), int4 with an odd K, a scale with a weight in
+    x's dtype, an RMSNorm with a bias, an unknown activation, w1 and w1_gate
+    in two stored types, K6's stacked-layer index, which the port's
+    per-layer layout does not take, and side_x without side_w."""
     from open_flamingo_tpu_torch.ops.decode_layer import attend_out_decode, attn_block_decode
     from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
 
@@ -146,7 +150,7 @@ def test_unported_operands_raise(call):
     mask = torch.ones(2, 8, dtype=torch.bool)
     k3 = dict(heads=2, head_dim=8, scale=0.3)
     refused = {
-        "side_x": lambda: fused_mlp(x, w, w.t(), side_x=x),
+        "side_w_scale": lambda: fused_mlp(x, w, w.t(), side_x=x, side_w=w, side_w_scale=torch.ones(24)),
         "k3_side_x": lambda: attn_block_decode(x, torch.ones(16), None, w[:16], w[:16].t(), kv, kv, mask, **k3,
                                                side_x=x),
     }
@@ -167,6 +171,7 @@ def test_unported_operands_raise(call):
         "w1_gate_scale": (lambda: fused_mlp(x, w8, w8.t().contiguous(), w1_gate=w8, w1_scale=torch.ones(24),
                                             w2_scale=torch.ones(16)), "scale"),
         "float_w_scale": (lambda: fused_dense(x, w, w_scale=torch.ones(24)), "scale"),
+        "side_x": (lambda: fused_mlp(x, w, w.t(), side_x=x), "side_w"),
     }
     if call in refused:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
