@@ -3,6 +3,8 @@
 port spends its time on the card.
 
     python3 chip_profile.py            # generate, the fused decode route (K1-K3)
+    python3 chip_profile.py fused_layer  # the same with K11 in every MPT and gated block (fused_layer.DISABLE = False)
+    python3 chip_profile.py xattn_only # the same with K11 in the gated blocks alone (fused_layer.XATTN_ONLY)
     python3 chip_profile.py unfused    # generate, the unfused route (K7, DISABLE_FUSED)
     python3 chip_profile.py train      # one bf16 train step (K4/K5 and K4b/K5b)
     python3 chip_profile.py of4b       # OF-4B generate, the fused route (K1, K6, K2; K3)
@@ -12,7 +14,7 @@ port spends its time on the card.
     python3 chip_profile.py opt        # OPT-1.3B generate, the fused route (3 K1, K6, K2 relu; K3)
     python3 chip_profile.py gemv       # the bf16 row GEMV alone at its CUDA-core shapes (K 16,384, 11,000)
     python3 chip_profile.py vit        # K9, K10 and the ViT-L/14 forward alone (B 8, 32), kernels and plain
-    python3 chip_profile.py k2         # plain K2 at OF-3B's carriers (bf16, int8, int4): the parent/change A/B
+    python3 chip_profile.py k2         # plain K2 and K3 at OF-3B's shapes (bf16, int8, int4): the parent/change A/B
     python3 chip_profile.py absorb     # an absorbing decode step against a plain one; the next batch's ViT
                                        # serial, as side tiles, and on a second CUDA stream
 
@@ -21,7 +23,9 @@ configurations for `llama` and `opt`) at full width with random weights
 (bf16), runs the same inputs as chip_smoke.py (generate: 8 prompts of 32
 tokens, one image each, 32 new tokens; train: LAION 8x32 and MMC4 4x256
 with six images), warms up once, times one untraced call, then traces one
-call with torch.profiler.
+call with torch.profiler; the generate modes of OF-3B's fused route
+(`fused`, `fused_layer`, `xattn_only`) trace one decode step too (its
+device events and busy time).
 Prints one JSON line: wall seconds, the device's busy time (sum of the
 device events' times; one stream, so they do not overlap) and idle share,
 the device time of each hand-written kernel, the row GEMV's share of the
@@ -43,11 +47,15 @@ imports only chip_smoke.py's ViT helpers and timer, so a copy in an older
 checkout times that checkout's kernels.
 
 `k2` times K2 without a side tile (bf16, B = 8, CUDA-graph replay) at
-OF-3B's MPT MLP in bf16, int8 and int4 and its xattn FF: the launches
-that carry the absorbed ViT's side tiles, whose own instances must keep
-their speed. It imports only `fused_mlp`, the quantizers and
-chip_smoke.py's timer, so a copy in an older checkout times that
-checkout's kernels (parent, change, change, parent in one call).
+OF-3B's MPT MLP in bf16, int8 and int4 and its xattn FF, and K3 at OF-3B's
+self-attention layer (slot 40 of 64) in bf16 and int8 and its gated
+cross-attention layer: the instances whose bodies K11 shares, which must
+keep their speed. It imports only `fused_mlp`, `attn_block_decode`, the
+quantizers and chip_smoke.py's timer, so a copy in an older checkout times
+that checkout's kernels (parent, change, change, parent in one call); it
+saves each case's output beside the built kernels
+(`open_flamingo_tpu_torch/_build/k2_outputs_<tree>.pt`), so two trees'
+outputs can be held bit for bit.
 
 `absorb` (bf16 OF-3B, B 8, the next batch's 8 images): device time by
 kind of one decode step carrying ViT layer 0 as side tiles against the
@@ -105,6 +113,9 @@ def k2_times() -> int:
     import os
 
     from chip_smoke import B, card_line, device_ms
+    from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes
+    from open_flamingo_tpu_torch.ops import build
+    from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode
     from open_flamingo_tpu_torch.ops.dense_stream import fused_mlp
     from open_flamingo_tpu_torch.quantize import pack_int4, quantize_weight
 
@@ -125,9 +136,32 @@ def k2_times() -> int:
         if bits == 4:
             q1, q2 = pack_int4(q1), pack_int4(q2)
         cases[f"mpt_mlp_int{bits}"] = (q1, q2, dict(w1_scale=s1, w2_scale=s2))
+    outputs = {}
     for case, (a, b, kw) in cases.items():
         fn = lambda a=a, b=b, kw=kw: fused_mlp(x, a, b, ln_scale=ln, residual=x, **kw)
+        outputs[f"k2_{case}"] = fn().cpu()
         print(json.dumps({"profile": "k2_bf16", "tree": tree, "case": case, "ms": device_ms(fn)}), flush=True)
+    # K3: the MPT self-attention layer (16 heads of Dh 128, slot 40 of 64) and the gated xattn layer
+    h, dh, s = 16, 128, 64
+    wqkv, wout = rn(3 * d, d, scale=d**-0.5), rn(d, d, scale=d**-0.5)
+    kc, vc = rn(B, h, s, dh), rn(B, h, s, dh)
+    mask = torch.ones(B, s, dtype=torch.bool, device=dev)
+    mask[:, 41:] = False
+    self_kw = dict(heads=h, head_dim=dh, scale=dh**-0.5, fused_qkv=True,
+                   slot=torch.tensor([40], dtype=torch.int32, device=dev),
+                   slopes=torch.from_numpy(alibi_slopes(h)).to(dev))
+    (q8, s8), (o8, so8) = quantize_weight(wqkv, 8), quantize_weight(wout, 8)
+    wq, wo = rn(512, d, scale=d**-0.5), rn(d, 512, scale=512**-0.5)
+    km, vm = rn(B, 8, s, 64), rn(B, 8, s, 64)
+    k3 = {"self_S64_slot40": lambda: attn_block_decode(x, ln, None, wqkv, wout, kc, vc, mask, **self_kw)[0],
+          "self_S64_slot40_int8": lambda: attn_block_decode(x, ln, None, q8, o8, kc, vc, mask, wq_scale=s8,
+                                                            wout_scale=so8, **self_kw)[0],
+          "xattn_S64_gate": lambda: attn_block_decode(x, ln, ln_b, wq, wo, km, vm, mask, heads=8, head_dim=64,
+                                                      scale=0.125, gate=gate)}
+    for case, fn in k3.items():
+        outputs[f"k3_{case}"] = fn().cpu()
+        print(json.dumps({"profile": "k3_bf16", "tree": tree, "case": case, "ms": device_ms(fn)}), flush=True)
+    torch.save(outputs, build.BUILD_DIR / f"k2_outputs_{tree}.pt")   # to hold two trees' outputs bit for bit
     print(card_line(), flush=True)
     return 0
 
@@ -283,20 +317,24 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (B, NEW_TOKENS, TRAIN_PAD, build_model, card_line, kernel_functions, make_inputs,
-                            model_config, train_batches)
-    from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate
-    from open_flamingo_tpu_torch.ops import dense_stream
+    from chip_smoke import (B, LAYER_FORMS, NEW_TOKENS, T_PROMPT, TRAIN_PAD, build_model, card_line,
+                            kernel_functions, make_inputs, model_config, train_batches)
+    from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate, prefill
+    from open_flamingo_tpu_torch.models.flamingo import count_media
+    from open_flamingo_tpu_torch.ops import dense_stream, fused_layer
     from open_flamingo_tpu_torch.quantize import quantize_decode_weights
     from open_flamingo_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer, split_params
     from open_flamingo_tpu_torch.train.train_loop import TrainLoopConfig, TrainState, make_train_step
 
     mode = sys.argv[1] if len(sys.argv) > 1 else "fused"
     models = {"of4b": "OF-4B", "llama": "LLaMA-7B", "opt": "OPT-1.3B"}
-    if mode not in ("fused", "unfused", "train", "int8", "int4", *models):
+    if mode not in ("fused", "unfused", "train", "int8", "int4", *LAYER_FORMS, *models):
         print(f"chip_profile: unknown mode {mode!r}", file=sys.stderr)
         return 2
     dense_stream.DISABLE_FUSED = mode == "unfused"
+    if mode in LAYER_FORMS:
+        hook, value = LAYER_FORMS[mode]
+        setattr(fused_layer, hook, value)
     dev = torch.device("cuda", 0)
     cfg = model_config(models.get(mode, "OF-3B"))
     model = build_model(cfg, dev, torch.bfloat16)
@@ -357,7 +395,7 @@ def main() -> int:
     # among its template arguments, over packed int4 `Int4` (split out below)
     ported = {kern: sum(r[1] for r in rows if kern in r[0])
               for kern in ("gemv", "attend_kernel", "attend_out_kernel", "attention_fwd_kernel", "decode_kernel",
-                           "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")}
+                           "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel", "fused_layer_kernel")}
     gemv_by_weight = {"float": 0.0, "int8": 0.0, "int4": 0.0}
     for name, t, _ in rows:
         m = re.search(r"gemv\w*<(.*?)>\(", name)     # the template arguments
@@ -373,8 +411,23 @@ def main() -> int:
     for name, t, _ in rows:
         kind = next((kind for kind, keys in kinds if any(key in name for key in keys)), "other")
         by_kind[kind] += t
+    step = None
+    if mode in ("fused", *LAYER_FORMS):    # one decode step alone: its device events and busy time
+        with torch.no_grad():
+            lat = model.embed_vision(vision_x)
+            logits, cache = prefill(model, lat, ids, mask, T_PROMPT + NEW_TOKENS)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            n_media = count_media(ids, cfg.media_token_id)
+            ones = torch.ones(B, 1, dtype=torch.long, device=dev)
+            model.decode_step(lat, tok, ones, cache, n_media)
+            torch.cuda.synchronize()
+            step = device_time_by_kind(lambda: model.decode_step(lat, tok, ones, cache, n_media),
+                                       (("K11 fused_layer_kernel", ("fused_layer_kernel",)), ("row GEMV", ("gemv",)),
+                                        ("K3 attend", ("attend_kernel",)), ("copy", ("copy", "Memcpy", "Memset")),
+                                        ("elementwise", ("elementwise",))))
     print(json.dumps({
         "profile": "train_step_bf16" if mode == "train" else "generate_bf16", "mode": mode, "model": cfg.lm.family,
+        "decode_step": step,
         **shape,
         "wrapper_launches_since_start": launches,
         "wall_s_untraced": wall_untraced, "wall_s_traced": wall, "device_busy_s": busy,

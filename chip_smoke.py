@@ -52,7 +52,12 @@ Phases, each printing JSON lines:
               (2112, 1024) x (1024, 1024) side tile on OF-3B's MPT MLP and
               xattn FF launches with bf16, int8 and int4 weights, the
               carrier's own output bit for bit that of the launch without a
-              tile, timed with and without it (the exposed cost);
+              tile, timed with and without it (the exposed cost). K11
+              fused_layer_decode (layer_kernel_cases): OF-3B's MPT-1B and
+              gated xattn layers (B 1, 8, 13) and MPT-7B's layer with bf16,
+              int8 and int4 weights against reference_fused_layer, repeated
+              on fresh caches (same bits each time), in fp32 bit for bit
+              against the K3 + K2 kernel route, timed beside that route;
      vit      ViT-L/14 alone (random weights): fp32 patch tokens with K9/K10
               against plain_path() (VIT_RTOL) and their launches (24, 48);
               bf16 device time of one forward at B 8 and 32 with the kernels
@@ -82,7 +87,13 @@ Phases, each printing JSON lines:
               encoded once), and one fused decode step under the sync
               debug mode "error" that launches no ViT kernel; OF-3B's fused
               route once more with the ViT on its plain route (vision_s,
-              TTFT without K9/K10). Each model is freed before the next.
+              TTFT without K9/K10). OF-3B also with K11 in both its forms
+              (layer_form: `fused_layer.DISABLE = False`, every MPT and gated
+              block one launch; `XATTN_ONLY`, the gated blocks alone): fp32
+              tokens and step logits against the default fused route and
+              plain_path(), bf16 timed with exact launch counts and one
+              sync-free step each, and the three forms timed in turns on
+              the host clock. Each model is freed before the next.
      absorb   full-width OF-3B generate with the next batch's 8 images
               (flamingo_generate(next_pixels=)): the next batch's ViT-L/14
               as 288 K2b side tiles on the first 24 decode forwards' K2
@@ -148,6 +159,7 @@ from open_flamingo_tpu_torch.models.flamingo import count_media, init_random
 from open_flamingo_tpu_torch.models.layers import layer_norm
 from open_flamingo_tpu_torch.models.vit import VisionTransformer
 from open_flamingo_tpu_torch.ops import build, dense_stream
+from open_flamingo_tpu_torch.ops import fused_layer as fl_op
 from open_flamingo_tpu_torch.ops import layer_norm as ln_op
 from open_flamingo_tpu_torch.ops import vit_attention as vit_op
 from open_flamingo_tpu_torch.ops.attention import plain_path
@@ -160,6 +172,7 @@ from open_flamingo_tpu_torch.ops.dense_stream import (
 from open_flamingo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward, reference_attention,
     reference_attention_backward)
+from open_flamingo_tpu_torch.ops.fused_layer import fused_layer_decode, reference_fused_layer
 from open_flamingo_tpu_torch.ops.masked_xattn import (
     masked_xattn, masked_xattn_backward, masked_xattn_forward, reference_masked_xattn,
     reference_masked_xattn_backward)
@@ -212,7 +225,8 @@ MAIN_CASES = {"fused_dense": ("head_V50434", "generate_fused"), "fused_mlp": ("m
               "masked_xattn_backward": ("mmc4_T256", "train_step"),
               "attend_out_decode": ("neox_S64_slot40", "of4b_generate_fused"),
               "vit_attention": ("vitl14_B8", "generate_fused"), "layer_norm": ("vitl14_B8", "generate_fused"),
-              "flat_vit_attention": ("of3b_next_B8", "absorb_bf16")}
+              "flat_vit_attention": ("of3b_next_B8", "absorb_bf16"),
+              "fused_layer_decode": ("mpt_layer_S64_slot40", "generate_fused_layer")}
 # OF-4B's shapes of the kernels its path shares with OF-3B's
 NEOX_TIMED = {"neox_qkv_bias", "neox_head_untied_V50434", "neox_mlp_bias", "neox_xattn_S64_gate",
               "prefill_Dh80_noalibi", "neox_self_Dh80", "neox_self_S64_slot40"}
@@ -235,8 +249,11 @@ VIT_TIMED = {"vitl14_B8", "vitl14_B32", "S17", "vitl14_B8_nobias"}
 # the absorbed ViT's (absorb_kernel_cases): K8 at the next batch's B' 8 and 32, K2b on OF-3B's carriers
 ABSORB_TIMED = {"of3b_next_B32", "mpt_mlp_side_qkv", "mpt_mlp_side_fc2", "mpt_mlp_int8_side_qkv",
                 "mpt_mlp_int4_side_qkv", "mpt_mlp_int4_side_fc2", "xattn_ff_side_qkv"}
+# K11's (layer_kernel_cases): OF-3B's xattn layer, MPT-7B's layer, the int weights
+LAYER_TIMED = {f"{case}{sfx}" for case in ("mpt_layer_S64_slot40", "xattn_layer_S64", "mpt7b_layer_S64_slot40")
+               for sfx in ("", "_int8", "_int4")}
 TIMED_CASES = ({case for case, _ in MAIN_CASES.values()} | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED | QUANT_TIMED
-               | LLAMA_OPT_TIMED | VIT_TIMED | ABSORB_TIMED)
+               | LLAMA_OPT_TIMED | VIT_TIMED | ABSORB_TIMED | LAYER_TIMED)
 BWD_TIMED = {"laion_T32", "mmc4_T256"}
 # the OF-3B train step at the JAX package's bench shape (bench.py:494)
 B_L, T_L, B_M, T_M, N_IMG, TRAIN_PAD = 8, 32, 4, 256, 6, 1
@@ -1187,6 +1204,117 @@ def absorb_kernel_cases(dtype, gen, dev):
                        None, cost, lib, "F.linear x3: the carrier's two products (bf16 weights) and the tile's alone")
 
 
+def layer_kernel_cases(dtype, gen, dev):
+    """K11 fused_layer_decode, a whole decode layer in one launch: OF-3B's
+    MPT-1B layer (D 2048, 16 heads of Dh 128, MLP 8,192, ALiBi, slot 40 of a
+    64-slot cache, rows 0 and 1 left-padded) and gated cross-attention layer
+    (8 heads of Dh 64 over 64 media latents, LN biases, both tanh gates, row
+    3 before any image) in x's dtype, int8 and int4, at B 8 and the MPT and
+    xattn layers at B 1 and 13 too; MPT-7B's layer (OF-9B's LM: D 4096, 32
+    heads of Dh 128, MLP 16,384, whose down-projection runs on CUDA cores) in
+    every weight type. Each case is held against reference_fused_layer on the
+    card (y, and the written caches) and called three more times on fresh
+    caches, which must give the same bits (a stale read of what another block
+    wrote earlier in the launch would show now and then). In fp32, y and both
+    caches are bit for bit those of the K3 + K2 kernel route. The all-masked
+    xattn row's y is bit for bit K2's on that row alone (x2 = x there). No
+    one PyTorch call computes a layer (no library call); `fn.two_launch` is
+    the K3 + K2 route on the same inputs, timed beside K11. Yields as
+    kernel_cases."""
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    sfx = {None: "", 8: "_int8", 4: "_int4"}
+    s, slot = 64, 40
+    for case, b, dm, h, dh, k2, mpt, bits_list in (
+            ("mpt_layer_S64_slot40", B, 2048, 16, 128, 8192, True, (None, 8, 4)),
+            ("mpt_layer_B1_S64_slot40", 1, 2048, 16, 128, 8192, True, (None,)),
+            ("mpt_layer_B13_S64_slot40", 13, 2048, 16, 128, 8192, True, (None,)),
+            ("xattn_layer_S64", B, 2048, 8, 64, 8192, False, (None, 8, 4)),
+            ("xattn_layer_B13_S64", 13, 2048, 8, 64, 8192, False, (None,)),
+            ("mpt7b_layer_S64_slot40", B, 4096, 32, 128, 16384, True, (None, 8, 4))):
+        inner = h * dh
+        x, ln1, ln2 = rn(b, dm), 1 + rn(dm, scale=0.1), 1 + rn(dm, scale=0.1)
+        ln1_b, ln2_b = (None, None) if mpt else (rn(dm, scale=0.1), rn(dm, scale=0.1))
+        wf = dict(wq=rn((3 if mpt else 1) * inner, dm, scale=dm**-0.5), wout=rn(dm, inner, scale=inner**-0.5),
+                  w1=rn(k2, dm, scale=dm**-0.5), w2=rn(dm, k2, scale=k2**-0.5))
+        k0, v0 = rn(b, h, s, dh), rn(b, h, s, dh)
+        kw = dict(heads=h, head_dim=dh, scale=dh**-0.5, fused_qkv=mpt)
+        if mpt:
+            mask = left_padded_mask(b, s, [4, 7][:b], dev)
+            mask[:, slot + 1:] = False
+            kw.update(slot=torch.tensor([slot], dtype=torch.int32, device=dev),
+                      slopes=torch.from_numpy(alibi_slopes(h)).to(dev))
+        else:
+            mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+            mask[3 % b] = False
+            kw.update(gate=torch.tensor([0.5], device=dev, dtype=dtype), gate2=torch.tensor([-0.3], device=dev,
+                                                                                          dtype=dtype))
+        n_valid = mask.sum().item()
+        for bits in bits_list:
+            if bits is None:
+                ws, scales, wbytes = wf, {}, sum(w.numel() for w in wf.values()) * es
+            else:
+                stored = {name: qweight(w, bits) for name, w in wf.items()}
+                ws = {name: q for name, (q, _, _) in stored.items()}
+                scales = {f"{name}_scale": sc for name, (_, sc, _) in stored.items()}
+                wbytes = sum(n for _, _, n in stored.values())
+            lkw = dict(kw, **scales)
+            attn_kw = {k: v for k, v in lkw.items() if k not in ("gate2", "w1_scale", "w2_scale")}
+            mlp_kw = dict(ln_scale=ln2, ln_bias=ln2_b, gate=kw.get("gate2"), w1_scale=scales.get("w1_scale"),
+                          w2_scale=scales.get("w2_scale"))
+            name = f"fused_layer_decode/{case}{sfx[bits]}/{dtype}"
+
+            def layer(kc, vc, ws=ws, lkw=lkw, mask=mask, x=x):
+                out = fused_layer_decode(x, ln1, ln1_b, ws["wq"], ws["wout"], kc, vc, mask, ws["w1"], ws["w2"], ln2,
+                                         ln2_b, **lkw)
+                return out if mpt else (out, kc, vc)
+
+            def two_launch(kc, vc, ws=ws, attn_kw=attn_kw, mlp_kw=mlp_kw, mask=mask, x=x):
+                x2 = attn_block_decode(x, ln1, ln1_b, ws["wq"], ws["wout"], kc, vc, mask, **attn_kw)
+                x2 = x2[0] if mpt else x2
+                return fused_mlp(x2, ws["w1"], ws["w2"], residual=x2, **mlp_kw), kc, vc
+
+            got = layer(k0.clone(), v0.clone())
+            for _ in range(3):
+                again = layer(k0.clone(), v0.clone())
+                require(all(torch.equal(a, g) for a, g in zip(again, got)), f"{name}: a repeated call differs")
+            kp, vp = k0.clone(), v0.clone()
+            reference_fused_layer(x, ln1, ln1_b, ws["wq"], ws["wout"], kp, vp, mask, ws["w1"], ws["w2"], ln2, ln2_b,
+                                  **lkw)
+            require(torch.allclose(got[1].float(), kp.float(), **TOL[dtype])
+                    and torch.allclose(got[2].float(), vp.float(), **TOL[dtype]),
+                    f"{name}: the written caches differ from the plain version's")
+            if mpt:
+                others = torch.arange(s, device=dev) != slot
+                require(torch.equal(got[1][:, :, others], k0[:, :, others])
+                        and torch.equal(got[2][:, :, others], v0[:, :, others]),
+                        f"{name}: slots other than the new token's changed")
+            two = two_launch(k0.clone(), v0.clone())
+            same = [torch.equal(a, t) for a, t in zip(got, two)]
+            log({"phase": "kernels", "kernel": "fused_layer_decode", "case": case + sfx[bits],
+                 "dtype": str(dtype).split(".")[-1], "bits_of_k3_then_k2": same,
+                 "max_abs_diff_from_k3_then_k2": (got[0].float() - two[0].float()).abs().max().item()})
+            if dtype == torch.float32:
+                require(all(same), f"{name}: y and the caches are not bit for bit those of K3 then K2")
+            exact = None
+            if not mpt:
+                r = 3 % b
+                exact = lambda y, r=r, ws=ws, mlp_kw=mlp_kw, x=x: torch.equal(
+                    y[r:r + 1], fused_mlp(x[r:r + 1], ws["w1"], ws["w2"], residual=x[r:r + 1], **mlp_kw))
+            kc, vc = k0.clone(), v0.clone()
+            fn = lambda kc=kc, vc=vc, layer=layer: layer(kc, vc)[0]
+            fn.two_launch = lambda kc=kc, vc=vc, two_launch=two_launch: two_launch(kc, vc)[0]
+            plain = lambda ws=ws, lkw=lkw, mask=mask, x=x: (lambda out: out[0] if mpt else out)(reference_fused_layer(
+                x, ln1, ln1_b, ws["wq"], ws["wout"], k0.clone(), v0.clone(), mask, ws["w1"], ws["w2"], ln2, ln2_b,
+                **lkw))
+            vecs = (2 + 2 * (not mpt)) * dm + 2 * (not mpt)
+            cost = (wbytes + (2 * b * dm + vecs + 2 * n_valid * inner + 2 * mpt * b * inner) * es + b * s,
+                    2 * b * ((3 if mpt else 1) * inner * dm + dm * inner + 2 * k2 * dm) + 4 * inner * n_valid)
+            yield "fused_layer_decode", case + sfx[bits], fn, plain, exact, cost, None, None
+
+
 def vit_grad_checks(dev) -> None:
     """The autograd Functions of K9 and K10 (the kernel forward, the backward
     through the plain version) against plain autograd, fp32, at a small
@@ -1226,7 +1354,8 @@ def phase_kernels(dev) -> dict:
         gen = torch.Generator(device=dev).manual_seed(SEED)
         cases = itertools.chain(kernel_cases(dtype, gen, dev), neox_kernel_cases(dtype, gen, dev),
                                 quant_kernel_cases(dtype, gen, dev), llama_opt_kernel_cases(dtype, gen, dev),
-                                vit_kernel_cases(dtype, gen, dev), absorb_kernel_cases(dtype, gen, dev))
+                                vit_kernel_cases(dtype, gen, dev), absorb_kernel_cases(dtype, gen, dev),
+                                layer_kernel_cases(dtype, gen, dev))
         for name, case, fn, plain, exact, cost, lib, lib_is in cases:
             got, launched = launched_variant(functions[name], fn)
             torch.cuda.synchronize()
@@ -1249,6 +1378,8 @@ def phase_kernels(dev) -> dict:
                 row["carrier_ms"] = device_ms(fn.carrier)
                 row["exposed_ms"] = row["ms"] - row["carrier_ms"]
                 row["tile_bound_ms"], row["tile_bound_by"] = bound(*fn.tile_cost, dtype)
+            if hasattr(fn, "two_launch"):   # K11: the K3 + K2 kernel route on the same inputs
+                row["two_launch_ms"] = device_ms(fn.two_launch)
             log({"phase": "kernels", "kernel": name, "timing": row})
             summary.setdefault(name, {})[case] = row
     return summary
@@ -1601,10 +1732,11 @@ def timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, route):
     return launches, variants
 
 
-def sync_free_step(model, vision_x, ids, mask, dev, int8_kv=False) -> None:
+def sync_free_step(model, vision_x, ids, mask, dev, int8_kv=False, route="fused") -> None:
     """One fused decode step under torch's sync debug mode "error": the step
     issues no host sync, so it can later be captured in a CUDA graph. With
-    int8_kv the kernels quantize the new token into an int8 cache."""
+    int8_kv the kernels quantize the new token into an int8 cache. `route`
+    names the step's route in the log (a K11 form)."""
     lat = model.embed_vision(vision_x)
     logits, cache = prefill(model, lat, ids, mask, T_PROMPT + NEW_TOKENS, int8_kv)
     tok = logits[:, -1].argmax(-1, keepdim=True)
@@ -1619,7 +1751,7 @@ def sync_free_step(model, vision_x, ids, mask, dev, int8_kv=False) -> None:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     require((vit_attention.launches, ln_op.layer_norm.launches) == vit_before, "a ViT kernel launched in a decode step")
-    log({"phase": "generate", "dtype": "bfloat16", "route": "fused", "decode_step_host_syncs": 0,
+    log({"phase": "generate", "dtype": "bfloat16", "route": route, "decode_step_host_syncs": 0,
          "model": type(model.lm.blocks[0]).__name__, "int8_kv": int8_kv,
          "cache_dtype": str(cache.layers[0].k.dtype).split(".")[-1]})
 
@@ -1630,14 +1762,16 @@ def sync_free_step(model, vision_x, ids, mask, dev, int8_kv=False) -> None:
 K1_PER_LAYER = {"mpt": 0, "gptneox": 1, "llama": 3, "opt": 3}
 
 
-def route_launches(cfg, counters, fused: bool) -> dict:
+def route_launches(cfg, counters, fused: bool, form=None) -> dict:
     """The launches one generate call must give: the vision encoded once, K9
     per ViT block and K10 twice; prefill K4 per decoder layer and K5 per
     xattn block; per decode step, on the fused route, MPT
     K3 + K2 per layer, GPT-NeoX K1 + K6 + K2, llama and OPT 3 K1 + K6 + K2,
     K3 + K2 per xattn block and K1 for the head; on the unfused route K7
     with the update per layer (without it over a grouped-query cache,
-    repeated) and without it per xattn block."""
+    repeated) and without it per xattn block. With a K11 `form` (MPT), K11
+    in place of K3 + K2 in every block (`fused_layer`) or in the xattn
+    blocks alone (`xattn_only`)."""
     steps, layers = NEW_TOKENS - 1, cfg.lm.num_layers
     xattn = layers // cfg.cross_attn_every_n
     mpt = cfg.lm.family == "mpt"
@@ -1647,6 +1781,10 @@ def route_launches(cfg, counters, fused: bool) -> dict:
     if fused:
         want.update(fused_dense=steps * (1 + layers * K1_PER_LAYER[cfg.lm.family]), fused_mlp=steps * (layers + xattn),
                     attn_block_decode=steps * (xattn + layers * mpt), attend_out_decode=steps * layers * (not mpt))
+        if form is not None:
+            k11 = steps * (xattn + layers * (form == "fused_layer"))
+            want.update(fused_layer_decode=k11, fused_mlp=want["fused_mlp"] - k11,
+                        attn_block_decode=want["attn_block_decode"] - k11)
     elif cfg.lm.kv_heads < cfg.lm.num_heads:
         want.update(decode_attention=steps * (xattn + layers))
     else:
@@ -1672,6 +1810,43 @@ def build_model(cfg, dev, dtype):
     if cfg.lm.attention_bias:
         random_lm_biases(model, SEED + 4)
     return model
+
+
+# K11's two forms on the fused route (the JAX package's hooks): every MPT and
+# gated cross-attention block one launch, or the gated blocks alone
+LAYER_FORMS = {"fused_layer": ("DISABLE", False), "xattn_only": ("XATTN_ONLY", True)}
+
+
+@contextlib.contextmanager
+def layer_form(form):
+    """Decode with K11's `form` (a key of LAYER_FORMS); None: the default."""
+    if form is None:
+        yield
+        return
+    hook, value = LAYER_FORMS[form]
+    prev = getattr(fl_op, hook)
+    setattr(fl_op, hook, value)
+    try:
+        yield
+    finally:
+        setattr(fl_op, hook, prev)
+
+
+def forms_in_turns(model, vision_x, ids, mask, gcfg, dev, name) -> None:
+    """bf16 generate on the default fused route and K11's two forms, in turns
+    (default, xattn_only, fused_layer, then back): host clock to a
+    synchronize, which wanders between calls on this shared host."""
+    order = [None, "xattn_only", "fused_layer"]
+    times = {form or "default": [] for form in order}
+    for form in order + order[::-1]:
+        with layer_form(form):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+            torch.cuda.synchronize()
+            times[form or "default"].append(time.perf_counter() - t0)
+    log({"phase": "generate", "dtype": "bfloat16", "compare": f"{name} K11 forms in turns", "seconds": times,
+         "tokens_per_s": {form: B * NEW_TOKENS * len(t) / sum(t) for form, t in times.items()}})
 
 
 @torch.no_grad()   # generation: the forward is differentiable, nothing here needs a graph
@@ -1709,6 +1884,15 @@ def phase_generate(dev, name="OF-3B"):
         lu = step_logits(model, latents_u, ids, mask, tok_k)
     require(torch.equal(latents_u, latents), f"{name}: the unfused route's latents differ from the fused route's")
     fp32_agree(f"{name} fused route vs unfused route (K7)", tok_k, tok_u, lk, lu)
+    forms = LAYER_FORMS if name == "OF-3B" else {}
+    for form in forms:      # K11: the same tokens, and in fp32 the same sums as K3 + K2
+        with layer_form(form):
+            tok_f = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+            lf = step_logits(model, latents, ids, mask, tok_k)
+        log({"phase": "generate", "dtype": "float32", "compare": f"{name} {form} (K11) vs the default fused route",
+             "logits_bit_equal": torch.equal(lf, lk)})
+        fp32_agree(f"{name} {form} (K11) vs the default fused route", tok_f, tok_k, lf, lk)
+        fp32_agree(f"{name} {form} (K11) vs plain_path", tok_f, tok_p, lf, lp)
     del model, latents, latents_p, latents_u
     torch.cuda.empty_cache()
 
@@ -1718,6 +1902,17 @@ def phase_generate(dev, name="OF-3B"):
     want = route_launches(cfg, counters, fused=True)
     require(fused == want, f"{name} fused route launches {fused}, expected {want}")
     sync_free_step(model, vision_x, ids, mask, dev)
+    more, more_variants = {}, {}
+    for form in forms:
+        with layer_form(form):
+            got, more_variants[f"generate_{form}"] = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters,
+                                                                    f"{name} {form}")
+            want = route_launches(cfg, counters, fused=True, form=form)
+            require(got == want, f"{name} {form} launches {got}, expected {want}")
+            sync_free_step(model, vision_x, ids, mask, dev, route=form)
+        more[f"generate_{form}"] = got
+    if forms:
+        forms_in_turns(model, vision_x, ids, mask, gcfg, dev, name)
     if name == "OF-3B":    # the ViT on its plain route: vision_s and TTFT without K9/K10
         with vit_plain_route():
             plain_vit, _ = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, f"{name} fused, ViT plain")
@@ -1729,7 +1924,7 @@ def phase_generate(dev, name="OF-3B"):
     require(unfused == want, f"{name} unfused route launches {unfused}, expected {want}")
     del model
     torch.cuda.empty_cache()
-    return fused, unfused, variants
+    return fused, unfused, variants, more, more_variants
 
 
 def next_pixels(cfg, dev, b=B):
@@ -1906,7 +2101,8 @@ def quant_variants(cfg, bits: int, kv8: bool) -> dict:
     route (the counts of `route_launches`, split by variant): the head K1
     int8 in every mode, every other projection int8 or int4, K3 and K6 over
     the int8 caches with kv8; llama's K1 with the RMSNorm ("+rms") and its
-    K2 in the SwiGLU form ("+rms+swiglu+silu"), the xattn FF as it is."""
+    K2 in the SwiGLU form ("+rms+swiglu+silu"), the xattn FF as it is; no
+    K11 (off by default)."""
     steps, layers = NEW_TOKENS - 1, cfg.lm.num_layers
     xattn = layers // cfg.cross_attn_every_n
     family = cfg.lm.family
@@ -1921,7 +2117,7 @@ def quant_variants(cfg, bits: int, kv8: bool) -> dict:
     mlp[decoder_mlp] = mlp.get(decoder_mlp, 0) + steps * layers
     return {"fused_dense": dense, "fused_mlp": mlp,
             "attn_block_decode": {kv: steps * (xattn + layers * (family == "mpt"))},
-            "attend_out_decode": {kv: steps * layers} if family != "mpt" else {}}
+            "attend_out_decode": {kv: steps * layers} if family != "mpt" else {}, "fused_layer_decode": {}}
 
 
 def paired_step_logits(model, latents, ids, mask, tokens, int8_kv):
@@ -2162,7 +2358,7 @@ def kernel_functions() -> dict:
             "decode_attention": decode_attention, "decode_attention_update": decode_attention_update,
             "flash_attention_backward": flash_attention_backward, "masked_xattn_backward": masked_xattn_backward,
             "attend_out_decode": attend_out_decode, "vit_attention": vit_attention, "layer_norm": ln_op.layer_norm,
-            "flat_vit_attention": flat_vit_attention}
+            "flat_vit_attention": flat_vit_attention, "fused_layer_decode": fused_layer_decode}
 
 
 SOURCES = {
@@ -2181,6 +2377,7 @@ SOURCES = {
     "layer_norm": ("open_flamingo_tpu_torch/csrc/layer_norm.cu", "open_flamingo_tpu/ops/layer_norm.py:47"),
     "flat_vit_attention": ("open_flamingo_tpu_torch/csrc/vit_attention.cu",
                            "open_flamingo_tpu/ops/vit_attention.py:117"),
+    "fused_layer_decode": ("open_flamingo_tpu_torch/csrc/fused_layer.cu", "open_flamingo_tpu/ops/fused_layer.py:94"),
 }
 # K2b, the side tiles K2 carries: its own source and TPU function
 SIDE_SOURCE = ("open_flamingo_tpu_torch/csrc/side_tile.cuh", "open_flamingo_tpu/ops/dense_stream.py:422")
@@ -2208,6 +2405,8 @@ VARIANTS = {
     "fused_mlp[float+relu]": ("fused_mlp", "opt_mlp_relu_bias", "opt13b_generate_fused", "float+relu"),
     "fused_mlp[float+side]": ("fused_mlp", "mpt_mlp_side_qkv", "absorb_bf16", "float+side"),
     "fused_mlp[int4+side]": ("fused_mlp", "mpt_mlp_int4_side_qkv", "absorb_int4", "int4+side"),
+    "fused_layer_decode[float+xattn]": ("fused_layer_decode", "xattn_layer_S64", "generate_fused_layer",
+                                        "float+xattn"),
 }
 
 
@@ -2236,7 +2435,9 @@ def main() -> int:
     for name, tag in (("OF-3B", "generate"), ("OF-4B", "of4b_generate"), ("LLaMA-7B", "llama7b_generate"),
                       ("OPT-1.3B", "opt13b_generate")):
         t0 = time.perf_counter()
-        paths[f"{tag}_fused"], paths[f"{tag}_unfused"], vpaths[f"{tag}_fused"] = phase_generate(dev, name)
+        paths[f"{tag}_fused"], paths[f"{tag}_unfused"], vpaths[f"{tag}_fused"], more, vmore = phase_generate(dev, name)
+        paths.update(more)
+        vpaths.update(vmore)
         seconds[tag] = time.perf_counter() - t0
     t0 = time.perf_counter()
     absorb_paths, absorb_vpaths = phase_absorb(dev)
@@ -2261,6 +2462,7 @@ def main() -> int:
                 "launches_by_path": by_path, "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "library_is": t["library_is"], "case": t["case"], "path": path, "variant": variant,
+                **{key: t[key] for key in ("two_launch_ms",) if key in t},
                 "other_cases": [r for c, r in timing[kernel].items() if c != main_case and r.get("variant", "float") == variant]}
 
     for name in SOURCES:

@@ -31,7 +31,8 @@
 // Bound: the weight bytes (Wqkv + Wout, 33.6 MB at MPT-1B bf16) plus the
 // valid cache rows, over 3.35 TB/s. Launches 1 and 3 stream the weights at
 // the row GEMV's rate (tensor cores in bf16); launch 2 is key-parallel (see
-// attend_kernel), so its latency is two rounds of loads, not a chain per key.
+// attend_body, csrc/attend.cuh, which K11's attention phase shares), so its
+// latency is two rounds of loads, not a chain per key.
 //
 // K6 attend_out_decode, the same tail for families whose q/k/v come from
 // elsewhere (GPT-NeoX: K1, then RoPE), is launches 2 and 3:
@@ -60,226 +61,10 @@
 // halve; the bound falls with the weight bytes (half for int8, a quarter
 // for int4) and the cache's.
 
+#include "attend.cuh"
 #include "rows_gemv.cuh"
 
 namespace {
-
-constexpr int kAttnThreads = 128;
-constexpr int kAttnWarps = kAttnThreads / 32;
-constexpr int kMaxD = 128;
-constexpr int kBatch = 8;     // global loads a thread issues before it uses them
-constexpr int kMaxS = 8192;  // the scores of one (b, h), 32 KB, fit the default shared memory
-
-using rows::from_f32;
-using rows::to_f32;
-
-__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = is_max ? fmaxf(v, u) : v + u;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // red is free (an earlier reduction has been read)
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = red[0];
-  for (int w = 1; w < kAttnWarps; ++w) v = is_max ? fmaxf(v, red[w]) : v + red[w];
-  return v;
-}
-
-// 8 consecutive cache elements (T, or int8) to fp32. Plain loads: this
-// launch writes the cache.
-template <typename C>
-__device__ __forceinline__ void load8c(const C* p, float* v) {
-  if constexpr (std::is_same<C, int8_t>::value) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      v[e] = rows::small_int_to_f32(rows::sbyte(u.x, e));
-      v[4 + e] = rows::small_int_to_f32(rows::sbyte(u.y, e));
-    }
-  } else {
-    rows::load8<false>(p, v);
-  }
-}
-
-// Where a block finds its query and the new token's K/V row:
-//  * K3: the fp32 projection `proj` (B, p), q at [0, H*Dh), the new K at
-//    [H*Dh, 2*H*Dh), V after; q is scaled here and nothing is rounded
-//    before the attend (the TPU kernel attends to the unrounded K/V);
-//  * K6: q (B, H, Dh) unscaled, k_new/v_new (B, H_kv, Dh), all in T; q is
-//    scaled and rounded to T here (the TPU kernel's pre-scaled q operand),
-//    the new K/V are the values the cache keeps, and the step attends to
-//    them.
-template <typename T>
-struct NewToken {
-  const float* proj;
-  int p;
-  const T* q;
-  const T* kn;
-  const T* vn;
-};
-
-// k/v caches (B, H_kv, S, Dh) of C (T, or int8 with row scales ks/vs
-// (B, H_kv, S) fp32), query head `head` reading kv head head / (H / H_kv);
-// attn (B, H*Dh). slot == nullptr: no new K/V (the q-only form). k/v/ks/vs
-// are not __restrict__ const: this launch writes them (with H_kv < H, every
-// query head of a group writes the same values). Key-parallel: thread j
-// scores key j (its K row read with batched 16-byte loads, valid or not),
-// the block reduces max and sum, then groups of d / 8 threads sum p_j * V[j]
-// over their share of the keys. A few rounds of independent loads, where a
-// serial online softmax chains three dependent loads per key. Dynamic
-// shared memory: S floats of scores.
-template <typename T, typename C>
-__device__ __forceinline__ void attend_body(
-    const NewToken<T>& src, C* k, C* v, float* ks, float* vs, const uint8_t* __restrict__ mask,
-    const float* __restrict__ slopes, const int* __restrict__ slot_ptr, T* __restrict__ attn, int h,
-    int h_kv, int s, int d, float scale) {
-  constexpr bool kInt8 = std::is_same<C, int8_t>::value;
-  extern __shared__ float sc[];
-  __shared__ float q_s[kMaxD], kn_s[kMaxD], vn_s[kMaxD];
-  __shared__ float red[kAttnWarps], part[kAttnThreads * rows::kVec];
-
-  const int bh = blockIdx.x;
-  const int b = bh / h, head = bh % h;
-  const int inner = h * d;
-  const int tid = threadIdx.x;
-  const size_t kv_row = (size_t)b * h_kv + head / (h / h_kv);
-  C* kb = k + kv_row * s * d;
-  C* vb = v + kv_row * s * d;
-  const uint8_t* mrow = mask + (size_t)b * s;
-
-  int slot = -1;
-  if (slot_ptr != nullptr) {
-    slot = *slot_ptr;
-    if (slot < 0 || slot >= s) slot = -1;  // the caller checks the range on the host
-  }
-  for (int c = tid; c < d; c += kAttnThreads) {
-    if (src.proj != nullptr) {
-      const float* prow = src.proj + (size_t)b * src.p + (size_t)head * d;
-      q_s[c] = prow[c] * scale;
-      if (slot >= 0) {
-        kn_s[c] = prow[inner + c];
-        vn_s[c] = prow[2 * inner + c];
-      }
-    } else {
-      q_s[c] = to_f32(from_f32<T>(to_f32(src.q[(size_t)bh * d + c]) * scale));
-      if (slot >= 0) {
-        kn_s[c] = to_f32(src.kn[kv_row * d + c]);
-        vn_s[c] = to_f32(src.vn[kv_row * d + c]);
-      }
-    }
-    if constexpr (!kInt8) {
-      if (slot >= 0) {
-        kb[(size_t)slot * d + c] = from_f32<T>(kn_s[c]);
-        vb[(size_t)slot * d + c] = from_f32<T>(vn_s[c]);
-      }
-    }
-  }
-  // int8 cache: quantize the new token's rows (the slot's scales sk, sv);
-  // kn_s/vn_s then hold the quantized values this step attends to
-  float sk = 1.f, sv = 1.f;
-  if constexpr (kInt8) {
-    if (slot >= 0) {  // uniform across the block
-      float ka = 0.f, va = 0.f;
-      for (int c = tid; c < d; c += kAttnThreads) {
-        ka = fmaxf(ka, fabsf(kn_s[c]));
-        va = fmaxf(va, fabsf(vn_s[c]));
-      }
-      ka = block_reduce(ka, red, true);
-      va = block_reduce(va, red, true);
-      sk = ka == 0.f ? 1.f : ka / 127.f;
-      sv = va == 0.f ? 1.f : va / 127.f;
-      for (int c = tid; c < d; c += kAttnThreads) {
-        kn_s[c] = fminf(fmaxf(rintf(kn_s[c] / sk), -127.f), 127.f);
-        vn_s[c] = fminf(fmaxf(rintf(vn_s[c] / sv), -127.f), 127.f);
-        kb[(size_t)slot * d + c] = (int8_t)kn_s[c];
-        vb[(size_t)slot * d + c] = (int8_t)vn_s[c];
-      }
-      if (tid == 0) {
-        ks[kv_row * s + slot] = sk;
-        vs[kv_row * s + slot] = sv;
-      }
-    }
-  }
-  __syncthreads();
-
-  // scores; the new token attends to its K/V as staged above
-  const float slope = slopes != nullptr ? slopes[head] : 0.f;
-  float mx = -INFINITY;
-  for (int j = tid; j < s; j += kAttnThreads) {
-    // every row is read, so the loads do not wait for the mask; a masked
-    // row's score (from a row never written) is selected away
-    const C* kr = kb + (size_t)j * d;
-    float dot = 0.f;
-    for (int c0 = 0; c0 < d; c0 += kBatch * rows::kVec) {  // kBatch loads in flight
-      float kv[kBatch][rows::kVec];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        if (c0 + u * rows::kVec < d) load8c(kr + c0 + u * rows::kVec, kv[u]);
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        if (c0 + u * rows::kVec < d)
-#pragma unroll
-          for (int e = 0; e < rows::kVec; ++e) dot = fmaf(q_s[c0 + u * rows::kVec + e], kv[u][e], dot);
-    }
-    if (j == slot) {
-      dot = 0.f;
-      for (int c = 0; c < d; ++c) dot = fmaf(q_s[c], kn_s[c], dot);
-    }
-    if constexpr (kInt8) dot *= j == slot ? sk : ks[kv_row * s + j];  // dequantized logit
-    const float sj = mrow[j] != 0 ? dot + slope * (float)(j - (s - 1)) : -INFINITY;
-    sc[j] = sj;
-    mx = fmaxf(mx, sj);
-  }
-  mx = block_reduce(mx, red, true);
-
-  float l = 0.f;
-  for (int j = tid; j < s; j += kAttnThreads) {
-    float pj = sc[j] == -INFINITY ? 0.f : expf(sc[j] - mx);  // all masked: every pj = 0
-    l += pj;
-    if constexpr (kInt8) pj *= j == slot ? sv : vs[kv_row * s + j];  // dequantized softmax weight
-    sc[j] = pj;
-  }
-  l = block_reduce(l, red, false);  // its barriers also publish sc
-
-  // output: thread (grp, oct) sums p_j * V[j][8 oct .. 8 oct + 7] over keys
-  // grp, grp + G, ...: 16-byte loads (8-byte for int8), a row read by d / 8
-  // neighbouring threads, kBatch rows in flight. The loads are
-  // unconditional; a masked key's row (never written, may hold anything) is
-  // selected away.
-  const int octs = d / rows::kVec, groups = kAttnThreads / octs;
-  const int c8 = (tid % octs) * rows::kVec, grp = tid / octs;
-  float o[rows::kVec];
-#pragma unroll
-  for (int e = 0; e < rows::kVec; ++e) o[e] = 0.f;
-  if (grp < groups) {
-    for (int j0 = grp; j0 < s; j0 += kBatch * groups) {
-      float vv[kBatch][rows::kVec];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        if (j0 + u * groups < s) load8c(vb + (size_t)(j0 + u * groups) * d + c8, vv[u]);
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int j = j0 + u * groups;
-        if (j < s) {
-          const float pj = sc[j];
-#pragma unroll
-          for (int e = 0; e < rows::kVec; ++e)
-            o[e] = fmaf(pj, pj == 0.f ? 0.f : (j == slot ? vn_s[c8 + e] : vv[u][e]), o[e]);
-        }
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < rows::kVec; ++e) part[grp * d + c8 + e] = o[e];
-  }
-  __syncthreads();
-  if (tid < d) {
-    float tot = 0.f;
-    for (int gg = 0; gg < groups; ++gg) tot += part[gg * d + tid];
-    attn[(size_t)b * inner + (size_t)head * d + tid] = from_f32<T>(l > 0.f ? tot / l : 0.f);  // 0-denominator guard
-  }
-}
 
 // K3's softmax launch: proj (B, p) fp32, H_kv = H.
 template <typename T, typename C>
@@ -287,8 +72,8 @@ __global__ void __launch_bounds__(kAttnThreads) attend_kernel(
     const float* __restrict__ proj, int p, C* k, C* v, float* ks, float* vs, const uint8_t* __restrict__ mask,
     const float* __restrict__ slopes, const int* __restrict__ slot_ptr, T* __restrict__ attn, int h, int s, int d,
     float scale) {
-  attend_body<T, C>(NewToken<T>{proj, p, nullptr, nullptr, nullptr}, k, v, ks, vs, mask, slopes, slot_ptr, attn, h,
-                    h, s, d, scale);
+  attend_body<T, C>(blockIdx.x, NewToken<T>{proj, p, nullptr, nullptr, nullptr}, k, v, ks, vs, mask, slopes,
+                    slot_ptr, attn, h, h, s, d, scale);
 }
 
 // K6's attend launch: q, k_new, v_new in T; its own symbol, so a profile
@@ -298,8 +83,8 @@ __global__ void __launch_bounds__(kAttnThreads) attend_out_kernel(
     const T* __restrict__ q, const T* __restrict__ kn, const T* __restrict__ vn, C* k, C* v, float* ks, float* vs,
     const uint8_t* __restrict__ mask, const float* __restrict__ slopes, const int* __restrict__ slot_ptr,
     T* __restrict__ attn, int h, int h_kv, int s, int d, float scale) {
-  attend_body<T, C>(NewToken<T>{nullptr, 0, q, kn, vn}, k, v, ks, vs, mask, slopes, slot_ptr, attn, h, h_kv, s, d,
-                    scale);
+  attend_body<T, C>(blockIdx.x, NewToken<T>{nullptr, 0, q, kn, vn}, k, v, ks, vs, mask, slopes, slot_ptr, attn, h,
+                    h_kv, s, d, scale);
 }
 
 template <typename T>

@@ -54,6 +54,19 @@
 // significant bits) and without a conversion instruction (2^23 + 128 + q
 // read as a float). The per-out-channel fp32 scale multiplies the fp32 sum
 // first in the epilogue, as in the TPU kernels.
+//
+// Inside one persistent launch (K11, csrc/fused_layer.cu) a body reads rows
+// that other blocks of the same launch wrote in an earlier phase: its input
+// rows may then be fp32 (X, the layer's fp32 residual stream, normalised and
+// rounded to T when staged) and its epilogue's residual fp32 (R), and with
+// kCg both are read through L2 alone (ld.global.cg), never through L1 or the
+// read-only path, which are not coherent within a launch. The defaults
+// (X = R = T, no kCg) are the instances K1/K2/K3/K6 compile, unchanged.
+// The kCg instances spell out where a product and a sum round, as the
+// separate launches' instances compile them (measured on the card: nvcc
+// contracted them differently in the two kernels): the LayerNorm's bias and
+// an int weight's scale with a bias fuse into one FMA, y * tanh(gate) +
+// residual rounds twice. So K11's fp32 results are K3's and K2's bits.
 
 #pragma once
 
@@ -116,6 +129,30 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
+}
+
+// 8 consecutive elements (16-byte aligned) to fp32 through L2 alone
+__device__ __forceinline__ void load8cg(const float* p, float* v) {
+  const float4 a = __ldcg(reinterpret_cast<const float4*>(p)), b = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8cg(const __nv_bfloat16* p, float* v) {
+  const uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// an input row's 8 elements: plain loads, or through L2 alone (kCg)
+template <bool kCg, typename X>
+__device__ __forceinline__ void load8x(const X* p, float* v) {
+  if constexpr (kCg) load8cg(p, v);
+  else load8<false>(p, v);
 }
 
 struct Int4 {};  // the weight storage tag of packed int4
@@ -183,7 +220,7 @@ __device__ __forceinline__ uint4 load_frag(const unsigned int* p) {
 enum Act { kNone = 0, kGelu = 1, kGeluNew = 2, kRelu = 3, kQuickGelu = 4, kSilu = 5 };
 enum Norm { kLayerNorm = 0, kRmsNorm = 1 };
 
-template <typename T>
+template <typename T, typename R = T>
 struct Epilogue {
   const float* scale;  // (N,) fp32: an int weight's per-channel scale, y *= scale first
   const T* bias;       // (N,) or null
@@ -191,7 +228,7 @@ struct Epilogue {
   float clip;          // y = clamp(y, -clip, clip)
   int act;             // an Act
   const T* gate;       // (1,) or null: y *= tanh(gate)
-  const T* residual;   // (B, N) or null: y += residual
+  const R* residual;   // (B, N) or null: y += residual
   const float* gscale; // gated form with an int Wg: its (N,) scale, or null
 };
 
@@ -221,11 +258,17 @@ constexpr int kActBase = -2;
 
 // kScaled: an int weight's instantiation, the only one that reads the scale
 // (compiled into the bf16 kernel, the branch alone cost it registers and 16%
-// of its HBM rate). yg: the gated form's second sum (kGated only).
-template <bool kScaled, bool kGated, int kAct, typename T>
-__device__ __forceinline__ float epilogue(float y, float yg, const Epilogue<T>& ep, int r, int col, int n) {
-  if constexpr (kScaled) y *= ep.scale[col];
-  if (ep.bias != nullptr) y += to_f32(ep.bias[col]);
+// of its HBM rate). yg: the gated form's second sum (kGated only). kCg: the
+// residual is read through L2 alone, and the roundings are spelled out (see
+// the top).
+template <bool kScaled, bool kGated, int kAct, bool kCg = false, typename T, typename R>
+__device__ __forceinline__ float epilogue(float y, float yg, const Epilogue<T, R>& ep, int r, int col, int n) {
+  if constexpr (kScaled && kCg) {
+    y = ep.bias != nullptr ? __fmaf_rn(y, ep.scale[col], to_f32(ep.bias[col])) : y * ep.scale[col];
+  } else {
+    if constexpr (kScaled) y *= ep.scale[col];
+    if (ep.bias != nullptr) y += to_f32(ep.bias[col]);
+  }
   if (ep.has_clip) y = fminf(fmaxf(y, -ep.clip), ep.clip);
   if constexpr (kAct == kActRuntime) {
     if (ep.act != kNone) y = activation(y, ep.act);
@@ -235,21 +278,31 @@ __device__ __forceinline__ float epilogue(float y, float yg, const Epilogue<T>& 
     y = activation(y, kAct);
   }
   if constexpr (kGated) y *= kScaled ? yg * ep.gscale[col] : yg;
-  if (ep.gate != nullptr) y *= tanhf(to_f32(ep.gate[0]));
-  if (ep.residual != nullptr) y += to_f32(ep.residual[(size_t)r * n + col]);
+  if constexpr (kCg) {
+    if (ep.gate != nullptr && ep.residual != nullptr) {
+      y = __fadd_rn(__fmul_rn(y, tanhf(to_f32(ep.gate[0]))), to_f32(__ldcg(ep.residual + (size_t)r * n + col)));
+    } else {
+      if (ep.gate != nullptr) y *= tanhf(to_f32(ep.gate[0]));
+      if (ep.residual != nullptr) y += to_f32(__ldcg(ep.residual + (size_t)r * n + col));
+    }
+  } else {
+    if (ep.gate != nullptr) y *= tanhf(to_f32(ep.gate[0]));
+    if (ep.residual != nullptr) y += to_f32(ep.residual[(size_t)r * n + col]);
+  }
   return y;
 }
 
-// One warp stages row `xr` (k elements) into `dst`: a copy, or the
-// LayerNorm or RMSNorm (`norm`) rounded to T. RMSNorm takes no mean: x - 0
-// is x, so its rows are x * inv * scale in the TPU kernel's order.
-template <typename T>
-__device__ void stage_row(const T* __restrict__ xr, const T* __restrict__ ln_s,
+// One warp stages row `xr` (k elements of X: T, or fp32) into `dst`: a
+// copy, or the LayerNorm or RMSNorm (`norm`) rounded to T. RMSNorm takes no
+// mean: x - 0 is x, so its rows are x * inv * scale in the TPU kernel's
+// order. kCg: xr is read through L2 alone.
+template <bool kCg = false, typename T, typename X>
+__device__ void stage_row(const X* __restrict__ xr, const T* __restrict__ ln_s,
                           const T* __restrict__ ln_b, float eps, int norm, T* dst, int k, int lane) {
   if (ln_s == nullptr) {  // a copy: T -> fp32 -> T is exact
     for (int c = lane * kVec; c < k; c += 32 * kVec) {
       float v[kVec];
-      load8<false>(xr + c, v);
+      load8x<kCg>(xr + c, v);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) dst[c + e] = from_f32<T>(v[e]);
     }
@@ -258,7 +311,7 @@ __device__ void stage_row(const T* __restrict__ xr, const T* __restrict__ ln_s,
   float s = 0.f, ss = 0.f;
   for (int c = lane * kVec; c < k; c += 32 * kVec) {
     float v[kVec];
-    load8<false>(xr + c, v);
+    load8x<kCg>(xr + c, v);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
       s += v[e];
@@ -273,22 +326,30 @@ __device__ void stage_row(const T* __restrict__ xr, const T* __restrict__ ln_s,
   const float inv = rsqrtf(var + eps);
   for (int c = lane * kVec; c < k; c += 32 * kVec) {
     float v[kVec];
-    load8<false>(xr + c, v);
+    load8x<kCg>(xr + c, v);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
-      float y = (v[e] - mean) * inv * to_f32(ln_s[c + e]);
-      if (ln_b != nullptr) y += to_f32(ln_b[c + e]);
+      float y;
+      if constexpr (kCg) {
+        const float p = (v[e] - mean) * inv, s = to_f32(ln_s[c + e]);
+        y = ln_b != nullptr ? __fmaf_rn(p, s, to_f32(ln_b[c + e])) : p * s;
+      } else {
+        y = (v[e] - mean) * inv * to_f32(ln_s[c + e]);
+        if (ln_b != nullptr) y += to_f32(ln_b[c + e]);
+      }
       dst[c + e] = from_f32<T>(y);
     }
   }
 }
 
 // The CUDA-core kernel's body, for block `block` of a grid of `grid` blocks
-// (a kernel that carries other blocks too passes its own count).
-template <typename T, typename W, typename OutT, bool kGated, int kAct>
+// (a kernel that carries other blocks too passes its own count). X, R, kCg:
+// the input rows' type, the residual's, coherent reads (see the top).
+template <typename T, typename W, typename OutT, bool kGated, int kAct, typename X = T, typename R = T,
+          bool kCg = false>
 __device__ __forceinline__ void gemv_body(
-    const T* __restrict__ x, const T* __restrict__ ln_s, const T* __restrict__ ln_b, float eps, int norm,
-    const unsigned char* __restrict__ w, const unsigned char* __restrict__ wg, Epilogue<T> ep,
+    const X* __restrict__ x, const T* __restrict__ ln_s, const T* __restrict__ ln_b, float eps, int norm,
+    const unsigned char* __restrict__ w, const unsigned char* __restrict__ wg, Epilogue<T, R> ep,
     OutT* __restrict__ out, int b, int n, int k, int rows_per_pass, unsigned char* smem, int grid, int block) {
   T* hs = reinterpret_cast<T*>(smem);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -297,7 +358,7 @@ __device__ __forceinline__ void gemv_body(
     const int rb = min(rows_per_pass, b - r0);
     if (r0 > 0) __syncthreads();  // the last pass is done reading hs
     for (int r = warp; r < rb; r += kWarps)
-      stage_row(x + (size_t)(r0 + r) * k, ln_s, ln_b, eps, norm, hs + (size_t)r * k, k, lane);
+      stage_row<kCg>(x + (size_t)(r0 + r) * k, ln_s, ln_b, eps, norm, hs + (size_t)r * k, k, lane);
     __syncthreads();
 
     for (int col = block * kWarps + warp; col < n; col += grid * kWarps) {
@@ -331,7 +392,7 @@ __device__ __forceinline__ void gemv_body(
           const float sumg = kGated ? warp_sum(accg[r]) : 0.f;
           if (lane == r)
             out[(size_t)(r0 + r) * n + col] =
-                from_f32<OutT>(epilogue<!std::is_same<W, T>::value, kGated, kAct>(sum, sumg, ep, r0 + r, col, n));
+                from_f32<OutT>(epilogue<!std::is_same<W, T>::value, kGated, kAct, kCg>(sum, sumg, ep, r0 + r, col, n));
         }
       }
     }
@@ -359,8 +420,10 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uin
 
 // One warp stages row r of h (zeros when !live) into `hf` in fragment
 // order: the 16 bytes of h[r][32c + 8t .. 32c + 8t + 7] go to slot
-// c * 32 + 4r + t, the B fragment of lane 4r + t for K chunk c.
-__device__ void stage_fragments(const __nv_bfloat16* __restrict__ xr, bool live,
+// c * 32 + 4r + t, the B fragment of lane 4r + t for K chunk c. An fp32 row
+// (X = float) is normalised from its fp32 values and rounded to bf16 once.
+template <bool kCg = false, typename X>
+__device__ void stage_fragments(const X* __restrict__ xr, bool live,
                                 const __nv_bfloat16* __restrict__ ln_s,
                                 const __nv_bfloat16* __restrict__ ln_b, float eps, int norm, uint4* hf,
                                 int r, int k, int lane) {
@@ -369,7 +432,7 @@ __device__ void stage_fragments(const __nv_bfloat16* __restrict__ xr, bool live,
     float s = 0.f, ss = 0.f;
     for (int c = lane * kVec; c < k; c += 32 * kVec) {
       float v[kVec];
-      load8<false>(xr + c, v);
+      load8x<kCg>(xr + c, v);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         s += v[e];
@@ -389,10 +452,23 @@ __device__ void stage_fragments(const __nv_bfloat16* __restrict__ xr, bool live,
     uint4 frag = make_uint4(0u, 0u, 0u, 0u);
     if (live) {
       if (ln_s == nullptr) {
-        frag = *reinterpret_cast<const uint4*>(xr + idx * kVec);
+        if constexpr (!std::is_same<X, __nv_bfloat16>::value) {  // fp32 rows rounded to bf16
+          float v[kVec];
+          load8x<kCg>(xr + idx * kVec, v);
+          uint32_t* u = reinterpret_cast<uint32_t*>(&frag);
+#pragma unroll
+          for (int e = 0; e < kVec; e += 2) {
+            __nv_bfloat162 pair = __floats2bfloat162_rn(v[e], v[e + 1]);
+            u[e / 2] = *reinterpret_cast<uint32_t*>(&pair);
+          }
+        } else if constexpr (kCg) {
+          frag = __ldcg(reinterpret_cast<const uint4*>(xr + idx * kVec));
+        } else {
+          frag = *reinterpret_cast<const uint4*>(xr + idx * kVec);
+        }
       } else {
         float v[kVec];
-        load8<false>(xr + idx * kVec, v);
+        load8x<kCg>(xr + idx * kVec, v);
         uint32_t* u = reinterpret_cast<uint32_t*>(&frag);
 #pragma unroll
         for (int e = 0; e < kVec; e += 2) {
@@ -416,12 +492,14 @@ __device__ void stage_fragments(const __nv_bfloat16* __restrict__ xr, bool live,
 // works on column tile (group * tpb + w / ks) over K-chunk slice (w % ks) of
 // ks; shared memory holds h in fragment order (8 * K bf16), then the split-K
 // partials (kWarps * 32 * 4 floats, twice that in the gated form: W's sums,
-// then Wg's). The body of block `block` of `grid`, as gemv_body.
-template <typename W, typename OutT, bool kGated, int kAct>
+// then Wg's). The body of block `block` of `grid`, as gemv_body; X, R, kCg
+// as gemv_body's. A column's sums depend on ks alone, not on the grid.
+template <typename W, typename OutT, bool kGated, int kAct, typename X = __nv_bfloat16,
+          typename R = __nv_bfloat16, bool kCg = false>
 __device__ __forceinline__ void gemv_mma_body(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
+    const X* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
     const __nv_bfloat16* __restrict__ ln_b, float eps, int norm, const unsigned char* __restrict__ w,
-    const unsigned char* __restrict__ wg, Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out, int b, int n,
+    const unsigned char* __restrict__ wg, Epilogue<__nv_bfloat16, R> ep, OutT* __restrict__ out, int b, int n,
     int k, int ks, unsigned char* smem, int grid, int block) {
   uint4* hf = reinterpret_cast<uint4*>(smem);
   float4* part = reinterpret_cast<float4*>(smem + (size_t)kMaxRows * k * sizeof(__nv_bfloat16));
@@ -435,7 +513,7 @@ __device__ __forceinline__ void gemv_mma_body(
     const int rb = min(kMaxRows, b - r0);
     if (r0 > 0) __syncthreads();  // the last pass is done reading hf
     for (int r = warp; r < kMaxRows; r += kWarps)
-      stage_fragments(x + (size_t)(r0 + min(r, rb - 1)) * k, r < rb, ln_s, ln_b, eps, norm, hf, r, k, lane);
+      stage_fragments<kCg>(x + (size_t)(r0 + min(r, rb - 1)) * k, r < rb, ln_s, ln_b, eps, norm, hf, r, k, lane);
     __syncthreads();
 
     for (int grp = block; grp < groups; grp += grid) {  // uniform across the block
@@ -489,9 +567,8 @@ __device__ __forceinline__ void gemv_mma_body(
         for (int i = 0; i < 4; ++i) {
           const int col = tile * 16 + g + (i >> 1) * 8, r = 2 * t + (i & 1);
           if (col < n && r < rb)
-            out[(size_t)(r0 + r) * n + col] =
-                from_f32<OutT>(epilogue<!std::is_same<W, __nv_bfloat16>::value, kGated, kAct>(c[i], cg[i], ep,
-                                                                                                r0 + r, col, n));
+            out[(size_t)(r0 + r) * n + col] = from_f32<OutT>(
+                epilogue<!std::is_same<W, __nv_bfloat16>::value, kGated, kAct, kCg>(c[i], cg[i], ep, r0 + r, col, n));
         }
       }
       if (ks > 1) __syncthreads();  // the partials are read before the next tile writes them

@@ -10,6 +10,10 @@ K/V slot write, ALiBi softmax, out-projection, residual) then K2
 `fused_mlp` (LN, up, GELU, down, residual), reading the nn.Linear weights
 in place, or their int8 / int4 copies when `quantize.quantize_decode_weights`
 attached them (`stream_weight`), and an int8 cache with its scales.
+With `ops.fused_layer.DISABLE = False` the whole block is one K11
+`fused_layer_decode` launch instead (x2 kept fp32 between the halves), as
+in the JAX package: not over an int8 cache and not in an absorbing step,
+which keep K3 + K2.
 """
 
 from __future__ import annotations
@@ -18,9 +22,11 @@ import torch
 from torch import nn
 
 from ...configs import DecoderConfig
+from ...ops import fused_layer
 from ...ops.attention import cached_self_attention, use_kernels
 from ...ops.decode_layer import attn_block_decode, reference_attn_block
 from ...ops.dense_stream import fused_mlp, reference_mlp, use_fused_decode
+from ...ops.fused_layer import fused_layer_decode, reference_fused_layer
 from ...quantize import stream_weight
 from ..absorb_vit import carry
 from ..layers import LayerNorm, gelu_exact, merge_heads
@@ -74,6 +80,16 @@ class MPTBlock(nn.Module):
         mlp_half = fused_mlp if kern else reference_mlp
         (w_qkv, s_qkv), (w_out, s_out) = stream_weight(self.Wqkv), stream_weight(self.out_proj)
         (w_up, s_up), (w_down, s_down) = stream_weight(self.up_proj), stream_weight(self.down_proj)
+        if not fused_layer.DISABLE and not layer_kv.int8 and side is None:
+            layer = fused_layer_decode if kern else reference_fused_layer
+            y, kc, vc = layer(
+                x[:, 0], self.norm_1.weight, self.norm_1.bias, w_qkv, w_out, layer_kv.k, layer_kv.v, attn.pad_mask,
+                w_up, w_down, self.norm_2.weight, self.norm_2.bias, heads=cfg.num_heads, head_dim=hd,
+                scale=hd**-0.5, act="gelu", fused_qkv=True, slot=attn.slot, slopes=self.alibi_slopes,
+                clip=cfg.clip_qkv, wq_scale=s_qkv, wout_scale=s_out, w1_scale=s_up, w2_scale=s_down,
+                eps=cfg.layer_norm_eps,
+            )
+            return y[:, None], LayerKV(kc, vc)
         x2, kc, vc = attn_half(
             x[:, 0], self.norm_1.weight, self.norm_1.bias, w_qkv, w_out, layer_kv.k, layer_kv.v, attn.pad_mask,
             heads=cfg.num_heads, head_dim=hd, scale=hd**-0.5, fused_qkv=True, slot=attn.slot,

@@ -20,7 +20,10 @@ the K2 launch carries a K2b side tile of the next batch's ViT
 (`absorb_vit.carry`). The media K/V are a pair
 (k, v), or with an int8 media cache (k, v, k_s, v_s): int8 rows with their
 (B, H, S_m) fp32 scales, which the fused route reads as they are and every
-other route dequantizes.
+other route dequantizes. With `ops.fused_layer.use_for_xattn()` (`DISABLE =
+False` or `XATTN_ONLY`) the whole gated block is one K11
+`fused_layer_decode` launch in its q-only form, as in the JAX package: not
+over an int8 media cache and not in an absorbing step, which keep K3 + K2.
 """
 
 from __future__ import annotations
@@ -30,9 +33,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops import fused_layer
 from ..ops.attention import use_kernels
 from ..ops.decode_layer import attn_block_decode, reference_attn_block
 from ..ops.dense_stream import fused_mlp, reference_mlp, use_fused_decode
+from ..ops.fused_layer import fused_layer_decode, reference_fused_layer
 from ..quantize import stream_weight
 from .absorb_vit import carry
 from .decoders.common import dequantize_kv
@@ -165,6 +170,8 @@ class GatedCrossAttentionBlock(nn.Module):
         if media_kv is not None and self.attn.immediate and use_fused_decode(x, x.shape[1], True):
             if media_mask is None:
                 media_mask = decode_media_mask(text_time, media.shape[1], media.shape[2])
+            if fused_layer.use_for_xattn() and len(media_kv) == 2 and side is None:
+                return self.fused_layer(x[:, 0], media_kv, media_mask)[:, None], media_kv
             x2 = self.attn.fused_decode(x[:, 0], media_kv, media_mask, self.attn_gate)
             mlp_half = fused_mlp if use_kernels(x) else reference_mlp
             ff = self.ff
@@ -178,3 +185,16 @@ class GatedCrossAttentionBlock(nn.Module):
         x = out * torch.tanh(self.attn_gate) + x
         x = self.ff(x) * torch.tanh(self.ff_gate) + x
         return x, media_kv
+
+    def fused_layer(self, x, media_kv, mask2d):
+        """The whole block for x (B, D) over the cached media K/V (B, H, S_m,
+        Dh) under mask2d (B, S_m): K11 in its q-only form, both tanh gates."""
+        at, ff = self.attn, self.ff
+        (w_q, s_q), (w_out, s_out) = stream_weight(at.to_q), stream_weight(at.to_out)
+        (w1, s1), (w2, s2) = stream_weight(ff.fc1), stream_weight(ff.fc2)
+        layer = fused_layer_decode if use_kernels(x) else reference_fused_layer
+        return layer(
+            x, at.norm.weight, at.norm.bias, w_q, w_out, *media_kv, mask2d, w1, w2, ff.norm.weight, ff.norm.bias,
+            heads=at.heads, head_dim=at.dim_head, scale=at.dim_head**-0.5, act="gelu", gate=self.attn_gate,
+            gate2=self.ff_gate, wq_scale=s_q, wout_scale=s_out, w1_scale=s1, w2_scale=s2, eps=at.norm.eps,
+        )

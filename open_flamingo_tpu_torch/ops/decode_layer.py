@@ -111,6 +111,19 @@ def reference_attn_block(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask,
                          wout_scale=None, k_scale=None, v_scale=None, eps=1e-5):
     """Plain version of attn_block_decode, at the kernel's rounding points."""
     refuse_autograd("attn_block_decode", x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, slopes, gate)
+    y = attn_block_f32(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, heads=heads, head_dim=head_dim,
+                       scale=scale, fused_qkv=fused_qkv, slot=slot, slopes=slopes, clip=clip, gate=gate,
+                       wq_scale=wq_scale, wout_scale=wout_scale, k_scale=k_scale, v_scale=v_scale, eps=eps)
+    y = y.to(x.dtype)
+    return (y, k_cache, v_cache) if fused_qkv else y
+
+
+def attn_block_f32(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *, heads, head_dim, scale,
+                   fused_qkv=False, slot=None, slopes=None, clip=None, gate=None, wq_scale=None, wout_scale=None,
+                   k_scale=None, v_scale=None, eps=1e-5):
+    """reference_attn_block's x + tanh(gate) * out_proj(attention) in fp32,
+    before its last rounding (K11 keeps it fp32); the caches are written in
+    place all the same."""
     b = x.shape[0]
     inner = heads * head_dim
     proj = layer_norm(x, ln_scale, ln_bias, eps).float() @ weight_values(wq).float().t()
@@ -135,8 +148,7 @@ def reference_attn_block(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask,
         y = y * wout_scale
     if gate is not None:
         y = y * torch.tanh(gate.float())
-    y = (y + x.float()).to(x.dtype)
-    return (y, k_cache, v_cache) if fused_qkv else y
+    return y + x.float()
 
 
 def attn_block_decode(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *, heads, head_dim, scale,

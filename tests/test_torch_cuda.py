@@ -29,6 +29,7 @@ from open_flamingo_tpu_torch.models.decoders.common import quantize_kv
 from open_flamingo_tpu_torch.ops.decode_attention import decode_attention, decode_attention_update
 from open_flamingo_tpu_torch.ops.decode_layer import attend_out_decode, attn_block_decode
 from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
+from open_flamingo_tpu_torch.ops.fused_layer import fused_layer_decode
 from open_flamingo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward, reference_attention)
 from open_flamingo_tpu_torch.ops.masked_xattn import (
@@ -616,3 +617,115 @@ def test_absorbed_generate(gen, dtype):
             want = flamingo_generate(model, vision_x, ids, mask, gcfg, next_pixels=next_pixels)[1]
     err, top = (latents.float() - want.float()).abs().max().item(), want.float().abs().max().item()
     assert err <= (1e-4 if dtype == torch.float32 else 2e-2) * top, (err, top)
+
+
+def layer_operands(gen, b, dm, h, d, k2, s, fused_qkv, dtype, bits=None, slot=40, swiglu=False, act="gelu"):
+    """One decode layer's operands for K11 on the card, K11's positional
+    arguments and keywords: the MPT form (fused QKV, ALiBi, clip, row 1
+    left-padded) or the gated cross-attention form (tanh gates, LN biases,
+    b1/b2, row 1 before any image); weights in `dtype`, or int8 / packed
+    int4 with their scales."""
+    inner = h * d
+    x = rn(gen, b, dm).to(dtype)
+    ln1, ln2 = (1 + 0.1 * rn(gen, dm)).to(dtype), (1 + 0.1 * rn(gen, dm)).to(dtype)
+    ln1_b, ln2_b = (None, None) if fused_qkv else ((0.1 * rn(gen, dm)).to(dtype), (0.1 * rn(gen, dm)).to(dtype))
+    shapes = dict(wq=((3 if fused_qkv else 1) * inner, dm), wout=(dm, inner), w1=(k2, dm), w2=(dm, k2))
+    if swiglu:
+        shapes["w1_gate"] = (k2, dm)
+    ws, kw = {}, dict(heads=h, head_dim=d, scale=d**-0.5, act=act, fused_qkv=fused_qkv)
+    for name, (n, kk) in shapes.items():
+        w = rn(gen, n, kk) * kk**-0.5
+        if bits is None:
+            ws[name] = w.to(dtype)
+        else:
+            ws[name], kw[f"{name}_scale"] = quantized(w, bits)
+    kc, vc = rn(gen, b, h, s, d).to(dtype), rn(gen, b, h, s, d).to(dtype)
+    mask = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    if fused_qkv:
+        mask[:, slot + 1:] = False
+        if b > 1:
+            mask[1, :3] = False
+        kw.update(slot=torch.tensor([slot], dtype=torch.int32, device="cuda"), slopes=rn(gen, h).abs(), clip=2.0)
+    else:
+        if b > 1:
+            mask[1] = False
+        kw.update(gate=torch.tensor([0.6], device="cuda", dtype=dtype),
+                  gate2=torch.tensor([-0.4], device="cuda", dtype=dtype),
+                  b1=(0.1 * rn(gen, k2)).to(dtype), b2=(0.1 * rn(gen, dm)).to(dtype))
+    if swiglu:
+        kw["w1_gate"] = ws["w1_gate"]
+    args = [x, ln1, ln1_b, ws["wq"], ws["wout"], kc, vc, mask, ws["w1"], ws["w2"], ln2, ln2_b]
+    return args, kw
+
+
+def run_layer(args, kw, device=None):
+    """K11 on fresh copies of the caches (on `device`: the CPU runs the plain
+    version); returns (y, k cache, v cache) for either form."""
+    args = [None if t is None else (t.to(device) if device else t).clone() for t in args]
+    kw = on_cpu(kw) if device == "cpu" else kw
+    out = fused_layer_decode(*args, **kw)
+    return out if kw["fused_qkv"] else (out, args[5], args[6])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [None, 8, 4])
+@pytest.mark.parametrize("fused_qkv", [True, False])
+@pytest.mark.parametrize("b", [1, 8, 13])       # 13 rows: two passes of 8
+def test_fused_layer_decode(gen, b, fused_qkv, bits, dtype):
+    """K11 against its plain version, both forms, every weight type; three
+    calls give the same bits (a stale read of what an earlier phase wrote
+    would show as a call that differs)."""
+    args, kw = layer_operands(gen, b, 256, 4, 64, 1024, 64, fused_qkv, dtype, bits)
+    want = run_layer(args, kw, "cpu")
+    got = run_layer(args, kw)
+    for g, w in zip(got, want):
+        close(g, w)
+    for _ in range(2):
+        assert all(torch.equal(g, a) for g, a in zip(got, run_layer(args, kw)))
+
+
+@pytest.mark.parametrize("fused_qkv", [True, False])
+@pytest.mark.parametrize("bits", [None, 8])
+@pytest.mark.parametrize("b", [1, 8, 13])
+def test_fused_layer_fp32_is_k3_then_k2_bit_for_bit(gen, b, bits, fused_qkv):
+    """In fp32 K11 keeps x2 as K3 + K2 do: y and both caches bit for bit."""
+    args, kw = layer_operands(gen, b, 256, 4, 64, 1024, 64, fused_qkv, torch.float32, bits)
+    y, kc, vc = run_layer(args, kw)
+    x, ln1, ln1_b, wq, wout, kc2, vc2, mask, w1, w2, ln2, ln2_b = [None if t is None else t.clone() for t in args]
+    attn = {k: v for k, v in kw.items() if k not in ("act", "gate2", "b1", "b2", "w1_scale", "w2_scale")}
+    x2 = attn_block_decode(x, ln1, ln1_b, wq, wout, kc2, vc2, mask, **attn)
+    x2 = x2[0] if fused_qkv else x2
+    y2 = fused_mlp(x2, w1, w2, ln_scale=ln2, ln_bias=ln2_b, residual=x2, gate=kw.get("gate2"), b1=kw.get("b1"),
+                   b2=kw.get("b2"), w1_scale=kw.get("w1_scale"), w2_scale=kw.get("w2_scale"))
+    assert torch.equal(y, y2) and torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+# SwiGLU (the gated instance) with silu; relu alone (the runtime-activation
+# instance); a hidden size of 16,384 (the down-projection on CUDA cores in bf16)
+@pytest.mark.parametrize("swiglu,act,k2", [(True, "silu", 1024), (False, "relu", 1024), (False, "gelu", 16384)])
+def test_fused_layer_decode_forms(gen, swiglu, act, k2, dtype):
+    args, kw = layer_operands(gen, 8, 256, 4, 64, k2, 64, False, dtype, swiglu=swiglu, act=act)
+    for g, w in zip(run_layer(args, kw), run_layer(args, kw, "cpu")):
+        close(g, w)
+
+
+def test_fused_layer_decode_in_a_cuda_graph(gen):
+    """The cooperative launch captures into a CUDA graph, and a replay reads
+    the slot from the device."""
+    args, kw = layer_operands(gen, 8, 256, 4, 64, 1024, 64, True, torch.bfloat16)
+    want = run_layer(args, kw)
+    kc, vc = args[5].clone(), args[6].clone()
+    live = args[:5] + [kc, vc] + args[7:]
+    fused_layer_decode(*live, **kw)
+    torch.cuda.synchronize()
+    kc.copy_(args[5])
+    vc.copy_(args[6])
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fused_layer_decode(*live, **kw)
+    kc.copy_(args[5])
+    vc.copy_(args[6])
+    g.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, want))

@@ -202,5 +202,5 @@ def test_build_names_every_source():
     from open_flamingo_tpu_torch.ops import build
 
     assert build.sources() == ["attention_backward", "decode_attention", "decode_layer", "dense_stream",
-                               "layer_norm", "prefill_attention", "vit_attention"]
+                               "fused_layer", "layer_norm", "prefill_attention", "vit_attention"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
