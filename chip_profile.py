@@ -16,7 +16,8 @@ port spends its time on the card.
     python3 chip_profile.py vit        # K9, K10 and the ViT-L/14 forward alone (B 8, 32), kernels and plain
     python3 chip_profile.py k2         # plain K2 and K3 at OF-3B's shapes (bf16, int8, int4): the parent/change A/B
     python3 chip_profile.py absorb     # an absorbing decode step against a plain one; the next batch's ViT
-                                       # serial, as side tiles, and on a second CUDA stream
+                                       # serial, as side tiles, and on a second CUDA stream; the B 64
+                                       # int4 + W8A8 pipe, with and without ATTN_CARRIERS
 
 Builds OF-3B (OF-4B for `of4b`; chip_smoke.py's LLaMA-7B and OPT-1.3B
 configurations for `llama` and `opt`) at full width with random weights
@@ -64,7 +65,13 @@ next batch's encode three ways, host clock to a synchronize, in turns:
 generate followed by embed_vision (serial), generate(next_pixels=) (side
 tiles), and embed_vision enqueued on a second CUDA stream before generate
 on the default one (a measurement only: the package has no second-stream
-path); then one traced call of each form, device time by kind.
+path); then one traced call of each form, device time by kind. Then the
+JAX package's pipe (`bench.py` `b64_i4_pipe`) at B 64: int4 decode weights
+with the ViT's int8 side-car (`quantize_prefill_weights(model, 4)`), W8A8
+prefill, the current batch's latents given; with K2 carriers alone and with
+`ATTN_CARRIERS` (K3 carrying half the W8A8 tiles): the absorbing step's
+device time by kind against the plain step, and one traced pipe call
+against one traced serial call (generate, then a W8A8 `embed_vision`).
 
 Run from the repository root with one CUDA card; imports nothing of JAX.
 """
@@ -167,11 +174,12 @@ def k2_times() -> int:
 
 
 def absorb_times() -> int:
-    from chip_smoke import (B, NEW_TOKENS, T_PROMPT, build_model, card_line, make_inputs, model_config,
-                            next_pixels)
+    from chip_smoke import (B, NEW_TOKENS, T_PROMPT, attn_carriers, build_model, card_line, make_inputs,
+                            model_config, next_pixels, w8a8_prefill)
     from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate, prefill
     from open_flamingo_tpu_torch.models.absorb_vit import SideHook, make_plan, patch_embed_flat
     from open_flamingo_tpu_torch.models.flamingo import count_media
+    from open_flamingo_tpu_torch.quantize import quantize_prefill_weights
 
     dev = torch.device("cuda", 0)
     cfg = model_config("OF-3B")
@@ -180,16 +188,18 @@ def absorb_times() -> int:
     next_px = next_pixels(cfg, dev)
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
     plan = make_plan(cfg, next_px.shape[:3], NEW_TOKENS)
-    kinds = (("K2 + K2b side tiles", ("side_kernel",)), ("K2/K1 row GEMV", ("gemv",)),
+    kinds = (("K2 / K3 + side tiles", ("side_kernel",)), ("K2/K1 row GEMV", ("gemv",)),
              ("K8 flat_vit_attention", ("vit_attn_bf16<64, true>",)), ("K3 attend", ("attend_kernel",)),
              ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "splitK")), ("copy", ("copy", "Memcpy", "Memset")),
              ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
-    with torch.no_grad():
-        lat = model.embed_vision(vision_x)
+
+    def step_profile(label, lat, ids, mask, next_px, plan):
+        """One decode step carrying ViT layer 0 against the same step plain,
+        device time by kind of one traced step each."""
         logits, cache = prefill(model, lat, ids, mask, T_PROMPT + NEW_TOKENS)
         tok = logits[:, -1].argmax(-1, keepdim=True)
         n_media = count_media(ids, cfg.media_token_id)
-        ones = torch.ones(B, 1, dtype=torch.long, device=dev)
+        ones = torch.ones(ids.shape[0], 1, dtype=torch.long, device=dev)
         xw = patch_embed_flat(model.vision_encoder, next_px.reshape(plan.bv, *next_px.shape[3:]), plan)
 
         def step(side):
@@ -198,13 +208,18 @@ def absorb_times() -> int:
             if hook is not None:
                 hook.result()
 
-        row = {"profile": "absorb_step_bf16", "plan": {"per_step": plan.per_step, "macro": plan.macro,
-                                                       "slots_per_layer": plan.slots_per_layer, "m_pad": plan.m_pad}}
+        row = {"profile": label, "batch": ids.shape[0], "plan": {
+            "per_step": plan.per_step, "macro": plan.macro, "slots_per_layer": plan.slots_per_layer,
+            "m_pad": plan.m_pad, "attn_carriers": plan.attn_carriers}}
         for side in (False, True):
             step(side)
             torch.cuda.synchronize()
             row["absorbing" if side else "plain"] = device_time_by_kind(lambda: step(side), kinds)
         print(json.dumps(row), flush=True)
+
+    with torch.no_grad():
+        lat = model.embed_vision(vision_x)
+        step_profile("absorb_step_bf16", lat, ids, mask, next_px, plan)
 
         def serial():
             flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
@@ -239,6 +254,34 @@ def absorb_times() -> int:
         print(json.dumps({"profile": "absorb_forms_traced_bf16",
                           **{name: {k: v for k, v in t.items() if k != "top"} for name, t in traced.items()}}),
               flush=True)
+
+        # the pipe at B 64: int4 decode, the ViT's int8 side-car, W8A8 prefill, latents given
+        quantize_prefill_weights(model, 4)
+        b = 64
+        vision_x, ids, mask = make_inputs(cfg, dev, b)
+        next_px = next_pixels(cfg, dev, b)
+        with w8a8_prefill():
+            lat = model.embed_vision(vision_x)
+            for carriers in (False, True):
+                with attn_carriers(carriers):
+                    plan = make_plan(cfg, next_px.shape[:3], NEW_TOKENS)
+                    label = "pipe_int4_w8a8" + ("_attn" if carriers else "")
+                    step_profile(f"{label}_step", lat, ids, mask, next_px, plan)
+
+                    def pipe():
+                        flamingo_generate(model, None, ids, mask, gcfg, media_latents=lat, next_pixels=next_px,
+                                          device=dev)
+
+                    def serial():
+                        flamingo_generate(model, None, ids, mask, gcfg, media_latents=lat, device=dev)
+                        model.embed_vision(next_px)
+
+                    pipe()
+                    serial()
+                    traced = {"pipe": device_time_by_kind(pipe, kinds), "serial": device_time_by_kind(serial, kinds)}
+                    print(json.dumps({"profile": f"{label}_call", "batch": b, "new_tokens": NEW_TOKENS,
+                                      **{name: {k: v for k, v in t.items() if k != "top"}
+                                         for name, t in traced.items()}}), flush=True)
     print(card_line(), flush=True)
     return 0
 

@@ -57,7 +57,14 @@ Phases, each printing JSON lines:
               gated xattn layers (B 1, 8, 13) and MPT-7B's layer with bf16,
               int8 and int4 weights against reference_fused_layer, repeated
               on fresh caches (same bits each time), in fp32 bit for bit
-              against the K3 + K2 kernel route, timed beside that route;
+              against the K3 + K2 kernel route, timed beside that route.
+              The W8A8 side tile (K2b int8) and K3 as a carrier (K2b-attn,
+              w8a8_kernel_cases) at every slot kind on K2 and K3 launches,
+              B' 8 and the pipe's B 64: carriers bit for bit, the tile's
+              int8 activations read back (each equal to the plain
+              version's, or one step apart at a rounding boundary) and the
+              tile held to the allowance the plain version's boundary
+              activations give;
      vit      ViT-L/14 alone (random weights): fp32 patch tokens with K9/K10
               against plain_path() (VIT_RTOL) and their launches (24, 48);
               bf16 device time of one forward at B 8 and 32 with the kernels
@@ -104,7 +111,18 @@ Phases, each printing JSON lines:
               absorbed workspace against plain_path()'s (ABSORB_BF16_RTOL),
               one absorbing step under the sync debug mode "error", B 8 and
               32 and int4 B 8 timed against generate + a serial
-              embed_vision with exact launch counts per variant.
+              embed_vision with exact launch counts per variant. Then (a)
+              fp32 with ATTN_CARRIERS (plan 24 / 12 / 3, K3 and K2 144
+              tiles each, tokens and latents as above), (b) fp32 with the
+              int8 side-car (288 W8A8 tiles, latents within
+              W8A8_ABSORB_RTOL of plain_path()'s, 1e-6-0.1 from the
+              unquantized embed_vision), (c) `phase_pipe`: the JAX
+              package's b64_i4_pipe at full width, bf16 OF-3B B 64, int4 +
+              W8A8 prefill + W8A8 tiles, latents fed forward and each
+              call's within 0.1 of the serial W8A8 embed_vision's, the
+              median of 5 calls in turns against the serial form, with and
+              without ATTN_CARRIERS, exact launches, a sync-free absorbing
+              step.
      quantized  (the variants were checked in phase 2: `quant_kernel_cases`,
               int8 / packed int4 weights with per-channel scales and the
               int8 caches, the slot's written int8 row within one step of
@@ -119,7 +137,9 @@ Phases, each printing JSON lines:
               states: paired_step_logits). bf16 timed with exact launch
               counts per variant, the drift against the unquantized call
               (OF-3B and LLaMA-7B gated: int8 mean KL < 1e-3, int4 < 0.1),
-              one int8-cache step under the sync debug mode "error".
+              one int8-cache step under the sync debug mode "error";
+              W8A8 prefill's drift (OF-3B, `w8a8_drift`: int8 + W8A8 KL <
+              1e-2, int4 + W8A8 < 0.1).
   4. train    the full-width OF-3B training step (`make_train_step`) on
               random weights, LAION 8x32 with one image and MMC4 4x256 with
               six (uint8 pixels, <|endofchunk|> then <image> mid-row, right
@@ -153,12 +173,13 @@ import torch.nn.functional as F
 
 from open_flamingo_tpu_torch.configs import VIT_L_14, DecoderConfig, FlamingoConfig, flamingo_config
 from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate, greedy_absorb, prefill
+from open_flamingo_tpu_torch.models import absorb_vit
 from open_flamingo_tpu_torch.models.absorb_vit import SideHook, make_plan, patch_embed_flat
 from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes, quantize_kv
 from open_flamingo_tpu_torch.models.flamingo import count_media, init_random
 from open_flamingo_tpu_torch.models.layers import layer_norm
 from open_flamingo_tpu_torch.models.vit import VisionTransformer
-from open_flamingo_tpu_torch.ops import build, dense_stream
+from open_flamingo_tpu_torch.ops import build, dense_stream, w8a8
 from open_flamingo_tpu_torch.ops import fused_layer as fl_op
 from open_flamingo_tpu_torch.ops import layer_norm as ln_op
 from open_flamingo_tpu_torch.ops import vit_attention as vit_op
@@ -168,7 +189,7 @@ from open_flamingo_tpu_torch.ops.decode_attention import (
 from open_flamingo_tpu_torch.ops.decode_layer import (
     attend_out_decode, attn_block_decode, reference_attend_out, reference_attn_block)
 from open_flamingo_tpu_torch.ops.dense_stream import (
-    fused_dense, fused_mlp, normalize, reference_dense, reference_mlp, reference_side_tile)
+    fused_dense, fused_mlp, normalize, reference_dense, reference_mlp, reference_side_tile, side_activations)
 from open_flamingo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward, reference_attention,
     reference_attention_backward)
@@ -179,7 +200,8 @@ from open_flamingo_tpu_torch.ops.masked_xattn import (
 from open_flamingo_tpu_torch.ops.vit_attention import (
     flat_vit_attention, reference_flat_vit_attention, reference_heads, vit_attention, vit_attention_heads)
 from open_flamingo_tpu_torch.quantize import (
-    dequantize_roundtrip, drop_decode_weights, pack_int4, quantize_decode_weights, quantize_weight)
+    dequantize_roundtrip, drop_decode_weights, pack_int4, quantize_decode_weights, quantize_prefill_weights,
+    quantize_weight, w8a8_weight)
 from open_flamingo_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer, split_params
 from open_flamingo_tpu_torch.train.train_loop import TrainLoopConfig, TrainState, batch_losses, make_train_step
 
@@ -207,6 +229,17 @@ LOGITS_TOL = 2e-3   # fp32 logits through 24 decoder + 24 xattn layers, every st
 # land one bf16 ulp (2^-8 relative) apart and 24 residual layers carry those flips. A wrong slot, mask,
 # scale or stride moves entries by the order of the largest one.
 ABSORB_BF16_RTOL = 5e-2
+# fp32 absorbed next latents with the W8A8 side tiles, kernels vs plain_path(): max |diff| within 1e-2 of the
+# largest entry. Kernel and plain version round the same int32 sums at the same points, so they part only where
+# an activation's quotient lies within ~1e-5 of a rounding boundary and lands one int8 step apart (the LayerNorm
+# statistics and quick_gelu taken in another order); each such step moves one tile output by ~1e-3 of its row's
+# scale, and 24 residual layers carry a few of them. A wrong scale, slice or stride moves entries by the order
+# of the largest one; the int8 grid itself moves them by up to 0.1 (the JAX gate).
+W8A8_ABSORB_RTOL = 1e-2
+# a W8A8 activation's quotient act(LN?(x)) / s_act within this of a .5 may round one int8 step the other way in
+# the kernel (its fp32 LayerNorm statistics and activation ~1e-6 relative apart: ~1e-4 of a step at |q| 127);
+# any other activation must come out equal, and none more than one step apart
+W8A8_NEAR = 1e-3
 # fp32 ViT output and latents, kernels (K9, K10) vs plain_path(): max |diff| within
 # 1e-4 of the largest entry. Each block's K9/K10 sum in another order than the
 # plain version (~1e-6 relative), and 24 residual blocks (and the perceiver
@@ -249,11 +282,17 @@ VIT_TIMED = {"vitl14_B8", "vitl14_B32", "S17", "vitl14_B8_nobias"}
 # the absorbed ViT's (absorb_kernel_cases): K8 at the next batch's B' 8 and 32, K2b on OF-3B's carriers
 ABSORB_TIMED = {"of3b_next_B32", "mpt_mlp_side_qkv", "mpt_mlp_side_fc2", "mpt_mlp_int8_side_qkv",
                 "mpt_mlp_int4_side_qkv", "mpt_mlp_int4_side_fc2", "xattn_ff_side_qkv"}
+# the W8A8 side tile and K3 as a carrier (w8a8_kernel_cases), at the pipe's carriers
+W8A8_TIMED = {"mpt_mlp_side8_qkv", "mpt_mlp_int8_side8_qkv", "mpt_mlp_int4_side8_qkv", "mpt_mlp_int4_side8_fc2",
+              "self_S64_slot40_side8_qkv", "self_S64_slot40_int4_side8_qkv", "self_S64_slot40_int8_kv8_side8_qkv",
+              "self_S64_slot40_side", "xattn_S64_gate_int4_side8_qkv", "xattn_S64_gate_side",
+              "mpt_mlp_int4_B64_side8_qkv", "mpt_mlp_int4_B64_side8_fc2", "self_S64_slot40_int4_B64_side8_qkv",
+              "xattn_S64_gate_int4_B64_side8_qkv"}
 # K11's (layer_kernel_cases): OF-3B's xattn layer, MPT-7B's layer, the int weights
 LAYER_TIMED = {f"{case}{sfx}" for case in ("mpt_layer_S64_slot40", "xattn_layer_S64", "mpt7b_layer_S64_slot40")
                for sfx in ("", "_int8", "_int4")}
 TIMED_CASES = ({case for case, _ in MAIN_CASES.values()} | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED | QUANT_TIMED
-               | LLAMA_OPT_TIMED | VIT_TIMED | ABSORB_TIMED | LAYER_TIMED)
+               | LLAMA_OPT_TIMED | VIT_TIMED | ABSORB_TIMED | W8A8_TIMED | LAYER_TIMED)
 BWD_TIMED = {"laion_T32", "mmc4_T256"}
 # the OF-3B train step at the JAX package's bench shape (bench.py:494)
 B_L, T_L, B_M, T_M, N_IMG, TRAIN_PAD = 8, 32, 4, 256, 6, 1
@@ -369,11 +408,16 @@ def left_padded_mask(b, t, pads, device):
 
 def compare(name, case, dtype, got, want, exact=None, tol=None):
     """`exact(got)`: the case's rows that must come out exactly (rows with
-    no valid key: zeros, or x itself after K3's residual)."""
+    no valid key: zeros, or x itself after K3's residual). `tol`: TOL's
+    form, "ulp", or (allowance tensor, relative part) of a W8A8 tile."""
     tol = tol or TOL[dtype]
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
-    if tol == "ulp":        # one bf16 ulp (8 significant bits) of the plain result
+    if isinstance(tol, tuple):
+        allow, rel = tol
+        ok = bool((diff <= allow + rel * want.float().abs() + 1e-6).all())
+        tol = {"w8a8_allowance_max": allow.max().item(), "rtol": rel}
+    elif tol == "ulp":        # one bf16 ulp (8 significant bits) of the plain result
         mag = want.float().abs().clamp(min=BF16_ULP_FLOOR)
         ok = bool((diff <= torch.exp2(torch.floor(torch.log2(mag)) - 7)).all())
     else:
@@ -1204,6 +1248,230 @@ def absorb_kernel_cases(dtype, gen, dev):
                        None, cost, lib, "F.linear x3: the carrier's two products (bf16 weights) and the tile's alone")
 
 
+def w8a8_near(skw):
+    """The plain version's int8 activations of a W8A8 tile and the ones at a
+    rounding boundary: (q_plain, s_act, near), `near` (M, K) True where the
+    quotient act(LN?(x)) / s_act lies within W8A8_NEAR of a .5. Only there
+    may the kernel's activation land one step away: its LayerNorm
+    statistics and activation sum in another order (~1e-6 relative, ~1e-4
+    of a step at |q| 127)."""
+    sh = side_activations(skw["side_x"], skw.get("side_ln"), skw.get("side_eps", 1e-5), skw.get("side_act"))
+    q_p, s_p = w8a8.quantize_activations(sh)
+    mag = (sh / s_p).abs()
+    return q_p, s_p, ((mag - mag.floor()) - 0.5).abs() < W8A8_NEAR
+
+
+def identity_flips(tile, skw, q_p, s_p):
+    """The W8A8 tile's int8 activations, read back: `tile(**kw)` (the
+    kernel's launch) with side_w the int8 identity and unit scales, no bias
+    or residual, gives q * s_act per element; divided by the plain version's
+    s_act and rounded that is the kernel's q exactly (|q| <= 127 keeps 7
+    bits, bf16 rounds q * s_act by at most 2^-9 of it). Returns
+    |q_kernel - q_plain| per activation (int32, (M, K))."""
+    sk = skw["side_x"].shape[1]
+    eye = torch.eye(sk, dtype=torch.int8, device=skw["side_x"].device)
+    ones = torch.ones(sk, dtype=torch.float32, device=eye.device)
+    kw = {key: skw[key] for key in ("side_x", "side_ln", "side_act", "side_eps") if key in skw}
+    so = tile(**kw, side_w=eye, side_w_scale=ones)
+    return (torch.round(so.float() / s_p).int() - q_p.int()).abs()
+
+
+def w8a8_allowance(near, s_act, side_w, side_w_scale, dtype):
+    """The W8A8 tile's tolerance per element (M, SN), from the plain
+    version's activations and the weights alone: each activation at a
+    rounding boundary (`near`) may land one step apart and move the output
+    by s_act * |w_q[n, k]| * w_scale[n] (with identical activations kernel
+    and plain version round the same int32 sums at the same points, bit for
+    bit), plus one rounding of the result (bf16: 2^-7 of it; fp32: 1e-6)."""
+    reach = near.float() @ side_w.float().abs().t()
+    return reach * s_act * side_w_scale[None], (2.0**-7 if dtype == torch.bfloat16 else 1e-6)
+
+
+def w8a8_kernel_cases(dtype, gen, dev):
+    """K2b int8, the W8A8 side tile, and K2b-attn, K3 as a carrier, at the
+    OF-3B pipe's shapes: the decode batch and the next batch B 8 (a 2,112-row
+    tile) and B 64 (16,896 rows, the pipe's); K = N = 1,024. At B 8 each slot
+    kind with its int8 ViT weights and scales (q/k/v with LayerNorm 1 and
+    bias; the out-projection with the workspace residual, a column block of a
+    wider workspace (a row stride); an fc1 row block with LayerNorm 2; an fc2
+    column block of the (1024, 4096) weight, read with its row stride, with
+    quick_gelu, the bias and the residual chain) on OF-3B's MPT MLP carrier
+    with bf16, int8 and int4 weights; the q/k/v and fc2 kinds on K3 (MPT's
+    fused-QKV self-attention at slot 40 of 64 with ALiBi and clip, bf16,
+    int4 and int8 over the int8 cache; the gated q-only block over 64
+    latents, bf16 and int4), and K3 with the tile in x's dtype. At B 64 the
+    pipe's int4 carriers with the q/k/v and fc2 kinds. Each case: the
+    carrier's own outputs (y, and the caches K3 writes) bit for bit those of
+    the launch without a tile; the kernel's int8 activations, read back by
+    `identity_flips`, equal to the plain version's or one step apart at a
+    rounding boundary (`w8a8_near`); the tile against reference_side_tile
+    within `w8a8_allowance` of the plain version's boundary activations. `fn.carrier` is the launch alone;
+    `fn.tile_cost` the tile's bytes and bf16-equivalent operations (int8
+    runs at twice bf16's rate: 1,979 TOP/s). The library call: the
+    carrier's products (F.linear, or K3 alone) and torch._int_mm on the
+    pre-quantized operands with the two scale multiplies (F.linear for the
+    tile in x's dtype). Yields as kernel_cases."""
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    v = VIT_L_14
+    d, inter, s_pad = v.hidden_size, v.intermediate_size, -(-(v.num_patches + 1) // 8) * 8
+    dm, k2 = 2048, 8192
+    ln, ln_b = 1 + rn(dm, scale=0.1), rn(dm, scale=0.1)
+    gate = torch.tensor([0.5], device=dev, dtype=dtype)
+    w1f, w2f = rn(k2, dm, scale=dm**-0.5), rn(dm, k2, scale=k2**-0.5)
+    (q_qkv, s_qkv), (q_fc1, s_fc1), (q_fc2, s_fc2) = (
+        quantize_weight(w.float(), 8) for w in (rn(d, d, scale=d**-0.5), rn(inter, d, scale=d**-0.5),
+                                                rn(d, inter, scale=inter**-0.5)))
+    s_ln, bias, w_float = (1 + rn(d, scale=0.1), rn(d, scale=0.1)), rn(d, scale=0.1), rn(d, d, scale=d**-0.5)
+    h, dh, s, slot = 16, 128, 64, 40            # MPT-1B's self-attention, slot 40 of 64
+    hx, dhx, sx = 8, 64, 64                     # the gated block over 64 latents
+    wqkv_f, wout_f = rn(3 * dm, dm, scale=dm**-0.5), rn(dm, dm, scale=dm**-0.5)
+    wq_x, wo_x = rn(hx * dhx, dm, scale=dm**-0.5), rn(dm, hx * dhx, scale=(hx * dhx) ** -0.5)
+    slot_t = torch.tensor([slot], dtype=torch.int32, device=dev)
+    self_kw = dict(heads=h, head_dim=dh, scale=dh**-0.5, fused_qkv=True, slot=slot_t,
+                   slopes=torch.from_numpy(alibi_slopes(h)).to(dev), clip=6.0)
+    x_kw = dict(heads=hx, head_dim=dhx, scale=dhx**-0.5, gate=gate)
+    stored = {bits: (qweight(w1f, bits), qweight(w2f, bits), qweight(wqkv_f, bits), qweight(wout_f, bits),
+                     qweight(wq_x, bits), qweight(wo_x, bits)) for bits in (8, 4)}
+
+    def plain(skw):
+        return lambda: reference_side_tile(**skw)
+
+    def at_batch(bd, sfx, mlp_bits, k3_forms, slot_kinds):
+        """The cases at decode batch and next batch `bd`."""
+        m = bd * s_pad
+        x = rn(bd, dm)
+        xw, att, h_in, res_wide = rn(m, d, scale=2.0), rn(m, d), rn(m, d), rn(m, 2 * d)
+        slots = {
+            "qkv": dict(side_x=xw, side_w=q_qkv, side_w_scale=s_qkv, side_ln=s_ln, side_b=bias),
+            "out": dict(side_x=att, side_w=q_qkv, side_w_scale=s_qkv, side_b=bias, side_residual=res_wide[:, d:]),
+            "fc1": dict(side_x=xw, side_w=q_fc1[d:2 * d], side_w_scale=s_fc1[d:2 * d], side_ln=s_ln, side_b=bias),
+            "fc2": dict(side_x=h_in, side_w=q_fc2[:, d:2 * d], side_w_scale=s_fc2, side_act="quick_gelu",
+                        side_b=bias, side_residual=res_wide[:, :d]),
+        }
+        tile_ops = 2 * m * d * d
+
+        def tile_bytes(skw):
+            """side_x and side_out, the weight (int8 with its scales, or in x's
+            dtype), the vectors, the residual."""
+            w = d * d + 4 * d if "side_w_scale" in skw else d * d * es
+            return (2 * m * d + 3 * d + (m * d if "side_residual" in skw else 0)) * es + w
+
+        def case(name, kernel, tile, carrier, skw, carrier_cost, carrier_lib, outputs):
+            """One W8A8 case: `tile(**skw)` runs the carrier with the tile and
+            returns its outputs with side_out last; `outputs()` the carrier's
+            outputs without it."""
+            got = tile(**skw)
+            require(all(torch.equal(g, w) for g, w in zip(got[:-1], outputs())),
+                    f"{kernel}/{name}/{dtype}: the side tile moved the carrier's outputs")
+            q_p, s_act, near = w8a8_near(skw)
+            steps = identity_flips(lambda **kw: tile(**kw)[-1], skw, q_p, s_act)
+            n_flip, n_near, n_stray = int((steps > 0).sum()), int(near.sum()), int(((steps > 0) & ~near).sum())
+            log({"phase": "kernels", "kernel": kernel, "case": name, "dtype": str(dtype).split(".")[-1],
+                 "w8a8_activations_differing": n_flip, "of": steps.numel(), "near_boundary": n_near,
+                 "differing_off_boundary": n_stray, "max_step": int(steps.max())})
+            require(int(steps.max()) <= 1 and n_stray == 0,
+                    f"{kernel}/{name}/{dtype}: {n_flip} int8 activations differ from the plain version's, "
+                    f"{n_stray} of them off a rounding boundary, up to {int(steps.max())} steps")
+            fn = lambda: tile(**skw)[-1]
+            fn.carrier = carrier
+            fn.tile_cost = (tile_bytes(skw), tile_ops / 2)
+            fn.allow = w8a8_allowance(near, s_act, skw["side_w"], skw["side_w_scale"], dtype)
+            # the library's tile: torch._int_mm on the pre-quantized rows and a contiguous copy of the weight
+            q_pre, s_pre = w8a8.quantize_activations(side_activations(skw["side_x"], skw.get("side_ln"), 1e-5,
+                                                                      skw.get("side_act")))
+            wq = skw["side_w"].contiguous()
+            lib = lambda: (carrier_lib(), torch._int_mm(q_pre, wq.t()).float() * s_pre * skw["side_w_scale"])
+            return (kernel, name, fn, plain(skw), None, (carrier_cost[0] + tile_bytes(skw), carrier_cost[1] + tile_ops / 2),
+                    lib, "the carrier's products (F.linear, or K3 alone) + torch._int_mm on the pre-quantized "
+                    "operands and the two scale multiplies")
+
+        # K2 carriers: MPT-1B's MLP
+        for bits in mlp_bits:
+            wtag = "" if bits is None else f"_int{bits}"
+            if bits is None:
+                w1, w2, mkw, wbytes = w1f, w2f, {}, 2 * dm * k2 * es
+            else:
+                (w1, s1, n1), (w2, s2, n2) = stored[bits][:2]
+                mkw, wbytes = dict(w1_scale=s1, w2_scale=s2), n1 + n2
+            ckw = dict(ln_scale=ln, residual=x, **mkw)
+            main = lambda w1=w1, w2=w2, ckw=ckw: fused_mlp(x, w1, w2, **ckw)
+            for slot_kind in slot_kinds:
+                yield case(f"mpt_mlp{wtag}{sfx}_side8_{slot_kind}", "fused_mlp",
+                           lambda w1=w1, w2=w2, ckw=ckw, **kw: fused_mlp(x, w1, w2, **ckw, **kw), main,
+                           slots[slot_kind], (wbytes + (2 * bd * dm + 2 * dm) * es, 4 * bd * dm * k2),
+                           lambda: F.linear(F.linear(x, w1f), w2f), lambda main=main: (main(),))
+
+        # K3 carriers
+        k0, v0 = rn(bd, h, s, dh), rn(bd, h, s, dh)
+        mask = left_padded_mask(bd, s, [0, 3], dev)
+        mask[:, slot + 1:] = False
+        km, vm = rn(bd, hx, sx, dhx), rn(bd, hx, sx, dhx)
+        mmask = torch.ones(bd, sx, dtype=torch.bool, device=dev)
+        mmask[3] = False
+        for form, bits, kv8 in k3_forms:
+            wtag = ("" if bits is None else f"_int{bits}") + ("_kv8" if kv8 else "")
+            if bits is None:
+                wq, wo = (wqkv_f, wout_f) if form == "self" else (wq_x, wo_x)
+                qkw, wbytes = {}, (wq.numel() + wo.numel()) * es
+            else:
+                (wq, sq, nq), (wo, so_, no) = stored[bits][2:4] if form == "self" else stored[bits][4:]
+                qkw, wbytes = dict(wq_scale=sq, wout_scale=so_), nq + no
+            if form == "self":
+                if kv8:
+                    (kq, ks), (vq, vs) = quantize_kv(k0.float()), quantize_kv(v0.float())
+                    caches = (kq, vq, ks, vs)
+                else:
+                    caches = (k0.clone(), v0.clone(), None, None)
+                kw = dict(self_kw, **qkw, k_scale=caches[2], v_scale=caches[3])
+                n_valid = int(mask.sum())     # (b, s) cache rows read, each of H heads
+                cache_bytes = 2 * n_valid * h * (dh + 4) if kv8 else 2 * n_valid * h * dh * es
+                ccost = (wbytes + 2 * bd * dm * es + cache_bytes, 8 * bd * dm * dm + 4 * n_valid * h * dh)
+                cname, mask_, lnb_ = f"self_S64_slot40{wtag}{sfx}", mask, None
+            else:
+                caches = (km, vm, None, None)
+                kw = dict(x_kw, **qkw)
+                n_valid = int(mmask.sum())
+                ccost = (wbytes + (2 * bd * dm + 2 * n_valid * hx * dhx) * es,
+                         4 * bd * dm * hx * dhx + 4 * n_valid * hx * dhx)
+                cname, mask_, lnb_ = f"xattn_S64_gate{wtag}{sfx}", mmask, ln_b
+
+            def k3(caches=caches, kw=kw, wq=wq, wo=wo, mask_=mask_, lnb_=lnb_, **skw):
+                out = attn_block_decode(x, ln, lnb_, wq, wo, caches[0], caches[1], mask_, **kw, **skw)
+                return out if isinstance(out, tuple) else (out,)
+
+            # the carrier's outputs without a tile, from copies of the caches (K3 writes its slot in place)
+            def outputs(caches=caches, kw=kw, wq=wq, wo=wo, mask_=mask_, lnb_=lnb_):
+                c = [None if t is None else t.clone() for t in caches]
+                kwc = dict(kw, **({"k_scale": c[2], "v_scale": c[3]} if c[2] is not None else {}))
+                out = attn_block_decode(x, ln, lnb_, wq, wo, c[0], c[1], mask_, **kwc)
+                return (out,) if not isinstance(out, tuple) else out
+
+            carrier = lambda k3=k3: k3()[0]
+            for slot_kind in ("qkv", "fc2"):
+                yield case(f"{cname}_side8_{slot_kind}", "attn_block_decode", k3, carrier, slots[slot_kind], ccost,
+                           carrier, outputs)
+            if bits is None:     # K2b-attn with the tile in x's dtype
+                float_tile = dict(side_x=xw, side_w=w_float, side_ln=s_ln, side_b=bias)
+                got = k3(**float_tile)
+                require(all(torch.equal(g, w) for g, w in zip(got[:-1], outputs())),
+                        f"attn_block_decode/{cname}_side/{dtype}: the side tile moved the carrier's outputs")
+                fn = lambda k3=k3, float_tile=float_tile: k3(**float_tile)[-1]
+                fn.carrier = carrier
+                fn.tile_cost = (tile_bytes(float_tile), tile_ops)
+                hn = layer_norm(xw, *s_ln)
+                yield ("attn_block_decode", f"{cname}_side", fn, plain(float_tile), None,
+                       (ccost[0] + tile_bytes(float_tile), ccost[1] + tile_ops),
+                       lambda carrier=carrier, hn=hn: (carrier(), F.linear(hn, w_float)),
+                       "K3 alone + F.linear for the tile")
+
+    yield from at_batch(B, "", (None, 8, 4), (("self", None, False), ("self", 4, False), ("self", 8, True),
+                                              ("xattn", None, False), ("xattn", 4, False)), ("qkv", "out", "fc1", "fc2"))
+    yield from at_batch(64, "_B64", (4,), (("self", 4, False), ("xattn", 4, False)), ("qkv", "fc2"))
+
+
 def layer_kernel_cases(dtype, gen, dev):
     """K11 fused_layer_decode, a whole decode layer in one launch: OF-3B's
     MPT-1B layer (D 2048, 16 heads of Dh 128, MLP 8,192, ALiBi, slot 40 of a
@@ -1355,12 +1623,13 @@ def phase_kernels(dev) -> dict:
         cases = itertools.chain(kernel_cases(dtype, gen, dev), neox_kernel_cases(dtype, gen, dev),
                                 quant_kernel_cases(dtype, gen, dev), llama_opt_kernel_cases(dtype, gen, dev),
                                 vit_kernel_cases(dtype, gen, dev), absorb_kernel_cases(dtype, gen, dev),
-                                layer_kernel_cases(dtype, gen, dev))
+                                w8a8_kernel_cases(dtype, gen, dev), layer_kernel_cases(dtype, gen, dev))
         for name, case, fn, plain, exact, cost, lib, lib_is in cases:
             got, launched = launched_variant(functions[name], fn)
             torch.cuda.synchronize()
             want = plain()
-            err = compare(name, case, dtype, got, want, exact, CASE_TOL.get(name, {}).get(dtype))
+            err = compare(name, case, dtype, got, want, exact,
+                          getattr(fn, "allow", None) or CASE_TOL.get(name, {}).get(dtype))
             vocab = re.search(r"_V(\d+)", case)
             if vocab:                                   # the ragged last columns, past the 2048-wide blocks
                 c0 = int(vocab.group(1)) // 2048 * 2048
@@ -1374,7 +1643,7 @@ def phase_kernels(dev) -> dict:
             row = {"ms": device_ms(fn), "call_ms": call_ms(fn), "plain_ms": device_ms(plain),
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None if lib is None else device_ms(lib),
                    "library_is": lib_is, "max_abs_err": err, "case": case, "variant": launched}
-            if hasattr(fn, "carrier"):      # K2b: the carrier launch alone, and the tile's own bound
+            if hasattr(fn, "carrier"):      # K2b (and K2b-attn): the carrier launch alone, and the tile's own bound
                 row["carrier_ms"] = device_ms(fn.carrier)
                 row["exposed_ms"] = row["ms"] - row["carrier_ms"]
                 row["tile_bound_ms"], row["tile_bound_by"] = bound(*fn.tile_cost, dtype)
@@ -1927,9 +2196,10 @@ def phase_generate(dev, name="OF-3B"):
     return fused, unfused, variants, more, more_variants
 
 
-def next_pixels(cfg, dev, b=B):
-    """The next batch's images: (b, 1, 1, H, W, 3), one per row."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+def next_pixels(cfg, dev, b=B, batch=0):
+    """The next batch's images: (b, 1, 1, H, W, 3), one per row; `batch`
+    numbers the batches of a pipe."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8 + batch)
     px = cfg.vision.image_size
     return torch.randn(b, 1, 1, px, px, 3, generator=gen, device=dev)
 
@@ -1955,10 +2225,16 @@ def side_variants(variants: dict, key: str, tiles: int) -> dict:
     return {**variants, "fused_mlp": {k: n for k, n in mlp.items() if n}}
 
 
-def sync_free_absorb_step(model, vision_x, ids, mask, next_px, plan) -> None:
+def side_launches() -> int:
+    """The launches of K2 and K3 that carried a side tile ("+side", "+side8")."""
+    return sum(n for fn in (fused_mlp, attn_block_decode) for k, n in fn.variants.items() if "+side" in k)
+
+
+def sync_free_absorb_step(model, vision_x, ids, mask, next_px, plan, latents=None, label="") -> None:
     """One absorbing decode step (ViT layer 0 of the next batch) under the
-    sync debug mode "error": K8 and K2b take no host scalar."""
-    lat = model.embed_vision(vision_x)
+    sync debug mode "error": K8 and the side tiles (K2b, K2b int8, K2b-attn)
+    take no host scalar."""
+    lat = model.embed_vision(vision_x) if latents is None else latents
     logits, cache = prefill(model, lat, ids, mask, T_PROMPT + NEW_TOKENS)
     tok = logits[:, -1].argmax(-1, keepdim=True)
     n_media = count_media(ids, model.cfg.media_token_id)
@@ -1966,7 +2242,7 @@ def sync_free_absorb_step(model, vision_x, ids, mask, next_px, plan) -> None:
     xw = patch_embed_flat(model.vision_encoder, next_px.reshape(plan.bv, *next_px.shape[3:]), plan)
     hook = SideHook(model.vision_encoder.blocks[:plan.per_step], xw, plan)
     torch.cuda.synchronize()
-    k8, side = flat_vit_attention.launches, sum(n for k, n in fused_mlp.variants.items() if k.endswith("+side"))
+    k8, side = flat_vit_attention.launches, side_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         model.decode_step(lat, tok, ones, cache, n_media, side=hook)
@@ -1974,11 +2250,11 @@ def sync_free_absorb_step(model, vision_x, ids, mask, next_px, plan) -> None:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    side = sum(n for k, n in fused_mlp.variants.items() if k.endswith("+side")) - side
+    side = side_launches() - side
     require((flat_vit_attention.launches - k8, side) == (plan.per_step, plan.per_step * plan.slots_per_layer),
-            f"absorbing step launches: K8 {flat_vit_attention.launches - k8}, K2b {side}")
-    log({"phase": "absorb", "dtype": str(model.dtype).split(".")[-1], "absorbing_step_host_syncs": 0,
-         "k8_launches": plan.per_step, "k2b_launches": side})
+            f"absorbing step launches: K8 {flat_vit_attention.launches - k8}, side tiles {side}")
+    log({"phase": "absorb", "dtype": str(model.dtype).split(".")[-1], "label": label, "absorbing_step_host_syncs": 0,
+         "k8_launches": plan.per_step, "side_tile_launches": side})
 
 
 def timed_absorb(model, cfg, b, gcfg, dev, counters, label):
@@ -2062,6 +2338,11 @@ def phase_absorb(dev) -> tuple:
     require(lat_k.shape == serial.shape == (B, 1, cfg.num_vis_latents, cfg.vision.hidden_size), "next_latents shape")
     latents_agree("OF-3B absorbed next_latents vs embed_vision", lat_k, serial, phase="absorb")
     latents_agree("OF-3B absorbed next_latents, kernels vs plain_path", lat_k, lat_p, phase="absorb")
+    paths, vpaths = {}, {}
+    paths["absorb_fp32_attn"], vpaths["absorb_fp32_attn"] = absorb_attn_carriers_fp32(
+        model, cfg, vision_x, ids, mask, next_px, gcfg, counters, tok_plain, serial)
+    vpaths["absorb_fp32_int8"] = absorb_int8_side_car_fp32(model, cfg, vision_x, ids, mask, next_px, gcfg, counters,
+                                                           serial)
     del model, serial, lat_k, lat_p
     torch.cuda.empty_cache()
 
@@ -2075,8 +2356,7 @@ def phase_absorb(dev) -> tuple:
          "tokens_equal": torch.equal(tok_k, tok_p)})
     require(torch.isfinite(xw_k.float()).all().item() and err <= ABSORB_BF16_RTOL * top,
             f"bf16 absorbed workspace: {err} against the largest entry {top}")
-    sync_free_absorb_step(model, vision_x, ids, mask, next_px, plan)
-    paths, vpaths = {}, {}
+    sync_free_absorb_step(model, vision_x, ids, mask, next_px, plan, label="bf16")
     for b in (B, 32):
         launches, variants, plan_b = timed_absorb(model, cfg, b, gcfg, dev, counters, f"OF-3B bf16 B{b}")
         want = dict(route_launches(cfg, counters, fused=True), flat_vit_attention=plan_b.n_vit_layers)
@@ -2091,8 +2371,208 @@ def phase_absorb(dev) -> tuple:
     want_v = side_variants(quant_variants(cfg, 4, False), "int4", plan_b.slots_per_layer * plan_b.n_vit_layers)
     require(variants == want_v, f"int4 absorbed variant launches {variants}, expected {want_v}")
     vpaths["absorb_int4"] = variants
+    more, vmore = phase_pipe(model, cfg, dev, counters)
+    paths.update(more)
+    vpaths.update(vmore)
     del model
     torch.cuda.empty_cache()
+    return paths, vpaths
+
+
+@contextlib.contextmanager
+def attn_carriers(on: bool):
+    """absorb_vit.ATTN_CARRIERS for the block: K3's launches carry tiles too."""
+    prev, absorb_vit.ATTN_CARRIERS = absorb_vit.ATTN_CARRIERS, on
+    try:
+        yield
+    finally:
+        absorb_vit.ATTN_CARRIERS = prev
+
+
+@contextlib.contextmanager
+def w8a8_prefill():
+    """ops.w8a8.ENABLED for the block: prefill and the serial ViT W8A8."""
+    prev, w8a8.ENABLED = w8a8.ENABLED, True
+    try:
+        yield
+    finally:
+        w8a8.ENABLED = prev
+
+
+def absorb_attn_carriers_fp32(model, cfg, vision_x, ids, mask, next_px, gcfg, counters, tok_plain, serial):
+    """(a) fp32 OF-3B with ATTN_CARRIERS: the JAX plan (24 steps, 12 slots,
+    macro 3: xattn K3, xattn K2, MPT K3, MPT K2 a group), tokens identical to
+    the call without next_pixels and to plain_path()'s, next_latents within
+    VIT_RTOL of embed_vision, K8 24 and 144 tiles on each of K3 and K2.
+    Returns (launches, variants) of the call."""
+    with attn_carriers(True):
+        plan = make_plan(cfg, next_px.shape[:3], NEW_TOKENS)
+        require(plan is not None and (plan.n_steps, plan.slots_per_layer, plan.macro) == (24, 12, 3),
+                f"OF-3B absorb plan with attention carriers {plan}")
+        reset_counters(counters)
+        tok, lat = flamingo_generate(model, vision_x, ids, mask, gcfg, next_pixels=next_px, device=model.device)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        variants = {name: dict(fn.variants) for name, fn in counters.items() if hasattr(fn, "variants")}
+        with plain_path():
+            tok_p, lat_p = flamingo_generate(model, vision_x, ids, mask, gcfg, next_pixels=next_px,
+                                             device=model.device)
+    k3, k2 = variants["attn_block_decode"].get("float+side", 0), variants["fused_mlp"].get("float+side", 0)
+    log({"phase": "absorb", "dtype": "float32", "form": "attn_carriers", "plan": dataclasses.asdict(plan),
+         "k8_launches": launches["flat_vit_attention"], "k3_side_launches": k3, "k2_side_launches": k2,
+         "tokens_equal_plain_call": torch.equal(tok, tok_plain), "tokens_equal_plain_path": torch.equal(tok, tok_p)})
+    require((launches["flat_vit_attention"], k3, k2) == (24, 144, 144),
+            f"fp32 attention carriers: K8 {launches['flat_vit_attention']}, K3 tiles {k3}, K2 tiles {k2}")
+    require(torch.equal(tok, tok_plain) and torch.equal(tok, tok_p), "fp32 attention carriers: tokens differ")
+    latents_agree("OF-3B absorbed with attention carriers vs embed_vision", lat, serial, phase="absorb")
+    latents_agree("OF-3B absorbed with attention carriers, kernels vs plain_path", lat, lat_p, phase="absorb")
+    return launches, variants
+
+
+def absorb_int8_side_car_fp32(model, cfg, vision_x, ids, mask, next_px, gcfg, counters, serial):
+    """(b) fp32 OF-3B with quantize_prefill_weights(model, 8): the 288 tiles
+    are W8A8 ("int8+side8"); tokens those of the int8 call without
+    next_pixels and of plain_path()'s; the next latents of the kernels and of
+    plain_path() within W8A8_ABSORB_RTOL of the largest entry, and against
+    the unquantized embed_vision strictly between 1e-6 and 0.1 of it (JAX
+    tests/test_absorb_vit.py test_generate_absorb_int8_side: the int8 path
+    engaged, its grid error bounded). Returns the call's variants; the
+    quantized copies are dropped again."""
+    dev = model.device
+    quantize_prefill_weights(model, 8)
+    try:
+        tok_plain = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+        reset_counters(counters)
+        tok, lat = flamingo_generate(model, vision_x, ids, mask, gcfg, next_pixels=next_px, device=dev)
+        variants = {name: dict(fn.variants) for name, fn in counters.items() if hasattr(fn, "variants")}
+        k8 = counters["flat_vit_attention"].launches
+        with plain_path():
+            tok_p, lat_p = flamingo_generate(model, vision_x, ids, mask, gcfg, next_pixels=next_px, device=dev)
+    finally:
+        drop_decode_weights(model)
+    side8 = variants["fused_mlp"].get("int8+side8", 0)
+    top = serial.abs().max().item()
+    err_kp = (lat - lat_p).abs().max().item()
+    rel_grid = (lat - serial).abs().max().item() / top
+    log({"phase": "absorb", "dtype": "float32", "form": "int8_side_car", "k8_launches": k8, "k2_side8_launches": side8,
+         "tokens_equal_plain_call": torch.equal(tok, tok_plain), "tokens_equal_plain_path": torch.equal(tok, tok_p),
+         "latents_kernels_vs_plain_path_max_abs_err": err_kp, "latents_max_abs": lat_p.abs().max().item(),
+         "rtol_of_max": W8A8_ABSORB_RTOL, "rel_err_vs_unquantized_embed_vision": rel_grid})
+    require((k8, side8) == (24, 288), f"fp32 int8 side-car: K8 {k8}, W8A8 tiles {side8}")
+    require(torch.equal(tok, tok_plain) and torch.equal(tok, tok_p), "fp32 int8 side-car: tokens differ")
+    require(err_kp <= W8A8_ABSORB_RTOL * lat_p.abs().max().item(),
+            f"fp32 int8 side-car: latents kernels vs plain_path {err_kp}")
+    require(1e-6 < rel_grid < 0.1, f"fp32 int8 side-car: latents vs unquantized embed_vision {rel_grid}")
+    return variants
+
+
+def pipe_variants(cfg, plan) -> dict:
+    """The per-variant launches of one pipe call (OF-3B, int4 decode, the
+    current batch's latents given): quant_variants' int4 counts, with the
+    plan's tiles "int4+side8" on K2 and, with attention carriers, half of
+    them on K3."""
+    want = quant_variants(cfg, 4, False)
+    tiles = plan.slots_per_layer * plan.n_vit_layers
+    k3 = tiles // 2 if plan.attn_carriers else 0
+    for kernel, n in (("fused_mlp", tiles - k3), ("attn_block_decode", k3)):
+        if n:
+            want[kernel] = dict(want[kernel], int4=want[kernel]["int4"] - n, **{"int4+side8": n})
+    return want
+
+
+def latent_gap(got, want):
+    """max |got - want| over the largest |want|, in fp32."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def phase_pipe(model, cfg, dev, counters) -> tuple:
+    """(c) The JAX package's offline-throughput pipe (bench.py `b64_i4_pipe`)
+    at full width: bf16 OF-3B, B 64 prompts of 32 tokens with one image
+    each, 32 new tokens; int4 decode weights with the ViT's int8 side-car
+    (quantize_prefill_weights(model, 4)) and W8A8 prefill; each call given
+    its batch's latents and the next batch's pixels, whose ViT rides the
+    decode loop as 288 W8A8 side tiles; the latents fed forward. The first
+    latents from embed_vision under W8A8. Against the serial form (the same
+    generate without next_pixels, then a serial W8A8 embed_vision of the
+    next batch): the first call's tokens equal, then 5 calls of each in
+    turns (pipe, serial, serial, pipe, ...), host clock to a synchronize,
+    medians; every launch counter reset before one more pipe call and read
+    after it (K9/K10 0: the current batch's vision arrives as latents); the
+    latents of every pipe call within 0.1 of the largest entry (the JAX
+    gate of the int8 grid) of the serial W8A8 embed_vision of the same
+    pixels (the absorbed tiles quantize each fc2 slice on its own); one
+    absorbing step under the sync debug mode "error". Then the same with
+    ATTN_CARRIERS. Returns ({path: launches}, {path: variants})."""
+    b, calls = 64, 5
+    quantize_prefill_weights(drop_decode_weights(model), 4)
+    side_car = sum(t.numel() * t.element_size() for n, t in model.named_buffers()
+                   if n.endswith(("weight_q", "weight_s")))
+    # W8A8 prefill unpacks each packed int4 stream at its use: the time of every unpack of one call
+    packed = [m for m in model.modules()
+              if getattr(m, "weight_q", None) is not None and m.weight_q.dtype == torch.uint8]
+    unpack_ms = call_ms(lambda: [w8a8_weight(m) for m in packed], iters=5)
+    log({"phase": "absorb", "dtype": "bfloat16", "label": "int4_unpack", "streams": len(packed),
+         "packed_mb": sum(m.weight_q.numel() for m in packed) / 2**20, "unpack_ms_per_prefill": unpack_ms})
+    vision_x, ids, mask = make_inputs(cfg, dev, b)
+    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
+    pixels = [next_pixels(cfg, dev, b, batch=i) for i in range(calls + 2)]
+    paths, vpaths = {}, {}
+    with w8a8_prefill():
+        lat0 = model.embed_vision(vision_x)
+        for form, carriers in (("pipe_int4_w8a8", False), ("pipe_int4_w8a8_attn", True)):
+            with attn_carriers(carriers):
+                plan = make_plan(cfg, pixels[0].shape[:3], NEW_TOKENS)
+                require(plan is not None and (plan.n_steps, plan.slots_per_layer, plan.macro)
+                        == (24, 12, 3 if carriers else 6), f"{form}: plan {plan}")
+
+                def pipe(lat, px):
+                    return flamingo_generate(model, None, ids, mask, gcfg, media_latents=lat, next_pixels=px,
+                                             device=dev)
+
+                def serial(lat, px):
+                    return flamingo_generate(model, None, ids, mask, gcfg, media_latents=lat, device=dev), \
+                        model.embed_vision(px)
+
+                tok_p, lat_p = pipe(lat0, pixels[0])
+                tok_s, lat_s = serial(lat0, pixels[0])
+                require(torch.equal(tok_p, tok_s), f"{form}: tokens differ from the serial form's on the same latents")
+                gaps = [latent_gap(lat_p, lat_s)]
+                torch.cuda.synchronize()
+                times = {"pipe": [], "serial": []}
+                for i in range(calls):
+                    for name in (("pipe", "serial") if i % 2 == 0 else ("serial", "pipe")):
+                        t0 = time.perf_counter()
+                        if name == "pipe":
+                            tok_p, lat_p = pipe(lat_p, pixels[i + 1])
+                        else:
+                            tok_s, lat_s = serial(lat_s, pixels[i + 1])
+                        torch.cuda.synchronize()
+                        times[name].append(time.perf_counter() - t0)
+                    gaps.append(latent_gap(lat_p, lat_s))      # both the latents of pixels[i + 1]
+                reset_counters(counters)
+                tok_p, lat_p = pipe(lat_p, pixels[calls + 1])
+                torch.cuda.synchronize()
+                launches = {name: fn.launches for name, fn in counters.items()}
+                gaps.append(latent_gap(lat_p, model.embed_vision(pixels[calls + 1])))
+                variants = {name: dict(fn.variants) for name, fn in counters.items() if hasattr(fn, "variants")}
+                med_p, med_s = sorted(times["pipe"])[calls // 2], sorted(times["serial"])[calls // 2]
+                log({"phase": "absorb", "dtype": "bfloat16", "label": form, "batch": b, "prompt": T_PROMPT,
+                     "new_tokens": NEW_TOKENS, "median_pipe_s": med_p, "median_serial_s": med_s,
+                     "pipe_minus_serial_s": med_p - med_s, "tokens_per_s_pipe": b * NEW_TOKENS / med_p,
+                     "tokens_per_s_serial": b * NEW_TOKENS / med_s, "runs_s": times,
+                     "side_car_mb": side_car / 2**20, "latents_vs_serial_rel_of_max": gaps,
+                     "plan": dataclasses.asdict(plan), "launches": launches, "variants": variants})
+                want = dict(route_launches(cfg, counters, fused=True), vit_attention=0, layer_norm=0,
+                            flat_vit_attention=plan.n_vit_layers)
+                require(launches == want, f"{form}: launches {launches}, expected {want}")
+                want_v = pipe_variants(cfg, plan)
+                require(variants == want_v, f"{form}: variant launches {variants}, expected {want_v}")
+                require(torch.isfinite(lat_p.float()).all().item() and lat_p.shape == lat0.shape,
+                        f"{form}: next_latents")
+                require(all(g < 0.1 for g in gaps),
+                        f"{form}: next_latents against the serial W8A8 embed_vision of the same pixels: {gaps}")
+                sync_free_absorb_step(model, None, ids, mask, pixels[0], plan, latents=lat0, label=form)
+                paths[form], vpaths[form] = launches, variants
+    drop_decode_weights(model)
     return paths, vpaths
 
 
@@ -2241,9 +2721,34 @@ def phase_quantized(dev, name="OF-3B") -> dict:
         if kv8:
             sync_free_step(model, vision_x, ids, mask, dev, int8_kv=True)
         paths[f"{tag}_{mode}"] = variants
+    if name == "OF-3B":
+        w8a8_drift(model, vision_x, ids, mask, tok_ref, l_ref, latents)
     del model, latents
     torch.cuda.empty_cache()
     return paths
+
+
+def w8a8_drift(model, vision_x, ids, mask, tok_ref, l_ref, latents) -> None:
+    """W8A8 prefill's drift (bf16 OF-3B): quantize_prefill_weights(model,
+    bits) and ops.w8a8.ENABLED, the latents from the W8A8 ViT and the prompt
+    prefilled by W8A8 products, then the quantized decode steps on the
+    unquantized call's tokens: the mean KL and top-1 agreement of the step
+    logits against that call's. Gated: int4 + W8A8 at the int4 gate (KL <
+    0.1), int8 + W8A8 at 1e-2 (the JAX package records it, ungated). Logged
+    beside it, its parts: the W8A8 latents with a float prefill, and the
+    float latents (`latents`) with a W8A8 prefill."""
+    for bits, gate in ((8, 1e-2), (4, 0.1)):
+        quantize_prefill_weights(drop_decode_weights(model), bits)
+        with w8a8_prefill():
+            lat_w = model.embed_vision(vision_x)
+            d = drift(l_ref, step_logits(model, lat_w, ids, mask, tok_ref))
+            prefill_only = drift(l_ref, step_logits(model, latents, ids, mask, tok_ref))
+        vit_only = drift(l_ref, step_logits(model, lat_w, ids, mask, tok_ref))
+        log({"phase": "quantized", "model": "OF-3B", "dtype": "bfloat16", "mode": f"int{bits}_w8a8",
+             "drift_vs_bf16": d, "kl_gate": gate, "parts": {"w8a8_vit_only": vit_only,
+                                                            "w8a8_prefill_only": prefill_only}})
+        require(d["mean_kl"] < gate, f"OF-3B int{bits} + W8A8 prefill: mean KL {d['mean_kl']} above {gate}")
+    drop_decode_weights(model)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2379,8 +2884,16 @@ SOURCES = {
                            "open_flamingo_tpu/ops/vit_attention.py:117"),
     "fused_layer_decode": ("open_flamingo_tpu_torch/csrc/fused_layer.cu", "open_flamingo_tpu/ops/fused_layer.py:94"),
 }
-# K2b, the side tiles K2 carries: its own source and TPU function
-SIDE_SOURCE = ("open_flamingo_tpu_torch/csrc/side_tile.cuh", "open_flamingo_tpu/ops/dense_stream.py:422")
+# K2b, the side tiles K2 carries, K2b int8 (the W8A8 tile) and K2b-attn (K3 carrying them): source and TPU code
+SIDE_SOURCES = {
+    ("fused_mlp", "+side"): ("open_flamingo_tpu_torch/csrc/side_tile.cuh", "open_flamingo_tpu/ops/dense_stream.py:422"),
+    ("fused_mlp", "+side8"): ("open_flamingo_tpu_torch/csrc/side_tile.cuh",
+                              "open_flamingo_tpu/ops/dense_stream.py:441"),
+    ("attn_block_decode", "+side"): ("open_flamingo_tpu_torch/csrc/decode_layer.cu",
+                                     "open_flamingo_tpu/ops/decode_layer.py:487"),
+    ("attn_block_decode", "+side8"): ("open_flamingo_tpu_torch/csrc/side_tile.cuh",
+                                      "open_flamingo_tpu/ops/decode_layer.py:487"),
+}
 
 
 # the quantized variants: kernels-line name -> (kernel, main case, the path
@@ -2405,6 +2918,11 @@ VARIANTS = {
     "fused_mlp[float+relu]": ("fused_mlp", "opt_mlp_relu_bias", "opt13b_generate_fused", "float+relu"),
     "fused_mlp[float+side]": ("fused_mlp", "mpt_mlp_side_qkv", "absorb_bf16", "float+side"),
     "fused_mlp[int4+side]": ("fused_mlp", "mpt_mlp_int4_side_qkv", "absorb_int4", "int4+side"),
+    "fused_mlp[int4+side8]": ("fused_mlp", "mpt_mlp_int4_B64_side8_qkv", "pipe_int4_w8a8", "int4+side8"),
+    "fused_mlp[int8+side8]": ("fused_mlp", "mpt_mlp_int8_side8_qkv", "absorb_fp32_int8", "int8+side8"),
+    "attn_block_decode[int4+side8]": ("attn_block_decode", "self_S64_slot40_int4_B64_side8_qkv",
+                                      "pipe_int4_w8a8_attn", "int4+side8"),
+    "attn_block_decode[float+side]": ("attn_block_decode", "self_S64_slot40_side", "absorb_fp32_attn", "float+side"),
     "fused_layer_decode[float+xattn]": ("fused_layer_decode", "xattn_layer_S64", "generate_fused_layer",
                                         "float+xattn"),
 }
@@ -2475,8 +2993,9 @@ def main() -> int:
         by_path = {p: v.get(kernel, {}).get(key, 0) for p, v in vpaths.items()}
         require(by_path[path] > 0, f"{name}: no launch on {path}")
         kernels.append(entry(name, kernel, key, path, by_path, main_case))
-        if key.endswith("+side"):
-            kernels[-1]["source"], kernels[-1]["replaces"] = SIDE_SOURCE
+        side = "+side8" if key.endswith("+side8") else "+side" if key.endswith("+side") else None
+        if side:
+            kernels[-1]["source"], kernels[-1]["replaces"] = SIDE_SOURCES[kernel, side]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,20 @@
 // attend_body, csrc/attend.cuh, which K11's attention phase shares), so its
 // latency is two rounds of loads, not a chain per key.
 //
+// K3 as a carrier of K2b side tiles (K2b-attn; the TPU kernel's side_x /
+// side_w, `side_tile_compute` on each head group's grid step): a tile of the
+// absorbed next-batch ViT rides launch 3, the out-projection, as extra
+// blocks after the row GEMV's (side_tile.cuh's `launch_gemv_side`, the form
+// that carries K2's down-projection), in x's dtype or the W8A8 tile. Launch 3
+// is the row GEMV without norm or activation whose epilogue is K2's
+// down-projection's (scale, gate, residual), so its blocks run the same body
+// on the same grid: y, and the caches written by launch 2, are bit for bit
+// those of the call without a tile. It is the simplest host: launch 1
+// (Wqkv, 25.2 MB at MPT-1B bf16 against Wout's 8.4 MB) streams more bytes
+// for the tile to hide under, but its output is fp32 and its grid is the
+// projection's; a later PR can move the tile there if the out-projection
+// proves too short to hide it.
+//
 // K6 attend_out_decode, the same tail for families whose q/k/v come from
 // elsewhere (GPT-NeoX: K1, then RoPE), is launches 2 and 3:
 //
@@ -63,6 +77,7 @@
 
 #include "attend.cuh"
 #include "rows_gemv.cuh"
+#include "side_tile.cuh"
 
 namespace {
 
@@ -92,7 +107,7 @@ int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, con
           const void* wout_scale, void* k, void* v, void* k_s, void* v_s, const void* mask, const void* slopes,
           const void* gate, const void* slot, void* proj, void* attn, void* out, int b, int dm, int h, int d, int s,
           int fused_qkv, int has_clip, int wq_type, int wout_type, float clip, float scale, float eps,
-          cudaStream_t st) {
+          cudaStream_t st, const side::Args<T>* sa = nullptr) {
   const int inner = h * d;
   const int p = fused_qkv ? 3 * inner : inner;
   rows::Epilogue<T> ep1{(const float*)wq_scale, nullptr, has_clip, clip, 0, nullptr, nullptr};
@@ -111,6 +126,8 @@ int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, con
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   rows::Epilogue<T> ep3{(const float*)wout_scale, nullptr, 0, 0.f, 0, (const T*)gate, (const T*)x};
+  if (sa != nullptr)
+    return (int)side::launch_gemv_side<T>(wout_type, (const T*)attn, wout, ep3, (T*)out, b, dm, inner, *sa, st);
   return (int)rows::launch_gemv_norm<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, rows::kLayerNorm, wout,
                                            nullptr, ep3, (T*)out, b, dm, inner, st);
 }
@@ -164,6 +181,42 @@ extern "C" int attn_block_decode_fwd(const void* x, const void* ln_s, const void
     return block<__nv_bfloat16>(x, ln_s, ln_b, wq, wq_scale, wout, wout_scale, k, v, k_s, v_s, mask, slopes, gate,
                                 slot, proj, attn, out, b, dm, h, d, s, fused_qkv, has_clip, wq_type, wout_type, clip,
                                 scale, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// attn_block_decode_fwd with a side tile in its out-projection launch:
+// side_out (M, SN) = act(LN?(side_x)) @ side_w^T + side_b + side_res, the
+// side arguments as fused_mlp_side_fwd's (dense_stream.cu): side_w in x's
+// dtype, or int8 with side_ws (SN,) fp32 (the W8A8 tile).
+extern "C" int attn_block_decode_side_fwd(const void* x, const void* ln_s, const void* ln_b, const void* wq,
+                                          const void* wq_scale, const void* wout, const void* wout_scale, void* k,
+                                          void* v, void* k_s, void* v_s, const void* mask, const void* slopes,
+                                          const void* gate, const void* slot, void* proj, void* attn, void* out,
+                                          int b, int dm, int h, int d, int s, int fused_qkv, int has_clip,
+                                          int wq_type, int wout_type, float clip, float scale, float eps, int dtype,
+                                          const void* side_x, const void* side_w, long long side_ldw,
+                                          const void* side_ws, const void* side_ln_s, const void* side_ln_b,
+                                          float side_eps, int side_act, const void* side_b, const void* side_res,
+                                          long long side_ldr, void* side_out, int m, int sn, int sk, void* stream) {
+  if (d < 1 || d > kMaxD || d % rows::kVec != 0 || b < 1 || h < 1 || s < 1 || s > kMaxS)
+    return (int)cudaErrorInvalidValue;
+  if ((fused_qkv && slot == nullptr) || (k_s == nullptr) != (v_s == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    const side::Args<float> sa = side::args<float>(side_x, side_w, side_ldw, side_ws, side_ln_s, side_ln_b, side_eps,
+                                                   side_act, side_b, side_res, side_ldr, side_out, m, sn, sk);
+    return block<float>(x, ln_s, ln_b, wq, wq_scale, wout, wout_scale, k, v, k_s, v_s, mask, slopes, gate, slot,
+                        proj, attn, out, b, dm, h, d, s, fused_qkv, has_clip, wq_type, wout_type, clip, scale, eps,
+                        st, &sa);
+  }
+  if (dtype == 1) {
+    const side::Args<__nv_bfloat16> sa = side::args<__nv_bfloat16>(side_x, side_w, side_ldw, side_ws, side_ln_s,
+                                                                    side_ln_b, side_eps, side_act, side_b, side_res,
+                                                                    side_ldr, side_out, m, sn, sk);
+    return block<__nv_bfloat16>(x, ln_s, ln_b, wq, wq_scale, wout, wout_scale, k, v, k_s, v_s, mask, slopes, gate,
+                                slot, proj, attn, out, b, dm, h, d, s, fused_qkv, has_clip, wq_type, wout_type, clip,
+                                scale, eps, st, &sa);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

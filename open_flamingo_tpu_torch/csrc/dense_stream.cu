@@ -48,7 +48,8 @@
 // an unrelated GEMM tile of the absorbed next-batch ViT rides the
 // down-projection launch as extra blocks (side_tile.cuh), in every weight
 // type K2 streams. Launch 1 and the down-projection's own output are those
-// of fused_mlp_fwd, bit for bit.
+// of fused_mlp_fwd, bit for bit. With side_ws the tile is the W8A8 one
+// (K2b int8, side_tile.cuh): int8 side_w, per-row int8 activations.
 
 #include "rows_gemv.cuh"
 #include "side_tile.cuh"
@@ -80,13 +81,6 @@ int mlp(const void* x, const void* w1, const void* w1g, const void* w2, const vo
     return (int)side::launch_gemv_side<T>(w2type, (const T*)hidden, w2, down, (T*)out, b, n, k2, *sa, st);
   return (int)rows::launch_gemv_norm<T, T>(w2type, (const T*)hidden, nullptr, nullptr, 0.f, rows::kLayerNorm, w2,
                                            nullptr, down, (T*)out, b, n, k2, st);
-}
-
-template <typename T>
-side::Args<T> side_args(const void* x, const void* w, long long ldw, const void* ln_s, const void* ln_b, float eps,
-                        int act, const void* bias, const void* res, long long ldr, void* out, int m, int sn, int sk) {
-  return side::Args<T>{(const T*)x, (const T*)w, ldw, (const T*)ln_s, (const T*)ln_b, eps, act, (const T*)bias,
-                       (const T*)res, ldr, (T*)out, m, sn, sk};
 }
 
 }  // namespace
@@ -136,26 +130,29 @@ extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* w1g, con
 // (M, SK) contiguous, side_w (SN, SK) with rows side_ldw elements apart,
 // side_ln_s / side_ln_b (SK,), side_b (SN,) or NULL, side_res (M, SN) with
 // rows side_ldr apart or NULL, all in x's dtype; side_act a rows::Act. SK a
-// multiple of 32. The other arguments and `out` as fused_mlp_fwd's.
+// multiple of 32. With side_ws (SN,) fp32, side_w is int8 (rows side_ldw
+// bytes apart, a multiple of 16) and the tile is the W8A8 one. The other
+// arguments and `out` as fused_mlp_fwd's.
 extern "C" int fused_mlp_side_fwd(const void* x, const void* w1, const void* w1g, const void* w2, const void* w1_scale,
                                   const void* w1g_scale, const void* w2_scale, const void* b1, const void* b2,
                                   const void* ln_s, const void* ln_b, const void* residual, const void* gate,
                                   void* hidden, void* out, int b, int k, int k2, int n, int act, float eps, int norm,
                                   int dtype, int w1type, int w2type, const void* side_x, const void* side_w,
-                                  long long side_ldw, const void* side_ln_s, const void* side_ln_b, float side_eps,
+                                  long long side_ldw, const void* side_ws, const void* side_ln_s,
+                                  const void* side_ln_b, float side_eps,
                                   int side_act, const void* side_b, const void* side_res, long long side_ldr,
                                   void* side_out, int m, int sn, int sk, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
-    const side::Args<float> sa = side_args<float>(side_x, side_w, side_ldw, side_ln_s, side_ln_b, side_eps, side_act,
-                                                  side_b, side_res, side_ldr, side_out, m, sn, sk);
+    const side::Args<float> sa = side::args<float>(side_x, side_w, side_ldw, side_ws, side_ln_s, side_ln_b, side_eps,
+                                                   side_act, side_b, side_res, side_ldr, side_out, m, sn, sk);
     return mlp<float>(x, w1, w1g, w2, w1_scale, w1g_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate, hidden, out,
                       b, k, k2, n, act, eps, norm, w1type, w2type, st, &sa);
   }
   if (dtype == 1) {
-    const side::Args<__nv_bfloat16> sa = side_args<__nv_bfloat16>(side_x, side_w, side_ldw, side_ln_s, side_ln_b,
-                                                                   side_eps, side_act, side_b, side_res, side_ldr,
-                                                                   side_out, m, sn, sk);
+    const side::Args<__nv_bfloat16> sa = side::args<__nv_bfloat16>(side_x, side_w, side_ldw, side_ws, side_ln_s,
+                                                                    side_ln_b, side_eps, side_act, side_b, side_res,
+                                                                    side_ldr, side_out, m, sn, sk);
     return mlp<__nv_bfloat16>(x, w1, w1g, w2, w1_scale, w1g_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate,
                               hidden, out, b, k, k2, n, act, eps, norm, w1type, w2type, st, &sa);
   }

@@ -7,7 +7,10 @@ The decode step streams weights and leaves the card's tensor cores idle.
 forward as side tiles of the step's K2 `fused_mlp` launches (the xattn FF
 and each decoder block's MLP, in program order), with K8
 `flat_vit_attention` as the attention glue on the flat (B, S_pad, H*Dh)
-workspace between the projection slots.
+workspace between the projection slots. With `ATTN_CARRIERS` the K3
+`attn_block_decode` launches carry tiles too (K2b-attn): the gated block's
+q-only attention in every family, MPT's self-attention (the only family
+whose self-attention is K3), in program order before each K2.
 
 Schedule per ViT layer, every side product an (M, D/F) x (D/F or D) tile
 (F = `split`; fc1 cut into column slices and fc2 into row slices of its
@@ -28,11 +31,16 @@ JAX's column slices are row slices of the torch weight, and its fc2 row
 slices are column slices of torch's (D, I) fc2 weight, which the side
 kernel reads with a row stride. Nothing is stacked or copied per call.
 
+With the ViT's int8 side-car attached (`quantize.quantize_prefill_weights`)
+and `SIDE_INT8` on (the default, as in the JAX package), every slot hands
+its carrier int8 weight slices and their scales: the W8A8 side tile (K2b
+int8), whose activations are quantized per row over the slot's own K (an
+fc2 slot's D-wide slice of the hidden row), so the absorbed W8A8 ViT is not
+the serial W8A8 ViT of `embed_vision`.
+
 Differences from the JAX plan: the port has one per-layer layout, which
 runs the kernels of the JAX scan engine, so `scan_layers` does not gate the
-plan; `m_pad` rounds to the side kernel's row tile, not to the TPU grid. The
-attention-block carriers (`ATTN_CARRIERS`, ROADMAP item 14b) and the W8A8
-side dot (`SIDE_INT8`, item 9b) are not ported and raise.
+plan; `m_pad` rounds to the side kernel's row tile, not to the TPU grid.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ class AbsorbPlan:
     n_steps: int      # decode steps that carry side work
     n_vit_layers: int
     split: int = 1    # every side product cut into `split` column / row parts
+    attn_carriers: bool = False   # K3's launches carry tiles too
 
     @property
     def side_groups(self) -> int:
@@ -85,10 +94,10 @@ class AbsorbPlan:
 
 # split-factor preference order (test hook, as in the JAX package)
 PREFER_SPLIT = (1, 2)
-# attention-block launches as carriers: not ported (ROADMAP item 14b)
+# K3 attention-block launches join the carrier set (off by default, as in JAX)
 ATTN_CARRIERS = False
-# W8A8 side dots over an int8 ViT side-car: not ported (ROADMAP item 9b)
-SIDE_INT8 = False
+# W8A8 side tiles when the ViT's int8 side-car is attached
+SIDE_INT8 = True
 # the side tile kernel's row tile (csrc/side_tile.cuh kRows): m_pad's quantum
 SIDE_ROWS = 64
 
@@ -96,10 +105,6 @@ SIDE_ROWS = 64
 def make_plan(cfg, vision_shape, max_new_tokens: int, num_beams: int = 1, prefer_split=None) -> Optional[AbsorbPlan]:
     """The schedule for the next batch's pixels of shape (b, t, f, ...), or
     None when the geometry cannot carry it (the caller encodes serially)."""
-    if ATTN_CARRIERS:
-        raise NotImplementedError("absorb_vit: attention-block carriers are not ported yet (ROADMAP item 14b)")
-    if SIDE_INT8:
-        raise NotImplementedError("absorb_vit: the W8A8 side dot is not ported yet (ROADMAP item 9b)")
     v, lm = cfg.vision, cfg.lm
     if num_beams != 1:
         return None
@@ -120,6 +125,8 @@ def make_plan(cfg, vision_shape, max_new_tokens: int, num_beams: int = 1, prefer
     if lm.num_layers % n:
         return None
     spg = n + 1                     # the xattn FF + n decoder MLPs per group
+    if ATTN_CARRIERS:               # + the gated block's K3, + MPT's n self-attention K3s
+        spg += 1 + (n if lm.family == "mpt" else 0)
     g = lm.num_layers // n
     macro = split = None
     for fs in prefer_split or PREFER_SPLIT:
@@ -151,7 +158,7 @@ def make_plan(cfg, vision_shape, max_new_tokens: int, num_beams: int = 1, prefer
         b=b, t=t, f=f, s_real=s_real, s_pad=s_pad, m_f=m_f, m_pad=-(-m_f // SIDE_ROWS) * SIDE_ROWS,
         d=d, heads=heads, n_fc1=n_fc1, n_fc2=n_fc2, act="quick_gelu" if v.hidden_act == "quick_gelu" else "gelu",
         eps=v.layer_norm_eps, macro=macro, per_step=per_step, n_steps=v.num_layers // per_step,
-        n_vit_layers=v.num_layers, split=split,
+        n_vit_layers=v.num_layers, split=split, attn_carriers=ATTN_CARRIERS,
     )
 
 
@@ -203,26 +210,37 @@ class VitSideFeed:
         def rows(t, i):      # part i of an output axis (a weight's rows, a bias)
             return t[i * w:(i + 1) * w]
 
+        def weight(lin, i, cols=False):
+            """side_w (+ side_w_scale from the int8 side-car, JAX `_w`): part i
+            of the output rows, with the scales' part; or (cols) of the input
+            columns, read with the weight's row stride, with every scale."""
+            q = getattr(lin, "weight_q", None) if SIDE_INT8 else None
+            if q is None:
+                return dict(side_w=lin.weight[:, i * w:(i + 1) * w] if cols else rows(lin.weight, i))
+            if cols:
+                return dict(side_w=q[:, i * w:(i + 1) * w], side_w_scale=lin.weight_s)
+            return dict(side_w=rows(q, i), side_w_scale=rows(lin.weight_s, i))
+
         kw = dict(side_eps=p.eps)
         if s < 3 * nf:
             lin = (blk.q_proj, blk.k_proj, blk.v_proj)[s // nf]
             i = s % nf
             ln = blk.layer_norm1
-            return dict(side_x=self.xw, side_w=rows(lin.weight, i), side_ln=(ln.weight, ln.bias),
-                        side_b=rows(lin.bias, i), **kw)
+            return dict(side_x=self.xw, **weight(lin, i), side_ln=(ln.weight, ln.bias), side_b=rows(lin.bias, i),
+                        **kw)
         if s < 4 * nf:
             if self.att is None:
                 self.att = self._glue()
             i = s - 3 * nf
-            return dict(side_x=self.att, side_w=rows(blk.out_proj.weight, i), side_b=rows(blk.out_proj.bias, i),
+            return dict(side_x=self.att, **weight(blk.out_proj, i), side_b=rows(blk.out_proj.bias, i),
                         side_residual=self.xw[:, i * w:(i + 1) * w], **kw)
         if s < (4 + p.n_fc1) * nf:
             i = s - 4 * nf
             ln = blk.layer_norm2
-            return dict(side_x=self.x2, side_w=rows(blk.fc1.weight, i), side_ln=(ln.weight, ln.bias),
+            return dict(side_x=self.x2, **weight(blk.fc1, i), side_ln=(ln.weight, ln.bias),
                         side_b=rows(blk.fc1.bias, i), **kw)
         i = s - (4 + p.n_fc1) * nf
-        return dict(side_x=self.h[i], side_w=blk.fc2.weight[:, i * w:(i + 1) * w], side_act=p.act,
+        return dict(side_x=self.h[i], **weight(blk.fc2, i, cols=True), side_act=p.act,
                     side_b=blk.fc2.bias if i == 0 else None, side_residual=self.acc, **kw)
 
     def take(self, so: torch.Tensor) -> None:
@@ -251,10 +269,11 @@ class SideHook:
     """One absorbing decode step's side schedule (the JAX `_SideHook` and the
     scan engine's macro blocking): `group(g)` at the start of each group of
     n decoder layers opens ViT layer g // macro of this step at every macro
-    boundary below `side_groups`; `kw()` gives the next carrier launch its
-    side tile, None past the layer's slots (pad launches) and after
-    `side_groups`; `take` routes the side output back. `result()` is the
-    workspace after the step's layers."""
+    boundary below `side_groups`; `kw()` gives the next K2 launch its side
+    tile, None past the layer's slots (pad launches) and after
+    `side_groups`; `attn_kw()` the next K3 launch, when the plan counts
+    attention carriers; `take` routes the side output back. `result()` is
+    the workspace after the step's layers."""
 
     def __init__(self, blocks, xw: torch.Tensor, plan: AbsorbPlan):
         self.blocks, self.xw, self.plan = list(blocks), xw, plan
@@ -280,6 +299,9 @@ class SideHook:
             return None
         return self.feed.kwargs()
 
+    def attn_kw(self) -> Optional[dict]:
+        return self.kw() if self.plan.attn_carriers else None
+
     def take(self, so: torch.Tensor) -> None:
         self.feed.take(so)
 
@@ -290,13 +312,15 @@ class SideHook:
         return self.xw
 
 
-def carry(side: Optional[SideHook], mlp, *args, **kwargs):
-    """`mlp(*args, **kwargs)` (fused_mlp or its plain version) carrying the
-    side hook's next tile when one is due; the side output goes back to the
-    hook. Returns the MLP's output."""
-    skw = side.kw() if side is not None else None
+def carry(side: Optional[SideHook], fn, *args, attn: bool = False, **kwargs):
+    """`fn(*args, **kwargs)` carrying the side hook's next tile when one is
+    due: fused_mlp or its plain version, or with `attn` attn_block_decode
+    or its plain version (`SideHook.attn_kw`). The side output, which the
+    carrier returns last, goes back to the hook. Returns what `fn` returns
+    without a tile."""
+    skw = None if side is None else side.attn_kw() if attn else side.kw()
     if skw is None:
-        return mlp(*args, **kwargs)
-    y, so = mlp(*args, **kwargs, **skw)
+        return fn(*args, **kwargs)
+    *out, so = fn(*args, **kwargs, **skw)
     side.take(so)
-    return y
+    return out[0] if len(out) == 1 else tuple(out)

@@ -28,7 +28,7 @@ from ...ops.decode_layer import attend_out_decode, reference_attend_out
 from ...ops.dense_stream import fused_dense, fused_mlp, reference_dense, reference_mlp, use_fused_decode
 from ...quantize import stream_weight
 from ..absorb_vit import carry
-from ..layers import LayerNorm, gelu_exact, merge_heads
+from ..layers import Dense, LayerNorm, gelu_exact, merge_heads
 from .common import LayerKV, apply_rope, rope_cos_sin
 
 
@@ -40,11 +40,11 @@ class GPTNeoXBlock(nn.Module):
         self.cfg = cfg
         self.rotary_ndims = int(cfg.head_dim * cfg.rotary_pct)
         self.input_layernorm = LayerNorm(d, cfg.layer_norm_eps, **kw)
-        self.query_key_value = nn.Linear(d, 3 * d, bias=bias, **kw)
-        self.dense = nn.Linear(d, d, bias=bias, **kw)
+        self.query_key_value = Dense(d, 3 * d, bias=bias, **kw)
+        self.dense = Dense(d, d, bias=bias, **kw)
         self.post_attention_layernorm = LayerNorm(d, cfg.layer_norm_eps, **kw)
-        self.dense_h_to_4h = nn.Linear(d, cfg.intermediate_size, bias=bias, **kw)
-        self.dense_4h_to_h = nn.Linear(cfg.intermediate_size, d, bias=bias, **kw)
+        self.dense_h_to_4h = Dense(d, cfg.intermediate_size, bias=bias, **kw)
+        self.dense_4h_to_h = Dense(cfg.intermediate_size, d, bias=bias, **kw)
 
     def _qkv(self, qkv, attn):
         """(B, T, 3*D) -> q, k (rotated), v, each (B, T, H, Dh)."""

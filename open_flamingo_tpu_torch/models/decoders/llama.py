@@ -29,7 +29,7 @@ from ...ops.decode_layer import attend_out_decode, reference_attend_out
 from ...ops.dense_stream import fused_dense, fused_mlp, reference_dense, reference_mlp, use_fused_decode
 from ...quantize import stream_weight
 from ..absorb_vit import carry
-from ..layers import merge_heads
+from ..layers import Dense, merge_heads
 from .common import LayerKV, apply_rope, rope_cos_sin
 
 
@@ -55,14 +55,14 @@ class LlamaBlock(nn.Module):
         d, dh, bias = cfg.hidden_size, cfg.head_dim, cfg.attention_bias
         self.cfg = cfg
         self.input_layernorm = RMSNorm(d, cfg.layer_norm_eps, **kw)
-        self.q_proj = nn.Linear(d, cfg.num_heads * dh, bias=bias, **kw)
-        self.k_proj = nn.Linear(d, cfg.kv_heads * dh, bias=bias, **kw)
-        self.v_proj = nn.Linear(d, cfg.kv_heads * dh, bias=bias, **kw)
-        self.o_proj = nn.Linear(cfg.num_heads * dh, d, bias=bias, **kw)
+        self.q_proj = Dense(d, cfg.num_heads * dh, bias=bias, **kw)
+        self.k_proj = Dense(d, cfg.kv_heads * dh, bias=bias, **kw)
+        self.v_proj = Dense(d, cfg.kv_heads * dh, bias=bias, **kw)
+        self.o_proj = Dense(cfg.num_heads * dh, d, bias=bias, **kw)
         self.post_attention_layernorm = RMSNorm(d, cfg.layer_norm_eps, **kw)
-        self.gate_proj = nn.Linear(d, cfg.intermediate_size, bias=bias, **kw)
-        self.up_proj = nn.Linear(d, cfg.intermediate_size, bias=bias, **kw)
-        self.down_proj = nn.Linear(cfg.intermediate_size, d, bias=bias, **kw)
+        self.gate_proj = Dense(d, cfg.intermediate_size, bias=bias, **kw)
+        self.up_proj = Dense(d, cfg.intermediate_size, bias=bias, **kw)
+        self.down_proj = Dense(cfg.intermediate_size, d, bias=bias, **kw)
 
     def _rope(self, q, k, attn):
         cos, sin = rope_cos_sin(attn.position_ids, self.cfg.head_dim, self.cfg.rope_theta)

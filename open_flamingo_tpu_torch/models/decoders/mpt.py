@@ -29,7 +29,7 @@ from ...ops.dense_stream import fused_mlp, reference_mlp, use_fused_decode
 from ...ops.fused_layer import fused_layer_decode, reference_fused_layer
 from ...quantize import stream_weight
 from ..absorb_vit import carry
-from ..layers import LayerNorm, gelu_exact, merge_heads
+from ..layers import Dense, LayerNorm, gelu_exact, merge_heads
 from .common import LayerKV, alibi_slopes
 
 
@@ -41,11 +41,11 @@ class MPTBlock(nn.Module):
         self.cfg = cfg
         ln_bias = not cfg.ln_no_bias
         self.norm_1 = LayerNorm(d, cfg.layer_norm_eps, bias=ln_bias, **kw)
-        self.Wqkv = nn.Linear(d, 3 * d, bias=False, **kw)
-        self.out_proj = nn.Linear(d, d, bias=False, **kw)
+        self.Wqkv = Dense(d, 3 * d, bias=False, **kw)
+        self.out_proj = Dense(d, d, bias=False, **kw)
         self.norm_2 = LayerNorm(d, cfg.layer_norm_eps, bias=ln_bias, **kw)
-        self.up_proj = nn.Linear(d, cfg.intermediate_size, bias=False, **kw)
-        self.down_proj = nn.Linear(cfg.intermediate_size, d, bias=False, **kw)
+        self.up_proj = Dense(d, cfg.intermediate_size, bias=False, **kw)
+        self.down_proj = Dense(cfg.intermediate_size, d, bias=False, **kw)
         # fp32 on the module's device; not a parameter, not in state_dict
         self.register_buffer(
             "alibi_slopes",
@@ -55,7 +55,8 @@ class MPTBlock(nn.Module):
 
     def forward(self, x, attn, layer_kv, side=None):
         """`side`: an absorbing decode step's `absorb_vit.SideHook`, whose
-        next tile the fused route's K2 launch carries."""
+        next tiles the fused route's K3 launch (when the plan counts
+        attention carriers) and K2 launch carry."""
         cfg = self.cfg
         b, t, _ = x.shape
         if layer_kv is not None and use_fused_decode(x, t, attn.cached):
@@ -90,11 +91,11 @@ class MPTBlock(nn.Module):
                 eps=cfg.layer_norm_eps,
             )
             return y[:, None], LayerKV(kc, vc)
-        x2, kc, vc = attn_half(
-            x[:, 0], self.norm_1.weight, self.norm_1.bias, w_qkv, w_out, layer_kv.k, layer_kv.v, attn.pad_mask,
+        x2, kc, vc = carry(
+            side, attn_half, x[:, 0], self.norm_1.weight, self.norm_1.bias, w_qkv, w_out, layer_kv.k, layer_kv.v, attn.pad_mask,
             heads=cfg.num_heads, head_dim=hd, scale=hd**-0.5, fused_qkv=True, slot=attn.slot,
             slopes=self.alibi_slopes, clip=cfg.clip_qkv, wq_scale=s_qkv, wout_scale=s_out, k_scale=layer_kv.k_s,
-            v_scale=layer_kv.v_s, eps=cfg.layer_norm_eps,
+            v_scale=layer_kv.v_s, eps=cfg.layer_norm_eps, attn=True,
         )
         y = carry(
             side, mlp_half, x2, w_up, w_down, w1_scale=s_up, w2_scale=s_down, ln_scale=self.norm_2.weight,

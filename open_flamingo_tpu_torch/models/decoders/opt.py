@@ -26,7 +26,7 @@ from ...ops.decode_layer import attend_out_decode, reference_attend_out
 from ...ops.dense_stream import fused_dense, fused_mlp, reference_dense, reference_mlp, use_fused_decode
 from ...quantize import stream_weight
 from ..absorb_vit import carry
-from ..layers import LayerNorm, merge_heads
+from ..layers import Dense, LayerNorm, merge_heads
 from .common import LayerKV
 
 
@@ -37,13 +37,13 @@ class OPTBlock(nn.Module):
         d = cfg.hidden_size
         self.cfg = cfg
         self.self_attn_layer_norm = LayerNorm(d, cfg.layer_norm_eps, **kw)
-        self.q_proj = nn.Linear(d, d, **kw)
-        self.k_proj = nn.Linear(d, d, **kw)
-        self.v_proj = nn.Linear(d, d, **kw)
-        self.out_proj = nn.Linear(d, d, **kw)
+        self.q_proj = Dense(d, d, **kw)
+        self.k_proj = Dense(d, d, **kw)
+        self.v_proj = Dense(d, d, **kw)
+        self.out_proj = Dense(d, d, **kw)
         self.final_layer_norm = LayerNorm(d, cfg.layer_norm_eps, **kw)
-        self.fc1 = nn.Linear(d, cfg.intermediate_size, **kw)
-        self.fc2 = nn.Linear(cfg.intermediate_size, d, **kw)
+        self.fc1 = Dense(d, cfg.intermediate_size, **kw)
+        self.fc2 = Dense(cfg.intermediate_size, d, **kw)
 
     def forward(self, x, attn, layer_kv, side=None):
         cfg = self.cfg

@@ -1,5 +1,5 @@
 """Shared building blocks: LayerNorm with flax's fast variance, GELUs,
-FeedForward and the einsum attention core.
+Dense, FeedForward and the einsum attention core.
 
 Attention softmax always runs in fp32; projections run in the weights'
 dtype (fp32 for parity tests, bf16 on the card).
@@ -12,6 +12,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import w8a8
+from ..quantize import w8a8_weight
 
 # torch.nn.LayerNorm's eps; checkpoint parity with the reference stack.
 LN_EPS = 1e-5
@@ -58,6 +61,25 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+class Dense(nn.Linear):
+    """nn.Linear with the W8A8 prefill product, the JAX package's
+    `PDense.__call__`: the same parameters and state_dict; when
+    `ops.w8a8.use_w8a8(x)` and the module carries int8 weights (`weight_q`
+    int8, or the int4 grid's values, `quantize.w8a8_weight`), y =
+    w8a8_dot(x, weight_q, weight_s, bias) in the weight's dtype; otherwise
+    nn.Linear's product, bit for bit. The W8A8 product has no backward: it
+    raises under autograd (the train step never enables it)."""
+
+    def forward(self, x):
+        if w8a8.use_w8a8(x):
+            w_q = w8a8_weight(self)
+            if w_q is not None:
+                if torch.is_grad_enabled() and self.weight.requires_grad:
+                    raise RuntimeError("Dense: the W8A8 product has no backward; call it under torch.no_grad()")
+                return w8a8.w8a8_dot(x, w_q, self.weight_s, self.bias, out_dtype=self.weight.dtype)
+        return super().forward(x)
+
+
 class FeedForward(nn.Module):
     """LayerNorm -> Linear(mult*dim, no bias) -> GELU -> Linear(dim, no bias)."""
 
@@ -65,8 +87,8 @@ class FeedForward(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm = LayerNorm(dim, **kw)
-        self.fc1 = nn.Linear(dim, dim * mult, bias=False, **kw)
-        self.fc2 = nn.Linear(dim * mult, dim, bias=False, **kw)
+        self.fc1 = Dense(dim, dim * mult, bias=False, **kw)
+        self.fc2 = Dense(dim * mult, dim, bias=False, **kw)
 
     def forward(self, x):
         return self.fc2(gelu_exact(self.fc1(self.norm(x))))

@@ -35,7 +35,7 @@ from .decoders.gptneox import GPTNeoXBlock
 from .decoders.llama import LlamaBlock, RMSNorm
 from .decoders.mpt import MPTBlock
 from .decoders.opt import OPTBlock
-from .layers import LayerNorm
+from .layers import Dense, LayerNorm
 from .xattn import GatedCrossAttentionBlock, build_media_masks, decode_media_mask, use_xattn_kernel
 
 BLOCK_REGISTRY = {"mpt": MPTBlock, "gptneox": GPTNeoXBlock, "llama": LlamaBlock, "opt": OPTBlock}
@@ -75,7 +75,7 @@ class FlamingoLM(nn.Module):
             self.norm_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, bias=not cfg.ln_no_bias, **kw)
         self.lm_head = None
         if not cfg.tie_word_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=cfg.lm_head_bias, **kw)
+            self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, bias=cfg.lm_head_bias, **kw)
 
     def forward(
         self,

@@ -10,6 +10,9 @@ hand-written kernels K10 (`ops.layer_norm`) and K9 (`ops.vit_attention`)
 where the JAX block calls its Pallas kernels: on CUDA tensors by default,
 on CPU tensors under their `FORCE` hooks (the plain versions run there).
 `pre_layernorm` and `post_layernorm` stay plain, as in the JAX package.
+The six linears of every block are `layers.Dense`: with the int8 side-car
+(`quantize.quantize_prefill_weights`) and `ops.w8a8.ENABLED` they take the
+W8A8 product, as the JAX block's `PDense` does.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from torch import nn
 from ..configs import VisionConfig
 from ..ops.layer_norm import layer_norm, use_ln_kernel
 from ..ops.vit_attention import use_vit_kernel, vit_attention_heads
-from .layers import LayerNorm, attend, gelu_exact, merge_heads, quick_gelu, split_heads
+from .layers import Dense, LayerNorm, attend, gelu_exact, merge_heads, quick_gelu, split_heads
 
 _ACTS = {"quick_gelu": quick_gelu, "gelu": gelu_exact}
 
@@ -32,13 +35,13 @@ class ViTBlock(nn.Module):
         d = cfg.hidden_size
         self.cfg = cfg
         self.layer_norm1 = LayerNorm(d, cfg.layer_norm_eps, **kw)
-        self.q_proj = nn.Linear(d, d, **kw)
-        self.k_proj = nn.Linear(d, d, **kw)
-        self.v_proj = nn.Linear(d, d, **kw)
-        self.out_proj = nn.Linear(d, d, **kw)
+        self.q_proj = Dense(d, d, **kw)
+        self.k_proj = Dense(d, d, **kw)
+        self.v_proj = Dense(d, d, **kw)
+        self.out_proj = Dense(d, d, **kw)
         self.layer_norm2 = LayerNorm(d, cfg.layer_norm_eps, **kw)
-        self.fc1 = nn.Linear(d, cfg.intermediate_size, **kw)
-        self.fc2 = nn.Linear(cfg.intermediate_size, d, **kw)
+        self.fc1 = Dense(d, cfg.intermediate_size, **kw)
+        self.fc2 = Dense(cfg.intermediate_size, d, **kw)
         self.act = _ACTS[cfg.hidden_act]
 
     def forward(self, x):

@@ -16,8 +16,8 @@ One decode token on the card takes the fused route in immediate mode: K3
 over the cached media K/V, out-projection, *tanh(attn_gate) + x), then K2
 `fused_mlp` (*tanh(ff_gate) + x), streaming to_q/to_out and fc1/fc2 or their
 int8 / int4 copies (`quantize.stream_weight`); in an absorbing decode step
-the K2 launch carries a K2b side tile of the next batch's ViT
-(`absorb_vit.carry`). The media K/V are a pair
+the K2 launch (and with `absorb_vit.ATTN_CARRIERS` the K3 launch) carries a
+K2b side tile of the next batch's ViT (`absorb_vit.carry`). The media K/V are a pair
 (k, v), or with an int8 media cache (k, v, k_s, v_s): int8 rows with their
 (B, H, S_m) fp32 scales, which the fused route reads as they are and every
 other route dequantizes. With `ops.fused_layer.use_for_xattn()` (`DISABLE =
@@ -41,7 +41,7 @@ from ..ops.fused_layer import fused_layer_decode, reference_fused_layer
 from ..quantize import stream_weight
 from .absorb_vit import carry
 from .decoders.common import dequantize_kv
-from .layers import FeedForward, LayerNorm, attend_cached, merge_heads, split_heads
+from .layers import Dense, FeedForward, LayerNorm, attend_cached, merge_heads, split_heads
 
 
 def media_time_from_locations(media_locations: torch.Tensor) -> torch.Tensor:
@@ -86,9 +86,9 @@ class MaskedCrossAttention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.immediate = only_attend_immediate_media
         self.norm = LayerNorm(dim, **kw)
-        self.to_q = nn.Linear(dim, inner, bias=False, **kw)
+        self.to_q = Dense(dim, inner, bias=False, **kw)
         self.to_kv = nn.Linear(dim_visual, 2 * inner, bias=False, **kw)
-        self.to_out = nn.Linear(inner, dim, bias=False, **kw)
+        self.to_out = Dense(inner, dim, bias=False, **kw)
 
     def project_media(self, media: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, T_img, n_lat, D_vis) -> head-major (k, v), each (B, H, S_m, Dh)."""
@@ -138,16 +138,17 @@ class MaskedCrossAttention(nn.Module):
             out = attend_cached(q * scale, k, v, mask=media_mask, zero_rows=zero_rows)
         return self.to_out(merge_heads(out)), media_kv
 
-    def fused_decode(self, x, media_kv, mask2d, gate):
+    def fused_decode(self, x, media_kv, mask2d, gate, side=None):
         """x (B, D) + tanh(gate) * attention of x over the cached media K/V
-        (B, H, S_m, Dh) under mask2d (B, S_m): K3 in its q-only form."""
+        (B, H, S_m, Dh) under mask2d (B, S_m): K3 in its q-only form, carrying
+        the next tile of `side` when the plan counts attention carriers."""
         k, v, k_s, v_s = (*media_kv, None, None)[:4]
         (w_q, s_q), (w_out, s_out) = stream_weight(self.to_q), stream_weight(self.to_out)
         attn_half = attn_block_decode if use_kernels(x) else reference_attn_block
-        return attn_half(
-            x, self.norm.weight, self.norm.bias, w_q, w_out, k, v, mask2d, heads=self.heads, head_dim=self.dim_head,
-            scale=self.dim_head**-0.5, gate=gate, wq_scale=s_q, wout_scale=s_out, k_scale=k_s, v_scale=v_s,
-            eps=self.norm.eps,
+        return carry(
+            side, attn_half, x, self.norm.weight, self.norm.bias, w_q, w_out, k, v, mask2d, heads=self.heads,
+            head_dim=self.dim_head, scale=self.dim_head**-0.5, gate=gate, wq_scale=s_q, wout_scale=s_out,
+            k_scale=k_s, v_scale=v_s, eps=self.norm.eps, attn=True,
         )
 
 
@@ -165,14 +166,15 @@ class GatedCrossAttentionBlock(nn.Module):
     def forward(self, x, media, text_time, media_kv=None, media_mask=None, zero_rows=None, side=None):
         """Returns (x, media_kv). On the fused decode route `media_mask` is
         decode_media_mask's (B, S_m) row, built here when not given, and the
-        FF's K2 launch carries the next tile of `side` (an absorbing decode
+        attention's K3 launch (when the plan counts attention carriers) then
+        the FF's K2 launch carry the next tiles of `side` (an absorbing decode
         step's `absorb_vit.SideHook`)."""
         if media_kv is not None and self.attn.immediate and use_fused_decode(x, x.shape[1], True):
             if media_mask is None:
                 media_mask = decode_media_mask(text_time, media.shape[1], media.shape[2])
             if fused_layer.use_for_xattn() and len(media_kv) == 2 and side is None:
                 return self.fused_layer(x[:, 0], media_kv, media_mask)[:, None], media_kv
-            x2 = self.attn.fused_decode(x[:, 0], media_kv, media_mask, self.attn_gate)
+            x2 = self.attn.fused_decode(x[:, 0], media_kv, media_mask, self.attn_gate, side)
             mlp_half = fused_mlp if use_kernels(x) else reference_mlp
             ff = self.ff
             (w1, s1), (w2, s2) = stream_weight(ff.fc1), stream_weight(ff.fc2)

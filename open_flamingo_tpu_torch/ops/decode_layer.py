@@ -45,6 +45,13 @@ quantized value, the one later steps read back; logits dequantize after the
 dot product, softmax weights before the sum over values. The q-only form
 reads an int8 media cache and writes nothing.
 
+K3 as a carrier (K2b-attn, the TPU kernel's side_x / side_w): with side
+operands (those of `dense_stream.fused_mlp`, in x's dtype or the W8A8 tile
+with side_w_scale) a K2b side tile of the absorbed next-batch ViT rides the
+out-projection launch, and the return gains side_out last, as the JAX
+package's does: (y, side_out), or (y, k_cache, v_cache, side_out) with
+fused_qkv. y and the caches are bit for bit those of the call without it.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (`reference_attn_block`, `reference_attend_out`, written from the
 kernel bodies) for CPU tensors.
@@ -61,8 +68,8 @@ from ..models.layers import layer_norm
 from ..quantize import weight_values
 from . import build
 from .decode_attention import reference_decode_attention
-from .dense_stream import (_WTYPES, check_operands, check_weight, count_launch, ptr, refuse, refuse_autograd,
-                           variant, wtype)
+from .dense_stream import (_WTYPES, check_operands, check_side, check_side_kernel, check_weight, count_launch, ptr,
+                           reference_side_tile, refuse_autograd, side_operands, side_tag, variant, wtype)
 from .flash_attention import _DTYPES
 
 _lib = None
@@ -77,6 +84,10 @@ def _kernel():
         lib.attn_block_decode_fwd.restype = i
         lib.attend_out_decode_fwd.argtypes = [p] * 17 + [i] * 7 + [f, i, p]
         lib.attend_out_decode_fwd.restype = i
+        ll = ctypes.c_longlong
+        side = [p, p, ll, p, p, p, f, i, p, p, ll, p, i, i, i]
+        lib.attn_block_decode_side_fwd.argtypes = [p] * 18 + [i] * 9 + [f, f, f, i] + side + [p]
+        lib.attn_block_decode_side_fwd.restype = i
         _lib = lib
     return _lib
 
@@ -108,14 +119,23 @@ def _write_slot(new, cache, scales, idx) -> None:
 
 def reference_attn_block(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *, heads, head_dim, scale,
                          fused_qkv=False, slot=None, slopes=None, clip=None, gate=None, wq_scale=None,
-                         wout_scale=None, k_scale=None, v_scale=None, eps=1e-5):
-    """Plain version of attn_block_decode, at the kernel's rounding points."""
-    refuse_autograd("attn_block_decode", x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, slopes, gate)
+                         wout_scale=None, k_scale=None, v_scale=None, eps=1e-5, side_x=None, side_w=None,
+                         side_w_scale=None, side_ln=None, side_eps=1e-5, side_act=None, side_b=None,
+                         side_residual=None):
+    """Plain version of attn_block_decode, at the kernel's rounding points;
+    with side_x, side_out (`dense_stream.reference_side_tile`) last."""
+    refuse_autograd("attn_block_decode", x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, slopes, gate, side_x,
+                    side_w, side_b, side_residual)
+    if side_x is not None:
+        check_side(x, side_x, side_w, side_ln, side_act, side_b, side_residual, side_w_scale, "attn_block_decode")
     y = attn_block_f32(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, heads=heads, head_dim=head_dim,
                        scale=scale, fused_qkv=fused_qkv, slot=slot, slopes=slopes, clip=clip, gate=gate,
                        wq_scale=wq_scale, wout_scale=wout_scale, k_scale=k_scale, v_scale=v_scale, eps=eps)
-    y = y.to(x.dtype)
-    return (y, k_cache, v_cache) if fused_qkv else y
+    out = ((y.to(x.dtype), k_cache, v_cache) if fused_qkv else (y.to(x.dtype),))
+    if side_x is not None:
+        out += (reference_side_tile(side_x, side_w, side_w_scale=side_w_scale, side_ln=side_ln, side_eps=side_eps,
+                                    side_act=side_act, side_b=side_b, side_residual=side_residual),)
+    return out if len(out) > 1 else out[0]
 
 
 def attn_block_f32(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *, heads, head_dim, scale,
@@ -153,17 +173,25 @@ def attn_block_f32(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *, he
 
 def attn_block_decode(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *, heads, head_dim, scale,
                       fused_qkv=False, slot=None, slopes=None, clip=None, gate=None, wq_scale=None,
-                      wout_scale=None, k_scale=None, v_scale=None, eps=1e-5, side_x=None, side_w=None):
+                      wout_scale=None, k_scale=None, v_scale=None, eps=1e-5, side_x=None, side_w=None,
+                      side_w_scale=None, side_ln=None, side_eps=1e-5, side_act=None, side_b=None,
+                      side_residual=None):
     """x (B, D); ln_scale/ln_bias (D,); wq (3*H*Dh or H*Dh, D); wout
     (D, H*Dh), each in x's dtype, int8 or packed int4, with wq_scale /
     wout_scale (rows,) fp32 for an int weight; k_cache/v_cache
     (B, H, S, Dh) in x's dtype, or int8 with k_scale/v_scale (B, H, S) fp32
     (updated in place with the caches); mask (B, S), nonzero = attend; slot
     (1,) int32 (fused_qkv); slopes (H,) fp32; gate (1,). Returns y (B, D),
-    or (y, k_cache, v_cache) with fused_qkv."""
-    refuse("attn_block_decode", "the attention-block carrier of K2b side tiles, item 14b", side_x=side_x,
-           side_w=side_w)
-    refuse_autograd("attn_block_decode", x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, slopes, gate)
+    or (y, k_cache, v_cache) with fused_qkv. Side operands as
+    `dense_stream.fused_mlp`'s: side_out (M, SN) comes last."""
+    if side_x is None and any(t is not None for t in (side_w, side_w_scale, side_ln, side_b, side_residual)):
+        raise ValueError("attn_block_decode: side operands need side_x")
+    refuse_autograd("attn_block_decode", x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, slopes, gate, side_x,
+                    side_w, side_b, side_residual)
+    side = dict(side_x=side_x, side_w=side_w, side_w_scale=side_w_scale, side_ln=side_ln, side_eps=side_eps,
+                side_act=side_act, side_b=side_b, side_residual=side_residual)
+    if side_x is not None:
+        check_side(x, side_x, side_w, side_ln, side_act, side_b, side_residual, side_w_scale, "attn_block_decode")
     b, dm = x.shape
     inner = heads * head_dim
     p = 3 * inner if fused_qkv else inner
@@ -185,7 +213,7 @@ def attn_block_decode(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *,
         return reference_attn_block(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, heads=heads,
                                     head_dim=head_dim, scale=scale, fused_qkv=fused_qkv, slot=slot,
                                     slopes=slopes, clip=clip, gate=gate, wq_scale=wq_scale, wout_scale=wout_scale,
-                                    k_scale=k_scale, v_scale=v_scale, eps=eps)
+                                    k_scale=k_scale, v_scale=v_scale, eps=eps, **side)
     if x.device.type != "cuda":
         raise ValueError(f"attn_block_decode: unsupported device {x.device}")
     check_operands("attn_block_decode", x, dm, quantized=("wq", "wout", "k_cache", "v_cache"), ln_scale=ln_scale,
@@ -202,16 +230,21 @@ def attn_block_decode(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *,
     proj = torch.empty(b, p, dtype=torch.float32, device=x.device)
     attn = torch.empty(b, inner, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    status = _kernel().attn_block_decode_fwd(
-        ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(wq), ptr(wq_scale), ptr(wout), ptr(wout_scale), ptr(k_cache),
-        ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(m), ptr(sl), ptr(gate), ptr(slot) if fused_qkv else None,
-        ptr(proj), ptr(attn), ptr(out),
-        b, dm, heads, head_dim, s, int(fused_qkv), int(clip is not None), wtype(wq), wtype(wout),
-        float(clip or 0.0), float(scale), float(eps), _DTYPES[x.dtype], build.current_stream(x.device),
-    )
-    build.check(status, "attn_block_decode_fwd")
-    count_launch(attn_block_decode, variant(wq, int8))
-    return (out, k_cache, v_cache) if fused_qkv else out
+    args = (ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(wq), ptr(wq_scale), ptr(wout), ptr(wout_scale), ptr(k_cache),
+            ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(m), ptr(sl), ptr(gate), ptr(slot) if fused_qkv else None,
+            ptr(proj), ptr(attn), ptr(out), b, dm, heads, head_dim, s, int(fused_qkv), int(clip is not None),
+            wtype(wq), wtype(wout), float(clip or 0.0), float(scale), float(eps), _DTYPES[x.dtype])
+    main = (out, k_cache, v_cache) if fused_qkv else (out,)
+    if side_x is None:
+        build.check(_kernel().attn_block_decode_fwd(*args, build.current_stream(x.device)), "attn_block_decode_fwd")
+        count_launch(attn_block_decode, variant(wq, int8))
+        return main if fused_qkv else out
+    check_side_kernel(side_x, side_w, side_w_scale, side_ln, side_b, side_residual, "attn_block_decode")
+    sargs, side_out = side_operands(side_x, side_w, side_w_scale, side_ln, side_eps, side_act, side_b, side_residual)
+    status = _kernel().attn_block_decode_side_fwd(*args, *sargs, build.current_stream(x.device))
+    build.check(status, "attn_block_decode_side_fwd")
+    count_launch(attn_block_decode, variant(wq, int8, tags=(side_tag(side_w_scale),)))
+    return (*main, side_out)
 
 
 attn_block_decode.launches = 0

@@ -40,8 +40,12 @@ in place); side_residual may have a row stride too. The tile runs as extra
 blocks of K2's down-projection launch (`csrc/side_tile.cuh`), with main
 weights of every type, and leaves y bit for bit as the launch without it
 gives. `reference_side_tile` is its plain version; `reference_mlp` with
-side operands returns the pair too. The W8A8 side dot (`side_w_scale`)
-waits for the int8 ViT side-car (ROADMAP item 9b).
+side operands returns the pair too. The W8A8 side tile (`side_w_scale`, the
+TPU tile's `has_side_ws` branch, K2b int8): side_w int8 with its (SN,) fp32
+scale; the activated rows stay fp32 (no rounding to side_x's dtype), are
+quantized per row over SK (`ops.w8a8.quantize_activations`), and side_out =
+float(q @ side_w.T) * s_act * side_w_scale + side_b + side_residual, rounded
+once.
 
 Route: `use_fused_decode` sends one query against a cache on a CUDA tensor
 through K1-K3, where the JAX package asks for a TPU backend. The JAX
@@ -63,7 +67,7 @@ import torch.nn.functional as F
 
 from ..models.layers import gelu_exact, layer_norm, quick_gelu
 from ..quantize import weight_values
-from . import build
+from . import build, w8a8
 from .flash_attention import _DTYPES
 
 FORCE_FUSED = False
@@ -89,7 +93,7 @@ def _kernel():
         lib.fused_mlp_fwd.argtypes = [p] * 15 + [i, i, i, i, i, f, i, i, i, i, p]
         lib.fused_mlp_fwd.restype = i
         ll = ctypes.c_longlong
-        side = [p, p, ll, p, p, f, i, p, p, ll, p, i, i, i]
+        side = [p, p, ll, p, p, p, f, i, p, p, ll, p, i, i, i]
         lib.fused_mlp_side_fwd.argtypes = [p] * 15 + [i, i, i, i, i, f, i, i, i, i] + side + [p]
         lib.fused_mlp_side_fwd.restype = i
         _lib = lib
@@ -106,13 +110,6 @@ def use_fused_decode(x: torch.Tensor, tq: int, cached: bool) -> bool:
     """Whether a forward on `x` with `tq` queries takes the fused decode
     route: one query against a cache, where `fused_route` says so."""
     return tq == 1 and cached and fused_route(x.device)
-
-
-def refuse(fn: str, what: str, **operands) -> None:
-    """Raise for an operand of a TPU kernel that the port does not take yet."""
-    for name, val in operands.items():
-        if val is not None:
-            raise NotImplementedError(f"{fn}: `{name}` ({what}) is not ported yet (ROADMAP.md)")
 
 
 def refuse_autograd(fn: str, *tensors) -> None:
@@ -258,10 +255,9 @@ def reference_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=Non
     return y.to(x.dtype)
 
 
-def reference_side_tile(side_x, side_w, *, side_ln=None, side_eps=1e-5, side_act=None, side_b=None,
-                        side_residual=None):
-    """Plain version of a K2b side tile: act(LN?(side_x)) in fp32, rounded to
-    side_x's dtype, @ side_w.T in fp32, + side_b, + side_residual, rounded."""
+def side_activations(side_x, side_ln=None, side_eps=1e-5, side_act=None) -> torch.Tensor:
+    """A side tile's rows before its product: act(LN?(side_x)) in fp32, the
+    LayerNorm with the flax fast variance."""
     h = side_x.float()
     if side_ln is not None:
         mean = h.mean(-1, keepdim=True)
@@ -269,8 +265,21 @@ def reference_side_tile(side_x, side_w, *, side_ln=None, side_eps=1e-5, side_act
         h = (h - mean) * torch.rsqrt(var + side_eps) * side_ln[0].float()
         if side_ln[1] is not None:
             h = h + side_ln[1].float()
-    h = activation(h, side_act).to(side_x.dtype)
-    y = h.float() @ side_w.float().t()
+    return activation(h, side_act)
+
+
+def reference_side_tile(side_x, side_w, *, side_w_scale=None, side_ln=None, side_eps=1e-5, side_act=None,
+                        side_b=None, side_residual=None):
+    """Plain version of a K2b side tile: `side_activations`; rounded to
+    side_x's dtype, @ side_w.T in fp32; or, with side_w_scale (the W8A8
+    tile), quantized per row and float(q @ side_w.T) * s_act * side_w_scale
+    (the int32 sum exact); then + side_b, + side_residual, rounded."""
+    h = side_activations(side_x, side_ln, side_eps, side_act)
+    if side_w_scale is None:
+        y = h.to(side_x.dtype).float() @ side_w.float().t()
+    else:
+        q, s_act = w8a8.quantize_activations(h)
+        y = w8a8.int8_matmul(q, side_w.contiguous()) * s_act * side_w_scale
     if side_b is not None:
         y = y + side_b.float()
     if side_residual is not None:
@@ -278,46 +287,71 @@ def reference_side_tile(side_x, side_w, *, side_ln=None, side_eps=1e-5, side_act
     return y.to(side_x.dtype)
 
 
-def check_side(x, side_x, side_w, side_ln, side_act, side_b, side_residual, side_w_scale) -> None:
-    """Shape rules of K2b's operands (ValueError); the W8A8 side dot is not
-    ported (NotImplementedError)."""
-    refuse("fused_mlp", "the W8A8 side dot, item 9b", side_w_scale=side_w_scale)
+def check_side(x, side_x, side_w, side_ln, side_act, side_b, side_residual, side_w_scale, fn="fused_mlp") -> None:
+    """Shape rules of K2b's operands (ValueError): side_w in x's dtype, or
+    int8 with its (SN,) fp32 side_w_scale (the W8A8 tile), and no scale
+    beside a float side_w."""
     if side_w is None:
-        raise ValueError("fused_mlp: side_x needs side_w")
+        raise ValueError(f"{fn}: side_x needs side_w")
     if side_act not in _ACTS:
-        raise ValueError(f"fused_mlp: unknown side activation {side_act!r}; expected one of {list(_ACTS)}")
+        raise ValueError(f"{fn}: unknown side activation {side_act!r}; expected one of {list(_ACTS)}")
     if side_x.dim() != 2 or side_w.dim() != 2 or side_w.shape[1] != side_x.shape[1]:
-        raise ValueError(f"fused_mlp: side_x {tuple(side_x.shape)} against side_w (SN, SK) {tuple(side_w.shape)}")
+        raise ValueError(f"{fn}: side_x {tuple(side_x.shape)} against side_w (SN, SK) {tuple(side_w.shape)}")
     m, sk = side_x.shape
     sn = side_w.shape[0]
+    if (side_w.dtype == torch.int8) != (side_w_scale is not None):
+        raise ValueError(f"{fn}: side_w is {side_w.dtype}; side_w_scale goes with an int8 side_w (the W8A8 tile), "
+                         "and only there")
+    if side_w_scale is not None and (side_w_scale.shape != (sn,) or side_w_scale.dtype != torch.float32
+                                     or side_w_scale.device != x.device):
+        raise ValueError(f"{fn}: side_w_scale must be ({sn},) float32 on {x.device}")
     if side_ln is not None and (side_ln[0].shape != (sk,) or (side_ln[1] is not None and side_ln[1].shape != (sk,))):
-        raise ValueError(f"fused_mlp: side_ln must be ({sk},) scale and bias")
+        raise ValueError(f"{fn}: side_ln must be ({sk},) scale and bias")
     if side_b is not None and side_b.shape != (sn,):
-        raise ValueError(f"fused_mlp: side_b must be ({sn},), got {tuple(side_b.shape)}")
+        raise ValueError(f"{fn}: side_b must be ({sn},), got {tuple(side_b.shape)}")
     if side_residual is not None and side_residual.shape != (m, sn):
-        raise ValueError(f"fused_mlp: side_residual must be ({m}, {sn}), got {tuple(side_residual.shape)}")
+        raise ValueError(f"{fn}: side_residual must be ({m}, {sn}), got {tuple(side_residual.shape)}")
     for name, t in dict(side_x=side_x, side_w=side_w, side_b=side_b, side_residual=side_residual,
                         side_ln_scale=None if side_ln is None else side_ln[0],
                         side_ln_bias=None if side_ln is None else side_ln[1]).items():
-        if t is not None and (t.dtype != x.dtype or t.device != x.device):
-            raise ValueError(f"fused_mlp: {name} is {t.dtype} on {t.device}; x is {x.dtype} on {x.device}")
+        want = torch.int8 if name == "side_w" and side_w_scale is not None else x.dtype
+        if t is not None and (t.dtype != want or t.device != x.device):
+            raise ValueError(f"{fn}: {name} is {t.dtype} on {t.device}; expected {want} on {x.device}")
 
 
-def check_side_kernel(side_x, side_w, side_ln, side_b, side_residual) -> None:
+def check_side_kernel(side_x, side_w, side_w_scale, side_ln, side_b, side_residual, fn="fused_mlp") -> None:
     """The side tile kernel's preconditions: SK a multiple of 32, side_x and
     the vectors contiguous, side_w and side_residual with a contiguous last
-    dim and a row stride that is a multiple of 8, everything 16-byte
+    dim and rows a multiple of 16 bytes apart, everything 16-byte
     aligned."""
     if side_x.shape[1] % 32:
-        raise ValueError(f"fused_mlp: the side tile kernel takes SK a multiple of 32, got {side_x.shape[1]}")
-    vectors = [side_x, side_b] + ([] if side_ln is None else list(side_ln))
+        raise ValueError(f"{fn}: the side tile kernel takes SK a multiple of 32, got {side_x.shape[1]}")
+    vectors = [side_x, side_b, side_w_scale] + ([] if side_ln is None else list(side_ln))
     for t in (t for t in vectors if t is not None):
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("fused_mlp: side_x, side_ln and side_b must be contiguous and 16-byte aligned")
+            raise ValueError(f"{fn}: side_x, side_ln, side_b and side_w_scale must be contiguous and 16-byte aligned")
     for name, t in (("side_w", side_w), ("side_residual", side_residual)):
-        if t is not None and (t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16):
-            raise ValueError(f"fused_mlp: {name} needs unit column stride, a row stride that is a multiple of 8 "
+        if t is not None and (t.stride(1) != 1 or t.stride(0) * t.element_size() % 16 or t.data_ptr() % 16):
+            raise ValueError(f"{fn}: {name} needs unit column stride, rows a multiple of 16 bytes apart "
                              "and 16-byte aligned data")
+
+
+def side_operands(side_x, side_w, side_w_scale, side_ln, side_eps, side_act, side_b, side_residual) -> tuple:
+    """The side tile's arguments of the C interface (fused_mlp_side_fwd,
+    attn_block_decode_side_fwd) and its output, allocated here."""
+    m, sn = side_x.shape[0], side_w.shape[0]
+    side_out = torch.empty(m, sn, dtype=side_x.dtype, device=side_x.device)
+    ln_s, ln_b = side_ln if side_ln is not None else (None, None)
+    args = (ptr(side_x), ptr(side_w), side_w.stride(0), ptr(side_w_scale), ptr(ln_s), ptr(ln_b), float(side_eps),
+            _ACTS[side_act], ptr(side_b), ptr(side_residual), 0 if side_residual is None else side_residual.stride(0),
+            ptr(side_out), m, sn, side_x.shape[1])
+    return args, side_out
+
+
+def side_tag(side_w_scale) -> str:
+    """The launch-counter tag of a carried tile: "side", or "side8" for the
+    W8A8 tile."""
+    return "side" if side_w_scale is None else "side8"
 
 
 def reference_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_scale=None, b1=None, b2=None,
@@ -332,8 +366,8 @@ def reference_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_g
     if side_x is None:
         return y
     check_side(x, side_x, side_w, side_ln, side_act, side_b, side_residual, side_w_scale)
-    return y, reference_side_tile(side_x, side_w, side_ln=side_ln, side_eps=side_eps, side_act=side_act,
-                                  side_b=side_b, side_residual=side_residual)
+    return y, reference_side_tile(side_x, side_w, side_w_scale=side_w_scale, side_ln=side_ln, side_eps=side_eps,
+                                  side_act=side_act, side_b=side_b, side_residual=side_residual)
 
 
 def fused_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, eps=1e-5, norm="layer",
@@ -380,10 +414,12 @@ def fused_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_
     With side_x (M, SK) and side_w (SN, SK), both in x's dtype: the K2b side
     tile act(LN?(side_x)) @ side_w.T + side_b + side_residual in the same
     launch; side_ln (scale, bias or None) (SK,), side_act one of `_ACTS`,
-    side_b (SN,), side_residual (M, SN). Returns (y, side_out (M, SN))."""
+    side_b (SN,), side_residual (M, SN); side_w int8 with side_w_scale (SN,)
+    fp32: the W8A8 tile. Returns (y, side_out (M, SN))."""
     if side_x is None and any(t is not None for t in (side_w, side_w_scale, side_ln, side_b, side_residual)):
         raise ValueError("fused_mlp: side operands need side_x")
-    refuse_autograd("fused_mlp", x, w1, w2, w1_gate, b1, b2, ln_scale, ln_bias, residual, gate, side_x, side_w)
+    refuse_autograd("fused_mlp", x, w1, w2, w1_gate, b1, b2, ln_scale, ln_bias, residual, gate, side_x, side_w,
+                    side_b, side_residual)
     check_prologue("fused_mlp", act, norm, ln_scale, ln_bias)
     b, k = x.shape
     k2 = check_weight("fused_mlp", "w1", w1, w1_scale, k)
@@ -421,16 +457,11 @@ def fused_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_
         count_launch(fused_mlp, variant(w1, tags=tags))
         return out
     check_side(x, side_x, side_w, side_ln, side_act, side_b, side_residual, side_w_scale)
-    check_side_kernel(side_x, side_w, side_ln, side_b, side_residual)
-    m, sn = side_x.shape[0], side_w.shape[0]
-    side_out = torch.empty(m, sn, dtype=x.dtype, device=x.device)
-    ln_s, ln_b = side_ln if side_ln is not None else (None, None)
-    status = _kernel().fused_mlp_side_fwd(
-        *args, ptr(side_x), ptr(side_w), side_w.stride(0), ptr(ln_s), ptr(ln_b), float(side_eps), _ACTS[side_act],
-        ptr(side_b), ptr(side_residual), 0 if side_residual is None else side_residual.stride(0), ptr(side_out), m,
-        sn, side_x.shape[1], build.current_stream(x.device))
+    check_side_kernel(side_x, side_w, side_w_scale, side_ln, side_b, side_residual)
+    sargs, side_out = side_operands(side_x, side_w, side_w_scale, side_ln, side_eps, side_act, side_b, side_residual)
+    status = _kernel().fused_mlp_side_fwd(*args, *sargs, build.current_stream(x.device))
     build.check(status, "fused_mlp_side_fwd")
-    count_launch(fused_mlp, variant(w1, tags=tags + ("side",)))
+    count_launch(fused_mlp, variant(w1, tags=tags + (side_tag(side_w_scale),)))
     return out, side_out
 
 

@@ -1,6 +1,7 @@
-"""Post-load int8 / int4 quantization of the decode-streamed LM weights,
-the JAX package's `quantize.py` (`quantize_weight`, `QUANT_PARENTS`,
-`quantize_decode_params`, `dequantize_roundtrip`).
+"""Post-load int8 / int4 quantization of the decode-streamed LM weights and
+of the ViT for W8A8 prefill, the JAX package's `quantize.py`
+(`quantize_weight`, `QUANT_PARENTS`, `quantize_decode_params`,
+`quantize_prefill_params`, `dequantize_roundtrip`).
 
 Single-token decode on the card is bound by the weight bytes: per-out-
 channel symmetric int8 halves them and int4 quarters them.
@@ -17,6 +18,16 @@ to `jnp.int4` inside its graph. The port packs them once, here: a
 the high nibble of byte j, each in two's complement. The dtype tells the
 kernels which form they get: `int8` is int8, `uint8` is packed int4. The
 vocab head stays int8 in int4 mode (JAX `quantize.py:79-92`).
+
+W8A8 prefill (`ops.w8a8`, `models.layers.Dense`) multiplies int8 weights:
+`quantize_prefill_weights(model, bits)` quantizes the LM as above and gives
+the six linears of every ViT block (q/k/v, out_proj, fc1, fc2) an int8
+`weight_q` and its scale, int8 in either mode (patch_embed, the perceiver
+and the xattn `to_kv` stay unquantized, as in the JAX package). In int4
+mode the W8A8 product reads the int4 grid's values as int8, as JAX's
+`kernel_q4` gives them: `w8a8_weight` unpacks the packed stream at each use
+(a transient (N, K) int8 tensor per linear), so no second copy of the LM's
+stream is kept.
 """
 
 from __future__ import annotations
@@ -124,6 +135,28 @@ def attach_decode_weights(model: nn.Module, weights: dict) -> nn.Module:
     for name, (q, s) in weights.items():
         attach(model.get_submodule(name), q, s)
     return model
+
+
+@torch.no_grad()
+def quantize_prefill_weights(model: nn.Module, bits: int = 8) -> nn.Module:
+    """The counterpart of JAX `quantize_prefill_params`: the LM as
+    `quantize_decode_weights(model, bits)` does, then an int8 copy of each
+    ViT block's q/k/v, out_proj, fc1 and fc2 for the W8A8 prefill path.
+    Returns the model."""
+    quantize_decode_weights(model, bits)
+    vision = getattr(model, "vision_encoder", None)
+    if vision is not None:
+        for _, mod, _ in _quantizable(vision):
+            attach(mod, *quantize_weight(mod.weight, 8))
+    return model
+
+
+def w8a8_weight(module: nn.Module) -> Optional[torch.Tensor]:
+    """The int8 (N, K) weight of `module`'s W8A8 product, or None: an int8
+    `weight_q`, or a packed int4 stream unpacked (JAX
+    `PDense._w8a8_weight`: `kernel_q` when int8, else `kernel_q4`)."""
+    q = getattr(module, "weight_q", None)
+    return None if q is None else weight_values(q)
 
 
 def drop_decode_weights(model: nn.Module) -> nn.Module:

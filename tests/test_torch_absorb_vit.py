@@ -18,7 +18,13 @@ package's on the CPU.
     port's own call without next_pixels and to JAX's absorbed call,
     next_latents within 1e-4 of JAX's and of the port's `embed_vision` (the
     JAX test's tolerance), and every slot of the schedule taken; the
-    serial fallback; GPT-NeoX, llama and OPT blocks carrying tiles.
+    serial fallback; GPT-NeoX, llama and OPT blocks carrying tiles;
+  * `ATTN_CARRIERS` (K3 launches carrying tiles, K2b-attn): `make_plan`
+    field by field against JAX's with the knob on both sides, and absorbed
+    generate against JAX's with it, with the int8 ViT side-car (the W8A8
+    side tiles, JAX `SIDE_INT8`) and with both: tokens equal to JAX's and
+    to the call without next_pixels, K3 carrying half the tiles, next
+    latents within 1e-4 of JAX's.
 
 Hooks: JAX `dense_stream.FORCE_FUSED` + `INTERPRET` and
 `vit_attention.INTERPRET`; the port's `FORCE_FUSED` (its wrappers run
@@ -36,6 +42,7 @@ from test_scan_layers import _scan_variables
 
 from open_flamingo_tpu.generation import GenerationConfig as JaxGenerationConfig
 from open_flamingo_tpu.generation import flamingo_generate as jax_generate
+from open_flamingo_tpu import quantize as jq
 from open_flamingo_tpu.models import absorb_vit as jax_av
 from open_flamingo_tpu.models.decoders.common import DecoderConfig as JaxDecoderConfig
 from open_flamingo_tpu.models.flamingo import Flamingo as JaxFlamingo
@@ -44,13 +51,15 @@ from open_flamingo_tpu.models.vit import VisionConfig as JaxVisionConfig
 from open_flamingo_tpu.ops import dense_stream as jax_ds
 from open_flamingo_tpu.ops import vit_attention as jax_va
 from open_flamingo_tpu_torch import configs
-from open_flamingo_tpu_torch.convert.from_jax import state_dict_from_jax
+from open_flamingo_tpu_torch.convert.from_jax import decode_weights_from_jax, state_dict_from_jax
 from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate
 from open_flamingo_tpu_torch.models import absorb_vit as port_av
+from open_flamingo_tpu_torch.models import xattn as port_xattn
 from open_flamingo_tpu_torch.models.flamingo import Flamingo, init_random
 from open_flamingo_tpu_torch.ops import dense_stream as port_ds
 from open_flamingo_tpu_torch.ops.vit_attention import flat_vit_attention, reference_flat_vit_attention
-from open_flamingo_tpu_torch.quantize import quantize_weight
+from open_flamingo_tpu_torch.models.decoders import mpt as port_mpt
+from open_flamingo_tpu_torch.quantize import attach_decode_weights, quantize_weight
 
 VOCAB, MEDIA, EOC = 128, 3, 4
 LATENT_ATOL = 1e-4
@@ -62,7 +71,7 @@ LM = dict(family="mpt", vocab_size=VOCAB, hidden_size=32, num_layers=4, num_head
 FLAMINGO = dict(media_token_id=MEDIA, eoc_token_id=EOC, cross_attn_every_n=1, num_vis_latents=4, perceiver_depth=1,
                 perceiver_heads=2, perceiver_dim_head=8)
 PLAN_FIELDS = ("b", "t", "f", "s_real", "s_pad", "m_f", "d", "heads", "n_fc1", "n_fc2", "act", "eps", "macro",
-               "per_step", "n_steps", "n_vit_layers", "split", "slots_per_layer", "side_groups", "bv")
+               "per_step", "n_steps", "n_vit_layers", "split", "slots_per_layer", "side_groups", "bv", "attn_carriers")
 
 
 def jax_cfg(vis=None, lm=None, **kw):
@@ -147,15 +156,55 @@ def test_make_plan_matches_jax(name, monkeypatch):
         assert (got.macro, got.per_step, got.n_steps, got.slots_per_layer, got.m_f) == (6, 1, 24, 12, 2112)
 
 
-def test_unported_knobs_raise(monkeypatch):
-    pcfg = port_cfg(jax_cfg())
+@pytest.mark.parametrize("name", ["base", "lm8_plain_tail", "pad_slots_n2", "n4_pad_slots", "multi_image", "split2",
+                                  "gptneox", "of3b"])
+def test_make_plan_attn_carriers_matches_jax(name, monkeypatch):
+    """With ATTN_CARRIERS in both packages: K3 launches join the carriers
+    (the gated block's in every family, MPT's self-attention), field by
+    field. OF-3B: 4 carriers a group (xattn K3, xattn K2, MPT K3, MPT K2),
+    macro 3."""
+    monkeypatch.setattr(jax_av, "ATTN_CARRIERS", True)
     monkeypatch.setattr(port_av, "ATTN_CARRIERS", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14b"):
-        port_av.make_plan(pcfg, (2, 1, 1), 4)
-    monkeypatch.setattr(port_av, "ATTN_CARRIERS", False)
-    monkeypatch.setattr(port_av, "SIDE_INT8", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9b"):
-        port_av.make_plan(pcfg, (2, 1, 1), 4)
+    if name == "of3b":
+        pcfg = configs.flamingo_config("OF-3B")
+        jcfg = dataclasses.replace(convert_cfg(pcfg, JaxFlamingoConfig, JaxVisionConfig, JaxDecoderConfig),
+                                   scan_layers=True)
+        shape, max_new = (64, 1, 1), 32
+    elif name == "gptneox":
+        jcfg, shape, max_new = jax_cfg(lm=dict(family="gptneox", alibi=False, num_layers=6),
+                                       cross_attn_every_n=2), (2, 1, 1), 4
+        pcfg = port_cfg(jcfg)
+    else:
+        jcfg, shape, max_new, _ = geometry_cfg(name)
+        pcfg = port_cfg(jcfg)
+    want = jax_av.make_plan(jcfg, shape, max_new)
+    got = port_av.make_plan(pcfg, shape, max_new)
+    assert want is not None and got is not None and got.attn_carriers
+    for field in PLAN_FIELDS:
+        assert getattr(got, field) == getattr(want, field), field
+    if name == "of3b":
+        assert (got.n_steps, got.slots_per_layer, got.macro, got.m_f) == (24, 12, 3, 16896)
+    if name == "gptneox":     # the gated block's K3 alone joins: n + 2 carriers a group
+        assert got.macro == -(-got.slots_per_layer // 4)
+
+
+def test_unported_knobs_raise(monkeypatch):
+    """Both knobs are ported: ATTN_CARRIERS plans attention carriers and
+    SIDE_INT8 is on by default, as in JAX. What raises now is a malformed
+    W8A8 tile: an int8 side_w without its scale, a scale beside a float
+    side_w or of the wrong shape."""
+    pcfg = port_cfg(jax_cfg())
+    assert port_av.SIDE_INT8 and jax_av.SIDE_INT8 and not port_av.ATTN_CARRIERS
+    monkeypatch.setattr(port_av, "ATTN_CARRIERS", True)
+    plan = port_av.make_plan(pcfg, (2, 1, 1), 4)
+    assert plan.attn_carriers and plan.macro == 2      # 8 slots on 4 carriers a group (MPT n 1)
+    x, w, w8 = torch.zeros(2, 16), torch.zeros(24, 16), torch.zeros(24, 16, dtype=torch.int8)
+    sx = torch.zeros(8, 16)
+    for kw, match in ((dict(side_w=w8), "side_w_scale goes with an int8 side_w"),
+                      (dict(side_w=w, side_w_scale=torch.ones(24)), "side_w_scale goes with an int8 side_w"),
+                      (dict(side_w=w8, side_w_scale=torch.ones(23)), r"side_w_scale must be \(24,\)")):
+        with pytest.raises(ValueError, match=match):
+            port_ds.fused_mlp(x, w, w.t(), side_x=sx, **kw)
 
 
 # ---------------------------------------------------------------- K8
@@ -237,7 +286,7 @@ def test_side_operands_checked():
         port_ds.fused_mlp(x, w, w.t(), side_w=w)
     with pytest.raises(ValueError, match="side_residual"):
         port_ds.fused_mlp(x, w, w.t(), side_x=torch.zeros(8, 16), side_w=w, side_residual=torch.zeros(8, 23))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="side_w_scale"):
         port_ds.fused_mlp(x, w, w.t(), side_x=torch.zeros(8, 16), side_w=w, side_w_scale=torch.ones(24))
 
 
@@ -315,6 +364,72 @@ def test_absorbed_generate_matches_jax(case, fused, slots, monkeypatch):
     assert got_lat.shape == serial.shape == (*next_shape[:2], FLAMINGO["num_vis_latents"], jcfg.vision.hidden_size)
     np.testing.assert_allclose(got_lat.numpy(), np.asarray(want_lat), atol=LATENT_ATOL, rtol=0)
     np.testing.assert_allclose(got_lat.numpy(), serial.numpy(), atol=LATENT_ATOL, rtol=0)
+
+
+FORMS = {
+    "attn_carriers": dict(attn=True, int8=False),
+    "int8_side_car": dict(attn=False, int8=True),
+    "attn_carriers_int8": dict(attn=True, int8=True),
+}
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_absorbed_generate_forms_match_jax(form, fused, slots, monkeypatch):
+    """Absorbed generate with K3 carrying tiles (ATTN_CARRIERS) and with the
+    int8 ViT side-car (the W8A8 side tiles, LM decode int8), against JAX's
+    absorbed call: tokens equal to JAX's and to the port's call without
+    next_pixels, every slot taken, K3 and K2 carrying the plan's share, the
+    next latents within 1e-4 of JAX's; without the side-car within 1e-4 of
+    embed_vision, with it away from it (the W8A8 tiles engaged)."""
+    kind = FORMS[form]
+    monkeypatch.setattr(jax_av, "ATTN_CARRIERS", kind["attn"])
+    monkeypatch.setattr(port_av, "ATTN_CARRIERS", kind["attn"])
+    over, next_shape, max_new = GENERATE["mpt_n1_lm4"]
+    rng = np.random.default_rng(11)
+    jcfg = jax_cfg(**over)
+    unrolled = JaxFlamingo(cfg=dataclasses.replace(jcfg, scan_layers=False))
+    vision_x = rng.normal(size=(2, 1, 1, 16, 16, 3)).astype(np.float32)
+    ids = rng.integers(7, VOCAB, size=(2, 6)).astype(np.int32)
+    ids[:, 0] = MEDIA
+    mask = np.ones_like(ids)
+    params = unrolled.init(jax.random.PRNGKey(1), vision_x, ids, mask)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, p: jnp.full_like(p, 0.5) if "gate" in jax.tree_util.keystr(path) else p, params)
+    s_vars = _scan_variables(params, unrolled)
+    if kind["int8"]:
+        s_vars = jq.quantize_prefill_params(s_vars)
+    next_pixels = rng.normal(size=(*next_shape, 16, 16, 3)).astype(np.float32)
+    plan = jax_av.make_plan(jcfg, next_shape, max_new)
+    assert plan.attn_carriers == kind["attn"]
+    jgen = JaxGenerationConfig(max_new_tokens=max_new, pad_token_id=0, eos_token_id=-1)
+    want_tok, want_lat = jax_generate(JaxFlamingo(cfg=jcfg), s_vars, vision_x, ids, mask, jgen,
+                                      next_pixels=next_pixels)
+    tmodel = load(Flamingo(port_cfg(jcfg), device="cpu"), s_vars)
+    if kind["int8"]:
+        attach_decode_weights(tmodel, decode_weights_from_jax(jax.tree.map(np.asarray, s_vars)))
+    gen = GenerationConfig(max_new_tokens=max_new, pad_token_id=0, eos_token_id=-1)
+    args = (torch.from_numpy(vision_x), torch.from_numpy(ids), torch.from_numpy(mask), gen)
+    plain = flamingo_generate(tmodel, *args, device="cpu")
+    calls = []
+    for module in (port_mpt, port_xattn):
+        for name in ("reference_attn_block", "reference_mlp"):
+            real = getattr(module, name)
+            monkeypatch.setattr(module, name, lambda *a, real=real, name=name, **kw: calls.append(
+                (name, kw.get("side_w") is not None, kw.get("side_w_scale") is not None)) or real(*a, **kw))
+    got_tok, got_lat = flamingo_generate(tmodel, *args, next_pixels=torch.from_numpy(next_pixels), device="cpu")
+    tiles = plan.slots_per_layer * plan.n_vit_layers
+    assert len(slots) == tiles
+    carried = [c for c in calls if c[1]]
+    assert all(c[2] == kind["int8"] for c in carried)              # the W8A8 tile exactly with the side-car
+    k3 = sum(c[0] == "reference_attn_block" for c in carried)
+    assert (k3, len(carried)) == ((tiles // 2 if kind["attn"] else 0), tiles)
+    np.testing.assert_array_equal(got_tok.numpy(), plain.numpy())
+    np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
+    np.testing.assert_allclose(got_lat.numpy(), np.asarray(want_lat), atol=LATENT_ATOL, rtol=0)
+    with torch.no_grad():
+        serial = tmodel.embed_vision(torch.from_numpy(next_pixels))
+    err = np.abs(got_lat.numpy() - serial.numpy()).max()
+    assert (err > 10 * LATENT_ATOL) if kind["int8"] else (err <= LATENT_ATOL), err
 
 
 FAMILIES = {

@@ -14,7 +14,10 @@ is a multiple of 32; K4b/K5b): both round an fp32 result to bf16, one ulp apart
 at most, plus the summation order; atol = rtol = 1e-2 as in chip_smoke.py.
 The RMSNorm prologue, the activations and K2's SwiGLU form (llama, OPT)
 take the same tolerances, and so do the ViT's K9 and K10, the absorbed ViT's
-K8 and K2's side tiles (K2b). Quantized decode (int8 / packed int4 weights, the
+K8 and the side tiles in x's dtype (K2b on K2, K2b-attn on K3). The W8A8
+side tile (K2b int8) rounds the same int32 sums as its plain version at the
+same points: beyond those tolerances it may differ by one int8 step of each
+activation within 1e-3 of a rounding boundary (`w8a8_close`). Quantized decode (int8 / packed int4 weights, the
 int8 cache): the same
 tolerances, 2e-4 in fp32 where an int8 cache is read (a quantized entry at
 a rounding boundary may land one step apart when the new token's K/V come
@@ -28,7 +31,7 @@ import torch
 from open_flamingo_tpu_torch.models.decoders.common import quantize_kv
 from open_flamingo_tpu_torch.ops.decode_attention import decode_attention, decode_attention_update
 from open_flamingo_tpu_torch.ops.decode_layer import attend_out_decode, attn_block_decode
-from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
+from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp, reference_side_tile
 from open_flamingo_tpu_torch.ops.fused_layer import fused_layer_decode
 from open_flamingo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward, reference_attention)
@@ -572,6 +575,131 @@ def test_fused_mlp_side_tile(gen, k2, slot, bits, dtype):
     want_y, want_so = fused_mlp(x.cpu(), w1.cpu(), w2.cpu(), **on_cpu(kw), **cpu_side)
     close(y, want_y)
     close(so, want_so)
+
+
+def w8a8_side(gen, dtype, m, sk, sn, kind):
+    """A W8A8 side tile's operands: int8 side_w a column block of a wider
+    int8 weight (a row stride, as an fc2 slice), its (SN,) scales whole."""
+    q, s = quantize_weight(rn(gen, sn, 2 * sk) * sk**-0.5, 8)
+    side = dict(side_x=(rn(gen, m, sk) * 2).to(dtype), side_w=q[:, sk:], side_w_scale=s, side_act=kind.get("act"),
+                side_eps=1e-5)
+    if kind.get("ln"):
+        side["side_ln"] = ((1 + 0.1 * rn(gen, sk)).to(dtype), (0.1 * rn(gen, sk)).to(dtype))
+    if kind.get("bias"):
+        side["side_b"] = (0.1 * rn(gen, sn)).to(dtype)
+    if kind.get("residual"):
+        side["side_residual"] = rn(gen, m, 2 * sn).to(dtype)[:, sn:]
+    return side
+
+
+def w8a8_close(so, want, side_cpu):
+    """The W8A8 tile against its plain version: both round the same int32
+    sums at the same points, so they differ only where an activation's
+    quotient sh / s_act lies near a .5 boundary (the LayerNorm and the
+    activation are fp32 sums and functions taken in another order, ~1e-5 of
+    a step apart). Allowance per element: the row's activations within 1e-3
+    of a boundary, each at most one step of s_act * |w_q| * w_s, with |w_q|
+    <= 127; plus `close`'s tolerance."""
+    from open_flamingo_tpu_torch.ops.dense_stream import side_activations
+    from open_flamingo_tpu_torch.ops.w8a8 import quantize_activations
+
+    h = side_activations(side_cpu["side_x"], side_cpu.get("side_ln"), 1e-5, side_cpu.get("side_act"))
+    s_act = quantize_activations(h)[1]
+    frac = (h / s_act).abs() % 1
+    near = ((frac - 0.5).abs() < 1e-3).sum(-1, keepdim=True).float()
+    allow = near * s_act * 127 * side_cpu["side_w_scale"][None]
+    tol = dict(atol=ATOL, rtol=0) if so.dtype == torch.float32 else dict(atol=1e-2, rtol=1e-2)
+    diff = (so.cpu().float() - want.float()).abs()
+    assert (diff <= allow + tol["atol"] + tol["rtol"] * want.float().abs()).all(), diff.max()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bits", [None, 8, 4])
+@pytest.mark.parametrize("slot", list(SIDE_SLOTS))
+@pytest.mark.parametrize("k2", [512, 344])
+def test_fused_mlp_w8a8_side_tile(gen, k2, slot, bits, dtype):
+    """K2b int8, the W8A8 side tile, on K2's launch with main weights of
+    every type: M and SN ragged against its 64 x 128 tiles; K2's own output
+    bit for bit the launch's without a tile."""
+    b, k, n, m, sk, sn = 8, 128, 136, 130, 96, 160
+    x, ln, res = (t.to(dtype) for t in (rn(gen, b, k), rn(gen, k), rn(gen, b, n)))
+    w1, w2 = rn(gen, k2, k) * 0.05, rn(gen, n, k2) * 0.05
+    kw = dict(ln_scale=ln, residual=res)
+    if bits is None:
+        w1, w2 = w1.to(dtype), w2.to(dtype)
+    else:
+        (w1, s1), (w2, s2) = quantized(w1, bits), quantized(w2, bits)
+        kw.update(w1_scale=s1, w2_scale=s2)
+    side = w8a8_side(gen, dtype, m, sk, sn, SIDE_SLOTS[slot])
+    before = dict(fused_mlp.variants)
+    y, so = fused_mlp(x, w1, w2, **kw, **side)
+    grew = [key for key, c in fused_mlp.variants.items() if c != before.get(key, 0)]
+    assert len(grew) == 1 and grew[0].endswith("+side8")
+    assert torch.equal(y, fused_mlp(x, w1, w2, **kw))
+    cpu_side = {key: tuple(t.cpu() for t in val) if isinstance(val, tuple) else val
+                for key, val in on_cpu(side).items()}
+    want_y, want_so = fused_mlp(x.cpu(), w1.cpu(), w2.cpu(), **on_cpu(kw), **cpu_side)
+    close(y, want_y)
+    w8a8_close(so, want_so, cpu_side)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", ["float", "w8a8"])
+@pytest.mark.parametrize("bits,kv8", [(None, False), (4, False), (8, True)])
+@pytest.mark.parametrize("fused_qkv", [True, False])
+def test_attn_block_decode_side_tile(gen, fused_qkv, bits, kv8, tile, dtype):
+    """K2b-attn, K3 carrying a side tile in its out-projection launch (self
+    with the slot write at 40, gated q only), weights in x's dtype, int4 and
+    int8 over the int8 cache: y and the caches bit for bit those of the call
+    without a tile, the tile against its plain version."""
+    b, h, d, dm, s, slot = 3, 4, 64, 128, 64, 40
+    m, sk, sn = 130, 96, 160
+    x, ln = rn(gen, b, dm).to(dtype), rn(gen, dm).to(dtype)
+    wq, wout = rn(gen, (3 if fused_qkv else 1) * h * d, dm) * 0.1, rn(gen, dm, h * d) * 0.1
+    kw = dict(heads=h, head_dim=d, scale=d**-0.5)
+    if bits is None:
+        wq, wout = wq.to(dtype), wout.to(dtype)
+    else:
+        (wq, sq), (wout, so_) = quantized(wq, bits), quantized(wout, bits)
+        kw.update(wq_scale=sq, wout_scale=so_)
+    mask = torch.zeros(b, s, dtype=torch.bool, device="cuda")
+    mask[:, :slot + 1] = True
+    mask[1, :3] = False
+    if fused_qkv:
+        kw.update(fused_qkv=True, slot=torch.tensor([slot], dtype=torch.int32, device="cuda"), slopes=rn(gen, h).abs(),
+                  clip=0.6)
+    else:
+        kw.update(gate=torch.tensor([0.5], device="cuda", dtype=dtype))
+    if kv8:
+        (kc, ks), (vc, vs) = int8_cache(gen, b, h, s, d), int8_cache(gen, b, h, s, d)
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        kc, vc = rn(gen, b, h, s, d).to(dtype), rn(gen, b, h, s, d).to(dtype)
+    kind = SIDE_SLOTS["ln_bias"]
+    if tile == "w8a8":
+        side = w8a8_side(gen, dtype, m, sk, sn, kind)
+    else:
+        side = dict(side_x=(rn(gen, m, sk) * 2).to(dtype), side_w=(rn(gen, sn, 2 * sk) * sk**-0.5).to(dtype)[:, sk:],
+                    side_ln=((1 + 0.1 * rn(gen, sk)).to(dtype), (0.1 * rn(gen, sk)).to(dtype)),
+                    side_b=(0.1 * rn(gen, sn)).to(dtype), side_eps=1e-5)
+    caches = [t.clone() for t in (kc, vc, kw.get("k_scale"), kw.get("v_scale")) if t is not None]
+    plain_kw = dict(kw, **({"k_scale": caches[2], "v_scale": caches[3]} if kv8 else {}))
+    before = dict(attn_block_decode.variants)
+    got = attn_block_decode(x, ln, None, wq, wout, kc, vc, mask, **kw, **side)
+    grew = [key for key, c in attn_block_decode.variants.items() if c != before.get(key, 0)]
+    assert len(grew) == 1 and grew[0].endswith("+side8" if tile == "w8a8" else "+side")
+    without = attn_block_decode(x, ln, None, wq, wout, caches[0], caches[1], mask, **plain_kw)
+    for g, w in zip(got[:-1], without if fused_qkv else (without,)):
+        assert torch.equal(g, w)
+    if kv8:
+        assert torch.equal(kw["k_scale"], caches[2]) and torch.equal(kw["v_scale"], caches[3])
+    cpu_side = {key: tuple(t.cpu() for t in val) if isinstance(val, tuple) else val
+                for key, val in on_cpu(side).items()}
+    want_so = reference_side_tile(**cpu_side)
+    if tile == "w8a8":
+        w8a8_close(got[-1], want_so, cpu_side)
+    else:
+        close(got[-1], want_so)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

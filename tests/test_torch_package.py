@@ -133,14 +133,14 @@ def test_vit_kernel_wrappers_refuse_other_devices(grad):
                                   "k6_v_scale", "layer_idx", "int4_odd_k", "w1_gate_scale", "k3_side_x",
                                   "float_w_scale", "side_w_scale"])
 def test_unported_operands_raise(call):
-    """Operands the port does not take yet name ROADMAP
-    (NotImplementedError: K3's side tiles, item 14b, and the W8A8 side dot,
-    item 9b); malformed operands raise ValueError: an int weight without its
-    scale, a scale of the wrong shape, an int8 cache without scales (or
-    scales without the other), int4 with an odd K, a scale with a weight in
-    x's dtype, an RMSNorm with a bias, an unknown activation, w1 and w1_gate
-    in two stored types, K6's stacked-layer index, which the port's
-    per-layer layout does not take, and side_x without side_w."""
+    """Malformed operands raise ValueError: an int weight without its scale,
+    a scale of the wrong shape, an int8 cache without scales (or scales
+    without the other), int4 with an odd K, a scale with a weight in x's
+    dtype, an RMSNorm with a bias, an unknown activation, w1 and w1_gate in
+    two stored types, K6's stacked-layer index, which the port's per-layer
+    layout does not take, side_x without side_w (K2's and K3's), and a
+    side_w_scale beside a float side_w. (K3's side tiles and the W8A8 side
+    tile, once refused here, are ported.)"""
     from open_flamingo_tpu_torch.ops.decode_layer import attend_out_decode, attn_block_decode
     from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
 
@@ -149,12 +149,11 @@ def test_unported_operands_raise(call):
     kv, kv8 = torch.zeros(2, 2, 8, 8), torch.zeros(2, 2, 8, 8, dtype=torch.int8)
     mask = torch.ones(2, 8, dtype=torch.bool)
     k3 = dict(heads=2, head_dim=8, scale=0.3)
-    refused = {
-        "side_w_scale": lambda: fused_mlp(x, w, w.t(), side_x=x, side_w=w, side_w_scale=torch.ones(24)),
-        "k3_side_x": lambda: attn_block_decode(x, torch.ones(16), None, w[:16], w[:16].t(), kv, kv, mask, **k3,
-                                               side_x=x),
-    }
     malformed = {
+        "side_w_scale": (lambda: fused_mlp(x, w, w.t(), side_x=x, side_w=w, side_w_scale=torch.ones(24)),
+                         "side_w_scale goes with an int8 side_w"),
+        "k3_side_x": (lambda: attn_block_decode(x, torch.ones(16), None, w[:16], w[:16].t(), kv, kv, mask, **k3,
+                                                side_x=x), "side_x needs side_w"),
         "w_scale": (lambda: fused_dense(x, w8, w_scale=torch.ones(23)), "scale"),
         "norm": (lambda: fused_dense(x, w, ln_scale=torch.ones(16), ln_bias=torch.zeros(16), norm="rms"), "ln_bias"),
         "act": (lambda: fused_dense(x, w, act="swish"), "activation"),
@@ -173,13 +172,9 @@ def test_unported_operands_raise(call):
         "float_w_scale": (lambda: fused_dense(x, w, w_scale=torch.ones(24)), "scale"),
         "side_x": (lambda: fused_mlp(x, w, w.t(), side_x=x), "side_w"),
     }
-    if call in refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            refused[call]()
-    else:
-        fn, match = malformed[call]
-        with pytest.raises(ValueError, match=match):
-            fn()
+    fn, match = malformed[call]
+    with pytest.raises(ValueError, match=match):
+        fn()
 
 
 def test_kernel_routing_follows_the_tensor_device():
