@@ -15,6 +15,7 @@ port spends its time on the card.
     python3 chip_profile.py gemv       # the bf16 row GEMV alone at its CUDA-core shapes (K 16,384, 11,000)
     python3 chip_profile.py vit        # K9, K10 and the ViT-L/14 forward alone (B 8, 32), kernels and plain
     python3 chip_profile.py k2         # plain K2 and K3 at OF-3B's shapes (bf16, int8, int4): the parent/change A/B
+    python3 chip_profile.py k45        # K4/K5's tensor-core body against variants of its source, one call
     python3 chip_profile.py absorb     # an absorbing decode step against a plain one; the next batch's ViT
                                        # serial, as side tiles, and on a second CUDA stream; the B 64
                                        # int4 + W8A8 pipe, with and without ATTN_CARRIERS
@@ -57,6 +58,14 @@ that checkout's kernels (parent, change, change, parent in one call); it
 saves each case's output beside the built kernels
 (`open_flamingo_tpu_torch/_build/k2_outputs_<tree>.pt`), so two trees'
 outputs can be held bit for bit.
+
+`k45` builds csrc/prefill_attention.cu as it is and as variants, each a
+copy with one constant or branch changed (two blocks per SM for the
+causal mask too, a three-stage ring, 32-key tiles, the compute skipped:
+what staging, launch and stores cost alone), and times their bf16
+entries on the same inputs (CUDA-graph replay, the variants in turns, each
+twice) at K4's and K5's main shapes: generate's prefill S64 and T1, the
+train step's LAION T32 and MMC4 T256, the ragged S 257.
 
 `absorb` (bf16 OF-3B, B 8, the next batch's 8 images): device time by
 kind of one decode step carrying ViT layer 0 as side tiles against the
@@ -309,6 +318,93 @@ def device_time_by_kind(run, kinds) -> dict:
             "top": [{"name": k[:80], "device_s": t, "count": n} for k, t, n in rows[:8]]}
 
 
+# K4/K5 body variants: name -> (text of csrc/prefill_attention.cu, its replacement)
+K45_VARIANTS = {
+    "fill2_causal": ("constexpr int kFill<CausalPadAlibi> = 1;", "constexpr int kFill<CausalPadAlibi> = 2;"),
+    "stages3": ("constexpr int kStages = 2;", "constexpr int kStages = 3;"),
+    "tile32": ("constexpr int kTileKeys = 64;", "constexpr int kTileKeys = 32;"),
+    "no_compute": ("if (k0 < hi_w && k0 + kTileKeys > lo_w) {", "if (false) {"),
+}
+
+
+def k45_times() -> int:
+    import ctypes
+    import shutil
+    import subprocess
+
+    from chip_smoke import B, T_M, card_line, device_ms, left_padded_mask
+    from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes
+    from open_flamingo_tpu_torch.ops import build
+
+    src = (build.CSRC / "prefill_attention.cu").read_text()
+    libs, procs = {}, {}
+    for name, edit in {"as_is": None, **K45_VARIANTS}.items():
+        out = build.BUILD_DIR / f"k45_{name}"
+        out.mkdir(parents=True, exist_ok=True)
+        for header in build.CSRC.glob("*.cuh"):
+            shutil.copy(header, out)
+        if edit is not None:
+            if edit[0] not in src:
+                raise RuntimeError(f"k45: variant {name}: {edit[0]!r} is not in the source")
+        (out / "prefill_attention.cu").write_text(src if edit is None else src.replace(edit[0], edit[1]))
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / "prefill_attention.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"k45: nvcc failed for {name}:\n{text}")
+        lib = ctypes.CDLL(str(build.BUILD_DIR / f"k45_{name}" / "lib.so"))
+        lib.flash_attention_fwd.argtypes = [p] * 7 + [i] * 6 + [ctypes.c_float, i, p]
+        lib.masked_xattn_fwd.argtypes = [p] * 6 + [i] * 5 + [ctypes.c_float, i, p]
+        libs[name] = lib
+
+    dev, dt = torch.device("cuda", 0), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dt)
+    slopes16 = torch.from_numpy(alibi_slopes(16)).to(dev)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    cases = []
+    # K4: MPT self-attention (16 heads of Dh 128, ALiBi), causal from q_offset 0
+    for case, b, tq, s, pads in (("prefill_S64", B, 32, 64, [4, 7]), ("train_laion_T32", B, 32, 32, []),
+                                 ("train_mmc4_T256", 4, T_M, T_M, []), ("ragged_S257", 2, 257, 257, [0, 257])):
+        bh, d = b * 16, 128
+        q, k, v = rn(bh, tq, d), rn(bh, s, d), rn(bh, s, d)
+        valid = left_padded_mask(b, s, pads, dev)
+        valid[:, tq:] = False
+        pad = valid.repeat_interleave(16, 0).view(torch.uint8)
+        sl, out = slopes16.repeat(b)[:, None].contiguous(), torch.empty_like(q)
+        cases.append(("flash_attention", case, out, lambda lib, q=q, k=k, v=v, pad=pad, sl=sl, out=out, bh=bh, tq=tq, s=s:
+                      lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), sl.data_ptr(),
+                                              out.data_ptr(), None, bh, tq, s, 128, 0, 1, 128**-0.5, 1, stream())))
+    # K5: gated xattn (8 heads of Dh 64, 64 latents an image)
+    for case, b, tq, media in (("prefill_T1", B, 32, [0]), ("train_mmc4_T256", 4, T_M, [3 + 42 * j for j in range(6)])):
+        bh, d, s = b * 8, 64, 64 * len(media)
+        q, k, v = rn(bh, tq, d), rn(bh, s, d), rn(bh, s, d)
+        loc = torch.zeros(b, tq, dtype=torch.int32, device=dev)
+        loc[:, media] = 1
+        tt = torch.cumsum(loc, 1).to(torch.int32).repeat_interleave(8, 0).contiguous()
+        out = torch.empty_like(q)
+        cases.append(("masked_xattn", case, out, lambda lib, q=q, k=k, v=v, tt=tt, out=out, bh=bh, tq=tq, s=s:
+                      lib.masked_xattn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(), out.data_ptr(),
+                                           None, bh, tq, s, 64, 64, 64**-0.5, 1, stream())))
+    for kernel, case, out, call in cases:
+        row = {"profile": "k45_variants_bf16", "kernel": kernel, "case": case}
+        for turn in (list(libs), list(libs)[::-1]):
+            for name in turn:
+                if call(libs[name]) != 0:
+                    raise RuntimeError(f"k45: {name} {case}: launch failed")
+                torch.cuda.synchronize()
+                if name == "as_is":
+                    want = out.clone()
+                row.setdefault(f"{name}_ms", []).append(device_ms(lambda: call(libs[name])))
+                if name != "no_compute":
+                    row[f"{name}_max_abs_diff"] = (out.float() - want.float()).abs().max().item()
+        print(json.dumps(row), flush=True)
+    print(card_line(), flush=True)
+    return 0
+
+
 def vit_times() -> int:
     import contextlib
     import os
@@ -355,6 +451,8 @@ def main() -> int:
         return vit_times()
     if sys.argv[1:] == ["k2"]:
         return k2_times()
+    if sys.argv[1:] == ["k45"]:
+        return k45_times()
     if sys.argv[1:] == ["absorb"]:
         return absorb_times()
     from torch.autograd import DeviceType
@@ -432,13 +530,14 @@ def main() -> int:
     # device symbols of the hand-written kernels: the row GEMV (gemv_kernel
     # on CUDA cores, gemv_mma_kernel on tensor cores) serves K1, K2 and the
     # projections of K3 and K6; K3's softmax is attend_kernel, K6's
-    # attend_out_kernel; K4 and K5 share attention_fwd_kernel, K4b and K5b
-    # the two backward kernels. The quantized variants are template cases of
-    # the same symbols: the row GEMV over int8 weights names `signed char`
-    # among its template arguments, over packed int4 `Int4` (split out below)
+    # attend_out_kernel; K4 and K5 share attention_fwd_mma in bf16 (tensor
+    # cores) and attention_fwd_kernel in fp32, K4b and K5b the two backward
+    # kernels. The quantized variants are template cases of the same
+    # symbols: the row GEMV over int8 weights names `signed char` among its
+    # template arguments, over packed int4 `Int4` (split out below)
     ported = {kern: sum(r[1] for r in rows if kern in r[0])
-              for kern in ("gemv", "attend_kernel", "attend_out_kernel", "attention_fwd_kernel", "decode_kernel",
-                           "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel", "fused_layer_kernel")}
+              for kern in ("gemv", "attend_kernel", "attend_out_kernel", "attention_fwd_mma", "attention_fwd_kernel",
+                           "decode_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel", "fused_layer_kernel")}
     gemv_by_weight = {"float": 0.0, "int8": 0.0, "int4": 0.0}
     for name, t, _ in rows:
         m = re.search(r"gemv\w*<(.*?)>\(", name)     # the template arguments

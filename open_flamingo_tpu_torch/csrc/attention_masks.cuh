@@ -7,6 +7,14 @@
 //                   ALiBi slope * (j - (S - 1)) computed from the index.
 //   MediaTime       K5/K5b: the immediate-media mask
 //                   text_time[i] == j / n_latents + 1.
+//
+// The FMA bodies ask `allowed` of every (row, key) pair. The tensor-core
+// forward (prefill_attention.cu) asks each row once for the interval of
+// keys it may see (`row_keys`: [lo, hi), empty when hi <= lo), which also
+// bounds the key tiles a block loads, and each key once whether it is
+// valid for every row (`key_valid`, the pad mask: nonzero = valid); a pair
+// is allowed when its key is valid and inside its row's interval, the same
+// set as `allowed`. `slope` is the factor of the bias (0: none).
 
 #pragma once
 
@@ -39,6 +47,13 @@ struct CausalPadAlibi {
   __device__ float bias(int bh, int kj, int s) const {
     return slopes[bh] * (float)(kj - (s - 1));
   }
+
+  __device__ void row_keys(int, int qi, int s, int* lo, int* hi) const {
+    *lo = 0;
+    *hi = causal ? min(s, q_offset + qi + 1) : s;
+  }
+  __device__ int key_valid(int bh, int kj, int s) const { return pad[(size_t)bh * s + kj]; }
+  __device__ float slope(int bh) const { return slopes[bh]; }
 };
 
 struct MediaTime {
@@ -52,6 +67,16 @@ struct MediaTime {
     return text_time[(size_t)bh * tq + qi] == kj / n_latents + 1;
   }
   __device__ float bias(int, int, int) const { return 0.f; }
+
+  // the keys of image t = text_time[i]: [(t - 1) n_latents, t n_latents);
+  // text before the first image (t < 1) sees none
+  __device__ void row_keys(int bh, int qi, int s, int* lo, int* hi) const {
+    const long long t = text_time[(size_t)bh * tq + qi];
+    *lo = t >= 1 ? (int)min((long long)s, (t - 1) * n_latents) : s;
+    *hi = t >= 1 ? (int)min((long long)s, t * n_latents) : 0;
+  }
+  __device__ int key_valid(int, int, int) const { return 1; }
+  __device__ float slope(int) const { return 0.f; }
 };
 
 }  // namespace

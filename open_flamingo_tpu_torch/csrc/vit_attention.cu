@@ -80,6 +80,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_frag.cuh"
+
 namespace {
 
 constexpr int kMaxS = 272;                 // keys on chip per row: 17 tiles of 16
@@ -99,57 +101,10 @@ struct Operand {
 
 // ---------------------------------------------------------------- bf16
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes global -> shared without registers; zeros when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-
-// four 8 x 8 b16 tiles from shared memory; lane l gives the address of row
-// l % 8 of tile l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 // two bf16 of a q row, times scale in fp32, rounded back to bf16
 __device__ __forceinline__ uint32_t scaled_pair(const __nv_bfloat16* p, float scale) {
   const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   return pack_bf16(f.x * scale, f.y * scale);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 template <int D>
@@ -160,12 +115,8 @@ size_t smem_bf16(int s_pad) {
   return 2 * (size_t)s_pad * k_stride<D>() * 2;
 }
 
-// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): A holds rows g
-// and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9; B holds k 2t, 2t + 1
-// and 2t + 8, 2t + 9 of column n = g; C holds rows g and g + 8, columns 2t
-// and 2t + 1. An 8 x 8 tile by `ldmatrix` gives lane l row l / 4, columns
-// 2(l % 4), 2(l % 4) + 1 (K rows: B of q.k^T), and with `.trans` rows
-// 2(l % 4), 2(l % 4) + 1 of column l / 4 (V rows: B of P.V).
+// Fragment layouts: mma_frag.cuh, whose helpers (mma_bf16, ldsm_x4, ...)
+// these kernels share with prefill_attention.cu.
 // kFlat (K8): s query rows, the first s_keys of them keys; otherwise (K9)
 // s_keys is not read and all s rows are keys.
 template <int D, bool kFlat>
@@ -310,11 +261,7 @@ __global__ void __launch_bounds__(kBf16Warps * 32, kFlat ? 1 : 2) vit_attn_bf16(
         for (int i = 0; i < 4; ++i) {
           const float* c = sc[t][i >> 1] + (i & 1) * 2;
           const float den = (i & 1) ? sum_b : sum_a;
-          const float p0 = c[0] / den, p1 = c[1] / den;
-          const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-          const float2 hf = __bfloat1622float2(h);
-          hi[i] = *reinterpret_cast<const uint32_t*>(&h);
-          lo[i] = pack_bf16(p0 - hf.x, p1 - hf.y);
+          split_bf16(c[0] / den, c[1] / den, &hi[i], &lo[i]);
         }
 #pragma unroll
         for (int n = 0; n < DN; n += 2) {

@@ -8,7 +8,9 @@ with a bias when `lm_head_bias`. On the fused decode route they are one K1
 `fused_dense` launch that reads the (V, D) weight in place as the
 transposed weight, or its int8 copy with its per-row scale when
 `quantize.quantize_decode_weights` attached one. Prefill keeps `F.linear`
-over the model-dtype weight, as the JAX package does. OPT adds learned
+over the model-dtype weight for a tied head and calls the untied `Dense`,
+whose W8A8 branch takes it under `ops.w8a8.ENABLED`, as the JAX package
+does (`embed.attend` and `head(x)`). OPT adds learned
 positions (`wpe`, max_position_embeddings + 2 rows) at the mask-aware
 position ids + 2. Vision latents and text time are explicit
 arguments; decode state is an explicit KVCache. With `gradient_checkpointing` (the JAX
@@ -142,8 +144,10 @@ class FlamingoLM(nn.Module):
                 ln_bias=getattr(self.norm_f, "bias", None), eps=self.cfg.layer_norm_eps,
                 norm="rms" if isinstance(self.norm_f, RMSNorm) else "layer",
             )[:, None].float()
-        else:
+        elif self.lm_head is None:
             logits = torch.nn.functional.linear(self.norm_f(x), w_head, b_head).float()
+        else:       # through Dense, so that W8A8 prefill takes the untied head as JAX's `head(x)` does
+            logits = self.lm_head(self.norm_f(x)).float()
         if cache is not None:
             cache = dataclasses.replace(
                 cache,

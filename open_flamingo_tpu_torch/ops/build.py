@@ -38,7 +38,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
+def target(name: str) -> Path:
+    """The path of `csrc/<name>.cu`'s built library."""
     # every header is hashed with every source: an edit to a shared
     # header rebuilds the sources that include it
     src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
@@ -53,7 +54,7 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _target(name)
+        out = target(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -81,7 +82,7 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built if needed."""
     if name not in _libs:
         build([name])
-        _libs[name] = ctypes.CDLL(str(_target(name)))
+        _libs[name] = ctypes.CDLL(str(target(name)))
     return _libs[name]
 
 

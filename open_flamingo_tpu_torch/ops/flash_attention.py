@@ -5,15 +5,18 @@ Replaces `open_flamingo_tpu/ops/flash_attention.py` `flash_attention`:
 the forward `_attention_kernel` via `_flash_forward` (with `with_lse`) and
 the backward `_flash_dq_kernel` / `_flash_dkv_kernel` via
 `_flash_backward`. The CUDA kernels are `csrc/prefill_attention.cu`
-`flash_attention_fwd` (one block per (bh, 16-query tile) walking 32-key
-tiles in shared memory with an online softmax; causal against
-`q_offset + i`, key pad mask, in-kernel ALiBi, exact zeros for rows with no
-valid key, and the per-row logsumexp when asked) and
-`csrc/attention_backward.cu` `flash_attention_bwd_dq` / `_dkv`
-(FlashAttention-2's split: dq over key tiles, dk/dv over query tiles, P
-recomputed from the logsumexp; delta = rowsum(dO * O) fused into the dq
-launch). At the path's shapes they are bound by bytes on the card (see the
-sources' notes); these first versions use fp32 FMA, not tensor cores.
+`flash_attention_fwd` (an online softmax over staged key tiles; causal
+against `q_offset + i`, key pad mask, in-kernel ALiBi, exact zeros for rows
+with no valid key, and the per-row logsumexp when asked; bf16 on tensor
+cores, FlashAttention-2's forward on `mma.sync` with P.V in fp32 through a
+hi/lo bf16 pair, fp32 on CUDA-core FMA) and `csrc/attention_backward.cu`
+`flash_attention_bwd_dq` / `_dkv` (FlashAttention-2's split: dq over key
+tiles, dk/dv over query tiles, P recomputed from the logsumexp; delta =
+rowsum(dO * O) fused into the dq launch; fp32 FMA, not tensor cores). At the
+path's shapes they are bound by bytes on the card (see the sources' notes).
+`flash_attention_fma` launches the forward's CUDA-core body in either dtype,
+the kernel the bf16 tensor-core body replaced, as a yardstick for the card's
+timings; the port never calls it.
 
 `flash_attention` is the entry point. When autograd needs its result
 (grad mode on and q, k or v requiring grad) it goes through
@@ -43,8 +46,9 @@ def _kernel():
     if _lib is None:
         lib = build.library("prefill_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
-        lib.flash_attention_fwd.restype = i
+        for fn in ("flash_attention_fwd", "flash_attention_fwd_fma"):
+            getattr(lib, fn).argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+            getattr(lib, fn).restype = i
         _lib = lib
     return _lib
 
@@ -146,7 +150,26 @@ def _cuda_operands(q, k, v, pad_mask, slopes, name):
     check_qkv(q, k, v, name)
     if pad_mask.device != q.device or slopes.device != q.device:
         raise ValueError(f"{name}: pad_mask/slopes on another device")
-    return (pad_mask != 0).to(torch.uint8).contiguous(), slopes.to(torch.float32).contiguous()
+    # the kernels read a byte per key, nonzero = valid: a bool or uint8 mask as it is
+    if pad_mask.dtype == torch.bool:
+        pad = pad_mask.view(torch.uint8)
+    else:
+        pad = pad_mask if pad_mask.dtype == torch.uint8 else (pad_mask != 0).to(torch.uint8)
+    return pad.contiguous(), slopes.to(torch.float32).contiguous()
+
+
+def _launch_forward(entry, q, k, v, pad_mask, slopes, q_offset, causal, scale, with_lse):
+    pad, slopes = _cuda_operands(q, k, v, pad_mask, slopes, "flash_attention")
+    bh, tq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device) if with_lse else None
+    status = getattr(_kernel(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), slopes.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), bh, tq, k.shape[1], d, int(q_offset), int(causal),
+        float(scale), _DTYPES[q.dtype], build.current_stream(q.device),
+    )
+    build.check(status, entry)
+    return (out, lse) if with_lse else out
 
 
 def flash_attention_forward(q, k, v, pad_mask, slopes, q_offset, causal, scale, with_lse):
@@ -154,18 +177,16 @@ def flash_attention_forward(q, k, v, pad_mask, slopes, q_offset, causal, scale, 
     the CPU."""
     if q.device.type == "cpu":
         return reference_attention(q, k, v, pad_mask, slopes, q_offset, causal, scale, with_lse)
-    pad, slopes = _cuda_operands(q, k, v, pad_mask, slopes, "flash_attention")
-    bh, tq, d = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device) if with_lse else None
-    status = _kernel().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), slopes.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), bh, tq, k.shape[1], d, int(q_offset), int(causal),
-        float(scale), _DTYPES[q.dtype], build.current_stream(q.device),
-    )
-    build.check(status, "flash_attention_fwd")
+    result = _launch_forward("flash_attention_fwd", q, k, v, pad_mask, slopes, q_offset, causal, scale, with_lse)
     flash_attention.launches += 1
-    return (out, lse) if with_lse else out
+    return result
+
+
+def flash_attention_fma(q, k, v, pad_mask, slopes, q_offset, causal=True, scale=1.0, with_lse=False):
+    """The forward's CUDA-core FMA body on CUDA tensors, in fp32 or bf16:
+    the yardstick the bf16 tensor-core body replaced. Counts no launch."""
+    _check_shapes(q, k, v, pad_mask, slopes)
+    return _launch_forward("flash_attention_fwd_fma", q, k, v, pad_mask, slopes, q_offset, causal, scale, with_lse)
 
 
 def flash_attention_backward(q, k, v, pad_mask, slopes, q_offset, out, lse, dout, causal=True, scale=1.0):

@@ -5,12 +5,15 @@ Replaces `open_flamingo_tpu/ops/masked_xattn.py` `masked_xattn`: the
 forward `_xattn_kernel` via `_xattn_forward` (with `with_lse`) and the
 backward `_xattn_dq_kernel` / `_xattn_dkv_kernel` via `_xattn_backward`.
 The CUDA kernels are `csrc/prefill_attention.cu` `masked_xattn_fwd` (K4's
-skeleton with the immediate-media mask `text_time[i] == j // n_latents + 1`
+bodies with the immediate-media mask `text_time[i] == j // n_latents + 1`
 computed from the key index; rows with text_time 0, text before the first
-image, come out as exact zeros) and `csrc/attention_backward.cu`
-`masked_xattn_bwd_dq` / `_dkv` (K4b's kernels under the media mask; those
-rows get exactly zero dq). At the path's shapes they are bound by bytes on
-the card; these first versions use fp32 FMA, not tensor cores.
+image, come out as exact zeros; the bf16 tensor-core body loads only the
+key tiles of the images its query rows see) and
+`csrc/attention_backward.cu` `masked_xattn_bwd_dq` / `_dkv` (K4b's kernels
+under the media mask; those rows get exactly zero dq; fp32 FMA, not tensor
+cores). At the path's shapes they are bound by bytes on the card.
+`masked_xattn_fma` launches the forward's CUDA-core body in either dtype, the
+yardstick of the card's timings; the port never calls it.
 
 `masked_xattn` goes through `MaskedXattnFn` when autograd needs its
 result; gradients flow to q, k and v (text_time is not differentiated). CUDA
@@ -36,8 +39,9 @@ def _kernel():
     if _lib is None:
         lib = build.library("prefill_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.masked_xattn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
-        lib.masked_xattn_fwd.restype = i
+        for fn in ("masked_xattn_fwd", "masked_xattn_fwd_fma"):
+            getattr(lib, fn).argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+            getattr(lib, fn).restype = i
         _lib = lib
     return _lib
 
@@ -71,21 +75,32 @@ def _cuda_text_time(q, k, v, text_time, name):
     return text_time.to(torch.int32).contiguous()
 
 
-def masked_xattn_forward(q, k, v, text_time, n_latents, scale, with_lse):
-    if q.device.type == "cpu":
-        return reference_masked_xattn(q, k, v, text_time, n_latents, scale, with_lse)
+def _launch_forward(entry, q, k, v, text_time, n_latents, scale, with_lse):
     tt = _cuda_text_time(q, k, v, text_time, "masked_xattn")
     bh, tq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device) if with_lse else None
-    status = _kernel().masked_xattn_fwd(
+    status = getattr(_kernel(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), bh, tq, k.shape[1], d, int(n_latents), float(scale),
         _DTYPES[q.dtype], build.current_stream(q.device),
     )
-    build.check(status, "masked_xattn_fwd")
-    masked_xattn.launches += 1
+    build.check(status, entry)
     return (out, lse) if with_lse else out
+
+
+def masked_xattn_forward(q, k, v, text_time, n_latents, scale, with_lse):
+    if q.device.type == "cpu":
+        return reference_masked_xattn(q, k, v, text_time, n_latents, scale, with_lse)
+    result = _launch_forward("masked_xattn_fwd", q, k, v, text_time, n_latents, scale, with_lse)
+    masked_xattn.launches += 1
+    return result
+
+
+def masked_xattn_fma(q, k, v, text_time, n_latents: int, scale: float = 1.0, with_lse: bool = False):
+    """The forward's CUDA-core FMA body on CUDA tensors, in fp32 or bf16:
+    the yardstick the bf16 tensor-core body replaced. Counts no launch."""
+    return _launch_forward("masked_xattn_fwd_fma", q, k, v, text_time, n_latents, scale, with_lse)
 
 
 def masked_xattn_backward(q, k, v, text_time, n_latents: int, out, lse, dout, scale: float = 1.0):

@@ -19,10 +19,13 @@ dtype.
 
 The int8 x int8 -> int32 product is the large product that the JAX package
 leaves to XLA outside any Pallas kernel: on the card it is `torch._int_mm`
-(cuBLASLt's int8 GEMM), which takes more than 16 rows and a reduction and
-output width that are multiples of 8, and raises for any other shape. On the
-CPU the plain version sums in float64, exactly (127^2 * K stays far below
-2^53; fp32 would not be exact: 127^2 * 4096 > 2^24).
+(cuBLASLt's int8 GEMM), which takes only more than 16 rows and a reduction
+and output width that are multiples of 8. JAX's `dot_general` takes any
+shape, so the operands are zero-padded up to those (`pad_for_int_mm`: M to
+17, K and N to multiples of 8) and the result sliced back; zero rows and
+columns add nothing to an integer sum, so the padding is exact. On the CPU
+the plain version sums in float64, exactly (127^2 * K stays far below 2^53;
+fp32 would not be exact: 127^2 * 4096 > 2^24).
 
 Gating, as in the JAX package: the module flag `ENABLED` (off by default)
 and a shape gate, an (..., T, K) activation with at least `MIN_TOKENS`
@@ -57,19 +60,38 @@ def quantize_activations(x: torch.Tensor):
     return x_q, x_s
 
 
-def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 @ (N, K)^T int8 -> (M, N) fp32, the exact int32 sum cast
-    once: `torch._int_mm` on the card, a float64 product on the CPU."""
+# torch._int_mm's shape rule on the card: M > 16, K and N multiples of 8
+INT_MM_MIN_ROWS = 17
+INT_MM_MULTIPLE = 8
+
+
+def pad_for_int_mm(a: torch.Tensor, b: torch.Tensor):
+    """(M, K) and (N, K) operands zero-padded to the shape `torch._int_mm`
+    takes: M up to INT_MM_MIN_ROWS, K and N up to multiples of
+    INT_MM_MULTIPLE (the operands themselves when they already fit). The
+    first M x N entries of the padded product are the unpadded product."""
     m, k = a.shape
     n = b.shape[0]
+    up = lambda x: -(-x // INT_MM_MULTIPLE) * INT_MM_MULTIPLE
+    m_p, k_p, n_p = max(m, INT_MM_MIN_ROWS), up(k), up(n)
+    if (m_p, k_p) != (m, k):
+        a = torch.nn.functional.pad(a, (0, k_p - k, 0, m_p - m))
+    if (n_p, k_p) != (n, k):
+        b = torch.nn.functional.pad(b, (0, k_p - k, 0, n_p - n))
+    return a, b
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (N, K)^T int8 -> (M, N) fp32, the exact int32 sum cast
+    once: `torch._int_mm` on the card (on operands padded by
+    `pad_for_int_mm`), a float64 product on the CPU."""
+    m, n = a.shape[0], b.shape[0]
     if a.device.type == "cpu":
         return (a.double() @ b.double().t()).float()
     if a.device.type != "cuda":
         raise ValueError(f"w8a8: unsupported device {a.device}")
-    if m <= 16 or k % 8 or n % 8:
-        raise ValueError(f"w8a8: the int8 product takes more than 16 rows and K, N multiples of 8; "
-                         f"got ({m}, {k}) x ({k}, {n})")
-    return torch._int_mm(a, b.t()).float()
+    a_p, b_p = pad_for_int_mm(a, b)
+    return torch._int_mm(a_p, b_p.t())[:m, :n].float()
 
 
 def w8a8_dot(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor, bias: Optional[torch.Tensor] = None,

@@ -10,8 +10,10 @@ fp32 inputs: the kernels and the plain versions sum in different orders,
 ~1e-6 apart at these sizes; atol 5e-5 as in chip_smoke.py (the backward
 K4b/K5b: atol = rtol = 1e-4, its sums run over whole query and key tiles).
 bf16 inputs (K1-K3 and K6, whose bf16 products run on tensor cores when K
-is a multiple of 32; K4b/K5b): both round an fp32 result to bf16, one ulp apart
-at most, plus the summation order; atol = rtol = 1e-2 as in chip_smoke.py.
+is a multiple of 32; K4/K5, whose bf16 body runs on tensor cores with P.V in
+fp32 through a hi/lo bf16 pair; K4b/K5b): both round an fp32 result to bf16,
+one ulp apart at most, plus the summation order; atol = rtol = 1e-2 as in
+chip_smoke.py; the logsumexp (fp32 in both) atol 1e-4, rtol 1e-5 (LSE_TOL).
 The RMSNorm prologue, the activations and K2's SwiGLU form (llama, OPT)
 take the same tolerances, and so do the ViT's K9 and K10, the absorbed ViT's
 K8 and the side tiles in x's dtype (K2b on K2, K2b-attn on K3). The W8A8
@@ -38,11 +40,13 @@ from open_flamingo_tpu_torch.ops.flash_attention import (
 from open_flamingo_tpu_torch.ops.masked_xattn import (
     masked_xattn, masked_xattn_backward, masked_xattn_forward, reference_masked_xattn)
 from open_flamingo_tpu_torch.ops.layer_norm import layer_norm
+from open_flamingo_tpu_torch.ops import w8a8
 from open_flamingo_tpu_torch.ops.vit_attention import flat_vit_attention, vit_attention, vit_attention_heads
 from open_flamingo_tpu_torch.quantize import pack_int4, quantize_weight
 
 pytestmark = pytest.mark.gpu
 ATOL = 5e-5
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 
 
 @pytest.fixture
@@ -394,6 +398,87 @@ def test_attention_functions_backward_through_autograd(gen):
         for g, w in zip(*grads):
             close_grad(g, w)
 
+
+
+def hold_forward(out, lse, want_out, want_lse, zero_rows):
+    """bf16 out and fp32 lse against the plain version's; rows with no
+    valid key exactly zero, their lse 0."""
+    close(out, want_out)
+    torch.testing.assert_close(lse.cpu(), want_lse, **LSE_TOL)
+    assert (out.cpu()[zero_rows] == 0).all() and (lse.cpu()[zero_rows] == 0).all()
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("tq,s,q_offset,causal", [
+    (1, 37, 36, True), (15, 70, 0, True), (17, 81, 16, True), (64, 64, 0, True), (65, 130, 65, True),
+    (257, 257, 0, True), (33, 100, 0, False)])
+def test_flash_attention_tensor_core_body(gen, d, tq, s, q_offset, causal):
+    """K4's bf16 body (tensor cores) against the plain version: Dh 16 to 128
+    (80 padded to its 16-column steps), Tq across the warps' 16-row tiles,
+    ragged S over several 64-key tiles with the causal ones skipped,
+    q_offset, left padding and a sequence with every key masked."""
+    bh = 4
+    q, k, v = (rn(gen, bh, n, d).to(torch.bfloat16) for n in (tq, s, s))
+    pad = torch.ones(bh, s, dtype=torch.bool, device="cuda")
+    pad[0, :3] = False
+    pad[1] = False
+    pad[2, q_offset + tq:] = False
+    slopes = rn(gen, bh, 1).abs()
+    args = (pad, slopes, q_offset, causal, d**-0.5)
+    out, lse = flash_attention_forward(q, k, v, *args, with_lse=True)
+    want_out, want_lse = reference_attention(q.cpu(), k.cpu(), v.cpu(), pad.cpu(), slopes.cpu(), *args[2:],
+                                             with_lse=True)
+    qpos = q_offset + torch.arange(tq)[:, None]
+    allowed = pad.cpu()[:, None, :] & ((torch.arange(s)[None, :] <= qpos) | (not causal))[None]
+    zero_rows = ~allowed.any(-1)
+    assert zero_rows[1].all() and (causal and q_offset == 0) <= bool(zero_rows[0, :3].all())
+    hold_forward(out, lse, want_out, want_lse, zero_rows)
+
+
+def media_text_time(gen, bh, tq, t_img):
+    """(BH, Tq) text_time: row 0 before any image for two tokens, then a new
+    image every three tokens (query tiles spanning up to 6 images); row 1
+    before any image throughout; row 2 the images spread evenly over the
+    prompt; row 3 at random in [0, t_img]."""
+    rows = torch.arange(tq, device="cuda")
+    tt = torch.zeros(bh, tq, dtype=torch.int32, device="cuda")
+    tt[0] = ((rows - 2).div(3, rounding_mode="floor") + 1).clamp(0, t_img)
+    tt[2] = (rows // max(1, -(-tq // t_img)) + 1).clamp(max=t_img)
+    tt[3] = torch.randint(0, t_img + 1, (tq,), generator=gen, device="cuda")
+    return tt
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("tq,t_img,n_lat", [
+    (1, 1, 64), (15, 2, 64), (17, 6, 64), (64, 6, 64), (65, 2, 20), (257, 6, 64), (40, 6, 20), (33, 1, 64)])
+def test_masked_xattn_tensor_core_body(gen, d, tq, t_img, n_lat):
+    """K5's bf16 body (tensor cores) against the plain version: query tiles
+    whose rows see 1, 2 or up to 6 images (the key tiles it loads are
+    [(t_min - 1) n_lat, t_max n_lat) of its rows' nonzero text_time), rows
+    with text_time 0 exactly zero, n_lat 64 (one key tile per image) and 20
+    (images across tile edges)."""
+    bh = 4
+    s = t_img * n_lat
+    q, k, v = (rn(gen, bh, n, d).to(torch.bfloat16) for n in (tq, s, s))
+    tt = media_text_time(gen, bh, tq, t_img)
+    out, lse = masked_xattn_forward(q, k, v, tt, n_lat, d**-0.5, with_lse=True)
+    want_out, want_lse = reference_masked_xattn(q.cpu(), k.cpu(), v.cpu(), tt.cpu(), n_lat, d**-0.5,
+                                                with_lse=True)
+    zero_rows = tt.cpu() == 0
+    assert zero_rows[1].all()
+    hold_forward(out, lse, want_out, want_lse, zero_rows)
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 64, 48), (1, 67, 7), (17, 2048, 32003), (16, 4096, 32003)])
+def test_int8_matmul_takes_any_shape(gen, m, k, n):
+    """The W8A8 product on the card at shapes `torch._int_mm` refuses (M <=
+    16, K or N not a multiple of 8: a B 1 prompt of 16 tokens, LLaMA-7B's
+    head over 32,003 rows), zero-padded: the exact product."""
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    got = w8a8.int8_matmul(a, b)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), w8a8.int8_matmul(a.cpu(), b.cpu()))
 
 def on_cpu(kw):
     return {key: val.cpu() if torch.is_tensor(val) else val for key, val in kw.items()}

@@ -18,7 +18,13 @@ on the CPU.
     the call without a tile;
   * the slice: tiny OF-3B (MPT) with int4 decode and W8A8 prefill against
     the scanned JAX model: greedy tokens exactly equal and the logits of
-    prefill and every decode step.
+    prefill and every decode step;
+  * the untied head: tiny GPT-NeoX and tiny llama (untied heads) with
+    int4 / int8 weights and W8A8 prefill, the prefill logits against JAX's and every
+    W8A8 product of both packages, the head's among them;
+  * `w8a8.pad_for_int_mm`, the zero padding that brings an int8 product to
+    the shapes `torch._int_mm` takes on the card: the padded product's
+    first M x N entries equal the unpadded one bit for bit (float64).
 
 fp32 on both sides. The int32 sums are exact in both packages; the
 activations' scales and int8 values agree bit for bit where both packages
@@ -38,8 +44,9 @@ import numpy as np
 import pytest
 import torch
 from test_scan_layers import _scan_variables
-from test_torch_quantize import (LOGITS_ATOL, MPT, close, gen_cfgs, jax_step_logits, make_family, normal,
-                                 port_model, port_step_logits, t)
+from test_torch_llama_opt import SPECS as LLAMA_OPT_SPECS
+from test_torch_quantize import (LOGITS_ATOL, MPT, NEOX, close, gen_cfgs, jax_step_logits, make_family, normal,
+                                 port_model, port_step_logits, random_biases, t)
 
 from open_flamingo_tpu import quantize as jq
 from open_flamingo_tpu.generation import flamingo_generate as jax_generate
@@ -333,3 +340,64 @@ def test_generate_int4_w8a8_matches_jax(mpt, enabled, monkeypatch):
     monkeypatch.setattr(w8a8, "ENABLED", False)
     float_prefill = port_step_logits(tmodel, vision_x, ids, mask, want[:, :1], False)[0]
     assert (float_prefill - got_l[0]).abs().max() > 10 * LOGITS_ATOL
+
+
+# ---------------------------------------------------------------- the untied head and int_mm's shapes
+
+UNTIED = {"gptneox": NEOX, "llama": LLAMA_OPT_SPECS["llama"]}
+
+
+@pytest.fixture(scope="module")
+def untied():
+    out = {}
+    for name, spec in UNTIED.items():
+        jmodel, params, vision_x, ids = make_family(spec)
+        out[name] = (jmodel, random_biases(params, 6) if name == "llama" else params, vision_x, ids)
+    return out
+
+
+# (family, bits): each model at the bits where no activation of its prefill
+# lies at a rounding boundary. W8A8 rounds every activation to int8, and fp32
+# sums taken in another order (~1e-6 apart) put an activation within 1e-5 of
+# a .5 on either side: GPT-NeoX at bits 8 (inputs 9.5e-7 apart) and llama at
+# bits 4 (an xattn FF activation at 55.500008 / 55.499992, inputs 1.7e-6
+# apart) flip one int8 step, which grows to ~3e-2 by the head.
+UNTIED_BITS = [("gptneox", 4), ("llama", 8)]
+
+
+@pytest.mark.parametrize("family,bits", UNTIED_BITS)
+def test_w8a8_prefill_untied_head_matches_jax(untied, enabled, monkeypatch, family, bits):
+    """Quantized weights and W8A8 prefill on models with an untied head: the
+    prefill logits within 1e-4 of JAX flamingo_generate's, and the same W8A8
+    products in both packages (spied on `w8a8_dot`), the (V, D) head's among
+    them."""
+    spec = UNTIED[family]
+    jmodel, params, vision_x, ids = untied[family]
+    qvars = jq.quantize_prefill_params(params, bits=bits)
+    tmodel = port_model(spec, params, qvars)
+    products = {"jax": [], "port": []}
+    for module, key, n_axis in ((jax_w8a8, "jax", 1), (w8a8, "port", 0)):
+        def spy(x, w_q, *args, real=module.w8a8_dot, key=key, n_axis=n_axis, **kw):
+            products[key].append((w_q.shape[n_axis], w_q.shape[1 - n_axis]))      # (N, K)
+            return real(x, w_q, *args, **kw)
+
+        monkeypatch.setattr(module, "w8a8_dot", spy)
+    mask = np.ones_like(ids)
+    want = jax_step_logits(jmodel, qvars, vision_x, ids, mask, ids[:, :1], False)[0]
+    got = port_step_logits(tmodel, vision_x, ids, mask, ids[:, :1], False)[0]
+    close(got, want, LOGITS_ATOL)
+    head = (spec["lm"]["vocab_size"], spec["lm"]["hidden_size"])
+    assert head in products["port"]
+    assert sorted(products["port"]) == sorted(products["jax"])
+
+
+@pytest.mark.parametrize("k,n", [(7, 7), (67, 67), (32003, 67), (67, 32003)])
+@pytest.mark.parametrize("m", [1, 16, 17])
+def test_int_mm_padding_is_exact(rng, m, k, n):
+    a = t(rng.integers(-128, 128, size=(m, k)).astype(np.int8))
+    b = t(rng.integers(-128, 128, size=(n, k)).astype(np.int8))
+    a_p, b_p = w8a8.pad_for_int_mm(a, b)
+    assert a_p.dtype == b_p.dtype == torch.int8
+    assert a_p.shape[0] > 16 and a_p.shape[1] % 8 == 0 and b_p.shape[0] % 8 == 0 and b_p.shape[1] == a_p.shape[1]
+    assert torch.equal((a_p.double() @ b_p.double().t())[:m, :n], a.double() @ b.double().t())
+    assert torch.equal(w8a8.int8_matmul(a, b), (a.double() @ b.double().t()).float())
