@@ -16,6 +16,7 @@ port spends its time on the card.
     python3 chip_profile.py vit        # K9, K10 and the ViT-L/14 forward alone (B 8, 32), kernels and plain
     python3 chip_profile.py k2         # plain K2 and K3 at OF-3B's shapes (bf16, int8, int4): the parent/change A/B
     python3 chip_profile.py k45        # K4/K5's tensor-core body against variants of its source, one call
+    python3 chip_profile.py k45b       # K4b/K5b's tensor-core body against variants of its source, one call
     python3 chip_profile.py absorb     # an absorbing decode step against a plain one; the next batch's ViT
                                        # serial, as side tiles, and on a second CUDA stream; the B 64
                                        # int4 + W8A8 pipe, with and without ATTN_CARRIERS
@@ -65,7 +66,11 @@ causal mask too, a three-stage ring, 32-key tiles, the compute skipped:
 what staging, launch and stores cost alone), and times their bf16
 entries on the same inputs (CUDA-graph replay, the variants in turns, each
 twice) at K4's and K5's main shapes: generate's prefill S64 and T1, the
-train step's LAION T32 and MMC4 T256, the ragged S 257.
+train step's LAION T32 and MMC4 T256, the ragged S 257. `k45b` does the
+same for csrc/attention_backward.cu (the compute of both launches skipped,
+two blocks per SM for the causal dq, one for dkv, a three-stage ring) at K4b's and
+K5b's train shapes, LAION T32 and MMC4 T256, the dq and the dkv launch
+timed apart (from the forward kernel's out and lse).
 
 `absorb` (bf16 OF-3B, B 8, the next batch's 8 images): device time by
 kind of one decode step carrying ViT layer 0 as side tiles against the
@@ -318,46 +323,94 @@ def device_time_by_kind(run, kinds) -> dict:
             "top": [{"name": k[:80], "device_s": t, "count": n} for k, t, n in rows[:8]]}
 
 
-# K4/K5 body variants: name -> (text of csrc/prefill_attention.cu, its replacement)
+# K4/K5 body variants: name -> edits of csrc/prefill_attention.cu, each (text, its replacement)
 K45_VARIANTS = {
-    "fill2_causal": ("constexpr int kFill<CausalPadAlibi> = 1;", "constexpr int kFill<CausalPadAlibi> = 2;"),
-    "stages3": ("constexpr int kStages = 2;", "constexpr int kStages = 3;"),
-    "tile32": ("constexpr int kTileKeys = 64;", "constexpr int kTileKeys = 32;"),
-    "no_compute": ("if (k0 < hi_w && k0 + kTileKeys > lo_w) {", "if (false) {"),
+    "fill2_causal": (("constexpr int kFill<CausalPadAlibi> = 1;", "constexpr int kFill<CausalPadAlibi> = 2;"),),
+    "stages3": (("constexpr int kStages = 2;", "constexpr int kStages = 3;"),),
+    "tile32": (("constexpr int kTileKeys = 64;", "constexpr int kTileKeys = 32;"),),
+    "no_compute": (("if (k0 < hi_w && k0 + kTileKeys > lo_w) {", "if (false) {"),),
+}
+# K4b/K5b body variants, edits of csrc/attention_backward.cu: the compute of
+# both launches skipped (staging, the metadata, launch and stores alone), two
+# blocks per SM for the causal dq, one for the dkv launch, a three-stage ring
+K45B_VARIANTS = {
+    "no_compute": (("if (k0 < hi_w && k0 + kTile > lo_w) {", "if (false) {"),
+                   ("if (!__any_sync(0xffffffffu, lo_s[sl][cq] < kw1 && hi_s[sl][cq] > kw0)) continue;", "continue;")),
+    "fill2_causal": (("constexpr int kFill<CausalPadAlibi> = 1;", "constexpr int kFill<CausalPadAlibi> = 2;"),),
+    "fill1_dkv": (("constexpr int kFillDkv = 2;", "constexpr int kFillDkv = 1;"),),
+    "stages3": (("constexpr int kStages = 2;", "constexpr int kStages = 3;"),),
 }
 
 
-def k45_times() -> int:
+def build_variants(source: str, variants: dict, tag: str) -> dict:
+    """csrc/<source>.cu as it is and as each variant, one `nvcc` each, all
+    started together, under _build/<tag>_<name>/: name -> the loaded library."""
     import ctypes
     import shutil
     import subprocess
 
-    from chip_smoke import B, T_M, card_line, device_ms, left_padded_mask
-    from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes
     from open_flamingo_tpu_torch.ops import build
 
-    src = (build.CSRC / "prefill_attention.cu").read_text()
-    libs, procs = {}, {}
-    for name, edit in {"as_is": None, **K45_VARIANTS}.items():
-        out = build.BUILD_DIR / f"k45_{name}"
+    src = (build.CSRC / f"{source}.cu").read_text()
+    procs = {}
+    for name, edits in {"as_is": (), **variants}.items():
+        out = build.BUILD_DIR / f"{tag}_{name}"
         out.mkdir(parents=True, exist_ok=True)
         for header in build.CSRC.glob("*.cuh"):
             shutil.copy(header, out)
-        if edit is not None:
-            if edit[0] not in src:
-                raise RuntimeError(f"k45: variant {name}: {edit[0]!r} is not in the source")
-        (out / "prefill_attention.cu").write_text(src if edit is None else src.replace(edit[0], edit[1]))
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / "prefill_attention.cu")]
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"{tag}: variant {name}: {old!r} is not in the source")
+            text = text.replace(old, new)
+        (out / f"{source}.cu").write_text(text)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / f"{source}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    p, i = ctypes.c_void_p, ctypes.c_int
+    libs = {}
     for name, proc in procs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"k45: nvcc failed for {name}:\n{text}")
-        lib = ctypes.CDLL(str(build.BUILD_DIR / f"k45_{name}" / "lib.so"))
+            raise RuntimeError(f"{tag}: nvcc failed for {name}:\n{text}")
+        libs[name] = ctypes.CDLL(str(build.BUILD_DIR / f"{tag}_{name}" / "lib.so"))
+    return libs
+
+
+def times_in_turns(libs: dict, cases, profile: str) -> None:
+    """Each case (kernel, case, outputs, {part: call(lib)}), every variant in
+    turns, each twice: device ms of each part's launch (CUDA-graph replay)
+    and the largest difference of the outputs from the source as it is."""
+    from chip_smoke import device_ms
+
+    for kernel, case, outs, calls in cases:
+        row = {"profile": profile, "kernel": kernel, "case": case}
+        for turn in (list(libs), list(libs)[::-1]):
+            for name in turn:
+                for call in calls.values():
+                    if call(libs[name]) != 0:
+                        raise RuntimeError(f"{profile}: {name} {case}: launch failed")
+                torch.cuda.synchronize()
+                if name == "as_is":
+                    want = [out.clone() for out in outs]
+                for part, call in calls.items():
+                    row.setdefault(f"{name}_{part}_ms" if part else f"{name}_ms", []).append(
+                        device_ms(lambda: call(libs[name])))
+                if not name.startswith("no_compute"):
+                    row[f"{name}_max_abs_diff"] = max((o.float() - w.float()).abs().max().item()
+                                                      for o, w in zip(outs, want))
+        print(json.dumps(row), flush=True)
+
+
+def k45_times() -> int:
+    import ctypes
+
+    from chip_smoke import B, T_M, card_line, left_padded_mask
+    from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes
+
+    libs = build_variants("prefill_attention", K45_VARIANTS, "k45")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
         lib.flash_attention_fwd.argtypes = [p] * 7 + [i] * 6 + [ctypes.c_float, i, p]
         lib.masked_xattn_fwd.argtypes = [p] * 6 + [i] * 5 + [ctypes.c_float, i, p]
-        libs[name] = lib
 
     dev, dt = torch.device("cuda", 0), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -374,33 +427,84 @@ def k45_times() -> int:
         valid[:, tq:] = False
         pad = valid.repeat_interleave(16, 0).view(torch.uint8)
         sl, out = slopes16.repeat(b)[:, None].contiguous(), torch.empty_like(q)
-        cases.append(("flash_attention", case, out, lambda lib, q=q, k=k, v=v, pad=pad, sl=sl, out=out, bh=bh, tq=tq, s=s:
+        cases.append(("flash_attention", case, [out], {"": lambda lib, q=q, k=k, v=v, pad=pad, sl=sl, out=out, bh=bh,
+                                                        tq=tq, s=s:
                       lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), sl.data_ptr(),
-                                              out.data_ptr(), None, bh, tq, s, 128, 0, 1, 128**-0.5, 1, stream())))
+                                              out.data_ptr(), None, bh, tq, s, 128, 0, 1, 128**-0.5, 1, stream())}))
     # K5: gated xattn (8 heads of Dh 64, 64 latents an image)
     for case, b, tq, media in (("prefill_T1", B, 32, [0]), ("train_mmc4_T256", 4, T_M, [3 + 42 * j for j in range(6)])):
         bh, d, s = b * 8, 64, 64 * len(media)
         q, k, v = rn(bh, tq, d), rn(bh, s, d), rn(bh, s, d)
-        loc = torch.zeros(b, tq, dtype=torch.int32, device=dev)
-        loc[:, media] = 1
-        tt = torch.cumsum(loc, 1).to(torch.int32).repeat_interleave(8, 0).contiguous()
+        tt = media_text_time(b, tq, media, dev)
         out = torch.empty_like(q)
-        cases.append(("masked_xattn", case, out, lambda lib, q=q, k=k, v=v, tt=tt, out=out, bh=bh, tq=tq, s=s:
+        cases.append(("masked_xattn", case, [out], {"": lambda lib, q=q, k=k, v=v, tt=tt, out=out, bh=bh, tq=tq, s=s:
                       lib.masked_xattn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(), out.data_ptr(),
-                                           None, bh, tq, s, 64, 64, 64**-0.5, 1, stream())))
-    for kernel, case, out, call in cases:
-        row = {"profile": "k45_variants_bf16", "kernel": kernel, "case": case}
-        for turn in (list(libs), list(libs)[::-1]):
-            for name in turn:
-                if call(libs[name]) != 0:
-                    raise RuntimeError(f"k45: {name} {case}: launch failed")
-                torch.cuda.synchronize()
-                if name == "as_is":
-                    want = out.clone()
-                row.setdefault(f"{name}_ms", []).append(device_ms(lambda: call(libs[name])))
-                if name != "no_compute":
-                    row[f"{name}_max_abs_diff"] = (out.float() - want.float()).abs().max().item()
-        print(json.dumps(row), flush=True)
+                                           None, bh, tq, s, 64, 64, 64**-0.5, 1, stream())}))
+    times_in_turns(libs, cases, "k45_variants_bf16")
+    print(card_line(), flush=True)
+    return 0
+
+
+def media_text_time(b, tq, media, dev):
+    """(B * 8, Tq) int32: a new image at each of the positions `media`, every
+    row the same, each batch row's 8 heads."""
+    loc = torch.zeros(b, tq, dtype=torch.int32, device=dev)
+    loc[:, media] = 1
+    return torch.cumsum(loc, 1).to(torch.int32).repeat_interleave(8, 0).contiguous()
+
+
+def k45b_times() -> int:
+    """K4b/K5b's bf16 body against variants of csrc/attention_backward.cu at
+    the train step's shapes: the dq and the dkv launch timed apart, from the
+    forward kernel's out and lse."""
+    import ctypes
+
+    from chip_smoke import B_L, B_M, N_IMG, T_L, T_M, card_line
+    from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes
+    from open_flamingo_tpu_torch.ops.flash_attention import flash_attention_forward
+    from open_flamingo_tpu_torch.ops.masked_xattn import masked_xattn_forward
+
+    libs = build_variants("attention_backward", K45B_VARIANTS, "k45b")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        for part in ("dq", "dkv"):
+            getattr(lib, f"flash_attention_bwd_{part}").argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, p]
+            getattr(lib, f"masked_xattn_bwd_{part}").argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, i, p]
+
+    dev, dt = torch.device("cuda", 0), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dt)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    ptr = lambda ts: [t.data_ptr() for t in ts]     # the operands live on as the calls' default arguments
+    cases = []
+    # K4b: MPT self-attention (16 heads of Dh 128, ALiBi), causal, no padding
+    for case, b, t in (("laion_T32", B_L, T_L), ("mmc4_T256", B_M, T_M)):
+        bh, d = b * 16, 128
+        q, k, v, do = rn(bh, t, d), rn(bh, t, d), rn(bh, t, d), rn(bh, t, d)
+        pad = torch.ones(bh, t, dtype=torch.uint8, device=dev)
+        sl = torch.from_numpy(alibi_slopes(16)).to(dev).repeat(b)[:, None].contiguous()
+        out, lse = flash_attention_forward(q, k, v, pad, sl, 0, True, d**-0.5, with_lse=True)
+        delta, dq, dk, dv = torch.empty_like(lse), torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        args = (bh, t, t, d, 0, 1, d**-0.5, 1)
+        cases.append(("flash_attention_backward", case, [dq, dk, dv], {
+            "dq": lambda lib, a=(q, k, v, pad, sl, out, do, lse, delta, dq), args=args:
+                lib.flash_attention_bwd_dq(*ptr(a), *args, stream()),
+            "dkv": lambda lib, a=(q, k, v, pad, sl, do, lse, delta, dk, dv), args=args:
+                lib.flash_attention_bwd_dkv(*ptr(a), *args, stream())}))
+    # K5b: gated xattn (8 heads of Dh 64, 64 latents an image)
+    for case, b, tq, media in (("laion_T32", B_L, T_L, [0]), ("mmc4_T256", B_M, T_M, [3 + 42 * j for j in range(N_IMG)])):
+        bh, d, s = b * 8, 64, 64 * len(media)
+        q, k, v, do = rn(bh, tq, d), rn(bh, s, d), rn(bh, s, d), rn(bh, tq, d)
+        tt = media_text_time(b, tq, media, dev)
+        out, lse = masked_xattn_forward(q, k, v, tt, 64, d**-0.5, with_lse=True)
+        delta, dq, dk, dv = torch.empty_like(lse), torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        args = (bh, tq, s, d, 64, d**-0.5, 1)
+        cases.append(("masked_xattn_backward", case, [dq, dk, dv], {
+            "dq": lambda lib, a=(q, k, v, tt, out, do, lse, delta, dq), args=args:
+                lib.masked_xattn_bwd_dq(*ptr(a), *args, stream()),
+            "dkv": lambda lib, a=(q, k, v, tt, do, lse, delta, dk, dv), args=args:
+                lib.masked_xattn_bwd_dkv(*ptr(a), *args, stream())}))
+    times_in_turns(libs, cases, "k45b_variants_bf16")
     print(card_line(), flush=True)
     return 0
 
@@ -453,6 +557,8 @@ def main() -> int:
         return k2_times()
     if sys.argv[1:] == ["k45"]:
         return k45_times()
+    if sys.argv[1:] == ["k45b"]:
+        return k45b_times()
     if sys.argv[1:] == ["absorb"]:
         return absorb_times()
     from torch.autograd import DeviceType
@@ -532,12 +638,13 @@ def main() -> int:
     # projections of K3 and K6; K3's softmax is attend_kernel, K6's
     # attend_out_kernel; K4 and K5 share attention_fwd_mma in bf16 (tensor
     # cores) and attention_fwd_kernel in fp32, K4b and K5b the two backward
-    # kernels. The quantized variants are template cases of the same
+    # kernels (attention_bwd_dq_mma / _dkv_mma in bf16, attention_bwd_dq_kernel
+    # / _dkv_kernel in fp32). The quantized variants are template cases of the same
     # symbols: the row GEMV over int8 weights names `signed char` among its
     # template arguments, over packed int4 `Int4` (split out below)
     ported = {kern: sum(r[1] for r in rows if kern in r[0])
               for kern in ("gemv", "attend_kernel", "attend_out_kernel", "attention_fwd_mma", "attention_fwd_kernel",
-                           "decode_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel", "fused_layer_kernel")}
+                           "decode_kernel", "attention_bwd_dq", "attention_bwd_dkv", "fused_layer_kernel")}
     gemv_by_weight = {"float": 0.0, "int8": 0.0, "int4": 0.0}
     for name, t, _ in rows:
         m = re.search(r"gemv\w*<(.*?)>\(", name)     # the template arguments

@@ -6,9 +6,10 @@
 Phases, each printing JSON lines:
   1. build    compile every kernel under open_flamingo_tpu_torch/csrc with
               nvcc (sm_90a), one process per source, all at once; count the
-              HMMA instructions of each K4/K5 kernel in the library's SASS
-              (`cuobjdump --dump-sass`): each tensor-core instance has some,
-              the FMA body none;
+              HMMA instructions of each K4/K5 and K4b/K5b kernel in their
+              libraries' SASS (`cuobjdump --dump-sass`): each of the 12
+              instances of a tensor-core kernel has some, the FMA bodies
+              none;
   2. kernels  each kernel of the generate path against its plain PyTorch
               version on the same card tensors, in fp32 and bf16, at
               OF-3B's shapes (B = 8) and edge cases: K1 fused_dense (final
@@ -29,8 +30,11 @@ Phases, each printing JSON lines:
               padding with q_offset, ragged S = 257 with an all-masked
               sequence, xattn rows before any image): the forward's lse,
               dq/dk/dv against the plain versions in fp32 and bf16, exact
-              zeros where the mask says. Times the backward (dq + dkv, delta
-              fused into dq; CUDA-graph replay), the plain version, and the
+              zeros where the mask says; in bf16 the same for the CUDA-core
+              FMA body the tensor-core backward replaced
+              (`flash_attention_backward_fma`, `masked_xattn_backward_fma`).
+              Times the backward (dq + dkv, delta fused into dq; CUDA-graph
+              replay), its FMA body (`fma_ms`), the plain version, and the
               backward (and forward) of scaled_dot_product_attention with
               the same mask. OF-4B's shapes (RedPajama-INCITE-3B: D = 2560,
               32 heads of Dh = 80, biases, no ALiBi, untied head): K6
@@ -201,12 +205,12 @@ from open_flamingo_tpu_torch.ops.decode_layer import (
 from open_flamingo_tpu_torch.ops.dense_stream import (
     fused_dense, fused_mlp, normalize, reference_dense, reference_mlp, reference_side_tile, side_activations)
 from open_flamingo_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_backward, flash_attention_fma, flash_attention_forward, reference_attention,
-    reference_attention_backward)
+    flash_attention, flash_attention_backward, flash_attention_backward_fma, flash_attention_fma,
+    flash_attention_forward, reference_attention, reference_attention_backward)
 from open_flamingo_tpu_torch.ops.fused_layer import fused_layer_decode, reference_fused_layer
 from open_flamingo_tpu_torch.ops.masked_xattn import (
-    masked_xattn, masked_xattn_backward, masked_xattn_fma, masked_xattn_forward, reference_masked_xattn,
-    reference_masked_xattn_backward)
+    masked_xattn, masked_xattn_backward, masked_xattn_backward_fma, masked_xattn_fma, masked_xattn_forward,
+    reference_masked_xattn, reference_masked_xattn_backward)
 from open_flamingo_tpu_torch.ops.vit_attention import (
     flat_vit_attention, reference_flat_vit_attention, reference_heads, vit_attention, vit_attention_heads)
 from open_flamingo_tpu_torch.quantize import (
@@ -425,18 +429,29 @@ def sass_kernels(path) -> dict:
             for n, p in zip(names, plain)}
 
 
+# the libraries whose bf16 bodies run on tensor cores, and those kernels
+HMMA_KERNELS = {"prefill_attention": ("attention_fwd_mma",),
+                "attention_backward": ("attention_bwd_dq_mma", "attention_bwd_dkv_mma")}
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     reports = build.build(build.sources())
     regs = [ln.strip() for text in reports.values() for ln in text.splitlines() if "registers" in ln]
     seconds = round(time.perf_counter() - t0, 3)
-    # K4/K5: the tensor-core body's instances must issue HMMA, the FMA body's none
-    hmma = {name.split("(")[0]: sum(ins.startswith("HMMA") for ins in code)
-            for name, code in sass_kernels(build.target("prefill_attention")).items()}
+    # K4/K5 and K4b/K5b: each tensor-core instance (6 padded Dh x 2 masks per
+    # kernel) must issue HMMA, each FMA-body instance none
+    hmma = {}
+    for lib, tc_kernels in HMMA_KERNELS.items():
+        hmma[lib] = {name.split("(")[0]: sum(ins.startswith("HMMA") for ins in code)
+                     for name, code in sass_kernels(build.target(lib)).items()}
+        for kernel in tc_kernels:
+            counts = [n for name, n in hmma[lib].items() if kernel in name]
+            require(len(counts) == 12 and min(counts) > 0, f"{lib}: {kernel} instances {counts}, 12 with HMMA expected")
+        fma = {name: n for name, n in hmma[lib].items() if not any(kernel in name for kernel in tc_kernels)}
+        require(fma and not any(fma.values()), f"{lib}: FMA-body instances with HMMA: {fma}")
     log({"phase": "build", "seconds": seconds, "sources": build.sources(), "ptxas": regs,
-         "prefill_attention_hmma": hmma})
-    require(all(n > 0 for k, n in hmma.items() if "attention_fwd_mma" in k) and
-            sum("attention_fwd_mma" in k for k in hmma) == 12, f"tensor-core instances without HMMA: {hmma}")
+         **{f"{lib}_hmma": counts for lib, counts in hmma.items()}})
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1799,8 +1814,10 @@ def backward_cases(dtype, gen, dev):
                             q, k, v, *args, True, d**-0.5, with_lse=True),
                         lambda q=q, k=k, v=v, args=args: flash_attention_fma(q, k, v, *args, True, d**-0.5, True)),
                lambda q=q, k=k, v=v, args=args: reference_attention(q, k, v, *args, True, d**-0.5, with_lse=True),
-               lambda o, lse, q=q, k=k, v=v, do=do, args=args: flash_attention_backward(
-                   q, k, v, *args, o, lse, do, True, d**-0.5),
+               with_fma(lambda o, lse, q=q, k=k, v=v, do=do, args=args: flash_attention_backward(
+                            q, k, v, *args, o, lse, do, True, d**-0.5),
+                        lambda o, lse, q=q, k=k, v=v, do=do, args=args: flash_attention_backward_fma(
+                            q, k, v, *args, o, lse, do, True, d**-0.5)),
                lambda o, lse, q=q, k=k, v=v, do=do, args=args: reference_attention_backward(
                    q, k, v, *args, o, lse, do, True, d**-0.5),
                allowed, attention_costs(allowed, tq, s, d, es, b * h * s + 4 * b * h), lib)
@@ -1828,7 +1845,10 @@ def backward_cases(dtype, gen, dev):
                with_fma(lambda q=q, k=k, v=v, tt=tt: masked_xattn_forward(q, k, v, tt, n_lat, d**-0.5, with_lse=True),
                         lambda q=q, k=k, v=v, tt=tt: masked_xattn_fma(q, k, v, tt, n_lat, d**-0.5, True)),
                lambda q=q, k=k, v=v, tt=tt: reference_masked_xattn(q, k, v, tt, n_lat, d**-0.5, with_lse=True),
-               lambda o, lse, q=q, k=k, v=v, tt=tt, do=do: masked_xattn_backward(q, k, v, tt, n_lat, o, lse, do, d**-0.5),
+               with_fma(lambda o, lse, q=q, k=k, v=v, tt=tt, do=do: masked_xattn_backward(
+                            q, k, v, tt, n_lat, o, lse, do, d**-0.5),
+                        lambda o, lse, q=q, k=k, v=v, tt=tt, do=do: masked_xattn_backward_fma(
+                            q, k, v, tt, n_lat, o, lse, do, d**-0.5)),
                lambda o, lse, q=q, k=k, v=v, tt=tt, do=do: reference_masked_xattn_backward(
                    q, k, v, tt, n_lat, o, lse, do, d**-0.5),
                allowed, attention_costs(allowed, tq, s, d, es, 4 * b * h * tq), lib)
@@ -1858,24 +1878,29 @@ def phase_backward(dev, summary: dict) -> None:
                 torch.cuda.synchronize()
                 fma_err = compare(f"{fwd_name}[fma]", f"train_{case}", dtype, out_f, out_p, zeros_at(zero_q))
                 require(torch.allclose(lse_f, lse_p, **LSE_TOL), f"{fwd_name}[fma]/{case}: lse")
-            # the same out and lse into both backward versions
-            got = bwd(out_p, lse_p)
-            torch.cuda.synchronize()
+            # the same out and lse into both backward versions (bf16: and into
+            # the FMA body the tensor-core body replaced)
             want = plain_bwd(out_p, lse_p)
-            errs = [compare(name, f"{case}_{part}", dtype, g, w, tol=BWD_TOL[dtype])
-                    for part, g, w in zip(("dq", "dk", "dv"), got, want)]
-            exact = (bool((got[0][zero_q] == 0).all()) and bool((got[1][zero_k] == 0).all())
-                     and bool((got[2][zero_k] == 0).all()))
-            log({"phase": "kernels", "kernel": name, "case": case, "dtype": str(dtype).split(".")[-1],
-                 "rows_without_keys": int(zero_q.sum()), "keys_no_query_sees": int(zero_k.sum()),
-                 "exact_zeros": exact})
-            require(exact, f"{name}/{case}: dq of rows without keys or dk/dv of unseen keys not exactly 0")
+            bodies = {name: bwd} | ({f"{name}[fma]": bwd.fma} if dtype == torch.bfloat16 else {})
+            errs = {}
+            for label, fn in bodies.items():
+                got = fn(out_p, lse_p)
+                torch.cuda.synchronize()
+                errs[label] = max(compare(label, f"{case}_{part}", dtype, g, w, tol=BWD_TOL[dtype])
+                                  for part, g, w in zip(("dq", "dk", "dv"), got, want))
+                exact = (bool((got[0][zero_q] == 0).all()) and bool((got[1][zero_k] == 0).all())
+                         and bool((got[2][zero_k] == 0).all()))
+                log({"phase": "kernels", "kernel": label, "case": case, "dtype": str(dtype).split(".")[-1],
+                     "rows_without_keys": int(zero_q.sum()), "keys_no_query_sees": int(zero_k.sum()),
+                     "exact_zeros": exact})
+                require(exact, f"{label}/{case}: dq of rows without keys or dk/dv of unseen keys not exactly 0")
             if dtype != torch.bfloat16 or case not in BWD_TIMED:
                 continue
             b_ms, b_by = bound(*costs[1], dtype)
             row = {"ms": device_ms(lambda: bwd(out_p, lse_p)), "call_ms": call_ms(lambda: bwd(out_p, lse_p)),
                    "plain_ms": device_ms(lambda: plain_bwd(out_p, lse_p)), "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": device_ms(lib[0], stream=lib[1]), "max_abs_err": max(errs), "case": case,
+                   "library_ms": device_ms(lib[0], stream=lib[1]), "max_abs_err": errs[name], "case": case,
+                   "fma_ms": device_ms(lambda: bwd.fma(out_p, lse_p)), "fma_max_abs_err": errs[f"{name}[fma]"],
                    "library_is": "torch.autograd.grad of scaled_dot_product_attention's output (same mask and "
                                  "ALiBi bias), its forward outside the timing"}
             log({"phase": "kernels", "kernel": name, "timing": row})

@@ -15,6 +15,16 @@
 // valid for every row (`key_valid`, the pad mask: nonzero = valid); a pair
 // is allowed when its key is valid and inside its row's interval, the same
 // set as `allowed`. `slope` is the factor of the bias (0: none).
+//
+// The tensor-core backward (attention_backward.cu) asks the same of its
+// rows, and its dk/dv kernel asks the reverse once per block: the queries
+// [lo, hi) that may see a key of the block's [k0, k1) (`key_queries`),
+// which bound the query tiles it walks. Causal: from the first query that
+// sees k0 on, [max(0, k0 - q_offset), Tq), the same for every thread.
+// Media: one scan of the instance's text_time row by the whole block (every
+// thread must call it): the first and the last query whose `row_keys` meet
+// [k0, k1), exact for any text_time, a cumsum or not; within the interval
+// the per-element test (`row_keys` and `key_valid`) still decides.
 
 #pragma once
 
@@ -54,6 +64,10 @@ struct CausalPadAlibi {
   }
   __device__ int key_valid(int bh, int kj, int s) const { return pad[(size_t)bh * s + kj]; }
   __device__ float slope(int bh) const { return slopes[bh]; }
+  __device__ void key_queries(int, int k0, int, int tq, int, int* lo, int* hi) const {
+    *lo = causal ? min(tq, max(0, k0 - q_offset)) : 0;
+    *hi = tq;
+  }
 };
 
 struct MediaTime {
@@ -77,6 +91,32 @@ struct MediaTime {
   }
   __device__ int key_valid(int, int, int) const { return 1; }
   __device__ float slope(int) const { return 0.f; }
+  __device__ void key_queries(int bh, int k0, int k1, int, int s, int* lo, int* hi) const {
+    __shared__ int range_s[2];
+    int first = tq, last = -1;
+    for (int qi = threadIdx.x; qi < tq; qi += blockDim.x) {
+      int rlo, rhi;
+      row_keys(bh, qi, s, &rlo, &rhi);
+      if (max(rlo, k0) < min(rhi, k1)) {
+        first = min(first, qi);
+        last = qi;
+      }
+    }
+    first = __reduce_min_sync(0xffffffffu, first);
+    last = __reduce_max_sync(0xffffffffu, last);
+    if (threadIdx.x == 0) {
+      range_s[0] = tq;
+      range_s[1] = -1;
+    }
+    __syncthreads();
+    if (threadIdx.x % 32 == 0) {
+      atomicMin(&range_s[0], first);
+      atomicMax(&range_s[1], last);
+    }
+    __syncthreads();
+    *lo = range_s[0];
+    *hi = range_s[1] + 1;
+  }
 };
 
 }  // namespace

@@ -23,7 +23,8 @@
 // fp32, P.V in fp32 with fp32 P, one rounding of the output.
 //
 // bf16: tensor cores, FlashAttention-2's forward on `mma.sync` m16n8k16
-// (the helpers of mma_frag.cuh, shared with K9/K8). Each warp owns 16 query
+// (the helpers of mma_frag.cuh, shared with K9/K8, and of
+// attention_tiles.cuh, shared with K4b/K5b). Each warp owns 16 query
 // rows; a block has 1-4 warps, fewer while the grid would not give every SM
 // one block (causal: a block's warps share the staged key prefix) or two
 // (media: each warp's images are its own), so that short prompts still
@@ -68,6 +69,7 @@
 #include <math.h>
 
 #include "attention_masks.cuh"
+#include "attention_tiles.cuh"
 #include "mma_frag.cuh"
 
 namespace {
@@ -205,11 +207,6 @@ constexpr int kTileKeys = 64;      // keys per staged K/V tile
 constexpr int kStages = 2;         // tiles of the ring: one in flight while one computes (3 timed no faster)
 constexpr int kMaxWarps = 4;       // warps per block, 16 query rows each
 
-// bf16 elements per staged K or V row: Dh padded to DP, then 8 more, so the
-// eight rows an `ldmatrix` reads fall in distinct banks
-template <int DP>
-__host__ __device__ constexpr int row_stride() { return DP + 8; }
-
 // one stage of the ring: a K and a V tile
 template <int DP>
 constexpr size_t stage_bytes() { return 2 * (size_t)kTileKeys * row_stride<DP>() * sizeof(__nv_bfloat16); }
@@ -224,47 +221,6 @@ static_assert(kMaxWarps * 16 <= 2 * kTileKeys, "the q rows fit in a stage");
 // where the last stage goes when there are kStages (it is first written
 // after they are read), else after the ring.
 __host__ __device__ inline int ring_stages(int s) { return max(1, min(kStages, (s + kTileKeys - 1) / kTileKeys)); }
-
-// rows [r0, r0 + n) of x (rows x d) into dst (n rows of KS elements), by
-// threads tid, tid + nthreads, ...: zeros past `rows` and past d. `vec`:
-// 16 bytes a `cp.async` (the caller commits); otherwise element by element.
-template <int DP>
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* x, int r0, int n, int rows,
-                                          int d, bool vec, int tid, int nthreads) {
-  constexpr int KS = row_stride<DP>();
-  if (vec) {
-    for (int idx = tid; idx < n * (DP / 8); idx += nthreads) {
-      const int r = idx / (DP / 8), c = (idx % (DP / 8)) * 8;
-      const bool real = r0 + r < rows && c < d;
-      cp_async16(dst + r * KS + c, x + (real ? (size_t)(r0 + r) * d + c : 0), real);
-    }
-  } else {
-    const __nv_bfloat16 zero = __ushort_as_bfloat16(0);
-    for (int idx = tid; idx < n * DP; idx += nthreads) {
-      const int r = idx / DP, c = idx % DP;
-      dst[r * KS + c] = r0 + r < rows && c < d ? x[(size_t)(r0 + r) * d + c] : zero;
-    }
-  }
-}
-
-// columns c, c + 1 of row r of x (rows x d), rounded to bf16; those past d dropped
-__device__ __forceinline__ void store_pair(__nv_bfloat16* x, int r, int c, int d, float v0, float v1) {
-  __nv_bfloat16* p = x + (size_t)r * d + c;
-  if ((d & 1) == 0 && c + 1 < d) {
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
-    return;
-  }
-  if (c < d) p[0] = __float2bfloat16(v0);
-  if (c + 1 < d) p[1] = __float2bfloat16(v1);
-}
-
-// the union of the warp's key intervals: the least lo and the largest hi
-__device__ __forceinline__ void warp_range(int* lo, int* hi) {
-  for (int o = 16; o > 0; o >>= 1) {
-    *lo = min(*lo, __shfl_xor_sync(0xffffffffu, *lo, o));
-    *hi = max(*hi, __shfl_xor_sync(0xffffffffu, *hi, o));
-  }
-}
 
 // Block (y, bh): query rows [16 warps y', 16 warps (y' + 1)) of instance
 // bh, y' = gridDim.y - 1 - y (the last query tiles, which see the most keys
@@ -503,44 +459,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32) attention_fwd_mma(
 
 // ---------------------------------------------------------------- launch
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
-      n = 132;
-  }
-  return n;
-}
-
-// Tq's 16-row tiles over blocks of at most kMaxWarps warps, evenly: with
-// fewer warps a block (more blocks) while the grid would not give every SM
-// `fill` blocks. (blocks per instance, warps)
-void block_shape(int tq, int bh, int fill, int* blocks, int* warps) {
-  const int tiles = (tq + 15) / 16;
-  int w = min(kMaxWarps, tiles);
-  while (w > 1 && (long long)((tiles + w - 1) / w) * bh < (long long)fill * sm_count()) --w;
-  *blocks = (tiles + w - 1) / w;
-  *warps = (tiles + *blocks - 1) / *blocks;
-}
-
-// Once per instance (a flag of internal linkage): raise the kernel's
-// dynamic shared-memory limit to the ring's kStages stages, and ask for the
-// SM's largest shared-memory carveout, so that as many blocks share an SM
-// as their shared memory allows (the kernel reads global memory only
-// through `cp.async` and the few loads of q, the pad mask and text_time)
-template <auto Kern>
-cudaError_t allow_smem(size_t bytes) {
-  static bool done = false;
-  if (done) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(Kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-  done = err == cudaSuccess;
-  return err;
-}
-
 // Blocks per SM the grid aims at. Causal rows share the keys before them:
 // the warps of a block read the same staged tiles, so fewer, larger blocks
 // stage less (one per SM). A media row sees its own image's keys alone: one
@@ -556,7 +474,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, v
   cudaError_t err = allow_smem<attention_fwd_mma<DP, Mask>>(kStages * stage_bytes<DP>());
   if (err != cudaSuccess) return err;
   int blocks, warps;
-  block_shape(tq, bh, kFill<Mask>, &blocks, &warps);
+  block_shape(tq, bh, kFill<Mask>, kMaxWarps, &blocks, &warps);
   const int stages = ring_stages(s);
   const size_t smem = stages * stage_bytes<DP>() + (stages == kStages ? 0 : q_bytes<DP>(warps));
   const bool vec = d % 8 == 0 && ((uintptr_t)q % 16) == 0 && ((uintptr_t)k % 16) == 0 && ((uintptr_t)v % 16) == 0;

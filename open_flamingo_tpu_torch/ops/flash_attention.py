@@ -12,11 +12,13 @@ cores, FlashAttention-2's forward on `mma.sync` with P.V in fp32 through a
 hi/lo bf16 pair, fp32 on CUDA-core FMA) and `csrc/attention_backward.cu`
 `flash_attention_bwd_dq` / `_dkv` (FlashAttention-2's split: dq over key
 tiles, dk/dv over query tiles, P recomputed from the logsumexp; delta =
-rowsum(dO * O) fused into the dq launch; fp32 FMA, not tensor cores). At the
-path's shapes they are bound by bytes on the card (see the sources' notes).
-`flash_attention_fma` launches the forward's CUDA-core body in either dtype,
-the kernel the bf16 tensor-core body replaced, as a yardstick for the card's
-timings; the port never calls it.
+rowsum(dO * O) fused into the dq launch; bf16 on tensor cores, `mma.sync`
+with dS and P in fp32 through hi/lo bf16 pairs, each walking only the keys
+or queries the mask lets through; fp32 on CUDA-core FMA). At the path's
+shapes they are bound by bytes on the card (see the sources' notes).
+`flash_attention_fma` and `flash_attention_backward_fma` launch the
+CUDA-core bodies in either dtype, the kernels the bf16 tensor-core bodies
+replaced, as yardsticks for the card's timings; the port never calls them.
 
 `flash_attention` is the entry point. When autograd needs its result
 (grad mode on and q, k or v requiring grad) it goes through
@@ -58,12 +60,12 @@ def _bwd_kernel():
     if _bwd_lib is None:
         lib = build.library("attention_backward")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_bwd_dq.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, p]
-        lib.flash_attention_bwd_dkv.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, p]
-        lib.masked_xattn_bwd_dq.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, i, p]
-        lib.masked_xattn_bwd_dkv.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, i, p]
-        for fn in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "masked_xattn_bwd_dq", "masked_xattn_bwd_dkv"):
-            getattr(lib, fn).restype = i
+        for body in ("", "_fma"):
+            for part in ("dq", "dkv"):
+                fa, mx = getattr(lib, f"flash_attention_bwd_{part}{body}"), getattr(lib, f"masked_xattn_bwd_{part}{body}")
+                fa.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, p]
+                mx.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, i, p]
+                fa.restype = mx.restype = i
         _bwd_lib = lib
     return _bwd_lib
 
@@ -189,28 +191,41 @@ def flash_attention_fma(q, k, v, pad_mask, slopes, q_offset, causal=True, scale=
     return _launch_forward("flash_attention_fwd_fma", q, k, v, pad_mask, slopes, q_offset, causal, scale, with_lse)
 
 
+def _launch_backward(body, q, k, v, pad_mask, slopes, q_offset, out, lse, dout, causal, scale):
+    """`flash_attention_bwd_dq{body}` then `_dkv{body}` on CUDA tensors."""
+    name = "flash_attention_backward" + body
+    pad, slopes = _cuda_operands(q, k, v, pad_mask, slopes, name)
+    check_grad_operands(q, out, lse, dout, name)
+    bh, tq, d = q.shape
+    delta = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _bwd_kernel()
+    common = (bh, tq, k.shape[1], d, int(q_offset), int(causal), float(scale), _DTYPES[q.dtype],
+              build.current_stream(q.device))
+    build.check(getattr(lib, f"flash_attention_bwd_dq{body}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), slopes.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common), f"flash_attention_bwd_dq{body}")
+    build.check(getattr(lib, f"flash_attention_bwd_dkv{body}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), slopes.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common), f"flash_attention_bwd_dkv{body}")
+    return dq, dk, dv
+
+
 def flash_attention_backward(q, k, v, pad_mask, slopes, q_offset, out, lse, dout, causal=True, scale=1.0):
     """K4b: (dq, dk, dv) from the forward's out and lse (BH, Tq) fp32, for
     dout (BH, Tq, D). One call is two launches, dq (which also writes
     delta) then dkv."""
     if q.device.type == "cpu":
         return reference_attention_backward(q, k, v, pad_mask, slopes, q_offset, out, lse, dout, causal, scale)
-    pad, slopes = _cuda_operands(q, k, v, pad_mask, slopes, "flash_attention_backward")
-    check_grad_operands(q, out, lse, dout, "flash_attention_backward")
-    bh, tq, d = q.shape
-    s = k.shape[1]
-    delta = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib, stream = _bwd_kernel(), build.current_stream(q.device)
-    common = (bh, tq, s, d, int(q_offset), int(causal), float(scale), _DTYPES[q.dtype], stream)
-    build.check(lib.flash_attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), slopes.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common), "flash_attention_bwd_dq")
-    build.check(lib.flash_attention_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), slopes.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common), "flash_attention_bwd_dkv")
+    grads = _launch_backward("", q, k, v, pad_mask, slopes, q_offset, out, lse, dout, causal, scale)
     flash_attention_backward.launches += 1
-    return dq, dk, dv
+    return grads
+
+
+def flash_attention_backward_fma(q, k, v, pad_mask, slopes, q_offset, out, lse, dout, causal=True, scale=1.0):
+    """K4b's CUDA-core FMA body on CUDA tensors, in fp32 or bf16: the
+    yardstick the bf16 tensor-core body replaced. Counts no launch."""
+    return _launch_backward("_fma", q, k, v, pad_mask, slopes, q_offset, out, lse, dout, causal, scale)
 
 
 def check_grad_operands(q, out, lse, dout, name):

@@ -10,10 +10,12 @@ computed from the key index; rows with text_time 0, text before the first
 image, come out as exact zeros; the bf16 tensor-core body loads only the
 key tiles of the images its query rows see) and
 `csrc/attention_backward.cu` `masked_xattn_bwd_dq` / `_dkv` (K4b's kernels
-under the media mask; those rows get exactly zero dq; fp32 FMA, not tensor
-cores). At the path's shapes they are bound by bytes on the card.
-`masked_xattn_fma` launches the forward's CUDA-core body in either dtype, the
-yardstick of the card's timings; the port never calls it.
+under the media mask; those rows get exactly zero dq; the bf16 tensor-core
+body walks only the key tiles of the images a query tile sees, and only the
+queries that see a key block's images). At the path's shapes they are bound
+by bytes on the card. `masked_xattn_fma` and `masked_xattn_backward_fma`
+launch the CUDA-core bodies in either dtype, the yardsticks of the card's
+timings; the port never calls them.
 
 `masked_xattn` goes through `MaskedXattnFn` when autograd needs its
 result; gradients flow to q, k and v (text_time is not differentiated). CUDA
@@ -103,29 +105,42 @@ def masked_xattn_fma(q, k, v, text_time, n_latents: int, scale: float = 1.0, wit
     return _launch_forward("masked_xattn_fwd_fma", q, k, v, text_time, n_latents, scale, with_lse)
 
 
+def _launch_backward(body, q, k, v, text_time, n_latents, out, lse, dout, scale):
+    """`masked_xattn_bwd_dq{body}` then `_dkv{body}` on CUDA tensors."""
+    name = "masked_xattn_backward" + body
+    tt = _cuda_text_time(q, k, v, text_time, name)
+    if n_latents < 1:
+        raise ValueError(f"{name}: n_latents must be positive")
+    check_grad_operands(q, out, lse, dout, name)
+    bh, tq, d = q.shape
+    delta = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _bwd_kernel()
+    common = (bh, tq, k.shape[1], d, int(n_latents), float(scale), _DTYPES[q.dtype], build.current_stream(q.device))
+    build.check(getattr(lib, f"masked_xattn_bwd_dq{body}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common), f"masked_xattn_bwd_dq{body}")
+    build.check(getattr(lib, f"masked_xattn_bwd_dkv{body}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common), f"masked_xattn_bwd_dkv{body}")
+    return dq, dk, dv
+
+
 def masked_xattn_backward(q, k, v, text_time, n_latents: int, out, lse, dout, scale: float = 1.0):
     """K5b: (dq, dk, dv) from the forward's out and lse (BH, Tq) fp32, for
     dout (BH, Tq, D). One call is two launches, dq (which also writes
     delta) then dkv."""
     if q.device.type == "cpu":
         return reference_masked_xattn_backward(q, k, v, text_time, n_latents, out, lse, dout, scale)
-    tt = _cuda_text_time(q, k, v, text_time, "masked_xattn_backward")
-    if n_latents < 1:
-        raise ValueError("masked_xattn_backward: n_latents must be positive")
-    check_grad_operands(q, out, lse, dout, "masked_xattn_backward")
-    bh, tq, d = q.shape
-    delta = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = _bwd_kernel()
-    common = (bh, tq, k.shape[1], d, int(n_latents), float(scale), _DTYPES[q.dtype], build.current_stream(q.device))
-    build.check(lib.masked_xattn_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common), "masked_xattn_bwd_dq")
-    build.check(lib.masked_xattn_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common), "masked_xattn_bwd_dkv")
+    grads = _launch_backward("", q, k, v, text_time, n_latents, out, lse, dout, scale)
     masked_xattn_backward.launches += 1
-    return dq, dk, dv
+    return grads
+
+
+def masked_xattn_backward_fma(q, k, v, text_time, n_latents: int, out, lse, dout, scale: float = 1.0):
+    """K5b's CUDA-core FMA body on CUDA tensors, in fp32 or bf16: the
+    yardstick the bf16 tensor-core body replaced. Counts no launch."""
+    return _launch_backward("_fma", q, k, v, text_time, n_latents, out, lse, dout, scale)
 
 
 class MaskedXattnFn(torch.autograd.Function):

@@ -5,10 +5,15 @@ against torch.autograd of the plain forward, and through the port's
 autograd Functions.
 
 Cases: left padding (queries that see no key), a cache offset with left
-padding (masked dk/dv exactly 0, as tests/test_flash.py), ragged S, ALiBi
-on and off, an all-masked sequence, xattn rows before any image (exactly
-zero dq) and two images. The JAX backward kernels do not bound S or Tq, so
-their blocks divide both (a ragged S is one key block there).
+padding (masked dk/dv exactly 0, as tests/test_flash.py), ragged S, a Tq
+that is no multiple of 16 (the card's query tiles) after a cache offset,
+ALiBi on and off, an all-masked sequence, xattn rows before any image
+(exactly zero dq), two images, and text_time drawn at random, not a
+cumsum, with 5 or 20 latents an image (images across the card's 16-key
+groups): the semantics the card's per-block query intervals keep. The JAX
+backward kernels do not bound S or Tq, so their blocks divide both (a
+ragged S is one key block there). The FMA yardsticks of the card's
+backward take CUDA tensors only.
 
 fp32 throughout; the Pallas kernels accumulate block by block where the
 plain versions take whole products: atol 3e-5, the bound of the JAX
@@ -24,9 +29,11 @@ from open_flamingo_tpu.models.decoders.common import alibi_slopes as jax_alibi_s
 from open_flamingo_tpu.ops.flash_attention import _flash_backward, _flash_forward
 from open_flamingo_tpu.ops.masked_xattn import _xattn_backward, _xattn_forward
 from open_flamingo_tpu_torch.ops.flash_attention import (
-    FlashAttentionFn, flash_attention, flash_attention_backward, reference_attention, reference_attention_backward)
+    FlashAttentionFn, flash_attention, flash_attention_backward, flash_attention_backward_fma, reference_attention,
+    reference_attention_backward)
 from open_flamingo_tpu_torch.ops.masked_xattn import (
-    MaskedXattnFn, masked_xattn, masked_xattn_backward, reference_masked_xattn, reference_masked_xattn_backward)
+    MaskedXattnFn, masked_xattn, masked_xattn_backward, masked_xattn_backward_fma, reference_masked_xattn,
+    reference_masked_xattn_backward)
 
 ATOL = 3e-5
 H, D, SCALE = 2, 16, 0.25
@@ -58,6 +65,7 @@ FLASH_CASES = {
     "left_pad": (16, 16, 0, 8, 8, 3),          # row 0's first queries see no key
     "left_pad_q_offset": (8, 32, 10, 8, 8, 2),  # left padding + a cache offset
     "ragged_S": (24, 37, 5, 8, 37, 0),
+    "ragged_tq_q_offset": (21, 40, 7, 21, 40, 4),   # Tq 21: a 16-row tile and 5 rows of the next
 }
 
 
@@ -195,3 +203,51 @@ def test_masked_xattn_function_grads_equal_autograd_of_plain(rng, case):
     assert (leaves[0].grad[:, :3] == 0).all()
     assert MaskedXattnFn.apply(*leaves, t(tt), n_lat, SCALE).requires_grad
 
+
+@pytest.mark.parametrize("n_lat", [5, 20])
+def test_masked_xattn_plain_backward_any_text_time_matches_pallas(rng, n_lat):
+    """text_time drawn at random in [0, T_img] (non-monotone: a row may go
+    back to an earlier image or to none), 5 or 20 latents an image; image 2
+    of instance 1 seen by no query (its dk, dv exactly 0), rows with
+    text_time 0 exactly zero dq."""
+    tq, t_img, bq = 24, 3, 8
+    bh, s = 2 * H, t_img * n_lat
+    q, k, v, dout = normal(rng, bh, tq, D), normal(rng, bh, s, D), normal(rng, bh, s, D), normal(rng, bh, tq, D)
+    tt = rng.integers(0, t_img + 1, size=(bh, tq)).astype(np.int32)
+    tt[1][tt[1] == 2] = 0
+    assert (np.diff(tt, axis=1) < 0).any() and (tt == 0).any()
+    want_out, want_lse = _xattn_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tt), n_latents=n_lat, scale=SCALE,
+        block_q=bq, block_k=s, interpret=True, with_lse=True)
+    out, lse = reference_masked_xattn(t(q), t(k), t(v), t(tt), n_lat, SCALE, with_lse=True)
+    close(out, want_out)
+    close(lse, want_lse)
+    want = _xattn_backward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tt), jnp.asarray(out.numpy()),
+        jnp.asarray(lse.numpy()), jnp.asarray(dout), n_latents=n_lat, scale=SCALE, block_q=bq, block_k=s,
+        interpret=True)
+    got = masked_xattn_backward(t(q), t(k), t(v), t(tt), n_lat, out, lse, t(dout), SCALE)
+    for g, w in zip(got, want):
+        close(g, w)
+    dq, dk, dv = (g.numpy() for g in got)
+    assert (dq[tt == 0] == 0).all()
+    assert (dk[1, n_lat:2 * n_lat] == 0).all() and (dv[1, n_lat:2 * n_lat] == 0).all()   # image 2's keys
+    fwd = lambda a, b, c: reference_masked_xattn(a, b, c, t(tt), n_lat, SCALE)
+    for g, w in zip(got, autograd_grads(fwd, t(q), t(k), t(v), t(dout))):
+        close(g, w)
+
+
+def test_backward_fma_yardsticks_take_cuda_tensors_only(rng):
+    """flash_attention_backward_fma and masked_xattn_backward_fma launch the
+    card's CUDA-core bodies only: CPU tensors raise, and neither counts a
+    launch of the port's backward."""
+    q, k, v, dout, pad, slopes, q_offset, _, _ = flash_inputs(rng, "left_pad", True)
+    out, lse = reference_attention(t(q), t(k), t(v), t(pad).bool(), t(slopes), q_offset, True, SCALE, with_lse=True)
+    counts = flash_attention_backward.launches, masked_xattn_backward.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_backward_fma(t(q), t(k), t(v), t(pad).bool(), t(slopes), q_offset, out, lse, t(dout), True,
+                                     SCALE)
+    tt = np.ones(q.shape[:2], np.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        masked_xattn_backward_fma(t(q), t(k), t(v), t(tt), 8, out, lse, t(dout), SCALE)
+    assert (flash_attention_backward.launches, masked_xattn_backward.launches) == counts

@@ -36,9 +36,11 @@ from open_flamingo_tpu_torch.ops.decode_layer import attend_out_decode, attn_blo
 from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp, reference_side_tile
 from open_flamingo_tpu_torch.ops.fused_layer import fused_layer_decode
 from open_flamingo_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_backward, flash_attention_forward, reference_attention)
+    flash_attention, flash_attention_backward, flash_attention_backward_fma, flash_attention_forward,
+    reference_attention, reference_attention_backward)
 from open_flamingo_tpu_torch.ops.masked_xattn import (
-    masked_xattn, masked_xattn_backward, masked_xattn_forward, reference_masked_xattn)
+    masked_xattn, masked_xattn_backward, masked_xattn_backward_fma, masked_xattn_forward, reference_masked_xattn,
+    reference_masked_xattn_backward)
 from open_flamingo_tpu_torch.ops.layer_norm import layer_norm
 from open_flamingo_tpu_torch.ops import w8a8
 from open_flamingo_tpu_torch.ops.vit_attention import flat_vit_attention, vit_attention, vit_attention_heads
@@ -467,6 +469,74 @@ def test_masked_xattn_tensor_core_body(gen, d, tq, t_img, n_lat):
     zero_rows = tt.cpu() == 0
     assert zero_rows[1].all()
     hold_forward(out, lse, want_out, want_lse, zero_rows)
+
+
+def hold_backward(grads, want, allowed):
+    """bf16 dq, dk, dv against the plain version's; dq of rows that see no
+    key and dk, dv of keys no query sees exactly zero."""
+    for g, w in zip(grads, want):
+        close_grad(g, w)
+    zero_q, zero_k = ~allowed.any(-1), ~allowed.any(1)
+    dq, dk, dv = (g.cpu() for g in grads)
+    assert (dq[zero_q] == 0).all() and (dk[zero_k] == 0).all() and (dv[zero_k] == 0).all()
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("tq,s,q_offset,causal", [
+    (1, 37, 36, True), (15, 70, 0, True), (17, 81, 16, True), (64, 64, 0, True), (65, 130, 65, True),
+    (257, 257, 0, True), (33, 100, 0, False)])
+def test_flash_attention_backward_tensor_core_body(gen, d, tq, s, q_offset, causal):
+    """K4b's bf16 body (tensor cores) and its FMA yardstick against the plain
+    version, from the plain forward's out and lse: Dh 16 to 128 (80 padded
+    to its 16-column steps), Tq across the warps' 16-row tiles and the dkv
+    kernel's 64-query tiles, ragged S over several 64-key tiles, q_offset,
+    left padding, a sequence with every key masked (its lse 0) and keys
+    past the last query."""
+    bh = 4
+    q, k, v, do = (rn(gen, bh, n, d).to(torch.bfloat16) for n in (tq, s, s, tq))
+    pad = torch.ones(bh, s, dtype=torch.bool, device="cuda")
+    pad[0, :3] = False
+    pad[1] = False
+    pad[2, q_offset + tq:] = False
+    slopes = rn(gen, bh, 1).abs()
+    args = (pad.cpu(), slopes.cpu(), q_offset)
+    out, lse = reference_attention(q.cpu(), k.cpu(), v.cpu(), *args, causal, d**-0.5, with_lse=True)
+    want = reference_attention_backward(q.cpu(), k.cpu(), v.cpu(), *args, out, lse, do.cpu(), causal, d**-0.5)
+    qpos = q_offset + torch.arange(tq)[:, None]
+    allowed = pad.cpu()[:, None, :] & ((torch.arange(s)[None, :] <= qpos) | (not causal))[None]
+    assert (~allowed.any(-1))[1].all() and (~allowed.any(1))[1].all()
+    for fn in (flash_attention_backward, flash_attention_backward_fma):
+        n = flash_attention_backward.launches
+        grads = fn(q, k, v, pad, slopes, q_offset, out.cuda(), lse.cuda(), do, causal, d**-0.5)
+        torch.cuda.synchronize()
+        assert flash_attention_backward.launches == n + (fn is flash_attention_backward)
+        hold_backward(grads, want, allowed)
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("tq,t_img,n_lat", [
+    (1, 1, 64), (15, 2, 64), (17, 6, 64), (64, 6, 64), (65, 2, 20), (257, 6, 64), (40, 6, 20), (33, 1, 64)])
+def test_masked_xattn_backward_tensor_core_body(gen, d, tq, t_img, n_lat):
+    """K5b's bf16 body (tensor cores) and its FMA yardstick against the plain
+    version: query tiles whose rows see 1, 2 or up to 6 images, a row of
+    text_time drawn at random (not a cumsum: the dkv kernel's query interval
+    per key block comes from a scan of text_time), rows before any image,
+    n_lat 64 (one key tile per image) and 20 (images across 16-key groups
+    and tile edges)."""
+    bh = 4
+    s = t_img * n_lat
+    q, k, v, do = (rn(gen, bh, n, d).to(torch.bfloat16) for n in (tq, s, s, tq))
+    tt = media_text_time(gen, bh, tq, t_img)
+    out, lse = reference_masked_xattn(q.cpu(), k.cpu(), v.cpu(), tt.cpu(), n_lat, d**-0.5, with_lse=True)
+    want = reference_masked_xattn_backward(q.cpu(), k.cpu(), v.cpu(), tt.cpu(), n_lat, out, lse, do.cpu(), d**-0.5)
+    allowed = tt.cpu()[:, :, None] == (torch.arange(s) // n_lat + 1)[None, None, :]
+    assert (~allowed.any(-1))[1].all() and (~allowed.any(1))[1].all()
+    for fn in (masked_xattn_backward, masked_xattn_backward_fma):
+        n = masked_xattn_backward.launches
+        grads = fn(q, k, v, tt, n_lat, out.cuda(), lse.cuda(), do, d**-0.5)
+        torch.cuda.synchronize()
+        assert masked_xattn_backward.launches == n + (fn is masked_xattn_backward)
+        hold_backward(grads, want, allowed)
 
 
 @pytest.mark.parametrize("m,k,n", [(16, 64, 48), (1, 67, 7), (17, 2048, 32003), (16, 4096, 32003)])
