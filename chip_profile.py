@@ -17,6 +17,10 @@ port spends its time on the card.
     python3 chip_profile.py k2         # plain K2 and K3 at OF-3B's shapes (bf16, int8, int4): the parent/change A/B
     python3 chip_profile.py k45        # K4/K5's tensor-core body against variants of its source, one call
     python3 chip_profile.py k45b       # K4b/K5b's tensor-core body against variants of its source, one call
+    python3 chip_profile.py side [out.pt] [--variants=no_prologue,...]
+                                       # K2b / K2b int8 / K2b-attn cases and their carriers alone: the
+                                       # parent/change A/B of the side tiles
+    python3 chip_profile.py side_compare a.pt b.pt ...  # saved `side` outputs held bit for bit
     python3 chip_profile.py absorb     # an absorbing decode step against a plain one; the next batch's ViT
                                        # serial, as side tiles, and on a second CUDA stream; the B 64
                                        # int4 + W8A8 pipe, with and without ATTN_CARRIERS
@@ -71,6 +75,20 @@ same for csrc/attention_backward.cu (the compute of both launches skipped,
 two blocks per SM for the causal dq, one for dkv, a three-stage ring) at K4b's and
 K5b's train shapes, LAION T32 and MMC4 T256, the dq and the dkv launch
 timed apart (from the forward kernel's out and lse).
+
+`side` times (bf16, CUDA-graph replay) chip_smoke.py's K2b, K2b int8 and
+K2b-attn timed cases (ABSORB_TIMED, W8A8_TIMED: the absorbed ViT-L/14's
+q/k/v and fc2 slots at the next batch's B 8 and the pipe's B 64, on OF-3B's
+K2 and K3 carriers in bf16, int8 and int4) and each carrier launch alone.
+It imports only the wrappers, the quantizers and chip_smoke.py's timer, so
+a copy in an older checkout times that checkout (parent, change, change,
+parent in one call); with an output path it saves every case's outputs,
+and `side_compare` holds the W8A8 tiles and the carriers' outputs of two
+trees bit for bit and reports the bf16 tiles' largest difference.
+`--variants=` also builds csrc/dense_stream.cu and csrc/decode_layer.cu
+with edits of csrc/side_tile.cuh (`SIDE_VARIANTS`: the prologue, the
+products, the W loads or the epilogue skipped) and times the same cases
+through them.
 
 `absorb` (bf16 OF-3B, B 8, the next batch's 8 images): device time by
 kind of one decode step carrying ViT layer 0 as side tiles against the
@@ -185,6 +203,201 @@ def k2_times() -> int:
     torch.save(outputs, build.BUILD_DIR / f"k2_outputs_{tree}.pt")   # to hold two trees' outputs bit for bit
     print(card_line(), flush=True)
     return 0
+
+
+# variants of the ring tile, each edits of csrc/side_tile.cuh: its parts skipped, so what is left
+# is timed alone
+SIDE_VARIANTS = {
+    "no_prologue": (("  prepare_rows<T, kI8>(a, m0, row_bytes, xs, sact);\n", ""),),
+    "no_products": (("    chunk_products<kI8>(d, ", "    if (false) chunk_products<kI8>(d, "),),
+    "no_loads": (("    if (s < total) load(s);\n", ""), ("    if (it + ahead < total) load(it + ahead);\n", "")),
+    "no_epilogue": (("      ring_epilogue<T, kI8>(a, d, m0, n0, c_end, sact);\n", ""),),
+}
+
+
+def build_side_variants(names) -> dict:
+    """csrc/dense_stream.cu and csrc/decode_layer.cu built with each named
+    SIDE_VARIANTS edit, one `nvcc` each, all started together, under
+    _build/side_<variant>/: variant -> {source: the loaded library}."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from open_flamingo_tpu_torch.ops import build
+
+    procs = {}
+    for variant in names:
+        out = build.BUILD_DIR / f"side_{variant}"
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(build.CSRC, out)
+        header = out / "side_tile.cuh"
+        text = header.read_text()
+        for old, new in SIDE_VARIANTS[variant]:
+            if old not in text:
+                raise RuntimeError(f"side: variant {variant}: {old!r} is not in csrc/side_tile.cuh")
+            text = text.replace(old, new)
+        header.write_text(text)
+        for name in ("dense_stream", "decode_layer"):
+            procs[variant, name] = subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out / f"{name}.so"), str(out / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for (variant, name), proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"side: nvcc failed for {variant} {name}:\n{text}")
+        libs.setdefault(variant, {})[name] = ctypes.CDLL(str(build.BUILD_DIR / f"side_{variant}" / f"{name}.so"))
+    return libs
+
+
+def side_times(argv) -> int:
+    import os
+
+    from chip_smoke import B, card_line, device_ms
+    from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes, quantize_kv
+    from open_flamingo_tpu_torch.ops import build, decode_layer, dense_stream
+    from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode
+    from open_flamingo_tpu_torch.ops.dense_stream import fused_mlp
+    from open_flamingo_tpu_torch.quantize import pack_int4, quantize_weight
+
+    variants = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--variants=")), [])
+    save = next((a for a in argv if a.endswith(".pt")), None)
+    tree = os.path.basename(os.getcwd())
+    libs = {"": None, **build_side_variants(variants)}
+    dev, dt = torch.device("cuda", 0), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dt)
+
+    def stored(w, bits):
+        q, s = quantize_weight(w.float(), bits)
+        return (q if bits == 8 else pack_int4(q)), s
+
+    # the absorbed ViT-L/14's slots (D 1,024, I 4,096; S_pad 264) and OF-3B's carriers (MPT-1B: D 2,048, I 8,192;
+    # self-attention 16 heads of Dh 128 at slot 40 of 64; the gated block 8 heads of Dh 64 over 64 latents)
+    d, inter, s_pad, dm, k2 = 1024, 4096, 264, 2048, 8192
+    w_qkv, w_fc2 = rn(d, d, scale=d**-0.5), rn(d, inter, scale=inter**-0.5)
+    (q_qkv, s_qkv), (q_fc2, s_fc2) = quantize_weight(w_qkv.float(), 8), quantize_weight(w_fc2.float(), 8)
+    s_ln, bias = (1 + rn(d, scale=0.1), rn(d, scale=0.1)), rn(d, scale=0.1)
+    ln, ln_b = 1 + rn(dm, scale=0.1), rn(dm, scale=0.1)
+    gate = torch.tensor([0.5], device=dev, dtype=dt)
+    w1f, w2f = rn(k2, dm, scale=dm**-0.5), rn(dm, k2, scale=k2**-0.5)
+    mlp_w = {"": (w1f, w2f, {})}
+    for bits in (8, 4):
+        (q1, s1), (q2, s2) = stored(w1f, bits), stored(w2f, bits)
+        mlp_w[f"_int{bits}"] = (q1, q2, dict(w1_scale=s1, w2_scale=s2))
+    wqkv, wout = rn(3 * dm, dm, scale=dm**-0.5), rn(dm, dm, scale=dm**-0.5)
+    wq_x, wo_x = rn(512, dm, scale=dm**-0.5), rn(dm, 512, scale=512**-0.5)
+    self_w = {"": (wqkv, wout, {})}
+    x_w = {"": (wq_x, wo_x, {})}
+    (q3, s3), (o3, so3) = stored(wqkv, 4), stored(wout, 4)
+    self_w["_int4"] = (q3, o3, dict(wq_scale=s3, wout_scale=so3))
+    (qx, sx), (ox, sox) = stored(wq_x, 4), stored(wo_x, 4)
+    x_w["_int4"] = (qx, ox, dict(wq_scale=sx, wout_scale=sox))
+    self8 = (*stored(wqkv, 8), *stored(wout, 8))
+    self8 = (self8[0], self8[2], self8[1], self8[3])      # wq, wout, their scales
+
+    carriers, cases = {}, {}
+    for bd, sfx in ((B, ""), (64, "_B64")):
+        m = bd * s_pad
+        x = rn(bd, dm)
+        xw, h_in, res = rn(m, d, scale=2.0), rn(m, d), rn(m, 2 * d)
+        tiles = {"side_qkv": dict(side_x=xw, side_w=w_qkv, side_ln=s_ln, side_b=bias),
+                 "side_fc2": dict(side_x=h_in, side_w=w_fc2[:, d:2 * d], side_act="quick_gelu", side_b=bias,
+                                  side_residual=res[:, :d]),
+                 "side8_qkv": dict(side_x=xw, side_w=q_qkv, side_w_scale=s_qkv, side_ln=s_ln, side_b=bias),
+                 "side8_fc2": dict(side_x=h_in, side_w=q_fc2[:, d:2 * d], side_w_scale=s_fc2, side_act="quick_gelu",
+                                   side_b=bias, side_residual=res[:, :d])}
+        for wtag, (w1, w2, kw) in mlp_w.items():
+            carriers[f"mpt_mlp{wtag}{sfx}"] = (lambda w1=w1, w2=w2, kw=kw, x=x, **skw:
+                                               fused_mlp(x, w1, w2, ln_scale=ln, residual=x, **kw, **skw))
+        carriers[f"xattn_ff{sfx}"] = (lambda x=x, **skw: fused_mlp(x, w1f, w2f, ln_scale=ln, ln_bias=ln_b, residual=x,
+                                                                   gate=gate, **skw))
+        km, vm = rn(bd, 8, 64, 64), rn(bd, 8, 64, 64)
+        kc, vc = rn(bd, 16, 64, 128), rn(bd, 16, 64, 128)
+        mask = torch.ones(bd, 64, dtype=torch.bool, device=dev)
+        mask[:, 41:] = False
+        self_kw = dict(heads=16, head_dim=128, scale=128**-0.5, fused_qkv=True,
+                       slot=torch.tensor([40], dtype=torch.int32, device=dev),
+                       slopes=torch.from_numpy(alibi_slopes(16)).to(dev), clip=6.0)
+        for wtag, (wq, wo, kw) in self_w.items():
+            carriers[f"self_S64_slot40{wtag}{sfx}"] = (
+                lambda wq=wq, wo=wo, kw=kw, x=x, kc=kc, vc=vc, mask=mask, **skw:
+                attn_block_decode(x, ln, None, wq, wo, kc, vc, mask, **self_kw, **kw, **skw))
+        (k8, ks8), (v8, vs8) = quantize_kv(kc.float()), quantize_kv(vc.float())
+        carriers[f"self_S64_slot40_int8_kv8{sfx}"] = (
+            lambda x=x, k8=k8, v8=v8, ks8=ks8, vs8=vs8, mask=mask, **skw:
+            attn_block_decode(x, ln, None, self8[0], self8[1], k8, v8, mask, **self_kw, wq_scale=self8[2],
+                              wout_scale=self8[3], k_scale=ks8, v_scale=vs8, **skw))
+        for wtag, (wq, wo, kw) in x_w.items():
+            carriers[f"xattn_S64_gate{wtag}{sfx}"] = (
+                lambda wq=wq, wo=wo, kw=kw, x=x, km=km, vm=vm, mask=mask, **skw:
+                attn_block_decode(x, ln, ln_b, wq, wo, km, vm, mask, heads=8, head_dim=64, scale=0.125, gate=gate,
+                                  **kw, **skw))
+        # chip_smoke.py's ABSORB_TIMED / W8A8_TIMED side-tile cases at these carriers
+        names = ([("mpt_mlp", "side_qkv"), ("mpt_mlp", "side_fc2"), ("mpt_mlp_int8", "side_qkv"),
+                  ("mpt_mlp_int4", "side_qkv"), ("mpt_mlp_int4", "side_fc2"), ("mpt_mlp", "side8_qkv"),
+                  ("mpt_mlp_int8", "side8_qkv"), ("mpt_mlp_int4", "side8_qkv"), ("mpt_mlp_int4", "side8_fc2"),
+                  ("self_S64_slot40", "side"), ("self_S64_slot40", "side8_qkv"),
+                  ("self_S64_slot40_int4", "side8_qkv"), ("self_S64_slot40_int8_kv8", "side8_qkv"),
+                  ("xattn_S64_gate", "side"), ("xattn_S64_gate_int4", "side8_qkv"), ("xattn_ff", "side_qkv")]
+                 if bd == B else
+                 [("mpt_mlp_int4", "side8_qkv"), ("mpt_mlp_int4", "side8_fc2"), ("self_S64_slot40_int4", "side8_qkv"),
+                  ("xattn_S64_gate_int4", "side8_qkv")])
+        for carrier, tile in names:
+            skw = tiles["side_qkv" if tile == "side" else tile]
+            cname = f"{carrier}{sfx}"
+            name = f"{carrier}{sfx}_{tile}" if sfx else f"{carrier}_{tile}"
+            fn = lambda c=carriers[cname], skw=skw: c(**skw)
+            cases[name] = ("fused_mlp" if carrier.startswith(("mpt_mlp", "xattn_ff")) else "attn_block_decode", fn,
+                           cname)
+    used = sorted({c for _, _, c in cases.values()})
+    for variant, lib in libs.items():
+        if lib is not None:   # the wrappers load the variant's libraries in place of the tree's own
+            build._libs.update(lib)
+            dense_stream._lib = decode_layer._lib = None
+        label = f"{tree}_{variant}" if variant else tree
+        outputs = {}
+        with torch.no_grad():
+            for name, (kernel, fn, cname) in cases.items():
+                outs = fn()
+                outputs[name] = [o.cpu() for o in (outs if isinstance(outs, tuple) else (outs,))]
+                print(json.dumps({"profile": "side_bf16", "tree": label, "kernel": kernel, "case": name,
+                                  "carrier": cname, "ms": device_ms(fn)}), flush=True)
+            for cname in used:
+                outs = carriers[cname]()
+                outputs[f"carrier:{cname}"] = [o.cpu() for o in (outs if isinstance(outs, tuple) else (outs,))]
+                print(json.dumps({"profile": "side_bf16", "tree": label, "case": f"carrier:{cname}",
+                                  "ms": device_ms(carriers[cname])}), flush=True)
+        if save and not variant:   # the variants skip part of the tile
+            torch.save(outputs, save)
+    print(card_line(), flush=True)
+    return 0
+
+
+def side_compare(paths) -> int:
+    """Two or more trees' saved `side` outputs against the first: the W8A8
+    tiles (side8 cases) and every carrier output (K3's cache writes too) bit
+    for bit, the bf16 tiles' largest difference. Exits 1 if a bit-for-bit
+    output differs."""
+    base = torch.load(paths[0])
+    failed = False
+    for path in paths[1:]:
+        other = torch.load(path)
+        row = {"profile": "side_compare", "base": paths[0], "other": path, "cases": {}}
+        for name, outs in base.items():
+            got = other[name]
+            exact = "side8" in name or name.startswith("carrier:")
+            same = [torch.equal(a, b) for a, b in zip(outs[:-1] if not name.startswith("carrier:") else outs,
+                                                       got[:-1] if not name.startswith("carrier:") else got)]
+            tile_diff = None if name.startswith("carrier:") else (outs[-1].float() - got[-1].float()).abs().max().item()
+            tile_same = None if name.startswith("carrier:") else torch.equal(outs[-1], got[-1])
+            row["cases"][name] = {"carrier_outputs_equal": all(same), "tile_equal": tile_same,
+                                  "tile_max_abs_diff": tile_diff}
+            failed |= not all(same) or (exact and tile_same is False)
+        print(json.dumps(row), flush=True)
+    return 1 if failed else 0
 
 
 def absorb_times() -> int:
@@ -546,6 +759,8 @@ def vit_times() -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["side_compare"]:     # saved outputs only: no card needed
+        return side_compare(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -561,6 +776,8 @@ def main() -> int:
         return k45b_times()
     if sys.argv[1:] == ["absorb"]:
         return absorb_times()
+    if sys.argv[1:2] == ["side"]:
+        return side_times(sys.argv[2:])
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

@@ -429,6 +429,10 @@ def sass_kernels(path) -> dict:
             for n, p in zip(names, plain)}
 
 
+# the libraries whose launches carry side tiles; the carrier instances with the
+# fp32 tile (x fp32, no W8A8: gemv_side_kernel<float, W, false>)
+SIDE_LIBS = ("dense_stream", "decode_layer")
+FP32_TILE = re.compile(r"gemv_side_kernel<float, [^<>]*, (false|0)>")
 # the libraries whose bf16 bodies run on tensor cores, and those kernels
 HMMA_KERNELS = {"prefill_attention": ("attention_fwd_mma",),
                 "attention_backward": ("attention_bwd_dq_mma", "attention_bwd_dkv_mma")}
@@ -450,8 +454,19 @@ def phase_build() -> None:
             require(len(counts) == 12 and min(counts) > 0, f"{lib}: {kernel} instances {counts}, 12 with HMMA expected")
         fma = {name: n for name, n in hmma[lib].items() if not any(kernel in name for kernel in tc_kernels)}
         require(fma and not any(fma.values()), f"{lib}: FMA-body instances with HMMA: {fma}")
+    # K2b / K2b int8: each carrier instance with a ring tile (bf16, or W8A8 in
+    # either dtype) must issue wgmma (HGMMA bf16, IGMMA int8); the fp32 tile none
+    gmma = {}
+    for lib in SIDE_LIBS:
+        gmma[lib] = {name.split("(")[0]: sum(ins.startswith(("HGMMA", "IGMMA")) for ins in code)
+                     for name, code in sass_kernels(build.target(lib)).items() if "side_kernel" in name}
+        ring = {name: n for name, n in gmma[lib].items() if not FP32_TILE.search(name)}
+        require(len(ring) == 15 and min(ring.values()) > 0,
+                f"{lib}: side-kernel instances {gmma[lib]}, 15 with wgmma expected")
+        require(not any(n for name, n in gmma[lib].items() if name not in ring), f"{lib}: the fp32 tile issues wgmma")
     log({"phase": "build", "seconds": seconds, "sources": build.sources(), "ptxas": regs,
-         **{f"{lib}_hmma": counts for lib, counts in hmma.items()}})
+         **{f"{lib}_hmma": counts for lib, counts in hmma.items()},
+         **{f"{lib}_side_gmma": counts for lib, counts in gmma.items()}})
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1729,6 +1744,11 @@ def phase_kernels(dev) -> dict:
                 row["two_launch_ms"] = device_ms(fn.two_launch)
             log({"phase": "kernels", "kernel": name, "timing": row})
             summary.setdefault(name, {})[case] = row
+    # each side tile's exposed time (the launch with it less the carrier alone) beside the tile's own bound
+    log({"phase": "kernels", "side_tiles": [
+        {"kernel": name, "case": case, **{key: row[key] for key in ("exposed_ms", "tile_bound_ms", "tile_bound_by",
+                                                                     "carrier_ms", "ms", "variant")}}
+        for name, rows_ in summary.items() for case, row in rows_.items() if "exposed_ms" in row]})
     return summary
 
 

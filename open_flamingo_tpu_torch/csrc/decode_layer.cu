@@ -197,14 +197,16 @@ extern "C" int attn_block_decode_side_fwd(const void* x, const void* ln_s, const
                                           const void* side_x, const void* side_w, long long side_ldw,
                                           const void* side_ws, const void* side_ln_s, const void* side_ln_b,
                                           float side_eps, int side_act, const void* side_b, const void* side_res,
-                                          long long side_ldr, void* side_out, int m, int sn, int sk, void* stream) {
+                                          long long side_ldr, void* side_out, int m, int sn, int sk, int side_span,
+                                          void* stream) {
   if (d < 1 || d > kMaxD || d % rows::kVec != 0 || b < 1 || h < 1 || s < 1 || s > kMaxS)
     return (int)cudaErrorInvalidValue;
   if ((fused_qkv && slot == nullptr) || (k_s == nullptr) != (v_s == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     const side::Args<float> sa = side::args<float>(side_x, side_w, side_ldw, side_ws, side_ln_s, side_ln_b, side_eps,
-                                                   side_act, side_b, side_res, side_ldr, side_out, m, sn, sk);
+                                                   side_act, side_b, side_res, side_ldr, side_out, m, sn, sk,
+                                                   side_span);
     return block<float>(x, ln_s, ln_b, wq, wq_scale, wout, wout_scale, k, v, k_s, v_s, mask, slopes, gate, slot,
                         proj, attn, out, b, dm, h, d, s, fused_qkv, has_clip, wq_type, wout_type, clip, scale, eps,
                         st, &sa);
@@ -212,7 +214,7 @@ extern "C" int attn_block_decode_side_fwd(const void* x, const void* ln_s, const
   if (dtype == 1) {
     const side::Args<__nv_bfloat16> sa = side::args<__nv_bfloat16>(side_x, side_w, side_ldw, side_ws, side_ln_s,
                                                                     side_ln_b, side_eps, side_act, side_b, side_res,
-                                                                    side_ldr, side_out, m, sn, sk);
+                                                                    side_ldr, side_out, m, sn, sk, side_span);
     return block<__nv_bfloat16>(x, ln_s, ln_b, wq, wq_scale, wout, wout_scale, k, v, k_s, v_s, mask, slopes, gate,
                                 slot, proj, attn, out, b, dm, h, d, s, fused_qkv, has_clip, wq_type, wout_type, clip,
                                 scale, eps, st, &sa);

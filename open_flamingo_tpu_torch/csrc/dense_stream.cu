@@ -131,8 +131,10 @@ extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* w1g, con
 // side_ln_s / side_ln_b (SK,), side_b (SN,) or NULL, side_res (M, SN) with
 // rows side_ldr apart or NULL, all in x's dtype; side_act a rows::Act. SK a
 // multiple of 32. With side_ws (SN,) fp32, side_w is int8 (rows side_ldw
-// bytes apart, a multiple of 16) and the tile is the W8A8 one. The other
-// arguments and `out` as fused_mlp_fwd's.
+// bytes apart, a multiple of 16) and the tile is the W8A8 one. side_span:
+// the columns of each side block of the ring tile (bf16 and W8A8), a
+// multiple of 256 (ops/dense_stream.py `side_span`). The other arguments and
+// `out` as fused_mlp_fwd's.
 extern "C" int fused_mlp_side_fwd(const void* x, const void* w1, const void* w1g, const void* w2, const void* w1_scale,
                                   const void* w1g_scale, const void* w2_scale, const void* b1, const void* b2,
                                   const void* ln_s, const void* ln_b, const void* residual, const void* gate,
@@ -141,18 +143,20 @@ extern "C" int fused_mlp_side_fwd(const void* x, const void* w1, const void* w1g
                                   long long side_ldw, const void* side_ws, const void* side_ln_s,
                                   const void* side_ln_b, float side_eps,
                                   int side_act, const void* side_b, const void* side_res, long long side_ldr,
-                                  void* side_out, int m, int sn, int sk, void* stream) {
+                                  void* side_out, int m, int sn, int sk, int side_span,
+                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     const side::Args<float> sa = side::args<float>(side_x, side_w, side_ldw, side_ws, side_ln_s, side_ln_b, side_eps,
-                                                   side_act, side_b, side_res, side_ldr, side_out, m, sn, sk);
+                                                   side_act, side_b, side_res, side_ldr, side_out, m, sn, sk,
+                                                   side_span);
     return mlp<float>(x, w1, w1g, w2, w1_scale, w1g_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate, hidden, out,
                       b, k, k2, n, act, eps, norm, w1type, w2type, st, &sa);
   }
   if (dtype == 1) {
     const side::Args<__nv_bfloat16> sa = side::args<__nv_bfloat16>(side_x, side_w, side_ldw, side_ws, side_ln_s,
                                                                     side_ln_b, side_eps, side_act, side_b, side_res,
-                                                                    side_ldr, side_out, m, sn, sk);
+                                                                    side_ldr, side_out, m, sn, sk, side_span);
     return mlp<__nv_bfloat16>(x, w1, w1g, w2, w1_scale, w1g_scale, w2_scale, b1, b2, ln_s, ln_b, residual, gate,
                               hidden, out, b, k, k2, n, act, eps, norm, w1type, w2type, st, &sa);
   }

@@ -18,20 +18,40 @@
 // rounding of the result.
 //
 // Design. The TPU kernel rides one M block of the tile on each grid step of
-// the carrier, under the weight stream's DMA. CUDA blocks run in no order:
-// here the carrier's grid gets `tiles` more blocks of the same 512 threads
-// and shared memory, each one output tile (64 rows x 128 columns in bf16,
-// 64 x 64 in fp32), scheduled after the GEMV's blocks, so they run on SMs
-// the GEMV leaves or as its blocks retire. The GEMV's blocks run their own
-// body on the grid they would have had alone: its output does not change.
-// Each side block takes its rows' LayerNorm statistics in one pass over
-// the rows (one warp per 4 rows), then walks K in chunks of 32: the chunk of
-// x normalised, activated and rounded into shared memory, the chunk of W
-// copied beside it, then bf16 `mma.sync` m16n8k16 (fragments by `ldmatrix`,
-// rows padded by 8 elements: conflict-free) or fp32 FMA (4 x 2 outputs per
-// thread). One buffer, no pipelining: simple first.
+// the carrier, under the weight stream's DMA, and prepares that block once
+// for the whole width. CUDA blocks run in no order: here the carrier's grid
+// gets more blocks of the same 512 threads and shared memory, scheduled
+// after the GEMV's, so they run on SMs the GEMV leaves or as its blocks
+// retire. The GEMV's blocks run their own body on the grid they would have
+// had alone: its output does not change.
 //
-// Bound of one tile at OF-3B (M 2112, K = N = 1024, bf16): 4.43 GFLOP over
+// The ring tile (bf16 and W8A8, `tile_ring`). One side block owns 64 rows
+// and a span of columns: all of N where the row blocks alone fill the card,
+// else N cut into equal spans of 256-column passes until blocks >= SMs (the
+// host computes the span: ops/dense_stream.py `side_span`). The block
+// 1. starts the ring: cp.async copies of W's first chunks, 128 bytes of K
+//    for each of a pass's 256 rows (32 KB a stage, zero-filled past N and
+//    SK), under everything that follows;
+// 2. prepares its rows ONCE for the whole SK, a warp per row holding it in
+//    registers: the LayerNorm statistics in `row_stats`' order, the W8A8 row
+//    scale (the amax of the activated row), then act(LN?(x)) rounded to
+//    bf16, or quantized to int8, written to shared memory in the 128-byte
+//    swizzled K-major layout `wgmma` reads (64 x SK bytes in int8, 64 x 2 SK
+//    in bf16);
+// 3. walks its span in passes of 256 columns, each of the 4 warpgroups 64 of
+//    them in 32 accumulator registers, K chunk by K chunk through a ring of
+//    3 stages (bf16) or 5 (int8): `wgmma.mma_async` m64n64k32 s8 x s8 -> s32
+//    or m64n64k16 bf16 -> fp32, both operands from shared memory, the next
+//    stages loading while the products run; each pass ends in the epilogue
+//    while the next pass's first stages arrive.
+// The tile takes SK up to 1,024 (kMaxK), ViT-L/14's width: there a warp
+// holds a row in registers, and the prepared rows and the ring fill 225 KB
+// of the 227 KB a block may hold.
+//
+// The fp32 tile (`tile_f32`, the fp32 gates only): one 64 x 64 output tile a
+// block, K in chunks of 32 through shared memory, FMA on CUDA cores.
+//
+// Bound of one bf16 tile at OF-3B (M 2112, K = N = 1024): 4.43 GFLOP over
 // 989 TFLOP/s, 0.0045 ms, above its 8.6 MB over 3.35 TB/s.
 //
 // W8A8 side tiles (K2b int8; the TPU tile's `has_side_ws` branch, taken when
@@ -48,38 +68,40 @@
 // plain version differ only where an activation lands on the other side of a
 // rounding boundary: the LayerNorm statistics and the activation are fp32
 // sums and functions taken in another order. K is the tile's own: an fc2
-// slot quantizes its D-wide slice of the hidden row, not the whole row.
-// Design: one pass over each row for the LayerNorm statistics, one for the
-// amax of the activated row (a warp per row), then K in chunks of 32: the
-// chunk of x activated, quantized and stored as int8 in shared memory beside
-// the int8 chunk of W (rows padded to 48 bytes: the ldmatrix row addresses
-// fall in distinct banks), and `mma.sync` m16n8k32 s8 x s8 -> s32 on
-// Hopper's int8 tensor cores, the fragments loaded by ldmatrix as the bf16
-// tile's (a 32-byte row of int8 is a 16-element row of bf16). 64 x 128
-// output tiles in both dtypes. Bound of one tile at OF-3B (M 2112, K = N =
-// 1024): 4.43 G int8 operations over 1,979 TOP/s, 0.0022 ms, below its
-// bytes (x 4.3 MB in bf16, W 1 MB, the output 4.3 MB: 9.7 MB over 3.35 TB/s,
-// 0.0029 ms); at B 64 (M 16,896) 35.4 G operations, 0.0179 ms, under 73.4
-// MB, 0.0219 ms: bound by the bytes in both.
+// slot quantizes its D-wide slice of the hidden row, not the whole row. The
+// row statistics, scales and quantization are those of the first W8A8 tile
+// (64 x 128 output tiles, each preparing its rows again), so q, and with it
+// the output, is that tile's bit for bit. Bound of one tile at OF-3B (M
+// 2112, K = N = 1024): 4.43 G int8 operations over 1,979 TOP/s, 0.0022 ms,
+// below its bytes (x 4.3 MB in bf16, W 1 MB, the output 4.3 MB: 9.7 MB over
+// 3.35 TB/s, 0.0029 ms); at B 64 (M 16,896) 35.4 G operations, 0.0179 ms,
+// under 73.4 MB, 0.0219 ms: bound by the bytes in both. Each block reads all
+// of its span's W from L2 (264 MB at B 64): the L2's rate, not the HBM's,
+// is the floor this design meets.
 
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "rows_gemv.cuh"
 
 namespace side {
 namespace {
 
-constexpr int kRows = 64;        // M tile; models/absorb_vit.py rounds M to it (SIDE_ROWS)
-constexpr int kColsMma = 128;    // N tile, bf16
-constexpr int kColsFma = 64;     // N tile, fp32
-constexpr int kDepth = 32;       // K chunk; K must be a multiple of it
-constexpr int kPad = kDepth + 8; // bf16 elements per staged row
-constexpr int kColsI8 = 128;     // N tile of the W8A8 tile, either dtype
-constexpr int kPadI8 = kDepth + 16;  // bytes per staged int8 row
+constexpr int kRows = 64;        // M block; models/absorb_vit.py rounds M to it (SIDE_ROWS)
+constexpr int kColsFma = 64;     // N tile of the fp32 tile
+constexpr int kDepth = 32;       // K granule; K must be a multiple of it
 constexpr int kThreads = rows::kThreads;
 constexpr int kWarps = kThreads / 32;
+// the ring tile
+constexpr int kGroups = kThreads / 128;           // warpgroups
+constexpr int kGroupCols = 64;                    // a warpgroup's accumulator: 64 rows x 64 columns
+constexpr int kPassCols = kGroups * kGroupCols;   // 256; a span is whole passes
+constexpr int kChunk = 128;                       // bytes of K in a staged row: one 128-byte swizzle row
+constexpr int kAtom = kRows * kChunk;             // one K chunk of the prepared rows
+constexpr int kStage = kPassCols * kChunk;        // one K chunk of a pass's W rows: a ring stage
+constexpr int kMaxK = 1024;                       // the ring tile's SK at most: a row in a warp's registers
 
 template <typename T>
 struct Args {
@@ -97,30 +119,35 @@ struct Args {
   long long ldr;
   T* out;              // (M, N) contiguous
   int m, n, k;
+  int span;            // the ring tile's columns per block, a multiple of kPassCols
 };
 
+// whether the tile of x type T runs the ring (bf16, and W8A8 in either dtype)
 template <typename T>
-__host__ __device__ constexpr int cols() { return std::is_same<T, float>::value ? kColsFma : kColsMma; }
+__host__ __device__ constexpr bool ring_tile(bool i8) { return i8 || !std::is_same<T, float>::value; }
 
-template <typename T>
-inline int tiles(const Args<T>& a) {
-  return ((a.m + kRows - 1) / kRows) * ((a.n + cols<T>() - 1) / cols<T>());
+// bytes of one prepared row: SK int8 activations or bf16 values, whole chunks
+__host__ __device__ constexpr int ring_row_bytes(int k, bool i8) { return (k * (i8 ? 1 : 2) + kChunk - 1) / kChunk * kChunk; }
+
+// the ring's stages: what fits beside the prepared rows at kMaxK (128 KB in
+// bf16, 64 KB in int8)
+__host__ __device__ constexpr int ring_stages(bool i8) { return i8 ? 5 : 3; }
+
+// the ring tile's shared memory: room to align to 1 KB, the prepared rows,
+// the stages, the W8A8 row scales
+__host__ __device__ constexpr size_t ring_smem(int k, bool i8) {
+  return 1024 + (size_t)kRows * ring_row_bytes(k, i8) + (size_t)ring_stages(i8) * kStage + kRows * 4;
 }
+static_assert(ring_smem(kMaxK, false) <= 232448 && ring_smem(kMaxK, true) <= 232448,
+              "the ring tile at kMaxK within sm_90's opt-in shared memory of a block");
+
+// the fp32 tile's shared memory: the row statistics, then the x and W chunks
+inline size_t smem_f32_bytes() { return 2 * kRows * 4 + (size_t)kDepth * (kRows + 4) * 4 * 2; }
 
 template <typename T>
-inline int tiles_i8(const Args<T>& a) {
-  return ((a.m + kRows - 1) / kRows) * ((a.n + kColsI8 - 1) / kColsI8);
-}
-
-// the W8A8 tile's shared memory: mean, rstd and the row scales, then the
-// int8 x and W chunks
-inline size_t smem_i8_bytes() { return 3 * kRows * 4 + (size_t)(kRows + kColsI8) * kPadI8; }
-
-// shared memory of one side block: the row statistics, then the x and W chunks
-template <typename T>
-inline size_t smem_bytes() {
-  if (std::is_same<T, float>::value) return 2 * kRows * 4 + (size_t)kDepth * (kRows + 4) * 4 * 2;
-  return 2 * kRows * 4 + (size_t)(kRows + kColsMma) * kPad * 2;
+inline int side_blocks(const Args<T>& a, bool i8) {
+  const int row_blocks = (a.m + kRows - 1) / kRows;
+  return row_blocks * (ring_tile<T>(i8) ? (a.n + a.span - 1) / a.span : (a.n + kColsFma - 1) / kColsFma);
 }
 
 // mean and 1/sqrt(var + eps) of the block's rows (flax fast variance)
@@ -168,78 +195,6 @@ __device__ __forceinline__ void store(const Args<T>& a, int row, int col, float 
   if (a.bias != nullptr) y += rows::to_f32(a.bias[col]);
   if (a.res != nullptr) y += rows::to_f32(a.res[(size_t)row * a.ldr + col]);
   a.out[(size_t)row * a.n + col] = rows::from_f32<T>(y);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-// One bf16 output tile: 16 warps as 4 (rows) x 4 (columns), each 16 rows x
-// 32 columns (four n8 tiles) of fp32 accumulators.
-__device__ void tile_bf16(const Args<__nv_bfloat16>& a, int tile, unsigned char* smem) {
-  using bf16 = __nv_bfloat16;
-  float* mean = reinterpret_cast<float*>(smem);
-  float* rstd = mean + kRows;
-  bf16* xs = reinterpret_cast<bf16*>(rstd + kRows);   // [kRows][kPad]
-  bf16* ws = xs + kRows * kPad;                        // [kColsMma][kPad]
-  const int n_tiles = (a.n + kColsMma - 1) / kColsMma;
-  const int m0 = (tile / n_tiles) * kRows, n0 = (tile % n_tiles) * kColsMma;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  if (a.ln_s != nullptr) row_stats(a, m0, mean, rstd);
-  __syncthreads();
-
-  const int wm = warp / 4, wn = warp % 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const int lr = lane % 8, lt = lane / 8;
-  for (int k0 = 0; k0 < a.k; k0 += kDepth) {
-    const int r = tid / 4, c = (tid % 4) * 8;   // one 8-element vector per thread
-    if (r < kRows) {
-      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < a.m) {
-        float v[8];
-        rows::load8<false>(a.x + (size_t)(m0 + r) * a.k + k0 + c, v);
-        uint32_t* u = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
-        for (int e = 0; e < 8; e += 2) {
-          __nv_bfloat162 p = __floats2bfloat162_rn(prologue(a, v[e], mean, rstd, r, k0 + c + e),
-                                                   prologue(a, v[e + 1], mean, rstd, r, k0 + c + e + 1));
-          u[e / 2] = *reinterpret_cast<uint32_t*>(&p);
-        }
-      }
-      *reinterpret_cast<uint4*>(xs + r * kPad + c) = packed;
-    }
-    {
-      uint4 wv = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + r < a.n) wv = *reinterpret_cast<const uint4*>(a.w + (size_t)(n0 + r) * a.ldw + k0 + c);
-      *reinterpret_cast<uint4*>(ws + r * kPad + c) = wv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth; kk += 16) {
-      uint32_t af[4];
-      ldsm_x4(af, xs + (wm * 16 + lr + (lt & 1) * 8) * kPad + kk + (lt >> 1) * 8);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t bf[4];   // columns 16j..16j+7 at k and k + 8, then 16j+8..16j+15
-        ldsm_x4(bf, ws + (wn * 32 + j * 16 + (lt >> 1) * 8 + lr) * kPad + kk + (lt & 1) * 8);
-        rows::mma_bf16(acc[2 * j], af[0], af[1], af[2], af[3], bf[0], bf[1]);
-        rows::mma_bf16(acc[2 * j + 1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
-      }
-    }
-    __syncthreads();
-  }
-  // c0, c1: row g, columns 2t, 2t + 1 of each n8 tile; c2, c3: row g + 8
-  const int g = lane / 4, t4 = lane % 4;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int col = n0 + wn * 32 + nt * 8 + 2 * t4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) store(a, m0 + wm * 16 + g + (i >> 1) * 8, col + (i & 1), acc[nt][i]);
-  }
 }
 
 // One fp32 output tile on CUDA cores: thread (ty, tx) owns rows 2ty, 2ty + 1
@@ -299,124 +254,395 @@ __device__ void tile_f32(const Args<float>& a, int tile, unsigned char* smem) {
     for (int j = 0; j < 4; ++j) store(a, m0 + 2 * ty + i, n0 + 4 * tx + j, acc[i][j]);
 }
 
-__device__ __forceinline__ void tile(const Args<__nv_bfloat16>& a, int t, unsigned char* smem) { tile_bf16(a, t, smem); }
-__device__ __forceinline__ void tile(const Args<float>& a, int t, unsigned char* smem) { tile_f32(a, t, smem); }
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+// 16 bytes global -> shared through L2 alone; zero-filled where !valid
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+// this thread's shared-memory writes (stores, finished cp.async) made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
+
+// the accumulators pinned in place around asynchronous products
+__device__ __forceinline__ void fence_acc(int* d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// One W8A8 output tile (64 rows x 128 columns, either dtype): 16 warps as 4
-// (rows) x 4 (columns), each 16 rows x 32 columns (four n8 tiles) of int32
-// accumulators; threads 0-255 quantize the x chunk, 256-511 copy W's.
-template <typename T>
-__device__ void tile_i8(const Args<T>& a, int tile, unsigned char* smem) {
-  float* mean = reinterpret_cast<float*>(smem);
-  float* rstd = mean + kRows;
-  float* sact = rstd + kRows;
-  int8_t* xs = reinterpret_cast<int8_t*>(sact + kRows);   // [kRows][kPadI8]
-  int8_t* ws = xs + kRows * kPadI8;                        // [kColsI8][kPadI8]
-  const int n_tiles = (a.n + kColsI8 - 1) / kColsI8;
-  const int m0 = (tile / n_tiles) * kRows, n0 = (tile % n_tiles) * kColsI8;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  if (a.ln_s != nullptr) row_stats(a, m0, mean, rstd);
-  __syncthreads();
-  for (int r = warp; r < kRows; r += kWarps) {   // the row scales: amax of the activated row / 127
-    float mx = 0.f;
-    if (m0 + r < a.m) {
-      const T* xr = a.x + (size_t)(m0 + r) * a.k;
-      for (int c = lane * rows::kVec; c < a.k; c += 32 * rows::kVec) {
-        float v[rows::kVec];
-        rows::load8<false>(xr + c, v);
-#pragma unroll
-        for (int e = 0; e < rows::kVec; ++e) mx = fmaxf(mx, fabsf(prologue(a, v[e], mean, rstd, r, c + e)));
-      }
-    }
-    mx = warp_max(mx);
-    if (lane == 0) sact[r] = mx == 0.f ? 1.f : __fdiv_rn(mx, 127.f);
-  }
-  __syncthreads();
+// descriptor of a K-major shared-memory operand in the 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1,024 bytes apart, 1 KB-aligned
+__device__ __forceinline__ uint64_t gmma_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
+}
 
-  const int wm = warp / 4, wn = warp % 4;
-  int acc[4][4];
+#define SIDE_R(x) "+r"(x)
+#define SIDE_F(x) "+f"(x)
+#define SIDE_D8(C, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
+#define SIDE_D32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
+  "%23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64 of the warpgroup) (+)= A (64 rows x 32 bytes of K) B^T (64 rows x 32 bytes)
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " SIDE_D32 ", %32, %33, p;\n}\n"
+               : SIDE_D8(SIDE_R, 0), SIDE_D8(SIDE_R, 8), SIDE_D8(SIDE_R, 16), SIDE_D8(SIDE_R, 24)
+               : "l"(a), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SIDE_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+               : SIDE_D8(SIDE_F, 0), SIDE_D8(SIDE_F, 8), SIDE_D8(SIDE_F, 16), SIDE_D8(SIDE_F, 24)
+               : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#undef SIDE_D32
+#undef SIDE_D8
+#undef SIDE_F
+#undef SIDE_R
+
+// One 128-byte K chunk of a warpgroup's 64 x 64 product: xa the prepared
+// rows' chunk, wb its 64 W rows' chunk, four steps of 32 bytes; `first`: the
+// pass's first chunk, whose products start the sums. The accumulators are
+// wgmma's m64n64 layout: warp w of the group on rows 16w..16w+15, n8 tile j
+// in d[4j..4j+3]. Issued and committed here, waited for by the caller.
+template <bool kI8, typename Acc>
+__device__ __forceinline__ void chunk_products(Acc* d, const unsigned char* xa, const unsigned char* wb, bool first) {
+  fence_acc(d);
+  wgmma_fence();
+  const uint64_t da = gmma_desc(xa), db = gmma_desc(wb);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
-  const int lr = lane % 8, lt = lane / 8;
-  for (int k0 = 0; k0 < a.k; k0 += kDepth) {
-    if (tid < kRows * 4) {   // 8 activations of row r, quantized
-      const int r = tid / 4, c = (tid % 4) * 8;
-      uint32_t lo = 0u, hi = 0u;   // bytes e = 0..3 and 4..7
-      if (m0 + r < a.m) {
-        float v[8];
-        rows::load8<false>(a.x + (size_t)(m0 + r) * a.k + k0 + c, v);
+  for (int j = 0; j < 4; ++j) {   // 32 bytes of K a step: the start address moves 2 x 16 bytes
+    if constexpr (kI8) wgmma_s8(d, da + 2 * j, db + 2 * j, first && j == 0 ? 0 : 1);
+    else wgmma_bf16(d, da + 2 * j, db + 2 * j, first && j == 0 ? 0 : 1);
+  }
+  wgmma_commit();
+}
+
+template <int kAct>
+__device__ __forceinline__ void activation8(float* v) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = rows::activation(v[e], kAct);
+}
+
+// `prologue` of 8 consecutive values of one row (columns c..c+7) in place,
+// its arithmetic with each condition tested once for the 8: the column's
+// LayerNorm scale and bias read 8 at a time
+template <typename T>
+__device__ __forceinline__ void prologue8(const Args<T>& a, float* v, float mean, float rstd, int c) {
+  if (a.ln_s != nullptr) {
+    float s[8];
+    rows::load8<false>(a.ln_s + c, s);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = (v[e] - mean) * rstd * s[e];
+    if (a.ln_b != nullptr) {
+      float b[8];
+      rows::load8<false>(a.ln_b + c, b);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] += b[e];
+    }
+  }
+  switch (a.act) {
+    case rows::kGelu: activation8<rows::kGelu>(v); break;
+    case rows::kGeluNew: activation8<rows::kGeluNew>(v); break;
+    case rows::kRelu: activation8<rows::kRelu>(v); break;
+    case rows::kQuickGelu: activation8<rows::kQuickGelu>(v); break;
+    case rows::kSilu: activation8<rows::kSilu>(v); break;
+    default: break;
+  }
+}
+
+constexpr int kRowVec = kMaxK / 256;   // 8-element vectors a lane holds of a row: kMaxK columns a warp
+
+// 8 consecutive values of x as loaded (16 or 32 bytes), converted when used
+template <typename T>
+struct Raw8 {
+  uint4 u[sizeof(T) / 2];
+};
+template <typename T>
+__device__ __forceinline__ void fetch8(const T* p, Raw8<T>& raw) {
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 2); ++i) raw.u[i] = reinterpret_cast<const uint4*>(p)[i];
+}
+__device__ __forceinline__ void unpack8(const Raw8<float>& raw, float* v) {
+  const float* f = reinterpret_cast<const float*>(raw.u);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = f[e];
+}
+__device__ __forceinline__ void unpack8(const Raw8<__nv_bfloat16>& raw, float* v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(raw.u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// The block's rows once for the whole SK, a warp per row, lane l on columns
+// 8l + 256i + e (row_stats' order): the LayerNorm statistics (row_stats'
+// sums), the W8A8 row scale (the amax of the activated row / 127, 1 for a
+// zero row), then act(LN?(x)) quantized, q = clip(rn(h / s_act), -127,
+// 127), or rounded to bf16, in the swizzled K-major layout: 16-byte chunk
+// cc of row r at K chunk cc / 8, row r, position (cc % 8) ^ (r % 8). A row
+// is read once, into registers, while the warp works on its previous row.
+// Rows past M and columns past SK are zero.
+template <typename T, bool kI8>
+__device__ void prepare_rows(const Args<T>& a, int m0, int row_bytes, unsigned char* xs, float* sact) {
+  constexpr int kEs = kI8 ? 1 : 2;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int vecs = row_bytes / kEs / 8;   // 8-element vectors of a prepared row
+  auto column = [&](int i) { return 8 * (lane + 32 * i); };
+  Raw8<T> next[kRowVec];                  // the warp's next row, fetched ahead
+  auto fetch = [&](int r) {
+#pragma unroll
+    for (int i = 0; i < kRowVec; ++i)
+      if (m0 + r < a.m && column(i) < a.k) fetch8(a.x + (size_t)(m0 + r) * a.k + column(i), next[i]);
+  };
+  fetch(warp);
+  for (int r = warp; r < kRows; r += kWarps) {
+    const bool live = m0 + r < a.m;
+    auto valid = [&](int i) { return live && column(i) < a.k; };
+    float v[kRowVec][8];
+#pragma unroll
+    for (int i = 0; i < kRowVec; ++i) unpack8(next[i], v[i]);
+    if (r + kWarps < kRows) fetch(r + kWarps);
+    float mean = 0.f, rstd = 0.f, scale = 1.f;
+    if (a.ln_s != nullptr) {
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < kRowVec; ++i) {
+        if (!valid(i)) continue;
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          const int q = min(max(__float2int_rn(__fdiv_rn(prologue(a, v[e], mean, rstd, r, k0 + c + e), sact[r])),
-                                -127), 127);
-          const uint32_t byte = (uint32_t)q & 0xffu;
-          if (e < 4) lo |= byte << (8 * e);
-          else hi |= byte << (8 * (e - 4));
+          s += v[i][e];
+          ss = fmaf(v[i][e], v[i][e], ss);
         }
       }
-      *reinterpret_cast<uint2*>(xs + r * kPadI8 + c) = make_uint2(lo, hi);
-    } else {                 // 16 bytes of W row r
-      const int t = tid - kRows * 4, r = t / 2, c = (t % 2) * 16;
-      uint4 wv = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + r < a.n) wv = *reinterpret_cast<const uint4*>(a.wq + (size_t)(n0 + r) * a.ldw + k0 + c);
-      *reinterpret_cast<uint4*>(ws + r * kPadI8 + c) = wv;
+      s = rows::warp_sum(s);   // every lane holds lane 0's sums: the butterfly's pairs commute
+      ss = rows::warp_sum(ss);
+      mean = s / (float)a.k;
+      rstd = rsqrtf(fmaxf(0.f, ss / (float)a.k - mean * mean) + a.eps);
     }
-    __syncthreads();
-    uint32_t af[4];
-    ldsm_x4(af, xs + (wm * 16 + lr + (lt & 1) * 8) * kPadI8 + (lt >> 1) * 16);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t bf[4];   // columns 16j..16j+7 at k bytes 0-15 and 16-31, then 16j+8..16j+15
-      ldsm_x4(bf, ws + (wn * 32 + j * 16 + (lt >> 1) * 8 + lr) * kPadI8 + (lt & 1) * 16);
-      mma_s8(acc[2 * j], af, bf[0], bf[1]);
-      mma_s8(acc[2 * j + 1], af, bf[2], bf[3]);
+    for (int i = 0; i < kRowVec; ++i)
+      if (valid(i)) prologue8(a, v[i], mean, rstd, column(i));
+    if constexpr (kI8) {
+      float mx = 0.f;
+#pragma unroll
+      for (int i = 0; i < kRowVec; ++i) {
+        if (!valid(i)) continue;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) mx = fmaxf(mx, fabsf(v[i][e]));
+      }
+      mx = warp_max(mx);
+      scale = mx == 0.f ? 1.f : __fdiv_rn(mx, 127.f);
+      if (lane == 0) sact[r] = scale;
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kRowVec; ++i) {
+      const int j = column(i) / 8;   // vector j: columns 8j..8j+7
+      if (j >= vecs) continue;
+      if constexpr (kI8) {           // 8 bytes: half of chunk j / 2
+        uint32_t u[2] = {0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int q = valid(i) ? min(max(__float2int_rn(__fdiv_rn(v[i][e], scale)), -127), 127) : 0;
+          u[e / 4] |= ((uint32_t)q & 0xffu) << (8 * (e % 4));
+        }
+        const int cc = j / 2;
+        *reinterpret_cast<uint2*>(xs + (cc / 8) * kAtom + r * kChunk + (((cc % 8) ^ (r % 8)) * 16) + (j % 2) * 8) =
+            make_uint2(u[0], u[1]);
+      } else {                       // 16 bytes: chunk j
+        uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+        if (valid(i)) {
+          uint32_t* u = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+          for (int e = 0; e < 8; e += 2) {
+            __nv_bfloat162 p = __floats2bfloat162_rn(v[i][e], v[i][e + 1]);
+            u[e / 2] = *reinterpret_cast<uint32_t*>(&p);
+          }
+        }
+        *reinterpret_cast<uint4*>(xs + (j / 8) * kAtom + r * kChunk + (((j % 8) ^ (r % 8)) * 16)) = packed;
+      }
+    }
   }
-  // c0, c1: row g, columns 2t, 2t + 1 of each n8 tile; c2, c3: row g + 8
-  const int g = lane / 4, t4 = lane % 4;
+}
+
+// One output of the ring tile from its fp32 (bf16 tile) or int32 (W8A8)
+// sum, the column's weight scale ws and bias b and the residual res read:
+// W8A8 s * ws first, then + b, + res, as `__fmul_rn` / `__fadd_rn` (the plain
+// version's order, no contraction); bf16 `store`'s; one rounding.
+template <typename T, bool kI8, typename Acc>
+__device__ __forceinline__ T ring_out(const Args<T>& a, Acc acc, float s_row, float ws, T b, T res) {
+  if constexpr (kI8) {
+    float y = __fmul_rn(__fmul_rn(__int2float_rn(acc), s_row), ws);
+    if (a.bias != nullptr) y = __fadd_rn(y, rows::to_f32(b));
+    if (a.res != nullptr) y = __fadd_rn(y, rows::to_f32(res));
+    return rows::from_f32<T>(y);
+  } else {
+    float y = acc;
+    if (a.bias != nullptr) y += rows::to_f32(b);
+    if (a.res != nullptr) y += rows::to_f32(res);
+    return rows::from_f32<T>(y);
+  }
+}
+
+// A warpgroup's 64 x 64 outputs at columns n0.. (< c_end): each lane's two
+// adjacent columns, their scales, biases and residuals read and written as
+// one access each where both columns lie inside and N is even (aligned),
+// else one by one.
+template <typename T, bool kI8, typename Acc>
+__device__ __forceinline__ void ring_epilogue(const Args<T>& a, const Acc* d, int m0, int n0, int c_end,
+                                              const float* sact) {
+  using Pair = typename std::conditional<std::is_same<T, float>::value, float2, __nv_bfloat162>::type;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4, r0 = (threadIdx.x / 32) % 4 * 16 + g;
+  const bool paired = a.n % 2 == 0;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
+  for (int nb = 0; nb < 8; ++nb) {
+    const int col = n0 + nb * 8 + 2 * t4;
+    if (col >= c_end) continue;
+    const int cols = col + 1 < c_end ? 2 : 1;
+    const bool two = paired && cols == 2;
+    float ws[2] = {0.f, 0.f};
+    Pair bp;
+    T* b2 = reinterpret_cast<T*>(&bp);
+    if (two) {
+      if constexpr (kI8) *reinterpret_cast<float2*>(ws) = *reinterpret_cast<const float2*>(a.ws + col);
+      if (a.bias != nullptr) bp = *reinterpret_cast<const Pair*>(a.bias + col);
+    } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = wm * 16 + g + (i >> 1) * 8, row = m0 + rl, col = n0 + wn * 32 + nt * 8 + 2 * t4 + (i & 1);
-      if (row >= a.m || col >= a.n) continue;
-      float y = __fmul_rn(__fmul_rn(__int2float_rn(acc[nt][i]), sact[rl]), a.ws[col]);
-      if (a.bias != nullptr) y = __fadd_rn(y, rows::to_f32(a.bias[col]));
-      if (a.res != nullptr) y = __fadd_rn(y, rows::to_f32(a.res[(size_t)row * a.ldr + col]));
-      a.out[(size_t)row * a.n + col] = rows::from_f32<T>(y);
+      for (int e = 0; e < 2; ++e) {
+        if (e >= cols) continue;
+        if constexpr (kI8) ws[e] = a.ws[col + e];
+        if (a.bias != nullptr) b2[e] = a.bias[col + e];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {   // d[4nb + 2h], d[4nb + 2h + 1]: row r0 + 8h, columns col, col + 1
+      const int rl = r0 + 8 * h, row = m0 + rl;
+      if (row >= a.m) continue;
+      const float s_row = kI8 ? sact[rl] : 0.f;
+      T* out = a.out + (size_t)row * a.n + col;
+      Pair rp, op;
+      T* r2 = reinterpret_cast<T*>(&rp);
+      T* o2 = reinterpret_cast<T*>(&op);
+      if (two) {
+        if (a.res != nullptr) rp = *reinterpret_cast<const Pair*>(a.res + (size_t)row * a.ldr + col);
+        o2[0] = ring_out<T, kI8>(a, d[4 * nb + 2 * h], s_row, ws[0], b2[0], r2[0]);
+        o2[1] = ring_out<T, kI8>(a, d[4 * nb + 2 * h + 1], s_row, ws[1], b2[1], r2[1]);
+        *reinterpret_cast<Pair*>(out) = op;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (e >= cols) continue;
+          if (a.res != nullptr) r2[e] = a.res[(size_t)row * a.ldr + col + e];
+          out[e] = ring_out<T, kI8>(a, d[4 * nb + 2 * h + e], s_row, ws[e], b2[e], r2[e]);
+        }
+      }
     }
   }
+}
+
+// One ring block (see the note at the top): block `blk` of the side grid,
+// row block blk / spans, span blk % spans.
+template <typename T, bool kI8>
+__device__ void tile_ring(const Args<T>& a, int blk, unsigned char* smem) {
+  using Acc = typename std::conditional<kI8, int, float>::type;
+  constexpr int kEs = kI8 ? 1 : 2;   // bytes of a prepared element, and of a W element
+  const int row_bytes = ring_row_bytes(a.k, kI8), kchunks = row_bytes / kChunk, k_bytes = a.k * kEs;
+  constexpr int stages = ring_stages(kI8);
+  constexpr int keep = kI8 ? 1 : 0;           // product groups left in flight past a chunk
+  constexpr int ahead = stages - 1 - keep;    // W stages loading ahead of the products: 2 or 3
+  unsigned char* xs = smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
+  unsigned char* ring = xs + (size_t)kRows * row_bytes;
+  float* sact = reinterpret_cast<float*>(ring + (size_t)stages * kStage);   // the W8A8 row scales
+  const int spans = (a.n + a.span - 1) / a.span;
+  const int m0 = blk / spans * kRows, c0 = blk % spans * a.span, c_end = min(c0 + a.span, a.n);
+  const int total = (c_end - c0 + kPassCols - 1) / kPassCols * kchunks;   // ring stages of the block
+  const unsigned char* w = kI8 ? reinterpret_cast<const unsigned char*>(a.wq) : reinterpret_cast<const unsigned char*>(a.w);
+  const long long ldw = a.ldw * kEs;
+
+  // stage s: pass s / kchunks, K chunk s % kchunks; a 16-byte copy per thread and row chunk
+  auto load = [&](int s) {
+    unsigned char* slot = ring + (size_t)(s % stages) * kStage;
+    const int n0 = c0 + s / kchunks * kPassCols, kb0 = s % kchunks * kChunk;
+    for (int i = threadIdx.x; i < kPassCols * 8; i += kThreads) {
+      const int r = i / 8, c = i % 8, n = n0 + r, kb = kb0 + c * 16;
+      const bool valid = n < c_end && kb < k_bytes;
+      cp_async16(smem_u32(slot + r * kChunk + ((c ^ (r % 8)) * 16)), valid ? w + n * ldw + kb : w, valid);
+    }
+  };
+
+  for (int s = 0; s < ahead; ++s) {
+    if (s < total) load(s);
+    cp_async_commit();
+  }
+  prepare_rows<T, kI8>(a, m0, row_bytes, xs, sact);
+
+  const int group = threadIdx.x / 128;
+  Acc d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0;
+  for (int it = 0; it < total; ++it) {
+    // stage `it` has landed for every thread; the slot refilled next was read by products that are done
+    cp_async_wait<ahead - 1>();
+    fence_async_smem();
+    __syncthreads();
+    if (it + ahead < total) load(it + ahead);
+    cp_async_commit();
+    // a warpgroup whose columns lie past the span's end multiplies W's zeros and stores nothing: a branch
+    // on it would serialize the wgmma (ptxas cannot prove it uniform over the warpgroup)
+    const int kc = it % kchunks, n0 = c0 + it / kchunks * kPassCols + group * kGroupCols;
+    chunk_products<kI8>(d, xs + (size_t)kc * kAtom, ring + (size_t)(it % stages) * kStage + group * kGroupCols * kChunk,
+                        kc == 0);
+    if (kc == kchunks - 1) {
+      wgmma_wait<0>();
+      fence_acc(d);
+      ring_epilogue<T, kI8>(a, d, m0, n0, c_end, sact);
+    } else {
+      wgmma_wait<keep>();
+      fence_acc(d);
+    }
+  }
+  cp_async_wait<0>();
 }
 
 template <bool kI8, typename T>
 __device__ __forceinline__ void side_tile(const Args<T>& a, int t, unsigned char* smem) {
-  if constexpr (kI8) tile_i8(a, t, smem);
-  else tile(a, t, smem);
+  if constexpr (ring_tile<T>(kI8)) tile_ring<T, kI8>(a, t, smem);
+  else tile_f32(a, t, smem);
 }
 
 // K2's down-projection (and K3's out-projection) carrying side tiles: the
 // first `main_blocks` blocks run the row GEMV's body on a grid of
-// main_blocks, the rest one side tile each (kI8: the W8A8 tile). Instances
+// main_blocks, the rest one side block each (kI8: the W8A8 tile). Instances
 // of their own (kSide): the kernels without side blocks are compiled as they
 // were.
 template <typename W, bool kI8>
 __global__ void __launch_bounds__(kThreads) gemv_mma_side_kernel(
     const __nv_bfloat16* __restrict__ x, const unsigned char* __restrict__ w, rows::Epilogue<__nv_bfloat16> ep,
     __nv_bfloat16* __restrict__ out, int b, int n, int k, int ks, int main_blocks, Args<__nv_bfloat16> sa) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   if ((int)blockIdx.x < main_blocks)
     rows::gemv_mma_body<W, __nv_bfloat16, false, rows::kActBase>(x, nullptr, nullptr, 0.f, rows::kLayerNorm, w,
                                                                   nullptr, ep, out, b, n, k, ks, smem, main_blocks,
@@ -429,7 +655,7 @@ template <typename T, typename W, bool kI8>
 __global__ void __launch_bounds__(kThreads) gemv_side_kernel(
     const T* __restrict__ x, const unsigned char* __restrict__ w, rows::Epilogue<T> ep, T* __restrict__ out, int b,
     int n, int k, int rows_per_pass, int main_blocks, Args<T> sa) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   if ((int)blockIdx.x < main_blocks)
     rows::gemv_body<T, W, T, false, rows::kActBase>(x, nullptr, nullptr, 0.f, rows::kLayerNorm, w, nullptr, ep, out,
                                                     b, n, k, rows_per_pass, smem, main_blocks, blockIdx.x);
@@ -441,8 +667,8 @@ template <typename T, typename W, bool kI8>
 cudaError_t launch_typed(const T* x, const void* w, rows::Epilogue<T> ep, T* out, int b, int n, int k,
                          const Args<T>& sa, cudaStream_t st) {
   const unsigned char* wb = static_cast<const unsigned char*>(w);
-  const int side_blocks = kI8 ? tiles_i8(sa) : tiles(sa);
-  const size_t side_smem = kI8 ? smem_i8_bytes() : smem_bytes<T>();
+  const int side = side_blocks(sa, kI8);
+  const size_t side_smem = ring_tile<T>(kI8) ? ring_smem(sa.k, kI8) : smem_f32_bytes();
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (k % rows::kMmaK == 0 && rows::mma_smem(k, false) <= (size_t)rows::smem_optin()) {
       const size_t smem = std::max(rows::mma_smem(k, false), side_smem);
@@ -452,7 +678,7 @@ cudaError_t launch_typed(const T* x, const void* w, rows::Epilogue<T> ep, T* out
       static size_t smem_set = 48 * 1024;
       cudaError_t e = rows::allow_smem(kern, smem, smem_set);
       if (e != cudaSuccess) return e;
-      kern<<<blocks + side_blocks, kThreads, smem, st>>>(x, wb, ep, out, b, n, k, ks, blocks, sa);
+      kern<<<blocks + side, kThreads, smem, st>>>(x, wb, ep, out, b, n, k, ks, blocks, sa);
       return cudaGetLastError();
     }
   }
@@ -464,7 +690,7 @@ cudaError_t launch_typed(const T* x, const void* w, rows::Epilogue<T> ep, T* out
   static size_t smem_set = 48 * 1024;
   cudaError_t e = rows::allow_smem(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
-  kern<<<blocks + side_blocks, kThreads, smem, st>>>(x, wb, ep, out, b, n, k, rows_pp, blocks, sa);
+  kern<<<blocks + side, kThreads, smem, st>>>(x, wb, ep, out, b, n, k, rows_pp, blocks, sa);
   return cudaGetLastError();
 }
 
@@ -472,6 +698,7 @@ cudaError_t launch_typed(const T* x, const void* w, rows::Epilogue<T> ep, T* out
 // activation or gated weight (K2's down-projection, K3's out-projection), W
 // stored as wtype says, with the side tile `sa` in the same launch: the W8A8
 // tile when sa.wq is set (with sa.ws), else the tile in x's dtype (sa.w).
+// The ring tile takes a span of whole passes and SK up to kMaxK.
 template <typename T>
 cudaError_t launch_gemv_side(int wtype, const T* x, const void* w, rows::Epilogue<T> ep, T* out, int b, int n, int k,
                              const Args<T>& sa, cudaStream_t st) {
@@ -480,6 +707,8 @@ cudaError_t launch_gemv_side(int wtype, const T* x, const void* w, rows::Epilogu
     return cudaErrorInvalidValue;
   const bool i8 = sa.wq != nullptr;
   if (i8 ? (sa.ws == nullptr || sa.w != nullptr || sa.ldw % 16 != 0) : (sa.w == nullptr || sa.ws != nullptr))
+    return cudaErrorInvalidValue;
+  if (ring_tile<T>(i8) && (sa.span < kPassCols || sa.span % kPassCols != 0 || sa.k > kMaxK))
     return cudaErrorInvalidValue;
   switch (wtype * 2 + i8) {
     case 0: return launch_typed<T, T, false>(x, w, ep, out, b, n, k, sa, st);
@@ -496,10 +725,12 @@ cudaError_t launch_gemv_side(int wtype, const T* x, const void* w, rows::Epilogu
 // is int8 (the W8A8 tile).
 template <typename T>
 Args<T> args(const void* x, const void* w, long long ldw, const void* ws, const void* ln_s, const void* ln_b,
-             float eps, int act, const void* bias, const void* res, long long ldr, void* out, int m, int n, int k) {
+             float eps, int act, const void* bias, const void* res, long long ldr, void* out, int m, int n, int k,
+             int span) {
   const bool i8 = ws != nullptr;
   return Args<T>{(const T*)x, i8 ? nullptr : (const T*)w, ldw, i8 ? (const int8_t*)w : nullptr, (const float*)ws,
-                 (const T*)ln_s, (const T*)ln_b, eps, act, (const T*)bias, (const T*)res, ldr, (T*)out, m, n, k};
+                 (const T*)ln_s, (const T*)ln_b, eps, act, (const T*)bias, (const T*)res, ldr, (T*)out, m, n, k,
+                 span};
 }
 
 }  // namespace

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import use_kernels
+from ..ops.dense_stream import SIDE_ROWS  # the side tile kernel's row tile: m_pad's quantum
 from ..ops.vit_attention import flat_vit_attention, reference_flat_vit_attention
 
 
@@ -98,8 +99,6 @@ PREFER_SPLIT = (1, 2)
 ATTN_CARRIERS = False
 # W8A8 side tiles when the ViT's int8 side-car is attached
 SIDE_INT8 = True
-# the side tile kernel's row tile (csrc/side_tile.cuh kRows): m_pad's quantum
-SIDE_ROWS = 64
 
 
 def make_plan(cfg, vision_shape, max_new_tokens: int, num_beams: int = 1, prefer_split=None) -> Optional[AbsorbPlan]:

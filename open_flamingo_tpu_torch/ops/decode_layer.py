@@ -85,7 +85,7 @@ def _kernel():
         lib.attend_out_decode_fwd.argtypes = [p] * 17 + [i] * 7 + [f, i, p]
         lib.attend_out_decode_fwd.restype = i
         ll = ctypes.c_longlong
-        side = [p, p, ll, p, p, p, f, i, p, p, ll, p, i, i, i]
+        side = [p, p, ll, p, p, p, f, i, p, p, ll, p, i, i, i, i]
         lib.attn_block_decode_side_fwd.argtypes = [p] * 18 + [i] * 9 + [f, f, f, i] + side + [p]
         lib.attn_block_decode_side_fwd.restype = i
         _lib = lib

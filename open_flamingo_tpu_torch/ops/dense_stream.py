@@ -39,7 +39,11 @@ layout and may be a view with a row stride (a slice of a ViT weight, read
 in place); side_residual may have a row stride too. The tile runs as extra
 blocks of K2's down-projection launch (`csrc/side_tile.cuh`), with main
 weights of every type, and leaves y bit for bit as the launch without it
-gives. `reference_side_tile` is its plain version; `reference_mlp` with
+gives. In bf16, and in the W8A8 tile, each side block prepares 64 rows
+once and streams W through a `wgmma` ring over a span of columns that
+`side_span` computes from the shape and the SM count; its prepared rows
+live in shared memory, which caps SK at 1,024, ViT-L/14's width
+(`check_side_kernel` refuses more). `reference_side_tile` is its plain version; `reference_mlp` with
 side operands returns the pair too. The W8A8 side tile (`side_w_scale`, the
 TPU tile's `has_side_ws` branch, K2b int8): side_w int8 with its (SN,) fp32
 scale; the activated rows stay fp32 (no rounding to side_x's dtype), are
@@ -93,7 +97,7 @@ def _kernel():
         lib.fused_mlp_fwd.argtypes = [p] * 15 + [i, i, i, i, i, f, i, i, i, i, p]
         lib.fused_mlp_fwd.restype = i
         ll = ctypes.c_longlong
-        side = [p, p, ll, p, p, p, f, i, p, p, ll, p, i, i, i]
+        side = [p, p, ll, p, p, p, f, i, p, p, ll, p, i, i, i, i]
         lib.fused_mlp_side_fwd.argtypes = [p] * 15 + [i, i, i, i, i, f, i, i, i, i] + side + [p]
         lib.fused_mlp_side_fwd.restype = i
         _lib = lib
@@ -319,13 +323,55 @@ def check_side(x, side_x, side_w, side_ln, side_act, side_b, side_residual, side
             raise ValueError(f"{fn}: {name} is {t.dtype} on {t.device}; expected {want} on {x.device}")
 
 
+# The ring tile of csrc/side_tile.cuh (bf16 and W8A8): 64-row blocks
+# (models/absorb_vit.py rounds M to them), passes of 256 columns, and SK up
+# to 1,024 (`kMaxK`: a row in a warp's registers, the prepared rows and the
+# W ring in a block's shared memory).
+SIDE_ROWS, SIDE_PASS, SIDE_MAX_K = 64, 256, 1024
+
+
+def ring_tile(dtype, int8_tile: bool) -> bool:
+    """Whether a side tile runs the ring body: bf16, and W8A8 in either
+    dtype (fp32 in x's dtype keeps the 64 x 64 CUDA-core tile)."""
+    return int8_tile or dtype != torch.float32
+
+
+def side_span(m: int, sn: int, sms: int) -> int:
+    """The columns each ring block owns: all of SN (whole passes) when the
+    row blocks alone fill the `sms` SMs, else the widest equal split of SN's
+    passes that gives at least `sms` blocks, else one pass. Depends on the
+    shape and the SM count only."""
+    row_blocks, passes = -(-m // SIDE_ROWS), -(-sn // SIDE_PASS)
+    for per in range(passes, 0, -1):
+        if passes % per == 0 and row_blocks * (passes // per) >= sms:
+            return per * SIDE_PASS
+    return SIDE_PASS
+
+
+_SMS = {}
+
+
+def _sm_count(device) -> int:
+    """The SM count of a CUDA device, read once."""
+    idx = torch.device(device).index
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[idx]
+
+
 def check_side_kernel(side_x, side_w, side_w_scale, side_ln, side_b, side_residual, fn="fused_mlp") -> None:
-    """The side tile kernel's preconditions: SK a multiple of 32, side_x and
-    the vectors contiguous, side_w and side_residual with a contiguous last
-    dim and rows a multiple of 16 bytes apart, everything 16-byte
-    aligned."""
-    if side_x.shape[1] % 32:
-        raise ValueError(f"{fn}: the side tile kernel takes SK a multiple of 32, got {side_x.shape[1]}")
+    """The side tile kernel's preconditions: SK a multiple of 32 and, for
+    the ring tile, at most SIDE_MAX_K; side_x and the vectors contiguous,
+    side_w and side_residual with a contiguous last dim and rows a multiple
+    of 16 bytes apart, everything 16-byte aligned."""
+    sk = side_x.shape[1]
+    if sk % 32:
+        raise ValueError(f"{fn}: the side tile kernel takes SK a multiple of 32, got {sk}")
+    int8_tile = side_w_scale is not None
+    if ring_tile(side_x.dtype, int8_tile) and sk > SIDE_MAX_K:
+        kind = "W8A8" if int8_tile else "bf16"
+        raise ValueError(f"{fn}: the {kind} side tile keeps its {SIDE_ROWS} rows of SK in a warp's registers and "
+                         f"in shared memory beside its W ring, which hold SK up to {SIDE_MAX_K}; got SK {sk}")
     vectors = [side_x, side_b, side_w_scale] + ([] if side_ln is None else list(side_ln))
     for t in (t for t in vectors if t is not None):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -344,7 +390,7 @@ def side_operands(side_x, side_w, side_w_scale, side_ln, side_eps, side_act, sid
     ln_s, ln_b = side_ln if side_ln is not None else (None, None)
     args = (ptr(side_x), ptr(side_w), side_w.stride(0), ptr(side_w_scale), ptr(ln_s), ptr(ln_b), float(side_eps),
             _ACTS[side_act], ptr(side_b), ptr(side_residual), 0 if side_residual is None else side_residual.stride(0),
-            ptr(side_out), m, sn, side_x.shape[1])
+            ptr(side_out), m, sn, side_x.shape[1], side_span(m, sn, _sm_count(side_x.device)))
     return args, side_out
 
 

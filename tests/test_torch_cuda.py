@@ -857,6 +857,97 @@ def test_attn_block_decode_side_tile(gen, fused_qkv, bits, kv8, tile, dtype):
         close(got[-1], want_so)
 
 
+# the absorbed ViT-L/14's slot kinds at its widths (D 1,024, I 4,096): LayerNorm and bias (q/k/v); bias and a
+# residual column block (the out-projection); a row block of fc1's (4096, 1024) weight; a column block of fc2's
+# (1024, 4096) weight, read with its row stride, quick_gelu, the bias and the residual chain
+REAL_SLOTS = ("qkv", "out", "fc1", "fc2")
+
+
+def real_width_side(gen, dtype, tile, slot, m, sn):
+    """The operands of one absorbed-ViT side tile at ViT-L/14's widths, M
+    rows, SN columns (SN <= 1,024 of the slot's weight)."""
+    d, inter = 1024, 4096
+    wide = {"qkv": (d, d), "out": (d, d), "fc1": (inter, d), "fc2": (d, inter)}[slot]
+    def cut(t):   # the slot's view of the ViT weight, SN of its output rows
+        return {"fc1": t[d:2 * d], "fc2": t[:, d:2 * d]}.get(slot, t)[:sn]
+
+    w = rn(gen, *wide) * wide[1] ** -0.5
+    side = dict(side_x=(rn(gen, m, d) * 2).to(dtype), side_eps=1e-5, side_b=(0.1 * rn(gen, sn)).to(dtype))
+    if tile == "w8a8":
+        q, scale = quantize_weight(w, 8)
+        side.update(side_w=cut(q), side_w_scale=(scale[d:2 * d] if slot == "fc1" else scale)[:sn])
+    else:
+        side["side_w"] = cut(w.to(dtype))
+    if slot in ("qkv", "fc1"):
+        side["side_ln"] = ((1 + 0.1 * rn(gen, d)).to(dtype), (0.1 * rn(gen, d)).to(dtype))
+    if slot in ("out", "fc2"):
+        side["side_residual"] = rn(gen, m, 2 * d).to(dtype)[:, d:d + sn]
+    if slot == "fc2":
+        side["side_act"] = "quick_gelu"
+    return side
+
+
+def w8a8_allowance(so, want, side):
+    """The W8A8 tile against its plain version on the card, element by
+    element: each of the row's activations within 1e-3 of a rounding
+    boundary may land one step away and move the output by s_act *
+    |w_q[n, k]| * w_scale[n]; plus one rounding of the result (bf16 2^-7 of
+    it, fp32 1e-6)."""
+    from open_flamingo_tpu_torch.ops.dense_stream import side_activations
+    from open_flamingo_tpu_torch.ops.w8a8 import quantize_activations
+
+    h = side_activations(side["side_x"], side.get("side_ln"), 1e-5, side.get("side_act"))
+    s_act = quantize_activations(h)[1]
+    mag = (h / s_act).abs()
+    near = (((mag - mag.floor()) - 0.5).abs() < 1e-3).float()
+    allow = (near @ side["side_w"].float().abs().t()) * s_act * side["side_w_scale"][None]
+    rel = 2.0**-7 if so.dtype == torch.bfloat16 else 1e-6
+    diff = (so.float() - want.float()).abs()
+    assert (diff <= allow + rel * want.float().abs() + 1e-6).all(), diff.max()
+
+
+@pytest.mark.parametrize("tile,dtype", [("bf16", torch.bfloat16), ("w8a8", torch.bfloat16),
+                                        ("w8a8", torch.float32)])
+@pytest.mark.parametrize("carrier", ["k2", "k3"])
+@pytest.mark.parametrize("slot", REAL_SLOTS)
+# the pipe's next batch B 64 (one span of all SN) and B 8 (spans of 256 columns); SN 1,000 ends inside a span,
+# SN 999 leaves the output rows unaligned for paired stores
+@pytest.mark.parametrize("m,sn", [(16896, 1024), (2112, 1024), (2112, 1000), (16896, 1000), (2112, 999)])
+def test_side_tile_real_widths(gen, m, sn, slot, carrier, tile, dtype):
+    """K2b and K2b int8 at the absorbed ViT-L/14's widths (SK 1,024) on a K2
+    and a K3 carrier: the carrier's outputs bit for bit those of the launch
+    without the tile; the bf16 tile within `close`'s tolerance of
+    reference_side_tile, the W8A8 tile within its boundary allowance. The
+    plain versions run on the card (int8 products by torch._int_mm)."""
+    side = real_width_side(gen, dtype, tile, slot, m, sn)
+    if carrier == "k2":
+        b, dm, k2 = 8, 256, 1024
+        x, ln, res = rn(gen, b, dm).to(dtype), rn(gen, dm).to(dtype), rn(gen, b, dm).to(dtype)
+        w1, w2 = (rn(gen, k2, dm) * dm**-0.5).to(dtype), (rn(gen, dm, k2) * k2**-0.5).to(dtype)
+        run = lambda **kw: fused_mlp(x, w1, w2, ln_scale=ln, residual=res, **kw)
+        without = (run(),)
+    else:
+        b, h, d, dm, s, slot_ = 8, 4, 64, 256, 64, 40
+        x, ln = rn(gen, b, dm).to(dtype), rn(gen, dm).to(dtype)
+        wq, wout = (rn(gen, 3 * h * d, dm) * 0.1).to(dtype), (rn(gen, dm, h * d) * 0.1).to(dtype)
+        kc, vc = rn(gen, b, h, s, d).to(dtype), rn(gen, b, h, s, d).to(dtype)
+        mask = torch.zeros(b, s, dtype=torch.bool, device="cuda")
+        mask[:, :slot_ + 1] = True
+        kw3 = dict(heads=h, head_dim=d, scale=d**-0.5, fused_qkv=True,
+                   slot=torch.tensor([slot_], dtype=torch.int32, device="cuda"), slopes=rn(gen, h).abs())
+        caches = (kc.clone(), vc.clone())
+        run = lambda **kw: attn_block_decode(x, ln, None, wq, wout, kc, vc, mask, **kw3, **kw)
+        without = attn_block_decode(x, ln, None, wq, wout, *caches, mask, **kw3)
+    got = run(**side)
+    for g, w in zip(got[:-1], without):
+        assert torch.equal(g, w)
+    want = reference_side_tile(**side)
+    if tile == "w8a8":
+        w8a8_allowance(got[-1], want, side)
+    else:
+        torch.testing.assert_close(got[-1], want, atol=1e-2, rtol=1e-2)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_absorbed_generate(gen, dtype):
     """flamingo_generate(next_pixels=) on the card, a tiny MPT model: the
