@@ -12,9 +12,11 @@ port spends its time on the card.
     python3 chip_profile.py int4       # OF-3B generate, fused, int4 weights (the head int8)
     python3 chip_profile.py llama      # LLaMA-7B generate, the fused route (3 K1, K6, K2 SwiGLU; K3)
     python3 chip_profile.py opt        # OPT-1.3B generate, the fused route (3 K1, K6, K2 relu; K3)
-    python3 chip_profile.py gemv       # the bf16 row GEMV alone at its CUDA-core shapes (K 16,384, 11,000)
+    python3 chip_profile.py gemv       # K1 and K2 alone at every row of PERF.md's kernel table, B 8 and 64
     python3 chip_profile.py vit        # K9, K10 and the ViT-L/14 forward alone (B 8, 32), kernels and plain
     python3 chip_profile.py k2         # plain K2 and K3 at OF-3B's shapes (bf16, int8, int4): the parent/change A/B
+    python3 chip_profile.py stream [--variants=empty,...]  # K1/K2's weight-streaming body against variants
+    python3 chip_profile.py wall [model]  # host clock of 7 bf16 generate calls (OF-3B unless named)
     python3 chip_profile.py k45        # K4/K5's tensor-core body against variants of its source, one call
     python3 chip_profile.py k45b       # K4b/K5b's tensor-core body against variants of its source, one call
     python3 chip_profile.py side [out.pt] [--variants=no_prologue,...]
@@ -38,13 +40,14 @@ device events' times; one stream, so they do not overlap) and idle share,
 the device time of each hand-written kernel, the row GEMV's share of the
 busy time, and the kernels with the most device time.
 
-`gemv` times K1/K2 (bf16, B = 8, CUDA-graph replay) at the shapes that
-take the CUDA-core GEMV on the decode path (LLaMA-7B's xattn FF: D 4096,
-hidden 16,384; its down-projection alone; a ragged K of 11,000) and one
-tensor-core control (OF-3B's MLP). It imports only `fused_dense`,
-`fused_mlp` and chip_smoke.py's timer, so a copy of this file in an
-older checkout times that checkout's kernels: parent and change in one
-call.
+`gemv` times K1/K2 (bf16 activations, CUDA-graph replay) at every K1 and
+K2 row of PERF.md's kernel table (B 8: OF-3B's, OF-4B's, LLaMA-7B's and
+OPT-1.3B's shapes, every weight type and epilogue there) and at the B 64
+pipe's (the tied head in int8, the MPT MLP in int4), with each case's
+bound and its library call (`F.linear` over the bf16 weights). It imports
+only the wrappers, the quantizers and chip_smoke.py's timer, so a copy of
+this file in an older checkout times that checkout's kernels: parent and
+change in turns in one call (unpack both trees under `_trees/`).
 
 `vit` times K9 and K10 (bf16, CUDA-graph replay) at chip_smoke.py's
 ViT-L/14 cases (B 8 and 32) and the ViT-L/14 forward with the kernels and
@@ -54,7 +57,8 @@ imports only chip_smoke.py's ViT helpers and timer, so a copy in an older
 checkout times that checkout's kernels.
 
 `k2` times K2 without a side tile (bf16, B = 8, CUDA-graph replay) at
-OF-3B's MPT MLP in bf16, int8 and int4 and its xattn FF, and K3 at OF-3B's
+OF-3B's MPT MLP in bf16, int8 and int4 (and int4 at the pipe's B 64) and
+its xattn FF, and K3 at OF-3B's
 self-attention layer (slot 40 of 64) in bf16 and int8 and its gated
 cross-attention layer: the instances whose bodies K11 shares, which must
 keep their speed. It imports only `fused_mlp`, `attn_block_decode`, the
@@ -118,32 +122,130 @@ import time
 import torch
 
 
-def gemv_times() -> int:
-    from chip_smoke import B, bound, card_line, device_ms
-    from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp
+def k12_cases(dev):
+    """Every K1 and K2 row of PERF.md's kernel table (bf16 activations, B 8,
+    chip_smoke.py's shapes) and the B 64 pipe's (OF-3B's tied head in int8,
+    its MPT MLP in int4): yields (kernel, case, call, bytes, flops, library
+    call). Weights are made per case and dropped after it."""
+    import torch.nn.functional as F
 
-    dev, dt = torch.device("cuda", 0), torch.bfloat16
+    from chip_smoke import B
+    from open_flamingo_tpu_torch.models.layers import layer_norm
+    from open_flamingo_tpu_torch.ops.dense_stream import fused_dense, fused_mlp, normalize
+    from open_flamingo_tpu_torch.quantize import pack_int4, quantize_weight
+
+    dt = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dt)
 
-    def mlp(d, k2):
-        x, ln, ln_b, gate = rn(B, d), 1 + rn(d, scale=0.1), rn(d, scale=0.1), torch.full((1,), 0.5, device=dev, dtype=dt)
+    def stored(w, bits):      # (the weight as streamed, its scale, its bytes)
+        if bits is None:
+            return w, None, w.numel() * 2
+        q, sc = quantize_weight(w.float(), bits)
+        q = q if bits == 8 else pack_int4(q)
+        return q, sc, q.numel() + 4 * sc.numel()
+
+    sfx = {None: "", 8: "_int8", 4: "_int4"}
+    # K1: (case, B, D, N, bits, LN bias, bias, norm)
+    for case, b, d, n, bits_list, lnb, bias, norm in (
+            ("head_V50434", B, 2048, 50434, (None, 8), False, False, "layer"),
+            ("neox_qkv_bias", B, 2560, 7680, (None, 8, 4), True, True, "layer"),
+            ("neox_head_untied_V50434", B, 2560, 50434, (None,), True, False, "layer"),
+            ("llama_q_rms", B, 4096, 4096, (None, 8, 4), False, False, "rms"),
+            ("llama_head_rms_V32003", B, 4096, 32003, (None, 8), False, False, "rms"),
+            ("opt_q_ln_bias", B, 2048, 2048, (None,), True, True, "layer"),
+            ("head_V50434_B64", 64, 2048, 50434, (8,), False, False, "layer")):
+        x, ln = rn(b, d), 1 + rn(d, scale=0.1)
+        ln_b, b_ = (rn(d, scale=0.1) if lnb else None), (rn(n, scale=0.1) if bias else None)
+        eps = 1e-6 if norm == "rms" else 1e-5
+        hn = normalize(x, ln, ln_b, eps, norm)
+        w = rn(n, d, scale=d**-0.5)
+        for bits in bits_list:
+            q, sc, wbytes = stored(w, bits)
+            kw = dict(w_scale=sc, bias=b_, ln_scale=ln, ln_bias=ln_b, eps=eps, norm=norm)
+            nbytes = wbytes + 2 * (b * d + d * (1 + lnb) + n * bias + b * n)
+            name = case.replace("_B64", "") + sfx[bits] + ("_B64" if case.endswith("_B64") else "")
+            yield ("fused_dense", name, lambda x=x, q=q, kw=kw: fused_dense(x, q, **kw), nbytes, 2 * b * n * d,
+                   lambda hn=hn, w=w, b_=b_: F.linear(hn, w, b_))
+        del w, q
+    # K2: (case, B, D, hidden, bits, LN bias, biases, gate, act, SwiGLU)
+    for case, b, d, k2, bits_list, lnb, biases, gated, act, swiglu in (
+            ("mpt_mlp", B, 2048, 8192, (None, 8, 4), False, False, False, "gelu", False),
+            ("xattn_ff", B, 2048, 8192, (None,), True, False, True, "gelu", False),
+            ("neox_mlp_bias", B, 2560, 10240, (None,), True, True, False, "gelu", False),
+            ("llama_xattn_ff_K2_16384", B, 4096, 16384, (None,), True, False, True, "gelu", False),
+            ("opt_mlp_relu_bias", B, 2048, 8192, (None,), True, True, False, "relu", False),
+            ("mlp_gelu_new", B, 2048, 8192, (None,), True, False, False, "gelu_new", False),
+            ("mlp_quick_gelu", B, 2048, 8192, (None,), True, False, False, "quick_gelu", False),
+            ("llama_swiglu", B, 4096, 11008, (None, 8, 4), False, False, False, "silu", True),
+            ("swiglu_ragged_K2_11000", B, 4096, 11000, (None,), False, False, False, "silu", True),
+            ("mpt_mlp_B64", 64, 2048, 8192, (4,), False, False, False, "gelu", False)):
+        x, ln = rn(b, d), 1 + rn(d, scale=0.1)
+        ln_b = rn(d, scale=0.1) if lnb else None
+        norm, eps = ("rms", 1e-6) if swiglu else ("layer", 1e-5)
+        hn = normalize(x, ln, ln_b, eps, norm) if swiglu else layer_norm(x, ln, ln_b)
         w1, w2 = rn(k2, d, scale=d**-0.5), rn(d, k2, scale=k2**-0.5)
-        return (lambda: fused_mlp(x, w1, w2, ln_scale=ln, ln_bias=ln_b, residual=x, gate=gate),
-                2 * (2 * d * k2 + 2 * B * d + 2 * d + 1), 4 * B * d * k2)
+        wg = rn(k2, d, scale=d**-0.5) if swiglu else None
+        b1, b2 = (rn(k2, scale=0.1), rn(d, scale=0.1)) if biases else (None, None)
+        gate = torch.full((1,), 0.5, device=dev, dtype=dt) if gated else None
+        if swiglu:
+            lib = lambda hn=hn, w1=w1, wg=wg, w2=w2: F.linear(F.silu(F.linear(hn, w1)) * F.linear(hn, wg), w2)
+        else:
+            lib = lambda hn=hn, w1=w1, w2=w2, b1=b1, b2=b2: F.linear(F.linear(hn, w1, b1), w2, b2)
+        for bits in bits_list:
+            (q1, s1, by1), (q2, s2, by2) = stored(w1, bits), stored(w2, bits)
+            qg, sg, byg = stored(wg, bits) if swiglu else (None, None, 0)
+            kw = dict(w1_gate=qg, w1_scale=s1, w2_scale=s2, w1_gate_scale=sg, b1=b1, b2=b2, ln_scale=ln,
+                      ln_bias=ln_b, eps=eps, norm=norm, act=act, residual=x, gate=gate)
+            nbytes = by1 + by2 + byg + 2 * (2 * b * d + d * (1 + lnb) + (k2 + d) * biases + gated)
+            name = case.replace("_B64", "") + sfx[bits] + ("_B64" if case.endswith("_B64") else "")
+            yield ("fused_mlp", name, lambda x=x, q1=q1, q2=q2, kw=kw: fused_mlp(x, q1, q2, **kw), nbytes,
+                   2 * b * d * k2 * (3 if swiglu else 2), lib)
+        del w1, w2, wg, q1, q2
 
-    def dense(k, n):
-        x, w = rn(B, k), rn(n, k, scale=k**-0.5)
-        return lambda: fused_dense(x, w), 2 * (n * k + B * k + B * n), 2 * B * n * k
 
-    cases = {"llama7b_xattn_ff_D4096_K2_16384": mlp(4096, 16384), "dense_K16384_N4096": dense(16384, 4096),
-             "dense_K11000_N4096": dense(11000, 4096), "of3b_mlp_D2048_K2_8192": mlp(2048, 8192)}
-    for case, (fn, nbytes, flops) in cases.items():
+def gemv_times() -> int:
+    from chip_smoke import bound, card_line, device_ms
+
+    dev, dt = torch.device("cuda", 0), torch.bfloat16
+    for kernel, case, fn, nbytes, flops, lib in k12_cases(dev):
         b_ms, b_by = bound(nbytes, flops, dt)
-        print(json.dumps({"profile": "gemv_bf16", "case": case, "ms": device_ms(fn), "bound_ms": b_ms,
-                          "bound_by": b_by}), flush=True)
+        print(json.dumps({"profile": "gemv_bf16", "kernel": kernel, "case": case, "ms": device_ms(fn),
+                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(lib)}), flush=True)
+    print(card_line(), flush=True)
+    return 0
+
+
+def wall_times(argv) -> int:
+    """Host clock of whole bf16 generate calls (OF-3B, or the model named,
+    B 8, the fused route): a warm-up, then 7 calls each ended by a
+    synchronize; every call's seconds and the median. It imports only
+    chip_smoke.py's model helpers, so a copy in an older checkout times
+    that checkout: parent and change in turns in one call."""
+    import statistics
+
+    from chip_smoke import NEW_TOKENS, build_model, card_line, make_inputs, model_config
+    from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate
+
+    name = argv[0] if argv else "OF-3B"
+    dev = torch.device("cuda", 0)
+    cfg = model_config(name)
+    model = build_model(cfg, dev, torch.bfloat16)
+    vision_x, ids, mask = make_inputs(cfg, dev)
+    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
+    runs = []
+    with torch.no_grad():
+        for i in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+            torch.cuda.synchronize()
+            if i:
+                runs.append(time.perf_counter() - t0)
+    print(json.dumps({"profile": "generate_wall_bf16", "model": name, "runs_s": runs,
+                      "median_s": statistics.median(runs)}), flush=True)
     print(card_line(), flush=True)
     return 0
 
@@ -175,9 +277,12 @@ def k2_times() -> int:
         if bits == 4:
             q1, q2 = pack_int4(q1), pack_int4(q2)
         cases[f"mpt_mlp_int{bits}"] = (q1, q2, dict(w1_scale=s1, w2_scale=s2))
+    cases["mpt_mlp_int4_B64"] = cases["mpt_mlp_int4"]     # the B 64 pipe's rows
+    x64 = rn(64, d)
     outputs = {}
     for case, (a, b, kw) in cases.items():
-        fn = lambda a=a, b=b, kw=kw: fused_mlp(x, a, b, ln_scale=ln, residual=x, **kw)
+        xc = x64 if case.endswith("_B64") else x
+        fn = lambda a=a, b=b, kw=kw, xc=xc: fused_mlp(xc, a, b, ln_scale=ln, residual=xc, **kw)
         outputs[f"k2_{case}"] = fn().cpu()
         print(json.dumps({"profile": "k2_bf16", "tree": tree, "case": case, "ms": device_ms(fn)}), flush=True)
     # K3: the MPT self-attention layer (16 heads of Dh 128, slot 40 of 64) and the gated xattn layer
@@ -555,28 +660,32 @@ K45B_VARIANTS = {
 }
 
 
-def build_variants(source: str, variants: dict, tag: str) -> dict:
-    """csrc/<source>.cu as it is and as each variant, one `nvcc` each, all
-    started together, under _build/<tag>_<name>/: name -> the loaded library."""
+def build_variants(source: str, variants: dict, tag: str, target: str = None) -> dict:
+    """csrc/<source>.cu as it is and as each variant (edits of the source, or
+    of the csrc file `target`), one `nvcc` each, all started together, under
+    _build/<tag>_<name>/: name -> the loaded library."""
     import ctypes
     import shutil
     import subprocess
 
     from open_flamingo_tpu_torch.ops import build
 
-    src = (build.CSRC / f"{source}.cu").read_text()
+    target = target or f"{source}.cu"
+    original = (build.CSRC / target).read_text()
+    for name, edits in variants.items():   # every edit checked before any nvcc starts
+        for old, _ in edits:
+            if old not in original:
+                raise RuntimeError(f"{tag}: variant {name}: {old!r} is not in {target}")
     procs = {}
     for name, edits in {"as_is": (), **variants}.items():
         out = build.BUILD_DIR / f"{tag}_{name}"
         out.mkdir(parents=True, exist_ok=True)
-        for header in build.CSRC.glob("*.cuh"):
-            shutil.copy(header, out)
-        text = src
+        for path in [build.CSRC / f"{source}.cu", *build.CSRC.glob("*.cuh")]:
+            shutil.copy(path, out)
+        text = original
         for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"{tag}: variant {name}: {old!r} is not in the source")
             text = text.replace(old, new)
-        (out / f"{source}.cu").write_text(text)
+        (out / target).write_text(text)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / f"{source}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -611,6 +720,46 @@ def times_in_turns(libs: dict, cases, profile: str) -> None:
                     row[f"{name}_max_abs_diff"] = max((o.float() - w.float()).abs().max().item()
                                                       for o, w in zip(outs, want))
         print(json.dumps(row), flush=True)
+
+
+# variants of the weight-streaming row GEMV, each edits of csrc/rows_stream.cuh: its parts skipped, so
+# what is left is timed alone
+STREAM_VARIANTS = {
+    "empty": (("  using G = Geometry<kMaxNt, kGated>;\n", "  if (b > 0) return;\n  using G = Geometry<kMaxNt, kGated>;\n"),),
+    "no_prologue": (("  if (ln_s != nullptr) stream_stats<kMaxNt == 1 ? 8 : 4, kCg>(x, eps, norm, b, k, mean, inv);\n", ""),
+                    ("      stream_stage_h<kGated ? 1 : 2, kCg>(x, ln_s, ln_b, mean, inv, b, k, nts, hs * kSc, "
+                     "(he - hs) * kSc, hf);\n", "")),
+    "no_products": (("        if (live) {\n          const unsigned char* stage = my_ring",
+                     "        if (false) {\n          const unsigned char* stage = my_ring"),),
+    "no_loads": (("    if (p_item < items) {\n      const unsigned dst0", "    if (false) {\n      const unsigned dst0"),),
+    "no_split": (("    if (ks > 1) {  // this slice's partials", "    if (false) {  // this slice's partials"),),
+}
+STREAM_CASES = ("neox_qkv_bias", "llama_q_rms_int4", "head_V50434_int8", "mpt_mlp", "mpt_mlp_int4", "llama_swiglu_int4",
+                "mpt_mlp_int4_B64", "llama_xattn_ff_K2_16384")
+
+
+def stream_times(argv) -> int:
+    """K1/K2's weight-streaming body as it is and as STREAM_VARIANTS at
+    STREAM_CASES (k12_cases' shapes), each variant in turns, twice."""
+    from chip_smoke import card_line, device_ms
+    from open_flamingo_tpu_torch.ops import dense_stream
+
+    names = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--variants=")), list(STREAM_VARIANTS))
+    libs = build_variants("dense_stream", {n: STREAM_VARIANTS[n] for n in names}, "stream", "rows_stream.cuh")
+    libs = {name: dense_stream.bind(lib) for name, lib in libs.items()}
+    dev = torch.device("cuda", 0)
+    for kernel, case, fn, nbytes, flops, lib in k12_cases(dev):
+        if case not in STREAM_CASES:
+            continue
+        row = {"profile": "stream_variants", "kernel": kernel, "case": case}
+        for turn in (list(libs), list(libs)[::-1]):
+            for name in turn:
+                dense_stream._lib = libs[name]
+                row.setdefault(f"{name}_ms", []).append(device_ms(fn))
+        dense_stream._lib = None
+        print(json.dumps(row), flush=True)
+    print(card_line(), flush=True)
+    return 0
 
 
 def k45_times() -> int:
@@ -778,6 +927,10 @@ def main() -> int:
         return absorb_times()
     if sys.argv[1:2] == ["side"]:
         return side_times(sys.argv[2:])
+    if sys.argv[1:2] == ["stream"]:
+        return stream_times(sys.argv[2:])
+    if sys.argv[1:2] == ["wall"]:
+        return wall_times(sys.argv[2:])
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -851,9 +1004,10 @@ def main() -> int:
         raise RuntimeError("the trace holds no device events")
     rows.sort(key=lambda r: -r[1])
     # device symbols of the hand-written kernels: the row GEMV (gemv_kernel
-    # on CUDA cores, gemv_mma_kernel on tensor cores) serves K1, K2 and the
-    # projections of K3 and K6; K3's softmax is attend_kernel, K6's
-    # attend_out_kernel; K4 and K5 share attention_fwd_mma in bf16 (tensor
+    # on CUDA cores, gemv_mma_kernel on tensor cores) serves the projections
+    # of K3 and K6 and fp32 K1 and K2, gemv_stream_kernel (past 8 rows with
+    # a split K also gemv_stream_reduce_kernel) bf16 K1 and K2; K3's softmax
+    # is attend_kernel, K6's attend_out_kernel; K4 and K5 share attention_fwd_mma in bf16 (tensor
     # cores) and attention_fwd_kernel in fp32, K4b and K5b the two backward
     # kernels (attention_bwd_dq_mma / _dkv_mma in bf16, attention_bwd_dq_kernel
     # / _dkv_kernel in fp32). The quantized variants are template cases of the same

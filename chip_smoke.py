@@ -9,7 +9,9 @@ Phases, each printing JSON lines:
               HMMA instructions of each K4/K5 and K4b/K5b kernel in their
               libraries' SASS (`cuobjdump --dump-sass`): each of the 12
               instances of a tensor-core kernel has some, the FMA bodies
-              none;
+              none; K1/K2's weight-streaming instances all have some, and
+              no bf16 instance of the old row-GEMV bodies is left in
+              dense_stream;
   2. kernels  each kernel of the generate path against its plain PyTorch
               version on the same card tensors, in fp32 and bf16, at
               OF-3B's shapes (B = 8) and edge cases: K1 fused_dense (final
@@ -278,7 +280,8 @@ MAIN_CASES = {"fused_dense": ("head_V50434", "generate_fused"), "fused_mlp": ("m
 NEOX_TIMED = {"neox_qkv_bias", "neox_head_untied_V50434", "neox_mlp_bias", "neox_xattn_S64_gate",
               "prefill_Dh80_noalibi", "neox_self_Dh80", "neox_self_S64_slot40"}
 # the quantized variants' path shapes (quant_kernel_cases)
-QUANT_TIMED = {"head_V50434_int8", "neox_head_untied_V50434_int8", "neox_qkv_bias_int8", "neox_qkv_bias_int4",
+QUANT_TIMED = {"head_V50434_int8", "head_V50434_int8_B64", "mpt_mlp_int4_B64", "neox_head_untied_V50434_int8",
+               "neox_qkv_bias_int8", "neox_qkv_bias_int4",
                "mpt_mlp_int8", "mpt_mlp_int4", "xattn_ff_int8", "xattn_ff_int4", "neox_mlp_bias_int8",
                "self_S64_slot40_int8", "self_S64_slot40_int4", "self_S64_slot40_int8_kv8", "self_S64_slot40_int4_kv8",
                "xattn_S64_gate_int8_kv8", "xattn_S64_gate_int4_kv8", "neox_xattn_S64_gate_int8_kv8",
@@ -431,8 +434,12 @@ def sass_kernels(path) -> dict:
 
 # the libraries whose launches carry side tiles; the carrier instances with the
 # fp32 tile (x fp32, no W8A8: gemv_side_kernel<float, W, false>)
-SIDE_LIBS = ("dense_stream", "decode_layer")
+# (and their carrier instances with a ring tile: K2's 6 weight-streaming
+# carriers and 3 fp32 W8A8 ones; K3's 15)
+SIDE_LIBS = {"dense_stream": 9, "decode_layer": 15}
 FP32_TILE = re.compile(r"gemv_side_kernel<float, [^<>]*, (false|0)>")
+OLD_BODY_F32 = re.compile(r"gemv_(side_)?kernel<float,")
+PREDICATED_HMMA = re.compile(r"(@!?U?P\w+\s+)?HMMA")   # the body's products run under the n-tile's predicate
 # the libraries whose bf16 bodies run on tensor cores, and those kernels
 HMMA_KERNELS = {"prefill_attention": ("attention_fwd_mma",),
                 "attention_backward": ("attention_bwd_dq_mma", "attention_bwd_dkv_mma")}
@@ -457,13 +464,22 @@ def phase_build() -> None:
     # K2b / K2b int8: each carrier instance with a ring tile (bf16, or W8A8 in
     # either dtype) must issue wgmma (HGMMA bf16, IGMMA int8); the fp32 tile none
     gmma = {}
-    for lib in SIDE_LIBS:
+    for lib, want in SIDE_LIBS.items():
         gmma[lib] = {name.split("(")[0]: sum(ins.startswith(("HGMMA", "IGMMA")) for ins in code)
                      for name, code in sass_kernels(build.target(lib)).items() if "side_kernel" in name}
         ring = {name: n for name, n in gmma[lib].items() if not FP32_TILE.search(name)}
-        require(len(ring) == 15 and min(ring.values()) > 0,
-                f"{lib}: side-kernel instances {gmma[lib]}, 15 with wgmma expected")
+        require(len(ring) == want and min(ring.values()) > 0,
+                f"{lib}: side-kernel instances {gmma[lib]}, {want} with wgmma expected")
         require(not any(n for name, n in gmma[lib].items() if name not in ring), f"{lib}: the fp32 tile issues wgmma")
+    # K1/K2: every bf16 launch runs the weight-streaming body (HMMA in each of
+    # its 2 x 30 instances, B <= 8 and any B, and its 6 carriers); the old
+    # bodies only in fp32
+    k12 = {name.split("(")[0]: sum(bool(PREDICATED_HMMA.match(ins)) for ins in code)
+           for name, code in sass_kernels(build.target("dense_stream")).items()}
+    stream = {name: n for name, n in k12.items() if "gemv_stream" in name and "reduce" not in name}
+    require(len(stream) == 66 and min(stream.values()) > 0, f"dense_stream: weight-streaming instances {stream}")
+    old = [name for name in k12 if "stream" not in name and ("_mma_" in name or not OLD_BODY_F32.search(name))]
+    require(not old, f"dense_stream: bf16 instances of the old row GEMV bodies: {old}")
     log({"phase": "build", "seconds": seconds, "sources": build.sources(), "ptxas": regs,
          **{f"{lib}_hmma": counts for lib, counts in hmma.items()},
          **{f"{lib}_side_gmma": counts for lib, counts in gmma.items()}})
@@ -509,9 +525,9 @@ def llama_opt_kernel_cases(dtype, gen, dev):
     (q at D 4096 in x's dtype, int8 and int4; the untied head over 32,003
     rows, and its int8 copy) and OPT's LayerNorm + bias q (D 2048); K2's
     SwiGLU at LLaMA-7B's shape (x's dtype, int8, int4) and at a ragged hidden
-    size (11,000: a half 16-column tile, and K % 32 != 0 in launch 2), OPT's
+    size (11,000: a ragged column tile, and K % 32 != 0 in launch 2), OPT's
     relu MLP with b1/b2, the gelu_new and quick_gelu epilogues, LLaMA-7B's
-    xattn FF (hidden 16,384: launch 2 on the CUDA-core GEMV); K6 at
+    xattn FF (hidden 16,384: launch 2's K split across blocks); K6 at
     LLaMA-7B's self-attention shape, grouped-query at Llama-3-8B's (32 heads
     over 8 KV heads, Dh 128) over the model-dtype and the int8 cache at slots
     0 and 63, and at OPT-1.3B's (Dh 64, out_proj bias); K4 prefill and K7 at
@@ -575,8 +591,8 @@ def llama_opt_kernel_cases(dtype, gen, dev):
                "F.linear twice: the two products (and biases) alone")
 
     # K2 at LLaMA-7B's xattn FF (D 4096 -> 16,384 -> 4096, LN + bias, GELU,
-    # ff_gate, residual): launch 2's K = 16,384 does not fit 8 staged rows
-    # for the tensor cores, so it runs the CUDA-core GEMV
+    # ff_gate, residual): launch 2's K = 16,384 on the weight-streaming body,
+    # its K split across blocks
     k2 = 16384
     ln_b = rn(d, scale=0.1)
     hn = layer_norm(x, ln, ln_b)
@@ -1039,10 +1055,11 @@ def int8_slot_check(kernel, case, dtype, caches, plain_caches, originals, slot):
 def quant_kernel_cases(dtype, gen, dev):
     """The quantized variants (int8 / packed int4 weights with per-channel
     scales, the int8 K/V and media caches) at the shapes of the quantized
-    generate paths, and edge cases. Yields as kernel_cases. No PyTorch call
-    streams per-channel int weights with these epilogues: the library column
-    times F.linear over the bf16 weight, the bare product at two or four
-    times the bytes."""
+    generate paths, and edge cases, then the B 64 pipe's K1 (the tied head
+    in int8) and K2 (the MPT MLP in int4). Yields as kernel_cases. No
+    PyTorch call streams per-channel int weights with these epilogues: the
+    library column times F.linear over the bf16 weight, the bare product at
+    two or four times the bytes."""
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
 
@@ -1214,6 +1231,24 @@ def quant_kernel_cases(dtype, gen, dev):
             pc = [t.clone() for t in (k0, v0, ks0, vs0)]
             reference_attend_out(q, pc[0], pc[1], mask, qo, k_scale=pc[2], v_scale=pc[3], **kw)
             int8_slot_check("attend_out_decode", case, dtype, caches, pc, (k0, v0, ks0, vs0), slot)
+
+    # the B 64 pipe's K1 and K2 (bench.py b64_i4_pipe): OF-3B's tied head in
+    # int8, its MPT MLP in int4, all 64 rows in one pass of the weights
+    # (last: the cases above keep their seeded inputs)
+    b64, d, v, k2 = 64, 2048, 50434, 8192
+    x, ln = rn(b64, d), 1 + rn(d, scale=0.1)
+    hn = layer_norm(x, ln, None)
+    w, w1, w2 = rn(v, d, scale=d**-0.5), rn(k2, d, scale=d**-0.5), rn(d, k2, scale=k2**-0.5)
+    q, sc, wbytes = qweight(w, 8)
+    cost = (wbytes + (b64 * d + d + b64 * v) * es, 2 * b64 * v * d)
+    yield ("fused_dense", "head_V50434_int8_B64", lambda: fused_dense(x, q, w_scale=sc, ln_scale=ln),
+           lambda: reference_dense(x, q, w_scale=sc, ln_scale=ln), None, cost, lambda: F.linear(hn, w),
+           "F.linear(LN(x), W) over the bf16 weight")
+    (q1, s1, by1), (q2, s2, by2) = qweight(w1, 4), qweight(w2, 4)
+    kw = dict(w1_scale=s1, w2_scale=s2, ln_scale=ln, residual=x)
+    cost = (by1 + by2 + (2 * b64 * d + d) * es, 4 * b64 * d * k2)
+    yield ("fused_mlp", "mpt_mlp_int4_B64", lambda: fused_mlp(x, q1, q2, **kw), lambda: reference_mlp(x, q1, q2, **kw),
+           None, cost, lambda: F.linear(F.linear(hn, w1), w2), "F.linear twice over the bf16 weights")
 
 
 def vit_kernel_cases(dtype, gen, dev):

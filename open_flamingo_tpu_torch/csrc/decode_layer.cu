@@ -38,11 +38,12 @@
 // side_w, `side_tile_compute` on each head group's grid step): a tile of the
 // absorbed next-batch ViT rides launch 3, the out-projection, as extra
 // blocks after the row GEMV's (side_tile.cuh's `launch_gemv_side`, the form
-// that carries K2's down-projection), in x's dtype or the W8A8 tile. Launch 3
-// is the row GEMV without norm or activation whose epilogue is K2's
-// down-projection's (scale, gate, residual), so its blocks run the same body
-// on the same grid: y, and the caches written by launch 2, are bit for bit
-// those of the call without a tile. It is the simplest host: launch 1
+// that carries K2's down-projection, here with K3's own body: rows_gemv.cuh's,
+// where K2's bf16 carrier runs rows_stream.cuh's), in x's dtype or the W8A8
+// tile. Launch 3 is the row GEMV without norm or activation whose epilogue is
+// K2's down-projection's (scale, gate, residual), so its blocks run the body
+// of the launch without a tile on the same grid: y, and the caches written
+// by launch 2, are bit for bit those of the call without a tile. It is the simplest host: launch 1
 // (Wqkv, 25.2 MB at MPT-1B bf16 against Wout's 8.4 MB) streams more bytes
 // for the tile to hide under, but its output is fp32 and its grid is the
 // projection's; a later PR can move the tile there if the out-projection
@@ -127,7 +128,7 @@ int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, con
   if (e != cudaSuccess) return (int)e;
   rows::Epilogue<T> ep3{(const float*)wout_scale, nullptr, 0, 0.f, 0, (const T*)gate, (const T*)x};
   if (sa != nullptr)
-    return (int)side::launch_gemv_side<T>(wout_type, (const T*)attn, wout, ep3, (T*)out, b, dm, inner, *sa, st);
+    return (int)side::launch_gemv_side<T, false>(wout_type, (const T*)attn, wout, ep3, (T*)out, b, dm, inner, *sa, st);
   return (int)rows::launch_gemv_norm<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, rows::kLayerNorm, wout,
                                            nullptr, ep3, (T*)out, b, dm, inner, st);
 }

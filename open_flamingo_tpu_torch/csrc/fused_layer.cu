@@ -35,20 +35,25 @@
 //   4. u = act(LN2(x2) @ W1^T * w1_scale + b1) [* LN2(x2) @ W1g^T * w1g_scale],
 //      rounded to x's dtype (B, K2);
 //   5. y = x2 + tanh(gate2) * (u @ W2^T * w2_scale + b2), in x's dtype.
-// Each GEMV phase runs the row GEMV bodies of csrc/rows_gemv.cuh with the
-// physical grid (a column's sums depend on the K split alone, which is the
-// separate launch's, `mma_grid`), so the products add in K3's and K2's
-// order. proj, the head outputs, x2 and u are written by other blocks of
-// this launch: every read of them goes through L2 alone (ld.global.cg, the
-// bodies' kCg instances), never the read-only path or L1.
+// Each GEMV phase runs the separate launch's row GEMV body with the physical
+// grid: phases 1 and 3 K3's (csrc/rows_gemv.cuh: the tensor-core body in
+// bf16, whose K split is the separate launch's `mma_grid`, and the CUDA-core
+// body in fp32), phases 4 and 5 K2's (in bf16 the weight-streaming body of
+// csrc/rows_stream.cuh on the plan the wrapper passes, the separate
+// launches' plan, with its scratch and counts for a split K; in fp32 the
+// CUDA-core body). A column's sums depend on the plan alone, not on the
+// grid, so the products add in K3's and K2's order. proj, the head outputs,
+// x2 and u are written by other blocks of this launch: every read of them
+// goes through L2 alone (ld.global.cg, the bodies' kCg instances), never the
+// read-only path or L1.
 //
 // Bound: the weight bytes (Wqkv + Wout + W1 + W2, 100.7 MB per MPT-1B layer
 // in bf16; Wq + Wout + the FF, 71.3 MB per gated block) plus the valid
 // cache rows, over 3.35 TB/s: 0.031 / 0.021 ms. What it saves is four
 // launches of five and the host's second wrapper call per block; what it
 // costs is four grid barriers and one block per SM (the largest phase's
-// shared memory: 136 KB for the tensor-core GEMV at K 8,192), where the
-// separate K = 2048 launches run up to four.
+// shared memory: in bf16 the weight-streaming body's 193 KB, in fp32 the
+// CUDA-core body's staged rows). In bf16 a layer takes up to 64 rows.
 
 #include <cooperative_groups.h>
 
@@ -56,16 +61,18 @@
 
 #include "attend.cuh"
 #include "rows_gemv.cuh"
+#include "rows_stream.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-// How one row-GEMV phase runs: the tensor-core body with K split ks ways
-// (mma), or the CUDA-core body staging `rows` rows per pass; `blocks`, the
-// blocks it has work for.
+// How one row-GEMV phase runs: the weight-streaming body on its plan
+// (stream), the tensor-core body with K split ks ways (mma), or the CUDA-core
+// body staging `rows` rows per pass; `blocks`, the blocks it has work for.
 struct Phase {
-  int mma, ks, rows, blocks;
+  int stream, mma, ks, rows, blocks;
+  rows::StreamPlan sp;
 };
 
 // The operands of one layer (x's dtype T unless stated; see the C entry).
@@ -90,23 +97,29 @@ struct Layer {
   rows::Epilogue<T> ep1, ep3, ep4;  // projection, out-projection, up
   rows::Epilogue<T, float> ep5;     // down, the fp32 x2 as its residual
   Phase ph[4];                      // projection, out-projection, up, down
+  rows::StreamSplit split;          // up's and down's split K (bf16)
 };
 
-template <typename T, typename W, typename OutT, bool kGated, int kAct, typename X, typename R>
+template <typename T, typename W, typename OutT, bool kGated, int kAct, typename X, typename R, bool kK2 = false>
 __device__ __forceinline__ void gemv_phase(const Phase& ph, const X* x, const T* ln_s, const T* ln_b, float eps,
                                            const void* w, const void* wg, const rows::Epilogue<T, R>& ep, OutT* out,
-                                           int b, int n, int k, unsigned char* smem) {
+                                           int b, int n, int k, const rows::StreamSplit& split, unsigned char* smem) {
   const auto* wb = static_cast<const unsigned char*>(w);
   const auto* gb = static_cast<const unsigned char*>(wg);
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (ph.mma) {
-      rows::gemv_mma_body<W, OutT, kGated, kAct, X, R, true>(x, ln_s, ln_b, eps, rows::kLayerNorm, wb, gb, ep, out, b,
-                                                             n, k, ph.ks, smem, gridDim.x, blockIdx.x);
-      return;
+  if constexpr (std::is_same<T, bf16>::value && kK2) {  // K2's phases
+    rows::stream_body<W, OutT, kGated, kAct, X, R, true>(x, ln_s, ln_b, eps, rows::kLayerNorm, wb, gb, ep, out, b, n,
+                                                         k, ph.sp, split, smem, gridDim.x, blockIdx.x);
+  } else {
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (ph.mma) {
+        rows::gemv_mma_body<W, OutT, kGated, kAct, X, R, true>(x, ln_s, ln_b, eps, rows::kLayerNorm, wb, gb, ep, out,
+                                                               b, n, k, ph.ks, smem, gridDim.x, blockIdx.x);
+        return;
+      }
     }
+    rows::gemv_body<T, W, OutT, kGated, kAct, X, R, true>(x, ln_s, ln_b, eps, rows::kLayerNorm, wb, gb, ep, out, b, n,
+                                                          k, ph.rows, smem, gridDim.x, blockIdx.x);
   }
-  rows::gemv_body<T, W, OutT, kGated, kAct, X, R, true>(x, ln_s, ln_b, eps, rows::kLayerNorm, wb, gb, ep, out, b, n,
-                                                        k, ph.rows, smem, gridDim.x, blockIdx.x);
 }
 
 template <typename T, typename W, int kAct, bool kGated>
@@ -116,7 +129,7 @@ __global__ void __launch_bounds__(rows::kThreads, 1) fused_layer_kernel(const La
 
   // 1. the projection, fp32 and unrounded (K3's launch 1)
   gemv_phase<T, W, float, false, rows::kActBase, T, T>(a.ph[0], a.x, a.ln1_s, a.ln1_b, a.eps, a.wq, nullptr, a.ep1,
-                                                       a.proj, a.b, a.p, a.dm, smem);
+                                                       a.proj, a.b, a.p, a.dm, a.split, smem);
   grid.sync();
 
   // 2. the attend, one (b, h) per block at a time (K3's launch 2)
@@ -131,17 +144,17 @@ __global__ void __launch_bounds__(rows::kThreads, 1) fused_layer_kernel(const La
   // 3. x2 = x + tanh(gate) * out-projection, kept fp32 (the TPU kernel's scratch)
   const T* none = nullptr;  // phases 3 and 5 stage their rows as they are
   gemv_phase<T, W, float, false, rows::kActBase, T, T>(a.ph[1], a.attn, none, none, a.eps, a.wout, nullptr, a.ep3,
-                                                       a.x2, a.b, a.dm, a.h * a.d, smem);
+                                                       a.x2, a.b, a.dm, a.h * a.d, a.split, smem);
   grid.sync();
 
   // 4. the hidden activation from LN2 of the fp32 x2, rounded to T (K2's launch 1)
-  gemv_phase<T, W, T, kGated, kAct, float, T>(a.ph[2], a.x2, a.ln2_s, a.ln2_b, a.eps, a.w1, a.w1g, a.ep4, a.u, a.b,
-                                              a.k2, a.dm, smem);
+  gemv_phase<T, W, T, kGated, kAct, float, T, true>(a.ph[2], a.x2, a.ln2_s, a.ln2_b, a.eps, a.w1, a.w1g, a.ep4, a.u, a.b,
+                                              a.k2, a.dm, a.split, smem);
   grid.sync();
 
   // 5. y = x2 + tanh(gate2) * down-projection, the fp32 x2 as the residual (K2's launch 2)
-  gemv_phase<T, W, T, false, rows::kActBase, T, float>(a.ph[3], a.u, none, none, a.eps, a.w2, nullptr, a.ep5, a.y,
-                                                       a.b, a.dm, a.k2, smem);
+  gemv_phase<T, W, T, false, rows::kActBase, T, float, true>(a.ph[3], a.u, none, none, a.eps, a.w2, nullptr, a.ep5, a.y,
+                                                       a.b, a.dm, a.k2, a.split, smem);
 }
 
 // Plans one GEMV phase of N columns over K within `avail` bytes of dynamic
@@ -153,16 +166,31 @@ bool plan(Phase& ph, int n, int k, int b, bool gated, size_t avail, size_t& smem
   if (std::is_same<T, bf16>::value && k % rows::kMmaK == 0 && rows::mma_smem(k, gated) <= avail) {
     int ks, blocks;
     rows::mma_grid(n, k, &ks, &blocks);
-    ph = Phase{1, ks, 0, blocks};
+    ph = Phase{0, 1, ks, 0, blocks, {}};
     smem = std::max(smem, rows::mma_smem(k, gated));
     return true;
   }
   const int fit = (int)std::min<size_t>(avail / ((size_t)k * sizeof(T)), rows::kMaxRows);
   const int rows_per_pass = std::min(fit, b);
   if (rows_per_pass < 1) return false;
-  ph = Phase{0, 0, rows_per_pass, rows::grid_for(((long long)n + rows::kWarps - 1) / rows::kWarps)};
+  ph = Phase{0, 0, 0, rows_per_pass, rows::grid_for(((long long)n + rows::kWarps - 1) / rows::kWarps), {}};
   smem = std::max(smem, (size_t)rows_per_pass * k * sizeof(T));
   return true;
+}
+
+// K2's phases: in bf16 the weight-streaming body on the separate launch's
+// plan `sp` (at most 64 rows), else `plan`'s CUDA-core body.
+template <typename T, typename W>
+bool plan_k2(Phase& ph, int n, int k, int b, bool gated, rows::StreamPlan sp, const rows::StreamSplit& split,
+             size_t avail, size_t& smem) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (b > rows::kStreamRows || rows::kStreamSmem > avail || !rows::stream_plan_ok<W>(sp, split, n, k)) return false;
+    ph = Phase{1, 0, 0, 0, sp.blocks, sp};
+    smem = std::max(smem, rows::kStreamSmem);
+    return true;
+  } else {
+    return plan<T>(ph, n, k, b, gated, avail, smem);
+  }
 }
 
 template <typename T, typename W, int kAct, bool kGated>
@@ -179,7 +207,8 @@ cudaError_t launch(Layer<T> a, cudaStream_t st) {
   size_t smem = (size_t)a.s * sizeof(float);  // the attend phase's scores
   if (smem > avail || !plan<T>(a.ph[0], a.p, a.dm, a.b, false, avail, smem) ||
       !plan<T>(a.ph[1], a.dm, a.h * a.d, a.b, false, avail, smem) ||
-      !plan<T>(a.ph[2], a.k2, a.dm, a.b, kGated, avail, smem) || !plan<T>(a.ph[3], a.dm, a.k2, a.b, false, avail, smem))
+      !plan_k2<T, W>(a.ph[2], a.k2, a.dm, a.b, kGated, a.ph[2].sp, a.split, avail, smem) ||
+      !plan_k2<T, W>(a.ph[3], a.dm, a.k2, a.b, false, a.ph[3].sp, a.split, avail, smem))
     return cudaErrorInvalidValue;
   static size_t smem_set = 48 * 1024;
   cudaError_t e = rows::allow_smem(kern, smem, smem_set);
@@ -224,8 +253,11 @@ int layer(const void* x, const void* ln1_s, const void* ln1_b, const void* wq, c
           const void* w1g_scale, const void* w2_scale, const void* b1, const void* b2, const void* ln2_s,
           const void* ln2_b, const void* gate2, void* proj, void* attn, void* x2, void* u, void* y, int b, int dm, int h,
           int d, int s, int k2, int fused_qkv, int has_clip, int wtype, int act, float clip, float scale, float eps,
-          cudaStream_t st) {
+          rows::StreamPlan up, rows::StreamPlan down, rows::StreamSplit split, cudaStream_t st) {
   Layer<T> a = {};
+  a.ph[2].sp = up;
+  a.ph[3].sp = down;
+  a.split = split;
   a.x = (const T*)x;
   a.ln1_s = (const T*)ln1_s;
   a.ln1_b = (const T*)ln1_b;
@@ -283,15 +315,18 @@ int layer(const void* x, const void* ln1_s, const void* ln1_b, const void* wq, c
 // int32 on the device (fused_qkv); b1 (K2,), b2 (D,) or NULL; scratch proj
 // (B, 3*H*Dh or H*Dh) fp32, attn (B, H*Dh), x2 (B, D) fp32, u (B, K2); out
 // y (B, D). act: rows::Act. dtype 0 = fp32, 1 = bf16. D, H*Dh and K2
-// multiples of 8. Returns the launch's CUDA error code (a refused
-// cooperative launch included).
+// multiples of 8. bf16 only: (slice4, blocks4), (slice5, blocks5) the
+// plans of K2's launches for phases 4 and 5 (ops/dense_stream.py
+// `stream_plan`), scratch and counters as fused_mlp_fwd's; B <= 64. Returns
+// the launch's CUDA error code (a refused cooperative launch included).
 extern "C" int fused_layer_decode_fwd(
     const void* x, const void* ln1_s, const void* ln1_b, const void* wq, const void* wq_scale, const void* wout,
     const void* wout_scale, void* k, void* v, const void* mask, const void* slopes, const void* gate,
     const void* slot, const void* w1, const void* w1g, const void* w2, const void* w1_scale, const void* w1g_scale,
     const void* w2_scale, const void* b1, const void* b2, const void* ln2_s, const void* ln2_b, const void* gate2,
     void* proj, void* attn, void* x2, void* u, void* y, int b, int dm, int h, int d, int s, int k2, int fused_qkv,
-    int has_clip, int wtype, int act, float clip, float scale, float eps, int dtype, void* stream) {
+    int has_clip, int wtype, int act, float clip, float scale, float eps, int slice4, int blocks4, int slice5,
+    int blocks5, void* scratch, void* counters, int ncount, int dtype, void* stream) {
   if (d < rows::kVec || d > kMaxD || d % rows::kVec != 0 || b < 1 || h < 1 || s < 1 || s > kMaxS ||
       dm < rows::kVec || dm % rows::kVec != 0 || k2 < rows::kVec || k2 % rows::kVec != 0)
     return (int)cudaErrorInvalidValue;
@@ -299,13 +334,15 @@ extern "C" int fused_layer_decode_fwd(
       (w1g_scale != nullptr && w1g == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const rows::StreamPlan up{slice4, blocks4}, down{slice5, blocks5};
+  const rows::StreamSplit split{(float*)scratch, (int*)counters, ncount, 0};
   if (dtype == 0)
     return layer<float>(x, ln1_s, ln1_b, wq, wq_scale, wout, wout_scale, k, v, mask, slopes, gate, slot, w1, w1g, w2,
                         w1_scale, w1g_scale, w2_scale, b1, b2, ln2_s, ln2_b, gate2, proj, attn, x2, u, y, b, dm, h, d,
-                        s, k2, fused_qkv, has_clip, wtype, act, clip, scale, eps, st);
+                        s, k2, fused_qkv, has_clip, wtype, act, clip, scale, eps, up, down, split, st);
   if (dtype == 1)
     return layer<bf16>(x, ln1_s, ln1_b, wq, wq_scale, wout, wout_scale, k, v, mask, slopes, gate, slot, w1, w1g, w2,
                        w1_scale, w1g_scale, w2_scale, b1, b2, ln2_s, ln2_b, gate2, proj, attn, x2, u, y, b, dm, h, d, s,
-                       k2, fused_qkv, has_clip, wtype, act, clip, scale, eps, st);
+                       k2, fused_qkv, has_clip, wtype, act, clip, scale, eps, up, down, split, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,7 @@
 // Row-batched matrix-vector products for single-token decode on Hopper
-// (sm_90a), shared by K1/K2 (dense_stream.cu) and K3 (decode_layer.cu).
+// (sm_90a): K3's and K6's projections (decode_layer.cu, K3's K2b carrier in
+// side_tile.cuh), K11's phases 1 and 3 (fused_layer.cu), and K1/K2 in fp32
+// (dense_stream.cu; their bf16 launches run rows_stream.cuh's body).
 //
 //   out[r, n] = epilogue( sum_k h[r, k] * W[n, k] )     r < B (a few rows)
 //
@@ -24,7 +26,8 @@
 // used B times, 2B FLOPs per weight read: far below the ~295 FLOP/byte where
 // the H100 stops being memory-bound, so the weight bytes over 3.35 TB/s are
 // the floor. Every block stages 8 rows of h in shared memory (normalised
-// once per block); more rows go in passes that read W again. Blocks loop
+// once per block); more rows go in passes that read W again (K1/K2's bf16
+// body in rows_stream.cuh takes 64 rows a pass and any K). Blocks loop
 // over column tiles with a grid stride, the grid capped at 4 blocks per SM,
 // so the normalisation is not repeated per tile. Two inner loops:
 //

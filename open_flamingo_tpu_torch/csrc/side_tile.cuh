@@ -85,6 +85,7 @@
 #include <type_traits>
 
 #include "rows_gemv.cuh"
+#include "rows_stream.cuh"
 
 namespace side {
 namespace {
@@ -637,7 +638,23 @@ __device__ __forceinline__ void side_tile(const Args<T>& a, int t, unsigned char
 // first `main_blocks` blocks run the row GEMV's body on a grid of
 // main_blocks, the rest one side block each (kI8: the W8A8 tile). Instances
 // of their own (kSide): the kernels without side blocks are compiled as they
-// were.
+// were. gemv_stream_side_kernel is K2's bf16 carrier (the weight-streaming
+// body of rows_stream.cuh, on its plan's blocks); gemv_mma_side_kernel K3's
+// (the old tensor-core body).
+template <typename W, bool kI8>
+__global__ void __launch_bounds__(kThreads, 1) gemv_stream_side_kernel(
+    const __nv_bfloat16* __restrict__ x, const unsigned char* __restrict__ w, rows::Epilogue<__nv_bfloat16> ep,
+    __nv_bfloat16* __restrict__ out, int b, int n, int k, rows::StreamPlan plan, rows::StreamSplit split,
+    Args<__nv_bfloat16> sa) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if ((int)blockIdx.x < plan.blocks)
+    rows::stream_body<W, __nv_bfloat16, false, rows::kActBase>(x, nullptr, nullptr, 0.f, rows::kLayerNorm, w, nullptr,
+                                                                ep, out, b, n, k, plan, split, smem, plan.blocks,
+                                                                blockIdx.x);
+  else
+    side_tile<kI8>(sa, blockIdx.x - plan.blocks, smem);
+}
+
 template <typename W, bool kI8>
 __global__ void __launch_bounds__(kThreads) gemv_mma_side_kernel(
     const __nv_bfloat16* __restrict__ x, const unsigned char* __restrict__ w, rows::Epilogue<__nv_bfloat16> ep,
@@ -663,9 +680,41 @@ __global__ void __launch_bounds__(kThreads) gemv_side_kernel(
     side_tile<kI8>(sa, blockIdx.x - main_blocks, smem);
 }
 
+// K2's bf16 carrier: the first pass of 64 rows carries the tile, the rest
+// (no path makes them) are launches of the body alone
+template <typename W, bool kI8>
+cudaError_t launch_stream_side(const __nv_bfloat16* x, const void* w, rows::Epilogue<__nv_bfloat16> ep,
+                               __nv_bfloat16* out, int b, int n, int k, const Args<__nv_bfloat16>& sa,
+                               const rows::StreamPlan& plan, const rows::StreamSplit& split, cudaStream_t st) {
+  if (!rows::stream_plan_ok<W>(plan, split, n, k)) return cudaErrorInvalidValue;
+  const size_t smem = std::max(rows::kStreamSmem, ring_smem(sa.k, kI8));
+  auto kern = gemv_stream_side_kernel<W, kI8>;
+  static size_t smem_set = 48 * 1024;
+  cudaError_t e = rows::allow_smem(kern, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  const int rows0 = std::min(rows::kStreamRows, b);
+  const int ks = rows::stream_slices<W>(plan, k);
+  rows::StreamSplit first = split;
+  first.defer = rows0 > 8 && ks > 1;  // as the launch without a tile: its bits
+  kern<<<plan.blocks + side_blocks(sa, kI8), kThreads, smem, st>>>(
+      x, static_cast<const unsigned char*>(w), ep, out, rows0, n, k, plan, first, sa);
+  e = cudaGetLastError();
+  if (e == cudaSuccess && first.defer)
+    e = rows::launch_stream_reduce<!std::is_same<W, __nv_bfloat16>::value, false, rows::kActBase>(
+        first, ep, out, rows0, n, (n + rows::kStreamCols - 1) / rows::kStreamCols, ks, st);
+  if (e != cudaSuccess || b == rows0) return e;
+  rows::Epilogue<__nv_bfloat16> rest = ep;
+  if (ep.residual != nullptr) rest.residual += (size_t)rows0 * n;
+  return rows::launch_stream_typed<W, false, rows::kActBase>(x + (size_t)rows0 * k, nullptr, nullptr, 0.f,
+                                                             rows::kLayerNorm, w, nullptr, rest, out + (size_t)rows0 * n,
+                                                             b - rows0, n, k, plan, split, st);
+}
+
+// K3's carrier, and K2's in fp32: the tensor-core body in bf16 where it
+// takes K, else the CUDA-core body
 template <typename T, typename W, bool kI8>
-cudaError_t launch_typed(const T* x, const void* w, rows::Epilogue<T> ep, T* out, int b, int n, int k,
-                         const Args<T>& sa, cudaStream_t st) {
+cudaError_t launch_typed_gemv(const T* x, const void* w, rows::Epilogue<T> ep, T* out, int b, int n, int k,
+                              const Args<T>& sa, cudaStream_t st) {
   const unsigned char* wb = static_cast<const unsigned char*>(w);
   const int side = side_blocks(sa, kI8);
   const size_t side_smem = ring_tile<T>(kI8) ? ring_smem(sa.k, kI8) : smem_f32_bytes();
@@ -694,14 +743,30 @@ cudaError_t launch_typed(const T* x, const void* w, rows::Epilogue<T> ep, T* out
   return cudaGetLastError();
 }
 
+template <typename T, typename W, bool kI8, bool kStream>
+cudaError_t launch_typed(const T* x, const void* w, rows::Epilogue<T> ep, T* out, int b, int n, int k,
+                         const Args<T>& sa, const rows::StreamPlan* plan, const rows::StreamSplit& split,
+                         cudaStream_t st) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && kStream) {
+    return plan == nullptr ? cudaErrorInvalidValue
+                           : launch_stream_side<W, kI8>(x, w, ep, out, b, n, k, sa, *plan, split, st);
+  } else {
+    return launch_typed_gemv<T, W, kI8>(x, w, ep, out, b, n, k, sa, st);
+  }
+}
+
 // out (B, N) = epilogue(h @ W^T) as launch_gemv_norm's form without norm,
 // activation or gated weight (K2's down-projection, K3's out-projection), W
 // stored as wtype says, with the side tile `sa` in the same launch: the W8A8
 // tile when sa.wq is set (with sa.ws), else the tile in x's dtype (sa.w).
-// The ring tile takes a span of whole passes and SK up to kMaxK.
-template <typename T>
+// The ring tile takes a span of whole passes and SK up to kMaxK. kStream:
+// the caller's body in bf16, K2's weight-streaming body on `plan` and
+// `split` (else K3's tensor-core body, with the CUDA-core body past its K);
+// fp32 runs the CUDA-core body either way.
+template <typename T, bool kStream>
 cudaError_t launch_gemv_side(int wtype, const T* x, const void* w, rows::Epilogue<T> ep, T* out, int b, int n, int k,
-                             const Args<T>& sa, cudaStream_t st) {
+                             const Args<T>& sa, cudaStream_t st, const rows::StreamPlan* plan = nullptr,
+                             rows::StreamSplit split = {}) {
   if (k < rows::kVec || k % rows::kVec != 0 || b < 1 || n < 1 || ep.act != rows::kNone) return cudaErrorInvalidValue;
   if (sa.m < 1 || sa.n < 1 || sa.k < kDepth || sa.k % kDepth != 0 || sa.act < rows::kNone || sa.act > rows::kSilu)
     return cudaErrorInvalidValue;
@@ -711,12 +776,12 @@ cudaError_t launch_gemv_side(int wtype, const T* x, const void* w, rows::Epilogu
   if (ring_tile<T>(i8) && (sa.span < kPassCols || sa.span % kPassCols != 0 || sa.k > kMaxK))
     return cudaErrorInvalidValue;
   switch (wtype * 2 + i8) {
-    case 0: return launch_typed<T, T, false>(x, w, ep, out, b, n, k, sa, st);
-    case 1: return launch_typed<T, T, true>(x, w, ep, out, b, n, k, sa, st);
-    case 2: return launch_typed<T, int8_t, false>(x, w, ep, out, b, n, k, sa, st);
-    case 3: return launch_typed<T, int8_t, true>(x, w, ep, out, b, n, k, sa, st);
-    case 4: return launch_typed<T, rows::Int4, false>(x, w, ep, out, b, n, k, sa, st);
-    case 5: return launch_typed<T, rows::Int4, true>(x, w, ep, out, b, n, k, sa, st);
+    case 0: return launch_typed<T, T, false, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
+    case 1: return launch_typed<T, T, true, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
+    case 2: return launch_typed<T, int8_t, false, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
+    case 3: return launch_typed<T, int8_t, true, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
+    case 4: return launch_typed<T, rows::Int4, false, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
+    case 5: return launch_typed<T, rows::Int4, true, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
     default: return cudaErrorInvalidValue;
   }
 }

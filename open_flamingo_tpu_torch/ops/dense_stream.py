@@ -3,10 +3,16 @@ single-token decode step, and the switch that routes a step through K1-K3.
 
 Replaces `open_flamingo_tpu/ops/dense_stream.py` `fused_dense` (kernel
 `_dense_kernel`) and `fused_mlp` (`_mlp_kernel`). The CUDA kernels are in
-`csrc/dense_stream.cu`, over the row GEMV of `csrc/rows_gemv.cuh`: one
-launch for K1, two for K2, whose (B, K2) hidden activation goes through a
-scratch in x's dtype where the TPU kernel casts it. Both are bound by the
-weight bytes on the card; see the sources' notes.
+`csrc/dense_stream.cu`: one launch for K1, two for K2, whose (B, K2) hidden
+activation goes through a scratch in x's dtype where the TPU kernel casts
+it. In bf16 each launch runs the weight-streaming row GEMV of
+`csrc/rows_stream.cuh` (a cp.async ring per warp into `mma.sync`, every row
+up to 64 in one pass) on the plan `stream_plan` computes here from the
+shape and the SM count and passes in: 256-column tiles, K cut into slices
+of whole ring stages so that the tiles and slices fill the SMs, the split
+K's fp32 partials in a scratch allocated here and added in slice order.
+fp32 runs the CUDA-core row GEMV of `csrc/rows_gemv.cuh`. Both are bound by
+the weight bytes on the card; see the sources' notes.
 
 Weights are in torch's nn.Linear layout (out, in) and are read in place.
 K1's `w` is (N, K): the JAX kernel's `w_transposed=True` form, which is
@@ -65,6 +71,8 @@ for any other device.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -90,18 +98,24 @@ _lib = None
 def _kernel():
     global _lib
     if _lib is None:
-        lib = build.library("dense_stream")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_dense_fwd.argtypes = [p] * 9 + [i, i, i, i, f, i, f, i, i, i, p]
-        lib.fused_dense_fwd.restype = i
-        lib.fused_mlp_fwd.argtypes = [p] * 15 + [i, i, i, i, i, f, i, i, i, i, p]
-        lib.fused_mlp_fwd.restype = i
-        ll = ctypes.c_longlong
-        side = [p, p, ll, p, p, p, f, i, p, p, ll, p, i, i, i, i]
-        lib.fused_mlp_side_fwd.argtypes = [p] * 15 + [i, i, i, i, i, f, i, i, i, i] + side + [p]
-        lib.fused_mlp_side_fwd.restype = i
-        _lib = lib
+        _lib = bind(build.library("dense_stream"))
     return _lib
+
+
+def bind(lib):
+    """`lib` (csrc/dense_stream.cu built) with its C entries' argument types."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    split = [p, p, i]   # scratch, counters, their count
+    lib.fused_dense_fwd.argtypes = [p] * 9 + [i, i, i, i, f, i, f, i, i, i, i, i] + split + [p]
+    lib.fused_dense_fwd.restype = i
+    mlp = [p] * 15 + [i, i, i, i, i, f, i, i, i, i, i, i, i, i] + split
+    lib.fused_mlp_fwd.argtypes = mlp + [p]
+    lib.fused_mlp_fwd.restype = i
+    ll = ctypes.c_longlong
+    side = [p, p, ll, p, p, p, f, i, p, p, ll, p, i, i, i, i]
+    lib.fused_mlp_side_fwd.argtypes = mlp + side + [p]
+    lib.fused_mlp_side_fwd.restype = i
+    return lib
 
 
 def fused_route(device) -> bool:
@@ -230,6 +244,172 @@ def check_operands(fn: str, x: torch.Tensor, k: int, quantized=(), **tensors) ->
             raise TypeError(f"{fn}: {name} is {t.dtype}; expected one of {allowed}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
+
+
+# The weight-streaming row GEMV of csrc/rows_stream.cuh (every bf16 launch of
+# K1 and K2, K2's carrier and K11's K2 phases): 256-column tiles (16 warps of
+# 16 columns), up to 64 rows a pass, a ring per warp of 128 bytes of each of
+# its rows a stage, a slice of h, the rows' statistics; one block per SM. Its
+# instance for any B: 4 stages (2 of W and Wg gated), 128 KB, and a 64 KB h
+# slice; for B <= 8: 6 stages (3 of W and Wg), 192 KB, and 32 KB of h.
+STREAM_COLS, STREAM_ROWS, STREAM_SEG = 256, 64, 128
+STREAM_SMEM = 16 * 4 * 16 * STREAM_SEG + 64 * 1024 + 2 * STREAM_ROWS * 4 + 16
+STREAM_SMEM_SMALL = 16 * 6 * 16 * STREAM_SEG + 32 * 1024 + 2 * STREAM_ROWS * 4 + 16
+SMEM_OPTIN = 232448                                  # sm_90's opt-in shared memory of a block
+STREAM_COUNTERS = 1024                               # column tiles a launch may count: N <= 262,144
+_WEIGHT_BITS = {"bf16": 16, "int8": 8, "int4": 4}
+# the plan's cost of an item beyond its ring stages (its h slice, epilogue
+# and the ring's refill, ~1 us at an SM's share of 3.35 TB/s) and of a
+# split K (the partials written and read), in bytes of one block's stream
+_ITEM_COST, _SPLIT_COST = 24 * 1024, 16 * 1024
+
+
+class StreamPlan(NamedTuple):
+    """How the weight-streaming body cuts an (N, K) product: `tiles`
+    256-column tiles, K in `stages` ring stages of `stage_elems` values,
+    `slices` K slices of `slice` stages (the last may be shorter), `items`
+    = tiles x slices walked by `blocks` persistent blocks."""
+    tiles: int
+    stage_elems: int
+    stages: int
+    slice: int
+    slices: int
+    items: int
+    blocks: int
+
+
+def weight_kind(w: torch.Tensor) -> str:
+    """The stored type of a streamed weight: "bf16" (x's dtype), "int8",
+    "int4" (packed)."""
+    return _WKINDS.get(w.dtype, "bf16")
+
+
+def stream_ring(b: int, gated: bool) -> tuple:
+    """The ring of the instance that runs b rows: (stages a warp, bytes of
+    the ring, the block's shared memory), csrc/rows_stream.cuh `Geometry`."""
+    small = b <= 8
+    stages = (3 if gated else 6) if small else (2 if gated else 4)
+    ring = 16 * stages * 16 * STREAM_SEG * (2 if gated else 1)
+    return stages, ring, STREAM_SMEM_SMALL if small else STREAM_SMEM
+
+
+@functools.lru_cache(maxsize=None)
+def stream_plan(n: int, k: int, wkind: str, sms: int) -> StreamPlan:
+    """The weight-streaming body's plan for N columns over K of a weight
+    stored as `wkind` ("bf16", "int8", "int4") on `sms` SMs. K is cut into
+    the slice count whose items fill the SMs at the least cost: waves of
+    items x (an item's stage bytes + a fixed cost per item), plus the split's
+    partials; ties to fewer slices. A function of (N, K, the weight type,
+    the SM count) alone: never of B, the gated form or a launch's grid, so
+    a column's sums add in one order in every launch, K2b carrier and K11
+    phase of a shape."""
+    stage_elems = STREAM_SEG * 8 // _WEIGHT_BITS[wkind]
+    stages = -(-k // stage_elems)
+    tiles = -(-n // STREAM_COLS)
+    block_stage = STREAM_COLS * STREAM_SEG
+    best = None
+    for want in range(1, stages + 1):
+        per = -(-stages // want)
+        slices = -(-stages // per)
+        if slices != want:
+            continue
+        items = tiles * slices
+        cost = -(-items // sms) * (per * block_stage + _ITEM_COST) + (_SPLIT_COST if slices > 1 else 0)
+        if best is None or cost < best[0]:
+            best = (cost, per, slices, items)
+    _, per, slices, items = best
+    return StreamPlan(tiles, stage_elems, stages, per, slices, items, min(items, sms))
+
+
+def stream_items(plan: StreamPlan, n: int, k: int):
+    """The items of `plan` as the kernel walks them: (columns [c0, c1), K
+    values [k0, k1)) per item, item i being column tile i // slices and K
+    slice i % slices."""
+    for i in range(plan.items):
+        t, s = divmod(i, plan.slices)
+        st0, st1 = s * plan.slice, min((s + 1) * plan.slice, plan.stages)
+        yield (t * STREAM_COLS, min((t + 1) * STREAM_COLS, n)), (st0 * plan.stage_elems, min(st1 * plan.stage_elems, k))
+
+
+def stream_scratch_floats(plan: StreamPlan, b: int, gated: bool) -> int:
+    """fp32 partials a split K writes for up to 64 rows of b: slices x
+    tiles x 256 columns x the rows rounded up to 8 (twice when gated); 0
+    without a split."""
+    if plan.slices == 1:
+        return 0
+    rows = 8 * -(-min(b, STREAM_ROWS) // 8)
+    return plan.slices * plan.tiles * STREAM_COLS * rows * (2 if gated else 1)
+
+
+_COUNTERS, _SCRATCH = {}, {}
+
+
+def stream_counters(device) -> torch.Tensor:
+    """The per-tile arrival counts of a split K on `device`: zeros, which
+    every launch leaves zero. One tensor per device, made on first use
+    outside a CUDA graph capture (inside one, a capture-local tensor); the
+    port launches K1 and K2 on one stream at a time."""
+    idx = torch.device(device).index
+    if idx in _COUNTERS:
+        return _COUNTERS[idx]
+    counters = torch.zeros(STREAM_COUNTERS, dtype=torch.int32, device=device)
+    if not torch.cuda.is_current_stream_capturing():
+        _COUNTERS[idx] = counters
+    return counters
+
+
+def stream_scratch(device, floats: int) -> torch.Tensor:
+    """At least `floats` fp32 of scratch for a split K's partials on
+    `device`: one buffer per device, grown when a launch needs more, kept
+    when made outside a CUDA graph capture; launches on one stream use it
+    in turn, as they use the counters."""
+    idx = torch.device(device).index
+    buf = _SCRATCH.get(idx)
+    if buf is not None and buf.numel() >= floats:
+        return buf
+    buf = torch.empty(floats, dtype=torch.float32, device=device)
+    if not torch.cuda.is_current_stream_capturing():
+        _SCRATCH[idx] = buf
+    return buf
+
+
+def stream_launches(b: int, launches, sms: int) -> tuple:
+    """The plans of bf16 launches ((n, k, weight kind, gated), ...) for b
+    rows on `sms` SMs: ((slice, blocks) per launch, flattened; the fp32
+    scratch floats the largest split needs). The plans do not depend on b."""
+    plans = [(stream_plan(n, k, wkind, sms), gated) for n, k, wkind, gated in launches]
+    if any(p.tiles > STREAM_COUNTERS for p, _ in plans):
+        raise ValueError(f"the row GEMV counts at most {STREAM_COUNTERS} column tiles of {STREAM_COLS}")
+    return (tuple(v for p, _ in plans for v in (p.slice, p.blocks)),
+            max(stream_scratch_floats(p, b, gated) for p, gated in plans))
+
+
+_ARGS = {}
+
+
+def stream_args(x: torch.Tensor, launches) -> tuple:
+    """The C interface's plan arguments for bf16 launches (n, k, weight,
+    gated) on x's device: (slice, blocks) per launch, then the scratch
+    (`stream_scratch`, room for the largest split), the counters and their
+    count; and the scratch tensor. Zeros and nulls for fp32, which takes no
+    plan. Kept per (B, device, shapes) outside a CUDA graph capture: a decode
+    step asks for the same few every layer."""
+    if x.dtype != torch.bfloat16:
+        return (0, 0) * len(launches) + (None, None, 0), None
+    key = (x.shape[0], x.device.index, *[(n, k, w.dtype, gated) for n, k, w, gated in launches])
+    hit = _ARGS.get(key)
+    if hit is not None:
+        return hit
+    flat, floats = stream_launches(x.shape[0], tuple((n, k, weight_kind(w), gated) for n, k, w, gated in launches),
+                                   _sm_count(x.device))
+    if floats:
+        scratch = stream_scratch(x.device, floats)
+        hit = flat + (ptr(scratch), ptr(stream_counters(x.device)), STREAM_COUNTERS), scratch
+    else:
+        hit = flat + (None, None, 0), None
+    if not torch.cuda.is_current_stream_capturing():
+        _ARGS[key] = hit
+    return hit
 
 
 def _product(h, w, scale):
@@ -437,10 +617,11 @@ def fused_dense(x, w, *, w_scale=None, bias=None, ln_scale=None, ln_bias=None, e
     check_operands("fused_dense", x, k, quantized=("w",), w=w, w_scale=w_scale, bias=bias, ln_scale=ln_scale,
                    ln_bias=ln_bias, residual=residual, gate=gate)
     out = torch.empty(b, n, dtype=x.dtype, device=x.device)
+    plan, _ = stream_args(x, [(n, k, w, False)])
     status = _kernel().fused_dense_fwd(
         ptr(x), ptr(w), ptr(w_scale), ptr(bias), ptr(ln_scale), ptr(ln_bias), ptr(residual), ptr(gate), ptr(out),
         b, n, k, int(clip is not None), float(clip or 0.0), _ACTS[act], float(eps), _NORMS[norm], _DTYPES[x.dtype],
-        wtype(w), build.current_stream(x.device),
+        wtype(w), *plan, build.current_stream(x.device),
     )
     build.check(status, "fused_dense_fwd")
     count_launch(fused_dense, variant(w, tags=form_tags(norm, act)))
@@ -494,9 +675,10 @@ def fused_mlp(x, w1, w2, *, w1_gate=None, w1_scale=None, w2_scale=None, w1_gate_
         raise ValueError(f"fused_mlp: hidden size {k2} is not a multiple of 8")
     hidden = torch.empty(b, k2, dtype=x.dtype, device=x.device)
     out = torch.empty(b, n, dtype=x.dtype, device=x.device)
+    plan, _ = stream_args(x, [(k2, k, w1, w1_gate is not None), (n, k2, w2, False)])
     args = (ptr(x), ptr(w1), ptr(w1_gate), ptr(w2), ptr(w1_scale), ptr(w1_gate_scale), ptr(w2_scale), ptr(b1), ptr(b2),
             ptr(ln_scale), ptr(ln_bias), ptr(residual), ptr(gate), ptr(hidden), ptr(out), b, k, k2, n, _ACTS[act],
-            float(eps), _NORMS[norm], _DTYPES[x.dtype], wtype(w1), wtype(w2))
+            float(eps), _NORMS[norm], _DTYPES[x.dtype], wtype(w1), wtype(w2), *plan)
     tags = form_tags(norm, act, w1_gate is not None)
     if side_x is None:
         build.check(_kernel().fused_mlp_fwd(*args, build.current_stream(x.device)), "fused_mlp_fwd")

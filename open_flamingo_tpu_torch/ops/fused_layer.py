@@ -6,7 +6,9 @@ Replaces `open_flamingo_tpu/ops/fused_layer.py` `fused_layer_decode`
 (kernel `_layer_kernel`). The CUDA kernel is `csrc/fused_layer.cu`: one
 persistent cooperative launch whose five phases (projection, attend,
 out-projection, up, down) run the bodies of K3 and K2 between grid-wide
-barriers; bound by the weight and cache bytes on the card (see the source).
+barriers, K2's phases on the plans of K2's own launches (`stream_plan`,
+bf16: up to 64 rows); bound by the weight and cache bytes on the card (see
+the source).
 
 Two forms, as on the decode path:
   * `fused_qkv=True` (an MPT block): `wq` is the fused (3*H*Dh, D) Wqkv.
@@ -49,8 +51,8 @@ import torch
 from ..models.layers import layer_norm
 from . import build
 from .decode_layer import attn_block_f32
-from .dense_stream import (_ACTS, check_operands, check_prologue, check_weight, count_launch, form_tags, ptr,
-                           reference_mlp, refuse_autograd, variant, wtype)
+from .dense_stream import (_ACTS, STREAM_ROWS, check_operands, check_prologue, check_weight, count_launch, form_tags,
+                           ptr, reference_mlp, refuse_autograd, stream_args, variant, wtype)
 from .flash_attention import _DTYPES
 
 # True by default, as in the JAX package: every block runs K3 + K2.
@@ -71,7 +73,7 @@ def _kernel():
     if _lib is None:
         lib = build.library("fused_layer")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_layer_decode_fwd.argtypes = [p] * 29 + [i] * 10 + [f, f, f, i, p]
+        lib.fused_layer_decode_fwd.argtypes = [p] * 29 + [i] * 10 + [f, f, f] + [i] * 4 + [p, p, i] + [i, p]
         lib.fused_layer_decode_fwd.restype = i
         _lib = lib
     return _lib
@@ -162,6 +164,9 @@ def fused_layer_decode(x, ln1_scale, ln1_bias, wq, wout, k_cache, v_cache, mask,
                    w1_gate=w1_gate, w2=w2, wq_scale=wq_scale, wout_scale=wout_scale, w1_scale=w1_scale,
                    w2_scale=w2_scale, w1_gate_scale=w1_gate_scale, k_cache=k_cache, v_cache=v_cache, b1=b1, b2=b2,
                    gate=gate, gate2=gate2)
+    if x.dtype == torch.bfloat16 and b > STREAM_ROWS:
+        raise ValueError(f"fused_layer_decode: in bf16 K2's phases take at most {STREAM_ROWS} rows in one pass, "
+                         f"got B {b}; run the block as attn_block_decode + fused_mlp")
     if head_dim % 8 or head_dim > 128 or s > 8192 or k2 % 8:
         raise ValueError(f"fused_layer_decode: Dh = {head_dim} must be a multiple of 8 and <= 128, the cache at "
                          f"most 8192 slots (got {s}) and the hidden size a multiple of 8 (got {k2})")
@@ -175,13 +180,14 @@ def fused_layer_decode(x, ln1_scale, ln1_bias, wq, wout, k_cache, v_cache, mask,
     attn = torch.empty(b, inner, dtype=x.dtype, device=x.device)
     u = torch.empty(b, k2, dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
+    plan, _ = stream_args(x, [(k2, dm, w1, w1_gate is not None), (dm, k2, w2, False)])   # K2's plans, phases 4, 5
     status = _kernel().fused_layer_decode_fwd(
         ptr(x), ptr(ln1_scale), ptr(ln1_bias), ptr(wq), ptr(wq_scale), ptr(wout), ptr(wout_scale), ptr(k_cache),
         ptr(v_cache), ptr(m), ptr(sl), ptr(gate), ptr(slot) if fused_qkv else None, ptr(w1), ptr(w1_gate), ptr(w2),
         ptr(w1_scale), ptr(w1_gate_scale), ptr(w2_scale), ptr(b1), ptr(b2), ptr(ln2_scale), ptr(ln2_bias),
         ptr(gate2), ptr(proj), ptr(attn), ptr(x2), ptr(u), ptr(y),
         b, dm, heads, head_dim, s, k2, int(fused_qkv), int(clip is not None), wtype(wq), _ACTS[act],
-        float(clip or 0.0), float(scale), float(eps), _DTYPES[x.dtype], build.current_stream(x.device),
+        float(clip or 0.0), float(scale), float(eps), *plan, _DTYPES[x.dtype], build.current_stream(x.device),
     )
     build.check(status, "fused_layer_decode_fwd")
     count_launch(fused_layer_decode, layer_variant(wq, fused_qkv, act, w1_gate is not None))

@@ -9,8 +9,9 @@ nor the JAX package, so it also runs where JAX is absent:
 fp32 inputs: the kernels and the plain versions sum in different orders,
 ~1e-6 apart at these sizes; atol 5e-5 as in chip_smoke.py (the backward
 K4b/K5b: atol = rtol = 1e-4, its sums run over whole query and key tiles).
-bf16 inputs (K1-K3 and K6, whose bf16 products run on tensor cores when K
-is a multiple of 32; K4/K5, whose bf16 body runs on tensor cores with P.V in
+bf16 inputs (K1 and K2, whose bf16 products run on tensor cores at any K,
+every row up to 64 in one pass; K3 and K6, on tensor cores when K is a
+multiple of 32; K4/K5, whose bf16 body runs on tensor cores with P.V in
 fp32 through a hi/lo bf16 pair; K4b/K5b): both round an fp32 result to bf16,
 one ulp apart at most, plus the summation order; atol = rtol = 1e-2 as in
 chip_smoke.py; the logsumexp (fp32 in both) atol 1e-4, rtol 1e-5 (LSE_TOL).
@@ -102,7 +103,9 @@ DTYPES = [torch.float32, torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("k", [256, 264])      # bf16: tensor cores, and K % 32 != 0 on CUDA cores
+# bf16: the weight-streaming body's tensor cores at every K: a whole 64-wide
+# stage, K % 32 != 0 (a zero-filled tail), a ragged 11,000 and 16,384
+@pytest.mark.parametrize("k", [256, 264, 11000, 16384])
 def test_fused_dense_ragged_vocab(gen, k, dtype):
     b, n = 5, 1003                             # ragged rows and vocabulary
     x, w, ln, ln_b = (t.to(dtype) for t in (rn(gen, b, k), rn(gen, n, k) * 0.05, rn(gen, k), rn(gen, k) * 0.1))
@@ -115,8 +118,11 @@ def test_fused_dense_ragged_vocab(gen, k, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-# 11 rows: two passes of 8; K2 = 16384 (OF-9B's MLP): too long for the tensor-core staging
-@pytest.mark.parametrize("b,k2", [(8, 512), (11, 352), (3, 8192), (8, 16384)])
+# bf16 on the weight-streaming body at every B up to 64 in one pass and every
+# K2: 352 (no multiple of 32), 8,192, 16,384 (OF-9B's MLP, LLaMA-7B's xattn
+# FF) and a ragged 11,000; fp32 on CUDA cores
+@pytest.mark.parametrize("b,k2", [(8, 512), (11, 352), (3, 8192), (8, 16384), (1, 11000), (13, 16384), (16, 512),
+                                  (64, 16384), (64, 11000)])
 def test_fused_mlp(gen, b, k2, dtype):
     k, n = 128, 136
     x, w1, w2 = (t.to(dtype) for t in (rn(gen, b, k), rn(gen, k2, k) * 0.05, rn(gen, n, k2) * 0.05))
@@ -216,7 +222,8 @@ def cache_close(got, want):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("k", [256, 264])      # bf16: tensor cores, and K % 32 != 0 on CUDA cores
+# bf16: int rows 16-byte aligned (256, 16,384), 8- or 4-byte aligned (264, 11,000: the ring's narrower copies)
+@pytest.mark.parametrize("k", [256, 264, 11000, 16384])
 def test_fused_dense_quantized(gen, k, bits, dtype):
     b, n = 5, 1003
     x, ln, ln_b = (t.to(dtype) for t in (rn(gen, b, k), rn(gen, k), rn(gen, k) * 0.1))
@@ -232,7 +239,7 @@ def test_fused_dense_quantized(gen, k, bits, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("b,k2", [(8, 512), (11, 352)])
+@pytest.mark.parametrize("b,k2", [(8, 512), (11, 352), (13, 11000), (64, 16384), (1, 16384)])
 def test_fused_mlp_quantized(gen, b, k2, bits, dtype):
     k, n = 128, 136
     x = rn(gen, b, k).to(dtype)
@@ -570,9 +577,10 @@ def test_fused_dense_rms_and_acts(gen, k, act, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bits", [None, 8, 4])
-# launch 1 on tensor cores (K 128) and CUDA cores (K 264); a hidden size that
-# is no multiple of 32 (344: launch 2 on CUDA cores); 11 rows: two passes
-@pytest.mark.parametrize("b,k,k2", [(8, 128, 512), (11, 264, 344), (8, 128, 11008)])
+# bf16: both launches on the weight-streaming body at any K (264, a hidden
+# size of 344, 11,000 and 16,384) and B up to 64
+@pytest.mark.parametrize("b,k,k2", [(8, 128, 512), (11, 264, 344), (8, 128, 11008), (64, 128, 16384),
+                                    (1, 264, 11000)])
 def test_fused_mlp_swiglu(gen, b, k, k2, bits, dtype):
     """K2's gated form (llama): RMSNorm, silu(x @ w1.T) * (x @ w1_gate.T), w2,
     residual; b1, b2 and the gate with float weights."""
@@ -603,17 +611,20 @@ def test_fused_mlp_acts(gen, act, dtype):
     close(fused_mlp(x, w1, w2, **kw), fused_mlp(x.cpu(), w1.cpu(), w2.cpu(), **on_cpu(kw)))
 
 
-def test_row_gemv_keeps_its_shared_memory_limit(gen):
-    """One fp32 row-GEMV kernel launched by K2's second launch and by K1 with
-    an activation: a smaller request from one must not lower the limit the
-    other was granted (K 8192, then K 2560, then K 10240)."""
-    x, n = rn(gen, 8, 256), 136
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_row_gemv_keeps_its_shared_memory_limit(gen, dtype):
+    """One row-GEMV kernel launched by K2's second launch and by K1 with an
+    activation (fp32: the CUDA-core kernel, its limit following K; bf16: the
+    weight-streaming kernel at its one limit, and its K2b carrier beside
+    it): a smaller request from one must not lower the limit the other was
+    granted (K 8192, then K 2560, then K 10240)."""
+    x, n = rn(gen, 8, 256).to(dtype), 136
     for k2 in (8192, None, 10240):
         if k2 is None:
-            xk, w = rn(gen, 8, 2560), rn(gen, 64, 2560) * 0.02
+            xk, w = rn(gen, 8, 2560).to(dtype), (rn(gen, 64, 2560) * 0.02).to(dtype)
             close(fused_dense(xk, w, act="relu"), fused_dense(xk.cpu(), w.cpu(), act="relu"))
             continue
-        w1, w2 = rn(gen, k2, 256) * 0.05, rn(gen, n, k2) * 0.02
+        w1, w2 = (rn(gen, k2, 256) * 0.05).to(dtype), (rn(gen, n, k2) * 0.02).to(dtype)
         close(fused_mlp(x, w1, w2), fused_mlp(x.cpu(), w1.cpu(), w2.cpu()))
 
 
@@ -695,7 +706,7 @@ SIDE_SLOTS = {
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bits", [None, 8, 4])
 @pytest.mark.parametrize("slot", list(SIDE_SLOTS))
-# the down-projection on tensor cores (bf16, K2 512) or CUDA cores (fp32; bf16 at K2 344)
+# the down-projection on the weight-streaming body (bf16, K2 512 and 344) or CUDA cores (fp32)
 @pytest.mark.parametrize("k2", [512, 344])
 def test_fused_mlp_side_tile(gen, k2, slot, bits, dtype):
     """K2b: each slot kind in K2's launch with main weights of every type;
@@ -790,6 +801,66 @@ def test_fused_mlp_w8a8_side_tile(gen, k2, slot, bits, dtype):
     y, so = fused_mlp(x, w1, w2, **kw, **side)
     grew = [key for key, c in fused_mlp.variants.items() if c != before.get(key, 0)]
     assert len(grew) == 1 and grew[0].endswith("+side8")
+    assert torch.equal(y, fused_mlp(x, w1, w2, **kw))
+    cpu_side = {key: tuple(t.cpu() for t in val) if isinstance(val, tuple) else val
+                for key, val in on_cpu(side).items()}
+    want_y, want_so = fused_mlp(x.cpu(), w1.cpu(), w2.cpu(), **on_cpu(kw), **cpu_side)
+    close(y, want_y)
+    w8a8_close(so, want_so, cpu_side)
+
+
+def stored_weight(gen, n, k, kind, dtype):
+    """(weight as the kernels stream it, its scale) of a random (n, k)
+    weight: in x's dtype, int8, or packed int4."""
+    w = rn(gen, n, k) * k**-0.5
+    return (w.to(dtype), None) if kind == "float" else quantized(w, 8 if kind == "int8" else 4)
+
+
+@pytest.mark.parametrize("kind", ["float", "int8", "int4"])
+@pytest.mark.parametrize("swiglu", [False, True])
+def test_row_gemv_row_alone_is_its_row_in_any_batch(gen, swiglu, kind):
+    """bf16 K1 and K2 on the weight-streaming body: a row alone (B 1) gives
+    the bits it gives as row 7 of 13 and row 50 of 64 (the plan, and with it
+    every column's sum order, does not follow B), three calls give the same
+    bits, and each batch holds to the plain version. K 2560 and 11,000
+    (launch 2), N 7680 (K1, OF-4B's QKV)."""
+    dt, k, k2, n = torch.bfloat16, 2560, 11000, 7680
+    wd, sd = stored_weight(gen, n, k, kind, dt)
+    w1, s1 = stored_weight(gen, k2, k, kind, dt)
+    w2, s2 = stored_weight(gen, k, k2, kind, dt)
+    wg, sg = stored_weight(gen, k2, k, kind, dt) if swiglu else (None, None)
+    ln, ln_b, bias = (1 + 0.1 * rn(gen, k)).to(dt), (0.1 * rn(gen, k)).to(dt), (0.1 * rn(gen, n)).to(dt)
+    mkw = dict(ln_scale=ln, w1_scale=s1, w2_scale=s2)
+    mkw.update(dict(w1_gate=wg, w1_gate_scale=sg, norm="rms", act="silu") if swiglu else dict(ln_bias=ln_b))
+    dkw = dict(w_scale=sd, ln_scale=ln, ln_bias=ln_b, bias=bias)
+    x = rn(gen, 64, k).to(dt)
+    rows = {1: (0, x[50:51]), 13: (7, x[43:56]), 64: (50, x)}
+    outs = {}
+    for b, (r, xb) in rows.items():
+        res = xb.clone()
+        calls = [(fused_mlp(xb, w1, w2, residual=res, **mkw), fused_dense(xb, wd, **dkw)) for _ in range(3)]
+        for y, h in calls[1:]:
+            assert torch.equal(y, calls[0][0]) and torch.equal(h, calls[0][1])
+        outs[b] = (calls[0][0][r], calls[0][1][r])
+        if b != 64:
+            close(calls[0][0], fused_mlp(xb.cpu(), w1.cpu(), w2.cpu(), residual=res.cpu(), **on_cpu(mkw)))
+            close(calls[0][1], fused_dense(xb.cpu(), wd.cpu(), **on_cpu(dkw)))
+    for b in (13, 64):
+        assert torch.equal(outs[b][0], outs[1][0]) and torch.equal(outs[b][1], outs[1][1]), b
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4])
+def test_fused_mlp_carrier_at_b64_is_bit_for_bit(gen, bits):
+    """K2 at B 64 carrying the W8A8 tile at ViT-L/14's width (SK 1,024) on
+    the pipe's MPT MLP shape (D 2048, hidden 8,192): y bit for bit the
+    launch's without the tile, both against the plain version."""
+    dt, b, k, k2 = torch.bfloat16, 64, 2048, 8192
+    x, ln = rn(gen, b, k).to(dt), (1 + 0.1 * rn(gen, k)).to(dt)
+    kind = {None: "float", 8: "int8", 4: "int4"}[bits]
+    (w1, s1), (w2, s2) = stored_weight(gen, k2, k, kind, dt), stored_weight(gen, k, k2, kind, dt)
+    kw = dict(ln_scale=ln, residual=x, w1_scale=s1, w2_scale=s2)
+    side = w8a8_side(gen, dt, 2112, 1024, 1024, SIDE_SLOTS[list(SIDE_SLOTS)[0]])
+    y, so = fused_mlp(x, w1, w2, **kw, **side)
     assert torch.equal(y, fused_mlp(x, w1, w2, **kw))
     cpu_side = {key: tuple(t.cpu() for t in val) if isinstance(val, tuple) else val
                 for key, val in on_cpu(side).items()}
@@ -1076,7 +1147,8 @@ def test_fused_layer_fp32_is_k3_then_k2_bit_for_bit(gen, b, bits, fused_qkv):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 # SwiGLU (the gated instance) with silu; relu alone (the runtime-activation
-# instance); a hidden size of 16,384 (the down-projection on CUDA cores in bf16)
+# instance); a hidden size of 16,384 (the down-projection on the
+# weight-streaming body with its K split across blocks in bf16)
 @pytest.mark.parametrize("swiglu,act,k2", [(True, "silu", 1024), (False, "relu", 1024), (False, "gelu", 16384)])
 def test_fused_layer_decode_forms(gen, swiglu, act, k2, dtype):
     args, kw = layer_operands(gen, 8, 256, 4, 64, k2, 64, False, dtype, swiglu=swiglu, act=act)

@@ -153,3 +153,78 @@ def test_attn_block_gated_xattn_plain_matches_pallas(rng):
                             gate=t(gate), **kw)
     close(got, want)
     assert torch.equal(got[1], t(x)[1])
+
+
+# The weight-streaming row GEMV's plan (ops.dense_stream.stream_plan), pure
+# Python: every K1/K2 product of a decode path, (N, K) as (out, in) of the
+# weight. OF-3B and OPT-1.3B (D 2048), OF-4B (D 2560), LLaMA-7B (D 4096,
+# its ragged test hidden 11,000) and MPT-7B's layer in K11.
+STREAM_SHAPES = [
+    (50434, 2048), (8192, 2048), (2048, 8192), (2048, 2048), (50272, 2048),   # OF-3B, OPT-1.3B
+    (7680, 2560), (50434, 2560), (10240, 2560), (2560, 10240),                # OF-4B
+    (4096, 4096), (32003, 4096), (11008, 4096), (4096, 11008), (16384, 4096), (4096, 16384),  # LLaMA-7B, MPT-7B
+    (11000, 4096), (4096, 11000),
+]
+STREAM_BATCHES = (1, 8, 13, 16, 64)
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+@pytest.mark.parametrize("wkind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("n,k", STREAM_SHAPES)
+def test_stream_plan_covers_every_column_and_chunk_once(n, k, wkind, sms):
+    """Each (column, 32-wide K chunk) of the product lies in exactly one
+    item; the slices are whole ring stages; the grid has work for every
+    block and no more blocks than SMs."""
+    from open_flamingo_tpu_torch.ops.dense_stream import STREAM_COLS, stream_items, stream_plan
+
+    plan = stream_plan(n, k, wkind, sms)
+    assert plan.stage_elems * {"bf16": 2, "int8": 1, "int4": 0.5}[wkind] == 128
+    assert plan.slices == -(-plan.stages // plan.slice) and 1 <= plan.blocks <= min(plan.items, sms)
+    chunks = -(-k // 32)
+    cover = np.zeros((plan.tiles, chunks), np.int32)
+    cols = np.zeros(n, np.int32)
+    for (c0, c1), (k0, k1) in stream_items(plan, n, k):
+        assert c0 % STREAM_COLS == 0 and 0 <= c0 < c1 <= n and 0 <= k0 < k1 <= k
+        assert k0 % plan.stage_elems == 0 and (k1 % plan.stage_elems == 0 or k1 == k)
+        cover[c0 // STREAM_COLS, k0 // 32:-(-k1 // 32)] += 1
+        if k0 == 0:
+            cols[c0:c1] += 1
+    assert (cover == 1).all() and (cols == 1).all()
+
+
+@pytest.mark.parametrize("wkind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("n,k", STREAM_SHAPES)
+def test_stream_plan_is_the_same_for_every_batch(n, k, wkind):
+    """The plans of K2's two launches (and K1's one) passed to the kernel do
+    not depend on B; only the split's scratch grows with B's n-tiles."""
+    from open_flamingo_tpu_torch.ops.dense_stream import STREAM_COLS, stream_launches
+
+    for sms in (114, 132):
+        launches = ((n, k, wkind, True), (k, n, wkind, False))
+        got = {b: stream_launches(b, launches, sms) for b in STREAM_BATCHES}
+        assert len({flat for flat, _ in got.values()}) == 1
+        for b, (_, floats) in got.items():
+            rows = 8 * -(-min(b, 64) // 8)
+            assert floats % (STREAM_COLS * rows) == 0
+
+
+def test_stream_shared_memory_fits_beside_the_side_tile_and_k11():
+    """The body's shared memory within sm_90's 232,448 B a block (either
+    instance), beside
+    K2b's ring tile in a carrier launch (csrc/side_tile.cuh `ring_smem` at
+    SK 1,024: bf16 and W8A8), and beside K11's attend statics (3 x 128 +
+    4 + 128 x 8 floats, csrc/attend.cuh)."""
+    from open_flamingo_tpu_torch.ops.dense_stream import (SIDE_MAX_K, SIDE_PASS, SIDE_ROWS, SMEM_OPTIN, STREAM_SMEM,
+                                                          STREAM_SMEM_SMALL, stream_ring)
+
+    for b in STREAM_BATCHES:
+        for gated in (False, True):
+            stages, ring, smem = stream_ring(b, gated)
+            assert smem == (STREAM_SMEM_SMALL if b <= 8 else STREAM_SMEM) <= SMEM_OPTIN
+            assert ring == 16 * stages * 2048 * (2 if gated else 1) and ring + 32 * 1024 <= smem
+            assert stages * (2 if gated else 1) == (6 if b <= 8 else 4)   # the same bytes a warp either form
+    for elem, stages in ((2, 3), (1, 5)):           # the bf16 and the W8A8 ring tile
+        side = 1024 + SIDE_ROWS * SIDE_MAX_K * elem + stages * SIDE_PASS * 128 + SIDE_ROWS * 4
+        assert max(STREAM_SMEM, side) <= 227 * 1024 <= SMEM_OPTIN
+    assert STREAM_SMEM + (3 * 128 + 4 + 128 * 8) * 4 <= SMEM_OPTIN
+    assert STREAM_SMEM_SMALL <= SMEM_OPTIN                  # the B <= 8 instance's deeper ring
