@@ -15,6 +15,9 @@ port spends its time on the card.
     python3 chip_profile.py gemv       # K1 and K2 alone at every row of PERF.md's kernel table, B 8 and 64
     python3 chip_profile.py vit        # K9, K10 and the ViT-L/14 forward alone (B 8, 32), kernels and plain
     python3 chip_profile.py k2         # plain K2 and K3 at OF-3B's shapes (bf16, int8, int4): the parent/change A/B
+    python3 chip_profile.py k36 [--parent=<csrc dir>] [--variants=no_split,...]
+                                       # K3 and K6 alone, B 8 and 64, this tree's decode_layer.cu,
+                                       # another checkout's and variants in turns in one process
     python3 chip_profile.py stream [--variants=empty,...]  # K1/K2's weight-streaming body against variants
     python3 chip_profile.py wall [model]  # host clock of 7 bf16 generate calls (OF-3B unless named)
     python3 chip_profile.py k45        # K4/K5's tensor-core body against variants of its source, one call
@@ -60,13 +63,25 @@ checkout times that checkout's kernels.
 OF-3B's MPT MLP in bf16, int8 and int4 (and int4 at the pipe's B 64) and
 its xattn FF, and K3 at OF-3B's
 self-attention layer (slot 40 of 64) in bf16 and int8 and its gated
-cross-attention layer: the instances whose bodies K11 shares, which must
-keep their speed. It imports only `fused_mlp`, `attn_block_decode`, the
+cross-attention layer: the separate launches K11 is held to. It imports
+only `fused_mlp`, `attn_block_decode`, the
 quantizers and chip_smoke.py's timer, so a copy in an older checkout times
 that checkout's kernels (parent, change, change, parent in one call); it
 saves each case's output beside the built kernels
 (`open_flamingo_tpu_torch/_build/k2_outputs_<tree>.pt`), so two trees'
 outputs can be held bit for bit.
+
+`k36` builds csrc/decode_layer.cu as this tree has it and, with
+`--parent=`, as another checkout's csrc directory has it (both at once,
+`build_variants`), and times K3 and K6 through their wrappers on each
+library in turns in one process (`times_in_turns`: change, parent, parent,
+change; the other library behind this tree's C interface,
+`ParentDecodeLayer`; `--variants=` adds builds with STREAM_VARIANTS' edits
+of csrc/rows_stream.cuh) at `k36_cases`: K3's OF-3B self-attention and gated
+block at B 8 and 64 with bf16, int8, int4 weights and int8 over the int8
+cache, K6 at OF-4B, LLaMA-7B and OPT-1.3B, K3 carrying a bf16 and a W8A8
+tile; each case with its bound, its library call and y's largest
+difference from this tree's.
 
 `k45` builds csrc/prefill_attention.cu as it is and as variants, each a
 copy with one constant or branch changed (two blocks per SM for the
@@ -118,6 +133,7 @@ import json
 import re
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -618,6 +634,19 @@ def absorb_times() -> int:
     return 0
 
 
+def gemv_symbols(rows) -> dict:
+    """The row GEMV kernels among a trace's device events (name, seconds,
+    count) by symbol, template arguments kept, the anonymous namespaces and
+    the parameter list dropped: [device seconds, launches] each, so a run
+    shows which body and which instances ran."""
+    out = {}
+    for name, t, n in rows:
+        if "gemv" in name:
+            key = name.replace("(anonymous namespace)::", "").split("(")[0]
+            out[key] = [out.get(key, [0.0, 0])[0] + t, out.get(key, [0.0, 0])[1] + n]
+    return out
+
+
 def device_time_by_kind(run, kinds) -> dict:
     """Trace one call of `run`: device seconds by kind of kernel (the first
     kind whose keys match a kernel's name), the busy total and the event
@@ -637,7 +666,7 @@ def device_time_by_kind(run, kinds) -> dict:
         by_kind[next((kind for kind, keys in kinds if any(key in name for key in keys)), "other")] += t
     rows.sort(key=lambda r: -r[1])
     return {"device_busy_s": sum(r[1] for r in rows), "device_s_by_kind": by_kind,
-            "device_events": sum(r[2] for r in rows),
+            "device_events": sum(r[2] for r in rows), "gemv_symbols": gemv_symbols(rows),
             "top": [{"name": k[:80], "device_s": t, "count": n} for k, t, n in rows[:8]]}
 
 
@@ -660,10 +689,12 @@ K45B_VARIANTS = {
 }
 
 
-def build_variants(source: str, variants: dict, tag: str, target: str = None) -> dict:
+def build_variants(source: str, variants: dict, tag: str, target: str = None, trees: dict = None) -> dict:
     """csrc/<source>.cu as it is and as each variant (edits of the source, or
-    of the csrc file `target`), one `nvcc` each, all started together, under
-    _build/<tag>_<name>/: name -> the loaded library."""
+    of the csrc file `target`), and as each of `trees` builds it (name -> a
+    csrc directory of another checkout, its own headers beside it), one
+    `nvcc` each, all started together, under _build/<tag>_<name>/: name ->
+    the loaded library. Each build's seconds are printed."""
     import ctypes
     import shutil
     import subprocess
@@ -677,34 +708,41 @@ def build_variants(source: str, variants: dict, tag: str, target: str = None) ->
             if old not in original:
                 raise RuntimeError(f"{tag}: variant {name}: {old!r} is not in {target}")
     procs = {}
-    for name, edits in {"as_is": (), **variants}.items():
+    builds = {name: (build.CSRC, edits) for name, edits in {"as_is": (), **variants}.items()}
+    builds.update({name: (Path(csrc), ()) for name, csrc in (trees or {}).items()})
+    for name, (csrc, edits) in builds.items():
         out = build.BUILD_DIR / f"{tag}_{name}"
         out.mkdir(parents=True, exist_ok=True)
-        for path in [build.CSRC / f"{source}.cu", *build.CSRC.glob("*.cuh")]:
+        for path in [csrc / f"{source}.cu", *csrc.glob("*.cuh")]:
             shutil.copy(path, out)
-        text = original
-        for old, new in edits:
-            text = text.replace(old, new)
-        (out / target).write_text(text)
+        if edits:
+            text = original
+            for old, new in edits:
+                text = text.replace(old, new)
+            (out / target).write_text(text)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out / "lib.so"), str(out / f"{source}.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                       time.perf_counter())
     libs = {}
-    for name, proc in procs.items():
+    for name, (proc, t0) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{tag}: nvcc failed for {name}:\n{text}")
+        print(json.dumps({"profile": f"{tag}_build", "build": name, "source": source,
+                          "seconds": time.perf_counter() - t0}), flush=True)
         libs[name] = ctypes.CDLL(str(build.BUILD_DIR / f"{tag}_{name}" / "lib.so"))
     return libs
 
 
 def times_in_turns(libs: dict, cases, profile: str) -> None:
-    """Each case (kernel, case, outputs, {part: call(lib)}), every variant in
-    turns, each twice: device ms of each part's launch (CUDA-graph replay)
-    and the largest difference of the outputs from the source as it is."""
+    """Each case (kernel, case, outputs, {part: call(lib)}, and optionally a
+    dict of fields printed with it), every variant in turns, each twice:
+    device ms of each part's launch (CUDA-graph replay) and the largest
+    difference of the outputs from the source as it is."""
     from chip_smoke import device_ms
 
-    for kernel, case, outs, calls in cases:
-        row = {"profile": profile, "kernel": kernel, "case": case}
+    for kernel, case, outs, calls, *extra in cases:
+        row = {"profile": profile, "kernel": kernel, "case": case, **(extra[0] if extra else {})}
         for turn in (list(libs), list(libs)[::-1]):
             for name in turn:
                 for call in calls.values():
@@ -758,6 +796,203 @@ def stream_times(argv) -> int:
                 row.setdefault(f"{name}_ms", []).append(device_ms(fn))
         dense_stream._lib = None
         print(json.dumps(row), flush=True)
+    print(card_line(), flush=True)
+    return 0
+
+
+def k36_cases(dev):
+    """K3 and K6 at the shapes of PERF.md's kernel table (bf16 activations):
+    K3's OF-3B self-attention (D 2,048, 16 heads of Dh 128, slot 40 of a
+    64-slot cache, ALiBi, rows 0 and 1 left-padded) and gated block (8 heads
+    of Dh 64 over 64 latents, LN bias, gate, row 3 before any image) at B 8
+    and 64, each with bf16, int8 and int4 weights and int8 weights over the
+    int8 cache; K6 at B 8 (slot 40 of 64) at OF-4B (D 2,560, 32 heads of Dh
+    80, bias), LLaMA-7B (D 4,096, 32 of 128) and OPT-1.3B (D 2,048, 32 of
+    64, bias and residual), the same four weight forms; K3 carrying K2b
+    tiles (K2b-attn): a bf16 (2,112 x 1,024) x (1,024 x 1,024) q/k/v tile on
+    the bf16 self and gated blocks at B 8, the pipe's W8A8 tile (16,896 rows)
+    on the int4 blocks at B 64. Yields (kernel, case, call, bytes, flops,
+    library call): the library call is F.linear for each product over the
+    bf16 weights (and the tile's product: F.linear, or torch._int_mm on
+    rows quantized untimed with the two scale multiplies)."""
+    import torch.nn.functional as F
+
+    from chip_smoke import left_padded_mask
+    from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes, quantize_kv
+    from open_flamingo_tpu_torch.models.layers import layer_norm
+    from open_flamingo_tpu_torch.ops import w8a8
+    from open_flamingo_tpu_torch.ops.decode_layer import attend_out_decode, attn_block_decode
+    from open_flamingo_tpu_torch.ops.dense_stream import side_activations
+    from open_flamingo_tpu_torch.quantize import pack_int4, quantize_weight
+
+    dt, es = torch.bfloat16, 2
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dt)
+
+    def stored(w, kind):      # (the weight as streamed, its scale, its bytes)
+        if kind == "bf16":
+            return w, None, w.numel() * es
+        q, sc = quantize_weight(w.float(), 8 if kind == "int8" else 4)
+        q = q if kind == "int8" else pack_int4(q)
+        return q, sc, q.numel() + 4 * sc.numel()
+
+    forms = (("", "bf16", False), ("_int8", "int8", False), ("_int4", "int4", False), ("_int8_kv8", "int8", True))
+    d, s = 2048, 64
+    ln, ln_b = 1 + rn(d, scale=0.1), rn(d, scale=0.1)
+    gate = torch.tensor([0.5], device=dev, dtype=dt)
+    slopes16 = torch.from_numpy(alibi_slopes(16)).to(dev)
+    # K2b-attn's tiles: ViT-L/14's q/k/v slot (D 1,024, S_pad 264 rows an image), bf16 and W8A8
+    vd, s_pad = 1024, 264
+    w_side, s_ln, s_b = rn(vd, vd, scale=vd**-0.5), (1 + rn(vd, scale=0.1), rn(vd, scale=0.1)), rn(vd, scale=0.1)
+    q_side, sc_side = quantize_weight(w_side.float(), 8)
+    # K3 self-attention and gated block: (name, heads, Dh, fused)
+    for name, h, dh, fused in (("self_S64_slot40", 16, 128, True), ("xattn_S64_gate", 8, 64, False)):
+        inner = h * dh
+        wq_f, wo_f = rn((3 if fused else 1) * inner, d, scale=d**-0.5), rn(d, inner, scale=inner**-0.5)
+        weights = {kind: (stored(wq_f, kind), stored(wo_f, kind)) for kind in ("bf16", "int8", "int4")}
+        for b, bsfx in ((8, ""), (64, "_B64")):
+            x, a_in = rn(b, d), rn(b, inner)
+            hn = layer_norm(x, ln, None if fused else ln_b)
+            k0, v0 = rn(b, h, s, dh), rn(b, h, s, dh)
+            (k8, ks8), (v8, vs8) = quantize_kv(k0.float()), quantize_kv(v0.float())
+            if fused:
+                mask = left_padded_mask(b, s, [4, 7], dev)
+                mask[:, 41:] = False
+                kw = dict(heads=h, head_dim=dh, scale=dh**-0.5, fused_qkv=True, slopes=slopes16,
+                          slot=torch.tensor([40], dtype=torch.int32, device=dev))
+            else:
+                mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+                mask[3] = False
+                kw = dict(heads=h, head_dim=dh, scale=dh**-0.5, gate=gate)
+            n_valid = int(mask.sum())
+            rows = n_valid + (b if fused else 0)         # cache rows read (and the slot's written)
+            lib = lambda hn=hn, a_in=a_in, wq_f=wq_f, wo_f=wo_f: (F.linear(hn, wq_f), F.linear(a_in, wo_f))
+            for sfx, kind, kv8 in forms:
+                (wq, sq, byq), (wo, so, byo) = weights[kind]
+                caches = (k8, v8, ks8, vs8) if kv8 else (k0, v0, None, None)
+                lnb = None if fused else ln_b
+                call = (lambda x=x, lnb=lnb, wq=wq, wo=wo, c=caches, mask=mask, kw=kw, sq=sq, so=so, **side:
+                        attn_block_decode(x, ln, lnb, wq, wo, c[0], c[1], mask, wq_scale=sq, wout_scale=so,
+                                          k_scale=c[2], v_scale=c[3], **kw, **side))
+                nbytes = (byq + byo + (2 * b * d + d * (1 + (not fused)) + (not fused)) * es
+                          + 2 * rows * h * (dh * (1 if kv8 else es) + 4 * kv8) + b * s + 4 * fused)
+                flops = 2 * b * d * ((3 if fused else 1) * inner + inner) + 4 * h * dh * n_valid
+                yield "attn_block_decode", f"{name}{sfx}{bsfx}", call, nbytes, flops, lib
+                # the carriers: a bf16 tile on the bf16 block at B 8, the W8A8 tile on the int4 block at B 64
+                if (b, kind, kv8) in ((8, "bf16", False), (64, "int4", False)):
+                    m = b * s_pad
+                    side_x = rn(m, vd, scale=2.0)
+                    hs = side_activations(side_x, s_ln, 1e-5)
+                    if b == 8:
+                        side = dict(side_x=side_x, side_w=w_side, side_ln=s_ln, side_b=s_b)
+                        tile_bytes = (2 * m * vd + 3 * vd + vd * vd) * es
+                        hs_b = hs.to(dt)
+                        tile_lib = lambda hs_b=hs_b: F.linear(hs_b, w_side)
+                        tag = "side"
+                    else:
+                        side = dict(side_x=side_x, side_w=q_side, side_w_scale=sc_side, side_ln=s_ln, side_b=s_b)
+                        tile_bytes = (2 * m * vd + 3 * vd) * es + vd * vd + 4 * vd
+                        q_pre, s_pre = w8a8.quantize_activations(hs)
+                        tile_lib = lambda q_pre=q_pre, s_pre=s_pre: (
+                            torch._int_mm(q_pre, q_side.t()).float() * s_pre * sc_side)
+                        tag = "side8_qkv"
+                    tile_ops = 2 * m * vd * vd // (1 if b == 8 else 2)   # bf16-equivalent: int8 at twice the rate
+                    yield ("attn_block_decode", f"{name}{sfx}{bsfx}_{tag}",
+                           lambda call=call, side=side: call(**side), nbytes + tile_bytes, flops + tile_ops,
+                           lambda lib=lib, tile_lib=tile_lib: (lib(), tile_lib()))
+        del weights, wq_f, wo_f
+    # K6: (name, D, heads, Dh, bias, residual)
+    for name, dm, h, dh, with_bias, with_res in (("neox_S64_slot40", 2560, 32, 80, True, False),
+                                                  ("llama_S64_slot40", 4096, 32, 128, False, False),
+                                                  ("opt_S64_slot40", 2048, 32, 64, True, True)):
+        b, inner = 8, h * dh
+        wo_f = rn(dm, inner, scale=inner**-0.5)
+        bias, res = (rn(dm, scale=0.1) if with_bias else None), (rn(b, dm) if with_res else None)
+        q, kn, vn, a_in = rn(b, h, dh), rn(b, h, dh), rn(b, h, dh), rn(b, inner)
+        k0, v0 = rn(b, h, s, dh), rn(b, h, s, dh)
+        (k8, ks8), (v8, vs8) = quantize_kv(k0.float()), quantize_kv(v0.float())
+        mask = left_padded_mask(b, s, [4, 7], dev)
+        mask[:, 41:] = False
+        n_valid = int(mask.sum())
+        slot = torch.tensor([40], dtype=torch.int32, device=dev)
+        lib = lambda a_in=a_in, wo_f=wo_f, bias=bias: F.linear(a_in, wo_f, bias)
+        for sfx, kind, kv8 in forms:
+            wo, so, byo = stored(wo_f, kind)
+            c = (k8, v8, ks8, vs8) if kv8 else (k0, v0, None, None)
+            call = (lambda q=q, c=c, mask=mask, wo=wo, so=so, kn=kn, vn=vn, bias=bias, res=res, slot=slot, dh=dh:
+                    attend_out_decode(q, c[0], c[1], mask, wo, scale=dh**-0.5, k_new=kn, v_new=vn, slot=slot,
+                                      wout_scale=so, bias=bias, residual=res, k_scale=c[2], v_scale=c[3]))
+            nbytes = (byo + (b * inner + b * dm + 2 * b * inner + dm * with_bias + b * dm * with_res) * es
+                      + 2 * n_valid * h * (dh * (1 if kv8 else es) + 4 * kv8) + b * s + 4)
+            yield "attend_out_decode", f"{name}{sfx}", call, nbytes, 2 * b * dm * inner + 4 * h * dh * n_valid, lib
+        del wo_f
+
+
+class ParentDecodeLayer:
+    """Another checkout's csrc/decode_layer.cu library from before its K3 and
+    K6 projections took weight-streaming plans (the parent's: the
+    tensor-core row GEMV of rows_gemv.cuh) behind this tree's C interface:
+    the wrappers' plan arguments are dropped on the way in."""
+
+    def __init__(self, lib):
+        import ctypes
+
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        side = [p, p, ll, p, p, p, f, i, p, p, ll, p, i, i, i, i]
+        lib.attn_block_decode_fwd.argtypes = [p] * 18 + [i] * 9 + [f, f, f, i, p]
+        lib.attend_out_decode_fwd.argtypes = [p] * 17 + [i] * 7 + [f, i, p]
+        lib.attn_block_decode_side_fwd.argtypes = [p] * 18 + [i] * 9 + [f, f, f, i] + side + [p]
+        self.lib = lib
+
+    # this tree's K3 entries: 31 arguments, the 7 of the plans, then the rest; K6's: 26, then 5 of the plan
+    def attn_block_decode_fwd(self, *a):
+        return self.lib.attn_block_decode_fwd(*a[:31], *a[38:])
+
+    def attn_block_decode_side_fwd(self, *a):
+        return self.lib.attn_block_decode_side_fwd(*a[:31], *a[38:])
+
+    def attend_out_decode_fwd(self, *a):
+        return self.lib.attend_out_decode_fwd(*a[:26], *a[31:])
+
+
+def k36_times(argv) -> int:
+    """K3 and K6 at k36_cases' shapes through their wrappers, on this tree's
+    csrc/decode_layer.cu and, with --parent=<csrc directory>, on another
+    checkout's (ParentDecodeLayer), and with --variants=a,b on builds whose
+    csrc/rows_stream.cuh has STREAM_VARIANTS' edits (a part of the body
+    skipped: what it costs), all built here at once (build_variants) and
+    timed in turns in this process (times_in_turns: change, parent, parent,
+    change); each case with its bound, its library call's time and the
+    largest difference of y from this tree's."""
+    from chip_smoke import bound, card_line, device_ms
+    from open_flamingo_tpu_torch.ops import decode_layer
+
+    parent = next((a.split("=", 1)[1] for a in argv if a.startswith("--parent=")), None)
+    names = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--variants=")), [])
+    built = build_variants("decode_layer", {n: STREAM_VARIANTS[n] for n in names}, "k36", "rows_stream.cuh",
+                           trees={"parent": parent} if parent else None)
+    libs = {name: ParentDecodeLayer(lib) if name == "parent" else decode_layer.bind(lib) for name, lib in built.items()}
+    dev = torch.device("cuda", 0)
+
+    def cases():
+        for kernel, case, fn, nbytes, flops, lib in k36_cases(dev):
+            y = fn()
+            buf = torch.empty_like(y[0] if isinstance(y, tuple) else y)
+
+            def call(lib_, fn=fn, buf=buf):
+                decode_layer._lib = lib_
+                y = fn()
+                if not torch.cuda.is_current_stream_capturing():   # the timed graph holds the launches alone
+                    buf.copy_(y[0] if isinstance(y, tuple) else y)
+                return 0
+            b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+            yield kernel, case, [buf], {"": call}, {"bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(lib)}
+
+    with torch.no_grad():
+        times_in_turns(libs, cases(), "k36_bf16")
+    decode_layer._lib = None
     print(card_line(), flush=True)
     return 0
 
@@ -921,6 +1156,8 @@ def main() -> int:
         return k2_times()
     if sys.argv[1:] == ["k45"]:
         return k45_times()
+    if sys.argv[1:2] == ["k36"]:
+        return k36_times(sys.argv[2:])
     if sys.argv[1:] == ["k45b"]:
         return k45b_times()
     if sys.argv[1:] == ["absorb"]:
@@ -1004,9 +1241,10 @@ def main() -> int:
         raise RuntimeError("the trace holds no device events")
     rows.sort(key=lambda r: -r[1])
     # device symbols of the hand-written kernels: the row GEMV (gemv_kernel
-    # on CUDA cores, gemv_mma_kernel on tensor cores) serves the projections
-    # of K3 and K6 and fp32 K1 and K2, gemv_stream_kernel (past 8 rows with
-    # a split K also gemv_stream_reduce_kernel) bf16 K1 and K2; K3's softmax
+    # on CUDA cores) serves fp32 K1, K2, K3 and K6, gemv_stream_kernel (past
+    # 8 rows with a split K also gemv_stream_reduce_kernel) their bf16
+    # projections, gemv_stream_side_kernel the bf16 K2 and K3 carriers
+    # (gemv_symbols lists each instance that ran); K3's softmax
     # is attend_kernel, K6's attend_out_kernel; K4 and K5 share attention_fwd_mma in bf16 (tensor
     # cores) and attention_fwd_kernel in fp32, K4b and K5b the two backward
     # kernels (attention_bwd_dq_mma / _dkv_mma in bf16, attention_bwd_dq_kernel
@@ -1054,7 +1292,7 @@ def main() -> int:
         "device_idle_share": 1.0 - busy / wall, "device_idle_share_untraced": 1.0 - busy / wall_untraced,
         "aten_op_rows_device_s": op_rows_s,
         "ported_kernel_device_s": ported, "gemv_share_of_busy": ported["gemv"] / busy,
-        "gemv_device_s_by_weight": gemv_by_weight, "device_s_by_kind": by_kind,
+        "gemv_device_s_by_weight": gemv_by_weight, "gemv_symbols": gemv_symbols(rows), "device_s_by_kind": by_kind,
         "device_events": sum(r[2] for r in rows),
         "top": [{"name": k[:80], "device_s": s, "count": n} for k, s, n in rows[:12]],
     }), flush=True)

@@ -9,9 +9,9 @@ Phases, each printing JSON lines:
               HMMA instructions of each K4/K5 and K4b/K5b kernel in their
               libraries' SASS (`cuobjdump --dump-sass`): each of the 12
               instances of a tensor-core kernel has some, the FMA bodies
-              none; K1/K2's weight-streaming instances all have some, and
-              no bf16 instance of the old row-GEMV bodies is left in
-              dense_stream;
+              none; K1/K2's and K3/K6's weight-streaming instances all
+              have some, and no bf16 instance of the old row-GEMV bodies
+              is left in dense_stream or decode_layer;
   2. kernels  each kernel of the generate path against its plain PyTorch
               version on the same card tensors, in fp32 and bf16, at
               OF-3B's shapes (B = 8) and edge cases: K1 fused_dense (final
@@ -138,9 +138,10 @@ Phases, each printing JSON lines:
               step.
      quantized  (the variants were checked in phase 2: `quant_kernel_cases`,
               int8 / packed int4 weights with per-channel scales and the
-              int8 caches, the slot's written int8 row within one step of
-              the plain version's at a rounding boundary in at most 0.1% of
-              its entries.) OF-3B with int8, int4 and int8 + int8 K/V and
+              int8 caches, K3's y over the int8 cache against the plain
+              version over the caches the kernel wrote, the slot's written
+              int8 row within one step of the plain version's at a rounding
+              boundary in at most 0.1% of its entries.) OF-3B with int8, int4 and int8 + int8 K/V and
               media caches, OF-4B with int8 + int8 caches (and int4, timed:
               the path that runs K1 and K6 with int4), LLaMA-7B as OF-3B
               (the path that runs K2's SwiGLU with int weights). fp32 on
@@ -285,6 +286,7 @@ QUANT_TIMED = {"head_V50434_int8", "head_V50434_int8_B64", "mpt_mlp_int4_B64", "
                "mpt_mlp_int8", "mpt_mlp_int4", "xattn_ff_int8", "xattn_ff_int4", "neox_mlp_bias_int8",
                "self_S64_slot40_int8", "self_S64_slot40_int4", "self_S64_slot40_int8_kv8", "self_S64_slot40_int4_kv8",
                "xattn_S64_gate_int8_kv8", "xattn_S64_gate_int4_kv8", "neox_xattn_S64_gate_int8_kv8",
+               "self_S64_slot40_int4_B64", "xattn_S64_gate_int4_B64",
                "neox_S64_slot40_int8_kv8", "neox_S64_slot40_int4", "neox_S64_slot40_int8", "neox_S64_slot40_int4_kv8"}
 # LLaMA-7B's and OPT-1.3B's shapes and the variants this slice added (llama_opt_kernel_cases)
 LLAMA_OPT_TIMED = {"llama_q_rms", "llama_q_rms_int8", "llama_q_rms_int4", "llama_head_rms_V32003",
@@ -434,9 +436,13 @@ def sass_kernels(path) -> dict:
 
 # the libraries whose launches carry side tiles; the carrier instances with the
 # fp32 tile (x fp32, no W8A8: gemv_side_kernel<float, W, false>)
-# (and their carrier instances with a ring tile: K2's 6 weight-streaming
-# carriers and 3 fp32 W8A8 ones; K3's 15)
-SIDE_LIBS = {"dense_stream": 9, "decode_layer": 15}
+# (and their carrier instances with a ring tile: K2's and K3's, each 6
+# weight-streaming carriers and 3 fp32 W8A8 ones)
+SIDE_LIBS = {"dense_stream": 9, "decode_layer": 9}
+# the weight-streaming instances of each library's row GEMVs (their HMMA
+# counted): K1/K2's 2 x 30 and 6 carriers; K3/K6's projections (bf16, int8,
+# int4 weights, B <= 8 and any B, fp32 q/k/v and bf16 out: 12) and 6 carriers
+STREAM_LIBS = {"dense_stream": 66, "decode_layer": 18}
 FP32_TILE = re.compile(r"gemv_side_kernel<float, [^<>]*, (false|0)>")
 OLD_BODY_F32 = re.compile(r"gemv_(side_)?kernel<float,")
 PREDICATED_HMMA = re.compile(r"(@!?U?P\w+\s+)?HMMA")   # the body's products run under the n-tile's predicate
@@ -471,15 +477,16 @@ def phase_build() -> None:
         require(len(ring) == want and min(ring.values()) > 0,
                 f"{lib}: side-kernel instances {gmma[lib]}, {want} with wgmma expected")
         require(not any(n for name, n in gmma[lib].items() if name not in ring), f"{lib}: the fp32 tile issues wgmma")
-    # K1/K2: every bf16 launch runs the weight-streaming body (HMMA in each of
-    # its 2 x 30 instances, B <= 8 and any B, and its 6 carriers); the old
-    # bodies only in fp32
-    k12 = {name.split("(")[0]: sum(bool(PREDICATED_HMMA.match(ins)) for ins in code)
-           for name, code in sass_kernels(build.target("dense_stream")).items()}
-    stream = {name: n for name, n in k12.items() if "gemv_stream" in name and "reduce" not in name}
-    require(len(stream) == 66 and min(stream.values()) > 0, f"dense_stream: weight-streaming instances {stream}")
-    old = [name for name in k12 if "stream" not in name and ("_mma_" in name or not OLD_BODY_F32.search(name))]
-    require(not old, f"dense_stream: bf16 instances of the old row GEMV bodies: {old}")
+    # K1/K2 and K3/K6: every bf16 launch runs the weight-streaming body (HMMA
+    # in each of its instances, B <= 8 and any B, and its carriers); the old
+    # bodies only in fp32 (beside K3's and K6's attend kernels)
+    for lib, want in STREAM_LIBS.items():
+        rows_ = {name.split("(")[0]: sum(bool(PREDICATED_HMMA.match(ins)) for ins in code)
+                 for name, code in sass_kernels(build.target(lib)).items() if "attend" not in name}
+        stream = {name: n for name, n in rows_.items() if "gemv_stream" in name and "reduce" not in name}
+        require(len(stream) == want and min(stream.values()) > 0, f"{lib}: weight-streaming instances {stream}")
+        old = [name for name in rows_ if "stream" not in name and ("_mma_" in name or not OLD_BODY_F32.search(name))]
+        require(not old, f"{lib}: bf16 instances of the old row GEMV bodies: {old}")
     log({"phase": "build", "seconds": seconds, "sources": build.sources(), "ptxas": regs,
          **{f"{lib}_hmma": counts for lib, counts in hmma.items()},
          **{f"{lib}_side_gmma": counts for lib, counts in gmma.items()}})
@@ -1052,11 +1059,29 @@ def int8_slot_check(kernel, case, dtype, caches, plain_caches, originals, slot):
     require(scale_err <= (1e-5 if dtype == torch.float32 else 1e-3), f"{kernel}/{case}: slot scales differ")
 
 
+def over_written_cache(x, ln, ln_b, wq, wout, caches, mask, kw):
+    """Plain K3's y over an int8 cache as the kernel wrote it: the q-only
+    form (Wqkv's q rows and their scales) over the kernel's caches
+    (k, v, k_scale, v_scale), so both sides attend to the same new-token K/V
+    row. A plain version that quantizes its own row may put an entry at a
+    rounding boundary one int8 step the other way, which moves y by ~1e-3;
+    the written row is held apart, against the plain version's
+    (int8_slot_check)."""
+    inner = kw["heads"] * kw["head_dim"]
+    qkw = {key: val for key, val in kw.items() if key not in ("fused_qkv", "slot", "wq_scale")}
+    return reference_attn_block(x, ln, ln_b, wq[:inner], wout, caches[0], caches[1], mask,
+                                wq_scale=kw["wq_scale"][:inner], k_scale=caches[2], v_scale=caches[3], **qkw)
+
+
 def quant_kernel_cases(dtype, gen, dev):
     """The quantized variants (int8 / packed int4 weights with per-channel
     scales, the int8 K/V and media caches) at the shapes of the quantized
     generate paths, and edge cases, then the B 64 pipe's K1 (the tied head
-    in int8) and K2 (the MPT MLP in int4). Yields as kernel_cases. No
+    in int8) and K2 (the MPT MLP in int4). K3's
+    self-attention over the int8 cache is held in two parts: y against the
+    plain version over the caches the kernel wrote (`over_written_cache`),
+    the written slot row against the plain version's own
+    (`int8_slot_check`). Yields as kernel_cases. No
     PyTorch call streams per-channel int weights with these epilogues: the
     library column times F.linear over the bf16 weight, the bare product at
     two or four times the bytes."""
@@ -1139,6 +1164,9 @@ def quant_kernel_cases(dtype, gen, dev):
                     c = [t.clone() if t is not None else None for t in o]
                     return reference_attn_block(x, ln, None, qq, qo, c[0], c[1], mask, k_scale=c[2], v_scale=c[3],
                                                 **kw)[0]
+                if kv8:    # y over the caches fn wrote: its slot row is held by int8_slot_check below
+                    plain = lambda c=caches, mask=mask, kw=kw, qq=qq, qo=qo: over_written_cache(
+                        x, ln, None, qq, qo, c, mask, kw)
                 n_valid = mask.sum().item()
                 ces = 1 if kv8 else es
                 cost = (byq + byo + (2 * B * d + d) * es + 2 * (n_valid + B) * h * dh * ces
@@ -1234,7 +1262,6 @@ def quant_kernel_cases(dtype, gen, dev):
 
     # the B 64 pipe's K1 and K2 (bench.py b64_i4_pipe): OF-3B's tied head in
     # int8, its MPT MLP in int4, all 64 rows in one pass of the weights
-    # (last: the cases above keep their seeded inputs)
     b64, d, v, k2 = 64, 2048, 50434, 8192
     x, ln = rn(b64, d), 1 + rn(d, scale=0.1)
     hn = layer_norm(x, ln, None)
@@ -1249,6 +1276,57 @@ def quant_kernel_cases(dtype, gen, dev):
     cost = (by1 + by2 + (2 * b64 * d + d) * es, 4 * b64 * d * k2)
     yield ("fused_mlp", "mpt_mlp_int4_B64", lambda: fused_mlp(x, q1, q2, **kw), lambda: reference_mlp(x, q1, q2, **kw),
            None, cost, lambda: F.linear(F.linear(hn, w1), w2), "F.linear twice over the bf16 weights")
+
+def pipe_k3_kernel_cases(dtype, gen, dev):
+    """The B 64 pipe's K3 (bench.py b64_i4_pipe), int4 weights over caches
+    in x's dtype, all 64 rows in one pass of the weights: MPT-1B's
+    self-attention (slot 40 of 64, ALiBi, rows 0 and 1 left-padded) and the
+    gated block over 64 latents (row 3 before any image: y == x there).
+    Drawn after every other case of the phase, so theirs keep their seeded
+    inputs. Yields as kernel_cases."""
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    slopes16 = torch.from_numpy(alibi_slopes(16)).to(dev)
+    gate = torch.tensor([0.5], device=dev, dtype=dtype)
+    b64, d = 64, 2048
+    x, ln = rn(b64, d), 1 + rn(d, scale=0.1)
+    hn = layer_norm(x, ln, None)
+    h, dh, s = 16, 128, 64
+    wqkv, wout = rn(3 * d, d, scale=d**-0.5), rn(d, d, scale=d**-0.5)
+    (qq, sq, byq), (qo, so, byo) = qweight(wqkv, 4), qweight(wout, 4)
+    k0, v0 = rn(b64, h, s, dh), rn(b64, h, s, dh)
+    kc, vc = k0.clone(), v0.clone()
+    mask = left_padded_mask(b64, s, [4, 7], dev)
+    mask[:, 41:] = False
+    kw = dict(heads=h, head_dim=dh, scale=dh**-0.5, fused_qkv=True, slopes=slopes16, wq_scale=sq, wout_scale=so,
+              slot=torch.tensor([40], dtype=torch.int32, device=dev))
+    n_valid = mask.sum().item()
+    a_in = rn(b64, d)
+    cost = (byq + byo + (2 * b64 * d + d + 2 * (n_valid + b64) * h * dh) * es + b64 * s + 4,
+            8 * b64 * d * d + 4 * h * dh * n_valid)
+    yield ("attn_block_decode", "self_S64_slot40_int4_B64",
+           lambda: attn_block_decode(x, ln, None, qq, qo, kc, vc, mask, **kw)[0],
+           lambda: reference_attn_block(x, ln, None, qq, qo, k0.clone(), v0.clone(), mask, **kw)[0], None, cost,
+           lambda: (F.linear(hn, wqkv), F.linear(a_in, wout)), "F.linear for Wqkv and Wout over the bf16 weights")
+    hx, dx = 8, 64
+    ln_b = rn(d, scale=0.1)
+    wq, wo = rn(hx * dx, d, scale=d**-0.5), rn(d, hx * dx, scale=(hx * dx) ** -0.5)
+    (qq, sq, byq), (qo, so, byo) = qweight(wq, 4), qweight(wo, 4)
+    km, vm = rn(b64, hx, s, dx), rn(b64, hx, s, dx)
+    mask = torch.ones(b64, s, dtype=torch.bool, device=dev)
+    mask[3] = False
+    kw = dict(heads=hx, head_dim=dx, scale=dx**-0.5, gate=gate, wq_scale=sq, wout_scale=so)
+    n_valid = mask.sum().item()
+    cost = (byq + byo + (2 * b64 * d + 2 * d + 1 + 2 * n_valid * hx * dx) * es + b64 * s,
+            4 * b64 * d * hx * dx + 4 * hx * dx * n_valid)
+    hn_b, a_x = layer_norm(x, ln, ln_b), rn(b64, hx * dx)
+    yield ("attn_block_decode", "xattn_S64_gate_int4_B64",
+           lambda: attn_block_decode(x, ln, ln_b, qq, qo, km, vm, mask, **kw),
+           lambda: reference_attn_block(x, ln, ln_b, qq, qo, km, vm, mask, **kw),
+           lambda got: torch.equal(got[3], x[3]), cost, lambda: (F.linear(hn_b, wq), F.linear(a_x, wo)),
+           "F.linear for Wq and Wout over the bf16 weights")
 
 
 def vit_kernel_cases(dtype, gen, dev):
@@ -1746,7 +1824,8 @@ def phase_kernels(dev) -> dict:
         cases = itertools.chain(kernel_cases(dtype, gen, dev), neox_kernel_cases(dtype, gen, dev),
                                 quant_kernel_cases(dtype, gen, dev), llama_opt_kernel_cases(dtype, gen, dev),
                                 vit_kernel_cases(dtype, gen, dev), absorb_kernel_cases(dtype, gen, dev),
-                                w8a8_kernel_cases(dtype, gen, dev), layer_kernel_cases(dtype, gen, dev))
+                                w8a8_kernel_cases(dtype, gen, dev), layer_kernel_cases(dtype, gen, dev),
+                                pipe_k3_kernel_cases(dtype, gen, dev))
         for name, case, fn, plain, exact, cost, lib, lib_is in cases:
             got, launched = launched_variant(functions[name], fn)
             torch.cuda.synchronize()

@@ -14,7 +14,7 @@
 // out-projection sums over every head, so the body runs as three launches
 // on one stream, each with the whole card:
 //   1. proj = clip(LN(x) @ Wq^T) in fp32 (B, 3*H*Dh or H*Dh) -- the row
-//      GEMV of rows_gemv.cuh; q/k/v stay UNROUNDED, as in the TPU kernel;
+//      GEMV (below); q/k/v stay UNROUNDED, as in the TPU kernel;
 //   2. one block per (b, h): writes the new K/V row at `slot` rounded to the
 //      cache dtype, attends with the unrounded fp32 K/V at that slot (the
 //      TPU kernel's `jnp.where(at_slot, kn, k)`), writes the head's output
@@ -29,8 +29,13 @@
 // valid key gives exact zeros (0-denominator guard), as the TPU kernel's.
 //
 // Bound: the weight bytes (Wqkv + Wout, 33.6 MB at MPT-1B bf16) plus the
-// valid cache rows, over 3.35 TB/s. Launches 1 and 3 stream the weights at
-// the row GEMV's rate (tensor cores in bf16); launch 2 is key-parallel (see
+// valid cache rows, over 3.35 TB/s. Launches 1 and 3 stream the weights:
+// in bf16 on the weight-streaming row GEMV of rows_stream.cuh (a cp.async
+// ring per warp into mma.sync, every row of B <= 64 in one pass of W, K cut
+// into slices by the plan ops/dense_stream.py `stream_plan` computes from
+// the shape and the SM count and the wrapper passes in, so a column's sums
+// add in one order for any B), in fp32 on rows_gemv.cuh's CUDA-core body
+// (the exact path of the card's fp32 gates); launch 2 is key-parallel (see
 // attend_body, csrc/attend.cuh, which K11's attention phase shares), so its
 // latency is two rounds of loads, not a chain per key.
 //
@@ -38,12 +43,12 @@
 // side_w, `side_tile_compute` on each head group's grid step): a tile of the
 // absorbed next-batch ViT rides launch 3, the out-projection, as extra
 // blocks after the row GEMV's (side_tile.cuh's `launch_gemv_side`, the form
-// that carries K2's down-projection, here with K3's own body: rows_gemv.cuh's,
-// where K2's bf16 carrier runs rows_stream.cuh's), in x's dtype or the W8A8
-// tile. Launch 3 is the row GEMV without norm or activation whose epilogue is
-// K2's down-projection's (scale, gate, residual), so its blocks run the body
-// of the launch without a tile on the same grid: y, and the caches written
-// by launch 2, are bit for bit those of the call without a tile. It is the simplest host: launch 1
+// that carries K2's down-projection: in bf16 the weight-streaming body on
+// launch 3's plan and split), in x's dtype or the W8A8 tile. Launch 3 is the
+// row GEMV without norm or activation whose epilogue is K2's
+// down-projection's (scale, gate, residual), so its blocks run the body of
+// the launch without a tile on the same plan: y, and the caches written by
+// launch 2, are bit for bit those of the call without a tile. It is the simplest host: launch 1
 // (Wqkv, 25.2 MB at MPT-1B bf16 against Wout's 8.4 MB) streams more bytes
 // for the tile to hide under, but its output is fp32 and its grid is the
 // projection's; a later PR can move the tile there if the out-projection
@@ -59,14 +64,15 @@
 //
 // The TPU kernel's head grid carries the out-projection sum in VMEM across
 // heads; here the head outputs go through a (B, H*Dh) scratch and one row
-// GEMV sums over all heads in fp32, its epilogue in the TPU kernel's order.
+// GEMV (K3's launch 3 in form, on its own plan) sums over all heads in fp32,
+// its epilogue in the TPU kernel's order.
 // Bound: Wout (13.1 MB at RedPajama-3B bf16) plus the valid cache rows.
 //
 // Quantized decode, both kernels (the TPU kernels' int8 / int4 weights and
 // int8 KV cache). The projections stream int8 or packed int4 weights
-// through the row GEMV (rows_gemv.cuh), each per-out-channel scale first in
-// its epilogue: K3's q/k/v before clip_qkv, the out-projections before the
-// gate, bias and residual. The int8 cache holds int8 K/V rows with one fp32
+// through the row GEMV (converted exactly before the product), each
+// per-out-channel scale first in its epilogue: K3's q/k/v before clip_qkv,
+// the out-projections before the gate, bias and residual. The int8 cache holds int8 K/V rows with one fp32
 // scale per (b, h, s) row: the block that owns (b, h) quantizes the new
 // token's K and V over Dh itself (amax by a block reduction, scale
 // amax / 127 or 1, round half to even of a true division), writes the int8
@@ -78,9 +84,13 @@
 
 #include "attend.cuh"
 #include "rows_gemv.cuh"
+#include "rows_stream.cuh"
 #include "side_tile.cuh"
 
 namespace {
+
+using rows::StreamPlan;
+using rows::StreamSplit;
 
 // K3's softmax launch: proj (B, p) fp32, H_kv = H.
 template <typename T, typename C>
@@ -103,17 +113,31 @@ __global__ void __launch_bounds__(kAttnThreads) attend_out_kernel(
                     h_kv, s, d, scale);
 }
 
+// One projection of K3 or K6 (no gated weight, no activation), W stored as
+// wtype says: bf16 rows on the weight-streaming body with its plan, fp32 on
+// the CUDA-core body.
+template <typename T, typename OutT>
+cudaError_t project(int wtype, const T* x, const T* ln_s, const T* ln_b, float eps, const void* w,
+                    rows::Epilogue<T> ep, OutT* out, int b, int n, int k, StreamPlan plan, StreamSplit split,
+                    cudaStream_t st) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return rows::launch_stream_projection<OutT>(wtype, x, ln_s, ln_b, eps, w, ep, out, b, n, k, plan, split, st);
+  else
+    return rows::launch_gemv_norm<T, OutT>(wtype, x, ln_s, ln_b, eps, rows::kLayerNorm, w, nullptr, ep, out, b, n,
+                                           k, st);
+}
+
 template <typename T>
 int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, const void* wq_scale, const void* wout,
           const void* wout_scale, void* k, void* v, void* k_s, void* v_s, const void* mask, const void* slopes,
           const void* gate, const void* slot, void* proj, void* attn, void* out, int b, int dm, int h, int d, int s,
           int fused_qkv, int has_clip, int wq_type, int wout_type, float clip, float scale, float eps,
-          cudaStream_t st, const side::Args<T>* sa = nullptr) {
+          StreamPlan plan1, StreamPlan plan3, StreamSplit split, cudaStream_t st, const side::Args<T>* sa = nullptr) {
   const int inner = h * d;
   const int p = fused_qkv ? 3 * inner : inner;
   rows::Epilogue<T> ep1{(const float*)wq_scale, nullptr, has_clip, clip, 0, nullptr, nullptr};
-  cudaError_t e = rows::launch_gemv_norm<T, float>(wq_type, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps,
-                                                   rows::kLayerNorm, wq, nullptr, ep1, (float*)proj, b, p, dm, st);
+  cudaError_t e = project<T, float>(wq_type, (const T*)x, (const T*)ln_s, (const T*)ln_b, eps, wq, ep1, (float*)proj,
+                                    b, p, dm, plan1, split, st);
   if (e != cudaSuccess) return (int)e;
   const int* sl = fused_qkv ? (const int*)slot : nullptr;
   if (k_s != nullptr)
@@ -128,9 +152,10 @@ int block(const void* x, const void* ln_s, const void* ln_b, const void* wq, con
   if (e != cudaSuccess) return (int)e;
   rows::Epilogue<T> ep3{(const float*)wout_scale, nullptr, 0, 0.f, 0, (const T*)gate, (const T*)x};
   if (sa != nullptr)
-    return (int)side::launch_gemv_side<T, false>(wout_type, (const T*)attn, wout, ep3, (T*)out, b, dm, inner, *sa, st);
-  return (int)rows::launch_gemv_norm<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, rows::kLayerNorm, wout,
-                                           nullptr, ep3, (T*)out, b, dm, inner, st);
+    return (int)side::launch_gemv_side<T>(wout_type, (const T*)attn, wout, ep3, (T*)out, b, dm, inner, *sa, st,
+                                          &plan3, split);
+  return (int)project<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, wout, ep3, (T*)out, b, dm, inner, plan3,
+                            split, st);
 }
 
 // K6: attend, then out = residual + tanh(gate) * (attn @ Wout^T * wout_scale + bias).
@@ -138,7 +163,8 @@ template <typename T>
 int attend_out(const void* q, void* k, void* v, void* k_s, void* v_s, const void* kn, const void* vn,
                const void* slot, const void* mask, const void* slopes, const void* wout, const void* wout_scale,
                const void* bias, const void* gate, const void* residual, void* attn, void* out, int b, int h,
-               int h_kv, int s, int d, int dm, int wout_type, float scale, cudaStream_t st) {
+               int h_kv, int s, int d, int dm, int wout_type, float scale, StreamPlan plan, StreamSplit split,
+               cudaStream_t st) {
   if (k_s != nullptr)
     attend_out_kernel<T, int8_t><<<b * h, kAttnThreads, s * sizeof(float), st>>>(
         (const T*)q, (const T*)kn, (const T*)vn, (int8_t*)k, (int8_t*)v, (float*)k_s, (float*)v_s,
@@ -150,8 +176,8 @@ int attend_out(const void* q, void* k, void* v, void* k_s, void* v_s, const void
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   rows::Epilogue<T> ep{(const float*)wout_scale, (const T*)bias, 0, 0.f, 0, (const T*)gate, (const T*)residual};
-  return (int)rows::launch_gemv_norm<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, rows::kLayerNorm, wout,
-                                           nullptr, ep, (T*)out, b, dm, h * d, st);
+  return (int)project<T, T>(wout_type, (const T*)attn, nullptr, nullptr, 0.f, wout, ep, (T*)out, b, dm, h * d, plan,
+                            split, st);
 }
 
 }  // namespace
@@ -163,25 +189,32 @@ int attend_out(const void* q, void* k, void* v, void* k_s, void* v_s, const void
 // fp32 (else NULL); mask (B, S) uint8; slopes (H,) fp32 or NULL; gate (1,)
 // or NULL; slot (1,) int32 on the device (fused_qkv only); scratch proj
 // (B, 3*H*Dh or H*Dh) fp32 and attn (B, H*Dh); out (B, D). Tensors in x's
-// dtype unless stated; dtype 0 = fp32, 1 = bf16.
+// dtype unless stated; dtype 0 = fp32, 1 = bf16. bf16 only: (slice1,
+// blocks1), (slice3, blocks3) the weight-streaming plans of launches 1 and
+// 3 (ops/dense_stream.py `stream_plan`), scratch and counters as
+// fused_mlp_fwd's (dense_stream.cu), shared by both launches.
 extern "C" int attn_block_decode_fwd(const void* x, const void* ln_s, const void* ln_b, const void* wq,
                                      const void* wq_scale, const void* wout, const void* wout_scale, void* k,
                                      void* v, void* k_s, void* v_s, const void* mask, const void* slopes,
                                      const void* gate, const void* slot, void* proj, void* attn, void* out, int b,
                                      int dm, int h, int d, int s, int fused_qkv, int has_clip, int wq_type,
-                                     int wout_type, float clip, float scale, float eps, int dtype, void* stream) {
+                                     int wout_type, float clip, float scale, float eps, int dtype, int slice1,
+                                     int blocks1, int slice3, int blocks3, void* scratch, void* counters, int ncount,
+                                     void* stream) {
   if (d < 1 || d > kMaxD || d % rows::kVec != 0 || b < 1 || h < 1 || s < 1 || s > kMaxS)
     return (int)cudaErrorInvalidValue;
   if ((fused_qkv && slot == nullptr) || (k_s == nullptr) != (v_s == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const StreamPlan plan1{slice1, blocks1}, plan3{slice3, blocks3};
+  const StreamSplit split{(float*)scratch, (int*)counters, ncount, 0};
   if (dtype == 0)
     return block<float>(x, ln_s, ln_b, wq, wq_scale, wout, wout_scale, k, v, k_s, v_s, mask, slopes, gate, slot,
                         proj, attn, out, b, dm, h, d, s, fused_qkv, has_clip, wq_type, wout_type, clip, scale, eps,
-                        st);
+                        plan1, plan3, split, st);
   if (dtype == 1)
     return block<__nv_bfloat16>(x, ln_s, ln_b, wq, wq_scale, wout, wout_scale, k, v, k_s, v_s, mask, slopes, gate,
                                 slot, proj, attn, out, b, dm, h, d, s, fused_qkv, has_clip, wq_type, wout_type, clip,
-                                scale, eps, st);
+                                scale, eps, plan1, plan3, split, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -195,22 +228,25 @@ extern "C" int attn_block_decode_side_fwd(const void* x, const void* ln_s, const
                                           const void* gate, const void* slot, void* proj, void* attn, void* out,
                                           int b, int dm, int h, int d, int s, int fused_qkv, int has_clip,
                                           int wq_type, int wout_type, float clip, float scale, float eps, int dtype,
-                                          const void* side_x, const void* side_w, long long side_ldw,
-                                          const void* side_ws, const void* side_ln_s, const void* side_ln_b,
-                                          float side_eps, int side_act, const void* side_b, const void* side_res,
-                                          long long side_ldr, void* side_out, int m, int sn, int sk, int side_span,
-                                          void* stream) {
+                                          int slice1, int blocks1, int slice3, int blocks3, void* scratch,
+                                          void* counters, int ncount, const void* side_x, const void* side_w,
+                                          long long side_ldw, const void* side_ws, const void* side_ln_s,
+                                          const void* side_ln_b, float side_eps, int side_act, const void* side_b,
+                                          const void* side_res, long long side_ldr, void* side_out, int m, int sn,
+                                          int sk, int side_span, void* stream) {
   if (d < 1 || d > kMaxD || d % rows::kVec != 0 || b < 1 || h < 1 || s < 1 || s > kMaxS)
     return (int)cudaErrorInvalidValue;
   if ((fused_qkv && slot == nullptr) || (k_s == nullptr) != (v_s == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const StreamPlan plan1{slice1, blocks1}, plan3{slice3, blocks3};
+  const StreamSplit split{(float*)scratch, (int*)counters, ncount, 0};
   if (dtype == 0) {
     const side::Args<float> sa = side::args<float>(side_x, side_w, side_ldw, side_ws, side_ln_s, side_ln_b, side_eps,
                                                    side_act, side_b, side_res, side_ldr, side_out, m, sn, sk,
                                                    side_span);
     return block<float>(x, ln_s, ln_b, wq, wq_scale, wout, wout_scale, k, v, k_s, v_s, mask, slopes, gate, slot,
                         proj, attn, out, b, dm, h, d, s, fused_qkv, has_clip, wq_type, wout_type, clip, scale, eps,
-                        st, &sa);
+                        plan1, plan3, split, st, &sa);
   }
   if (dtype == 1) {
     const side::Args<__nv_bfloat16> sa = side::args<__nv_bfloat16>(side_x, side_w, side_ldw, side_ws, side_ln_s,
@@ -218,7 +254,7 @@ extern "C" int attn_block_decode_side_fwd(const void* x, const void* ln_s, const
                                                                     side_ldr, side_out, m, sn, sk, side_span);
     return block<__nv_bfloat16>(x, ln_s, ln_b, wq, wq_scale, wout, wout_scale, k, v, k_s, v_s, mask, slopes, gate,
                                 slot, proj, attn, out, b, dm, h, d, s, fused_qkv, has_clip, wq_type, wout_type, clip,
-                                scale, eps, st, &sa);
+                                scale, eps, plan1, plan3, split, st, &sa);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -231,22 +267,27 @@ extern "C" int attn_block_decode_side_fwd(const void* x, const void* ln_s, const
 // packed int4 as wout_type says, wout_scale (D,) fp32 or NULL; bias (D,),
 // gate (1,), residual (B, D), each or NULL; scratch attn (B, H*Dh); out
 // (B, D). Tensors in q's dtype unless stated; dtype 0 = fp32, 1 = bf16.
+// bf16 only: (slice, blocks) the out-projection's weight-streaming plan,
+// scratch and counters as attn_block_decode_fwd's.
 extern "C" int attend_out_decode_fwd(const void* q, void* k, void* v, void* k_s, void* v_s, const void* kn,
                                      const void* vn, const void* slot, const void* mask, const void* slopes,
                                      const void* wout, const void* wout_scale, const void* bias, const void* gate,
                                      const void* residual, void* attn, void* out, int b, int h, int h_kv, int s, int d,
-                                     int dm, int wout_type, float scale, int dtype, void* stream) {
+                                     int dm, int wout_type, float scale, int dtype, int slice, int blocks,
+                                     void* scratch, void* counters, int ncount, void* stream) {
   if (d < 1 || d > kMaxD || d % rows::kVec != 0 || b < 1 || h < 1 || h_kv < 1 || h % h_kv != 0 || s < 1 ||
       s > kMaxS || dm < 1)
     return (int)cudaErrorInvalidValue;
   if ((kn == nullptr) != (vn == nullptr) || (kn == nullptr) != (slot == nullptr) || (k_s == nullptr) != (v_s == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const StreamPlan plan{slice, blocks};
+  const StreamSplit split{(float*)scratch, (int*)counters, ncount, 0};
   if (dtype == 0)
     return attend_out<float>(q, k, v, k_s, v_s, kn, vn, slot, mask, slopes, wout, wout_scale, bias, gate, residual,
-                             attn, out, b, h, h_kv, s, d, dm, wout_type, scale, st);
+                             attn, out, b, h, h_kv, s, d, dm, wout_type, scale, plan, split, st);
   if (dtype == 1)
     return attend_out<__nv_bfloat16>(q, k, v, k_s, v_s, kn, vn, slot, mask, slopes, wout, wout_scale, bias, gate,
-                                     residual, attn, out, b, h, h_kv, s, d, dm, wout_type, scale, st);
+                                     residual, attn, out, b, h, h_kv, s, d, dm, wout_type, scale, plan, split, st);
   return (int)cudaErrorInvalidValue;
 }

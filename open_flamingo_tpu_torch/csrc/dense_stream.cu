@@ -103,8 +103,8 @@ int mlp(const void* x, const void* w1, const void* w1g, const void* w2, const vo
   rows::Epilogue<T> down{(const float*)w2_scale, (const T*)b2, 0, 0.f, rows::kNone, (const T*)gate,
                          (const T*)residual, nullptr};
   if (sa != nullptr)
-    return (int)side::launch_gemv_side<T, true>(w2type, (const T*)hidden, w2, down, (T*)out, b, n, k2, *sa, st,
-                                                &down_plan, split);
+    return (int)side::launch_gemv_side<T>(w2type, (const T*)hidden, w2, down, (T*)out, b, n, k2, *sa, st, &down_plan,
+                                          split);
   return (int)gemv<T>(w2type, (const T*)hidden, nullptr, nullptr, 0.f, rows::kLayerNorm, w2, nullptr, down, (T*)out,
                       b, n, k2, down_plan, split, st);
 }

@@ -35,14 +35,16 @@
 //   4. u = act(LN2(x2) @ W1^T * w1_scale + b1) [* LN2(x2) @ W1g^T * w1g_scale],
 //      rounded to x's dtype (B, K2);
 //   5. y = x2 + tanh(gate2) * (u @ W2^T * w2_scale + b2), in x's dtype.
-// Each GEMV phase runs the separate launch's row GEMV body with the physical
-// grid: phases 1 and 3 K3's (csrc/rows_gemv.cuh: the tensor-core body in
-// bf16, whose K split is the separate launch's `mma_grid`, and the CUDA-core
-// body in fp32), phases 4 and 5 K2's (in bf16 the weight-streaming body of
-// csrc/rows_stream.cuh on the plan the wrapper passes, the separate
-// launches' plan, with its scratch and counts for a split K; in fp32 the
-// CUDA-core body). A column's sums depend on the plan alone, not on the
-// grid, so the products add in K3's and K2's order. proj, the head outputs,
+// Each GEMV phase runs a row GEMV body with the physical grid: phases 1 and
+// 3 csrc/rows_gemv.cuh's (the tensor-core body in bf16, its K split from
+// `mma_grid`, and the CUDA-core body in fp32, K3's), phases 4 and 5 K2's (in
+// bf16 the weight-streaming body of csrc/rows_stream.cuh on the plan the
+// wrapper passes, the separate launches' plan, with its scratch and counts
+// for a split K; in fp32 the CUDA-core body). A column's sums depend on the
+// plan alone, not on the grid, so the products add in K2's order, and in
+// fp32 in K3's. (K3's bf16 launches run the weight-streaming body, whose K
+// order differs from the tensor-core body's: in bf16 K11's y is K3 + K2's
+// within rounding, not bit for bit.) proj, the head outputs,
 // x2 and u are written by other blocks of this launch: every read of them
 // goes through L2 alone (ld.global.cg, the bodies' kCg instances), never the
 // read-only path or L1.
@@ -158,9 +160,9 @@ __global__ void __launch_bounds__(rows::kThreads, 1) fused_layer_kernel(const La
 }
 
 // Plans one GEMV phase of N columns over K within `avail` bytes of dynamic
-// shared memory, as the separate launch would run it (launch_gemv: the
-// tensor cores for bf16 with K a multiple of 32 when 8 staged rows fit),
-// and grows `smem` to what it needs. False when not one row fits.
+// shared memory (the tensor cores for bf16 with K a multiple of 32 when 8
+// staged rows fit, else the CUDA-core body), and grows `smem` to what it
+// needs. False when not one row fits.
 template <typename T>
 bool plan(Phase& ph, int n, int k, int b, bool gated, size_t avail, size_t& smem) {
   if (std::is_same<T, bf16>::value && k % rows::kMmaK == 0 && rows::mma_smem(k, gated) <= avail) {

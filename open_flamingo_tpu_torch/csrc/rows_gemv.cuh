@@ -1,7 +1,9 @@
 // Row-batched matrix-vector products for single-token decode on Hopper
-// (sm_90a): K3's and K6's projections (decode_layer.cu, K3's K2b carrier in
-// side_tile.cuh), K11's phases 1 and 3 (fused_layer.cu), and K1/K2 in fp32
-// (dense_stream.cu; their bf16 launches run rows_stream.cuh's body).
+// (sm_90a): every fp32 row GEMV of K1, K2, K3 and K6 and of their K2b
+// carriers (the CUDA-core body; dense_stream.cu, decode_layer.cu,
+// side_tile.cuh), and K11's phases 1 and 3 in bf16 (the tensor-core body,
+// fused_layer.cu), its last users. Every other bf16 launch of those kernels
+// runs rows_stream.cuh's weight-streaming body.
 //
 //   out[r, n] = epilogue( sum_k h[r, k] * W[n, k] )     r < B (a few rows)
 //
@@ -26,13 +28,13 @@
 // used B times, 2B FLOPs per weight read: far below the ~295 FLOP/byte where
 // the H100 stops being memory-bound, so the weight bytes over 3.35 TB/s are
 // the floor. Every block stages 8 rows of h in shared memory (normalised
-// once per block); more rows go in passes that read W again (K1/K2's bf16
-// body in rows_stream.cuh takes 64 rows a pass and any K). Blocks loop
+// once per block); more rows go in passes that read W again (the bf16 body
+// in rows_stream.cuh takes 64 rows a pass and any K). Blocks loop
 // over column tiles with a grid stride, the grid capped at 4 blocks per SM,
 // so the normalisation is not repeated per tile. Two inner loops:
 //
-// * bf16 with K a multiple of 32 (every product of the decode path): tensor
-//   cores, `mma.sync` m16n8k16 with fp32 accumulation. A warp owns 16
+// * bf16 with K a multiple of 32 (K11's phases 1 and 3): tensor cores,
+//   `mma.sync` m16n8k16 with fp32 accumulation. A warp owns 16
 //   columns of W (the MMA's M) against the 8 rows of h (its N). Each lane
 //   loads 16 contiguous bytes of two W rows per 32-wide K chunk straight
 //   into registers (no shared-memory round trip): the K order inside a
@@ -42,10 +44,10 @@
 //   tiles (N = 2048 against K = 8192), the warps of a block split K and add
 //   their partial tiles through shared memory, so the card has >= 32 warps
 //   per SM streaming W.
-// * fp32, K not a multiple of 32, or K too long to stage 8 rows: CUDA cores. Each warp takes one column
-//   at a time, its lanes read the row 32 bytes a lane, keep one fp32 sum per
-//   row and end with a shuffle reduction. This is the exact-fp32 path that
-//   the card's fp32 checks run.
+// * fp32 (and K11's bf16 phases at a K the tensor-core body does not take):
+//   CUDA cores. Each warp takes one column at a time, its lanes read the row
+//   32 bytes a lane, keep one fp32 sum per row and end with a shuffle
+//   reduction. This is the exact-fp32 path that the card's fp32 checks run.
 //
 // Quantized weights (the JAX kernels' int8 / int4 weight streaming). W is
 // stored as T itself, as int8, or as packed int4 (`Int4`: two values per
@@ -64,7 +66,7 @@
 // rounded to T when staged) and its epilogue's residual fp32 (R), and with
 // kCg both are read through L2 alone (ld.global.cg), never through L1 or the
 // read-only path, which are not coherent within a launch. The defaults
-// (X = R = T, no kCg) are the instances K1/K2/K3/K6 compile, unchanged.
+// (X = R = T, no kCg) are the instances the separate launches compile.
 // The kCg instances spell out where a product and a sum round, as the
 // separate launches' instances compile them (measured on the card: nvcc
 // contracted them differently in the two kernels): the LayerNorm's bias and
@@ -579,17 +581,6 @@ __device__ __forceinline__ void gemv_mma_body(
   }
 }
 
-template <typename W, typename OutT, bool kGated, int kAct>
-__global__ void __launch_bounds__(kThreads) gemv_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
-    const __nv_bfloat16* __restrict__ ln_b, float eps, int norm, const unsigned char* __restrict__ w,
-    const unsigned char* __restrict__ wg, Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out, int b, int n,
-    int k, int ks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  gemv_mma_body<W, OutT, kGated, kAct>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, ks, smem, gridDim.x,
-                                       blockIdx.x);
-}
-
 inline int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -628,15 +619,15 @@ inline int grid_for(long long blocks) {
   return (int)(blocks < cap ? blocks : cap);
 }
 
-// The tensor-core kernel's shared memory: h in fragment order, then the
+// The tensor-core body's shared memory: h in fragment order, then the
 // split-K partials (two sets in the gated form).
 inline size_t mma_smem(int k, bool gated) {
   return (size_t)kMaxRows * k * sizeof(__nv_bfloat16) + (gated ? 2 : 1) * kThreads * 4 * sizeof(float);
 }
 
-// The tensor-core kernel's split of K (ks warps per column tile) and its
-// grid for N columns of K: every launch of it, with or without side blocks,
-// takes the same, so a column's partial sums add in the same order.
+// The tensor-core body's split of K (ks warps per column tile) and its grid
+// for N columns of K (K11's phases 1 and 3): a function of the shape, so a
+// column's partial sums add in the same order in every call.
 inline void mma_grid(int n, int k, int* ks_out, int* blocks) {
   const int tiles = (n + 15) / 16, chunks = k / kMmaK;
   int ks = 1;  // split K while the card has too few warps and each keeps >= 2 chunks
@@ -647,24 +638,6 @@ inline void mma_grid(int n, int k, int* ks_out, int* blocks) {
   *blocks = grid_for((tiles + tpb - 1) / tpb);
 }
 
-template <typename W, typename OutT, bool kGated, int kAct>
-cudaError_t launch_gemv_mma(const __nv_bfloat16* x, const __nv_bfloat16* ln_s,
-                            const __nv_bfloat16* ln_b, float eps, int norm, const void* w, const void* wg,
-                            Epilogue<__nv_bfloat16> ep, OutT* out, int b, int n, int k,
-                            cudaStream_t st) {
-  const size_t smem = mma_smem(k, kGated);
-  int ks, blocks;
-  mma_grid(n, k, &ks, &blocks);
-  auto kern = gemv_mma_kernel<W, OutT, kGated, kAct>;
-  static size_t smem_set = 48 * 1024;
-  cudaError_t e = allow_smem(kern, smem, smem_set);
-  if (e != cudaSuccess) return e;
-  kern<<<blocks, kThreads, smem, st>>>(
-      x, ln_s, ln_b, eps, norm, static_cast<const unsigned char*>(w), static_cast<const unsigned char*>(wg), ep,
-      out, b, n, k, ks);
-  return cudaGetLastError();
-}
-
 // The CUDA-core kernel's rows staged per pass for K of type T (0: none fit).
 template <typename T>
 int core_rows(int b, int k) {
@@ -673,8 +646,8 @@ int core_rows(int b, int k) {
   return rows < b ? rows : b;
 }
 
-// The CUDA-core kernel's launch (fp32, K not a multiple of 32, or K too long
-// to stage 8 rows for the tensor cores): as many rows per pass as fit.
+// The CUDA-core kernel's launch (the fp32 row GEMVs): as many rows per pass
+// as fit.
 template <typename T, typename W, typename OutT, bool kGated, int kAct>
 cudaError_t launch_gemv_core(const T* x, const T* ln_s, const T* ln_b, float eps, int norm, const void* w,
                              const void* wg, Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
@@ -700,22 +673,6 @@ cudaError_t launch_gemv(const T* x, const T* ln_s, const T* ln_b, float eps, int
                         const void* wg, Epilogue<T> ep, OutT* out, int b, int n, int k, cudaStream_t st) {
   if (k < kVec || k % kVec != 0 || b < 1 || n < 1 || (kGated && wg == nullptr)) return cudaErrorInvalidValue;
   if (ep.act < kNone || ep.act > kSilu) return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // K > ~13,800 does not fit 8 staged rows: the CUDA-core path stages fewer
-    if (k % kMmaK == 0 && mma_smem(k, kGated) <= (size_t)smem_optin()) {
-      auto mma = [&](auto act) {
-        return launch_gemv_mma<W, OutT, kGated, decltype(act)::value>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n,
-                                                                      k, st);
-      };
-      switch (ep.act) {
-        case kGeluNew: return mma(std::integral_constant<int, kGeluNew>{});
-        case kRelu: return mma(std::integral_constant<int, kRelu>{});
-        case kQuickGelu: return mma(std::integral_constant<int, kQuickGelu>{});
-        case kSilu: return mma(std::integral_constant<int, kSilu>{});
-        default: return mma(std::integral_constant<int, kActBase>{});
-      }
-    }
-  }
   if (ep.act <= kGelu)
     return launch_gemv_core<T, W, OutT, kGated, kActBase>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
   return launch_gemv_core<T, W, OutT, kGated, kActRuntime>(x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, st);
@@ -723,7 +680,8 @@ cudaError_t launch_gemv(const T* x, const T* ln_s, const T* ln_b, float eps, int
 
 // launch_gemv on the weight type code the wrappers pass (0 W in T, 1 int8,
 // 2 packed int4), the norm kind and any activation; gated with wg (K2's
-// SwiGLU), which is stored as w is; every row GEMV of K1, K2, K3 and K6
+// SwiGLU), which is stored as w is; every fp32 row GEMV of K1, K2, K3 and
+// K6
 template <typename T, typename OutT>
 cudaError_t launch_gemv_norm(int wtype, const T* x, const T* ln_s, const T* ln_b, float eps, int norm,
                              const void* w, const void* wg, Epilogue<T> ep, OutT* out, int b, int n, int k,

@@ -1,7 +1,8 @@
-// The weight-streaming row GEMV of K1 and K2 in bf16 (sm_90a): every bf16
-// launch of fused_dense and fused_mlp (csrc/dense_stream.cu), K2's carrier of
-// K2b side tiles (csrc/side_tile.cuh) and K11's up- and down-projection
-// phases (csrc/fused_layer.cu) run this body.
+// The weight-streaming row GEMV of the decode kernels in bf16 (sm_90a):
+// every bf16 launch of fused_dense and fused_mlp (csrc/dense_stream.cu) and
+// of K3's and K6's projections (csrc/decode_layer.cu), the K2 and K3
+// carriers of K2b side tiles (csrc/side_tile.cuh) and K11's up- and
+// down-projection phases (csrc/fused_layer.cu) run this body.
 //
 //   out[r, n] = epilogue( sum_k h[r, k] * W[n, k] )     r < B <= 64 in one pass
 //
@@ -54,8 +55,8 @@
 // weight type, the SM count): each warp adds its chunks in K order, two
 // k16 products each, and the slices add in slice order. Not on B, the grid,
 // or side blocks beside the body's, so a row alone gives the bits it gives
-// in any batch, K2's output is the same with and without a K2b tile, and
-// K11's phases give K2's bits.
+// in any batch, a carrier's output (K2's, K3's) is the same with and without
+// its K2b tile, and K11's phases 4 and 5 give K2's bits.
 //
 // The norm's arithmetic and the epilogue are spelled out the same way in
 // every instance (the LayerNorm's bias as one FMA, rows::epilogue's kCg
@@ -521,14 +522,15 @@ __device__ __forceinline__ void stream_body(
   cp_wait<0>();
 }
 
-template <typename W, bool kGated, int kAct, int kMaxNt>
+// OutT: bf16 (K1, K2, the out-projections of K3 and K6) or fp32 (K3's q/k/v)
+template <typename W, bool kGated, int kAct, int kMaxNt, typename OutT = __nv_bfloat16>
 __global__ void __launch_bounds__(kThreads, 1) gemv_stream_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
     const __nv_bfloat16* __restrict__ ln_b, float eps, int norm, const unsigned char* __restrict__ w,
-    const unsigned char* __restrict__ wg, Epilogue<__nv_bfloat16> ep, __nv_bfloat16* __restrict__ out, int b, int n,
+    const unsigned char* __restrict__ wg, Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out, int b, int n,
     int k, StreamPlan plan, StreamSplit split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  stream_body<W, __nv_bfloat16, kGated, kAct, __nv_bfloat16, __nv_bfloat16, false, kMaxNt>(
+  stream_body<W, OutT, kGated, kAct, __nv_bfloat16, __nv_bfloat16, false, kMaxNt>(
       x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, plan, split, smem, gridDim.x, blockIdx.x);
 }
 
@@ -537,9 +539,9 @@ __global__ void __launch_bounds__(kThreads, 1) gemv_stream_kernel(
 // body's last-block order, so the bits are the same) and runs the epilogue
 // on its four outputs. Many blocks share the reads a last block would make
 // alone, the cost at B 64.
-template <bool kScaled, bool kGated, int kAct>
+template <bool kScaled, bool kGated, int kAct, typename OutT = __nv_bfloat16>
 __global__ void __launch_bounds__(256) gemv_stream_reduce_kernel(const float* __restrict__ scratch,
-                                                           Epilogue<__nv_bfloat16> ep, __nv_bfloat16* __restrict__ out,
+                                                           Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out,
                                                            int b, int n, int tiles, int ks, int nts) {
   const size_t per_item = (size_t)kWarps * nts * 32, gofs = (size_t)ks * tiles * per_item;
   const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
@@ -576,17 +578,17 @@ __global__ void __launch_bounds__(256) gemv_stream_reduce_kernel(const float* __
   for (int q = 0; q < 4; ++q) {
     const int col = tile * kStreamCols + warp * 16 + g + (q >> 1) * 8, r = 8 * j + 2 * t4 + (q & 1);
     if (col < n && r < b)
-      out[(size_t)r * n + col] = from_f32<__nv_bfloat16>(epilogue<kScaled, kGated, kAct, true>(acc[q], gacc[q], ep, r, col, n));
+      out[(size_t)r * n + col] = from_f32<OutT>(epilogue<kScaled, kGated, kAct, true>(acc[q], gacc[q], ep, r, col, n));
   }
 }
 
 // Launches gemv_stream_reduce_kernel after a deferred split of b rows (<= 64)
-template <bool kScaled, bool kGated, int kAct>
-cudaError_t launch_stream_reduce(const StreamSplit& split, Epilogue<__nv_bfloat16> ep, __nv_bfloat16* out, int b,
-                                 int n, int tiles, int ks, cudaStream_t st) {
+template <bool kScaled, bool kGated, int kAct, typename OutT = __nv_bfloat16>
+cudaError_t launch_stream_reduce(const StreamSplit& split, Epilogue<__nv_bfloat16> ep, OutT* out, int b, int n,
+                                 int tiles, int ks, cudaStream_t st) {
   const int nts = (b + 7) / 8;
   const long long threads = (long long)tiles * kWarps * nts * 32;
-  gemv_stream_reduce_kernel<kScaled, kGated, kAct><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+  gemv_stream_reduce_kernel<kScaled, kGated, kAct, OutT><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
       split.scratch, ep, out, b, n, tiles, ks, nts);
   return cudaGetLastError();
 }
@@ -612,14 +614,13 @@ bool stream_plan_ok(const StreamPlan& plan, const StreamSplit& split, int n, int
 }
 
 // One launch per pass of 64 rows: out (b, n) = epilogue(h @ W^T), as
-// launch_gemv's, in bf16 on this body.
-template <typename W, bool kGated, int kAct>
+// launch_gemv's, from bf16 rows on this body, out in OutT.
+template <typename W, bool kGated, int kAct, typename OutT = __nv_bfloat16>
 cudaError_t launch_stream_typed(const __nv_bfloat16* x, const __nv_bfloat16* ln_s, const __nv_bfloat16* ln_b,
                                 float eps, int norm, const void* w, const void* wg, Epilogue<__nv_bfloat16> ep,
-                                __nv_bfloat16* out, int b, int n, int k, StreamPlan plan, StreamSplit split,
-                                cudaStream_t st) {
+                                OutT* out, int b, int n, int k, StreamPlan plan, StreamSplit split, cudaStream_t st) {
   if (b <= 8) {  // the decode batch: the one-n-tile instance
-    auto kern = gemv_stream_kernel<W, kGated, kAct, 1>;
+    auto kern = gemv_stream_kernel<W, kGated, kAct, 1, OutT>;
     constexpr size_t smem = Geometry<1, kGated>::kSmem;
     static size_t smem_set = 48 * 1024;
     cudaError_t e = allow_smem(kern, smem, smem_set);
@@ -628,7 +629,7 @@ cudaError_t launch_stream_typed(const __nv_bfloat16* x, const __nv_bfloat16* ln_
                                              static_cast<const unsigned char*>(wg), ep, out, b, n, k, plan, split);
     return cudaGetLastError();
   }
-  auto kern = gemv_stream_kernel<W, kGated, kAct, 8>;
+  auto kern = gemv_stream_kernel<W, kGated, kAct, 8, OutT>;
   static size_t smem_set = 48 * 1024;
   cudaError_t e = allow_smem(kern, kStreamSmem, smem_set);
   if (e != cudaSuccess) return e;
@@ -644,7 +645,7 @@ cudaError_t launch_stream_typed(const __nv_bfloat16* x, const __nv_bfloat16* ln_
         static_cast<const unsigned char*>(wg), ep_pass, out + (size_t)r0 * n, rows, n, k, plan, deferred);
     e = cudaGetLastError();
     if (e == cudaSuccess && deferred.defer)
-      e = launch_stream_reduce<!std::is_same<W, __nv_bfloat16>::value, kGated, kAct>(
+      e = launch_stream_reduce<!std::is_same<W, __nv_bfloat16>::value, kGated, kAct, OutT>(
           deferred, ep_pass, out + (size_t)r0 * n, rows, n, tiles, ks, st);
     if (e != cudaSuccess) return e;
   }
@@ -667,6 +668,36 @@ cudaError_t launch_stream(const __nv_bfloat16* x, const __nv_bfloat16* ln_s, con
     case kRelu: return typed(std::integral_constant<int, kRelu>{});
     case kQuickGelu: return typed(std::integral_constant<int, kQuickGelu>{});
     case kSilu: return typed(std::integral_constant<int, kSilu>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The form of K3's and K6's projections on this body: no gated weight, no
+// activation, a LayerNorm or none, out in OutT (K3's q/k/v fp32, the
+// out-projections bf16). Compiles the two instances (B <= 8, any B) of the
+// weight type and nothing else.
+template <typename W, typename OutT>
+cudaError_t launch_stream_projection_typed(const __nv_bfloat16* x, const __nv_bfloat16* ln_s,
+                                           const __nv_bfloat16* ln_b, float eps, const void* w,
+                                           Epilogue<__nv_bfloat16> ep, OutT* out, int b, int n, int k,
+                                           StreamPlan plan, StreamSplit split, cudaStream_t st) {
+  if (b < 1 || ep.act != kNone || !stream_plan_ok<W>(plan, split, n, k)) return cudaErrorInvalidValue;
+  return launch_stream_typed<W, false, kActBase, OutT>(x, ln_s, ln_b, eps, kLayerNorm, w, nullptr, ep, out, b, n, k,
+                                                       plan, split, st);
+}
+
+// launch_stream_projection_typed on the weight type code (0 bf16, 1 int8,
+// 2 packed int4): every bf16 row GEMV of K3 and K6
+template <typename OutT>
+cudaError_t launch_stream_projection(int wtype, const __nv_bfloat16* x, const __nv_bfloat16* ln_s,
+                                     const __nv_bfloat16* ln_b, float eps, const void* w, Epilogue<__nv_bfloat16> ep,
+                                     OutT* out, int b, int n, int k, StreamPlan plan, StreamSplit split,
+                                     cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  switch (wtype) {
+    case 0: return launch_stream_projection_typed<bf16, OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, plan, split, st);
+    case 1: return launch_stream_projection_typed<int8_t, OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, plan, split, st);
+    case 2: return launch_stream_projection_typed<Int4, OutT>(x, ln_s, ln_b, eps, w, ep, out, b, n, k, plan, split, st);
     default: return cudaErrorInvalidValue;
   }
 }

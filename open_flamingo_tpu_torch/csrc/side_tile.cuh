@@ -1,6 +1,6 @@
 // K2b side tiles for Hopper (sm_90a): an unrelated GEMM tile carried by K2's
-// down-projection launch (dense_stream.cu), as extra blocks after the row
-// GEMV's own.
+// down-projection launch (dense_stream.cu) or K3's out-projection launch
+// (decode_layer.cu, K2b-attn), as extra blocks after the row GEMV's own.
 //
 //   replaces open_flamingo_tpu/ops/dense_stream.py `side_tile_compute` (the
 //   side-stream tile of `_mlp_kernel`, operands from `append_side_operands`,
@@ -634,13 +634,14 @@ __device__ __forceinline__ void side_tile(const Args<T>& a, int t, unsigned char
   else tile_f32(a, t, smem);
 }
 
-// K2's down-projection (and K3's out-projection) carrying side tiles: the
-// first `main_blocks` blocks run the row GEMV's body on a grid of
-// main_blocks, the rest one side block each (kI8: the W8A8 tile). Instances
-// of their own (kSide): the kernels without side blocks are compiled as they
-// were. gemv_stream_side_kernel is K2's bf16 carrier (the weight-streaming
-// body of rows_stream.cuh, on its plan's blocks); gemv_mma_side_kernel K3's
-// (the old tensor-core body).
+// K2's down-projection and K3's out-projection carrying side tiles: the
+// first blocks run the row GEMV's body, the rest one side block each (kI8:
+// the W8A8 tile). Instances of their own (kSide): the kernels without side
+// blocks are compiled as they were. In bf16 gemv_stream_side_kernel, the
+// weight-streaming body of rows_stream.cuh on its plan's blocks; in fp32
+// gemv_side_kernel, the CUDA-core body on its own grid. (The old
+// tensor-core body, rows_gemv.cuh's gemv_mma_body, carries no tile: K11's
+// phases 1 and 3 are its last users.)
 template <typename W, bool kI8>
 __global__ void __launch_bounds__(kThreads, 1) gemv_stream_side_kernel(
     const __nv_bfloat16* __restrict__ x, const unsigned char* __restrict__ w, rows::Epilogue<__nv_bfloat16> ep,
@@ -655,19 +656,6 @@ __global__ void __launch_bounds__(kThreads, 1) gemv_stream_side_kernel(
     side_tile<kI8>(sa, blockIdx.x - plan.blocks, smem);
 }
 
-template <typename W, bool kI8>
-__global__ void __launch_bounds__(kThreads) gemv_mma_side_kernel(
-    const __nv_bfloat16* __restrict__ x, const unsigned char* __restrict__ w, rows::Epilogue<__nv_bfloat16> ep,
-    __nv_bfloat16* __restrict__ out, int b, int n, int k, int ks, int main_blocks, Args<__nv_bfloat16> sa) {
-  extern __shared__ __align__(1024) unsigned char smem[];
-  if ((int)blockIdx.x < main_blocks)
-    rows::gemv_mma_body<W, __nv_bfloat16, false, rows::kActBase>(x, nullptr, nullptr, 0.f, rows::kLayerNorm, w,
-                                                                  nullptr, ep, out, b, n, k, ks, smem, main_blocks,
-                                                                  blockIdx.x);
-  else
-    side_tile<kI8>(sa, blockIdx.x - main_blocks, smem);
-}
-
 template <typename T, typename W, bool kI8>
 __global__ void __launch_bounds__(kThreads) gemv_side_kernel(
     const T* __restrict__ x, const unsigned char* __restrict__ w, rows::Epilogue<T> ep, T* __restrict__ out, int b,
@@ -680,7 +668,7 @@ __global__ void __launch_bounds__(kThreads) gemv_side_kernel(
     side_tile<kI8>(sa, blockIdx.x - main_blocks, smem);
 }
 
-// K2's bf16 carrier: the first pass of 64 rows carries the tile, the rest
+// The bf16 carrier: the first pass of 64 rows carries the tile, the rest
 // (no path makes them) are launches of the body alone
 template <typename W, bool kI8>
 cudaError_t launch_stream_side(const __nv_bfloat16* x, const void* w, rows::Epilogue<__nv_bfloat16> ep,
@@ -710,60 +698,44 @@ cudaError_t launch_stream_side(const __nv_bfloat16* x, const void* w, rows::Epil
                                                              b - rows0, n, k, plan, split, st);
 }
 
-// K3's carrier, and K2's in fp32: the tensor-core body in bf16 where it
-// takes K, else the CUDA-core body
-template <typename T, typename W, bool kI8>
-cudaError_t launch_typed_gemv(const T* x, const void* w, rows::Epilogue<T> ep, T* out, int b, int n, int k,
-                              const Args<T>& sa, cudaStream_t st) {
-  const unsigned char* wb = static_cast<const unsigned char*>(w);
+// The fp32 carrier: the CUDA-core body on its own grid
+template <typename W, bool kI8>
+cudaError_t launch_core_side(const float* x, const void* w, rows::Epilogue<float> ep, float* out, int b, int n, int k,
+                             const Args<float>& sa, cudaStream_t st) {
   const int side = side_blocks(sa, kI8);
-  const size_t side_smem = ring_tile<T>(kI8) ? ring_smem(sa.k, kI8) : smem_f32_bytes();
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (k % rows::kMmaK == 0 && rows::mma_smem(k, false) <= (size_t)rows::smem_optin()) {
-      const size_t smem = std::max(rows::mma_smem(k, false), side_smem);
-      int ks, blocks;
-      rows::mma_grid(n, k, &ks, &blocks);
-      auto kern = gemv_mma_side_kernel<W, kI8>;
-      static size_t smem_set = 48 * 1024;
-      cudaError_t e = rows::allow_smem(kern, smem, smem_set);
-      if (e != cudaSuccess) return e;
-      kern<<<blocks + side, kThreads, smem, st>>>(x, wb, ep, out, b, n, k, ks, blocks, sa);
-      return cudaGetLastError();
-    }
-  }
-  const int rows_pp = rows::core_rows<T>(b, k);
+  const size_t side_smem = ring_tile<float>(kI8) ? ring_smem(sa.k, kI8) : smem_f32_bytes();
+  const int rows_pp = rows::core_rows<float>(b, k);
   if (rows_pp < 1) return cudaErrorInvalidValue;
-  const size_t smem = std::max(rows_pp * (size_t)k * sizeof(T), side_smem);
+  const size_t smem = std::max(rows_pp * (size_t)k * sizeof(float), side_smem);
   const int blocks = rows::grid_for(((long long)n + rows::kWarps - 1) / rows::kWarps);
-  auto kern = gemv_side_kernel<T, W, kI8>;
+  auto kern = gemv_side_kernel<float, W, kI8>;
   static size_t smem_set = 48 * 1024;
   cudaError_t e = rows::allow_smem(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
-  kern<<<blocks + side, kThreads, smem, st>>>(x, wb, ep, out, b, n, k, rows_pp, blocks, sa);
+  kern<<<blocks + side, kThreads, smem, st>>>(x, static_cast<const unsigned char*>(w), ep, out, b, n, k, rows_pp,
+                                              blocks, sa);
   return cudaGetLastError();
 }
 
-template <typename T, typename W, bool kI8, bool kStream>
+template <typename T, typename W, bool kI8>
 cudaError_t launch_typed(const T* x, const void* w, rows::Epilogue<T> ep, T* out, int b, int n, int k,
                          const Args<T>& sa, const rows::StreamPlan* plan, const rows::StreamSplit& split,
                          cudaStream_t st) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && kStream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return plan == nullptr ? cudaErrorInvalidValue
                            : launch_stream_side<W, kI8>(x, w, ep, out, b, n, k, sa, *plan, split, st);
-  } else {
-    return launch_typed_gemv<T, W, kI8>(x, w, ep, out, b, n, k, sa, st);
-  }
+  else
+    return launch_core_side<W, kI8>(x, w, ep, out, b, n, k, sa, st);
 }
 
 // out (B, N) = epilogue(h @ W^T) as launch_gemv_norm's form without norm,
 // activation or gated weight (K2's down-projection, K3's out-projection), W
 // stored as wtype says, with the side tile `sa` in the same launch: the W8A8
 // tile when sa.wq is set (with sa.ws), else the tile in x's dtype (sa.w).
-// The ring tile takes a span of whole passes and SK up to kMaxK. kStream:
-// the caller's body in bf16, K2's weight-streaming body on `plan` and
-// `split` (else K3's tensor-core body, with the CUDA-core body past its K);
-// fp32 runs the CUDA-core body either way.
-template <typename T, bool kStream>
+// The ring tile takes a span of whole passes and SK up to kMaxK. bf16 runs
+// the weight-streaming body on the caller's `plan` and `split`, fp32 the
+// CUDA-core body.
+template <typename T>
 cudaError_t launch_gemv_side(int wtype, const T* x, const void* w, rows::Epilogue<T> ep, T* out, int b, int n, int k,
                              const Args<T>& sa, cudaStream_t st, const rows::StreamPlan* plan = nullptr,
                              rows::StreamSplit split = {}) {
@@ -776,12 +748,12 @@ cudaError_t launch_gemv_side(int wtype, const T* x, const void* w, rows::Epilogu
   if (ring_tile<T>(i8) && (sa.span < kPassCols || sa.span % kPassCols != 0 || sa.k > kMaxK))
     return cudaErrorInvalidValue;
   switch (wtype * 2 + i8) {
-    case 0: return launch_typed<T, T, false, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
-    case 1: return launch_typed<T, T, true, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
-    case 2: return launch_typed<T, int8_t, false, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
-    case 3: return launch_typed<T, int8_t, true, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
-    case 4: return launch_typed<T, rows::Int4, false, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
-    case 5: return launch_typed<T, rows::Int4, true, kStream>(x, w, ep, out, b, n, k, sa, plan, split, st);
+    case 0: return launch_typed<T, T, false>(x, w, ep, out, b, n, k, sa, plan, split, st);
+    case 1: return launch_typed<T, T, true>(x, w, ep, out, b, n, k, sa, plan, split, st);
+    case 2: return launch_typed<T, int8_t, false>(x, w, ep, out, b, n, k, sa, plan, split, st);
+    case 3: return launch_typed<T, int8_t, true>(x, w, ep, out, b, n, k, sa, plan, split, st);
+    case 4: return launch_typed<T, rows::Int4, false>(x, w, ep, out, b, n, k, sa, plan, split, st);
+    case 5: return launch_typed<T, rows::Int4, true>(x, w, ep, out, b, n, k, sa, plan, split, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -3,9 +3,14 @@ new token per sequence, and K6 attend_out_decode, its tail alone.
 
 Replaces `open_flamingo_tpu/ops/decode_layer.py` `attn_block_decode`
 (kernel `_attn_block_kernel`) and `attend_out_decode` (`_attend_out_kernel`).
-The CUDA kernels are in `csrc/decode_layer.cu`: the projections run as the
-row GEMV of `csrc/rows_gemv.cuh`, the masked softmax as one block per
-(b, h); bound by the weight and cache bytes on the card (see the source).
+The CUDA kernels are in `csrc/decode_layer.cu`: the masked softmax runs as
+one block per (b, h); the projections in bf16 as the weight-streaming row
+GEMV of `csrc/rows_stream.cuh` (every row up to 64 in one pass of the
+weight), on the plans `dense_stream.stream_args` computes here for each
+launch's (N, K) (`attn_block_launches`, `attend_out_launches`), with the
+scratch and counters K1 and K2 use; in fp32 as the CUDA-core row GEMV of
+`csrc/rows_gemv.cuh`. Bound by the weight and cache bytes on the card (see
+the source).
 
 K3, two forms, as on the decode path:
   * `fused_qkv=True` (MPT self-attention): `wq` is the fused (3*H*Dh, D)
@@ -69,7 +74,7 @@ from ..quantize import weight_values
 from . import build
 from .decode_attention import reference_decode_attention
 from .dense_stream import (_WTYPES, check_operands, check_side, check_side_kernel, check_weight, count_launch, ptr,
-                           reference_side_tile, refuse_autograd, side_operands, side_tag, variant, wtype)
+                           reference_side_tile, refuse_autograd, side_operands, side_tag, stream_args, variant, wtype)
 from .flash_attention import _DTYPES
 
 _lib = None
@@ -78,18 +83,37 @@ _lib = None
 def _kernel():
     global _lib
     if _lib is None:
-        lib = build.library("decode_layer")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.attn_block_decode_fwd.argtypes = [p] * 18 + [i] * 9 + [f, f, f, i, p]
-        lib.attn_block_decode_fwd.restype = i
-        lib.attend_out_decode_fwd.argtypes = [p] * 17 + [i] * 7 + [f, i, p]
-        lib.attend_out_decode_fwd.restype = i
-        ll = ctypes.c_longlong
-        side = [p, p, ll, p, p, p, f, i, p, p, ll, p, i, i, i, i]
-        lib.attn_block_decode_side_fwd.argtypes = [p] * 18 + [i] * 9 + [f, f, f, i] + side + [p]
-        lib.attn_block_decode_side_fwd.restype = i
-        _lib = lib
+        _lib = bind(build.library("decode_layer"))
     return _lib
+
+
+def bind(lib):
+    """`lib` (csrc/decode_layer.cu built) with its C entries' argument types."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    split = [p, p, i]   # scratch, counters, their count
+    block = [p] * 18 + [i] * 9 + [f, f, f, i] + [i] * 4 + split
+    lib.attn_block_decode_fwd.argtypes = block + [p]
+    lib.attn_block_decode_fwd.restype = i
+    lib.attend_out_decode_fwd.argtypes = [p] * 17 + [i] * 7 + [f, i] + [i] * 2 + split + [p]
+    lib.attend_out_decode_fwd.restype = i
+    ll = ctypes.c_longlong
+    side = [p, p, ll, p, p, p, f, i, p, p, ll, p, i, i, i, i]
+    lib.attn_block_decode_side_fwd.argtypes = block + side + [p]
+    lib.attn_block_decode_side_fwd.restype = i
+    return lib
+
+
+def attn_block_launches(wq, wout, dm: int, inner: int) -> list:
+    """K3's two row GEMVs as `dense_stream.stream_args` takes them: (N, K,
+    weight, gated) of the projection (wq's rows over D) and of the
+    out-projection (D over H*Dh)."""
+    return [(wq.shape[0], dm, wq, False), (dm, inner, wout, False)]
+
+
+def attend_out_launches(wout, inner: int) -> list:
+    """K6's out-projection as `dense_stream.stream_args` takes it: (D over
+    H*Dh, the weight, not gated)."""
+    return [(wout.shape[0], inner, wout, False)]
 
 
 def check_cache(fn: str, k_cache, v_cache, k_scale, v_scale) -> bool:
@@ -230,10 +254,11 @@ def attn_block_decode(x, ln_scale, ln_bias, wq, wout, k_cache, v_cache, mask, *,
     proj = torch.empty(b, p, dtype=torch.float32, device=x.device)
     attn = torch.empty(b, inner, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    plan, _ = stream_args(x, attn_block_launches(wq, wout, dm, inner))
     args = (ptr(x), ptr(ln_scale), ptr(ln_bias), ptr(wq), ptr(wq_scale), ptr(wout), ptr(wout_scale), ptr(k_cache),
             ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(m), ptr(sl), ptr(gate), ptr(slot) if fused_qkv else None,
             ptr(proj), ptr(attn), ptr(out), b, dm, heads, head_dim, s, int(fused_qkv), int(clip is not None),
-            wtype(wq), wtype(wout), float(clip or 0.0), float(scale), float(eps), _DTYPES[x.dtype])
+            wtype(wq), wtype(wout), float(clip or 0.0), float(scale), float(eps), _DTYPES[x.dtype], *plan)
     main = (out, k_cache, v_cache) if fused_qkv else (out,)
     if side_x is None:
         build.check(_kernel().attn_block_decode_fwd(*args, build.current_stream(x.device)), "attn_block_decode_fwd")
@@ -336,11 +361,12 @@ def attend_out_decode(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_n
     sl = None if slopes is None else slopes.to(torch.float32)
     attn = torch.empty(b, h * dh, dtype=q.dtype, device=q.device)
     out = torch.empty(b, dm, dtype=q.dtype, device=q.device)
+    plan, _ = stream_args(q, attend_out_launches(wout, h * dh))
     status = _kernel().attend_out_decode_fwd(
         ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale), ptr(k_new), ptr(v_new),
         ptr(slot) if update else None, ptr(m), ptr(sl), ptr(wout), ptr(wout_scale), ptr(bias), ptr(gate),
         ptr(residual), ptr(attn), ptr(out),
-        b, h, h_kv, s, dh, dm, wtype(wout), float(scale), _DTYPES[q.dtype], build.current_stream(q.device),
+        b, h, h_kv, s, dh, dm, wtype(wout), float(scale), _DTYPES[q.dtype], *plan, build.current_stream(q.device),
     )
     build.check(status, "attend_out_decode_fwd")
     count_launch(attend_out_decode, variant(wout, int8))

@@ -246,10 +246,11 @@ def check_operands(fn: str, x: torch.Tensor, k: int, quantized=(), **tensors) ->
             raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
 
 
-# The weight-streaming row GEMV of csrc/rows_stream.cuh (every bf16 launch of
-# K1 and K2, K2's carrier and K11's K2 phases): 256-column tiles (16 warps of
-# 16 columns), up to 64 rows a pass, a ring per warp of 128 bytes of each of
-# its rows a stage, a slice of h, the rows' statistics; one block per SM. Its
+# The weight-streaming row GEMV of csrc/rows_stream.cuh (every bf16 row GEMV
+# of K1, K2, K3 and K6, the K2 and K3 carriers and K11's K2 phases, each on
+# its plan from `stream_args`): 256-column tiles (16 warps of 16 columns), up
+# to 64 rows a pass, a ring per warp of 128 bytes of each of its rows a
+# stage, a slice of h, the rows' statistics; one block per SM. Its
 # instance for any B: 4 stages (2 of W and Wg gated), 128 KB, and a 64 KB h
 # slice; for B <= 8: 6 stages (3 of W and Wg), 192 KB, and 32 KB of h.
 STREAM_COLS, STREAM_ROWS, STREAM_SEG = 256, 64, 128
@@ -258,10 +259,13 @@ STREAM_SMEM_SMALL = 16 * 6 * 16 * STREAM_SEG + 32 * 1024 + 2 * STREAM_ROWS * 4 +
 SMEM_OPTIN = 232448                                  # sm_90's opt-in shared memory of a block
 STREAM_COUNTERS = 1024                               # column tiles a launch may count: N <= 262,144
 _WEIGHT_BITS = {"bf16": 16, "int8": 8, "int4": 4}
-# the plan's cost of an item beyond its ring stages (its h slice, epilogue
-# and the ring's refill, ~1 us at an SM's share of 3.35 TB/s) and of a
-# split K (the partials written and read), in bytes of one block's stream
-_ITEM_COST, _SPLIT_COST = 24 * 1024, 16 * 1024
+# the plan's cost of an item beyond its ring stages (its h slice, epilogue,
+# partials and the ring's refill, ~1.3 us at an SM's share of 3.35 TB/s) and
+# of a split K (the partials read back), in bytes of one block's stream. At
+# 24 KB an item, K3's Wqkv (6,144 x 2,048 bf16) went in two waves of 3-stage
+# items, slower on the card than one wave of 7-stage items; 32 KB moves that
+# plan alone among the decode path's shapes on 132 SMs
+_ITEM_COST, _SPLIT_COST = 32 * 1024, 16 * 1024
 
 
 class StreamPlan(NamedTuple):
@@ -348,7 +352,7 @@ def stream_counters(device) -> torch.Tensor:
     """The per-tile arrival counts of a split K on `device`: zeros, which
     every launch leaves zero. One tensor per device, made on first use
     outside a CUDA graph capture (inside one, a capture-local tensor); the
-    port launches K1 and K2 on one stream at a time."""
+    port launches K1, K2, K3 and K6 on one stream at a time."""
     idx = torch.device(device).index
     if idx in _COUNTERS:
         return _COUNTERS[idx]

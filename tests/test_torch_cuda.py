@@ -9,11 +9,11 @@ nor the JAX package, so it also runs where JAX is absent:
 fp32 inputs: the kernels and the plain versions sum in different orders,
 ~1e-6 apart at these sizes; atol 5e-5 as in chip_smoke.py (the backward
 K4b/K5b: atol = rtol = 1e-4, its sums run over whole query and key tiles).
-bf16 inputs (K1 and K2, whose bf16 products run on tensor cores at any K,
-every row up to 64 in one pass; K3 and K6, on tensor cores when K is a
-multiple of 32; K4/K5, whose bf16 body runs on tensor cores with P.V in
-fp32 through a hi/lo bf16 pair; K4b/K5b): both round an fp32 result to bf16,
-one ulp apart at most, plus the summation order; atol = rtol = 1e-2 as in
+bf16 inputs (K1, K2 and K3's and K6's projections, whose bf16 products run
+on tensor cores at any K, every row up to 64 in one pass; K4/K5, whose bf16
+body runs on tensor cores with P.V in fp32 through a hi/lo bf16 pair;
+K4b/K5b): both round an fp32 result to bf16, one ulp apart at most, plus
+the summation order; atol = rtol = 1e-2 as in
 chip_smoke.py; the logsumexp (fp32 in both) atol 1e-4, rtol 1e-5 (LSE_TOL).
 The RMSNorm prologue, the activations and K2's SwiGLU form (llama, OPT)
 take the same tolerances, and so do the ViT's K9 and K10, the absorbed ViT's
@@ -25,7 +25,9 @@ int8 cache): the same
 tolerances, 2e-4 in fp32 where an int8 cache is read (a quantized entry at
 a rounding boundary may land one step apart when the new token's K/V come
 from a projection summed in another order: at most one step, in at most
-0.1% of the entries).
+0.1% of the entries); K3's fp32 y over an int8 cache is held to 5e-5
+against the plain version over the caches the kernel wrote
+(`test_attn_block_decode_int8_cache_step_by_step`).
 """
 
 import pytest
@@ -202,6 +204,92 @@ def test_attend_out_decode(gen, n_rep, slot, s, dtype):
     assert (got[1] == 0).all()
 
 
+def stored_as(w, kind, dtype):
+    """A float weight as K3/K6 stream it: (weight, scale) in x's dtype, int8
+    or packed int4."""
+    if kind == "float":
+        return w.to(dtype), None
+    return quantized(w, 8 if kind == "int8" else 4)
+
+
+@pytest.mark.parametrize("kind", ["float", "int8", "int4"])
+@pytest.mark.parametrize("fused_qkv", [True, False])
+@pytest.mark.parametrize("b", [1, 8, 13, 64])
+def test_attn_block_decode_bf16_any_batch(gen, b, fused_qkv, kind):
+    """bf16 K3, both forms, its projections on the weight-streaming body
+    (K split into slices at these widths; past 8 rows the split is added by
+    its second launch) against the plain version at B 1, 8, 13 and 64; and
+    row 5 of the batches of 13 and 64 called alone gives the bits of y and
+    of the written caches it gives in the batch."""
+    dtype, dm, h, d, s, slot = torch.bfloat16, 512, 8, 64, 48, 40
+    inner = h * d
+    x, ln = rn(gen, b, dm).to(dtype), (1 + 0.1 * rn(gen, dm)).to(dtype)
+    ln_b = None if fused_qkv else (0.1 * rn(gen, dm)).to(dtype)
+    wq, sq = stored_as(rn(gen, (3 if fused_qkv else 1) * inner, dm) * dm**-0.5, kind, dtype)
+    wout, so = stored_as(rn(gen, dm, inner) * inner**-0.5, kind, dtype)
+    k0, v0 = rn(gen, b, h, s, d).to(dtype), rn(gen, b, h, s, d).to(dtype)
+    mask = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    kw = dict(heads=h, head_dim=d, scale=d**-0.5, wq_scale=sq, wout_scale=so)
+    if fused_qkv:
+        mask[:, slot + 1:] = False
+        mask[b // 2, :3] = False
+        kw.update(fused_qkv=True, clip=2.0, slopes=rn(gen, h).abs(),
+                  slot=torch.tensor([slot], dtype=torch.int32, device="cuda"))
+    else:
+        mask[b // 2] = False                   # no preceding image: y == x
+        kw.update(gate=torch.tensor([0.5], device="cuda", dtype=dtype))
+
+    def call(rows, device="cuda"):
+        kc, vc = k0[rows].clone(), v0[rows].clone()
+        args = [t if device == "cuda" or t is None else t.cpu()
+                for t in (x[rows], ln, ln_b, wq, wout, kc, vc, mask[rows])]
+        out = attn_block_decode(*args, **(kw if device == "cuda" else on_cpu(kw)))
+        return out if fused_qkv else (out, args[5], args[6])
+
+    got, want = call(slice(None)), call(slice(None), "cpu")
+    for g, w in zip(got, want):
+        close(g, w)
+    if not fused_qkv:
+        assert torch.equal(got[0][b // 2], x[b // 2])
+    if b > 8:
+        alone = call(slice(5, 6))
+        assert all(torch.equal(a, g[5:6]) for a, g in zip(alone, got))
+
+
+@pytest.mark.parametrize("kind", ["float", "int8", "int4"])
+@pytest.mark.parametrize("b", [1, 8, 13, 64])
+def test_attend_out_decode_bf16_any_batch(gen, b, kind):
+    """bf16 K6 (slot write, GQA, the whole epilogue), its out-projection on
+    the weight-streaming body, against the plain version at B 1, 8, 13 and
+    64; row 5 of the batches of 13 and 64 alone gives its bits of y and of
+    the written caches."""
+    dtype, h, h_kv, d, dm, s, slot = torch.bfloat16, 8, 4, 80, 640, 48, 40
+    q, kn, vn = (rn(gen, *shape).to(dtype) for shape in ((b, h, d), (b, h_kv, d), (b, h_kv, d)))
+    k0, v0 = rn(gen, b, h_kv, s, d).to(dtype), rn(gen, b, h_kv, s, d).to(dtype)
+    wout, so = stored_as(rn(gen, dm, h * d) * (h * d) ** -0.5, kind, dtype)
+    bias, res = (0.1 * rn(gen, dm)).to(dtype), rn(gen, b, dm).to(dtype)
+    mask = torch.zeros(b, s, dtype=torch.bool, device="cuda")
+    mask[:, : slot + 1] = True
+    mask[b // 2, :3] = False
+    kw = dict(scale=d**-0.5, wout_scale=so, bias=bias, gate=torch.tensor([0.5], device="cuda", dtype=dtype),
+              slot=torch.tensor([slot], dtype=torch.int32, device="cuda"))
+
+    def call(rows, device="cuda"):
+        ops = [t[rows].clone() for t in (q, k0, v0, mask, kn, vn, res)]
+        if device == "cpu":
+            ops = [t.cpu() for t in ops]
+        qq, kc, vc, m, kn_, vn_, r = ops
+        return attend_out_decode(qq, kc, vc, m, wout if device == "cuda" else wout.cpu(), k_new=kn_, v_new=vn_,
+                                 residual=r, **(kw if device == "cuda" else on_cpu(kw)))
+
+    got, want = call(slice(None)), call(slice(None), "cpu")
+    close(got[0], want[0])
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[2].cpu(), want[2])
+    if b > 8:
+        alone = call(slice(5, 6))
+        assert all(torch.equal(a, g[5:6]) for a, g in zip(alone, got))
+
+
 def quantized(w, bits):
     """A float weight's stored form for `bits` (int8, or packed int4) and its scale."""
     q, s = quantize_weight(w.float(), bits)
@@ -280,6 +368,44 @@ def test_attn_block_decode_int8_cache(gen, slot, s, bits, dtype):
     cache_close(vc, vc_p)
     torch.testing.assert_close(ks.cpu(), ks_p, atol=0, rtol=1e-6 if dtype == torch.float32 else 1e-2)
     torch.testing.assert_close(vs.cpu(), vs_p, atol=0, rtol=1e-6 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_attn_block_decode_int8_cache_step_by_step(gen, seed, bits):
+    """fp32 K3 over an int8 cache at OF-3B's self-attention widths (D 2048,
+    16 heads of 128, slot 40 of 64, B 8) with int weights, at three
+    generator seeds: y within 5e-5 of the plain version over the caches as
+    the kernel wrote them (the q-only form over them: both attend to the
+    same new-token row), and the written slot row within one int8 step of
+    the plain version's own, its scales within 1e-5."""
+    gen.manual_seed(seed)
+    b, h, d, dm, s, slot = 8, 16, 128, 2048, 64, 40
+    inner = h * d
+    x, ln = rn(gen, b, dm), 1 + 0.1 * rn(gen, dm)
+    wqkv, sq = quantized(rn(gen, 3 * inner, dm) * dm**-0.5, bits)
+    wout, so = quantized(rn(gen, dm, inner) * inner**-0.5, bits)
+    (kc, ks), (vc, vs) = int8_cache(gen, b, h, s, d), int8_cache(gen, b, h, s, d)
+    mask = torch.zeros(b, s, dtype=torch.bool, device="cuda")
+    mask[:, : slot + 1] = True
+    mask[0, :4] = mask[1, :7] = False
+    kw = dict(heads=h, head_dim=d, scale=d**-0.5, slopes=rn(gen, h).abs(), wout_scale=so)
+    cpu = on_cpu(kw)
+    originals = [t.cpu() for t in (kc, vc, ks, vs)]
+    got, _, _ = attn_block_decode(x, ln, None, wqkv, wout, kc, vc, mask, fused_qkv=True, wq_scale=sq, k_scale=ks,
+                                  v_scale=vs, slot=torch.tensor([slot], dtype=torch.int32, device="cuda"), **kw)
+    want = attn_block_decode(x.cpu(), ln.cpu(), None, wqkv[:inner].cpu(), wout.cpu(), kc.cpu(), vc.cpu(), mask.cpu(),
+                             wq_scale=sq[:inner].cpu(), k_scale=ks.cpu(), v_scale=vs.cpu(), **cpu)
+    torch.testing.assert_close(got.cpu(), want, atol=ATOL, rtol=0)
+    kp, vp, ksp, vsp = (t.clone() for t in originals)
+    attn_block_decode(x.cpu(), ln.cpu(), None, wqkv.cpu(), wout.cpu(), kp, vp, mask.cpu(), fused_qkv=True,
+                      wq_scale=sq.cpu(), k_scale=ksp, v_scale=vsp, slot=torch.tensor([slot], dtype=torch.int32), **cpu)
+    cache_close(kc, kp)
+    cache_close(vc, vp)
+    torch.testing.assert_close(ks.cpu(), ksp, atol=0, rtol=1e-5)
+    torch.testing.assert_close(vs.cpu(), vsp, atol=0, rtol=1e-5)
+    others = torch.arange(s) != slot
+    assert torch.equal(kc.cpu()[:, :, others], originals[0][:, :, others])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

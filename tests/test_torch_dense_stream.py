@@ -165,12 +165,17 @@ STREAM_SHAPES = [
     (4096, 4096), (32003, 4096), (11008, 4096), (4096, 11008), (16384, 4096), (4096, 16384),  # LLaMA-7B, MPT-7B
     (11000, 4096), (4096, 11000),
 ]
+# K3's and K6's products on the same body: OF-3B's self-attention (Wqkv,
+# Wout) and gated block (Wq, Wout over 8 heads of 64), the out-projections of
+# OF-4B and LLaMA-7B (OPT-1.3B's is OF-3B's (2048, 2048))
+DECODE_LAYER_SHAPES = [(6144, 2048), (2048, 2048), (512, 2048), (2048, 512), (2560, 2560), (4096, 4096)]
+PLAN_SHAPES = STREAM_SHAPES + [shape for shape in DECODE_LAYER_SHAPES if shape not in STREAM_SHAPES]
 STREAM_BATCHES = (1, 8, 13, 16, 64)
 
 
 @pytest.mark.parametrize("sms", [114, 132])
 @pytest.mark.parametrize("wkind", ["bf16", "int8", "int4"])
-@pytest.mark.parametrize("n,k", STREAM_SHAPES)
+@pytest.mark.parametrize("n,k", PLAN_SHAPES)
 def test_stream_plan_covers_every_column_and_chunk_once(n, k, wkind, sms):
     """Each (column, 32-wide K chunk) of the product lies in exactly one
     item; the slices are whole ring stages; the grid has work for every
@@ -193,10 +198,11 @@ def test_stream_plan_covers_every_column_and_chunk_once(n, k, wkind, sms):
 
 
 @pytest.mark.parametrize("wkind", ["bf16", "int8", "int4"])
-@pytest.mark.parametrize("n,k", STREAM_SHAPES)
+@pytest.mark.parametrize("n,k", PLAN_SHAPES)
 def test_stream_plan_is_the_same_for_every_batch(n, k, wkind):
-    """The plans of K2's two launches (and K1's one) passed to the kernel do
-    not depend on B; only the split's scratch grows with B's n-tiles."""
+    """The plans of K2's two launches (and K1's, K3's and K6's) passed to
+    the kernel do not depend on B; only the split's scratch grows with B's
+    n-tiles."""
     from open_flamingo_tpu_torch.ops.dense_stream import STREAM_COLS, stream_launches
 
     for sms in (114, 132):
@@ -206,6 +212,56 @@ def test_stream_plan_is_the_same_for_every_batch(n, k, wkind):
         for b, (_, floats) in got.items():
             rows = 8 * -(-min(b, 64) // 8)
             assert floats % (STREAM_COLS * rows) == 0
+
+
+def test_decode_layer_launches_give_stream_args_their_weights(monkeypatch):
+    """K3's and K6's wrappers hand `stream_args` each projection's (N, K) and
+    weight: OF-3B's self-attention (Wqkv 6,144 x 2,048, Wout 2,048 x 2,048)
+    and gated block (512 x 2,048, 2,048 x 512), K6's out-projection at OF-4B
+    and LLaMA-7B, in bf16, int8 and packed int4. In bf16 the plan of each
+    launch is `stream_plan`'s for its shape and weight kind; fp32 gets zeros
+    and nulls."""
+    from open_flamingo_tpu_torch.ops import dense_stream
+    from open_flamingo_tpu_torch.ops.decode_layer import attend_out_launches, attn_block_launches
+    from open_flamingo_tpu_torch.ops.dense_stream import STREAM_COUNTERS, stream_args, stream_plan, weight_kind
+
+    monkeypatch.setattr(dense_stream, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(dense_stream, "_ARGS", {})
+    monkeypatch.setattr(dense_stream, "_SCRATCH", {})
+    monkeypatch.setattr(dense_stream, "_COUNTERS", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)   # a CPU build has no CUDA
+
+    def stored(n, k, kind):
+        if kind == "int4":
+            return torch.zeros(n, k // 2, dtype=torch.uint8)
+        return torch.zeros(n, k, dtype=torch.int8 if kind == "int8" else torch.bfloat16)
+
+    cases = []
+    for dm, heads, dh, fused in ((2048, 16, 128, True), (2048, 8, 64, False)):   # K3 self, gated
+        inner = heads * dh
+        for kind in ("bf16", "int8", "int4"):
+            wq, wout = stored((3 if fused else 1) * inner, dm, kind), stored(dm, inner, kind)
+            launches = attn_block_launches(wq, wout, dm, inner)
+            assert [(n, k, w, g) for n, k, w, g in launches] == [((3 if fused else 1) * inner, dm, wq, False),
+                                                                  (dm, inner, wout, False)]
+            cases.append(launches)
+    for dm, heads, dh in ((2560, 32, 80), (4096, 32, 128)):                      # K6: OF-4B, LLaMA-7B
+        for kind in ("bf16", "int8", "int4"):
+            wout = stored(dm, heads * dh, kind)
+            launches = attend_out_launches(wout, heads * dh)
+            assert launches == [(dm, heads * dh, wout, False)]
+            cases.append(launches)
+    for launches in cases:
+        for b in (1, 8, 64):
+            x = torch.zeros(b, 8, dtype=torch.bfloat16)
+            args, scratch = stream_args(x, launches)
+            want = [stream_plan(n, k, weight_kind(w), 132) for n, k, w, _ in launches]
+            assert args[:2 * len(launches)] == tuple(v for p in want for v in (p.slice, p.blocks))
+            if any(p.slices > 1 for p in want):
+                assert args[-1] == STREAM_COUNTERS and scratch is not None and args[-3] == scratch.data_ptr()
+            else:
+                assert args[-3:] == (None, None, 0) and scratch is None
+            assert stream_args(x.float(), launches) == ((0, 0) * len(launches) + (None, None, 0), None)
 
 
 def test_stream_shared_memory_fits_beside_the_side_tile_and_k11():
