@@ -14,6 +14,9 @@ port spends its time on the card.
     python3 chip_profile.py opt        # OPT-1.3B generate, the fused route (3 K1, K6, K2 relu; K3)
     python3 chip_profile.py gemv       # K1 and K2 alone at every row of PERF.md's kernel table, B 8 and 64
     python3 chip_profile.py vit        # K9, K10 and the ViT-L/14 forward alone (B 8, 32), kernels and plain
+    python3 chip_profile.py vit --parent=<csrc dir> [--variants=no_softmax,no_products,loads_stores]
+                                       # K9 and K8 alone and the ViT-L/14 forward, this tree's
+                                       # vit_attention.cu and another checkout's in turns in one process
     python3 chip_profile.py k2         # plain K2 and K3 at OF-3B's shapes (bf16, int8, int4): the parent/change A/B
     python3 chip_profile.py k36 [--parent=<csrc dir>] [--variants=no_split,...]
                                        # K3 and K6 alone, B 8 and 64, this tree's decode_layer.cu,
@@ -58,6 +61,19 @@ on the plain route (`DISABLE`), in turns kernels, plain, plain, kernels,
 then traces one forward at B 8 on each route: device time by kind. It
 imports only chip_smoke.py's ViT helpers and timer, so a copy in an older
 checkout times that checkout's kernels.
+
+`vit --parent=<csrc dir>` builds csrc/vit_attention.cu as this tree has it
+and as another checkout's csrc directory has it (both at once,
+`build_variants`; the C interface is the same) and times, through the
+wrappers on each library in turns in one process (`times_in_turns`:
+change, parent, parent, change), K9 at chip_smoke.py's ViT-L/14 B 8 and
+32 and S 17 cases and K8 at the absorbed ViT's B' 8, 32 and 64, each with
+its bound, SDPA's time on the same inputs (with the key mask for K8) and
+the largest difference of the output from this tree's (`--variants=`
+adds builds with VIT_VARIANTS' edits: the softmax, the products or both
+skipped, what each part costs); then the bf16
+ViT-L/14 forward at B 8 and 32 on each library in turns and on the plain
+route, and one traced forward on each library: device time by kind.
 
 `k2` times K2 without a side tile (bf16, B = 8, CUDA-graph replay) at
 OF-3B's MPT MLP in bf16, int8 and int4 (and int4 at the pipe's B 64) and
@@ -1142,6 +1158,74 @@ def vit_times() -> int:
     return 0
 
 
+# K9/K8 bf16 variants, edits of csrc/vit_attention.cu: the softmax skipped (P zeros: loads, products and
+# stores), the products skipped (loads, softmax over zeros and stores), both (loads and stores alone)
+_VIT_SOFTMAX = ("      if (t * kQRows + wi * 16 < p.s_q) {", "      if (false) {")
+_VIT_PRODUCTS = tuple((f"wgmma_rs_bf16<{n}>(", f"if (false) wgmma_rs_bf16<{n}>(") for n in ("64, 0", "16, 0", "D, 1"))
+VIT_VARIANTS = {"no_softmax": (_VIT_SOFTMAX,), "no_products": _VIT_PRODUCTS, "loads_stores": (_VIT_SOFTMAX, *_VIT_PRODUCTS)}
+
+
+def vit_ab_times(argv) -> int:
+    """K9 and K8 (bf16) through their wrappers on this tree's
+    csrc/vit_attention.cu and on another checkout's (--parent=<csrc
+    directory>), built at once and timed in turns in this process; then
+    the ViT-L/14 forward on each, device time by kind."""
+    import contextlib
+    import itertools
+
+    from chip_smoke import (B, VIT_L_14, absorb_kernel_cases, bound, card_line, device_ms, vit_kernel_cases,
+                            vit_model, vit_plain_route)
+    from open_flamingo_tpu_torch.ops import vit_attention as vit_op
+
+    parent = next(a.split("=", 1)[1] for a in argv if a.startswith("--parent="))
+    names = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--variants=")), [])
+    built = build_variants("vit_attention", {n: VIT_VARIANTS[n] for n in names}, "vit", trees={"parent": parent})
+    libs = {name: vit_op.bind(lib) for name, lib in built.items()}
+    dev, dt = torch.device("cuda", 0), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timed = {"vitl14_B8", "vitl14_B32", "S17", "of3b_next_B8", "of3b_next_B32", "of3b_next_B64"}
+
+    def cases():
+        for name, case, fn, _, _, cost, lib, _ in itertools.chain(vit_kernel_cases(dt, gen, dev),
+                                                                  absorb_kernel_cases(dt, gen, dev)):
+            if name == "fused_mlp":          # absorb_kernel_cases' K2b cases follow its K8 cases
+                break
+            if case not in timed or name not in ("vit_attention", "flat_vit_attention"):
+                continue
+            buf = torch.empty_like(fn())
+
+            def call(lib_, fn=fn, buf=buf):
+                vit_op._lib = lib_
+                y = fn()
+                if not torch.cuda.is_current_stream_capturing():   # the timed graph holds the launches alone
+                    buf.copy_(y)
+                return 0
+            b_ms, b_by = bound(*cost, dt)
+            yield name, case, [buf], {"": call}, {"bound_ms": b_ms, "bound_by": b_by, "sdpa_ms": device_ms(lib)}
+
+    with torch.no_grad():
+        times_in_turns(libs, cases(), "vit_bf16")
+        vit = vit_model(dev, dt)
+        px = VIT_L_14.image_size
+        kinds = (("K9 vit_attention", ("vit_attn",)), ("K10 layer_norm", ("layer_norm_kernel",)),
+                 ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "splitK")), ("softmax", ("softmax",)),
+                 ("copy", ("copy", "Memcpy", "Memset")), ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
+        for b in (B, 32):
+            pixels = torch.randn(b, px, px, 3, generator=gen, device=dev)
+            row = {"profile": "vit_forward_ab_bf16", "batch": b}
+            for route in ("as_is", "parent", "plain", "plain", "parent", "as_is"):   # the variants' forwards are not run
+                vit_op._lib = libs.get(route)
+                with vit_plain_route() if route == "plain" else contextlib.nullcontext():
+                    row.setdefault(f"{route}_ms", []).append(device_ms(lambda: vit(pixels), reps=2, rounds=5))
+            for name in ("as_is", "parent"):
+                vit_op._lib = libs[name]
+                row[f"trace_{name}"] = device_time_by_kind(lambda: vit(pixels), kinds)
+            print(json.dumps(row), flush=True)
+    vit_op._lib = None
+    print(card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["side_compare"]:     # saved outputs only: no card needed
         return side_compare(sys.argv[2:])
@@ -1152,6 +1236,8 @@ def main() -> int:
         return gemv_times()
     if sys.argv[1:] == ["vit"]:
         return vit_times()
+    if sys.argv[1:2] == ["vit"]:
+        return vit_ab_times(sys.argv[2:])
     if sys.argv[1:] == ["k2"]:
         return k2_times()
     if sys.argv[1:] == ["k45"]:

@@ -11,7 +11,9 @@ Phases, each printing JSON lines:
               instances of a tensor-core kernel has some, the FMA bodies
               none; K1/K2's and K3/K6's weight-streaming instances all
               have some, and no bf16 instance of the old row-GEMV bodies
-              is left in dense_stream or decode_layer;
+              is left in dense_stream or decode_layer; K9/K8's six bf16
+              instances issue HGMMA, UTMALDG and UTMASTG, and no HMMA is
+              left in vit_attention;
   2. kernels  each kernel of the generate path against its plain PyTorch
               version on the same card tensors, in fp32 and bf16, at
               OF-3B's shapes (B = 8) and edge cases: K1 fused_dense (final
@@ -42,9 +44,12 @@ Phases, each printing JSON lines:
               32 heads of Dh = 80, biases, no ALiBi, untied head): K6
               attend_out_decode (slot write, attend, out-projection, bias)
               at its path shape and edge cases (slot 0 and 63, the whole
-              epilogue, GQA, q only with ALiBi and a row with no valid key),
-              K1 QKV + bias and the untied head, K2 with b1/b2 and the
-              xattn FF, K3 q only, K4 and K7 at Dh = 80 without ALiBi.
+              epilogue, GQA, q only with ALiBi and a row with no valid key;
+              in bf16 every K6 case in two parts, `heads_check`: the head
+              outputs the kernel wrote against the plain attend, y against
+              the plain tail over them), K1 QKV + bias and the untied head,
+              K2 with b1/b2 and the xattn FF, K3 q only, K4 and K7 at
+              Dh = 80 without ALiBi.
               LLaMA-7B's and OPT-1.3B's shapes (llama_opt_kernel_cases): K1
               with the RMSNorm prologue (q in bf16, int8, int4; the untied
               head over 32,003 rows) and OPT's LN + bias q; K2's SwiGLU
@@ -61,9 +66,10 @@ Phases, each printing JSON lines:
               plain autograd in fp32. The absorbed ViT's kernels
               (absorb_kernel_cases): K8 flat_vit_attention on the next
               batch's flat (B', 264, 1024) workspace, s_real 257, at B' 8
-              and 32 (SDPA with the key mask beside it); K2b, each kind of
-              (2112, 1024) x (1024, 1024) side tile on OF-3B's MPT MLP and
-              xattn FF launches with bf16, int8 and int4 weights, the
+              and 32 and the pipe's B' 64 (SDPA with the key mask beside
+              it); K2b, each kind of (2112, 1024) x (1024, 1024) side tile
+              on OF-3B's MPT MLP and xattn FF launches with bf16, int8 and
+              int4 weights, the
               carrier's own output bit for bit that of the launch without a
               tile, timed with and without it (the exposed cost). K11
               fused_layer_decode (layer_kernel_cases): OF-3B's MPT-1B and
@@ -204,7 +210,8 @@ from open_flamingo_tpu_torch.ops.attention import plain_path
 from open_flamingo_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_update, reference_decode_attention)
 from open_flamingo_tpu_torch.ops.decode_layer import (
-    attend_out_decode, attn_block_decode, reference_attend_out, reference_attn_block)
+    attend_out_decode, attn_block_decode, reference_attend, reference_attend_out, reference_attn_block,
+    reference_out_tail)
 from open_flamingo_tpu_torch.ops.dense_stream import (
     fused_dense, fused_mlp, normalize, reference_dense, reference_mlp, reference_side_tile, side_activations)
 from open_flamingo_tpu_torch.ops.flash_attention import (
@@ -233,10 +240,13 @@ TOL = {torch.float32: dict(atol=5e-5, rtol=0.0), torch.bfloat16: dict(atol=1e-2,
 BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)   # fp32 in both versions, from the same inputs
 # K6: fp32 within 1e-5 (one fp32 sum over H*Dh = 2560 products of ~1e-3
-# apart in order only); bf16 within one ulp of the plain result: both round
-# an fp32 value that agrees to ~1e-6 (the floor 2^-6 sizes the ulp of
-# results near 0, where a head output rounded the other way moves the sum by
-# ~2e-5)
+# apart in order only). bf16 in two parts (`heads_check`): the head outputs
+# the kernel wrote against the plain attend within TOL, then y within one
+# ulp of the plain tail over THOSE head outputs: both tails round an fp32
+# value that agrees to ~1e-6 (the floor 2^-6 sizes the ulp of results near
+# 0). Against the plain attend's own head outputs y may not hold one ulp:
+# where the residual cancels the out-projection, a head output rounded to
+# bf16 on the other side of a boundary moves y by more.
 CASE_TOL = {"attend_out_decode": {torch.float32: dict(atol=1e-5, rtol=0.0), torch.bfloat16: "ulp"}}
 BF16_ULP_FLOOR = 2.0**-6
 LOGITS_TOL = 2e-3   # fp32 logits through 24 decoder + 24 xattn layers, every step
@@ -298,8 +308,9 @@ LLAMA_OPT_TIMED = {"llama_q_rms", "llama_q_rms_int8", "llama_q_rms_int4", "llama
                    "llama_self_Dh128", "llama_self_S64_slot40"}
 # the ViT's (vit_kernel_cases)
 VIT_TIMED = {"vitl14_B8", "vitl14_B32", "S17", "vitl14_B8_nobias"}
-# the absorbed ViT's (absorb_kernel_cases): K8 at the next batch's B' 8 and 32, K2b on OF-3B's carriers
-ABSORB_TIMED = {"of3b_next_B32", "mpt_mlp_side_qkv", "mpt_mlp_side_fc2", "mpt_mlp_int8_side_qkv",
+# the absorbed ViT's (absorb_kernel_cases): K8 at the next batch's B' 8 and 32 and the pipe's B' 64, K2b on
+# OF-3B's carriers
+ABSORB_TIMED = {"of3b_next_B32", "of3b_next_B64", "mpt_mlp_side_qkv", "mpt_mlp_side_fc2", "mpt_mlp_int8_side_qkv",
                 "mpt_mlp_int4_side_qkv", "mpt_mlp_int4_side_fc2", "xattn_ff_side_qkv"}
 # the W8A8 side tile and K3 as a carrier (w8a8_kernel_cases), at the pipe's carriers
 W8A8_TIMED = {"mpt_mlp_side8_qkv", "mpt_mlp_int8_side8_qkv", "mpt_mlp_int4_side8_qkv", "mpt_mlp_int4_side8_fc2",
@@ -449,6 +460,8 @@ PREDICATED_HMMA = re.compile(r"(@!?U?P\w+\s+)?HMMA")   # the body's products run
 # the libraries whose bf16 bodies run on tensor cores, and those kernels
 HMMA_KERNELS = {"prefill_attention": ("attention_fwd_mma",),
                 "attention_backward": ("attention_bwd_dq_mma", "attention_bwd_dkv_mma")}
+# K9/K8's bf16 instances (Dh 16, 32, 64; K9 and K8's kFlat) and what each must issue: wgmma and TMA loads and stores
+VIT_BF16 = ("vit_attn_bf16", 6, ("HGMMA", "UTMALDG", "UTMASTG"))
 
 
 def phase_build() -> None:
@@ -487,9 +500,18 @@ def phase_build() -> None:
         require(len(stream) == want and min(stream.values()) > 0, f"{lib}: weight-streaming instances {stream}")
         old = [name for name in rows_ if "stream" not in name and ("_mma_" in name or not OLD_BODY_F32.search(name))]
         require(not old, f"{lib}: bf16 instances of the old row GEMV bodies: {old}")
+    # K9/K8: each bf16 instance of the persistent kernel issues wgmma, TMA loads and TMA stores; no kernel of the
+    # library keeps the old mma.sync body
+    kernel, want, ops = VIT_BF16
+    vit = {name.split("(")[0]: {op: sum(ins.startswith(op) for ins in code) for op in ("HMMA", *ops)}
+           for name, code in sass_kernels(build.target("vit_attention")).items()}
+    bf16 = {name: n for name, n in vit.items() if kernel in name}
+    require(len(bf16) == want and all(n[op] > 0 for n in bf16.values() for op in ops),
+            f"vit_attention: bf16 instances {bf16}, {want} with {ops} expected")
+    require(not any(n["HMMA"] for n in vit.values()), f"vit_attention: mma.sync left in {vit}")
     log({"phase": "build", "seconds": seconds, "sources": build.sources(), "ptxas": regs,
          **{f"{lib}_hmma": counts for lib, counts in hmma.items()},
-         **{f"{lib}_side_gmma": counts for lib, counts in gmma.items()}})
+         **{f"{lib}_side_gmma": counts for lib, counts in gmma.items()}, "vit_attention_sass": vit})
 
 
 # ---------------------------------------------------------------- phase 2
@@ -638,12 +660,7 @@ def llama_opt_kernel_cases(dtype, gen, dev):
         mask[:, slot] = True
         kw = dict(scale=dh**-0.5, k_new=rn(B, h_kv, dh), v_new=rn(B, h_kv, dh), residual=res, bias=bout,
                   slot=torch.tensor([slot], dtype=torch.int32, device=dev))
-        fn = lambda q=q, c=caches, mask=mask, wout=wout, kw=kw: attend_out_decode(
-            q, c[0], c[1], mask, wout, k_scale=c[2], v_scale=c[3], **kw)[0]
-
-        def plain(q=q, o=(k0, v0, ks0, vs0), mask=mask, wout=wout, kw=kw):
-            c = [t.clone() if t is not None else None for t in o]
-            return reference_attend_out(q, c[0], c[1], mask, wout, k_scale=c[2], v_scale=c[3], **kw)[0]
+        fn, plain = k6_fns(q, caches, (k0, v0, ks0, vs0), mask, wout, kw)
         n_valid = mask.sum().item()
         ces = 1 if kv8 else es
         cost = ((dm * h * dh + B * h * dh + 2 * B * dm + 2 * B * h_kv * dh + dm * biased) * es
@@ -955,11 +972,7 @@ def neox_kernel_cases(dtype, gen, dev):
         if masked_row is not None:
             mask[masked_row] = False
         kw = dict(scale=dh**-0.5, **upd, **extra)
-        first = (lambda y: y[0]) if slot is not None else (lambda y: y)
-        fn = lambda q=q, kc=kc, vc=vc, mask=mask, kw=kw, first=first: first(
-            attend_out_decode(q, kc, vc, mask, wout, **kw))
-        plain = lambda q=q, k0=k0, v0=v0, mask=mask, kw=kw, first=first: first(
-            reference_attend_out(q, k0.clone(), v0.clone(), mask, wout, **kw))
+        fn, plain = k6_fns(q, (kc, vc, None, None), (k0, v0, None, None), mask, wout, kw, slot is not None)
         # Wout, the valid cache rows, q, the new K/V and out, bias/gate/
         # residual/slopes, mask and slot
         n_valid = mask.sum().item()
@@ -1033,6 +1046,56 @@ def qweight(w, bits):
     q, sc = quantize_weight(w, bits)
     q = q if bits == 8 else pack_int4(q)
     return q, sc, q.numel() + 4 * sc.numel()
+
+
+_ATTEND_KEYS = ("scale", "k_new", "v_new", "slot", "slopes")
+
+
+def k6_fns(q, caches, originals, mask, wout, kw, update=True):
+    """K6's call on `caches` (k, v, k_scale, v_scale; the slot written in
+    place) and its plain version on copies of `originals`, each returning y.
+    `fn.heads()` runs the call with its head outputs exposed (`attn_out`):
+    (y, head outputs); `fn.plain_heads()` gives the plain attend's head
+    outputs and the plain tail (head outputs -> y), for `heads_check`."""
+    first = (lambda y: y[0]) if update else (lambda y: y)
+
+    def call(**extra):
+        return first(attend_out_decode(q, caches[0], caches[1], mask, wout, k_scale=caches[2], v_scale=caches[3],
+                                       **kw, **extra))
+
+    def copies():
+        return [None if t is None else t.clone() for t in originals]
+
+    def plain():
+        c = copies()
+        return first(reference_attend_out(q, c[0], c[1], mask, wout, k_scale=c[2], v_scale=c[3], **kw))
+
+    def heads():
+        out = torch.empty(q.shape[0], q.shape[1] * q.shape[2], dtype=q.dtype, device=q.device)
+        return call(attn_out=out), out
+
+    def plain_heads():
+        c = copies()
+        want = reference_attend(q, c[0], c[1], mask, wout, k_scale=c[2], v_scale=c[3],
+                                **{key: val for key, val in kw.items() if key in _ATTEND_KEYS})
+        tail_kw = {key: val for key, val in kw.items() if key not in _ATTEND_KEYS}
+        return want, lambda got: reference_out_tail(got, wout, dtype=q.dtype, **tail_kw)
+
+    fn = lambda: call()
+    fn.heads, fn.plain_heads = heads, plain_heads
+    return fn, plain
+
+
+def heads_check(name, case, dtype, fn, exact) -> float:
+    """K6 in bf16, held in two parts (CASE_TOL's note): the head outputs the
+    kernel wrote against the plain attend's within TOL, then y against the
+    plain tail over the kernel's head outputs within one ulp. Returns y's
+    max abs error."""
+    y, heads = fn.heads()
+    torch.cuda.synchronize()
+    want_heads, tail = fn.plain_heads()
+    compare(f"{name}[heads]", case, dtype, heads, want_heads)
+    return compare(name, case, dtype, y, tail(heads), exact, CASE_TOL[name][dtype])
 
 
 def int8_slot_check(kernel, case, dtype, caches, plain_caches, originals, slot):
@@ -1239,13 +1302,7 @@ def quant_kernel_cases(dtype, gen, dev):
         if masked_row is not None:
             mask[masked_row] = False
         kw = dict(scale=dh**-0.5, wout_scale=so, **upd, **extra)
-        first = (lambda y: y[0]) if slot is not None else (lambda y: y)
-        fn = lambda q=q, c=caches, mask=mask, kw=kw, qo=qo, first=first: first(
-            attend_out_decode(q, c[0], c[1], mask, qo, k_scale=c[2], v_scale=c[3], **kw))
-
-        def plain(q=q, o=(k0, v0, ks0, vs0), mask=mask, kw=kw, qo=qo, first=first):
-            c = [t.clone() if t is not None else None for t in o]
-            return first(reference_attend_out(q, c[0], c[1], mask, qo, k_scale=c[2], v_scale=c[3], **kw))
+        fn, plain = k6_fns(q, caches, (k0, v0, ks0, vs0), mask, qo, kw, slot is not None)
         n_valid = mask.sum().item()
         ces = 1 if kv8 else es
         upd_n = B * h_kv * (slot is not None)
@@ -1282,8 +1339,7 @@ def pipe_k3_kernel_cases(dtype, gen, dev):
     in x's dtype, all 64 rows in one pass of the weights: MPT-1B's
     self-attention (slot 40 of 64, ALiBi, rows 0 and 1 left-padded) and the
     gated block over 64 latents (row 3 before any image: y == x there).
-    Drawn after every other case of the phase, so theirs keep their seeded
-    inputs. Yields as kernel_cases."""
+    Yields as kernel_cases."""
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
 
@@ -1372,9 +1428,9 @@ def vit_kernel_cases(dtype, gen, dev):
 def absorb_kernel_cases(dtype, gen, dev):
     """The absorbed next-batch ViT's kernels at OF-3B's shapes. K8
     flat_vit_attention on the flat (B', S_pad 264, 1024) workspace with s_real
-    257 at B' 8 and 32 (SDPA with the key mask on (B, H, S_pad, Dh) views
-    beside it). K2b: each slot kind (q/k/v with LayerNorm 1 and bias; the
-    out-projection with bias and the workspace residual; an fc1 slice, a row
+    257 at B' 8, 32 and the pipe's 64 (SDPA with the key mask on
+    (B, H, S_pad, Dh) views beside it). K2b: each slot kind (q/k/v with
+    LayerNorm 1 and bias; the out-projection with bias and the workspace residual; an fc1 slice, a row
     block of the (4096, 1024) weight; fc2 slices 0 and 1, column blocks of the
     (1024, 4096) weight read with its row stride, quick_gelu, the residual
     chain, the bias on slice 0) as a (2112, 1024) x (1024, 1024) tile on
@@ -1391,7 +1447,7 @@ def absorb_kernel_cases(dtype, gen, dev):
     v = VIT_L_14
     s_real, h, dh, d = v.num_patches + 1, v.num_heads, v.head_dim, v.hidden_size
     s_pad = -(-s_real // 8) * 8
-    for case, b in (("of3b_next_B8", B), ("of3b_next_B32", 32)):
+    for case, b in (("of3b_next_B8", B), ("of3b_next_B32", 32), ("of3b_next_B64", 64)):
         q, k, vv = (rn(b, s_pad, d) for _ in range(3))
         q4, k4, v4 = (t.view(b, s_pad, h, dh).transpose(1, 2) for t in (q, k, vv))
         keys = (torch.arange(s_pad, device=dev) < s_real)[None, None, None, :]
@@ -1830,8 +1886,11 @@ def phase_kernels(dev) -> dict:
             got, launched = launched_variant(functions[name], fn)
             torch.cuda.synchronize()
             want = plain()
-            err = compare(name, case, dtype, got, want, exact,
-                          getattr(fn, "allow", None) or CASE_TOL.get(name, {}).get(dtype))
+            if hasattr(fn, "heads") and dtype == torch.bfloat16:
+                err = heads_check(name, case, dtype, fn, exact)
+            else:
+                err = compare(name, case, dtype, got, want, exact,
+                              getattr(fn, "allow", None) or CASE_TOL.get(name, {}).get(dtype))
             vocab = re.search(r"_V(\d+)", case)
             if vocab:                                   # the ragged last columns, past the 2048-wide blocks
                 c0 = int(vocab.group(1)) // 2048 * 2048

@@ -1,9 +1,10 @@
-// Tensor-core fragment helpers shared by the attention kernels: the ViT's
-// K9/K8 (vit_attention.cu), the prefill forward K4/K5
-// (prefill_attention.cu) and its backward K4b/K5b (attention_backward.cu).
-// `mma.sync` m16n8k16 bf16 with fp32 accumulation, `ldmatrix` B fragments
-// out of shared memory, `cp.async` staging, and the quad reductions over
-// the four lanes that share an accumulator row.
+// Tensor-core fragment helpers shared by the attention kernels: the prefill
+// forward K4/K5 (prefill_attention.cu), its backward K4b/K5b
+// (attention_backward.cu) and the ViT's K9/K8 (vit_attention.cu: its q
+// fragments by `ldmatrix`, P's packing and the quad reductions; its products
+// are `wgmma`, gmma.cuh). `mma.sync` m16n8k16 bf16 with fp32 accumulation,
+// `ldmatrix` B fragments out of shared memory, `cp.async` staging, and the
+// quad reductions over the four lanes that share an accumulator row.
 // Everything here has internal linkage: each .cu is its own shared library,
 // loaded into one process.
 //

@@ -85,10 +85,13 @@
 #include <type_traits>
 
 #include "rows_gemv.cuh"
+#include "gmma.cuh"
 #include "rows_stream.cuh"
 
 namespace side {
 namespace {
+
+using namespace ::gmma;   // wgmma, its descriptors and fences
 
 constexpr int kRows = 64;        // M block; models/absorb_vit.py rounds M to it (SIDE_ROWS)
 constexpr int kColsFma = 64;     // N tile of the fp32 tile
@@ -260,8 +263,6 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
-
 // 16 bytes global -> shared through L2 alone; zero-filled where !valid
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
@@ -270,56 +271,6 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool v
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-// this thread's shared-memory writes (stores, finished cp.async) made visible to wgmma's reads
-__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
-
-// the accumulators pinned in place around asynchronous products
-__device__ __forceinline__ void fence_acc(int* d) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// descriptor of a K-major shared-memory operand in the 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1,024 bytes apart, 1 KB-aligned
-__device__ __forceinline__ uint64_t gmma_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
-         (uint64_t)1 << 62;
-}
-
-#define SIDE_R(x) "+r"(x)
-#define SIDE_F(x) "+f"(x)
-#define SIDE_D8(C, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
-#define SIDE_D32 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
-  "%23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (64 x 64 of the warpgroup) (+)= A (64 rows x 32 bytes of K) B^T (64 rows x 32 bytes)
-__device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b, int accumulate) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " SIDE_D32 ", %32, %33, p;\n}\n"
-               : SIDE_D8(SIDE_R, 0), SIDE_D8(SIDE_R, 8), SIDE_D8(SIDE_R, 16), SIDE_D8(SIDE_R, 24)
-               : "l"(a), "l"(b), "r"(accumulate));
-}
-__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b, int accumulate) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SIDE_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-               : SIDE_D8(SIDE_F, 0), SIDE_D8(SIDE_F, 8), SIDE_D8(SIDE_F, 16), SIDE_D8(SIDE_F, 24)
-               : "l"(a), "l"(b), "r"(accumulate));
-}
-
-#undef SIDE_D32
-#undef SIDE_D8
-#undef SIDE_F
-#undef SIDE_R
 
 // One 128-byte K chunk of a warpgroup's 64 x 64 product: xa the prepared
 // rows' chunk, wb its 64 W rows' chunk, four steps of 32 bytes; `first`: the
@@ -328,9 +279,9 @@ __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b, int
 // in d[4j..4j+3]. Issued and committed here, waited for by the caller.
 template <bool kI8, typename Acc>
 __device__ __forceinline__ void chunk_products(Acc* d, const unsigned char* xa, const unsigned char* wb, bool first) {
-  fence_acc(d);
+  fence_regs<32>(d);
   wgmma_fence();
-  const uint64_t da = gmma_desc(xa), db = gmma_desc(wb);
+  const uint64_t da = gmma_desc_rows<128>(xa), db = gmma_desc_rows<128>(wb);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {   // 32 bytes of K a step: the start address moves 2 x 16 bytes
     if constexpr (kI8) wgmma_s8(d, da + 2 * j, db + 2 * j, first && j == 0 ? 0 : 1);
@@ -618,11 +569,11 @@ __device__ void tile_ring(const Args<T>& a, int blk, unsigned char* smem) {
                         kc == 0);
     if (kc == kchunks - 1) {
       wgmma_wait<0>();
-      fence_acc(d);
+      fence_regs<32>(d);
       ring_epilogue<T, kI8>(a, d, m0, n0, c_end, sact);
     } else {
       wgmma_wait<keep>();
-      fence_acc(d);
+      fence_regs<32>(d);
     }
   }
   cp_async_wait<0>();

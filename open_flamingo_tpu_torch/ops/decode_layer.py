@@ -276,10 +276,12 @@ attn_block_decode.launches = 0
 attn_block_decode.variants = {}
 
 
-def reference_attend_out(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_new=None, slot=None, slopes=None,
-                         wout_scale=None, bias=None, gate=None, residual=None, k_scale=None, v_scale=None):
-    """Plain version of attend_out_decode, at the kernel's rounding points."""
-    refuse_autograd("attend_out_decode", q, k_cache, v_cache, wout, k_new, v_new, slopes, bias, gate, residual)
+def reference_attend(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_new=None, slot=None, slopes=None,
+                     k_scale=None, v_scale=None):
+    """Plain version of attend_out_decode's attend: the slot write (in place,
+    with k_new), then the head outputs (B, H*Dh) rounded to the dtype of the
+    out-projection's operands (q's when wout is an int type), as the kernel
+    writes them before its out-projection."""
     b, h, dh = q.shape
     n_rep = h // k_cache.shape[1]
     if k_new is not None:
@@ -290,8 +292,14 @@ def reference_attend_out(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, 
     ks, vs = (None if c is None else c.repeat_interleave(n_rep, dim=1) for c in (k_scale, v_scale))
     qs = (q.float() * scale).to(q.dtype)
     a = reference_decode_attention(qs, k, v, mask, 1.0, slopes, ks, vs)
-    mm_dtype = q.dtype if wout.dtype in _WTYPES else wout.dtype
-    y = a.reshape(b, h * dh).to(mm_dtype).float() @ weight_values(wout).float().t()
+    return a.reshape(b, h * dh).to(q.dtype if wout.dtype in _WTYPES else wout.dtype)
+
+
+def reference_out_tail(heads, wout, *, dtype, wout_scale=None, bias=None, gate=None, residual=None):
+    """Plain version of attend_out_decode's tail over given head outputs
+    (B, H*Dh): the fp32 out-projection, *wout_scale, +bias, *tanh(gate),
+    +residual, one rounding to `dtype`."""
+    y = heads.float() @ weight_values(wout).float().t()
     if wout_scale is not None:
         y = y * wout_scale
     if bias is not None:
@@ -300,13 +308,28 @@ def reference_attend_out(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, 
         y = y * torch.tanh(gate.float())
     if residual is not None:
         y = y + residual.float()
-    y = y.to(q.dtype)
+    return y.to(dtype)
+
+
+def reference_attend_out(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_new=None, slot=None, slopes=None,
+                         wout_scale=None, bias=None, gate=None, residual=None, k_scale=None, v_scale=None,
+                         attn_out=None):
+    """Plain version of attend_out_decode, at the kernel's rounding points:
+    `reference_attend`, then `reference_out_tail` over its head outputs
+    (copied into `attn_out` when given)."""
+    refuse_autograd("attend_out_decode", q, k_cache, v_cache, wout, k_new, v_new, slopes, bias, gate, residual)
+    heads = reference_attend(q, k_cache, v_cache, mask, wout, scale=scale, k_new=k_new, v_new=v_new, slot=slot,
+                             slopes=slopes, k_scale=k_scale, v_scale=v_scale)
+    if attn_out is not None:
+        attn_out.copy_(heads)
+    y = reference_out_tail(heads, wout, dtype=q.dtype, wout_scale=wout_scale, bias=bias, gate=gate,
+                           residual=residual)
     return (y, k_cache, v_cache) if k_new is not None else y
 
 
 def attend_out_decode(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_new=None, slot=None, slopes=None,
                       wout_scale=None, bias=None, gate=None, residual=None, layer_idx=None, k_scale=None,
-                      v_scale=None):
+                      v_scale=None, attn_out=None):
     """K6, the attention tail of a decode layer: with k_new/v_new, write them
     into the caches at `slot` IN PLACE; attend q over the caches under
     `mask`; out-project per head and sum; then *wout_scale, +bias,
@@ -316,7 +339,10 @@ def attend_out_decode(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_n
     k_new/v_new (B, H_kv, Dh) in q's dtype; slot (1,) int32 on the caches'
     device; mask (B, S), nonzero = attend; wout (D, H*Dh), the nn.Linear
     weight, in q's dtype, int8 or packed int4 with wout_scale (D,) fp32;
-    slopes (H,) fp32; bias (D,); gate (1,); residual (B, D). Returns y
+    slopes (H,) fp32; bias (D,); gate (1,); residual (B, D). attn_out, a
+    contiguous (B, H*Dh) tensor in q's dtype on q's device, receives the
+    head outputs the out-projection reads (the kernel writes them there in
+    place of its own buffer; the decode path never passes it). Returns y
     (B, D) in q's dtype, or (y, k_cache, v_cache) with k_new."""
     if layer_idx is not None:
         raise ValueError("attend_out_decode: the port keeps one per-layer layout and takes no layer_idx (the JAX "
@@ -339,10 +365,14 @@ def attend_out_decode(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_n
         raise ValueError("attend_out_decode: k_new needs slot, a (1,) int32 tensor")
     if slopes is not None and slopes.shape != (h,):
         raise ValueError("attend_out_decode: slopes must be (H,)")
+    if attn_out is not None and (attn_out.shape != (b, h * dh) or attn_out.dtype != q.dtype
+                                 or attn_out.device != q.device or not attn_out.is_contiguous()):
+        raise ValueError(f"attend_out_decode: attn_out must be a contiguous (B, H*Dh) = {(b, h * dh)} tensor in "
+                         f"q's dtype on q's device")
     if q.device.type == "cpu":
         return reference_attend_out(q, k_cache, v_cache, mask, wout, scale=scale, k_new=k_new, v_new=v_new,
                                     slot=slot, slopes=slopes, wout_scale=wout_scale, bias=bias, gate=gate,
-                                    residual=residual, k_scale=k_scale, v_scale=v_scale)
+                                    residual=residual, k_scale=k_scale, v_scale=v_scale, attn_out=attn_out)
     if q.device.type != "cuda":
         raise ValueError(f"attend_out_decode: unsupported device {q.device}")
     q = q.contiguous()
@@ -359,7 +389,7 @@ def attend_out_decode(q, k_cache, v_cache, mask, wout, *, scale, k_new=None, v_n
             raise ValueError(f"attend_out_decode: {name} must be contiguous on {q.device}")
     m = mask if mask.dtype in (torch.bool, torch.uint8) else (mask != 0).to(torch.uint8)
     sl = None if slopes is None else slopes.to(torch.float32)
-    attn = torch.empty(b, h * dh, dtype=q.dtype, device=q.device)
+    attn = torch.empty(b, h * dh, dtype=q.dtype, device=q.device) if attn_out is None else attn_out
     out = torch.empty(b, dm, dtype=q.dtype, device=q.device)
     plan, _ = stream_args(q, attend_out_launches(wout, h * dh))
     status = _kernel().attend_out_decode_fwd(

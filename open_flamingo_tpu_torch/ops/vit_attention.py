@@ -4,12 +4,16 @@ absorbed ViT's flat workspace.
 Replaces `open_flamingo_tpu/ops/vit_attention.py` `vit_attention` (kernel
 `_vit_attn_kernel` via `_vit_attention_fwd_impl`; the backward `_bwd`
 recomputes through `_reference`). The CUDA kernel is
-`csrc/vit_attention.cu` `vit_attention_fwd`: one block per (instance, block
-of query rows), the instance's K and V in shared memory, the fp32 scores in
-registers, never in device memory; bf16 on tensor cores (`mma.sync`), fp32
-on CUDA cores. It takes S up to 272 (ViT-L/14: 257) and Dh 16, 32 or 64
-(ViT-L/14: 64). The JAX kernel's `block_bh` is a TPU grid knob and has no
-counterpart here.
+`csrc/vit_attention.cu` `vit_attention_fwd`. In bf16 a persistent kernel
+(the C entry plans it): one block per SM, up to one per instance, walks
+over the (image, head) instances; its producer warpgroup stages each
+instance's K and V once by TMA into a ring of two instance stages, and its
+two consumer warpgroups take the instance's 64-row query tiles in turns on
+`wgmma` over all 272 keys whatever S, the fp32 scores in registers, never
+in device memory. fp32 runs on CUDA cores, one block per (instance, block
+of query rows). It takes S up to 272 (ViT-L/14: 257)
+and Dh 16, 32 or 64 (ViT-L/14: 64). The JAX kernel's `block_bh` is a TPU
+grid knob and has no counterpart here.
 
 Semantics, the TPU kernel's: q times `scale` in fp32, rounded to q's dtype;
 fp32 scores and softmax, P normalised and then rounded to v's dtype; P.V
@@ -38,7 +42,8 @@ every query row, pad rows too, gets the softmax over the real keys (finite
 values, as the TPU kernel's). The math is fp32: scores q.k^T times `scale`,
 P, and P.V, with one rounding of the result. The kernel is the
 `flat_vit_attention_fwd` instance of `csrc/vit_attention.cu` (bf16 P as a
-hi/lo pair on the tensor cores, fp32 on CUDA cores); the plain version is
+hi/lo pair on the tensor cores, two products per key step; fp32 on CUDA
+cores); the plain version is
 `reference_flat_vit_attention`. The absorbed schedule picks the kernel
 for CUDA tensors outside `plain_path()`; the wrapper launches it for a CUDA
 tensor, runs the plain version for a CPU one and raises for any other
@@ -60,19 +65,24 @@ FORCE = False
 DISABLE = False
 MAX_S = 272                    # csrc/vit_attention.cu kMaxS
 HEAD_DIMS = (16, 32, 64)
+MAX_INSTANCES = 65535          # images x heads a launch takes (the fp32 grid's second axis)
 _lib = None
+
+
+def bind(lib):
+    """`lib` (csrc/vit_attention.cu built) with its C entries' argument types."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.vit_attention_fwd.argtypes = [p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
+    lib.vit_attention_fwd.restype = i
+    lib.flat_vit_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
+    lib.flat_vit_attention_fwd.restype = i
+    return lib
 
 
 def _kernel():
     global _lib
     if _lib is None:
-        lib = build.library("vit_attention")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.vit_attention_fwd.argtypes = [p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
-        lib.vit_attention_fwd.restype = i
-        lib.flat_vit_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
-        lib.flat_vit_attention_fwd.restype = i
-        _lib = lib
+        _lib = bind(build.library("vit_attention"))
     return _lib
 
 
@@ -105,6 +115,8 @@ def _check(q, k, v, fn="vit_attention"):
     b, s, h, d = q.shape
     if d not in HEAD_DIMS or not 1 <= s <= MAX_S:
         raise ValueError(f"{fn}: the kernel takes Dh in {HEAD_DIMS} and S in [1, {MAX_S}], got Dh {d}, S {s}")
+    if b * h > MAX_INSTANCES:
+        raise ValueError(f"{fn}: the kernel takes up to {MAX_INSTANCES} (image, head) instances, got {b * h}")
     for t in (q, k, v):
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{fn}: q, k, v need a contiguous head dim, strides that are multiples of 8 "

@@ -821,6 +821,85 @@ def test_flat_vit_attention(gen, b, s_pad, s_real, d, heads, dtype):
     close(got, flat_vit_attention(q.cpu(), k.cpu(), v.cpu(), (d // heads) ** -0.5, heads=heads, s_real=s_real))
 
 
+def split_heads(x, h, d):
+    """q, k, v as the ViT block passes them: (B, S, H, Dh) views of one
+    (B, S, 3*H*Dh) projection (row stride 3*H*Dh)."""
+    b, s = x.shape[:2]
+    return [x[..., i * h * d:(i + 1) * h * d].view(b, s, h, d) for i in range(3)]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("s", [1, 16, 17, 64, 65, 257, 272])
+def test_vit_attention_bf16_persistent_kernel(gen, s, d):
+    """K9's bf16 kernel at every tile edge of S (16-key tiles, 64-row query
+    tiles, one or two K/V boxes) and each Dh (its own TMA swizzle), at 1,
+    131, 133 and 1,024 instances (under, around and past one block per SM)
+    on strided views: against the plain version, repeat calls bit for bit,
+    and instance 0 alone gives the bits it gives among the others."""
+    for b, h in ((1, 1), (131, 1), (7, 19), (64, 16)):
+        q, k, v = split_heads(rn(gen, b, s, 3 * h * d).to(torch.bfloat16), h, d)
+        got = vit_attention_heads(q, k, v, d**-0.5)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        close(got, vit_attention_heads(q.cpu(), k.cpu(), v.cpu(), d**-0.5))
+        assert torch.equal(got, vit_attention_heads(q, k, v, d**-0.5))
+        alone = vit_attention_heads(q[:1, :, :1], k[:1, :, :1], v[:1, :, :1], d**-0.5)
+        assert torch.equal(alone[0, :, 0], got[0, :, 0])
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_flat_vit_attention_bf16_persistent_kernel(gen, b):
+    """K8's bf16 kernel at the absorbed ViT-L/14's shape (S_pad 264 query
+    rows over s_real 257 keys, 16 heads of Dh 64) at B' 1, 8 and 64 (the
+    pipe's): against the plain version, pad rows finite, repeat calls and
+    image 0 alone bit for bit."""
+    s_pad, s_real, heads, d = 264, 257, 16, 1024
+    q, k, v = (rn(gen, b, s_pad, d).to(torch.bfloat16) for _ in range(3))
+    kw = dict(heads=heads, s_real=s_real)
+    got = flat_vit_attention(q, k, v, 0.125, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    close(got, flat_vit_attention(q.cpu(), k.cpu(), v.cpu(), 0.125, **kw))
+    assert torch.equal(got, flat_vit_attention(q, k, v, 0.125, **kw))
+    assert torch.equal(flat_vit_attention(q[:1], k[:1], v[:1], 0.125, **kw)[0], got[0])
+
+
+def within_one_ulp(got, want, floor=2.0**-6):
+    """Every entry within one bf16 ulp (8 significant bits) of the plain
+    result, the ulp of results near 0 floored at that of `floor`."""
+    mag = want.float().abs().clamp(min=floor)
+    return bool(((got.float() - want.float()).abs() <= torch.exp2(torch.floor(torch.log2(mag)) - 7)).all())
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_attend_out_decode_bf16_over_its_own_head_outputs(seed):
+    """K6 in bf16 at LLaMA-7B's shape (D 4096, 32 heads of Dh 128, slot 40
+    of 64, residual), held as chip_smoke.py holds it: the head outputs the
+    kernel wrote (attn_out) against the plain attend within 1e-2, and y
+    within one bf16 ulp of the plain tail over those head outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from open_flamingo_tpu_torch.ops.decode_layer import reference_attend, reference_out_tail
+
+    g = torch.Generator(device="cuda").manual_seed(100 + seed)
+    b, h, dh, s, dm = 8, 32, 128, 64, 4096
+    bf = lambda *shape, scale=1.0: (rn(g, *shape) * scale).to(torch.bfloat16)
+    q, kn, vn, res = bf(b, h, dh), bf(b, h, dh), bf(b, h, dh), bf(b, dm)
+    k0, v0 = bf(b, h, s, dh), bf(b, h, s, dh)
+    wout = bf(dm, h * dh, scale=(h * dh) ** -0.5)
+    mask = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    mask[0, :4], mask[1, :7], mask[:, 41:] = False, False, False
+    slot = torch.tensor([40], dtype=torch.int32, device="cuda")
+    heads = torch.empty(b, h * dh, dtype=torch.bfloat16, device="cuda")
+    kc, vc = k0.clone(), v0.clone()
+    y, _, _ = attend_out_decode(q, kc, vc, mask, wout, scale=dh**-0.5, k_new=kn, v_new=vn, slot=slot, residual=res,
+                                attn_out=heads)
+    torch.cuda.synchronize()
+    want = reference_attend(q, k0.clone(), v0.clone(), mask, wout, scale=dh**-0.5, k_new=kn, v_new=vn, slot=slot)
+    torch.testing.assert_close(heads.float(), want.float(), atol=1e-2, rtol=1e-2)
+    assert within_one_ulp(y, reference_out_tail(heads, wout, dtype=torch.bfloat16, residual=res))
+
+
 SIDE_SLOTS = {
     "ln_bias": dict(ln=True, bias=True),                            # q/k/v, fc1
     "residual": dict(bias=True, residual=True),                     # out-projection parts

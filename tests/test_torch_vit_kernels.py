@@ -372,3 +372,29 @@ def test_wrappers_refuse_unsupported_shapes():
     with pytest.raises(TypeError, match="share dtype"):
         port_va._check(torch.zeros(1, 17, 2, 64), torch.zeros(1, 17, 2, 64, dtype=torch.bfloat16),
                        torch.zeros(1, 17, 2, 64))
+
+
+# ---------------------------------------------------------------- what the kernel takes
+
+# (B, S, H, Dh) at the edges of what csrc/vit_attention.cu takes: S 1..272, Dh 16/32/64, up to 65,535
+# (image, head) instances a launch
+ACCEPTED = {"S1_Dh16": (1, 1, 1, 16), "S272_Dh32": (2, 272, 3, 32), "S257_Dh64": (8, 257, 16, 64),
+            "instances_65535": (4369, 1, 15, 16)}
+REFUSED = {"S273": ((1, 273, 2, 64), "S in"), "Dh48": ((1, 17, 2, 48), "Dh"), "Dh128": ((1, 17, 2, 128), "Dh"),
+           "Dh8": ((1, 17, 2, 8), "Dh"), "instances_65536": ((4096, 1, 16, 16), "instances")}
+
+
+@pytest.mark.parametrize("case", list(ACCEPTED))
+def test_wrapper_takes_the_kernels_edges(case):
+    q = torch.zeros(ACCEPTED[case])
+    port_va._check(q, q, q)
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_wrapper_refuses_what_the_kernel_does_not_take(case):
+    """Refused in Python, with a message, before any launch (the C entry
+    refuses the same shapes with a CUDA error)."""
+    shape, match = REFUSED[case]
+    q = torch.zeros(shape)
+    with pytest.raises(ValueError, match=match):
+        port_va._check(q, q, q)
