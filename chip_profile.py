@@ -21,6 +21,9 @@ port spends its time on the card.
     python3 chip_profile.py k36 [--parent=<csrc dir>] [--variants=no_split,...]
                                        # K3 and K6 alone, B 8 and 64, this tree's decode_layer.cu,
                                        # another checkout's and variants in turns in one process
+    python3 chip_profile.py k7 [--parent=<csrc dir>] [--variants=no_compute,no_loads,...]
+                                       # K7 alone at its path shapes and LLaMA-7B's S 2,048 (B 1, 8), this
+                                       # tree's decode_attention.cu, another checkout's and plan variants in turns
     python3 chip_profile.py stream [--variants=empty,...]  # K1/K2's weight-streaming body against variants
     python3 chip_profile.py wall [model]  # host clock of 7 bf16 generate calls (OF-3B unless named)
     python3 chip_profile.py k45        # K4/K5's tensor-core body against variants of its source, one call
@@ -99,6 +102,22 @@ cache, K6 at OF-4B, LLaMA-7B and OPT-1.3B, K3 carrying a bf16 and a W8A8
 tile; each case with its bound, its library call and y's largest
 difference from this tree's.
 
+`k7` builds csrc/decode_attention.cu as this tree has it and, with
+`--parent=`, as another checkout's csrc directory has it (both at once,
+`build_variants`), and times K7 through its wrappers on each library in
+turns in one process (`times_in_turns`: change, parent, parent, change; the
+parent's one-block-per-(b, h) library behind this tree's C interface,
+`ParentDecodeAttention`; `--variants=` adds this library under other split
+plans, K7_PLAN_VARIANTS: 4 splits at most, a two-tile ring, and builds with
+K7_SRC_VARIANTS' edits: the compute or the loads skipped, 16 warps, other
+tile sizes, base e, no watchdog) at
+`k7_cases`: chip_smoke.py's K7 cases at OF-3B's, LLaMA-7B's and OPT-1.3B's
+unfused decode (S 64) and at LLaMA-7B's S 2,048, B 1 and 8, both entry
+points, each call reading the next of several cache copies (out of the L2);
+bf16, each case with its bound, SDPA's time on the same inputs where SDPA
+computes the same function, and the output's largest difference from this
+tree's.
+
 `k45` builds csrc/prefill_attention.cu as it is and as variants, each a
 copy with one constant or branch changed (two blocks per SM for the
 causal mask too, a three-stage ring, 32-key tiles, the compute skipped:
@@ -145,6 +164,7 @@ Run from the repository root with one CUDA card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import re
 import sys
@@ -1013,6 +1033,133 @@ def k36_times(argv) -> int:
     return 0
 
 
+class ParentDecodeAttention:
+    """Another checkout's csrc/decode_attention.cu library from before K7
+    took a split plan (one block per (b, h)) behind this tree's C
+    interface: the plan's three arguments are dropped on the way in."""
+
+    def __init__(self, lib):
+        import ctypes
+
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.decode_attention_fwd.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_float, i, p]
+        lib.decode_attention_fwd.restype = i
+        self.lib = lib
+
+    def decode_attention_fwd(self, *a):
+        return self.lib.decode_attention_fwd(*a[:15], a[-1])
+
+
+# K7 split-plan variants: the constants of ops.decode_attention.decode_plan changed (the same library)
+K7_PLAN_VARIANTS = {"splits4": {"DECODE_MAX_SPLITS": 4}, "ring64k": {"DECODE_RING_BYTES": 64 * 1024}}
+# K7 source variants, edits of csrc/decode_attention.cu: the scores and P.V skipped (loads, waits, merges and
+# stores alone); the tiles never loaded (the compute over whatever shared memory holds); blocks of 16 warps;
+# tiles of 128 or 32 keys (with the plan in K7_SRC_PLANS); softmax in base e; the waits without their watchdog
+K7_SRC_VARIANTS = {
+    "warps16": (("constexpr int kWarps = 8;", "constexpr int kWarps = 16;"),),
+    "no_compute": (("      if (c < nv && gw + i * kGpw < kKpw) {\n        float kf[VE];",
+                    "      if (false) {\n        float kf[VE];"),
+                   ("      sc[i] = live ? dot", "      sc[i] = false ? dot")),
+    "no_loads": (("  a.bulk = a.ld == d &&", "  a.bulk = 0 && a.ld == d &&"),
+                 ("      for (int i = tid; i < tile_elems; i += kThreads) {", "      for (int i = tid; i < 0; i += kThreads) {")),
+    "tile128": (("constexpr int kTile = 64;", "constexpr int kTile = 128;"),),
+    "exp_e": (("constexpr float kLog2e = 1.4426950408889634f;", "constexpr float kLog2e = 1.0f;"),
+              ("{ return exp2f(x); }", "{ return expf(x); }")),
+    "tile32": (("constexpr int kTile = 64;", "constexpr int kTile = 32;"),),
+    "no_watchdog": (("  if (clock64() - start > (1ll << 34)) __trap();", ""),),
+}
+# the plan a source variant's library runs under (its tile and ring), where it is not decode_plan's own
+K7_SRC_PLANS = {"tile32": {"DECODE_TILE": 32, "DECODE_MIN_TILES": 4},
+                "tile128": {"DECODE_TILE": 128, "DECODE_MIN_TILES": 1, "DECODE_RING_BYTES": 64 * 1024}}
+
+
+class PlanVariant:
+    """This tree's K7 library launched with the plan decode_plan gives
+    under other constants."""
+
+    def __init__(self, lib, consts):
+        self.lib, self.consts = lib, consts
+
+    def decode_attention_fwd(self, *a):
+        from open_flamingo_tpu_torch.ops import decode_attention as k7
+
+        saved = {name: getattr(k7, name) for name in self.consts}
+        try:
+            for name, value in self.consts.items():
+                setattr(k7, name, value)
+            k7.decode_plan.cache_clear()
+            plan = k7.decode_plan(a[10], a[11], torch.bfloat16 if a[14] == 1 else torch.float32)
+        finally:
+            for name, value in saved.items():
+                setattr(k7, name, value)
+            k7.decode_plan.cache_clear()
+        return self.lib.decode_attention_fwd(*a[:15], *plan, a[-1])
+
+
+def k7_cases(dev):
+    """chip_smoke.py's bf16 K7 cases at the unfused decode's shapes (OF-3B's
+    xattn S64 and self slot 40, LLaMA-7B's and OPT-1.3B's self-attention)
+    and at LLaMA-7B's S 2,048: (kernel, case, call, cost, library call)."""
+    from chip_smoke import TIMED_CASES, k7_long_cases, of3b_k7_cases, self_attention_cases
+    from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dt)
+
+    slopes16 = torch.from_numpy(alibi_slopes(16)).to(dev)
+    for name, case, fn, _, _, cost, lib, _ in itertools.chain(
+            of3b_k7_cases(rn, 2, dev, slopes16),
+            self_attention_cases(rn, 2, dev, 32, 128, "prefill_llama", "llama_self_Dh128", "llama_self_S64_slot40"),
+            self_attention_cases(rn, 2, dev, 32, 64, "prefill_opt", "opt_self_Dh64", "opt_self_S64_slot40"),
+            k7_long_cases(dt, gen, dev)):
+        if name.startswith("decode_attention") and case in TIMED_CASES:
+            yield name, case, fn, cost, lib
+
+
+def k7_times(argv) -> int:
+    """K7 at k7_cases through its wrappers on this tree's
+    csrc/decode_attention.cu, on another checkout's (--parent=<csrc
+    directory>, ParentDecodeAttention), on K7_SRC_VARIANTS' builds and
+    under K7_PLAN_VARIANTS (--variants=), built at once and timed in turns
+    in this process."""
+    from chip_smoke import bound, card_line, device_ms
+    from open_flamingo_tpu_torch.ops import decode_attention as k7
+
+    parent = next((a.split("=", 1)[1] for a in argv if a.startswith("--parent=")), None)
+    names = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--variants=")), [])
+    built = build_variants("decode_attention", {n: K7_SRC_VARIANTS[n] for n in names if n in K7_SRC_VARIANTS}, "k7",
+                           trees={"parent": parent} if parent else None)
+    libs = {name: ParentDecodeAttention(lib) if name == "parent" else
+            PlanVariant(k7.bind(lib), K7_SRC_PLANS[name]) if name in K7_SRC_PLANS else k7.bind(lib)
+            for name, lib in built.items()}
+    libs.update({name: PlanVariant(libs["as_is"], K7_PLAN_VARIANTS[name]) for name in names if name in K7_PLAN_VARIANTS})
+    dev = torch.device("cuda", 0)
+
+    def cases():
+        for kernel, case, fn, cost, lib in k7_cases(dev):
+            k7._lib = libs["as_is"]
+            buf = torch.empty_like(fn())
+
+            def call(lib_, fn=fn, buf=buf):
+                k7._lib = lib_
+                y = fn()
+                if not torch.cuda.is_current_stream_capturing():   # the timed graph holds the launches alone
+                    buf.copy_(y)
+                return 0
+            b_ms, b_by = bound(*cost, torch.bfloat16)
+            yield kernel, case, [buf], {"": call}, {"bound_ms": b_ms, "bound_by": b_by,
+                                                    "sdpa_ms": None if lib is None else device_ms(lib)}
+
+    with torch.no_grad():
+        times_in_turns(libs, cases(), "k7_bf16")
+    k7._lib = None
+    print(card_line(), flush=True)
+    return 0
+
+
 def k45_times() -> int:
     import ctypes
 
@@ -1244,6 +1391,8 @@ def main() -> int:
         return k45_times()
     if sys.argv[1:2] == ["k36"]:
         return k36_times(sys.argv[2:])
+    if sys.argv[1:2] == ["k7"]:
+        return k7_times(sys.argv[2:])
     if sys.argv[1:] == ["k45b"]:
         return k45b_times()
     if sys.argv[1:] == ["absorb"]:
@@ -1339,7 +1488,7 @@ def main() -> int:
     # template arguments, over packed int4 `Int4` (split out below)
     ported = {kern: sum(r[1] for r in rows if kern in r[0])
               for kern in ("gemv", "attend_kernel", "attend_out_kernel", "attention_fwd_mma", "attention_fwd_kernel",
-                           "decode_kernel", "attention_bwd_dq", "attention_bwd_dkv", "fused_layer_kernel")}
+                           "decode_split_kernel", "attention_bwd_dq", "attention_bwd_dkv", "fused_layer_kernel")}
     gemv_by_weight = {"float": 0.0, "int8": 0.0, "int4": 0.0}
     for name, t, _ in rows:
         m = re.search(r"gemv\w*<(.*?)>\(", name)     # the template arguments

@@ -13,7 +13,8 @@ Phases, each printing JSON lines:
               have some, and no bf16 instance of the old row-GEMV bodies
               is left in dense_stream or decode_layer; K9/K8's six bf16
               instances issue HGMMA, UTMALDG and UTMASTG, and no HMMA is
-              left in vit_attention;
+              left in vit_attention; each of K7's 11 split-kernel
+              instances issues the bulk copy (UBLKCP);
   2. kernels  each kernel of the generate path against its plain PyTorch
               version on the same card tensors, in fp32 and bf16, at
               OF-3B's shapes (B = 8) and edge cases: K1 fused_dense (final
@@ -22,7 +23,12 @@ Phases, each printing JSON lines:
               with the in-place slot write at slots 40 and 63, gated xattn
               with a row before any image), K4 flash_attention (prefill
               S64, after a 16-token prefix, ragged S 257), K5 masked_xattn
-              (one and two images), K7 decode_attention and _update. Times
+              (one and two images), K7 decode_attention and _update (and,
+              after the other cases, K7 at LLaMA-7B's S 2,048, B 1 and 8,
+              both entry points, each call reading the next of several cache
+              copies, out of the L2; NaN in every masked K/V row, the
+              output finite and the bits of the output over zeroed rows:
+              `k7_long_cases`). Times
               the kernel (CUDA-graph replay), one eager call, the plain
               version, and the library call named beside it; K4 and K5 in
               bf16 also on the CUDA-core FMA body their tensor-core body
@@ -274,6 +280,8 @@ W8A8_NEAR = 1e-3
 # wrong mask, scale or rounding moves entries by 1e-2 or more.
 VIT_RTOL = 1e-4
 B, T_PROMPT, NEW_TOKENS, SEED = 8, 32, 32, 0
+L2_BYTES = 50e6    # H100 SXM
+K7_LONG_S = 2048   # LLaMA-7B's longest cache (max_position_embeddings)
 # the main-path shape of each kernel, timed and reported, and the path whose
 # launches its entry reports; other cases are edge cases or other paths' shapes
 MAIN_CASES = {"fused_dense": ("head_V50434", "generate_fused"), "fused_mlp": ("mpt_mlp", "generate_fused"),
@@ -323,8 +331,11 @@ LAYER_TIMED = {f"{case}{sfx}" for case in ("mpt_layer_S64_slot40", "xattn_layer_
                for sfx in ("", "_int8", "_int4")}
 # K4's and K5's other generate shapes: a prompt after a 16-token prefix, the ViT-length ragged S, two images
 PREFILL_TIMED = {"q_offset16", "ragged_S257", "prefill_T2"}
+# K7 at LLaMA-7B's longest cache (k7_long_cases), B 1 and 8, both entry points
+K7_LONG_TIMED = {"llama_self_S2048_B1", "llama_self_S2048_B8", "llama_S2048_slot2047_B1", "llama_S2048_slot2047_B8"}
 TIMED_CASES = ({case for case, _ in MAIN_CASES.values()} | {"xattn_ff", "xattn_S64_gate"} | NEOX_TIMED | QUANT_TIMED
-               | LLAMA_OPT_TIMED | VIT_TIMED | ABSORB_TIMED | W8A8_TIMED | LAYER_TIMED | PREFILL_TIMED)
+               | LLAMA_OPT_TIMED | VIT_TIMED | ABSORB_TIMED | W8A8_TIMED | LAYER_TIMED | PREFILL_TIMED
+               | K7_LONG_TIMED)
 BWD_TIMED = {"laion_T32", "mmc4_T256"}
 # the OF-3B train step at the JAX package's bench shape (bench.py:494)
 B_L, T_L, B_M, T_M, N_IMG, TRAIN_PAD = 8, 32, 4, 256, 6, 1
@@ -419,6 +430,11 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 # ---------------------------------------------------------------- phase 1
 
 
+def opcode(ins: str) -> str:
+    """A SASS instruction's opcode, its predicate and modifiers dropped."""
+    return re.sub(r"^@!?U?P\w+\s+", "", ins).split(" ")[0].split(".")[0]
+
+
 def sass_kernels(path) -> dict:
     """The SASS instructions of each kernel of a built library
     (`cuobjdump --dump-sass`), by demangled name with the anonymous
@@ -462,6 +478,9 @@ HMMA_KERNELS = {"prefill_attention": ("attention_fwd_mma",),
                 "attention_backward": ("attention_bwd_dq_mma", "attention_bwd_dkv_mma")}
 # K9/K8's bf16 instances (Dh 16, 32, 64; K9 and K8's kFlat) and what each must issue: wgmma and TMA loads and stores
 VIT_BF16 = ("vit_attn_bf16", 6, ("HGMMA", "UTMALDG", "UTMASTG"))
+# K7's split kernel: its instances (fp32 with G 1-32 lanes a key, bf16 with 1-16) each issue the 1-D bulk copy
+# (cp.async.bulk)
+K7_SPLIT = ("decode_split_kernel", 11, "UBLKCP")
 
 
 def phase_build() -> None:
@@ -509,7 +528,15 @@ def phase_build() -> None:
     require(len(bf16) == want and all(n[op] > 0 for n in bf16.values() for op in ops),
             f"vit_attention: bf16 instances {bf16}, {want} with {ops} expected")
     require(not any(n["HMMA"] for n in vit.values()), f"vit_attention: mma.sync left in {vit}")
+    # K7: every instance of the split kernel stages its tiles by bulk copies; no other kernel in the library
+    kernel, want, op = K7_SPLIT
+    k7 = {name.split("(")[0]: [opcode(ins) for ins in code]
+          for name, code in sass_kernels(build.target("decode_attention")).items()}
+    k7_ops = {name: code.count(op) for name, code in k7.items()}
+    require(len(k7) == want and all(kernel in name and n > 0 for name, n in k7_ops.items()),
+            f"decode_attention: instances {k7_ops}, {want} of {kernel} with {op} expected")
     log({"phase": "build", "seconds": seconds, "sources": build.sources(), "ptxas": regs,
+         "decode_attention_sass": {op: k7_ops, "opcodes": sorted(set(next(iter(k7.values()), [])))},
          **{f"{lib}_hmma": counts for lib, counts in hmma.items()},
          **{f"{lib}_side_gmma": counts for lib, counts in gmma.items()}, "vit_attention_sass": vit})
 
@@ -847,6 +874,13 @@ def kernel_cases(dtype, gen, dev):
         lib = lambda q4=q4, k4=k4, v4=v4, m4=m4: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=d**-0.5)
         yield "masked_xattn", case, fn, plain, zeros_at(zero_rows), cost, lib, "scaled_dot_product_attention"
 
+    yield from of3b_k7_cases(rn, es, dev, slopes16)
+
+
+def of3b_k7_cases(rn, es, dev, slopes16):
+    """K7 at OF-3B's unfused decode: the gated xattn over the cached media
+    K/V (H 8, Dh 64, S 64, a row before any image) and the self-attention
+    step writing slot 40 (H 16, Dh 128, ALiBi). Yields as kernel_cases."""
     # K7: xattn decode over the cached media K/V (H=8, Dh=64, S=64)
     h, d, s = 8, 64, 64
     q, k, v = rn(B, h, d), rn(B, h, s, d), rn(B, h, s, d)
@@ -1039,6 +1073,94 @@ def self_attention_cases(rn, es, dev, h, dh, prefill_case, self_case, update_cas
            lambda: decode_attention_update(q, kc, vc, kn, vn, mask, slot, scale=dh**-0.5)[0], plain_update, None,
            cost, None, None)
     require(torch.equal(kc[:, :, slot], kn) and torch.equal(vc[:, :, slot], vn), f"{update_case}: slot not written")
+
+
+def k7_long_cases(dtype, gen, dev):
+    """K7 at LLaMA-7B's longest cache (32 heads of Dh 128, S 2,048, left
+    padding of 37 and 1,000 keys), B 1 and 8, both entry points (the update
+    at the last slot). Each call reads the next of `l2_copies` identical
+    cache copies (CUDA-graph replay included), so every call's K/V come from
+    device memory, not the 50 MB L2. Then the NaN case: every masked K/V row
+    (the padding, the slots past the new token, the unwritten slot itself
+    for the update) holds NaN; the output must be finite and have the bits
+    of the output over the same rows zeroed. Yields as kernel_cases."""
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    h, d, s, slot = 32, 128, K7_LONG_S, K7_LONG_S - 1
+    for bsz in (1, 8):
+        q, kn, vn, k0, v0 = rn(bsz, h, d), rn(bsz, h, d), rn(bsz, h, d), rn(bsz, h, s, d), rn(bsz, h, s, d)
+        copies = [(k0.clone(), v0.clone()) for _ in range(l2_copies(2 * k0.numel() * es))]
+        mask = left_padded_mask(bsz, s, [37, 1000][:bsz], dev)
+        n_valid = mask.sum().item()
+        m4 = mask[:, None, None, :]
+        cost = ((2 * bsz * h * d + 2 * n_valid * h * d) * es + bsz * s, 4 * d * h * n_valid)
+        yield ("decode_attention", f"llama_self_S2048_B{bsz}",
+               rotating(copies, lambda kc, vc: decode_attention(q, kc, vc, mask, scale=d**-0.5)),
+               rotating(copies, lambda kc, vc: reference_decode_attention(q, kc, vc, mask, d**-0.5)), None, cost,
+               rotating(copies, lambda kc, vc: F.scaled_dot_product_attention(q[:, :, None], kc, vc, attn_mask=m4,
+                                                                              scale=d**-0.5)),
+               "scaled_dot_product_attention")
+
+        def plain_update():
+            kp, vp = k0.clone(), v0.clone()
+            kp[:, :, slot], vp[:, :, slot] = kn, vn
+            return reference_decode_attention(q, kp, vp, mask, d**-0.5)
+
+        cost = ((2 * bsz * h * d + 2 * n_valid * h * d + 4 * bsz * h * d) * es + bsz * s, 4 * d * h * n_valid)
+        yield ("decode_attention_update", f"llama_S2048_slot2047_B{bsz}",
+               rotating(copies, lambda kc, vc: decode_attention_update(q, kc, vc, kn, vn, mask, slot,
+                                                                       scale=d**-0.5)[0]),
+               plain_update, None, cost, None, None)
+        # the first copy (the compared call's) holds the new K/V at the slot and nothing else moved
+        kc, vc = copies[0]
+        others = torch.arange(s, device=dev) != slot
+        require(torch.equal(kc[:, :, slot], kn) and torch.equal(vc[:, :, slot], vn), f"K7 S2048 B{bsz}: slot")
+        require(torch.equal(kc[:, :, others], k0[:, :, others]) and torch.equal(vc[:, :, others], v0[:, :, others]),
+                f"K7 S2048 B{bsz}: slots other than the new token's changed")
+
+    bsz, slot = 2, 3 * s // 4
+    q, kn, vn, k0, v0 = rn(bsz, h, d), rn(bsz, h, d), rn(bsz, h, d), rn(bsz, h, s, d), rn(bsz, h, s, d)
+    mask = left_padded_mask(bsz, s, [37, 1000], dev)
+    mask[:, slot + 1:] = False
+    masked = ~mask[:, None, :, None]
+    kz, vz = k0.masked_fill(masked, 0.0), v0.masked_fill(masked, 0.0)
+    knan, vnan = k0.masked_fill(masked, float("nan")), v0.masked_fill(masked, float("nan"))
+    n_valid = mask.sum().item()
+    fn = lambda: decode_attention(q, knan, vnan, mask, scale=d**-0.5)
+    cost = ((2 * bsz * h * d + 2 * n_valid * h * d) * es + bsz * s, 4 * d * h * n_valid)
+    yield ("decode_attention", "llama_S2048_nan_masked_rows", fn,
+           lambda: reference_decode_attention(q, kz, vz, mask, d**-0.5), None, cost, None, None)
+    got = fn()
+    require(bool(torch.isfinite(got).all()) and torch.equal(got, decode_attention(q, kz, vz, mask, scale=d**-0.5)),
+            "decode_attention: NaN in masked K/V rows reached the output")
+    knan[:, :, slot], vnan[:, :, slot] = float("nan"), float("nan")   # the slot not written yet
+
+    def plain_update_nan():
+        kp, vp = kz.clone(), vz.clone()
+        kp[:, :, slot], vp[:, :, slot] = kn, vn
+        return reference_decode_attention(q, kp, vp, mask, d**-0.5)
+
+    fn = lambda: decode_attention_update(q, knan, vnan, kn, vn, mask, slot, scale=d**-0.5)[0]
+    cost = ((2 * bsz * h * d + 2 * n_valid * h * d + 4 * bsz * h * d) * es + bsz * s, 4 * d * h * n_valid)
+    yield "decode_attention_update", "llama_S2048_nan_masked_rows", fn, plain_update_nan, None, cost, None, None
+    got = fn()
+    want = decode_attention_update(q, kz.clone(), vz.clone(), kn, vn, mask, slot, scale=d**-0.5)[0]
+    require(bool(torch.isfinite(got).all()) and torch.equal(got, want),
+            "decode_attention_update: NaN in masked K/V rows reached the output")
+
+
+def l2_copies(nbytes: int) -> int:
+    """Copies of an input of `nbytes` to rotate over so that each call
+    reads device memory: two more than fill twice the 50 MB L2, at least 2."""
+    return max(2, math.ceil(2 * L2_BYTES / nbytes) + 1)
+
+
+def rotating(copies, call):
+    """`call` on the next of `copies` (tuples of its arguments) each time."""
+    turn = itertools.cycle(copies)
+    return lambda: call(*next(turn))
 
 
 def qweight(w, bits):
@@ -1881,7 +2003,7 @@ def phase_kernels(dev) -> dict:
                                 quant_kernel_cases(dtype, gen, dev), llama_opt_kernel_cases(dtype, gen, dev),
                                 vit_kernel_cases(dtype, gen, dev), absorb_kernel_cases(dtype, gen, dev),
                                 w8a8_kernel_cases(dtype, gen, dev), layer_kernel_cases(dtype, gen, dev),
-                                pipe_k3_kernel_cases(dtype, gen, dev))
+                                pipe_k3_kernel_cases(dtype, gen, dev), k7_long_cases(dtype, gen, dev))
         for name, case, fn, plain, exact, cost, lib, lib_is in cases:
             got, launched = launched_variant(functions[name], fn)
             torch.cuda.synchronize()

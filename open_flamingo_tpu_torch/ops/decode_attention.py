@@ -2,10 +2,15 @@
 
 Replaces `open_flamingo_tpu/ops/decode_attention.py` `decode_attention`
 and `decode_attention_update` (`_decode_kernel` via `_call`). The CUDA
-kernel is `csrc/decode_attention.cu` `decode_attention_fwd`: one block per
-(b, h); four warps stream the cache rows with a running softmax each and
-merge at the end. Bound by the cache bytes on the card (4 FLOPs per
-element read); see the source's note.
+kernel is `csrc/decode_attention.cu` `decode_attention_fwd`: the keys of
+each (b, h) are cut into `decode_plan(S, Dh, dtype).splits` chunks, one
+block each, the blocks of a (b, h) one thread block cluster; each block
+brings its chunk's K and V tiles into shared memory by bulk copies, takes
+scores and P.V with lanes owning 16-byte columns, and rank 0 merges the
+chunks' softmax partials through distributed shared memory, in one launch.
+Bound by the cache bytes on the card (4 FLOPs per element read); see the
+source's note. The plan depends on S, Dh and the dtype alone, so a (b, h)
+row gives the same bits alone, in any batch and on every repeat.
 
 `decode_attention_update` writes `k_new`/`v_new` into the cache tensors
 IN PLACE at `slot` and attends with the new token in the same launch (the
@@ -14,13 +19,16 @@ same cache tensors it was given.
 
 The wrappers launch the kernel for CUDA tensors and run the plain version
 `reference_decode_attention` (after an in-place slot write, for the update)
-for CPU tensors. Forward-only: both raise when autograd would need a
+for CPU tensors. A `torch.bool` mask goes to the kernel as its bytes, with
+no conversion. Forward-only: both raise when autograd would need a
 gradient through them (`dense_stream.refuse_autograd`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,17 +36,49 @@ from . import build
 from .dense_stream import refuse_autograd
 from .flash_attention import _DTYPES, check_qkv
 
+DECODE_TILE = 64              # keys a ring stage holds (csrc/decode_attention.cu kTile)
+DECODE_MAX_SPLITS = 8         # blocks of one (b, h): the portable cluster size (kMaxSplits)
+DECODE_MAX_STAGES = 8         # kMaxStages
+DECODE_MIN_TILES = 2          # tiles a split takes before the keys are cut further
+DECODE_RING_BYTES = 32 * 1024  # the ring a block aims at (one stage at least): more blocks an SM
+
 _lib = None
+
+
+class DecodePlan(NamedTuple):
+    chunk: int    # keys of each split (a multiple of DECODE_TILE); the last split takes the rest
+    splits: int   # blocks of one (b, h), one cluster
+    stages: int   # tiles of a block's ring in shared memory
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(s: int, d: int, dtype: torch.dtype) -> DecodePlan:
+    """K7's plan for a cache of S keys of Dh = d in `dtype`: S's 64-key
+    tiles cut into splits of at least DECODE_MIN_TILES tiles, at most
+    DECODE_MAX_SPLITS of them (past that the chunk grows), the splits
+    evened out; a ring of as many tiles of a split as DECODE_RING_BYTES
+    holds (one at least). A function of (S, Dh, dtype) alone, never of B or
+    H, so a (b, h) row's sums add in one order in every launch."""
+    row = -(-d * torch.tensor([], dtype=dtype).element_size() // 16) * 16   # a staged row's bytes
+    tiles = max(1, -(-s // DECODE_TILE))
+    splits = min(DECODE_MAX_SPLITS, max(1, tiles // DECODE_MIN_TILES))
+    per = -(-tiles // splits)
+    stages = min(per, max(1, DECODE_RING_BYTES // (2 * DECODE_TILE * row)), DECODE_MAX_STAGES)
+    return DecodePlan(per * DECODE_TILE, -(-tiles // per), stages)
+
+
+def bind(lib):
+    """`lib` (csrc/decode_attention.cu built) with its C entry's argument types."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
+    lib.decode_attention_fwd.restype = i
+    return lib
 
 
 def _kernel():
     global _lib
     if _lib is None:
-        lib = build.library("decode_attention")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
-        lib.decode_attention_fwd.restype = i
-        _lib = lib
+        _lib = bind(build.library("decode_attention"))
     return _lib
 
 
@@ -77,7 +117,10 @@ def _launch(q, k, v, mask, scale, slopes, k_new, v_new, slot, name):
     check_qkv(q, k, v, name)
     if mask.device != q.device or (slopes is not None and slopes.device != q.device):
         raise ValueError(f"{name}: mask/slopes on another device")
-    m = (mask != 0).to(torch.uint8).contiguous()
+    if mask.dtype == torch.bool and mask.is_contiguous():
+        m = mask.view(torch.uint8)          # its bytes are 0 / 1 already: no conversion kernel
+    else:
+        m = (mask != 0).to(torch.uint8).contiguous()
     sl = None
     if slopes is not None:
         sl = slopes.to(torch.float32).contiguous()
@@ -93,11 +136,12 @@ def _launch(q, k, v, mask, scale, slopes, k_new, v_new, slot, name):
             raise ValueError(f"{name}: slot {slot} outside the cache of {s}")
         kn, vn = k_new.contiguous(), v_new.contiguous()
     out = torch.empty_like(q)
+    plan = decode_plan(s, d, q.dtype)
     status = _kernel().decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
         None if sl is None else sl.data_ptr(),
         None if kn is None else kn.data_ptr(), None if vn is None else vn.data_ptr(),
-        out.data_ptr(), b, h, s, d, int(slot), float(scale), _DTYPES[q.dtype],
+        out.data_ptr(), b, h, s, d, int(slot), float(scale), _DTYPES[q.dtype], *plan,
         build.current_stream(q.device),
     )
     build.check(status, "decode_attention_fwd")

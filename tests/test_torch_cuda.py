@@ -102,6 +102,124 @@ def test_decode_attention_update(gen):
 
 
 DTYPES = [torch.float32, torch.bfloat16]
+# K7's split plan: S from one key to 4,096, ragged, on either side of a
+# 64-key tile, every cluster size 1-8 (256 / 384 / ... / 1,024 keys at Dh
+# 128 in bf16) and chunks that grow past 8 splits
+K7_S = [1, 5, 63, 64, 65, 129, 200, 256, 257, 384, 511, 640, 767, 896, 1024, 1100, 2047, 2048, 4096]
+
+
+def k7_inputs(gen, b, h, s, d, dtype, slopes=True):
+    """q, k, v, a left-padded mask (row 0 by a third of S, the last row's
+    keys past 3/4 of S masked) and ALiBi slopes, on the card."""
+    q, k, v = (x.to(dtype) for x in (rn(gen, b, h, d), rn(gen, b, h, s, d), rn(gen, b, h, s, d)))
+    m = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    m[0, : s // 3] = False
+    m[-1, max(1, 3 * s // 4):] = False
+    sl = rn(gen, h).abs() * 0.1 if slopes else None
+    return q, k, v, m, sl
+
+
+def k7_plain(q, k, v, m, sl, scale):
+    return decode_attention(q.cpu(), k.cpu(), v.cpu(), m.cpu(), scale=scale, slopes=None if sl is None else sl.cpu())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("s", K7_S)
+def test_decode_attention_split(gen, s, d, dtype):
+    q, k, v, m, sl = k7_inputs(gen, 2, 3, s, d, dtype)
+    close(decode_attention(q, k, v, m, scale=d**-0.5, slopes=sl), k7_plain(q, k, v, m, sl, d**-0.5))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,offset", [(1, 0), (7, 0), (33, 0), (64, 1), (128, 3)])
+@pytest.mark.parametrize("s", [37, 300, 2048])
+def test_decode_attention_unaligned_rows(gen, s, d, offset, dtype):
+    """Rows that are not 16-byte aligned (Dh x size % 16 != 0, or a cache
+    view `offset` elements into its storage): the block stages the tiles
+    itself, into zero-padded rows."""
+    q, k0, v0, m, sl = k7_inputs(gen, 2, 3, s, d, dtype)
+    k, v = (torch.empty(x.numel() + offset, dtype=dtype, device="cuda")[offset:].view(x.shape) for x in (k0, v0))
+    k.copy_(k0)
+    v.copy_(v0)
+    close(decode_attention(q, k, v, m, scale=d**-0.5, slopes=sl), k7_plain(q, k0, v0, m, sl, d**-0.5))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [64, 300, 2048])
+def test_decode_attention_rows_alone_and_repeats(gen, s, dtype):
+    """1,024 (b, h) instances: repeats give the same bits, and a row alone
+    (B = H = 1) the bits it gives in the batch; the update likewise."""
+    b, h, d = 32, 32, 128
+    q, k, v, m, sl = k7_inputs(gen, b, h, s, d, dtype)
+    out = decode_attention(q, k, v, m, scale=d**-0.5, slopes=sl)
+    assert torch.equal(decode_attention(q, k, v, m, scale=d**-0.5, slopes=sl), out)
+    for bi, hi in [(0, 0), (5, 17), (31, 31)]:
+        one = decode_attention(q[bi:bi + 1, hi:hi + 1].contiguous(), k[bi:bi + 1, hi:hi + 1].contiguous(),
+                               v[bi:bi + 1, hi:hi + 1].contiguous(), m[bi:bi + 1], scale=d**-0.5, slopes=sl[hi:hi + 1])
+        assert torch.equal(one[0, 0], out[bi, hi]), (bi, hi)
+    slot = s - 1
+    kn, vn = rn(gen, b, h, d).to(dtype), rn(gen, b, h, d).to(dtype)
+    outs = [decode_attention_update(q, k.clone(), v.clone(), kn, vn, m, slot, scale=d**-0.5, slopes=sl)[0]
+            for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    one = decode_attention_update(q[5:6, 17:18].contiguous(), k[5:6, 17:18].clone(), v[5:6, 17:18].clone(),
+                                  kn[5:6, 17:18].contiguous(), vn[5:6, 17:18].contiguous(), m[5:6], slot,
+                                  scale=d**-0.5, slopes=sl[17:18])[0]
+    assert torch.equal(one[0, 0], outs[0][5, 17])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [64, 256, 384, 512, 640, 768, 896, 1024, 2048, 4096])
+def test_decode_attention_masked_chunks_and_nan_rows(gen, s, dtype):
+    """At every cluster size: a row with no valid key gives exact zeros; a
+    row whose first chunks hold no valid key, and one valid key alone, come
+    out right; NaN written into every masked K/V row never reaches the
+    output (finite, and the bits of the output with those rows zeroed)."""
+    b, h, d = 4, 2, 128
+    q, k, v, m, sl = k7_inputs(gen, b, h, s, d, dtype)
+    m[1] = False                      # no valid key
+    m[2, : s - 1] = False             # the last key alone
+    m[0, : 3 * s // 4] = False        # the first chunks empty
+    out = decode_attention(q, k, v, m, scale=d**-0.5, slopes=sl)
+    assert (out[1] == 0).all()
+    close(out, k7_plain(q, k, v, m, sl, d**-0.5))
+    masked = ~m[:, None, :, None]
+    kn_, vn_ = k.masked_fill(masked, float("nan")), v.masked_fill(masked, float("nan"))
+    kz, vz = k.masked_fill(masked, 0.0), v.masked_fill(masked, 0.0)
+    got = decode_attention(q, kn_, vn_, m, scale=d**-0.5, slopes=sl)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, decode_attention(q, kz, vz, m, scale=d**-0.5, slopes=sl))
+    assert (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,slot", [(100, 0), (100, 63), (100, 64), (100, 99), (2048, 0), (2048, 255), (2048, 256),
+                                    (2048, 2047), (4096, 511), (4096, 512)])
+def test_decode_attention_update_slots(gen, s, slot, dtype):
+    """The slot at 0, S - 1 and either side of a tile and a chunk boundary:
+    the cache is bit for bit the plain write (no other slot moves), the
+    output is the plain version's and has the bits of `decode_attention`
+    over the written cache; the unwritten slots past it hold NaN."""
+    b, h, d = 2, 3, 128
+    q, k, v, m, sl = k7_inputs(gen, b, h, s, d, dtype)
+    m[:, slot + 1:] = False
+    m[:, slot] = True
+    k[:, :, slot + 1:] = float("nan")
+    v[:, :, slot + 1:] = float("nan")
+    kn, vn = rn(gen, b, h, d).to(dtype), rn(gen, b, h, d).to(dtype)
+    kw, vw = k.cpu(), v.cpu()
+    kw[:, :, slot], vw[:, :, slot] = kn.cpu(), vn.cpu()
+    got, kc, vc = decode_attention_update(q, k, v, kn, vn, m, slot, scale=d**-0.5, slopes=sl)
+    assert kc is k and vc is v
+    bits = torch.int32 if dtype == torch.float32 else torch.int16      # NaN rows compared by their bits
+    assert torch.equal(k.cpu().view(bits), kw.view(bits)) and torch.equal(v.cpu().view(bits), vw.view(bits))
+    valid = m.cpu()[:, None, :, None]
+    want = decode_attention(q.cpu(), kw.masked_fill(~valid, 0.0), vw.masked_fill(~valid, 0.0), m.cpu(),
+                            scale=d**-0.5, slopes=sl.cpu())
+    close(got, want)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, decode_attention(q, k, v, m, scale=d**-0.5, slopes=sl))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
