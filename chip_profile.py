@@ -24,6 +24,9 @@ port spends its time on the card.
     python3 chip_profile.py k7 [--parent=<csrc dir>] [--variants=no_compute,no_loads,...]
                                        # K7 alone at its path shapes and LLaMA-7B's S 2,048 (B 1, 8), this
                                        # tree's decode_attention.cu, another checkout's and plan variants in turns
+    python3 chip_profile.py k11 [--parent=<csrc dir>] [--variants=trace,stop1,no_prefetch,...]
+                                       # K11 alone at LAYER_TIMED's layers, B 1, 8, 13, 72, this tree's
+                                       # fused_layer.cu, another checkout's and variants in turns, K3 + K2 beside
     python3 chip_profile.py stream [--variants=empty,...]  # K1/K2's weight-streaming body against variants
     python3 chip_profile.py wall [model]  # host clock of 7 bf16 generate calls (OF-3B unless named)
     python3 chip_profile.py k45        # K4/K5's tensor-core body against variants of its source, one call
@@ -117,6 +120,23 @@ points, each call reading the next of several cache copies (out of the L2);
 bf16, each case with its bound, SDPA's time on the same inputs where SDPA
 computes the same function, and the output's largest difference from this
 tree's.
+
+`k11` builds csrc/fused_layer.cu as this tree has it and, with
+`--parent=`, as another checkout's csrc directory has it (both at once,
+`build_variants`), and times K11 through its wrapper on each library in
+turns in one process (`times_in_turns`; the parent's library behind this
+tree's C interface, `ParentFusedLayer`, at B <= 64, the most the parent
+takes in bf16; `--variants=` adds builds with K11_VARIANTS' edits: the
+layer stopped after phase 1, 2, 3 or 4, each phase's first weight stages
+issued after its barrier instead of before, the barriers doubled with and
+without the stages in flight, the phases inlined into the kernel, and
+`trace`, whose blocks write their `%globaltimer` at each phase's bounds:
+one call a case on it prints when the first and the last block passed
+each) at `k11_cases`: chip_smoke.py's LAYER_TIMED
+layers (OF-3B's MPT-1B layer and gated block, MPT-7B's layer) with bf16,
+int8 and int4 weights at B 1, 8, 13 and 72; bf16 activations, each case
+with its bound, the K3 + K2 route's time on the same inputs and y's largest
+difference from this tree's.
 
 `k45` builds csrc/prefill_attention.cu as it is and as variants, each a
 copy with one constant or branch changed (two blocks per SM for the
@@ -799,13 +819,15 @@ def times_in_turns(libs: dict, cases, profile: str) -> None:
 # variants of the weight-streaming row GEMV, each edits of csrc/rows_stream.cuh: its parts skipped, so
 # what is left is timed alone
 STREAM_VARIANTS = {
-    "empty": (("  using G = Geometry<kMaxNt, kGated>;\n", "  if (b > 0) return;\n  using G = Geometry<kMaxNt, kGated>;\n"),),
-    "no_prologue": (("  if (ln_s != nullptr) stream_stats<kMaxNt == 1 ? 8 : 4, kCg>(x, eps, norm, b, k, mean, inv);\n", ""),
-                    ("      stream_stage_h<kGated ? 1 : 2, kCg>(x, ln_s, ln_b, mean, inv, b, k, nts, hs * kSc, "
-                     "(he - hs) * kSc, hf);\n", "")),
+    "empty": (("  StreamRing<W, kGated, kMaxNt> ring(", "  if (b > 0) return;\n  StreamRing<W, kGated, kMaxNt> ring("),),
+    "no_prologue": (("    if (ln_s != nullptr) stream_stats<kMaxNt == 1 ? 8 : 4, kCg>(x, eps, norm, b, k, mean, inv);\n", ""),
+                    ("        if (ln_s != nullptr) stream_stats<kMaxNt == 1 ? 8 : 4, kCg>(x + (size_t)r0 * k, eps, norm, "
+                     "rows, k, mean, inv);\n", ""),
+                    ("      stream_stage_h<kGated ? 1 : 2, kCg>(x + (size_t)r0 * k, ln_s, ln_b, mean, inv, rows, k, nts, "
+                     "hs * kSc,\n                                          (he - hs) * kSc, hf);\n", "")),
     "no_products": (("        if (live) {\n          const unsigned char* stage = my_ring",
                      "        if (false) {\n          const unsigned char* stage = my_ring"),),
-    "no_loads": (("    if (p_item < items) {\n      const unsigned dst0", "    if (false) {\n      const unsigned dst0"),),
+    "no_loads": (("    if (p_item < walk) {\n      const int it", "    if (false) {\n      const int it"),),
     "no_split": (("    if (ks > 1) {  // this slice's partials", "    if (false) {  // this slice's partials"),),
 }
 STREAM_CASES = ("neox_qkv_bias", "llama_q_rms_int4", "head_V50434_int8", "mpt_mlp", "mpt_mlp_int4", "llama_swiglu_int4",
@@ -968,9 +990,10 @@ def k36_cases(dev):
 
 class ParentDecodeLayer:
     """Another checkout's csrc/decode_layer.cu library from before its K3 and
-    K6 projections took weight-streaming plans (the parent's: the
-    tensor-core row GEMV of rows_gemv.cuh) behind this tree's C interface:
-    the wrappers' plan arguments are dropped on the way in."""
+    K6 projections took weight-streaming plans (the tensor-core row GEMV of
+    rows_gemv.cuh) behind this tree's C interface: the wrappers' plan
+    arguments are dropped on the way in. A checkout with the plans runs
+    behind the interface as it is."""
 
     def __init__(self, lib):
         import ctypes
@@ -1009,7 +1032,10 @@ def k36_times(argv) -> int:
     names = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--variants=")), [])
     built = build_variants("decode_layer", {n: STREAM_VARIANTS[n] for n in names}, "k36", "rows_stream.cuh",
                            trees={"parent": parent} if parent else None)
-    libs = {name: ParentDecodeLayer(lib) if name == "parent" else decode_layer.bind(lib) for name, lib in built.items()}
+    # a parent whose C entries take no plans behind the adapter, a later one as it is
+    old_parent = parent and "int slice1" not in (Path(parent) / "decode_layer.cu").read_text()
+    libs = {name: ParentDecodeLayer(lib) if name == "parent" and old_parent else decode_layer.bind(lib)
+            for name, lib in built.items()}
     dev = torch.device("cuda", 0)
 
     def cases():
@@ -1156,6 +1182,223 @@ def k7_times(argv) -> int:
     with torch.no_grad():
         times_in_turns(libs, cases(), "k7_bf16")
     k7._lib = None
+    print(card_line(), flush=True)
+    return 0
+
+
+# K11 source variants, edits of csrc/fused_layer.cu (bf16): the layer stopped after phase 1, 2, 3 or 4 (each with
+# the barrier after it and the next phase's first stages issued), so what each phase adds is the difference of
+# two; each phase's first stages issued after its barrier, not before; the barriers after phases 1, 3 and 4
+# doubled, with and without the stages in flight (what a barrier costs)
+_K11_STOP = "  rows::cp_wait<0>();\n  return;\n"
+_K11_NO_PREFETCH = ("constexpr bool kPrefetch = true;", "constexpr bool kPrefetch = false;")
+_K11_TWO_BARRIERS = ("  grid.sync();\n  if (deferred<W, kMaxNt>(a.plan[", "  grid.sync();\n  grid.sync();\n"
+                     "  if (deferred<W, kMaxNt>(a.plan[")
+# the phase trace: each block's %globaltimer at the phases' bounds (`k11_marks_read` reads them); the phases
+# inlined into the kernel, not functions of their own
+_K11_MARK = ("__device__ unsigned long long k11_marks[1024 * 16];\n"
+             "__device__ __forceinline__ void mark(int i) {\n"
+             "  unsigned long long t;\n"
+             "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+             "  if (threadIdx.x == 0) k11_marks[blockIdx.x * 16 + i] = t;\n}\n")
+K11_TRACE = (("using bf16 = __nv_bfloat16;\n", "using bf16 = __nv_bfloat16;\n" + _K11_MARK),
+             ("  stream_phase<1, W, kAct, kGated, kMaxNt>(a);\n  grid.sync();\n",
+              "  mark(0);\n  stream_phase<1, W, kAct, kGated, kMaxNt>(a);\n  mark(1);\n  grid.sync();\n  mark(2);\n"),
+             ("  attend_phase(a, rows::Geometry<kMaxNt, false>::kRingBytes);\n  grid.sync();\n",
+              "  mark(3);\n  attend_phase(a, rows::Geometry<kMaxNt, false>::kRingBytes);\n  mark(4);\n  grid.sync();\n"
+              "  mark(5);\n"),
+             ("  stream_phase<3, W, kAct, kGated, kMaxNt>(a);\n  grid.sync();\n",
+              "  stream_phase<3, W, kAct, kGated, kMaxNt>(a);\n  mark(6);\n  grid.sync();\n  mark(7);\n"),
+             ("  stream_phase<4, W, kAct, kGated, kMaxNt>(a);\n  grid.sync();\n",
+              "  stream_phase<4, W, kAct, kGated, kMaxNt>(a);\n  mark(8);\n  grid.sync();\n  mark(9);\n"),
+             ("  stream_phase<5, W, kAct, kGated, kMaxNt>(a);\n", "  stream_phase<5, W, kAct, kGated, kMaxNt>(a);\n  mark(10);\n"),
+             ("}  // namespace\n", "}  // namespace\n\nextern \"C\" int k11_marks_read(void* dst) {  // and clear them\n"
+              "  void* p = nullptr;\n  cudaError_t e = cudaGetSymbolAddress(&p, k11_marks);\n"
+              "  if (e == cudaSuccess) e = cudaMemcpy(dst, p, sizeof(k11_marks), cudaMemcpyDeviceToHost);\n"
+              "  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(k11_marks));\n  return (int)e;\n}\n"))
+K11_MARKS = ("start", "projection", "barrier 1", "reduce 1", "attend", "barrier 2", "out-projection", "barrier 3",
+             "up", "barrier 4", "down")
+_K11_INLINE = (("__device__ __noinline__ void attend_phase(", "__device__ __forceinline__ void attend_phase("),
+               ("__device__ __noinline__ void stream_phase(", "__device__ __forceinline__ void stream_phase("))
+K11_VARIANTS = {
+    "trace": K11_TRACE,
+    "inline": _K11_INLINE,
+    "stop1": (("  // 2. the attend;", _K11_STOP + "  // 2. the attend;"),),
+    "stop2": (("  // 3. the out-projection", _K11_STOP + "  // 3. the out-projection"),),
+    "stop3": (("  // 4. the hidden activation", _K11_STOP + "  // 4. the hidden activation"),),
+    "stop4": (("  // 5. y = x2 + tanh(gate2) * down", _K11_STOP + "  // 5. y = x2 + tanh(gate2) * down"),),
+    "no_prefetch": (_K11_NO_PREFETCH,),
+    "two_barriers": (_K11_TWO_BARRIERS,),
+    "no_prefetch_two_barriers": (_K11_NO_PREFETCH, _K11_TWO_BARRIERS),
+}
+K11_BATCHES = (1, 8, 13, 72)
+
+
+class ParentFusedLayer:
+    """Another checkout's csrc/fused_layer.cu library from before K11's
+    phases 1 and 3 took K3's plans (its tensor-core body; K2's phases on
+    their plans, at most 64 rows in bf16) behind this tree's C interface:
+    the plans of phases 1 and 3 are dropped on the way in."""
+
+    def __init__(self, lib):
+        import ctypes
+
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fused_layer_decode_fwd.argtypes = [p] * 29 + [i] * 10 + [f, f, f] + [i] * 4 + [p, p, i] + [i, p]
+        lib.fused_layer_decode_fwd.restype = i
+        self.lib = lib
+
+    # this tree's entry: 42 arguments, the 4 of phases 1 and 3's plans, then the rest as the parent's
+    def fused_layer_decode_fwd(self, *a):
+        return self.lib.fused_layer_decode_fwd(*a[:42], *a[46:])
+
+
+def k11_cases(dev):
+    """K11 at chip_smoke.py's LAYER_TIMED layers (OF-3B's MPT-1B layer and
+    gated xattn block, MPT-7B's layer; chip_smoke's layer_kernel_cases
+    operands) with bf16, int8 and int4 weights, each at B 1, 8, 13 and 72:
+    (case, B, the K11 call, the K3 + K2 route's call, bytes, flops)."""
+    from chip_smoke import left_padded_mask, qweight
+    from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes
+    from open_flamingo_tpu_torch.ops.decode_layer import attn_block_decode
+    from open_flamingo_tpu_torch.ops.dense_stream import fused_mlp
+    from open_flamingo_tpu_torch.ops.fused_layer import fused_layer_decode
+
+    dt, es, s, slot = torch.bfloat16, 2, 64, 40
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dt)
+
+    for case, dm, h, dh, k2, mpt in (("mpt_layer_S64_slot40", 2048, 16, 128, 8192, True),
+                                     ("xattn_layer_S64", 2048, 8, 64, 8192, False),
+                                     ("mpt7b_layer_S64_slot40", 4096, 32, 128, 16384, True)):
+        inner = h * dh
+        wf = dict(wq=rn((3 if mpt else 1) * inner, dm, scale=dm**-0.5), wout=rn(dm, inner, scale=inner**-0.5),
+                  w1=rn(k2, dm, scale=dm**-0.5), w2=rn(dm, k2, scale=k2**-0.5))
+        ln1, ln2 = 1 + rn(dm, scale=0.1), 1 + rn(dm, scale=0.1)
+        ln1_b, ln2_b = (None, None) if mpt else (rn(dm, scale=0.1), rn(dm, scale=0.1))
+        for bits in (None, 8, 4):
+            if bits is None:
+                ws, scales, wbytes = wf, {}, sum(w.numel() for w in wf.values()) * es
+            else:
+                stored = {name: qweight(w, bits) for name, w in wf.items()}
+                ws = {name: q for name, (q, _, _) in stored.items()}
+                scales = {f"{name}_scale": sc for name, (_, sc, _) in stored.items()}
+                wbytes = sum(n for _, _, n in stored.values())
+            for b in K11_BATCHES:
+                x = rn(b, dm)
+                kc, vc = rn(b, h, s, dh), rn(b, h, s, dh)
+                kw = dict(heads=h, head_dim=dh, scale=dh**-0.5, fused_qkv=mpt, **scales)
+                if mpt:
+                    mask = left_padded_mask(b, s, [4, 7][:b], dev)
+                    mask[:, slot + 1:] = False
+                    kw.update(slot=torch.tensor([slot], dtype=torch.int32, device=dev),
+                              slopes=torch.from_numpy(alibi_slopes(h)).to(dev))
+                else:
+                    mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+                    mask[3 % b] = False
+                    kw.update(gate=torch.tensor([0.5], device=dev, dtype=dt),
+                              gate2=torch.tensor([-0.3], device=dev, dtype=dt))
+                attn_kw = {k: v for k, v in kw.items() if k not in ("gate2", "w1_scale", "w2_scale")}
+                mlp_kw = dict(ln_scale=ln2, ln_bias=ln2_b, gate=kw.get("gate2"), w1_scale=scales.get("w1_scale"),
+                              w2_scale=scales.get("w2_scale"))
+
+                def k11(x=x, ws=ws, kw=kw, kc=kc, vc=vc, mask=mask):
+                    out = fused_layer_decode(x, ln1, ln1_b, ws["wq"], ws["wout"], kc, vc, mask, ws["w1"], ws["w2"],
+                                             ln2, ln2_b, **kw)
+                    return out[0] if mpt else out
+
+                def two_launch(x=x, ws=ws, attn_kw=attn_kw, mlp_kw=mlp_kw, kc=kc, vc=vc, mask=mask):
+                    x2 = attn_block_decode(x, ln1, ln1_b, ws["wq"], ws["wout"], kc, vc, mask, **attn_kw)
+                    x2 = x2[0] if mpt else x2
+                    return fused_mlp(x2, ws["w1"], ws["w2"], residual=x2, **mlp_kw)
+
+                n_valid = mask.sum().item()
+                vecs = (2 + 2 * (not mpt)) * dm + 2 * (not mpt)
+                nbytes = wbytes + (2 * b * dm + vecs + 2 * n_valid * inner + 2 * mpt * b * inner) * es + b * s
+                flops = 2 * b * ((3 if mpt else 1) * inner * dm + dm * inner + 2 * k2 * dm) + 4 * inner * n_valid
+                sfx = {None: "", 8: "_int8", 4: "_int4"}[bits]
+                yield f"{case}{sfx}_B{b}", b, k11, two_launch, nbytes, flops
+
+
+def k11_times(argv) -> int:
+    """K11 at k11_cases through its wrapper on this tree's
+    csrc/fused_layer.cu, on another checkout's (--parent=<csrc directory>,
+    ParentFusedLayer; at B <= 64, the most it takes in bf16) and on
+    K11_VARIANTS' builds (--variants=), all built here at once and timed in
+    turns in this process (times_in_turns: change, parent, variants, then
+    back); each case with its bound and the K3 + K2 route's time on the same
+    inputs (`k3_k2_ms`)."""
+    import ctypes
+
+    from chip_smoke import bound, card_line, device_ms
+    from open_flamingo_tpu_torch.ops import fused_layer
+
+    parent = next((a.split("=", 1)[1] for a in argv if a.startswith("--parent=")), None)
+    names = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--variants=")), [])
+    built = build_variants("fused_layer", {n: K11_VARIANTS[n] for n in names}, "k11",
+                           trees={"parent": parent} if parent else None)
+    fused_layer._lib = None
+    fused_layer._kernel()     # this tree's argument types, then each library behind them
+    argtypes = fused_layer._lib.fused_layer_decode_fwd.argtypes
+    libs = {}
+    for name, lib in built.items():
+        if name == "parent":
+            libs[name] = ParentFusedLayer(lib)
+        else:
+            lib.fused_layer_decode_fwd.argtypes = argtypes
+            lib.fused_layer_decode_fwd.restype = ctypes.c_int
+            libs[name] = lib
+    for name in built:
+        if name.startswith("trace"):
+            built[name].k11_marks_read.argtypes = [ctypes.c_void_p]
+            built[name].k11_marks_read.restype = ctypes.c_int
+    dev = torch.device("cuda", 0)
+
+    def phase_trace(fn, name):
+        """One call on a trace build: per phase bound, when the first and the
+        last block passed it, us from the first block's start."""
+        import numpy as np
+
+        fused_layer._lib = libs[name]
+        marks = np.zeros((1024, 16), np.uint64)
+        for call in (False, True):   # clear what earlier calls left, then one call's marks
+            if call:
+                fn()
+            torch.cuda.synchronize()
+            if built[name].k11_marks_read(ctypes.c_void_p(marks.ctypes.data)) != 0:
+                raise RuntimeError("k11: the phase marks could not be read")
+        t = marks[marks[:, 0] > 0, :len(K11_MARKS)].astype(np.float64)
+        t = t[:, [i for i in range(len(K11_MARKS)) if t[:, i].min() > 0]]
+        names = [n for i, n in enumerate(K11_MARKS) if marks[marks[:, 0] > 0, i].min() > 0]
+        rel = (t - t[:, :1].min()) / 1e3
+        return {"blocks": int(t.shape[0]), "last_block_us": dict(zip(names, rel.max(0).round(3).tolist())),
+                "first_block_us": dict(zip(names, rel.min(0).round(3).tolist()))}
+
+    def cases(batches):
+        for case, b, fn, two_launch, nbytes, flops in k11_cases(dev):
+            if b not in batches:
+                continue
+            extra = {name: phase_trace(fn, name) for name in libs if name.startswith("trace")}
+            fused_layer._lib = libs["as_is"]
+            buf = torch.empty_like(fn())
+
+            def call(lib_, fn=fn, buf=buf):
+                fused_layer._lib = lib_
+                y = fn()
+                if not torch.cuda.is_current_stream_capturing():   # the timed graph holds the launches alone
+                    buf.copy_(y)
+                return 0
+            b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+            yield "fused_layer_decode", case, [buf], {"": call}, {"bound_ms": b_ms, "bound_by": b_by,
+                                                                  "k3_k2_ms": device_ms(two_launch), **extra}
+
+    with torch.no_grad():
+        times_in_turns(libs, cases({b for b in K11_BATCHES if b <= 64}), "k11_bf16")
+        libs.pop("parent", None)   # the parent refuses more than 64 rows in bf16
+        times_in_turns(libs, cases({b for b in K11_BATCHES if b > 64}), "k11_bf16")
+    fused_layer._lib = None
     print(card_line(), flush=True)
     return 0
 
@@ -1393,6 +1636,8 @@ def main() -> int:
         return k36_times(sys.argv[2:])
     if sys.argv[1:2] == ["k7"]:
         return k7_times(sys.argv[2:])
+    if sys.argv[1:2] == ["k11"]:
+        return k11_times(sys.argv[2:])
     if sys.argv[1:] == ["k45b"]:
         return k45b_times()
     if sys.argv[1:] == ["absorb"]:

@@ -14,7 +14,9 @@ Phases, each printing JSON lines:
               is left in dense_stream or decode_layer; K9/K8's six bf16
               instances issue HGMMA, UTMALDG and UTMASTG, and no HMMA is
               left in vit_attention; each of K7's 11 split-kernel
-              instances issues the bulk copy (UBLKCP);
+              instances issues the bulk copy (UBLKCP); each of K11's 18
+              bf16 instances HMMA (every phase on the weight-streaming
+              body), its 9 fp32 ones none;
   2. kernels  each kernel of the generate path against its plain PyTorch
               version on the same card tensors, in fp32 and bf16, at
               OF-3B's shapes (B = 8) and edge cases: K1 fused_dense (final
@@ -79,10 +81,12 @@ Phases, each printing JSON lines:
               carrier's own output bit for bit that of the launch without a
               tile, timed with and without it (the exposed cost). K11
               fused_layer_decode (layer_kernel_cases): OF-3B's MPT-1B and
-              gated xattn layers (B 1, 8, 13) and MPT-7B's layer with bf16,
-              int8 and int4 weights against reference_fused_layer, repeated
-              on fresh caches (same bits each time), in fp32 bit for bit
-              against the K3 + K2 kernel route, timed beside that route.
+              gated xattn layers (B 1, 8, 13, 72) and MPT-7B's layer with
+              bf16, int8 and int4 weights against reference_fused_layer,
+              repeated on fresh caches (same bits each time), in fp32 bit
+              for bit against the K3 + K2 kernel route, in bf16 its written
+              caches and its x2 rounded bit for bit K3's, timed beside that
+              route.
               The W8A8 side tile (K2b int8) and K3 as a carrier (K2b-attn,
               w8a8_kernel_cases) at every slot kind on K2 and K3 launches,
               B' 8 and the pipe's B 64: carriers bit for bit, the tile's
@@ -481,6 +485,9 @@ VIT_BF16 = ("vit_attn_bf16", 6, ("HGMMA", "UTMALDG", "UTMASTG"))
 # K7's split kernel: its instances (fp32 with G 1-32 lanes a key, bf16 with 1-16) each issue the 1-D bulk copy
 # (cp.async.bulk)
 K7_SPLIT = ("decode_split_kernel", 11, "UBLKCP")
+# K11's instances: bf16 (3 weight types x 3 forms, each for B <= 8 and past 8 rows), every row-GEMV phase on
+# the weight-streaming body's mma.sync; fp32 (3 x 3) on CUDA cores alone
+K11_BF16 = ("fused_layer_kernel<__nv_bfloat16", 18, 9)
 
 
 def phase_build() -> None:
@@ -519,6 +526,15 @@ def phase_build() -> None:
         require(len(stream) == want and min(stream.values()) > 0, f"{lib}: weight-streaming instances {stream}")
         old = [name for name in rows_ if "stream" not in name and ("_mma_" in name or not OLD_BODY_F32.search(name))]
         require(not old, f"{lib}: bf16 instances of the old row GEMV bodies: {old}")
+    # K11: each bf16 instance runs its phases on the weight-streaming body (HMMA), the fp32 ones none
+    kernel, want, want_f32 = K11_BF16
+    k11 = {name.split("(")[0]: sum(bool(PREDICATED_HMMA.match(ins)) for ins in code)
+           for name, code in sass_kernels(build.target("fused_layer")).items() if "fused_layer_kernel<" in name}
+    k11_bf16 = {name: n for name, n in k11.items() if kernel in name}
+    k11_f32 = {name: n for name, n in k11.items() if name not in k11_bf16}
+    require(len(k11_bf16) == want and min(k11_bf16.values()) > 0 and len(k11_f32) == want_f32
+            and not any(k11_f32.values()), f"fused_layer: instances {k11}, {want} bf16 with HMMA and {want_f32} "
+            "fp32 without expected")
     # K9/K8: each bf16 instance of the persistent kernel issues wgmma, TMA loads and TMA stores; no kernel of the
     # library keeps the old mma.sync body
     kernel, want, ops = VIT_BF16
@@ -538,7 +554,8 @@ def phase_build() -> None:
     log({"phase": "build", "seconds": seconds, "sources": build.sources(), "ptxas": regs,
          "decode_attention_sass": {op: k7_ops, "opcodes": sorted(set(next(iter(k7.values()), [])))},
          **{f"{lib}_hmma": counts for lib, counts in hmma.items()},
-         **{f"{lib}_side_gmma": counts for lib, counts in gmma.items()}, "vit_attention_sass": vit})
+         **{f"{lib}_side_gmma": counts for lib, counts in gmma.items()}, "vit_attention_sass": vit,
+         "fused_layer_hmma": k11})
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1857,17 +1874,19 @@ def layer_kernel_cases(dtype, gen, dev):
     64-slot cache, rows 0 and 1 left-padded) and gated cross-attention layer
     (8 heads of Dh 64 over 64 media latents, LN biases, both tanh gates, row
     3 before any image) in x's dtype, int8 and int4, at B 8 and the MPT and
-    xattn layers at B 1 and 13 too; MPT-7B's layer (OF-9B's LM: D 4096, 32
-    heads of Dh 128, MLP 16,384, whose down-projection runs on CUDA cores) in
-    every weight type. Each case is held against reference_fused_layer on the
-    card (y, and the written caches) and called three more times on fresh
-    caches, which must give the same bits (a stale read of what another block
-    wrote earlier in the launch would show now and then). In fp32, y and both
-    caches are bit for bit those of the K3 + K2 kernel route. The all-masked
-    xattn row's y is bit for bit K2's on that row alone (x2 = x there). No
-    one PyTorch call computes a layer (no library call); `fn.two_launch` is
-    the K3 + K2 route on the same inputs, timed beside K11. Yields as
-    kernel_cases."""
+    xattn layers at B 1, 13 and 72 (two passes of 64 rows) too; MPT-7B's
+    layer (OF-9B's LM: D 4096, 32 heads of Dh 128, MLP 16,384) in every
+    weight type. Each case is held against reference_fused_layer on the card
+    (y, and the written caches) and called three more times on fresh caches,
+    which must give the same bits (a stale read of what another block wrote
+    earlier in the launch would show now and then). In fp32, y and both
+    caches are bit for bit those of the K3 + K2 kernel route; in bf16 the
+    written caches are K3's bits and K11's fp32 x2 (`x2_out`) rounded to bf16
+    is K3's output bit for bit (every phase on its separate launch's plan).
+    The all-masked xattn row's y is bit for bit K2's on that row alone (x2 =
+    x there). No one PyTorch call computes a layer (no library call);
+    `fn.two_launch` is the K3 + K2 route on the same inputs, timed beside
+    K11. Yields as kernel_cases."""
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
 
@@ -1880,6 +1899,8 @@ def layer_kernel_cases(dtype, gen, dev):
             ("mpt_layer_B13_S64_slot40", 13, 2048, 16, 128, 8192, True, (None,)),
             ("xattn_layer_S64", B, 2048, 8, 64, 8192, False, (None, 8, 4)),
             ("xattn_layer_B13_S64", 13, 2048, 8, 64, 8192, False, (None,)),
+            ("mpt_layer_B72_S64_slot40", 72, 2048, 16, 128, 8192, True, (None,)),
+            ("xattn_layer_B72_S64", 72, 2048, 8, 64, 8192, False, (None,)),
             ("mpt7b_layer_S64_slot40", B, 4096, 32, 128, 16384, True, (None, 8, 4))):
         inner = h * dh
         x, ln1, ln2 = rn(b, dm), 1 + rn(dm, scale=0.1), 1 + rn(dm, scale=0.1)
@@ -1913,17 +1934,19 @@ def layer_kernel_cases(dtype, gen, dev):
                           w2_scale=scales.get("w2_scale"))
             name = f"fused_layer_decode/{case}{sfx[bits]}/{dtype}"
 
-            def layer(kc, vc, ws=ws, lkw=lkw, mask=mask, x=x):
+            def layer(kc, vc, ws=ws, lkw=lkw, mask=mask, x=x, x2_out=None):
                 out = fused_layer_decode(x, ln1, ln1_b, ws["wq"], ws["wout"], kc, vc, mask, ws["w1"], ws["w2"], ln2,
-                                         ln2_b, **lkw)
+                                         ln2_b, x2_out=x2_out, **lkw)
                 return out if mpt else (out, kc, vc)
 
             def two_launch(kc, vc, ws=ws, attn_kw=attn_kw, mlp_kw=mlp_kw, mask=mask, x=x):
+                """(y, k cache, v cache, K3's output) of the K3 + K2 route"""
                 x2 = attn_block_decode(x, ln1, ln1_b, ws["wq"], ws["wout"], kc, vc, mask, **attn_kw)
                 x2 = x2[0] if mpt else x2
-                return fused_mlp(x2, ws["w1"], ws["w2"], residual=x2, **mlp_kw), kc, vc
+                return fused_mlp(x2, ws["w1"], ws["w2"], residual=x2, **mlp_kw), kc, vc, x2
 
-            got = layer(k0.clone(), v0.clone())
+            x2 = torch.empty(b, dm, dtype=torch.float32, device=dev)
+            got = layer(k0.clone(), v0.clone(), x2_out=x2)
             for _ in range(3):
                 again = layer(k0.clone(), v0.clone())
                 require(all(torch.equal(a, g) for a, g in zip(again, got)), f"{name}: a repeated call differs")
@@ -1940,11 +1963,13 @@ def layer_kernel_cases(dtype, gen, dev):
                         f"{name}: slots other than the new token's changed")
             two = two_launch(k0.clone(), v0.clone())
             same = [torch.equal(a, t) for a, t in zip(got, two)]
+            x2_is_k3 = torch.equal(x2.to(dtype), two[3])
             log({"phase": "kernels", "kernel": "fused_layer_decode", "case": case + sfx[bits],
-                 "dtype": str(dtype).split(".")[-1], "bits_of_k3_then_k2": same,
+                 "dtype": str(dtype).split(".")[-1], "bits_of_k3_then_k2": same, "x2_bits_of_k3": x2_is_k3,
                  "max_abs_diff_from_k3_then_k2": (got[0].float() - two[0].float()).abs().max().item()})
             if dtype == torch.float32:
                 require(all(same), f"{name}: y and the caches are not bit for bit those of K3 then K2")
+            require(all(same[1:]) and x2_is_k3, f"{name}: the written caches or x2 rounded are not K3's bits")
             exact = None
             if not mpt:
                 r = 3 % b

@@ -4,11 +4,13 @@
 // written at `slot` in place. See decode_layer.cu for what it computes and
 // attend_body below for how.
 //
-// K3 and K6 launch it as one 128-thread block per (b, h) (kAttnThreads). A
-// persistent kernel calls it with its own (b, h) index from a larger block
-// (kBlockThreads): threads past the first 128 take no keys, rows or
-// columns and only reach the barriers. With kCg the fp32 projection that an
-// earlier phase of the same launch wrote is read through L2 alone.
+// K3 and K6 launch it as one 128-thread block per (b, h) (kAttnThreads),
+// its scores in dynamic shared memory and its other arrays static
+// (attend_body). A persistent kernel calls it with its own (b, h) index from
+// a larger block (kBlockThreads) and its own shared memory (attend_at,
+// AttendSmem): threads past the first 128 take no keys, rows or columns and
+// only reach the barriers. With kCg the fp32 projection that an earlier
+// phase of the same launch wrote is read through L2 alone.
 
 #pragma once
 
@@ -81,6 +83,15 @@ struct NewToken {
   const T* vn;
 };
 
+// Where the attend keeps its arrays: the scores (S floats), q and the new
+// K/V (kMaxD each), the reduction's partials (kAttnWarps) and the output's
+// (kAttnThreads * 8). `part` may lie over the scores (kPartOverScores: the
+// block waits until every score is read before writing it).
+struct AttendSmem {
+  float *sc, *q_s, *kn_s, *vn_s, *red, *part;
+};
+constexpr int kAttendStatics = 3 * kMaxD + kAttnWarps;  // floats of q_s, kn_s, vn_s and red
+
 // (b, h) = (bh / h, bh % h). k/v caches (B, H_kv, S, Dh) of C (T, or int8
 // with row scales ks/vs (B, H_kv, S) fp32), query head `head` reading kv
 // head head / (H / H_kv); attn (B, H*Dh). slot == nullptr: no new K/V (the
@@ -90,16 +101,16 @@ struct NewToken {
 // loads, valid or not), the block reduces max and sum, then groups of d / 8
 // threads sum p_j * V[j] over their share of the keys. A few rounds of
 // independent loads, where a serial online softmax chains three dependent
-// loads per key. Dynamic shared memory: S floats of scores.
-template <typename T, typename C, int kBlockThreads = kAttnThreads, bool kCg = false>
-__device__ __forceinline__ void attend_body(
+// loads per key.
+// kLoads: the loads a thread has in flight (K11 holds fewer, within its
+// register budget; the sums add in the same order either way)
+template <typename T, typename C, int kBlockThreads, bool kCg, bool kPartOverScores, int kLoads = kBatch>
+__device__ __forceinline__ void attend_at(
     int bh, const NewToken<T>& src, C* k, C* v, float* ks, float* vs, const uint8_t* __restrict__ mask,
     const float* __restrict__ slopes, const int* __restrict__ slot_ptr, T* __restrict__ attn, int h,
-    int h_kv, int s, int d, float scale) {
+    int h_kv, int s, int d, float scale, const AttendSmem& m) {
   constexpr bool kInt8 = std::is_same<C, int8_t>::value;
-  extern __shared__ float sc[];
-  __shared__ float q_s[kMaxD], kn_s[kMaxD], vn_s[kMaxD];
-  __shared__ float red[kAttnWarps], part[kAttnThreads * rows::kVec];
+  float *sc = m.sc, *q_s = m.q_s, *kn_s = m.kn_s, *vn_s = m.vn_s, *red = m.red, *part = m.part;
 
   const int b = bh / h, head = bh % h;
   const int inner = h * d;
@@ -172,13 +183,13 @@ __device__ __forceinline__ void attend_body(
     // row's score (from a row never written) is selected away
     const C* kr = kb + (size_t)j * d;
     float dot = 0.f;
-    for (int c0 = 0; c0 < d; c0 += kBatch * rows::kVec) {  // kBatch loads in flight
-      float kv[kBatch][rows::kVec];
+    for (int c0 = 0; c0 < d; c0 += kLoads * rows::kVec) {  // kLoads loads in flight
+      float kv[kLoads][rows::kVec];
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u)
+      for (int u = 0; u < kLoads; ++u)
         if (c0 + u * rows::kVec < d) load8c(kr + c0 + u * rows::kVec, kv[u]);
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u)
+      for (int u = 0; u < kLoads; ++u)
         if (c0 + u * rows::kVec < d)
 #pragma unroll
           for (int e = 0; e < rows::kVec; ++e) dot = fmaf(q_s[c0 + u * rows::kVec + e], kv[u][e], dot);
@@ -205,7 +216,7 @@ __device__ __forceinline__ void attend_body(
 
   // output: thread (grp, oct) sums p_j * V[j][8 oct .. 8 oct + 7] over keys
   // grp, grp + G, ...: 16-byte loads (8-byte for int8), a row read by d / 8
-  // neighbouring threads, kBatch rows in flight. The loads are
+  // neighbouring threads, kLoads rows in flight. The loads are
   // unconditional; a masked key's row (never written, may hold anything) is
   // selected away.
   const int octs = d / rows::kVec, groups = kAttnThreads / octs;
@@ -214,13 +225,13 @@ __device__ __forceinline__ void attend_body(
 #pragma unroll
   for (int e = 0; e < rows::kVec; ++e) o[e] = 0.f;
   if (grp < groups) {
-    for (int j0 = grp; j0 < s; j0 += kBatch * groups) {
-      float vv[kBatch][rows::kVec];
+    for (int j0 = grp; j0 < s; j0 += kLoads * groups) {
+      float vv[kLoads][rows::kVec];
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u)
+      for (int u = 0; u < kLoads; ++u)
         if (j0 + u * groups < s) load8c(vb + (size_t)(j0 + u * groups) * d + c8, vv[u]);
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
+      for (int u = 0; u < kLoads; ++u) {
         const int j = j0 + u * groups;
         if (j < s) {
           const float pj = sc[j];
@@ -230,8 +241,17 @@ __device__ __forceinline__ void attend_body(
         }
       }
     }
+    if constexpr (!kPartOverScores) {
 #pragma unroll
-    for (int e = 0; e < rows::kVec; ++e) part[grp * d + c8 + e] = o[e];
+      for (int e = 0; e < rows::kVec; ++e) part[grp * d + c8 + e] = o[e];
+    }
+  }
+  if constexpr (kPartOverScores) {
+    __syncthreads();  // every score is read
+    if (grp < groups) {
+#pragma unroll
+      for (int e = 0; e < rows::kVec; ++e) part[grp * d + c8 + e] = o[e];
+    }
   }
   __syncthreads();
   if (tid < d) {
@@ -239,6 +259,20 @@ __device__ __forceinline__ void attend_body(
     for (int gg = 0; gg < groups; ++gg) tot += part[gg * d + tid];
     attn[(size_t)b * inner + (size_t)head * d + tid] = from_f32<T>(l > 0.f ? tot / l : 0.f);  // 0-denominator guard
   }
+}
+
+// attend_at for K3's and K6's launches: the scores in the launch's dynamic
+// shared memory (S floats), the other arrays static.
+template <typename T, typename C, int kBlockThreads = kAttnThreads, bool kCg = false>
+__device__ __forceinline__ void attend_body(
+    int bh, const NewToken<T>& src, C* k, C* v, float* ks, float* vs, const uint8_t* __restrict__ mask,
+    const float* __restrict__ slopes, const int* __restrict__ slot_ptr, T* __restrict__ attn, int h,
+    int h_kv, int s, int d, float scale) {
+  extern __shared__ float sc[];
+  __shared__ float q_s[kMaxD], kn_s[kMaxD], vn_s[kMaxD];
+  __shared__ float red[kAttnWarps], part[kAttnThreads * rows::kVec];
+  attend_at<T, C, kBlockThreads, kCg, false>(bh, src, k, v, ks, vs, mask, slopes, slot_ptr, attn, h, h_kv, s, d,
+                                             scale, AttendSmem{sc, q_s, kn_s, vn_s, red, part});
 }
 
 }  // namespace

@@ -1,9 +1,9 @@
 // Row-batched matrix-vector products for single-token decode on Hopper
-// (sm_90a): every fp32 row GEMV of K1, K2, K3 and K6 and of their K2b
+// (sm_90a): every fp32 row GEMV of K1, K2, K3, K6 and K11 and of their K2b
 // carriers (the CUDA-core body; dense_stream.cu, decode_layer.cu,
-// side_tile.cuh), and K11's phases 1 and 3 in bf16 (the tensor-core body,
-// fused_layer.cu), its last users. Every other bf16 launch of those kernels
-// runs rows_stream.cuh's weight-streaming body.
+// fused_layer.cu, side_tile.cuh), and what the bf16 weight-streaming body of
+// rows_stream.cuh shares with it (the weight types, the epilogue, the launch
+// helpers).
 //
 //   out[r, n] = epilogue( sum_k h[r, k] * W[n, k] )     r < B (a few rows)
 //
@@ -27,38 +27,24 @@
 // Design and bound. At decode batch sizes (B <= 64) every weight element is
 // used B times, 2B FLOPs per weight read: far below the ~295 FLOP/byte where
 // the H100 stops being memory-bound, so the weight bytes over 3.35 TB/s are
-// the floor. Every block stages 8 rows of h in shared memory (normalised
-// once per block); more rows go in passes that read W again (the bf16 body
-// in rows_stream.cuh takes 64 rows a pass and any K). Blocks loop
-// over column tiles with a grid stride, the grid capped at 4 blocks per SM,
-// so the normalisation is not repeated per tile. Two inner loops:
-//
-// * bf16 with K a multiple of 32 (K11's phases 1 and 3): tensor cores,
-//   `mma.sync` m16n8k16 with fp32 accumulation. A warp owns 16
-//   columns of W (the MMA's M) against the 8 rows of h (its N). Each lane
-//   loads 16 contiguous bytes of two W rows per 32-wide K chunk straight
-//   into registers (no shared-memory round trip): the K order inside a
-//   chunk is permuted the same way for W and h, so the A fragments are the
-//   loaded bytes as they are, and h is staged in that fragment order, one
-//   conflict-free 16-byte load per lane per chunk. When N has few 16-column
-//   tiles (N = 2048 against K = 8192), the warps of a block split K and add
-//   their partial tiles through shared memory, so the card has >= 32 warps
-//   per SM streaming W.
-// * fp32 (and K11's bf16 phases at a K the tensor-core body does not take):
-//   CUDA cores. Each warp takes one column at a time, its lanes read the row
-//   32 bytes a lane, keep one fp32 sum per row and end with a shuffle
-//   reduction. This is the exact-fp32 path that the card's fp32 checks run.
+// the floor. Every block stages up to 8 rows of h in shared memory
+// (normalised once per block); more rows go in passes that read W again (the
+// bf16 body in rows_stream.cuh takes 64 rows a pass and any K). Blocks loop
+// over columns with a grid stride, the grid capped at 4 blocks per SM, so
+// the normalisation is not repeated per column. Each warp takes one column
+// at a time, its lanes read the row 32 bytes a lane, keep one fp32 sum per
+// row and end with a shuffle reduction: CUDA cores, the exact-fp32 path
+// that the card's fp32 checks run.
 //
 // Quantized weights (the JAX kernels' int8 / int4 weight streaming). W is
 // stored as T itself, as int8, or as packed int4 (`Int4`: two values per
 // byte, element 2j in the low nibble of byte j, two's complement): a lane
 // loads 8 bytes of int8 (4 of int4) per 8 elements instead of 16 of bf16,
 // half or a quarter of the bytes that bound the kernel. The values convert
-// to the same registers the T path loads -- the bf16 A fragments in the
-// same permuted K order, or fp32 -- exactly (|q| <= 127 has at most 8
-// significant bits) and without a conversion instruction (2^23 + 128 + q
-// read as a float). The per-out-channel fp32 scale multiplies the fp32 sum
-// first in the epilogue, as in the TPU kernels.
+// to fp32 exactly (|q| <= 127 has at most 8 significant bits) and without a
+// conversion instruction (2^23 + 128 + q read as a float). The
+// per-out-channel fp32 scale multiplies the fp32 sum first in the epilogue,
+// as in the TPU kernels.
 //
 // Inside one persistent launch (K11, csrc/fused_layer.cu) a body reads rows
 // that other blocks of the same launch wrote in an earlier phase: its input
@@ -95,8 +81,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 8;          // rows per pass, one fp32 sum each per lane
 constexpr int kVec = 8;              // elements a lane reads per step
 constexpr int kBlocksPerSm = 4;      // 4 x 512 threads fill an SM
-constexpr int kMmaK = 32;            // K chunk: two m16n8k16 steps
-constexpr int kWarpsPerSmWanted = 32;  // split K until the grid has this many warps per SM
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -174,12 +158,6 @@ __device__ __forceinline__ float small_int_to_f32(int x) { return __int_as_float
 __device__ __forceinline__ int sbyte(uint32_t w, int i) { return (int)(int8_t)(w >> (8 * i)); }
 __device__ __forceinline__ int snibble(uint32_t w, int i) { return (int)((int32_t)(w << (28 - 4 * i)) >> 28); }
 
-// two small ints as bf16x2 (lo in the low half): their floats' low 16 bits
-// are zero, so the high halves are the bf16 values
-__device__ __forceinline__ uint32_t bf16x2_exact(int lo, int hi) {
-  return __byte_perm(__float_as_uint(small_int_to_f32(lo)), __float_as_uint(small_int_to_f32(hi)), 0x7632);
-}
-
 // 8 consecutive weights from element c of a stored row, to fp32
 template <typename W>
 __device__ __forceinline__ void load8w(const unsigned char* row, int c, float* v) {
@@ -197,29 +175,6 @@ __device__ __forceinline__ void load8w(const unsigned char* row, int c, float* v
   } else {
     load8<true>(reinterpret_cast<const W*>(row) + c, v);
   }
-}
-
-// A lane's fragment pointer into a stored row: its 8-weight group t of the
-// first 32-wide K chunk (chunk ch is 4 ch further on). The bf16 case is the
-// uint4 pointer the bf16 path always used, so its loads do not change.
-template <typename W>
-__device__ __forceinline__ auto frag_ptr(const unsigned char* row, int t) {
-  if constexpr (std::is_same<W, int8_t>::value) return reinterpret_cast<const uint2*>(row) + t;
-  else if constexpr (std::is_same<W, Int4>::value) return reinterpret_cast<const unsigned int*>(row) + t;
-  else return reinterpret_cast<const uint4*>(row) + t;
-}
-
-// the 8 weights at a fragment pointer as 8 bf16, the A fragment registers
-__device__ __forceinline__ uint4 load_frag(const uint4* p) { return __ldg(p); }
-__device__ __forceinline__ uint4 load_frag(const uint2* p) {
-  const uint2 u = __ldg(p);
-  return make_uint4(bf16x2_exact(sbyte(u.x, 0), sbyte(u.x, 1)), bf16x2_exact(sbyte(u.x, 2), sbyte(u.x, 3)),
-                    bf16x2_exact(sbyte(u.y, 0), sbyte(u.y, 1)), bf16x2_exact(sbyte(u.y, 2), sbyte(u.y, 3)));
-}
-__device__ __forceinline__ uint4 load_frag(const unsigned int* p) {
-  const uint32_t u = __ldg(p);
-  return make_uint4(bf16x2_exact(snibble(u, 0), snibble(u, 1)), bf16x2_exact(snibble(u, 2), snibble(u, 3)),
-                    bf16x2_exact(snibble(u, 4), snibble(u, 5)), bf16x2_exact(snibble(u, 6), snibble(u, 7)));
 }
 
 enum Act { kNone = 0, kGelu = 1, kGeluNew = 2, kRelu = 3, kQuickGelu = 4, kSilu = 5 };
@@ -253,11 +208,11 @@ __device__ __forceinline__ float activation(float y, int act) {
 // ep.act says (the first instance of each kernel, which keeps the epilogue
 // it had before the other activations came); kActRuntime, any Act as ep.act
 // says (the CUDA-core kernel's instance for the activations past GELU); or
-// one Act compiled in (one tensor-core instance each). In the tensor-core
-// kernel a switch over every activation, or no activation code at all,
-// changed the compiler's schedule of the whole kernel and cost the bf16
-// instances 5-18% of their time (chip_smoke.py's kernels phase, parent and
-// change in one run).
+// one Act compiled in (one weight-streaming instance each). In an earlier
+// bf16 tensor-core body a switch over every activation, or no activation
+// code at all, changed the compiler's schedule of the whole kernel and cost
+// its instances 5-18% of their time (chip_smoke.py's kernels phase, parent
+// and change in one run).
 constexpr int kActRuntime = -1;
 constexpr int kActBase = -2;
 
@@ -423,164 +378,6 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uin
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// One warp stages row r of h (zeros when !live) into `hf` in fragment
-// order: the 16 bytes of h[r][32c + 8t .. 32c + 8t + 7] go to slot
-// c * 32 + 4r + t, the B fragment of lane 4r + t for K chunk c. An fp32 row
-// (X = float) is normalised from its fp32 values and rounded to bf16 once.
-template <bool kCg = false, typename X>
-__device__ void stage_fragments(const X* __restrict__ xr, bool live,
-                                const __nv_bfloat16* __restrict__ ln_s,
-                                const __nv_bfloat16* __restrict__ ln_b, float eps, int norm, uint4* hf,
-                                int r, int k, int lane) {
-  float mean = 0.f, inv = 1.f;
-  if (live && ln_s != nullptr) {
-    float s = 0.f, ss = 0.f;
-    for (int c = lane * kVec; c < k; c += 32 * kVec) {
-      float v[kVec];
-      load8x<kCg>(xr + c, v);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        s += v[e];
-        ss = fmaf(v[e], v[e], ss);
-      }
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    if (norm == kRmsNorm) {
-      inv = rsqrtf(ss / (float)k + eps);
-    } else {
-      mean = s / (float)k;
-      inv = rsqrtf(fmaxf(0.f, ss / (float)k - mean * mean) + eps);
-    }
-  }
-  for (int idx = lane; idx < k / kVec; idx += 32) {
-    uint4 frag = make_uint4(0u, 0u, 0u, 0u);
-    if (live) {
-      if (ln_s == nullptr) {
-        if constexpr (!std::is_same<X, __nv_bfloat16>::value) {  // fp32 rows rounded to bf16
-          float v[kVec];
-          load8x<kCg>(xr + idx * kVec, v);
-          uint32_t* u = reinterpret_cast<uint32_t*>(&frag);
-#pragma unroll
-          for (int e = 0; e < kVec; e += 2) {
-            __nv_bfloat162 pair = __floats2bfloat162_rn(v[e], v[e + 1]);
-            u[e / 2] = *reinterpret_cast<uint32_t*>(&pair);
-          }
-        } else if constexpr (kCg) {
-          frag = __ldcg(reinterpret_cast<const uint4*>(xr + idx * kVec));
-        } else {
-          frag = *reinterpret_cast<const uint4*>(xr + idx * kVec);
-        }
-      } else {
-        float v[kVec];
-        load8x<kCg>(xr + idx * kVec, v);
-        uint32_t* u = reinterpret_cast<uint32_t*>(&frag);
-#pragma unroll
-        for (int e = 0; e < kVec; e += 2) {
-          const int c = idx * kVec + e;
-          float y0 = (v[e] - mean) * inv * to_f32(ln_s[c]);
-          float y1 = (v[e + 1] - mean) * inv * to_f32(ln_s[c + 1]);
-          if (ln_b != nullptr) {
-            y0 += to_f32(ln_b[c]);
-            y1 += to_f32(ln_b[c + 1]);
-          }
-          __nv_bfloat162 pair = __floats2bfloat162_rn(y0, y1);
-          u[e / 2] = *reinterpret_cast<uint32_t*>(&pair);
-        }
-      }
-    }
-    hf[(idx >> 2) * 32 + r * 4 + (idx & 3)] = frag;
-  }
-}
-
-// Tensor-core row GEMV for bf16, K a multiple of 32. Warp w of a block
-// works on column tile (group * tpb + w / ks) over K-chunk slice (w % ks) of
-// ks; shared memory holds h in fragment order (8 * K bf16), then the split-K
-// partials (kWarps * 32 * 4 floats, twice that in the gated form: W's sums,
-// then Wg's). The body of block `block` of `grid`, as gemv_body; X, R, kCg
-// as gemv_body's. A column's sums depend on ks alone, not on the grid.
-template <typename W, typename OutT, bool kGated, int kAct, typename X = __nv_bfloat16,
-          typename R = __nv_bfloat16, bool kCg = false>
-__device__ __forceinline__ void gemv_mma_body(
-    const X* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
-    const __nv_bfloat16* __restrict__ ln_b, float eps, int norm, const unsigned char* __restrict__ w,
-    const unsigned char* __restrict__ wg, Epilogue<__nv_bfloat16, R> ep, OutT* __restrict__ out, int b, int n,
-    int k, int ks, unsigned char* smem, int grid, int block) {
-  uint4* hf = reinterpret_cast<uint4*>(smem);
-  float4* part = reinterpret_cast<float4*>(smem + (size_t)kMaxRows * k * sizeof(__nv_bfloat16));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int chunks = k / kMmaK, tpb = kWarps / ks, slice = warp % ks;
-  const int c_begin = slice * chunks / ks, c_end = (slice + 1) * chunks / ks;
-  const int tiles = (n + 15) / 16, groups = (tiles + tpb - 1) / tpb;
-
-  for (int r0 = 0; r0 < b; r0 += kMaxRows) {
-    const int rb = min(kMaxRows, b - r0);
-    if (r0 > 0) __syncthreads();  // the last pass is done reading hf
-    for (int r = warp; r < kMaxRows; r += kWarps)
-      stage_fragments<kCg>(x + (size_t)(r0 + min(r, rb - 1)) * k, r < rb, ln_s, ln_b, eps, norm, hf, r, k, lane);
-    __syncthreads();
-
-    for (int grp = block; grp < groups; grp += grid) {  // uniform across the block
-      const int tile = grp * tpb + warp / ks;
-      float c[4] = {0.f, 0.f, 0.f, 0.f}, cg[4] = {0.f, 0.f, 0.f, 0.f};
-      if (tile < tiles) {
-        // rows past N read row N - 1 (valid memory); their outputs are dropped
-        const int ra = min(tile * 16 + g, n - 1), rb8 = min(tile * 16 + g + 8, n - 1);
-        const auto pa = frag_ptr<W>(w + (size_t)ra * w_row_bytes<W>(k), t);
-        const auto pb = frag_ptr<W>(w + (size_t)rb8 * w_row_bytes<W>(k), t);
-        const unsigned char* wgb = kGated ? wg : w;
-        const auto ga = frag_ptr<W>(wgb + (size_t)ra * w_row_bytes<W>(k), t);
-        const auto gb = frag_ptr<W>(wgb + (size_t)rb8 * w_row_bytes<W>(k), t);
-#pragma unroll 4
-        for (int ch = c_begin; ch < c_end; ++ch) {
-          const uint4 a0 = load_frag(pa + ch * 4), a1 = load_frag(pb + ch * 4);
-          const uint4 bf = hf[ch * 32 + lane];
-          mma_bf16(c, a0.x, a1.x, a0.y, a1.y, bf.x, bf.y);  // K = 32ch + 8t + 0..3
-          mma_bf16(c, a0.z, a1.z, a0.w, a1.w, bf.z, bf.w);  // K = 32ch + 8t + 4..7
-          if constexpr (kGated) {
-            const uint4 g0 = load_frag(ga + ch * 4), g1 = load_frag(gb + ch * 4);
-            mma_bf16(cg, g0.x, g1.x, g0.y, g1.y, bf.x, bf.y);
-            mma_bf16(cg, g0.z, g1.z, g0.w, g1.w, bf.z, bf.w);
-          }
-        }
-      }
-      if (ks > 1) {
-        part[warp * 32 + lane] = make_float4(c[0], c[1], c[2], c[3]);
-        if constexpr (kGated) part[kThreads + warp * 32 + lane] = make_float4(cg[0], cg[1], cg[2], cg[3]);
-        __syncthreads();
-        if (slice == 0) {
-          for (int j = 1; j < ks; ++j) {
-            const float4 q = part[(warp + j) * 32 + lane];
-            c[0] += q.x;
-            c[1] += q.y;
-            c[2] += q.z;
-            c[3] += q.w;
-            if constexpr (kGated) {
-              const float4 u = part[kThreads + (warp + j) * 32 + lane];
-              cg[0] += u.x;
-              cg[1] += u.y;
-              cg[2] += u.z;
-              cg[3] += u.w;
-            }
-          }
-        }
-      }
-      if (slice == 0 && tile < tiles) {
-        // c0, c1: column tile*16 + g, rows 2t and 2t + 1; c2, c3: column + 8
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = tile * 16 + g + (i >> 1) * 8, r = 2 * t + (i & 1);
-          if (col < n && r < rb)
-            out[(size_t)(r0 + r) * n + col] = from_f32<OutT>(
-                epilogue<!std::is_same<W, __nv_bfloat16>::value, kGated, kAct, kCg>(c[i], cg[i], ep, r0 + r, col, n));
-        }
-      }
-      if (ks > 1) __syncthreads();  // the partials are read before the next tile writes them
-    }
-  }
-}
-
 inline int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -617,25 +414,6 @@ cudaError_t allow_smem(Kernel kern, size_t smem, size_t& set) {
 inline int grid_for(long long blocks) {
   const long long cap = (long long)sm_count() * kBlocksPerSm;
   return (int)(blocks < cap ? blocks : cap);
-}
-
-// The tensor-core body's shared memory: h in fragment order, then the
-// split-K partials (two sets in the gated form).
-inline size_t mma_smem(int k, bool gated) {
-  return (size_t)kMaxRows * k * sizeof(__nv_bfloat16) + (gated ? 2 : 1) * kThreads * 4 * sizeof(float);
-}
-
-// The tensor-core body's split of K (ks warps per column tile) and its grid
-// for N columns of K (K11's phases 1 and 3): a function of the shape, so a
-// column's partial sums add in the same order in every call.
-inline void mma_grid(int n, int k, int* ks_out, int* blocks) {
-  const int tiles = (n + 15) / 16, chunks = k / kMmaK;
-  int ks = 1;  // split K while the card has too few warps and each keeps >= 2 chunks
-  while (ks < kWarps && 2 * ks * 2 <= chunks && (long long)tiles * ks < (long long)sm_count() * kWarpsPerSmWanted)
-    ks *= 2;
-  const int tpb = kWarps / ks;
-  *ks_out = ks;
-  *blocks = grid_for((tiles + tpb - 1) / tpb);
 }
 
 // The CUDA-core kernel's rows staged per pass for K of type T (0: none fit).

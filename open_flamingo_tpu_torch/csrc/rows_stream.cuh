@@ -1,8 +1,8 @@
 // The weight-streaming row GEMV of the decode kernels in bf16 (sm_90a):
 // every bf16 launch of fused_dense and fused_mlp (csrc/dense_stream.cu) and
 // of K3's and K6's projections (csrc/decode_layer.cu), the K2 and K3
-// carriers of K2b side tiles (csrc/side_tile.cuh) and K11's up- and
-// down-projection phases (csrc/fused_layer.cu) run this body.
+// carriers of K2b side tiles (csrc/side_tile.cuh) and every row-GEMV phase
+// of K11 (csrc/fused_layer.cu) run this body.
 //
 //   out[r, n] = epilogue( sum_k h[r, k] * W[n, k] )     r < B <= 64 in one pass
 //
@@ -10,7 +10,7 @@
 // norm's scale rounded to bf16; fp32 sums; the epilogue rows::epilogue in the
 // TPU kernels' order; W in bf16, int8 or packed int4 with its scale first in
 // the epilogue; the gated form's second weight Wg in the same pass). Only the
-// order of the K sums differs from the old body's.
+// order of the K sums differs from the CUDA-core body's.
 //
 // Design. At decode batch sizes every weight byte is used B times, so W's
 // bytes over 3.35 TB/s bound the launch; the body keeps W streaming and
@@ -56,7 +56,13 @@
 // k16 products each, and the slices add in slice order. Not on B, the grid,
 // or side blocks beside the body's, so a row alone gives the bits it gives
 // in any batch, a carrier's output (K2's, K3's) is the same with and without
-// its K2b tile, and K11's phases 4 and 5 give K2's bits.
+// its K2b tile, and K11's phases on K3's and K2's plans give their bits.
+//
+// The body is a producer (StreamRing: each warp's walk over the items, the
+// stages it has issued) and a consumer (stream_consume). A launch of its own
+// (stream_body) runs the producer's first stages, then the consumer. K11
+// issues each phase's first stages before the grid barrier its rows wait
+// for, and runs the consumer in passes of 64 rows (kPersist).
 //
 // The norm's arithmetic and the epilogue are spelled out the same way in
 // every instance (the LayerNorm's bias as one FMA, rows::epilogue's kCg
@@ -78,7 +84,7 @@ constexpr int kWarpStage = 16 * kSegBytes;  // a warp's 16 rows of a stage
 
 // The two instances' geometry, one block per SM each. kMaxNt 8 (any B up
 // to 64): 4 ring stages a warp (2 of W and Wg), 128 KB, and a 64 KB h slice;
-// the carriers and K11 run it. kMaxNt 1 (B <= 8, the decode batch): one
+// the carriers and K11 past 8 rows run it. kMaxNt 1 (B <= 8, the decode batch): one
 // n-tile's registers leave room for a deeper ring, 6 stages (3 of W and Wg),
 // 192 KB, and a 32 KB h slice: 160 KB in flight per SM through the
 // prologue, the h slices and a split's tail.
@@ -90,8 +96,11 @@ struct Geometry {
   static constexpr int kHBytes = kMaxNt == 1 ? 32 * 1024 : 64 * 1024;
   static constexpr size_t kSmem = kRingBytes + kHBytes + 2 * kStreamRows * sizeof(float) + 16;
 };
-constexpr size_t kStreamSmem = Geometry<8, false>::kSmem;  // the carriers' and K11's (either form)
-static_assert(Geometry<8, true>::kSmem == kStreamSmem, "one shared-memory size for the carriers and K11");
+constexpr size_t kStreamSmem = Geometry<8, false>::kSmem;  // the carriers' (either form)
+static_assert(Geometry<8, true>::kSmem == kStreamSmem && Geometry<1, true>::kSmem == Geometry<1, false>::kSmem &&
+                  Geometry<1, true>::kRingBytes == Geometry<1, false>::kRingBytes &&
+                  Geometry<8, true>::kRingBytes == Geometry<8, false>::kRingBytes,
+              "one layout for both forms of an instance: the carriers and K11's phases share it");
 static_assert(Geometry<1, false>::kSmem <= 232448 && Geometry<1, true>::kSmem <= 232448,
               "the B <= 8 instance within sm_90's opt-in shared memory of a block");
 
@@ -342,44 +351,47 @@ __device__ __forceinline__ void stage_products(float (&acc)[8][4], float (&gacc)
   }
 }
 
-// The body, for block `block` of a grid of `grid` blocks (a kernel that
-// carries other blocks too passes its own count). x (b <= 64 rows of k, X:
-// bf16, or fp32 in K11), out (b, n); X, R, kCg as gemv_mma_body's.
-template <typename W, typename OutT, bool kGated, int kAct, typename X = __nv_bfloat16,
-          typename R = __nv_bfloat16, bool kCg = false, int kMaxNt = 8>
-__device__ __forceinline__ void stream_body(
-    const X* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s, const __nv_bfloat16* __restrict__ ln_b,
-    float eps, int norm, const unsigned char* __restrict__ w, const unsigned char* __restrict__ wg,
-    Epilogue<__nv_bfloat16, R> ep, OutT* __restrict__ out, int b, int n, int k, StreamPlan plan, StreamSplit split,
-    unsigned char* smem, int grid, int block) {
+// A warp's producer of the ring for one row GEMV: the next (item, stage) it
+// copies and how many stages it has issued. Lane l copies piece l % 8 of rows
+// l / 8 + 4i (i < 4): one 128-byte row segment per 8 lanes. kPersist (K11):
+// the walk runs on over the passes of 64 rows (the items again), so that one
+// phase's stream runs across its passes, and a block may issue a phase's
+// first stages before the grid barrier that its rows wait for.
+template <typename W, bool kGated, int kMaxNt, bool kPersist = false>
+struct StreamRing {
   using G = Geometry<kMaxNt, kGated>;
-  constexpr int kStages = G::kStages, kStageBytes = G::kStageBytes, kHBytes = G::kHBytes;
-  constexpr int kSc = seg_chunks<W>();
-  constexpr bool kScaled = !std::is_same<W, __nv_bfloat16>::value;
-  unsigned char* ring = smem;
-  uint4* hf = reinterpret_cast<uint4*>(smem + G::kRingBytes);
-  float* mean = reinterpret_cast<float*>(smem + G::kRingBytes + kHBytes);
-  float* inv = mean + kStreamRows;
-  int* last = reinterpret_cast<int*>(inv + kStreamRows);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const unsigned char* w;
+  const unsigned char* wg;
+  unsigned char* mine;  // this warp's stages
+  size_t rb;
+  int align, nst, ks, tiles, items, walk, n, slice, grid, p8, r8, row0;
+  int p_item, p_st, issued;
 
-  const size_t rb = w_row_bytes<W>(k);
-  const int align = rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : 4;
-  const int nst = (int)((rb + kSegBytes - 1) / kSegBytes), nchunks = (k + 31) / 32;
-  const int ks = (nst + plan.slice - 1) / plan.slice, tiles = (n + kStreamCols - 1) / kStreamCols;
-  const int items = tiles * ks, nts = (b + 7) / 8;
-  const int hst = kHBytes / (nts * 512 * kSc);         // stages of h a slice of it holds
-  unsigned char* my_ring = ring + (size_t)warp * kStages * kStageBytes;
+  __device__ __forceinline__ StreamRing(const unsigned char* w_, const unsigned char* wg_, int n_, int k, int b,
+                                        StreamPlan plan, unsigned char* smem, int grid_, int block)
+      : w(w_), wg(wg_), n(n_), slice(plan.slice), grid(grid_) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    mine = smem + (size_t)warp * G::kStages * G::kStageBytes;
+    p8 = lane & 7;
+    r8 = lane >> 3;
+    row0 = warp * 16 + r8;
+    rb = w_row_bytes<W>(k);
+    align = rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : 4;
+    nst = (int)((rb + kSegBytes - 1) / kSegBytes);
+    ks = (nst + plan.slice - 1) / plan.slice;
+    tiles = (n + kStreamCols - 1) / kStreamCols;
+    items = tiles * ks;
+    walk = kPersist ? items * ((b + kStreamRows - 1) / kStreamRows) : items;
+    p_item = block;
+    p_st = block < walk ? (kPersist ? block % items : block) % ks * plan.slice : 0;
+    issued = 0;
+  }
 
-  // the ring's producer: the next (item, stage) this warp copies, and how many it has issued. Lane l
-  // copies piece l % 8 of rows l / 8 + 4i (i < 4): one 128-byte row segment per 8 lanes.
-  const int p8 = lane & 7, r8 = lane >> 3;
-  int p_item = block, p_st = block < items ? block % ks * plan.slice : 0;
-  int issued = 0;
-  auto produce = [&]() {
-    if (p_item < items) {
-      const unsigned dst0 = smem_addr(my_ring + (size_t)(issued % kStages) * kStageBytes);
-      const int row = p_item / ks * kStreamCols + warp * 16 + r8, kb = p_st * kSegBytes + 16 * p8;
+  __device__ __forceinline__ void produce() {
+    if (p_item < walk) {
+      const int it = kPersist ? p_item % items : p_item;
+      const unsigned dst0 = smem_addr(mine + (size_t)(issued % G::kStages) * G::kStageBytes);
+      const int row = it / ks * kStreamCols + row0, kb = p_st * kSegBytes + 16 * p8;
       const int tail = (int)min(max((long long)rb - kb, 0ll), 16ll);
       const size_t at = (size_t)row * rb + kb;
 #pragma unroll
@@ -390,21 +402,93 @@ __device__ __forceinline__ void stream_body(
         if constexpr (kGated)
           copy_piece(dst0 + kWarpStage + piece_offset<W>(r8 + 4 * i, p8), wg + off, wg, valid, align);
       }
-      if (++p_st == min((p_item % ks + 1) * plan.slice, nst)) {
-        p_item += grid;
-        p_st = p_item % ks * plan.slice;
-      }
+      step(it);
     }
     cp_commit();
     ++issued;
-  };
+  }
 
-  // the first stages fly while the statistics are taken
-  for (int s = 0; s < kStages - 1; ++s) produce();
-  if (ln_s != nullptr) stream_stats<kMaxNt == 1 ? 8 : 4, kCg>(x, eps, norm, b, k, mean, inv);
+  // the walk's next stage after one of item `it`
+  __device__ __forceinline__ void step(int it) {
+    if (++p_st == min((it % ks + 1) * slice, nst)) {
+      p_item += grid;
+      p_st = (kPersist ? p_item % items : p_item) % ks * slice;
+    }
+  }
+
+  // the first stages, before anything else the phase does
+  __device__ __forceinline__ void prologue() {
+    for (int s = 0; s < G::kStages - 1; ++s) produce();
+  }
+
+  // the state prologue() leaves, where another copy of this ring issued the
+  // stages (K11: before a grid barrier, so that no state lives across it)
+  __device__ __forceinline__ void resume() {
+    for (int s = 0; s < G::kStages - 1; ++s) {
+      if (p_item < walk) step(kPersist ? p_item % items : p_item);
+      ++issued;
+    }
+  }
+};
+
+// fp32 partials of one pass of rows of a deferred split (float4s): W's,
+// then Wg's, for up to b rows a pass
+__device__ __forceinline__ size_t stream_pass_parts(int b, int tiles, int ks, bool gated) {
+  const int nts = ((b < kStreamRows ? b : kStreamRows) + 7) / 8;
+  return (size_t)(gated ? 2 : 1) * ks * tiles * kWarps * nts * 32;
+}
+
+// The body's consumer, after `ring`'s prologue: the rows' statistics, then
+// the items as `ring` walks them, block `block` of a grid of `grid` blocks.
+// x (b <= 64 rows of k, X: bf16, or fp32 in K11), out (b, n); X, R: the input
+// rows' and the residual's types; kCg: they are read through L2 alone
+// (rows_gemv.cuh, the top). kPersist (K11's phases): any b, in passes of 64
+// rows over the same items, the statistics taken at each pass's first item,
+// a deferred split's partials kept per pass (stream_pass_parts apart).
+template <typename W, typename OutT, bool kGated, int kAct, typename X, typename R, bool kCg, int kMaxNt,
+          bool kPersist>
+__device__ __forceinline__ void stream_consume(
+    StreamRing<W, kGated, kMaxNt, kPersist>& ring, const X* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
+    const __nv_bfloat16* __restrict__ ln_b, float eps, int norm, Epilogue<__nv_bfloat16, R> ep,
+    OutT* __restrict__ out, int b, int n, int k, StreamPlan plan, StreamSplit split, unsigned char* smem, int grid,
+    int block) {
+  using G = Geometry<kMaxNt, kGated>;
+  constexpr int kStages = G::kStages, kStageBytes = G::kStageBytes, kHBytes = G::kHBytes;
+  constexpr int kSc = seg_chunks<W>();
+  constexpr bool kScaled = !std::is_same<W, __nv_bfloat16>::value;
+  uint4* hf = reinterpret_cast<uint4*>(smem + G::kRingBytes);
+  float* mean = reinterpret_cast<float*>(smem + G::kRingBytes + kHBytes);
+  float* inv = mean + kStreamRows;
+  int* last = reinterpret_cast<int*>(inv + kStreamRows);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+
+  const int nst = ring.nst, nchunks = (k + 31) / 32;
+  const int ks = ring.ks, tiles = ring.tiles, items = ring.items;
+  // K11: the pass of rows of the block's first item, and its first row
+  int pass = kPersist && block < ring.walk ? block / items : 0, r0 = pass * kStreamRows;
+  int rows = kPersist ? min(kStreamRows, b - r0) : b, nts = (rows + 7) / 8;
+  int hst = kHBytes / (nts * 512 * kSc);         // stages of h a slice of it holds
+  const unsigned char* my_ring = ring.mine;
+
+  // the statistics, while the first stages land (K11, past 64 rows: a later pass's at its first item)
+  if (ln_s != nullptr && (!kPersist || block < ring.walk))
+    stream_stats<kMaxNt == 1 ? 8 : 4, kCg>(x + (size_t)r0 * k, eps, norm, rows, k, mean, inv);
 
   int consumed = 0;
-  for (int item = block; item < items; item += grid) {
+  for (int v = block; v < ring.walk; v += grid) {
+    int item = v;
+    if constexpr (kPersist) {
+      const int ps = v / items;
+      item = v - ps * items;
+      if (ps != pass) {  // uniform across the block
+        pass = ps;
+        r0 = ps * kStreamRows;
+        rows = min(kStreamRows, b - r0);
+        nts = (rows + 7) / 8;
+        hst = kHBytes / (nts * 512 * kSc);
+        if (ln_s != nullptr) stream_stats<1, kCg>(x + (size_t)r0 * k, eps, norm, rows, k, mean, inv);
+      }
+    }
     const int tile = item / ks, sl = item % ks;
     const int st0 = sl * plan.slice, st1 = min(st0 + plan.slice, nst);
     const int col0 = tile * kStreamCols + warp * 16;
@@ -418,10 +502,11 @@ __device__ __forceinline__ void stream_body(
     for (int hs = st0; hs < st1; hs += hst) {
       const int he = min(hs + hst, st1);
       __syncthreads();  // the statistics are written; the last h slice is read
-      stream_stage_h<kGated ? 1 : 2, kCg>(x, ln_s, ln_b, mean, inv, b, k, nts, hs * kSc, (he - hs) * kSc, hf);
+      stream_stage_h<kGated ? 1 : 2, kCg>(x + (size_t)r0 * k, ln_s, ln_b, mean, inv, rows, k, nts, hs * kSc,
+                                          (he - hs) * kSc, hf);
       __syncthreads();
       for (int st = hs; st < he; ++st) {
-        produce();
+        ring.produce();
         cp_wait<kStages - 1>();  // this warp's stage `consumed` has landed
         __syncwarp();
         if (live) {
@@ -444,7 +529,8 @@ __device__ __forceinline__ void stream_body(
 
     bool emit = true;
     if (ks > 1) {  // this slice's partials, then the tile's last arrival adds them all in slice order
-      float4* part = reinterpret_cast<float4*>(split.scratch);
+      float4* part = reinterpret_cast<float4*>(split.scratch) +
+                     (kPersist ? pass * stream_pass_parts(b, tiles, ks, kGated) : 0);
       const size_t per_item = (size_t)kWarps * nts * 32, gofs = (size_t)ks * tiles * per_item;
       const size_t base = ((size_t)sl * tiles + tile) * per_item + (size_t)warp * nts * 32 + lane;
       if (live) {
@@ -456,7 +542,7 @@ __device__ __forceinline__ void stream_body(
           }
         }
       }
-      if (split.defer) continue;  // gemv_stream_reduce_kernel adds the slices
+      if (split.defer) continue;  // gemv_stream_reduce_kernel (K11: stream_reduce_pass) adds the slices
       __syncthreads();  // the block's partials are written; one fence orders them before its count
       if (threadIdx.x == 0) {
         __threadfence();
@@ -511,15 +597,32 @@ __device__ __forceinline__ void stream_body(
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int col = col0 + g + (i >> 1) * 8, r = 8 * j + 2 * t4 + (i & 1);
-            if (col < n && r < b)
-              out[(size_t)r * n + col] =
-                  from_f32<OutT>(epilogue<kScaled, kGated, kAct, true>(acc[j][i], gacc[j][i], ep, r, col, n));
+            if (col < n && r < rows)
+              out[(size_t)(r0 + r) * n + col] = from_f32<OutT>(
+                  epilogue<kScaled, kGated, kAct, true>(acc[j][i], gacc[j][i], ep, r0 + r, col, n));
           }
         }
       }
     }
   }
   cp_wait<0>();
+}
+
+// The body of one launch, for block `block` of a grid of `grid` blocks (a
+// kernel that carries other blocks too passes its own count): the ring's
+// first stages fly while the statistics are taken, then the items. x (b <=
+// 64 rows of k), out (b, n); X, R, kCg as stream_consume's.
+template <typename W, typename OutT, bool kGated, int kAct, typename X = __nv_bfloat16,
+          typename R = __nv_bfloat16, bool kCg = false, int kMaxNt = 8>
+__device__ __forceinline__ void stream_body(
+    const X* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s, const __nv_bfloat16* __restrict__ ln_b,
+    float eps, int norm, const unsigned char* __restrict__ w, const unsigned char* __restrict__ wg,
+    Epilogue<__nv_bfloat16, R> ep, OutT* __restrict__ out, int b, int n, int k, StreamPlan plan, StreamSplit split,
+    unsigned char* smem, int grid, int block) {
+  StreamRing<W, kGated, kMaxNt> ring(w, wg, n, k, b, plan, smem, grid, block);
+  ring.prologue();
+  stream_consume<W, OutT, kGated, kAct, X, R, kCg, kMaxNt, false>(ring, x, ln_s, ln_b, eps, norm, ep, out, b, n, k,
+                                                                   plan, split, smem, grid, block);
 }
 
 // OutT: bf16 (K1, K2, the out-projections of K3 and K6) or fp32 (K3's q/k/v)
@@ -534,18 +637,16 @@ __global__ void __launch_bounds__(kThreads, 1) gemv_stream_kernel(
       x, ln_s, ln_b, eps, norm, w, wg, ep, out, b, n, k, plan, split, smem, gridDim.x, blockIdx.x);
 }
 
-// A deferred split's end: each thread takes one lane's float4 of one n-tile
-// of one warp's 16 columns, adds the slices' partials in slice order (the
-// body's last-block order, so the bits are the same) and runs the epilogue
-// on its four outputs. Many blocks share the reads a last block would make
-// alone, the cost at B 64.
-template <bool kScaled, bool kGated, int kAct, typename OutT = __nv_bfloat16>
-__global__ void __launch_bounds__(256) gemv_stream_reduce_kernel(const float* __restrict__ scratch,
-                                                           Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out,
-                                                           int b, int n, int tiles, int ks, int nts) {
+// A deferred split's end for output i of a pass of b rows (one lane's float4
+// of one n-tile of one warp's 16 columns of a tile): the slices' partials
+// added in slice order (the body's last-block order, so the bits are the
+// same) and the epilogue run on its four outputs. kCg: the partials were
+// written by other blocks of the same launch (K11), read through L2 alone.
+template <bool kScaled, bool kGated, int kAct, typename OutT, typename R, bool kCg>
+__device__ __forceinline__ void stream_reduce_one(size_t i, const float* __restrict__ scratch,
+                                                  const Epilogue<__nv_bfloat16, R>& ep, OutT* __restrict__ out, int b,
+                                                  int n, int tiles, int ks, int nts) {
   const size_t per_item = (size_t)kWarps * nts * 32, gofs = (size_t)ks * tiles * per_item;
-  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
-  if (i >= tiles * per_item) return;
   const int tile = (int)(i / per_item), rem = (int)(i % per_item);
   const int warp = rem / (nts * 32), j = rem / 32 % nts, lane = rem % 32, g = lane >> 2, t4 = lane & 3;
   const float4* part = reinterpret_cast<const float4*>(scratch);
@@ -555,8 +656,14 @@ __global__ void __launch_bounds__(256) gemv_stream_reduce_kernel(const float* __
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       if (s0 + q >= ks) break;
-      v[q] = part[(size_t)(s0 + q) * tiles * per_item + i];
-      if constexpr (kGated) u[q] = part[gofs + (size_t)(s0 + q) * tiles * per_item + i];
+      const size_t at = (size_t)(s0 + q) * tiles * per_item + i;
+      if constexpr (kCg) {
+        v[q] = __ldcg(part + at);
+        if constexpr (kGated) u[q] = __ldcg(part + gofs + at);
+      } else {
+        v[q] = part[at];
+        if constexpr (kGated) u[q] = part[gofs + at];
+      }
     }
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
@@ -582,6 +689,38 @@ __global__ void __launch_bounds__(256) gemv_stream_reduce_kernel(const float* __
   }
 }
 
+// The separate launches' deferred split: a thread per four outputs. Many
+// blocks share the reads a last block would make alone, the cost at B 64.
+template <bool kScaled, bool kGated, int kAct, typename OutT = __nv_bfloat16>
+__global__ void __launch_bounds__(256) gemv_stream_reduce_kernel(const float* __restrict__ scratch,
+                                                           Epilogue<__nv_bfloat16> ep, OutT* __restrict__ out,
+                                                           int b, int n, int tiles, int ks, int nts) {
+  const size_t per_item = (size_t)kWarps * nts * 32;
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= tiles * per_item) return;
+  stream_reduce_one<kScaled, kGated, kAct, OutT, __nv_bfloat16, false>(i, scratch, ep, out, b, n, tiles, ks, nts);
+}
+
+// K11's deferred split of one phase (stream_consume<kPersist> with
+// split.defer, after a grid barrier): every pass of 64 rows of b, its
+// outputs strided over the whole grid, in the separate launches' order.
+template <typename W, bool kGated, int kAct, typename OutT, typename R>
+__device__ __forceinline__ void stream_reduce_pass(const float* scratch, const Epilogue<__nv_bfloat16, R>& ep,
+                                                   OutT* out, int b, int n, int k, StreamPlan plan) {
+  const int nst = (int)((w_row_bytes<W>(k) + kSegBytes - 1) / kSegBytes);
+  const int ks = (nst + plan.slice - 1) / plan.slice, tiles = (n + kStreamCols - 1) / kStreamCols;
+  for (int r0 = 0, ps = 0; r0 < b; r0 += kStreamRows, ++ps) {
+    const int rows = min(kStreamRows, b - r0), nts = (rows + 7) / 8;
+    Epilogue<__nv_bfloat16, R> ep_pass = ep;
+    if (ep.residual != nullptr) ep_pass.residual += (size_t)r0 * n;
+    const float* part = scratch + 4 * ps * stream_pass_parts(b, tiles, ks, kGated);
+    const size_t count = (size_t)tiles * kWarps * nts * 32;
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < count; i += (size_t)gridDim.x * blockDim.x)
+      stream_reduce_one<!std::is_same<W, __nv_bfloat16>::value, kGated, kAct, OutT, R, true>(
+          i, part, ep_pass, out + (size_t)r0 * n, rows, n, tiles, ks, nts);
+  }
+}
+
 // Launches gemv_stream_reduce_kernel after a deferred split of b rows (<= 64)
 template <bool kScaled, bool kGated, int kAct, typename OutT = __nv_bfloat16>
 cudaError_t launch_stream_reduce(const StreamSplit& split, Epilogue<__nv_bfloat16> ep, OutT* out, int b, int n,
@@ -595,7 +734,7 @@ cudaError_t launch_stream_reduce(const StreamSplit& split, Epilogue<__nv_bfloat1
 
 // The K slices of `plan` for K of weight type W
 template <typename W>
-int stream_slices(const StreamPlan& plan, int k) {
+__host__ __device__ int stream_slices(const StreamPlan& plan, int k) {
   const long long nst = ((long long)w_row_bytes<W>(k) + kSegBytes - 1) / kSegBytes;
   return (int)((nst + plan.slice - 1) / plan.slice);
 }

@@ -590,9 +590,7 @@ __device__ __forceinline__ void side_tile(const Args<T>& a, int t, unsigned char
 // the W8A8 tile). Instances of their own (kSide): the kernels without side
 // blocks are compiled as they were. In bf16 gemv_stream_side_kernel, the
 // weight-streaming body of rows_stream.cuh on its plan's blocks; in fp32
-// gemv_side_kernel, the CUDA-core body on its own grid. (The old
-// tensor-core body, rows_gemv.cuh's gemv_mma_body, carries no tile: K11's
-// phases 1 and 3 are its last users.)
+// gemv_side_kernel, the CUDA-core body on its own grid.
 template <typename W, bool kI8>
 __global__ void __launch_bounds__(kThreads, 1) gemv_stream_side_kernel(
     const __nv_bfloat16* __restrict__ x, const unsigned char* __restrict__ w, rows::Epilogue<__nv_bfloat16> ep,

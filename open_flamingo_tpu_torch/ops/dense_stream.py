@@ -247,8 +247,8 @@ def check_operands(fn: str, x: torch.Tensor, k: int, quantized=(), **tensors) ->
 
 
 # The weight-streaming row GEMV of csrc/rows_stream.cuh (every bf16 row GEMV
-# of K1, K2, K3 and K6, the K2 and K3 carriers and K11's K2 phases, each on
-# its plan from `stream_args`): 256-column tiles (16 warps of 16 columns), up
+# of K1, K2, K3 and K6, the K2 and K3 carriers and K11's phases, each on its
+# plan from `stream_args`): 256-column tiles (16 warps of 16 columns), up
 # to 64 rows a pass, a ring per warp of 128 bytes of each of its rows a
 # stage, a slice of h, the rows' statistics; one block per SM. Its
 # instance for any B: 4 stages (2 of W and Wg gated), 128 KB, and a 64 KB h
@@ -377,35 +377,39 @@ def stream_scratch(device, floats: int) -> torch.Tensor:
     return buf
 
 
-def stream_launches(b: int, launches, sms: int) -> tuple:
+def stream_launches(b: int, launches, sms: int, passes: bool = False) -> tuple:
     """The plans of bf16 launches ((n, k, weight kind, gated), ...) for b
     rows on `sms` SMs: ((slice, blocks) per launch, flattened; the fp32
-    scratch floats the largest split needs). The plans do not depend on b."""
+    scratch floats the largest split needs, for every pass of 64 rows of b
+    with `passes`, K11's phases, which keep each pass's partials). The plans
+    do not depend on b."""
     plans = [(stream_plan(n, k, wkind, sms), gated) for n, k, wkind, gated in launches]
     if any(p.tiles > STREAM_COUNTERS for p, _ in plans):
         raise ValueError(f"the row GEMV counts at most {STREAM_COUNTERS} column tiles of {STREAM_COLS}")
+    floats = max(stream_scratch_floats(p, b, gated) for p, gated in plans)
     return (tuple(v for p, _ in plans for v in (p.slice, p.blocks)),
-            max(stream_scratch_floats(p, b, gated) for p, gated in plans))
+            floats * (-(-b // STREAM_ROWS) if passes else 1))
 
 
 _ARGS = {}
 
 
-def stream_args(x: torch.Tensor, launches) -> tuple:
+def stream_args(x: torch.Tensor, launches, passes: bool = False) -> tuple:
     """The C interface's plan arguments for bf16 launches (n, k, weight,
     gated) on x's device: (slice, blocks) per launch, then the scratch
-    (`stream_scratch`, room for the largest split), the counters and their
-    count; and the scratch tensor. Zeros and nulls for fp32, which takes no
-    plan. Kept per (B, device, shapes) outside a CUDA graph capture: a decode
-    step asks for the same few every layer."""
+    (`stream_scratch`, room for the largest split; with `passes`, for every
+    pass of 64 rows, as K11 keeps them), the counters and their count; and
+    the scratch tensor. Zeros and nulls for fp32, which takes no plan. Kept
+    per (B, device, shapes) outside a CUDA graph capture: a decode step asks
+    for the same few every layer."""
     if x.dtype != torch.bfloat16:
         return (0, 0) * len(launches) + (None, None, 0), None
-    key = (x.shape[0], x.device.index, *[(n, k, w.dtype, gated) for n, k, w, gated in launches])
+    key = (x.shape[0], x.device.index, passes, *[(n, k, w.dtype, gated) for n, k, w, gated in launches])
     hit = _ARGS.get(key)
     if hit is not None:
         return hit
     flat, floats = stream_launches(x.shape[0], tuple((n, k, weight_kind(w), gated) for n, k, w, gated in launches),
-                                   _sm_count(x.device))
+                                   _sm_count(x.device), passes)
     if floats:
         scratch = stream_scratch(x.device, floats)
         hit = flat + (ptr(scratch), ptr(stream_counters(x.device)), STREAM_COUNTERS), scratch

@@ -5,10 +5,13 @@ sequence in one launch, the attention half (K3's math) then the MLP half
 Replaces `open_flamingo_tpu/ops/fused_layer.py` `fused_layer_decode`
 (kernel `_layer_kernel`). The CUDA kernel is `csrc/fused_layer.cu`: one
 persistent cooperative launch whose five phases (projection, attend,
-out-projection, up, down) run the bodies of K3 and K2 between grid-wide
-barriers, K2's phases on the plans of K2's own launches (`stream_plan`,
-bf16: up to 64 rows); bound by the weight and cache bytes on the card (see
-the source).
+out-projection, up, down) run between grid-wide barriers. In bf16 each
+row-GEMV phase runs the weight-streaming body of `csrc/rows_stream.cuh` on
+the plan of the separate launch that computes it (`layer_launches`: K3's
+two, then K2's two, from one `stream_args` call), any B in passes of 64
+rows, and issues its first weight stages before the barrier its rows wait
+for; fp32 runs the CUDA-core body. Bound by the weight and cache bytes on
+the card (see the source).
 
 Two forms, as on the decode path:
   * `fused_qkv=True` (an MPT block): `wq` is the fused (3*H*Dh, D) Wqkv.
@@ -21,8 +24,10 @@ x2 = x + tanh(gate) * out_proj(attention) stays fp32: LN2 normalises the
 fp32 value and y = x2 + tanh(gate2) * (u @ w2.T * w2_scale + b2) adds it,
 u = act(LN2(x2) @ w1.T * w1_scale + b1) [* LN2(x2) @ w1_gate.T *
 w1_gate_scale] rounded to x's dtype. So in fp32 K11 equals K3 then K2, and
-in bf16 it does not (K3 rounds x2). The other rounding points are K3's and
-K2's. The weights are in torch's nn.Linear layout, all in x's dtype, int8 or
+in bf16 it does not (K3 rounds x2): there the written caches are K3's bits
+and x2 rounded to bf16 is K3's output, bit for bit (`x2_out` receives x2).
+The other rounding points are K3's and K2's. The weights are in torch's
+nn.Linear layout, all in x's dtype, int8 or
 packed int4 (one stored type for the layer), each int weight with its
 per-out-channel fp32 scale. The JAX kernel's TPU tiling arguments
 (`head_block`, `block_s`, `block_k2`, `interpret`) have no counterpart.
@@ -50,9 +55,9 @@ import torch
 
 from ..models.layers import layer_norm
 from . import build
-from .decode_layer import attn_block_f32
-from .dense_stream import (_ACTS, STREAM_ROWS, check_operands, check_prologue, check_weight, count_launch, form_tags,
-                           ptr, reference_mlp, refuse_autograd, stream_args, variant, wtype)
+from .decode_layer import attn_block_f32, attn_block_launches
+from .dense_stream import (_ACTS, check_operands, check_prologue, check_weight, count_launch, form_tags, ptr,
+                           reference_mlp, refuse_autograd, stream_args, stream_ring, variant, wtype)
 from .flash_attention import _DTYPES
 
 # True by default, as in the JAX package: every block runs K3 + K2.
@@ -73,10 +78,37 @@ def _kernel():
     if _lib is None:
         lib = build.library("fused_layer")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_layer_decode_fwd.argtypes = [p] * 29 + [i] * 10 + [f, f, f] + [i] * 4 + [p, p, i] + [i, p]
+        lib.fused_layer_decode_fwd.argtypes = [p] * 29 + [i] * 10 + [f, f, f] + [i] * 8 + [p, p, i] + [i, p]
         lib.fused_layer_decode_fwd.restype = i
         _lib = lib
     return _lib
+
+
+def layer_launches(wq, wout, w1, w1_gate, w2, dm: int, inner: int) -> list:
+    """K11's four row-GEMV phases as `dense_stream.stream_args` takes them,
+    each the separate launch that computes it: K3's projection and
+    out-projection (`attn_block_launches`), then K2's up (gated with
+    w1_gate) and down."""
+    k2 = w1.shape[0]
+    return attn_block_launches(wq, wout, dm, inner) + [(k2, dm, w1, w1_gate is not None), (dm, k2, w2, False)]
+
+
+# K11's shared memory in bf16 (csrc/fused_layer.cu, the top): the instance's
+# ring and h slice (`dense_stream.stream_ring`, 64 rows' statistics and a
+# flag), then the attend's q, new K, new V and reduction partials; its scores
+# (S floats) and their output partials (128 x 8 floats) lie in the h slice.
+ATTEND_STATICS = (3 * 128 + 4) * 4
+ATTEND_PARTS = 128 * 8 * 4
+
+
+def layer_smem(b: int, gated: bool, s: int) -> dict:
+    """The bf16 launch's regions for b rows over an S-slot cache: name ->
+    (first byte, end), and "total"."""
+    _, ring, stream = stream_ring(b, gated)
+    h_end = stream - (2 * 64 * 4 + 16)
+    return {"ring": (0, ring), "h": (ring, h_end), "scores": (ring, ring + 4 * s),
+            "attend_parts": (ring, ring + ATTEND_PARTS), "stats": (h_end, stream),
+            "attend_statics": (stream, stream + ATTEND_STATICS), "total": stream + ATTEND_STATICS}
 
 
 def _refuse_int8_cache(k_cache, v_cache) -> None:
@@ -88,15 +120,17 @@ def _refuse_int8_cache(k_cache, v_cache) -> None:
 def reference_fused_layer(x, ln1_scale, ln1_bias, wq, wout, k_cache, v_cache, mask, w1, w2, ln2_scale, ln2_bias, *,
                           heads, head_dim, scale, act="gelu", fused_qkv=False, slot=None, slopes=None, clip=None,
                           gate=None, gate2=None, w1_gate=None, wq_scale=None, wout_scale=None, w1_scale=None,
-                          w2_scale=None, w1_gate_scale=None, b1=None, b2=None, eps=1e-5):
+                          w2_scale=None, w1_gate_scale=None, b1=None, b2=None, eps=1e-5, x2_out=None):
     """Plain version of fused_layer_decode, at the kernel's rounding points:
-    x2 in fp32 between the halves."""
+    x2 in fp32 between the halves (copied into `x2_out` when given)."""
     refuse_autograd("fused_layer_decode", x, ln1_scale, ln1_bias, wq, wout, k_cache, v_cache, w1, w2, ln2_scale,
                     ln2_bias, slopes, gate, gate2, w1_gate, b1, b2)
     _refuse_int8_cache(k_cache, v_cache)
     x2 = attn_block_f32(x, ln1_scale, ln1_bias, wq, wout, k_cache, v_cache, mask, heads=heads, head_dim=head_dim,
                         scale=scale, fused_qkv=fused_qkv, slot=slot, slopes=slopes, clip=clip, gate=gate,
                         wq_scale=wq_scale, wout_scale=wout_scale, eps=eps)
+    if x2_out is not None:
+        x2_out.copy_(x2)
     h = layer_norm(x2, ln2_scale, ln2_bias, eps).to(x.dtype)
     y = reference_mlp(h, w1, w2, w1_gate=w1_gate, w1_scale=w1_scale, w2_scale=w2_scale, w1_gate_scale=w1_gate_scale,
                       b1=b1, b2=b2, act=act, residual=x2, gate=gate2)
@@ -106,14 +140,18 @@ def reference_fused_layer(x, ln1_scale, ln1_bias, wq, wout, k_cache, v_cache, ma
 def fused_layer_decode(x, ln1_scale, ln1_bias, wq, wout, k_cache, v_cache, mask, w1, w2, ln2_scale, ln2_bias, *,
                        heads, head_dim, scale, act="gelu", fused_qkv=False, slot=None, slopes=None, clip=None,
                        gate=None, gate2=None, w1_gate=None, wq_scale=None, wout_scale=None, w1_scale=None,
-                       w2_scale=None, w1_gate_scale=None, b1=None, b2=None, layer_idx=None, eps=1e-5):
-    """x (B, D); ln1_scale/ln1_bias, ln2_scale/ln2_bias (D,); wq (3*H*Dh or
-    H*Dh, D); wout (D, H*Dh); w1, w1_gate (K2, D); w2 (D, K2); each weight
-    in x's dtype, int8 or packed int4 (last dim halved), all of one stored
-    type, an int weight with its (rows,) fp32 scale; k_cache/v_cache
-    (B, H, S, Dh) in x's dtype; mask (B, S), nonzero = attend; slot (1,)
-    int32 (fused_qkv); slopes (H,) fp32; gate, gate2 (1,); b1 (K2,); b2
-    (D,). Returns y (B, D), or (y, k_cache, v_cache) with fused_qkv."""
+                       w2_scale=None, w1_gate_scale=None, b1=None, b2=None, layer_idx=None, eps=1e-5,
+                       x2_out=None):
+    """x (B, D), any B; ln1_scale/ln1_bias, ln2_scale/ln2_bias (D,); wq
+    (3*H*Dh or H*Dh, D); wout (D, H*Dh); w1, w1_gate (K2, D); w2 (D, K2);
+    each weight in x's dtype, int8 or packed int4 (last dim halved), all of
+    one stored type, an int weight with its (rows,) fp32 scale;
+    k_cache/v_cache (B, H, S, Dh) in x's dtype; mask (B, S), nonzero =
+    attend; slot (1,) int32 (fused_qkv); slopes (H,) fp32; gate, gate2 (1,);
+    b1 (K2,); b2 (D,). x2_out, a contiguous (B, D) fp32 tensor on x's
+    device, receives x2 (the kernel writes it there in place of its own
+    buffer; the decode path never passes it). Returns y (B, D), or (y,
+    k_cache, v_cache) with fused_qkv."""
     if layer_idx is not None:
         raise ValueError("fused_layer_decode: the port keeps one per-layer layout and takes no layer_idx (the JAX "
                          "package's stacked-weight index); pass the layer's own caches and weights")
@@ -151,12 +189,17 @@ def fused_layer_decode(x, ln1_scale, ln1_bias, wq, wout, k_cache, v_cache, mask,
     for name, t, n in (("b1", b1, k2), ("b2", b2, dm), ("gate", gate, 1), ("gate2", gate2, 1)):
         if t is not None and t.shape != (n,):
             raise ValueError(f"fused_layer_decode: {name} must be ({n},), got {tuple(t.shape)}")
+    if x2_out is not None and (x2_out.shape != (b, dm) or x2_out.dtype != torch.float32
+                               or x2_out.device != x.device or not x2_out.is_contiguous()):
+        raise ValueError(f"fused_layer_decode: x2_out must be a contiguous (B, D) = {(b, dm)} float32 tensor on "
+                         f"x's device")
     if x.device.type == "cpu":
         return reference_fused_layer(x, ln1_scale, ln1_bias, wq, wout, k_cache, v_cache, mask, w1, w2, ln2_scale,
                                      ln2_bias, heads=heads, head_dim=head_dim, scale=scale, act=act,
                                      fused_qkv=fused_qkv, slot=slot, slopes=slopes, clip=clip, gate=gate, gate2=gate2,
                                      w1_gate=w1_gate, wq_scale=wq_scale, wout_scale=wout_scale, w1_scale=w1_scale,
-                                     w2_scale=w2_scale, w1_gate_scale=w1_gate_scale, b1=b1, b2=b2, eps=eps)
+                                     w2_scale=w2_scale, w1_gate_scale=w1_gate_scale, b1=b1, b2=b2, eps=eps,
+                                     x2_out=x2_out)
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_decode: unsupported device {x.device}")
     check_operands("fused_layer_decode", x, dm, quantized=("wq", "wout", "w1", "w1_gate", "w2"), ln1_scale=ln1_scale,
@@ -164,9 +207,6 @@ def fused_layer_decode(x, ln1_scale, ln1_bias, wq, wout, k_cache, v_cache, mask,
                    w1_gate=w1_gate, w2=w2, wq_scale=wq_scale, wout_scale=wout_scale, w1_scale=w1_scale,
                    w2_scale=w2_scale, w1_gate_scale=w1_gate_scale, k_cache=k_cache, v_cache=v_cache, b1=b1, b2=b2,
                    gate=gate, gate2=gate2)
-    if x.dtype == torch.bfloat16 and b > STREAM_ROWS:
-        raise ValueError(f"fused_layer_decode: in bf16 K2's phases take at most {STREAM_ROWS} rows in one pass, "
-                         f"got B {b}; run the block as attn_block_decode + fused_mlp")
     if head_dim % 8 or head_dim > 128 or s > 8192 or k2 % 8:
         raise ValueError(f"fused_layer_decode: Dh = {head_dim} must be a multiple of 8 and <= 128, the cache at "
                          f"most 8192 slots (got {s}) and the hidden size a multiple of 8 (got {k2})")
@@ -176,11 +216,12 @@ def fused_layer_decode(x, ln1_scale, ln1_bias, wq, wout, k_cache, v_cache, mask,
     m = mask if mask.dtype in (torch.bool, torch.uint8) else (mask != 0).to(torch.uint8)
     sl = None if slopes is None else slopes.to(torch.float32)
     f32 = dict(dtype=torch.float32, device=x.device)
-    proj, x2 = torch.empty(b, p, **f32), torch.empty(b, dm, **f32)
+    proj = torch.empty(b, p, **f32)
+    x2 = torch.empty(b, dm, **f32) if x2_out is None else x2_out
     attn = torch.empty(b, inner, dtype=x.dtype, device=x.device)
     u = torch.empty(b, k2, dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
-    plan, _ = stream_args(x, [(k2, dm, w1, w1_gate is not None), (dm, k2, w2, False)])   # K2's plans, phases 4, 5
+    plan, _ = stream_args(x, layer_launches(wq, wout, w1, w1_gate, w2, dm, inner), passes=True)
     status = _kernel().fused_layer_decode_fwd(
         ptr(x), ptr(ln1_scale), ptr(ln1_bias), ptr(wq), ptr(wq_scale), ptr(wout), ptr(wout_scale), ptr(k_cache),
         ptr(v_cache), ptr(m), ptr(sl), ptr(gate), ptr(slot) if fused_qkv else None, ptr(w1), ptr(w1_gate), ptr(w2),

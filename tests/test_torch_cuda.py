@@ -1438,7 +1438,8 @@ def run_layer(args, kw, device=None):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bits", [None, 8, 4])
 @pytest.mark.parametrize("fused_qkv", [True, False])
-@pytest.mark.parametrize("b", [1, 8, 13])       # 13 rows: two passes of 8
+# 13 rows: two passes of 8 in fp32, the any-B instance in bf16; 65: two passes of 64 in bf16
+@pytest.mark.parametrize("b", [1, 8, 13, 64, 65])
 def test_fused_layer_decode(gen, b, fused_qkv, bits, dtype):
     """K11 against its plain version, both forms, every weight type; three
     calls give the same bits (a stale read of what an earlier phase wrote
@@ -1454,7 +1455,7 @@ def test_fused_layer_decode(gen, b, fused_qkv, bits, dtype):
 
 @pytest.mark.parametrize("fused_qkv", [True, False])
 @pytest.mark.parametrize("bits", [None, 8])
-@pytest.mark.parametrize("b", [1, 8, 13])
+@pytest.mark.parametrize("b", [1, 8, 13, 64, 65])
 def test_fused_layer_fp32_is_k3_then_k2_bit_for_bit(gen, b, bits, fused_qkv):
     """In fp32 K11 keeps x2 as K3 + K2 do: y and both caches bit for bit."""
     args, kw = layer_operands(gen, b, 256, 4, 64, 1024, 64, fused_qkv, torch.float32, bits)
@@ -1468,6 +1469,26 @@ def test_fused_layer_fp32_is_k3_then_k2_bit_for_bit(gen, b, bits, fused_qkv):
     assert torch.equal(y, y2) and torch.equal(kc, kc2) and torch.equal(vc, vc2)
 
 
+@pytest.mark.parametrize("fused_qkv", [True, False])
+@pytest.mark.parametrize("bits", [None, 8, 4])
+@pytest.mark.parametrize("b", [1, 8, 13, 65])
+def test_fused_layer_bf16_caches_and_x2_are_k3s(gen, b, bits, fused_qkv):
+    """In bf16 every row-GEMV phase of K11 runs on the plan of the separate
+    launch that computes it: the written caches are K3's bits, and K11's fp32
+    x2 rounded to bf16 is K3's output bit for bit (B 1 and 8 on the one-n-tile
+    instance, 13 and 65 on the any-B one, 65 in two passes of rows)."""
+    args, kw = layer_operands(gen, b, 256, 4, 64, 1024, 64, fused_qkv, torch.bfloat16, bits)
+    x2 = torch.empty(b, 256, dtype=torch.float32, device="cuda")
+    args11 = [None if t is None else t.clone() for t in args]
+    fused_layer_decode(*args11, x2_out=x2, **kw)
+    x, ln1, ln1_b, wq, wout, kc, vc, mask = [None if t is None else t.clone() for t in args[:8]]
+    attn = {k: v for k, v in kw.items() if k not in ("act", "gate2", "b1", "b2", "w1_scale", "w2_scale")}
+    out = attn_block_decode(x, ln1, ln1_b, wq, wout, kc, vc, mask, **attn)
+    out = out[0] if fused_qkv else out
+    assert torch.equal(args11[5], kc) and torch.equal(args11[6], vc)
+    assert torch.equal(x2.to(torch.bfloat16), out)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 # SwiGLU (the gated instance) with silu; relu alone (the runtime-activation
 # instance); a hidden size of 16,384 (the down-projection on the
@@ -1479,10 +1500,12 @@ def test_fused_layer_decode_forms(gen, swiglu, act, k2, dtype):
         close(g, w)
 
 
-def test_fused_layer_decode_in_a_cuda_graph(gen):
+@pytest.mark.parametrize("b", [8, 65])
+def test_fused_layer_decode_in_a_cuda_graph(gen, b):
     """The cooperative launch captures into a CUDA graph, and a replay reads
-    the slot from the device."""
-    args, kw = layer_operands(gen, 8, 256, 4, 64, 1024, 64, True, torch.bfloat16)
+    the slot from the device (B 65: two passes of rows, the split's partials
+    added by the grid)."""
+    args, kw = layer_operands(gen, b, 256, 4, 64, 1024, 64, True, torch.bfloat16)
     want = run_layer(args, kw)
     kc, vc = args[5].clone(), args[6].clone()
     live = args[:5] + [kc, vc] + args[7:]
