@@ -129,7 +129,22 @@ Phases, each printing JSON lines:
               tokens and step logits against the default fused route and
               plain_path(), bf16 timed with exact launch counts and one
               sync-free step each, and the three forms timed in turns on
-              the host clock. Each model is freed before the next.
+              the host clock. OF-3B is built through the port's entry
+              point, create_model_and_transforms (its config
+              model_config("OF-3B")'s, its weights init_random's bit for
+              bit), and runs beam search (3 beams, length_penalty 0, eos
+              the greedy stream's most frequent token) and sampling
+              (temperature 0.7, top-k 50, top-p 0.9, one generator seed):
+              fp32 kernels against plain_path() (beams also against the
+              unfused route): tokens equal, and every step's log-probs (the
+              other route forced onto the kernels' beams and tokens) or
+              logits within LOGITS_TOL; where a near tie tips a choice, the
+              first parted step must be a tie within the error shown
+              (`beam_agree`, `sample_agree`). bf16 both timed on the fused
+              route (B 8 prompts, 24 decode rows for the beams) with exact
+              launch counts (paths `beam_generate_fused`,
+              `sample_generate_fused`), and the beam step's cache gather
+              timed alone. Each model is freed before the next.
      absorb   full-width OF-3B generate with the next batch's 8 images
               (flamingo_generate(next_pixels=)): the next batch's ViT-L/14
               as 288 K2b side tiles on the first 24 decode forwards' K2
@@ -205,10 +220,13 @@ import torch
 import torch.nn.functional as F
 
 from open_flamingo_tpu_torch.configs import VIT_L_14, DecoderConfig, FlamingoConfig, flamingo_config
-from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate, greedy_absorb, prefill
+from open_flamingo_tpu_torch.factory import create_model_and_transforms
+from open_flamingo_tpu_torch.generation import (
+    NEG_INF, GenerationConfig, _filter_logits, _gather_beams, _process_logits, _repeat_beams, flamingo_generate,
+    greedy_absorb, gumbel_noise, prefill)
 from open_flamingo_tpu_torch.models import absorb_vit
 from open_flamingo_tpu_torch.models.absorb_vit import SideHook, make_plan, patch_embed_flat
-from open_flamingo_tpu_torch.models.decoders.common import alibi_slopes, quantize_kv
+from open_flamingo_tpu_torch.models.decoders.common import KVCache, alibi_slopes, quantize_kv
 from open_flamingo_tpu_torch.models.flamingo import count_media, init_random
 from open_flamingo_tpu_torch.models.layers import layer_norm
 from open_flamingo_tpu_torch.models.vit import VisionTransformer
@@ -2412,16 +2430,21 @@ def reset_counters(counters) -> None:
             fn.variants.clear()
 
 
-def timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, route):
+def timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, route, seed=None):
     """One bf16 generate call with every launch counter (and the decode
     kernels' per-variant counts) reset just before and read just after;
-    then vision encode and prefill timed alone. Returns (launches,
-    variants)."""
-    warm = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+    then vision encode and prefill timed alone. A sampled call (`seed`)
+    draws from a generator seeded so, anew for each call. Returns
+    (launches, variants)."""
+    def call():
+        gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+        return flamingo_generate(model, vision_x, ids, mask, gcfg, generator=gen, device=dev)
+
+    warm = call()
     torch.cuda.synchronize()
     reset_counters(counters)
     t0 = time.perf_counter()
-    tokens = flamingo_generate(model, vision_x, ids, mask, gcfg, device=dev)
+    tokens = call()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -2438,7 +2461,7 @@ def timed_generate(model, vision_x, ids, mask, gcfg, dev, counters, route):
          "tokens_per_s": B * NEW_TOKENS / dt, "vision_s": vision_s, "prefill_s": prefill_s,
          "decode_s": dt - vision_s - prefill_s, "decode_step_ms": (dt - vision_s - prefill_s) / (NEW_TOKENS - 1) * 1e3,
          "ttft_s": vision_s + prefill_s, "batch": B, "prompt": T_PROMPT, "new_tokens": NEW_TOKENS,
-         "launches": launches, "variants": variants,
+         "num_beams": gcfg.num_beams, "do_sample": gcfg.do_sample, "launches": launches, "variants": variants,
          "distinct_tokens_per_row": [len(set(r)) for r in tokens.tolist()], "tokens_row0": tokens[0].tolist()})
     require(tokens.shape == (B, NEW_TOKENS), "bf16 token shape")
     require(bool(((tokens >= 0) & (tokens < model.cfg.lm.vocab_size)).all().item()), "bf16 token ids out of range")
@@ -2527,6 +2550,26 @@ def build_model(cfg, dev, dtype):
     return model
 
 
+def factory_model(cfg, dev, dtype):
+    """OF-3B through the port's entry point: create_model_and_transforms
+    with the registry's names and random weights from SEED. Its config must
+    be model_config("OF-3B")'s (<|endofchunk|> 50432, <image> 50433,
+    vocabulary 50434) and its weights init_random's bit for bit."""
+    model, _, _ = create_model_and_transforms("ViT-L-14", "openai", "mosaicml/mpt-1b-redpajama-200b",
+                                              init_params=True, init_seed=SEED, device=dev, dtype=dtype)
+    got, ref = model.state_dict(), init_random(cfg, SEED, device=dev, dtype=dtype).state_dict()
+    same = list(got) == list(ref) and all(torch.equal(got[k], ref[k]) for k in ref)
+    del ref
+    torch.cuda.empty_cache()
+    ids = (model.cfg.eoc_token_id, model.cfg.media_token_id, model.cfg.lm.vocab_size)
+    log({"phase": "generate", "dtype": str(dtype).split(".")[-1], "check": "OF-3B from create_model_and_transforms",
+         "config_equal": model.cfg == cfg, "eoc_media_vocab": ids, "weights_bit_equal_init_random": same,
+         "tensors": len(got)})
+    require(model.cfg == cfg and ids == (50432, 50433, 50434), f"create_model_and_transforms: config {model.cfg}")
+    require(same, "create_model_and_transforms: weights differ from init_random(cfg, SEED)")
+    return model
+
+
 # K11's two forms on the fused route (the JAX package's hooks): every MPT and
 # gated cross-attention block one launch, or the gated blocks alone
 LAYER_FORMS = {"fused_layer": ("DISABLE", False), "xattn_only": ("XATTN_ONLY", True)}
@@ -2564,6 +2607,185 @@ def forms_in_turns(model, vision_x, ids, mask, gcfg, dev, name) -> None:
          "tokens_per_s": {form: B * NEW_TOKENS * len(t) / sum(t) for form, t in times.items()}})
 
 
+# beam search and sampling on OF-3B (phase generate): the eval harness's beam
+# search (3 beams, length_penalty 0) and a sampled call with every filter
+BEAMS, SAMPLE, SAMPLE_SEED = 3, dict(temperature=0.7, top_k=50, top_p=0.9), SEED + 5
+
+
+def beam_recorder():
+    """flamingo_generate's `observe` hook and what it records: each step's
+    log-probs (B, K, V) and the chosen beams and tokens (B, K)."""
+    rec = {"logprobs": [], "beams": [], "tokens": []}
+
+    def observe(step, logprobs, beams, tokens):
+        for key, val in (("logprobs", logprobs), ("beams", beams), ("tokens", tokens)):
+            rec[key].append(val)
+
+    return rec, observe
+
+
+def forced_beam_logprobs(model, latents, ids, mask, gcfg, rec):
+    """(steps, B, K, V) fp32 log-probs of a beam search forced onto `rec`'s
+    beams and tokens: prefill at B, the cache repeated per beam, each step
+    gathered to the recorded beams and fed the recorded tokens."""
+    k, steps = gcfg.num_beams, gcfg.max_new_tokens
+    logits, cache = prefill(model, latents, ids, mask, T_PROMPT + NEW_TOKENS)
+    cache, logits = _repeat_beams(cache, k), logits[:, -1].repeat_interleave(k, dim=0)
+    lat = latents.repeat_interleave(k, dim=0)
+    n_media = count_media(ids, model.cfg.media_token_id).repeat_interleave(k, dim=0)
+    ones = torch.ones(B * k, 1, dtype=torch.long, device=ids.device)
+    out = []
+    for step in range(steps):
+        out.append(F.log_softmax(_process_logits(logits, step, gcfg).float(), dim=-1).reshape(B, k, -1))
+        if step + 1 < steps:
+            cache = _gather_beams(cache, rec["beams"][step], B, k)
+            logits, cache = model.decode_step(lat, rec["tokens"][step].reshape(-1, 1), ones, cache, n_media)
+            logits = logits[:, 0]
+    return torch.stack(out)
+
+
+def beam_tie_margin(rec_a, rec_b, logprobs, step):
+    """At the first `step` where route b chose other beams than route a on
+    the same history: how much worse a's choice scores than b's under b's
+    log-probs (`logprobs`, b forced onto a's choices), the sorted live
+    scores compared. A near tie gives a margin within the log-probs' error
+    summed over the steps so far."""
+    k = rec_a["beams"][0].shape[1]
+    live = torch.full((B, k), NEG_INF, device=logprobs.device)
+    live[:, 0] = 0.0
+    for s in range(step):
+        beams, toks = rec_a["beams"][s], rec_a["tokens"][s]
+        live = torch.gather(live, 1, beams) + logprobs[s][torch.arange(B, device=live.device)[:, None], beams, toks]
+    cand = (live[:, :, None] + logprobs[step]).reshape(B, -1)
+    vocab = logprobs.shape[-1]
+
+    def chosen(rec):
+        return torch.gather(cand, 1, rec["beams"][step] * vocab + rec["tokens"][step]).sort(dim=1).values
+
+    return (chosen(rec_b) - chosen(rec_a)).abs().max().item()
+
+
+def beam_agree(what, tok_a, rec_a, tok_b, rec_b, lp_b) -> None:
+    """Route a's beam search against route b's, in two parts: b's log-probs
+    forced onto a's beams and tokens (`lp_b`) within LOGITS_TOL of a's at
+    every step; the tokens equal, or, where a near tie tipped a choice, the
+    first step where the choices part within the error those log-probs show
+    (`beam_tie_margin`). Nothing else may part."""
+    lp_a = torch.stack(rec_a["logprobs"])
+    step_err = (lp_a - lp_b).abs().amax(dim=(1, 2, 3)).tolist()
+    same = torch.equal(tok_a, tok_b)
+    parted = next((s for s in range(len(step_err)) if not (torch.equal(rec_a["beams"][s], rec_b["beams"][s])
+                                                           and torch.equal(rec_a["tokens"][s], rec_b["tokens"][s]))),
+                  None)
+    margin = allowed = None
+    if not same and parted is not None:
+        margin, allowed = beam_tie_margin(rec_a, rec_b, lp_b, parted), 2 * (parted + 1) * max(step_err)
+    log({"phase": "generate", "dtype": "float32", "compare": what, "logprobs_max_abs_err": max(step_err),
+         "first_step_err": step_err[0], "last_step_err": step_err[-1], "tol": LOGITS_TOL, "tokens_equal": same,
+         "first_parted_step": parted, "tie_margin": margin, "tie_allowed": allowed})
+    require(max(step_err) <= LOGITS_TOL, f"fp32 {what}: log-probs differ by {max(step_err)} (per step: {step_err})")
+    require(same or (margin is not None and margin <= allowed),
+            f"fp32 {what}: beam tokens differ (first parted step {parted}, margin {margin}, allowed {allowed})")
+
+
+def sample_agree(what, tok_a, tok_b, la, lb, gcfg, dev) -> None:
+    """Route a's sampled tokens against route b's (the same generator seed):
+    b's step logits on a's token stream (`lb`) within LOGITS_TOL of a's
+    (`la`); the tokens equal, or at the first step where they part, b's
+    draw (filtered logits + the same Gumbel noise) at a's token within the
+    logits' error of its draw at b's own."""
+    step_err = (la - lb).abs().amax(dim=(1, 2)).tolist()
+    same = torch.equal(tok_a, tok_b)
+    parted = None if same else int((tok_a != tok_b).any(0).nonzero()[0].item())
+    margin = allowed = None
+    if parted is not None:
+        noise = gumbel_noise(torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
+        for s in range(parted + 1):
+            g = noise(s, la[s].shape)
+        z = _filter_logits(lb[parted], gcfg) + g
+        rows = (tok_a[:, parted] != tok_b[:, parted]).nonzero()[:, 0]
+        margin = (z[rows, tok_b[rows, parted]] - z[rows, tok_a[rows, parted]]).abs().max().item()
+        allowed = 2 * step_err[parted] / gcfg.temperature
+    log({"phase": "generate", "dtype": "float32", "compare": what, "logits_max_abs_err": max(step_err),
+         "tol": LOGITS_TOL, "tokens_equal": same, "first_parted_step": parted, "draw_margin": margin,
+         "draw_allowed": allowed, "distinct_tokens_per_row": [len(set(r)) for r in tok_a.tolist()]})
+    require(max(step_err) <= LOGITS_TOL, f"fp32 {what}: logits differ by {max(step_err)} (per step: {step_err})")
+    require(same or margin <= allowed, f"fp32 {what}: sampled tokens differ at step {parted} (margin {margin})")
+
+
+def search_checks(model, vision_x, ids, mask, dev, greedy, latents, latents_p):
+    """fp32 beam search and sampling on OF-3B: the fused route's kernels
+    against plain_path() (beams also against the unfused route, K7). eos is
+    the token the greedy stream emits most often, so that hypotheses finish.
+    Returns the beam and sampling GenerationConfigs."""
+    eos = int(torch.bincount(greedy.flatten()).argmax().item())
+    bcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, num_beams=BEAMS, length_penalty=0.0, eos_token_id=eos,
+                            pad_token_id=0)
+    routes = {"kernels": (contextlib.nullcontext, latents), "plain_path": (plain_path, latents_p),
+              "unfused": (unfused_route, latents)}
+    runs = {}
+    for route, (ctx, _) in routes.items():
+        rec, observe = beam_recorder()
+        with ctx():
+            runs[route] = flamingo_generate(model, vision_x, ids, mask, bcfg, observe=observe, device=dev), rec
+    tok_k, rec_k = runs["kernels"]
+    log({"phase": "generate", "dtype": "float32", "check": f"OF-3B beam {BEAMS}", "eos_token_id": eos,
+         "rows_ending_on_eos": int((tok_k == eos).any(1).sum().item()),
+         "eos_among_live_choices": int(sum(int((t == eos).sum().item()) for t in rec_k["tokens"])),
+         "differs_from_greedy": not torch.equal(tok_k, greedy),
+         "distinct_tokens_per_row": [len(set(r)) for r in tok_k.tolist()]})
+    for route in ("plain_path", "unfused"):
+        ctx, lat = routes[route]
+        with ctx():
+            lp = forced_beam_logprobs(model, lat, ids, mask, bcfg, rec_k)
+        beam_agree(f"OF-3B beam {BEAMS} kernels vs {route}", tok_k, rec_k, *runs[route], lp)
+    del runs, lp
+    scfg = GenerationConfig(max_new_tokens=NEW_TOKENS, do_sample=True, pad_token_id=0, **SAMPLE)
+    tok = {}
+    for route in ("kernels", "plain_path"):
+        with routes[route][0]():
+            gen = torch.Generator(device=dev).manual_seed(SAMPLE_SEED)
+            tok[route] = flamingo_generate(model, vision_x, ids, mask, scfg, generator=gen, device=dev)
+    lk = step_logits(model, latents, ids, mask, tok["kernels"])
+    with plain_path():
+        lp = step_logits(model, latents_p, ids, mask, tok["kernels"])
+    log({"phase": "generate", "dtype": "float32", "check": "OF-3B sampled", **SAMPLE,
+         "differs_from_greedy": not torch.equal(tok["kernels"], greedy)})
+    sample_agree("OF-3B sampled kernels vs plain_path", tok["kernels"], tok["plain_path"], lk, lp, scfg, dev)
+    return bcfg, scfg
+
+
+def searches_in_turns(model, vision_x, ids, mask, greedy_cfg, search_cfgs, dev) -> None:
+    """bf16 greedy, beam and sampled generate on the fused route in turns
+    (greedy, beams, sampling, then back): host clock to a synchronize, which
+    wanders between calls on this shared host."""
+    cfgs = {"greedy": (greedy_cfg, None), "beam": (search_cfgs[0], None), "sample": (search_cfgs[1], SAMPLE_SEED)}
+    times = {name: [] for name in cfgs}
+    for name in list(cfgs) + list(cfgs)[::-1]:
+        gcfg, seed = cfgs[name]
+        gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flamingo_generate(model, vision_x, ids, mask, gcfg, generator=gen, device=dev)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    log({"phase": "generate", "dtype": "bfloat16", "compare": "OF-3B greedy, beam, sampled in turns", "seconds": times,
+         "tokens_per_s": {name: B * NEW_TOKENS * len(t) / sum(t) for name, t in times.items()}})
+
+
+def gather_ms(model, dev) -> dict:
+    """Device time of one beam step's cache gather on OF-3B's cache in the
+    model's dtype (B 8 x 3 beams, half the new tokens written), beside the
+    bytes it moves (index_select reads and writes the written slots, copy_
+    again) over the card's memory rate."""
+    cache = KVCache.create(model.cfg.lm, B * BEAMS, T_PROMPT + NEW_TOKENS, model.dtype, dev)
+    cache = dataclasses.replace(cache, index=T_PROMPT + NEW_TOKENS // 2)
+    idx = torch.randint(0, BEAMS, (B, BEAMS), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    ms = device_ms(lambda: _gather_beams(cache, idx, B, BEAMS))
+    written = sum(x[:, :, :cache.index].numel() * x.element_size() for kv in cache.layers for x in (kv.k, kv.v))
+    return {"gather_ms": ms, "gather_bytes": 4 * written, "gather_bound_ms": 4 * written / HBM_BYTES_PER_S * 1e3}
+
+
 @torch.no_grad()   # generation: the forward is differentiable, nothing here needs a graph
 def phase_generate(dev, name="OF-3B"):
     counters = kernel_functions()
@@ -2571,8 +2793,8 @@ def phase_generate(dev, name="OF-3B"):
     vision_x, ids, mask = make_inputs(cfg, dev)
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, pad_token_id=0)
 
-    def build(dtype):
-        return build_model(cfg, dev, dtype)
+    def build(dtype):      # OF-3B through the entry point a user calls
+        return factory_model(cfg, dev, dtype) if name == "OF-3B" else build_model(cfg, dev, dtype)
 
     # fp32: (a) fused route, kernels vs plain versions; (b) fused vs unfused route
     t0 = time.perf_counter()
@@ -2608,6 +2830,8 @@ def phase_generate(dev, name="OF-3B"):
              "logits_bit_equal": torch.equal(lf, lk)})
         fp32_agree(f"{name} {form} (K11) vs the default fused route", tok_f, tok_k, lf, lk)
         fp32_agree(f"{name} {form} (K11) vs plain_path", tok_f, tok_p, lf, lp)
+    if name == "OF-3B":
+        search_cfgs = search_checks(model, vision_x, ids, mask, dev, tok_k, latents, latents_p)
     del model, latents, latents_p, latents_u
     torch.cuda.empty_cache()
 
@@ -2618,6 +2842,15 @@ def phase_generate(dev, name="OF-3B"):
     require(fused == want, f"{name} fused route launches {fused}, expected {want}")
     sync_free_step(model, vision_x, ids, mask, dev)
     more, more_variants = {}, {}
+    if name == "OF-3B":    # beams at B x 3 decode rows, sampling: the fused route's launches, prefill at B
+        for path, gcfg_x, seed in zip(("beam_generate_fused", "sample_generate_fused"), search_cfgs, (None, SAMPLE_SEED)):
+            more[path], more_variants[path] = timed_generate(model, vision_x, ids, mask, gcfg_x, dev, counters,
+                                                             f"{name} {path}", seed=seed)
+            want = route_launches(cfg, counters, fused=True)
+            require(more[path] == want, f"{name} {path} launches {more[path]}, expected {want}")
+        log({"phase": "generate", "dtype": "bfloat16", "route": f"{name} beam {BEAMS} cache gather",
+             **gather_ms(model, dev)})
+        searches_in_turns(model, vision_x, ids, mask, gcfg, search_cfgs, dev)
     for form in forms:
         with layer_form(form):
             got, more_variants[f"generate_{form}"] = timed_generate(model, vision_x, ids, mask, gcfg, dev, counters,

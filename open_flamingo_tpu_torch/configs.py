@@ -1,6 +1,7 @@
 """Architecture configs of the released models: OF-3B (MPT-1B, xattn
 before every layer), OF-4B (RedPajama-INCITE-3B, every 2), OF-9B
-(MPT-7B, every 4).
+(MPT-7B, every 4); and the factory's other vision towers (ViT-B/32,
+ViT-Tiny).
 
 The port's own copies of the JAX package's `VisionConfig`,
 `DecoderConfig` and `FlamingoConfig`, with the same fields and defaults
@@ -98,6 +99,21 @@ VIT_L_14 = VisionConfig(
     image_size=224, patch_size=14, hidden_size=1024, num_layers=24,
     num_heads=16, intermediate_size=4096, hidden_act="quick_gelu",
     projection_dim=768,
+)
+
+# Tiny smoke-run tower (not a real CLIP): the same 224px input, 2 layers of
+# D 128 (the factory's "ViT-Tiny")
+VIT_TINY = VisionConfig(
+    image_size=224, patch_size=32, hidden_size=128, num_layers=2,
+    num_heads=2, intermediate_size=256, hidden_act="quick_gelu",
+    projection_dim=64,
+)
+
+# OpenAI CLIP ViT-B/32, the reference's RICES retrieval encoder
+VIT_B_32 = VisionConfig(
+    image_size=224, patch_size=32, hidden_size=768, num_layers=12,
+    num_heads=12, intermediate_size=3072, hidden_act="quick_gelu",
+    projection_dim=512,
 )
 
 # mosaicml/mpt-1b-redpajama-200b (d_model 2048, 24 layers, 16 heads)

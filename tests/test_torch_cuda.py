@@ -1521,3 +1521,79 @@ def test_fused_layer_decode_in_a_cuda_graph(gen, b):
     g.replay()
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def tiny_search_model():
+    """A tiny MPT Flamingo on the card (fp32), for beam search and sampling."""
+    from open_flamingo_tpu_torch.configs import DecoderConfig, FlamingoConfig, VisionConfig
+    from open_flamingo_tpu_torch.models.flamingo import init_random
+
+    cfg = FlamingoConfig(
+        vision=VisionConfig(image_size=32, patch_size=8, hidden_size=64, num_layers=2, num_heads=2,
+                            intermediate_size=128),
+        lm=DecoderConfig(family="mpt", vocab_size=128, hidden_size=64, num_layers=4, num_heads=2,
+                         intermediate_size=256, alibi=True, attention_bias=False, ln_no_bias=True),
+        media_token_id=3, eoc_token_id=4, num_vis_latents=4, perceiver_depth=1, perceiver_heads=2,
+        perceiver_dim_head=16)
+    return init_random(cfg, 0, device="cuda")
+
+
+@pytest.mark.parametrize("mode", ["beams", "sample"])
+def test_beam_and_sample_kernel_route_vs_plain(gen, mode):
+    """fp32 beam search (3 beams, eos, a left-padded row) and sampling (every
+    filter, one generator seed) on the fused route's kernels: the tokens of
+    the same call under plain_path(), K3 and K2 launched at B x beams rows."""
+    from open_flamingo_tpu_torch.generation import GenerationConfig, flamingo_generate
+    from open_flamingo_tpu_torch.ops.attention import plain_path
+
+    model = tiny_search_model()
+    vision_x = rn(gen, 2, 1, 1, 32, 32, 3)
+    ids = torch.randint(7, 128, (2, 8), generator=gen, device="cuda")
+    ids[:, 0] = 3
+    mask = torch.ones_like(ids)
+    mask[1, :2] = 0
+    kw = dict(num_beams=3, length_penalty=1.0, eos_token_id=9) if mode == "beams" else dict(
+        do_sample=True, temperature=0.7, top_k=20, top_p=0.9)
+    gcfg = GenerationConfig(max_new_tokens=6, pad_token_id=0, **kw)
+
+    def call():
+        return flamingo_generate(model, vision_x, ids, mask, gcfg, generator=torch.Generator("cuda").manual_seed(1))
+
+    before = attn_block_decode.launches, fused_mlp.launches
+    got = call()
+    assert attn_block_decode.launches - before[0] == 5 * 8 and fused_mlp.launches - before[1] == 5 * 8
+    with plain_path():
+        want = call()
+    assert got.shape == (2, 6)
+    assert torch.equal(got, want)
+
+
+def test_gather_beams_cuda_int8_cache(gen):
+    """`_gather_beams` on CUDA int8 caches: the rows (values and scales) of
+    the CPU gather on a copy, the tensors at their addresses."""
+    import dataclasses
+
+    from open_flamingo_tpu_torch.configs import DecoderConfig
+    from open_flamingo_tpu_torch.generation import _gather_beams
+    from open_flamingo_tpu_torch.models.decoders.common import KVCache
+
+    lm = DecoderConfig(family="mpt", vocab_size=64, hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256)
+    cache = KVCache.create(lm, 24, 64, torch.bfloat16, "cuda", int8=True)
+    for kv in cache.layers:
+        for x in (kv.k, kv.v):
+            x.copy_(torch.randint(-127, 128, x.shape, generator=gen, device="cuda", dtype=torch.int8))
+        for x in (kv.k_s, kv.v_s):
+            x.copy_(rn(gen, *x.shape).abs())
+    cache.pad_mask.copy_(rn(gen, 24, 64) > -1)
+    cache = dataclasses.replace(cache, index=40)
+    cpu = dataclasses.replace(cache, layers=tuple(dataclasses.replace(kv, **{f: getattr(kv, f).cpu() for f in
+                                                                          ("k", "v", "k_s", "v_s")})
+                                                  for kv in cache.layers), pad_mask=cache.pad_mask.cpu())
+    ptrs = [x.data_ptr() for kv in cache.layers for x in (kv.k, kv.v, kv.k_s, kv.v_s)]
+    idx = torch.randint(0, 3, (8, 3), generator=gen, device="cuda")
+    got, want = _gather_beams(cache, idx, 8, 3), _gather_beams(cpu, idx.cpu(), 8, 3)
+    assert [x.data_ptr() for kv in got.layers for x in (kv.k, kv.v, kv.k_s, kv.v_s)] == ptrs
+    for a, b in zip(got.layers, want.layers):
+        for f in ("k", "v", "k_s", "v_s"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f))
+    assert torch.equal(got.pad_mask.cpu(), want.pad_mask)

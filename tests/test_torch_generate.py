@@ -136,16 +136,6 @@ def test_media_latents_argument_skips_vision(models):
     torch.testing.assert_close(a, b)
 
 
-@pytest.mark.parametrize("kw", [dict(num_beams=2), dict(do_sample=True)])
-def test_unported_generation_modes_raise(models, kw):
-    _, _, tmodel, vision_x, ids = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flamingo_generate(
-            tmodel, torch.from_numpy(vision_x), torch.from_numpy(ids), torch.ones(B, T_TXT),
-            GenerationConfig(max_new_tokens=2, **kw), device="cpu",
-        )
-
-
 def test_init_random_is_seeded_and_gated():
     """One seed gives the same weights in every dtype, and the xattn gates
     are nonzero so the cross-attention reaches the logits."""

@@ -23,9 +23,12 @@ def port_modules():
 
 
 def test_imports_with_jax_blocked():
+    """Every module imports without JAX, and without transformers and PIL,
+    which the card machine lacks: the factory and the image processor
+    import them only where a local HF directory or a PIL image is used."""
     code = (
         "import sys, importlib\n"
-        "for m in ('jax', 'flax', 'open_flamingo_tpu'):\n"
+        "for m in ('jax', 'flax', 'open_flamingo_tpu', 'transformers', 'PIL'):\n"
         "    sys.modules[m] = None\n"
         f"for m in {port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
@@ -61,6 +64,20 @@ def test_default_device_raises_without_cuda(monkeypatch):
         init_random(flamingo_config("OF-3B"), seed=0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Flamingo(flamingo_config("OF-3B"))
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """create_model_and_transforms and load_pretrained default to the card,
+    with or without weights to make."""
+    from open_flamingo_tpu_torch import create_model_and_transforms
+    from open_flamingo_tpu_torch.serialization import load_pretrained
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"init_params": True}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            create_model_and_transforms(**kw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_pretrained(str(tmp_path))
 
 
 def test_wrappers_refuse_other_devices():
