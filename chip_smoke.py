@@ -167,6 +167,34 @@ Phases, each printing JSON lines:
               median of 5 calls in turns against the serial form, with and
               without ATTN_CARRIERS, exact launches, a sync-free absorbing
               step.
+     serving  the continuous-batching ServingEngine on full-width OF-3B
+              built by create_model_and_transforms. fp32: 12 requests
+              (prompts of 8-32 tokens, one image, max_new from {8, 16,
+              32}) submitted staggered to 8 rows (window 32, chunk 8,
+              pipeline depth 2, 96 slots), admitted at several global slots
+              across an epoch reset: each request's tokens those of
+              flamingo_generate at B 1, and the engine under plain_path()
+              and on the unfused route (K7) giving the kernels' tokens, a
+              stream parting only at a near tie (`tokens_agree`). bf16: the
+              churn workload (64 requests, prompts of 8-32 tokens
+              left-padded to 32, max_new from {8, 16, 32, 64}, all queued;
+              8 rows, 512 slots, window 64, chunk 8) at pipeline depth 0
+              and 4 against static batches of 8: useful tokens/s, the
+              latency percentiles, epochs, and launches exactly steps x
+              (K1 1, K2 48, K3 48) + waves x (K4 24, K5 24, K9 24, K10 48)
+              from the engine's counted decode steps and admission waves;
+              one chunk under the sync debug mode "error"; absorb_vision
+              (its plan engaged, pool hits, K8 and the "+side" tiles
+              counted, tokens bit for bit those of the engine without tiles
+              handed the same latents); int8 weights with int8_kv (the
+              attn_block_decode[int8+kv8] variant) against
+              flamingo_generate(int8_kv=True).
+  speculative speculative_generate on OF-3B with an int4 copy of the
+              same weights as the draft, B 1 and 8, D 4 and 7, 64 new
+              tokens: fp32 tokens those of flamingo_generate, a self-draft's
+              iterations exactly ceil(63 / (D + 1)); bf16 timed against
+              flamingo_generate with exact launches (the draft's int4 K1-K3,
+              K4 / K5 for D 7's verify window of 8).
      quantized  (the variants were checked in phase 2: `quant_kernel_cases`,
               int8 / packed int4 weights with per-channel scales and the
               int8 caches, K3's y over the int8 cache against the plain
@@ -205,7 +233,9 @@ before the last line. Needs no network; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -215,6 +245,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
@@ -254,6 +285,8 @@ from open_flamingo_tpu_torch.ops.vit_attention import (
 from open_flamingo_tpu_torch.quantize import (
     dequantize_roundtrip, drop_decode_weights, pack_int4, quantize_decode_weights, quantize_prefill_weights,
     quantize_weight, w8a8_weight)
+from open_flamingo_tpu_torch.serving import ServingEngine
+from open_flamingo_tpu_torch.speculative import speculative_generate
 from open_flamingo_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer, split_params
 from open_flamingo_tpu_torch.train.train_loop import TrainLoopConfig, TrainState, batch_losses, make_train_step
 
@@ -457,10 +490,12 @@ def opcode(ins: str) -> str:
     return re.sub(r"^@!?U?P\w+\s+", "", ins).split(" ")[0].split(".")[0]
 
 
+@functools.lru_cache(maxsize=None)
 def sass_kernels(path) -> dict:
     """The SASS instructions of each kernel of a built library
     (`cuobjdump --dump-sass`), by demangled name with the anonymous
-    namespace and the casts of template arguments dropped."""
+    namespace and the casts of template arguments dropped. Read once a
+    library: the returned dict is shared, not to be changed."""
     cuobjdump, filt = (shutil.which(t) or f"/usr/local/cuda/bin/{t}" for t in ("cuobjdump", "cu++filt"))
     text = subprocess.run([cuobjdump, "--dump-sass", str(path)], check=True, capture_output=True, text=True,
                           timeout=300).stdout
@@ -513,6 +548,9 @@ def phase_build() -> None:
     reports = build.build(build.sources())
     regs = [ln.strip() for text in reports.values() for ln in text.splitlines() if "registers" in ln]
     seconds = round(time.perf_counter() - t0, 3)
+    # every library's SASS is dumped at once (one cuobjdump each), then checked below
+    with ThreadPoolExecutor(len(build.sources())) as pool:
+        list(pool.map(sass_kernels, [build.target(lib) for lib in build.sources()]))
     # K4/K5 and K4b/K5b: each tensor-core instance (6 padded Dh x 2 masks per
     # kernel) must issue HMMA, each FMA-body instance none
     hmma = {}
@@ -2363,16 +2401,17 @@ def make_inputs(cfg, dev, b=B):
     return vision_x, ids, mask
 
 
-def step_logits(model, latents, ids, mask, tokens, int8_kv=False):
+def step_logits(model, latents, ids, mask, tokens, int8_kv=False, max_seq=T_PROMPT + NEW_TOKENS):
     """(N, B, V) logits on a fixed token stream `tokens` (B, N): at the last
-    prompt position after prefill (K4, K5), then after each decode step
-    that feeds tokens[:, t] back in (K1-K3 on the fused route, K7 on the
-    unfused one), over an int8 cache with `int8_kv`."""
-    logits, cache = prefill(model, latents, ids, mask, T_PROMPT + NEW_TOKENS, int8_kv)
+    prompt position after prefill (K4, K5) into a cache of `max_seq` slots,
+    then after each decode step that feeds tokens[:, t] back in (K1-K3 on
+    the fused route, K7 on the unfused one), over an int8 cache with
+    `int8_kv`."""
+    logits, cache = prefill(model, latents, ids, mask, max_seq, int8_kv)
     require((cache.layers[0].k.dtype == torch.int8) == int8_kv, "the cache's dtype")
     out = [logits[:, -1]]
     n_media = count_media(ids, model.cfg.media_token_id)
-    ones = torch.ones(B, 1, dtype=torch.long, device=ids.device)
+    ones = torch.ones(tokens.shape[0], 1, dtype=torch.long, device=ids.device)
     for t in range(tokens.shape[1] - 1):
         logits, cache = model.decode_step(latents, tokens[:, t:t + 1], ones, cache, n_media)
         out.append(logits[:, 0])
@@ -3456,6 +3495,498 @@ def w8a8_drift(model, cfg, name, vision_x, ids, mask, tok_ref, l_ref, latents) -
 # ---------------------------------------------------------------- phase 4
 
 
+# ---------------------------------------------------------------- serving and speculative decoding
+
+# the fp32 check's engine: 8 rows, prompts left-padded into a 32-token window, chunks of 8, two chunks in
+# flight; 96 slots hold one epoch of 64 decode slots, so 12 staggered requests of up to 32 new tokens are
+# admitted at several global slots and the engine drains and resets once
+SERVE_FP32 = dict(batch_size=8, max_seq_len=96, max_prompt_len=32, chunk_tokens=8, pipeline_depth=2)
+SERVE_FP32_REQUESTS, SERVE_FP32_NEW, SERVE_FP32_FIRST = 12, (8, 16, 32), 4
+# the churn workload (the JAX package's scripts_dev/tpu_serving_ab.py): 64 requests, prompts of 8-32 tokens
+# left-padded to 32, one image each, max_new drawn from {8, 16, 32, 64}, all queued at once; the engine at
+# scripts/serve.py's defaults. No EOS: every request runs its max_new, the churn is length-driven.
+CHURN = dict(batch_size=8, max_seq_len=512, max_prompt_len=64, chunk_tokens=8)
+CHURN_REQUESTS, CHURN_PROMPT, CHURN_NEW, CHURN_DEPTHS = 64, 32, (8, 16, 32, 64), (0, 4)
+SERVE_INT8_REQUESTS = 16
+# a bf16 stream that parts from another route's (the engine's prefill pads into its own window and batches
+# its own waves; over the int8 cache a K/V entry at a rounding boundary lands one step apart) must part at a
+# near tie: the reference route's logits at the first parted step put the two tokens within this
+SERVE_BF16_TIE = 0.1
+SPEC_NEW = 64
+# fp32: (batch, D, draft): the int4 draft at B 8 through D 7's K4 / K5 verify and at B 1 through the einsum
+# verify, tokens held to flamingo_generate's; the self-draft at B 8, every window accepted
+SPEC_FP32 = ((8, 7, "int4"), (1, 4, "int4"), (8, 4, "self"), (8, 7, "self"))
+
+
+def serving_model(cfg, dev, dtype):
+    """OF-3B through create_model_and_transforms (registry names, random
+    weights from SEED), the entry point a server calls."""
+    model, _, _ = create_model_and_transforms("ViT-L-14", "openai", "mosaicml/mpt-1b-redpajama-200b",
+                                              init_params=True, init_seed=SEED, device=dev, dtype=dtype)
+    require(model.cfg == cfg, f"create_model_and_transforms: config {model.cfg}")
+    return model
+
+
+def serving_requests(cfg, dev, n, seed, new_choices, pad_to=None):
+    """n requests: a prompt of 8-32 tokens (ids below the special tokens, the
+    image token first), left-padded to `pad_to` when given, one image, and
+    max_new_tokens drawn from `new_choices`; lengths and ids from a CPU
+    generator seeded `seed`, pixels from one on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    pix = torch.Generator(device=dev).manual_seed(seed)
+    size, top = cfg.vision.image_size, min(1000, cfg.media_token_id, cfg.eoc_token_id)
+    out = []
+    for _ in range(n):
+        p = int(torch.randint(8, 33, (1,), generator=gen))
+        ids = torch.randint(0, top, (p,), generator=gen)
+        ids[0] = cfg.media_token_id
+        mask = torch.ones(p, dtype=torch.long)
+        if pad_to:
+            ids, mask = F.pad(ids, (pad_to - p, 0)), F.pad(mask, (pad_to - p, 0))
+        max_new = new_choices[int(torch.randint(len(new_choices), (1,), generator=gen))]
+        out.append(dict(vx=torch.randn(1, 1, size, size, 3, generator=pix, device=dev), ids=ids, mask=mask,
+                        max_new=max_new))
+    return out
+
+
+@contextlib.contextmanager
+def engine_counts(engine):
+    """Count an engine's decode steps (and those carrying ViT layers), its
+    admission waves (and those that ran the vision encode) and the global
+    slots it admitted at, by wrapping `Flamingo.decode_step` on its model
+    and its `_admit`."""
+    counts = {"steps": 0, "absorbing_steps": 0, "waves": 0, "vision_waves": 0, "admit_slots": []}
+    model, admit, step = engine.model, engine._admit, engine.model.decode_step
+
+    def decode_step(*args, **kw):
+        counts["steps"] += 1
+        counts["absorbing_steps"] += (args[5] if len(args) > 5 else kw.get("side")) is not None
+        return step(*args, **kw)
+
+    def counted_admit(admits, lat=None):
+        counts["waves"] += 1
+        counts["vision_waves"] += lat is None
+        counts["admit_slots"].append(engine._cache.index)
+        return admit(admits, lat)
+
+    model.decode_step, engine._admit = decode_step, counted_admit
+    try:
+        yield counts
+    finally:
+        del model.decode_step, engine._admit
+
+
+def serving_launches(cfg, counters, counts, plan=None) -> dict:
+    """The launches an engine run must give on the fused route (MPT): per
+    decode step K1 1 (the head), K2 and K3 one a decoder layer and one an
+    xattn block; per admission wave K4 a decoder layer and K5 an xattn block,
+    and K9 a ViT block and K10 two for a wave that ran the vision encode; K8
+    per ViT layer an absorbing step carried."""
+    layers, vit = cfg.lm.num_layers, cfg.vision.num_layers
+    xattn = layers // cfg.cross_attn_every_n
+    s, w, v = counts["steps"], counts["waves"], counts["vision_waves"]
+    want = {name: 0 for name in counters}
+    want.update(fused_dense=s, fused_mlp=s * (layers + xattn), attn_block_decode=s * (layers + xattn),
+                flash_attention=w * layers, masked_xattn=w * xattn, vit_attention=v * vit, layer_norm=2 * v * vit)
+    if plan is not None:
+        want["flat_vit_attention"] = counts["absorbing_steps"] * plan.per_step
+    return want
+
+
+def submit_all(engine, reqs):
+    return [engine.submit(r["vx"], r["ids"], attention_mask=r["mask"], max_new_tokens=r["max_new"]) for r in reqs]
+
+
+def served_staggered(engine, reqs, first):
+    """Submit `first` requests, then one after every engine step; run to the
+    end. Returns each request's tokens in submission order."""
+    rids = submit_all(engine, reqs[:first])
+    rest = iter(reqs[first:])
+    alive = True
+    while alive:
+        alive = engine.step()
+        nxt = next(rest, None)
+        if nxt is not None:
+            rids += submit_all(engine, [nxt])
+            alive = True
+    res = engine.run()
+    return [res[r] for r in rids]
+
+
+def request_logits(model, r, stream, int8_kv=False):
+    """(N, V) logits of flamingo_generate's route for request `r` alone along
+    its token list `stream`, in a cache of generate's length."""
+    ids, mask, n = r["ids"][None].to(r["vx"].device), r["mask"][None].to(r["vx"].device), len(stream)
+    return step_logits(model, model.embed_vision(r["vx"][None]), ids, mask, torch.tensor([stream], device=ids.device),
+                       int8_kv, -(-(ids.shape[1] + n) // 16) * 16)[:, 0].float()
+
+
+def tokens_agree(phase, what, got, want, logits_fn, tol) -> int:
+    """Each stream of `got` against `want` (token lists): equal, or equal up
+    to a first parted step where the reference logits along want's stream
+    (`logits_fn(i)`, (N, V)) put the two tokens within `tol`: a near tie the
+    routes' error can tip, after which the streams are not compared.
+    Returns the number of equal streams."""
+    parted = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = [int(x) for x in g], [int(x) for x in w]
+        require(len(g) == len(w), f"{what}: stream {i} has {len(g)} tokens, the reference {len(w)}")
+        if g == w:
+            continue
+        s = next(k for k in range(len(w)) if g[k] != w[k])
+        lg = logits_fn(i)[s]
+        parted.append({"stream": i, "step": s, "tokens": [w[s], g[s]], "gap": (lg[w[s]] - lg[g[s]]).item()})
+    log({"phase": phase, "compare": what, "streams": len(got), "equal": len(got) - len(parted), "parted": parted,
+         "tie_tol": tol})
+    require(all(abs(p["gap"]) <= tol for p in parted), f"{what}: streams part away from a near tie: {parted}")
+    return len(got) - len(parted)
+
+
+def engine_fp32_checks(model, cfg, dev, counters) -> None:
+    """fp32: 12 requests (prompts of 8-32 tokens, max_new from {8, 16, 32})
+    submitted staggered to an engine of 8 rows, admitted at several global
+    slots across an epoch reset: each request's tokens those of
+    flamingo_generate at B 1 on the fused route, and the same engine under
+    plain_path() and on the unfused route (K7) giving the kernels' tokens."""
+    reqs = serving_requests(cfg, dev, SERVE_FP32_REQUESTS, SEED + 20, SERVE_FP32_NEW)
+    gen = GenerationConfig(max_new_tokens=0, pad_token_id=0)
+
+    def reference(i):
+        r = reqs[i]
+        return (r["vx"][None], r["ids"][None].to(dev), r["mask"][None].to(dev))
+
+    want = [flamingo_generate(model, *reference(i), GenerationConfig(max_new_tokens=r["max_new"], pad_token_id=0),
+                              device=dev)[0].tolist() for i, r in enumerate(reqs)]
+    memo = {}
+
+    def ref_logits(i, streams):
+        key = (i, tuple(streams[i]))
+        if key not in memo:
+            memo[key] = request_logits(model, reqs[i], streams[i])
+        return memo[key]
+
+    runs = {}
+    for route, ctx in (("kernels", contextlib.nullcontext), ("plain_path", plain_path), ("unfused", unfused_route)):
+        with ctx():
+            engine = ServingEngine(model, **SERVE_FP32, gen=gen, device=dev)
+            with engine_counts(engine) as counts:
+                runs[route] = served_staggered(engine, reqs, SERVE_FP32_FIRST)
+        log({"phase": "serving", "dtype": "float32", "route": route, "epochs": engine.epochs,
+             "admit_slots": counts["admit_slots"], "waves": counts["waves"], "steps": counts["steps"],
+             "requests": len(reqs), "max_new": [r["max_new"] for r in reqs]})
+        if route == "kernels":
+            require(engine.epochs >= 1 and len(set(counts["admit_slots"])) >= 3,
+                    f"fp32 engine: {engine.epochs} epoch resets, admitted at slots {counts['admit_slots']}")
+    tokens_agree("serving", "fp32 engine (kernels) vs flamingo_generate at B 1", runs["kernels"], want,
+                 lambda i: ref_logits(i, want), LOGITS_TOL)
+    for route in ("plain_path", "unfused"):
+        tokens_agree("serving", f"fp32 engine under {route} vs the engine on the kernels", runs[route],
+                     runs["kernels"], lambda i: ref_logits(i, runs["kernels"]), LOGITS_TOL)
+
+
+def churn_engine(model, reqs, dev, counters, label, depth=0, **kw):
+    """One engine run over `reqs`, all queued at once, every launch counter
+    reset just before and read just after, host clock to a synchronize.
+    Returns (tokens in submission order, result record)."""
+    engine = ServingEngine(model, **CHURN, pipeline_depth=depth, gen=GenerationConfig(max_new_tokens=0,
+                           pad_token_id=0, int8_kv=kw.pop("int8_kv", False)), device=dev, **kw)
+    rids = submit_all(engine, reqs)
+    torch.cuda.synchronize()
+    reset_counters(counters)
+    with engine_counts(engine) as counts:
+        t0 = time.perf_counter()
+        res = engine.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    useful = sum(r["max_new"] for r in reqs)
+    rec = {"label": label, "seconds": dt, "useful_tokens": useful, "useful_tokens_per_s": useful / dt,
+           "pipeline_depth": depth, "epochs": engine.epochs, "latency": engine.latency_stats(),
+           "launches": {name: fn.launches for name, fn in counters.items()},
+           "variants": {name: dict(fn.variants) for name, fn in counters.items() if hasattr(fn, "variants")},
+           "counts": {k: v for k, v in counts.items() if k != "admit_slots"}, "engine": engine}
+    tokens = [res[r] for r in rids]
+    require(all(len(t) == r["max_new"] for t, r in zip(tokens, reqs)), f"{label}: a request's token count")
+    return tokens, rec
+
+
+def static_batches(model, reqs, dev, int8_kv=False):
+    """flamingo_generate over the requests in batches of 8 in submission
+    order, each at its batch's largest max_new (the overshoot is waste).
+    Returns (each request's tokens, seconds)."""
+    out = []
+    t0 = time.perf_counter()
+    for k in range(0, len(reqs), 8):
+        batch = reqs[k:k + 8]
+        new = max(r["max_new"] for r in batch)
+        tok = flamingo_generate(model, torch.stack([r["vx"] for r in batch]),
+                                torch.stack([r["ids"] for r in batch]).to(dev),
+                                torch.stack([r["mask"] for r in batch]).to(dev),
+                                GenerationConfig(max_new_tokens=new, pad_token_id=0, int8_kv=int8_kv), device=dev)
+        out += [row[:r["max_new"]] for row, r in zip(tok.tolist(), batch)]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sync_free_chunk(model, reqs, dev) -> None:
+    """One engine chunk (8 decode steps on the fused route and the start of
+    its tokens' copy to the host) under the sync debug mode "error"."""
+    engine = ServingEngine(model, **CHURN, pipeline_depth=1, gen=GenerationConfig(max_new_tokens=0, pad_token_id=0),
+                           device=dev)
+    submit_all(engine, reqs[:8])
+    engine.step()              # the admission wave and the first chunk
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine._dispatch(engine._decode_chunk())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log({"phase": "serving", "dtype": "bfloat16", "chunk_host_syncs": 0, "chunk_tokens": CHURN["chunk_tokens"]})
+
+
+def serve_absorbed(model, cfg, reqs, dev, counters, plain):
+    """bf16 with absorb_vision: queued requests' images ride the decode
+    chunks as K2b tiles (K8 between the projections) and admissions take the
+    pooled latents. Side tiles never touch the main outputs: the same engine
+    without absorption, handed the same latents at the same admissions,
+    gives the tokens bit for bit. Against the plain engine (embed_vision's
+    latents) the streams are held in two parts. Returns (launches,
+    variants)."""
+    taken = {}
+    take = ServingEngine._abs_pool_take
+
+    def recording(self, admits):
+        out = take(self, admits)
+        if out is not None:
+            taken.update(out)
+        return out
+
+    ServingEngine._abs_pool_take = recording
+    try:
+        tokens, rec = churn_engine(model, reqs, dev, counters, "absorb_vision", absorb_vision=True)
+    finally:
+        ServingEngine._abs_pool_take = take
+    engine = rec.pop("engine")
+    plan = engine._abs_plan
+    require(engine._absorb_on and plan is not None and engine.absorb_hits > 0,
+            f"absorb_vision did not engage: on {engine._absorb_on}, plan {plan}, hits {engine.absorb_hits}")
+    want = serving_launches(cfg, counters, rec["counts"], plan)
+    tiles = rec["counts"]["absorbing_steps"] * plan.per_step * plan.slots_per_layer
+    require(rec["launches"] == want, f"absorb_vision launches {rec['launches']}, expected {want}")
+    require(rec["variants"]["fused_mlp"] == {"float": want["fused_mlp"] - tiles, "float+side": tiles} and tiles > 0,
+            f"absorb_vision K2 variants {rec['variants']['fused_mlp']}, {tiles} tiles expected")
+
+    def replay(self, admits):       # the absorbed run's latents, at the same admissions
+        if all(req.rid in taken for _, req in admits):
+            return {req.rid: taken[req.rid] for _, req in admits}
+        return None
+
+    ServingEngine._abs_pool_take = replay
+    try:
+        replayed, _ = churn_engine(model, reqs, dev, counters, "absorb_vision replayed without tiles")
+    finally:
+        ServingEngine._abs_pool_take = take
+    with torch.no_grad():
+        serial = model.embed_vision(torch.stack([r["vx"] for r in reqs]))
+    lat_err = max((taken[rid].float() - serial[rid].float()).abs().max().item() for rid in taken)
+    lat_top = serial.float().abs().max().item()
+    log({"phase": "serving", "dtype": "bfloat16", **{k: v for k, v in rec.items() if k != "variants"},
+         "card": card_line(), "plan": dataclasses.asdict(plan), "plan_n_steps": plan.n_steps,
+         "absorb_hits": engine.absorb_hits, "absorb_misses": engine.absorb_misses,
+         "k8_launches": rec["launches"]["flat_vit_attention"], "side_tiles": tiles,
+         "tokens_bit_equal_replayed": tokens == replayed, "pooled_latents_max_abs_err": lat_err,
+         "latents_max_abs": lat_top})
+    require(tokens == replayed, "absorb_vision: tokens differ from the engine without tiles on the same latents")
+    require(lat_err <= ABSORB_BF16_RTOL * lat_top, f"absorb_vision: pooled latents {lat_err} from embed_vision's")
+    tokens_agree("serving", "bf16 absorb_vision engine vs the plain engine", tokens, plain,
+                 lambda i: request_logits(model, reqs[i], plain[i]), SERVE_BF16_TIE)
+    return rec["launches"], rec["variants"]
+
+
+def serve_int8_kv(model, cfg, reqs, dev, counters):
+    """bf16 with int8 decode weights and int8_kv (the attn_block_decode
+    [int8+kv8] variant) against flamingo_generate(int8_kv=True) batched as
+    static batches, held in two parts at a rounding flip. Returns
+    (launches, variants)."""
+    quantize_decode_weights(model, 8)
+    try:
+        tokens, rec = churn_engine(model, reqs, dev, counters, "int8_kv", int8_kv=True)
+        engine = rec.pop("engine")
+        require(engine._int8_kv and engine._cache.layers[0].k.dtype == torch.int8, "int8_kv did not engage")
+        want = serving_launches(cfg, counters, rec["counts"])
+        require(rec["launches"] == want, f"int8_kv launches {rec['launches']}, expected {want}")
+        s = rec["counts"]["steps"]
+        layers = cfg.lm.num_layers + cfg.lm.num_layers // cfg.cross_attn_every_n
+        want_v = {"fused_dense": {"int8": s}, "fused_mlp": {"int8": s * layers},
+                  "attn_block_decode": {"int8+kv8": s * layers}}
+        require(all(rec["variants"][k] == v for k, v in want_v.items()),
+                f"int8_kv variants {rec['variants']}, expected {want_v}")
+        ref, _ = static_batches(model, reqs, dev, int8_kv=True)
+        log({"phase": "serving", "dtype": "bfloat16", **{k: v for k, v in rec.items() if k != "engine"},
+             "card": card_line()})
+        tokens_agree("serving", "bf16 int8_kv engine vs flamingo_generate(int8_kv=True)", tokens, ref,
+                     lambda i: request_logits(model, reqs[i], ref[i], int8_kv=True), SERVE_BF16_TIE)
+    finally:
+        drop_decode_weights(model)
+    return rec["launches"], rec["variants"]
+
+
+@torch.no_grad()
+def phase_serving(dev) -> tuple:
+    """The continuous-batching ServingEngine on full-width OF-3B built by
+    create_model_and_transforms. fp32: `engine_fp32_checks`. bf16: the churn
+    workload at pipeline depth 0 and 4 against static batching of the same
+    requests (useful tokens/s, latency_stats, epochs, exact launches from
+    the engine's counted steps and waves), one sync-free chunk, then
+    absorb_vision and int8_kv. Returns ({path: launches}, {path: variants})."""
+    counters = kernel_functions()
+    cfg = model_config("OF-3B")
+    model = serving_model(cfg, dev, torch.float32)
+    engine_fp32_checks(model, cfg, dev, counters)
+    del model
+    torch.cuda.empty_cache()
+
+    model = serving_model(cfg, dev, torch.bfloat16)
+    reqs = serving_requests(cfg, dev, CHURN_REQUESTS, SEED, CHURN_NEW, pad_to=CHURN_PROMPT)
+    card = card_line()
+    churn_engine(model, reqs[:8], dev, counters, "warm-up")            # first calls of each prefill shape
+    static_batches(model, reqs[:8], dev)
+    paths, vpaths, runs = {}, {}, {}
+    for depth in CHURN_DEPTHS:
+        tokens, rec = churn_engine(model, reqs, dev, counters, f"churn depth {depth}", depth=depth)
+        rec.pop("engine")
+        want = serving_launches(cfg, counters, rec["counts"])
+        require(rec["launches"] == want, f"churn depth {depth} launches {rec['launches']}, expected {want}")
+        runs[depth] = tokens, rec
+        log({"phase": "serving", "dtype": "bfloat16", **{k: v for k, v in rec.items() if k != "variants"},
+             "card": card})
+    # depth 0 and depth 4 run the same kernels on the same rows: a token routed to the wrong tenant by the
+    # dispatch-time snapshot would part them
+    require(runs[CHURN_DEPTHS[0]][0] == runs[CHURN_DEPTHS[1]][0],
+            f"churn: depth {CHURN_DEPTHS[1]}'s tokens differ from depth {CHURN_DEPTHS[0]}'s")
+    static, static_s = static_batches(model, reqs, dev)
+    useful = sum(r["max_new"] for r in reqs)
+    log({"phase": "serving", "dtype": "bfloat16", "compare": "churn: engine depth 0 / 4 against static batching",
+         "card": card, "useful_tokens": useful, "static_seconds": static_s, "static_useful_tokens_per_s": useful / static_s,
+         "generated_static_tokens": sum(8 * max(r["max_new"] for r in reqs[k:k + 8]) for k in range(0, len(reqs), 8)),
+         **{f"depth{d}_useful_tokens_per_s": runs[d][1]["useful_tokens_per_s"] for d in CHURN_DEPTHS},
+         "engine_equal_static": sum(a == b for a, b in zip(runs[0][0], static))})
+    paths["serving_fused"], vpaths["serving_fused"] = runs[0][1]["launches"], runs[0][1]["variants"]
+    sync_free_chunk(model, reqs, dev)
+    paths["serving_absorb"], vpaths["serving_absorb"] = serve_absorbed(model, cfg, reqs, dev, counters, runs[0][0])
+    paths["serving_int8_kv"], vpaths["serving_int8_kv"] = serve_int8_kv(model, cfg, reqs[:SERVE_INT8_REQUESTS], dev,
+                                                                        counters)
+    del model
+    torch.cuda.empty_cache()
+    return paths, vpaths
+
+
+def speculative_launches(cfg, counters, iters, d) -> dict:
+    """The launches of one speculative_generate call on the fused route (MPT
+    target and draft): the vision encoded once (K9, K10), both prefills (K4
+    a decoder layer, K5 an xattn block), the draft's D + 1 decode steps an
+    iteration (K1 1, K2 and K3 one a layer and one an xattn block), and the
+    target's verify of D + 1 tokens, K4 and K5 from a window of 8 on."""
+    layers, vit = cfg.lm.num_layers, cfg.vision.num_layers
+    xattn = layers // cfg.cross_attn_every_n
+    steps = iters * (d + 1)
+    verify = iters if d + 1 >= 8 else 0
+    want = {name: 0 for name in counters}
+    want.update(fused_dense=steps, fused_mlp=steps * (layers + xattn), attn_block_decode=steps * (layers + xattn),
+                flash_attention=(2 + verify) * layers, masked_xattn=(2 + verify) * xattn, vit_attention=vit,
+                layer_norm=2 * vit)
+    return want
+
+
+@torch.no_grad()
+def phase_speculative(dev) -> tuple:
+    """speculative_generate on full-width OF-3B (create_model_and_transforms)
+    with an int4 copy of the same weights as the draft, B 1 and 8 (rows 0 and
+    1 left-padded), D 4 and 7 (D 7's verify window of 8 runs K4 and K5), a
+    32-token prompt, 64 new tokens. fp32 (SPEC_FP32): each row's tokens
+    those of the target's flamingo_generate (two parts at a near tie); a
+    self-draft (draft = target) at B 8 takes ceil(63 / (D + 1)) iterations
+    (13 at D 4, 8 at D 7: every window accepted). bf16, B 1 and 8 at D 4
+    and 7: host clock in turns (generate, then speculative) against the
+    target's flamingo_generate, iterations, tokens per target forward and
+    exact launches (the draft's int4 variants). Returns ({path: launches},
+    {path: variants})."""
+    counters = kernel_functions()
+    cfg = model_config("OF-3B")
+    vision_x, ids, mask = make_inputs(cfg, dev)
+    batches = {1: (vision_x[:1], ids[:1], mask[:1]), 8: (vision_x, ids, mask)}
+    gcfg = GenerationConfig(max_new_tokens=SPEC_NEW, pad_token_id=0)
+    target = serving_model(cfg, dev, torch.float32)
+    draft = quantize_decode_weights(copy.deepcopy(target), 4)
+    refs = {}
+    for b, d, kind in SPEC_FP32:
+        inputs = batches[b]
+        if b not in refs:
+            refs[b] = flamingo_generate(target, *inputs, gcfg, device=dev), []
+        want, memo = refs[b]
+
+        def ref(i, inputs=inputs, want=want, memo=memo):
+            if not memo:
+                vx, ids, mask = inputs
+                memo.append(step_logits(target, target.embed_vision(vx), ids, mask, want,
+                                        max_seq=-(-(ids.shape[1] + SPEC_NEW) // 16) * 16).float())
+            return memo[0][:, i]
+
+        got, stats = speculative_generate(target, draft if kind == "int4" else target, *inputs, gcfg,
+                                          num_draft_tokens=d, return_stats=True, device=dev)
+        equal = tokens_agree("speculative", f"fp32 B{b} D{d} {kind} draft vs flamingo_generate", got.tolist(),
+                             want.tolist(), ref, LOGITS_TOL)
+        rec = {"phase": "speculative", "dtype": "float32", "batch": b, "draft_tokens": d, "draft": kind,
+               "iters": stats["iters"], "tokens_per_target_forward": SPEC_NEW / stats["iters"], "rows_equal": equal}
+        if kind == "self":
+            rec["full_acceptance_iters"] = full = math.ceil((SPEC_NEW - 1) / (d + 1))   # 1 from prefill, D + 1 a window
+            require(stats["iters"] == full, f"fp32 self-draft D{d}: {stats['iters']} iterations, not {full}")
+        log(rec)
+    del target, draft, refs
+    torch.cuda.empty_cache()
+
+    target = serving_model(cfg, dev, torch.bfloat16)
+    draft = quantize_decode_weights(copy.deepcopy(target), 4)
+    card = card_line()
+    paths, vpaths = {}, {}
+    for b, d in ((8, 4), (8, 7), (1, 4), (1, 7)):
+        inputs = batches[b]
+        times = {}
+        for name in ("generate", "speculative"):
+            if name == "speculative":
+                reset_counters(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "generate":
+                ref = flamingo_generate(target, *inputs, gcfg, device=dev)
+            else:
+                got, stats = speculative_generate(target, draft, *inputs, gcfg, num_draft_tokens=d,
+                                                  return_stats=True, device=dev)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        variants = {name: dict(fn.variants) for name, fn in counters.items() if hasattr(fn, "variants")}
+        iters = stats["iters"]
+        want = speculative_launches(cfg, counters, iters, d)
+        steps = iters * (d + 1)
+        layers = cfg.lm.num_layers + cfg.lm.num_layers // cfg.cross_attn_every_n
+        want_v = {"fused_dense": {"int8": steps}, "fused_mlp": {"int4": steps * layers},
+                  "attn_block_decode": {"int4": steps * layers}}
+        spec_s, gen_s = times["speculative"], times["generate"]
+        log({"phase": "speculative", "dtype": "bfloat16", "batch": b, "draft_tokens": d, "draft": "int4",
+             "card": card, "iters": iters, "tokens_per_target_forward": SPEC_NEW / iters, "seconds": times,
+             "speculative_tokens_per_s": b * SPEC_NEW / spec_s, "generate_tokens_per_s": b * SPEC_NEW / gen_s,
+             "speedup": gen_s / spec_s, "tokens_equal_generate": torch.equal(got, ref),
+             "rows_equal_generate": int((got == ref).all(1).sum()), "launches": launches, "variants": variants})
+        require(launches == want, f"speculative B{b} D{d} launches {launches}, expected {want}")
+        require(all(variants[k] == v for k, v in want_v.items()), f"speculative B{b} D{d} variants {variants}")
+        if b == 8:
+            paths[f"speculative_d{d}"], vpaths[f"speculative_d{d}"] = launches, variants
+    del target, draft
+    torch.cuda.empty_cache()
+    return paths, vpaths
+
+
 def train_batches(cfg, dev):
     """The bench shape (bench.py:494) with uint8 pixels: LAION 8x32, one
     image, <|endofchunk|> mid-row; MMC4 4x256, six images, text before the
@@ -3664,6 +4195,12 @@ def main() -> int:
     paths.update(absorb_paths)
     vpaths.update(absorb_vpaths)
     seconds["absorb"] = time.perf_counter() - t0
+    for tag, phase in (("serving", phase_serving), ("speculative", phase_speculative)):
+        t0 = time.perf_counter()
+        more, vmore = phase(dev)
+        paths.update(more)
+        vpaths.update(vmore)
+        seconds[tag] = time.perf_counter() - t0
     for name, tag in (("OF-3B", "quantized"), ("OF-4B", "quantized_of4b"), ("LLaMA-7B", "quantized_llama7b")):
         t0 = time.perf_counter()
         vpaths.update(phase_quantized(dev, name))

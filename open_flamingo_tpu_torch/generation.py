@@ -73,9 +73,19 @@ def gumbel_noise(generator: torch.Generator) -> NoiseFn:
     return draw
 
 
-def _process_logits(logits: torch.Tensor, step: int, cfg: GenerationConfig) -> torch.Tensor:
-    """min_new_tokens: forbid EOS before the minimum length."""
-    if cfg.eos_token_id is not None and step < cfg.min_new_tokens:
+def _process_logits(logits: torch.Tensor, step, cfg: GenerationConfig) -> torch.Tensor:
+    """min_new_tokens: forbid EOS before the minimum length. `step` is the
+    decode step of every row (an int), or a tensor of each row's own step
+    ((B, 1), or a scalar on the device) that forbids EOS row by row without
+    a host sync (the serving engine's tenants, speculative decoding's bonus
+    token)."""
+    if cfg.eos_token_id is None or cfg.min_new_tokens <= 0:
+        return logits
+    if isinstance(step, torch.Tensor):
+        forbid = step.reshape(-1, 1) < cfg.min_new_tokens
+        eos = torch.arange(logits.shape[-1], device=logits.device) == cfg.eos_token_id
+        return torch.where(forbid & eos, torch.full((), NEG_INF, dtype=logits.dtype, device=logits.device), logits)
+    if step < cfg.min_new_tokens:
         logits = logits.clone()
         logits[:, cfg.eos_token_id] = NEG_INF
     return logits

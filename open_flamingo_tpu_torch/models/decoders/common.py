@@ -201,6 +201,69 @@ def update_layer_kv(
     return layer_kv.k, layer_kv.v, layer_kv
 
 
+# --- in-place row surgery (the serving engine, speculative decoding) --------
+
+
+def _kv_fields(layer: LayerKV):
+    return (layer.k, layer.v, layer.k_s, layer.v_s)
+
+
+@torch.no_grad()
+def admit_rows(cache: KVCache, pre: KVCache, rows: torch.Tensor, src: torch.Tensor) -> KVCache:
+    """Write prefill cache `pre` (R rows of P slots, its media K/V captured)
+    into rows `rows` of `cache`, in place: row src[i] of `pre` into row
+    rows[i], its P slots right-aligned at [index - P, index) so the prompt's
+    last token sits just before the next write. K/V (B, H, S, Dh) and an int8
+    cache's (B, H_kv, S) scales on their slot axis; the row's pad_mask is the
+    prompt's window and zeros elsewhere; the media K/V (and scales) of the
+    row whole. `cache.media` must already hold B rows (JAX serving `_admit`,
+    `_admit_batch`)."""
+    p = pre.max_length
+    win = slice(cache.index - p, cache.index)
+    if win.start < 0:
+        raise ValueError(f"admit_rows: a {p}-slot prompt does not fit before slot {cache.index}")
+    for big, small in zip(cache.layers, pre.layers):
+        for x, y in zip(_kv_fields(big), _kv_fields(small)):
+            if x is not None:
+                x[rows, :, win] = y[src].to(x.dtype)
+    cache.pad_mask[rows] = False
+    cache.pad_mask[rows, win] = pre.pad_mask[src]
+    for big, small in zip(cache.media or (), pre.media or ()):
+        for x, y in zip(_kv_fields(big), _kv_fields(small)):
+            if x is not None:
+                x[rows] = y[src].to(x.dtype)
+    return cache
+
+
+@torch.no_grad()
+def rollback(cache: KVCache, start: int, keep: int, window: int) -> KVCache:
+    """Keep the first `keep` of the `window` slots written from `start`, in
+    place: `index` and the device `slot` (which K3 writes at) both become
+    start + keep, and pad_mask is cleared on [start + keep, start + window);
+    the rejected slots are overwritten by the next writes (JAX speculative
+    `_rollback`)."""
+    cache.index = start + keep
+    cache.slot.fill_(start + keep)
+    cache.pad_mask[:, start + keep:start + window] = False
+    return cache
+
+
+@torch.no_grad()
+def reset_cache(cache: KVCache, index: int) -> KVCache:
+    """A new epoch in place: every K/V (and media K/V) zero, int8 scales 1,
+    pad_mask cleared, `index` and `slot` at `index`."""
+    for layer in cache.layers + (cache.media or ()):
+        layer.k.zero_()
+        layer.v.zero_()
+        if layer.int8:
+            layer.k_s.fill_(1.0)
+            layer.v_s.fill_(1.0)
+    cache.pad_mask.zero_()
+    cache.index = index
+    cache.slot.fill_(index)
+    return cache
+
+
 def repeat_kv(x: torch.Tensor, n_rep: int, head_axis: int = 2) -> torch.Tensor:
     """Grouped-query expansion along the head axis (head_axis 2 for the
     blocks' (B, T, H_kv, Dh), 1 for the cache's (B, H_kv, S, Dh)): each KV

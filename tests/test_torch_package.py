@@ -32,6 +32,8 @@ def test_imports_with_jax_blocked():
         "    sys.modules[m] = None\n"
         f"for m in {port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
+        "from open_flamingo_tpu_torch import ServingEngine, create_model_and_transforms, speculative_generate\n"
+        "from open_flamingo_tpu_torch.scripts.serve import main\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -68,8 +70,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """create_model_and_transforms and load_pretrained default to the card,
-    with or without weights to make."""
-    from open_flamingo_tpu_torch import create_model_and_transforms
+    with or without weights to make; so do the serving engine, speculative
+    decoding and the serve CLI."""
+    from open_flamingo_tpu_torch import ServingEngine, create_model_and_transforms, speculative_generate
+    from open_flamingo_tpu_torch.generation import GenerationConfig
+    from open_flamingo_tpu_torch.scripts.serve import main as serve_main
     from open_flamingo_tpu_torch.serialization import load_pretrained
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -78,6 +83,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             create_model_and_transforms(**kw)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_pretrained(str(tmp_path))
+    model = torch.nn.Module()     # never reached: the device is resolved first
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(model, batch_size=2, max_seq_len=64, max_prompt_len=16)
+    ids = torch.ones(1, 4, dtype=torch.long)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        speculative_generate(model, model, None, ids, ids, GenerationConfig(max_new_tokens=4))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_main(["--synthetic", "1"])
 
 
 def test_wrappers_refuse_other_devices():
